@@ -26,6 +26,17 @@ CPU = torch.device("cpu")
 TIERS = ("row", "hot", "tall")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at
+    once, and idle OpenMP workers spin on cores their neighbours' timing
+    tests need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_db(jdb) -> AdvisoryDB:
     """The JAX package's AdvisoryDB rebuilt in the port's own types."""
     db = AdvisoryDB()

@@ -4,7 +4,9 @@ Each kernel source under ops/csrc/ compiles with nvcc into a shared
 library with a plain C interface, loaded with ctypes, at its first use
 on a card (never at import: machines without a CUDA toolkit import this
 module too). Libraries land in ops/_build/, named by a hash of the
-source so an edited kernel never loads a stale build.
+source and the shared headers (csrc/*.cuh) so an edited kernel never
+loads a stale build. `build` compiles several sources at once, one
+nvcc process each.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -29,6 +32,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _ENTRY = {
     "match": ("trivy_match_words",
               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "secret_anchor": ("trivy_anchor_words",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p]),
+    "secret_conv": ("trivy_conv_anchor_words",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p]),
+    "secret_prefilter": ("trivy_prefilter_hits",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p]),
 }
 
 _lock = threading.Lock()
@@ -46,32 +58,67 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _so_path(name: str) -> Path:
+    """-> where the library of csrc/<name>.cu lands, named by a hash of
+    the source, the shared headers and the flags."""
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _build_locked(names: list[str]) -> dict[str, tuple[Path, float]]:
+    """Compile every csrc/<name>.cu not built yet, one nvcc process per
+    source, all started together; the caller holds _lock. -> each
+    source's library and the seconds until its build ended (0.0 for one
+    already built)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    built = {name: (_so_path(name), 0.0) for name in names}
+    procs = {}
+    for name, (so, _s) in built.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        _out, err = proc.communicate()
+        so = built[name][0]
+        built[name] = (so, time.perf_counter() - t0)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{err}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
+
+
+def build(names: list[str]) -> dict[str, float]:
+    """Compile every csrc/<name>.cu not built yet, all at once. ->
+    seconds until each source's build ended (0.0 for one already
+    built)."""
+    with _lock:
+        return {name: secs for name, (_so, secs)
+                in _build_locked(names).items()}
+
+
 def load(name: str) -> ctypes.CDLL:
     """-> the loaded library of csrc/<name>.cu, built if needed."""
     with _lock:
         lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = _CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        so = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src.name}:\n{proc.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn_name, argtypes = _ENTRY[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+        if lib is None:
+            so, _s = _build_locked([name])[name]
+            lib = ctypes.CDLL(str(so))
+            fn_name, argtypes = _ENTRY[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
         return lib
 
 
@@ -82,13 +129,66 @@ def match_words_cuda(row_h1: torch.Tensor, table: torch.Tensor,
     Callers check shapes, dtypes and devices (ops/match.py:match_words)."""
     if table.data_ptr() % 16:
         raise ValueError("match table must be 16-byte aligned")
-    lib = load("match")
-    n, b, n_words = row_h1.shape[0], h1.shape[0], out.shape[1]
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.trivy_match_words(
-            row_h1.data_ptr(), table.data_ptr(), h1.data_ptr(),
-            h2.data_ptr(), rank.data_ptr(), flags.data_ptr(),
-            out.data_ptr(), n, b, n_words, stream)
+    _launch("match", "match", out.device, row_h1.data_ptr(),
+            table.data_ptr(), h1.data_ptr(), h2.data_ptr(), rank.data_ptr(),
+            flags.data_ptr(), out.data_ptr(), row_h1.shape[0], h1.shape[0],
+            out.shape[1])
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, device: torch.device) -> None:
+    """Raise ValueError unless `t` is a contiguous `dtype` tensor of
+    `shape` on `device`: what a kernel argument must be."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous {dtype}{list(shape)} tensor on "
+            f"{device}, got {t.dtype}{list(t.shape)} on {t.device}")
+
+
+def _launch(name: str, what: str, device: torch.device, *args) -> None:
+    """Call csrc/<name>.cu's entry point with `args` and the current
+    stream of `device`; raise if the launch was refused."""
+    lib = load(name)
+    fn = getattr(lib, _ENTRY[name][0])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"match kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def anchor_words_cuda(chunks: torch.Tensor, table: torch.Tensor,
+                      bit_word: torch.Tensor, bit_idx: torch.Tensor,
+                      active: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch csrc/secret_anchor.cu into the zeroed `out`. Callers
+    check shapes, dtypes and devices (ops/secret_nfa.py:anchor_words)."""
+    c, length = chunks.shape
+    _launch("secret_anchor", "anchor", out.device, chunks.data_ptr(),
+            table.data_ptr(), bit_word.data_ptr(), bit_idx.data_ptr(),
+            active.data_ptr(), out.data_ptr(), c, length, table.shape[1],
+            bit_word.shape[0], out.shape[1])
+
+
+def conv_anchor_words_cuda(chunks: torch.Tensor, cls_bits: torch.Tensor,
+                           tap_cls: torch.Tensor, tap_act: torch.Tensor,
+                           out: torch.Tensor) -> None:
+    """Launch csrc/secret_conv.cu into the zeroed `out`. Callers check
+    shapes, dtypes and devices (ops/secret_nfa.py:conv_anchor_words)."""
+    c, length = chunks.shape
+    _launch("secret_conv", "conv anchor", out.device, chunks.data_ptr(),
+            cls_bits.data_ptr(), tap_cls.data_ptr(), tap_act.data_ptr(),
+            out.data_ptr(), c, length, cls_bits.shape[1], tap_cls.shape[0],
+            out.shape[1])
+
+
+def prefilter_hits_cuda(chunks: torch.Tensor, kw: torch.Tensor,
+                        kw_len: torch.Tensor, max_len: int,
+                        out: torch.Tensor) -> None:
+    """Launch csrc/secret_prefilter.cu into the zeroed `out`. Callers
+    check shapes, dtypes and devices
+    (ops/secret_prefilter.py:prefilter_hits)."""
+    c, length = chunks.shape
+    _launch("secret_prefilter", "prefilter", out.device, chunks.data_ptr(),
+            kw.data_ptr(), kw_len.data_ptr(), out.data_ptr(), c, length,
+            kw.shape[0], kw.shape[1], max_len)
