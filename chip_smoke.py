@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. print the card (name, power limit) and build the four CUDA kernels
      from the sources in this checkout, one nvcc process each, all at
-     once;
+     once, and print ptxas's registers, spills and shared memory of the
+     two screen kernels;
   2. hold the match kernel against its plain PyTorch version on the
      card, bit for bit, over ragged DB sizes, windows and batch sizes;
   3. drive the match engine's main path at trivy-db scale: a synthetic
@@ -19,7 +20,12 @@ Phases, each fatal on failure:
   4. hold the three secret kernels (bitset anchor screen, conv anchor
      screen, keyword prefilter) against their plain versions on the
      card, bit for bit, over ragged cases: pad semantics, classes
-     holding byte 0, bit 31, rules with no active tap, nc up to 384;
+     holding byte 0, bit 31, rules with no active tap or a tap naming no
+     class, NW 1-4, nc 128/256/384 with up to 12 output words, batches
+     of 1, 3, 7 and 600 chunks (more than one wave of blocks); counters
+     show the screen's mechanisms were exercised (rules hit in several
+     tiles, only across a tile cut, first in the last tile, rules whose
+     rarest class is absent from the chunk);
   5. drive the secret scanner's main path at a real size: a seeded
      256 MiB source-code-like corpus (about 7,000 files of 256 B to
      256 KiB, two 12 MiB files that take the stream path, some 2,000
@@ -32,7 +38,7 @@ Phases, each fatal on failure:
   6. the keyword prefilter (DevicePrefilter) over the whole corpus
      against HostPrefilter;
 then times each secret kernel and its plain version at the main path's
-shapes. Prints a `kernels` JSON line, the card line, and last
+shapes, with the screen design's own full-evaluation floor. Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 
@@ -53,6 +59,8 @@ BATCH = 131_072
 SAMPLE = 4_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense tensor-core bf16
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9  # H100 SXM shared memory, all SMs
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM int32 lanes, all SMs
 TIMED_ITERS = 20
 SECRET_SEED = 20261016
 CORPUS_BYTES = 256 << 20
@@ -453,12 +461,51 @@ def main_path(dev) -> dict:
 # --------------------------------------------------------------- phase 4
 
 
+# planted runs at positions that are the same in every tile layout
+# (tiles of 1,024 or 2,048 positions): one across the tile cut at 2,048,
+# one in the last tile, one rule in three tiles
+STRADDLE_AT = 2048
+LAST_TILE_AT = 16384 - 800
+MULTI_AT = (100, 5200, 11300)
+
+
+def narrow_alphabet(rng: np.random.Generator, chunks: np.ndarray,
+                    tail: int) -> None:
+    """Every third chunk of bytes 1..40 only, before its zero tail, so
+    that many rules' rarest class is absent from it."""
+    for ci in range(1, chunks.shape[0], 3):
+        chunks[ci, :-tail] = rng.integers(1, 41, size=chunks.shape[1] - tail)
+
+
+def plant_positions(rng: np.random.Generator, ci: int, n_rules: int,
+                    span: int, length: int, k: int):
+    """-> [(rule, position)]: twelve random runs (a quarter ending on the
+    chunk's last byte, some cut off by it), then the runs whose positions
+    every tile layout shares (STRADDLE_AT, LAST_TILE_AT, MULTI_AT)."""
+    out = []
+    for _ in range(12):
+        i = int(rng.integers(0, n_rules))
+        pos = int(rng.integers(0, length - span + 1))
+        roll = rng.random()
+        if roll < 0.25:
+            pos = length - span
+        elif roll < 0.4:
+            pos = length - span + int(rng.integers(1, span + 1))
+        out.append((i, pos))
+    out.append(((ci + 1) % n_rules, STRADDLE_AT - k // 2))
+    out.append(((ci + 2) % n_rules, LAST_TILE_AT))
+    out += [((ci + 3) % n_rules, p) for p in MULTI_AT]
+    return out
+
+
 def secret_table_case(rng: np.random.Generator, c: int, nw: int, r: int):
     """Raw bitset-kernel inputs: a random class table (byte 0 in about
     half the classes), rules of 1-8 active taps on arbitrary tap slots
     (every fourth rule a prefix, bit 31 often), two rules with no active
-    tap when r > 2, and chunks with planted satisfying runs, some ending
-    on the chunk's last byte and some cut off by it, over a zero tail."""
+    tap and one whose tap names no class when r > 3, and chunks (every
+    third of a narrow alphabet) with planted satisfying runs, some ending
+    on the chunk's last byte, some cut off by it, some across a tile cut,
+    in the last tile and in three tiles, over a zero tail."""
     from trivy_tpu_torch.ops.secret_nfa import CHUNK, K_ANCHOR
 
     table = rng.random((256, nw, 32)) < 0.04
@@ -473,29 +520,20 @@ def secret_table_case(rng: np.random.Generator, c: int, nw: int, r: int):
             active[i, :k] = True
         else:
             active[i, rng.choice(K_ANCHOR, size=k, replace=False)] = True
-    if r > 2:
+    if r > 3:
         active[[1, r - 1]] = False
+        bit_word[2, np.nonzero(active[2])[0][0]] = nw  # never holds
     words = np.zeros((256, nw), dtype=np.uint32)
     for w in range(nw):
         for q in range(32):
             words[table[:, w, q], w] |= np.uint32(1 << q)
     chunks = rng.integers(1, 256, size=(c, CHUNK), dtype=np.uint8)
     chunks[:, -200:] = 0
+    narrow_alphabet(rng, chunks, 200)
     for ci in range(c):
-        for _ in range(12):
-            i = int(rng.integers(0, r))
-            taps = np.nonzero(active[i])[0]
-            if not len(taps):
-                continue
-            span = int(taps[-1]) + 1
-            pos = int(rng.integers(0, CHUNK - span + 1))
-            roll = rng.random()
-            if roll < 0.25:
-                pos = CHUNK - span
-            elif roll < 0.4:
-                pos = CHUNK - span + int(rng.integers(1, span + 1))
-            for j in taps:
-                if pos + j >= CHUNK:
+        for i, pos in plant_positions(rng, ci, r, K_ANCHOR, CHUNK, K_ANCHOR):
+            for j in np.nonzero(active[i])[0]:
+                if pos + j >= CHUNK or bit_word[i, j] >= nw:
                     break
                 ok = np.nonzero(table[:, bit_word[i, j], bit_idx[i, j]])[0]
                 if len(ok):
@@ -529,18 +567,19 @@ def secret_rows(rng: np.random.Generator, n_cls: int, n_rows: int):
 
 
 def plant_rows(rng: np.random.Generator, c: int, rows):
+    """Chunks (every third of a narrow alphabet) with runs of `rows`
+    planted as secret_table_case plants them, over a zero tail."""
     from trivy_tpu_torch.ops.secret_nfa import CHUNK
 
     chunks = rng.integers(1, 256, size=(c, CHUNK), dtype=np.uint8)
     chunks[:, -64:] = 0
+    narrow_alphabet(rng, chunks, 64)
+    span = max(len(row) for row in rows)
     for ci in range(c):
-        for _ in range(12):
-            row = rows[int(rng.integers(0, len(rows)))]
-            pos = int(rng.integers(0, CHUNK - len(row) + 1))
-            if rng.random() < 0.3:
-                pos = CHUNK - len(row)
-            for j, m in enumerate(row):
-                chunks[ci, pos + j] = rng.choice(np.nonzero(m)[0])
+        for i, pos in plant_positions(rng, ci, len(rows), span, CHUNK, span):
+            for j, m in enumerate(rows[i]):
+                if pos + j < CHUNK:
+                    chunks[ci, pos + j] = rng.choice(np.nonzero(m)[0])
     return chunks
 
 
@@ -575,61 +614,108 @@ def prefilter_case(rng: np.random.Generator, c: int, k: int, max_len: int):
     return chunks, kw, kw_len
 
 
+def word_bits(words, n: int) -> np.ndarray:
+    """int32[rows, rw] words -> bool[rows, n] rule bits."""
+    w = np.ascontiguousarray(words.cpu().numpy()).view(np.uint8)
+    return np.unpackbits(w, axis=1, bitorder="little")[:, :n].astype(bool)
+
+
+def screen_coverage(cov: dict, ref, ch, bank, tile: int) -> None:
+    """Add to `cov` what one case exercises in the screen, from plain
+    runs: (chunk, rule) pairs hit inside two or more tiles (skipped after
+    the first), hit only across a tile cut, hit first in the last tile,
+    and live rules whose rarest class holds nowhere in the chunk (the
+    early exit at the first tap). `ref` maps chunk rows to words."""
+    c, length = ch.shape
+    n = bank.taps.shape[0]
+    tiles = length // tile
+    whole = word_bits(ref(ch), n)
+    inside = word_bits(ref(ch.reshape(c * tiles, tile)), n).reshape(
+        c, tiles, n)
+    cov["multi_tile"] += int((inside.sum(axis=1) >= 2).sum())
+    cov["straddle_only"] += int((whole & ~inside.any(axis=1)).sum())
+    cov["last_tile_first"] += int(
+        (inside[:, -1] & ~inside[:, :-1].any(axis=1)).sum())
+    member = np.unpackbits(
+        np.ascontiguousarray(bank.cls_bits.cpu().numpy()).view(np.uint8),
+        axis=1, bitorder="little").astype(np.int32)
+    chn = ch.cpu().numpy()
+    seen = np.zeros((c, 256), dtype=np.int32)
+    seen[np.repeat(np.arange(c), length), chn.ravel()] = 1
+    present = (seen @ member) > 0  # [c, classes]
+    n_taps = bank.n_taps.cpu().numpy()
+    rarest = bank.taps.cpu().numpy()[n_taps > 0, 0] >> 3
+    cov["rarest_absent"] += int((~present[:, rarest]).sum())
+    cov["never_rules"] += int((n_taps < 0).sum())
+
+
 def check_secret_kernel_cases(dev) -> dict:
     """The three secret kernels == their plain versions, bit for bit,
-    over C x bank shapes. -> {kernel: max_abs_err}."""
+    over C x bank shapes, with coverage of the screen's mechanisms (tile
+    skip, tile cuts, last tile, early exit, batches of 1, 3, 7 chunks
+    and more than one wave of blocks). -> {kernel: max_abs_err}."""
     import torch
 
+    from trivy_tpu_torch.ops import kernels
     from trivy_tpu_torch.ops import secret_nfa as nfa
     from trivy_tpu_torch.ops import secret_prefilter as pf
 
     rng = np.random.default_rng(SECRET_SEED)
+    n_sm = kernels.sm_count(dev.index or 0)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     err = {"anchor": 0, "conv": 0, "prefilter": 0}
     cases = {"anchor": 0, "conv": 0, "prefilter": 0}
-    bit31 = no_tap = 0
+    cov = {"bit31": 0, "no_tap": 0, "multi_tile": 0, "straddle_only": 0,
+           "last_tile_first": 0, "rarest_absent": 0, "never_rules": 0,
+           "over_one_wave": 0}
+    tiles_seen = set()
+
+    def run(name, fn, ref, ch, bank, shape):
+        lay = nfa.screen_layout(ch.shape[0], ch.shape[1],
+                                bank.cls_bits.shape[1], bank.taps.shape[0],
+                                bank.rw, n_sm)
+        got = fn(ch, bank)
+        want = ref(ch)
+        torch.cuda.synchronize()
+        e = words_err(got, want)
+        if e:
+            raise AssertionError(f"{name} kernel differs from its plain "
+                                 f"version: {shape} max_abs_err={e}")
+        cases[name] += 1
+        screen_coverage(cov, ref, ch, bank, lay.tile_words * 32)
+        tiles_seen.add((name, lay.tile_words))
+        cov["over_one_wave"] += lay.blocks > lay.slots
+        return want.cpu().numpy().view(np.uint32)
+
     for nw in (1, 2, 3, 4):
         for r in (1, 31, 32, 33, 204):
-            for c in (1, 3, 257):
+            for c in (1, 3, 7, 600):
                 ch, words, bw, bi, act = secret_table_case(rng, c, nw, r)
-                args = [put(ch), put(words.view(np.int32)), put(bw),
-                        put(bi.view(np.int32)), put(act)]
-                got = nfa.anchor_words(*args)
-                ref = nfa.anchor_words_ref(*args)
-                torch.cuda.synchronize()
-                e = words_err(got, ref)
-                if e:
-                    raise AssertionError(
-                        f"anchor kernel differs from its plain version: "
-                        f"NW={nw} R={r} C={c} max_abs_err={e}")
-                cases["anchor"] += 1
-                w = ref.cpu().numpy().view(np.uint32)
-                bit31 += int(((w >> 31) & 1).sum())
-                if r > 2:
-                    no_tap += int(((w[:, (r - 1) // 32] >> ((r - 1) % 32))
-                                   & 1).sum())
+                bank = nfa.AnchorTensors.from_arrays(words, bw, bi, act, dev)
+                args = bank.reference()
+                w = run("anchor", nfa.anchor_words,
+                        lambda x: nfa.anchor_words_ref(x, *args), put(ch),
+                        bank, f"NW={nw} R={r} C={c}")
+                cov["bit31"] += int(((w >> 31) & 1).sum())
+                if r > 3:
+                    cov["no_tap"] += int(((w[:, (r - 1) // 32]
+                                           >> ((r - 1) % 32)) & 1).sum())
     ncs = set()
-    for n_cls in (100, 200, 300):
-        for r in (1, 33, 204):
-            for c in (1, 3, 257):
+    for n_cls in (100, 200, 380):  # 380: 12 class words, 1,024-pos. tiles
+        for r in (1, 33, 204) + ((384,) if n_cls == 380 else ()):
+            for c in (1, 3, 7, 600):
                 rows = secret_rows(rng, n_cls, r)
                 bank = nfa.ConvTensors.from_bank(nfa.ConvAnchorBank(rows),
                                                  dev)
-                ncs.add(bank.bank.nc)
-                ch = put(plant_rows(rng, c, rows))
-                got = nfa.conv_anchor_words(ch, bank)
-                ref = nfa.conv_anchor_words_ref(ch, *bank.dense(), bank.rw)
-                torch.cuda.synchronize()
-                e = words_err(got, ref)
-                if e:
-                    raise AssertionError(
-                        f"conv kernel differs from its plain version: "
-                        f"nc={bank.bank.nc} R={r} C={c} "
-                        f"max_abs_err={e}")
-                cases["conv"] += 1
+                ncs.add((bank.bank.nc, bank.rw))
+                dense = bank.dense()
+                run("conv", nfa.conv_anchor_words,
+                    lambda x: nfa.conv_anchor_words_ref(x, *dense, bank.rw),
+                    put(plant_rows(rng, c, rows)), bank,
+                    f"nc={bank.bank.nc} R={r} C={c}")
     zero_len = 0
     for max_len in (1, 5, 24):
         for k in (1, 114):
@@ -646,13 +732,16 @@ def check_secret_kernel_cases(dev) -> dict:
                         f"max_len={max_len} K={k} C={c}")
                 cases["prefilter"] += 1
                 zero_len += int(ref[:, 0].sum())
-    if not bit31 or not no_tap or ncs != {128, 256, 384} or not zero_len:
+    nc_set = sorted({nc for nc, _rw in ncs})
+    if not all(cov.values()) or nc_set != [128, 256, 384] \
+            or max(rw for _nc, rw in ncs) != 12 or not zero_len \
+            or {t for _n, t in tiles_seen} != {32, 64}:
         raise AssertionError(
-            f"case set lacks coverage: bit31={bit31} no_tap_rows={no_tap} "
-            f"nc={sorted(ncs)} zero_length_hits={zero_len}")
+            f"case set lacks coverage: {json.dumps(cov)} nc={nc_set} "
+            f"tiles={sorted(tiles_seen)} zero_length_hits={zero_len}")
     print(f"phase4 kernel_vs_plain cases={json.dumps(cases)} "
-          f"max_abs_err={json.dumps(err)} bit31_hits={bit31} "
-          f"no_tap_row_hits={no_tap} conv_nc={sorted(ncs)} "
+          f"max_abs_err={json.dumps(err)} coverage={json.dumps(cov)} "
+          f"conv_nc_rw={sorted(ncs)} tile_words={sorted(tiles_seen)} "
           f"zero_length_keyword_hits={zero_len}")
     return err
 
@@ -1059,6 +1148,42 @@ def time_secret_kernel(name: str, key: str, fn, ref, in_bytes: int,
     return out
 
 
+def screen_bank_bytes(bank) -> int:
+    """Bytes of the compact bank form a screen kernel reads."""
+    return 4 * (bank.cls_bits.numel() + bank.taps.numel()
+                + bank.n_taps.numel())
+
+
+def screen_floor(ch, bank) -> dict:
+    """The bit-sliced design's own floor at this launch: every listed tap
+    of every live rule on every position word of every chunk (no early
+    exit, no skip), one 4-byte shared-memory read and two integer
+    operations (funnel shift, AND) per tap-word; the class bitmaps add
+    a table read and a bitmap write per position word and class word,
+    and 32 lanes x 5 shuffle steps x 4 operations of transpose. Times at
+    132 SMs x 128 B a clock of shared memory and 132 x 64 int32 lanes,
+    at 1.98 GHz (the H100 SXM data sheet's boost clock)."""
+    from trivy_tpu_torch.ops import kernels
+    from trivy_tpu_torch.ops import secret_nfa as nfa
+
+    c, length = ch.shape
+    ncw = bank.cls_bits.shape[1]
+    n_taps = bank.n_taps.cpu().numpy()
+    lay = nfa.screen_layout(c, length, ncw, n_taps.shape[0], bank.rw,
+                            kernels.sm_count(ch.device.index or 0))
+    words = c * (length // 32)
+    built = c * (-(-length // (32 * lay.tile_words))) * (lay.tile_words + 1)
+    tap_words = words * int(n_taps.clip(min=0).sum())
+    smem_b = 4 * tap_words + built * ncw * 2 * 4 * 32
+    int_ops = 2 * tap_words + built * ncw * 32 * 5 * 4
+    ms = max(smem_b / SMEM_BYTES_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+    return {"tile_words": lay.tile_words,
+            "tiles_per_block": lay.tiles_per_block, "blocks": lay.blocks,
+            "smem_per_block": lay.smem, "floor_tap_words": tap_words,
+            "floor_smem_bytes": smem_b, "floor_int_ops": int_ops,
+            "design_floor_ms": ms}
+
+
 def time_secret_kernels(dev, p5: dict, p6: dict) -> dict:
     import torch
 
@@ -1070,15 +1195,15 @@ def time_secret_kernels(dev, p5: dict, p6: dict) -> dict:
     out = {}
     # the bitset kernel: one dispatch of the builtin bank (256 chunks)
     m = p5["scanner"]._matcher
+    at = m._dev
     ch = torch.from_numpy(chunks[: m.batch_chunks]).to(dev)
-    table, bw, bi, act = m._dev
-    c = ch.shape[0]
+    ref_args = at.reference()
     out["anchor"] = time_secret_kernel(
-        "anchor", "anchor_kernel", lambda: nfa.anchor_words(ch, *m._dev),
-        lambda: nfa.anchor_words_ref(ch, *m._dev),
-        ch.numel() + 4 * (table.numel() + bw.numel() + bi.numel())
-        + act.numel(), 4 * c * m.bank.rw,
-        {"C": c, "R": m.bank.n, "NW": m.bank.words})
+        "anchor", "anchor_kernel", lambda: nfa.anchor_words(ch, at),
+        lambda: nfa.anchor_words_ref(ch, *ref_args),
+        ch.numel() + screen_bank_bytes(at), 4 * ch.shape[0] * at.rw,
+        {"C": ch.shape[0], "R": m.bank.n, "NW": m.bank.words,
+         **screen_floor(ch, at)})
     # the conv kernel: one dispatch of the overflow bank (128 chunks)
     cm = p5["conv_scanner"]._matcher
     t = cm._dev
@@ -1092,11 +1217,11 @@ def time_secret_kernels(dev, p5: dict, p6: dict) -> dict:
     out["conv"] = time_secret_kernel(
         "conv", "conv_kernel", lambda: nfa.conv_anchor_words(chc, t),
         lambda: nfa.conv_anchor_words_ref(chc, *dense, t.rw),
-        chc.numel() + 4 * (t.cls_bits.numel() + t.tap_cls.numel())
-        + t.tap_act.numel(), 4 * cc * t.rw,
+        chc.numel() + screen_bank_bytes(t), 4 * cc * t.rw,
         {"C": cc, "R": cm.bank.n, "nc": nc, "r_pad": r_pad,
          "reference_gemm_flops": gemm_flops,
-         "reference_gemm_bound_ms": gemm_flops / BF16_FLOP_PER_S * 1e3})
+         "reference_gemm_bound_ms": gemm_flops / BF16_FLOP_PER_S * 1e3,
+         **screen_floor(chc, t)})
     # the prefilter kernel: one dispatch of DevicePrefilter (1024 chunks)
     bank = p6["bank"]
     low, _o, _s = nfa.chunk_files(contents[:4000],
@@ -1133,6 +1258,11 @@ def main() -> int:
     sources = ["match", "secret_anchor", "secret_conv", "secret_prefilter"]
     for name, sec in kernels.build(sources).items():
         print(f"phase1 build {name}.cu seconds={sec:.3f}")
+    for name in ("secret_anchor", "secret_conv"):
+        for line in kernels.BUILD_LOG.get(name, "").splitlines():
+            if "spill" in line or ("ptxas info" in line and (
+                    "Used" in line or "Compiling" in line)):
+                print(f"phase1 ptxas {name}.cu {line.strip()}")
     for name in sources:
         kernels.load(name)
 

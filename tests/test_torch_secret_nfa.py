@@ -9,6 +9,7 @@ the tolerance is exact equality. The CUDA kernels themselves are held
 against the plain versions by the `cuda`-marked test, which needs a card.
 """
 
+import dataclasses
 import functools
 import random
 
@@ -266,9 +267,16 @@ def plant_rows(rng, c: int, rows):
 
 def port_anchor(chunks, words, bit_word, bit_idx, active,
                 fn=tn.anchor_words_ref) -> np.ndarray:
-    out = fn(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (
-        chunks, words.view(np.int32), bit_word, bit_idx.view(np.int32),
-        active)))
+    """Raw bitset-kernel inputs through the plain version, or through the
+    wrapper on their compact form (fn=tn.anchor_words)."""
+    if fn is tn.anchor_words:
+        bank = tn.AnchorTensors.from_arrays(words, bit_word, bit_idx, active,
+                                            CPU)
+        out = fn(torch.from_numpy(np.ascontiguousarray(chunks)), bank)
+    else:
+        out = fn(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            chunks, words.view(np.int32), bit_word, bit_idx.view(np.int32),
+            active)))
     assert out.dtype == torch.int32
     return out.numpy().view(np.uint32)
 
@@ -377,6 +385,166 @@ def test_conv_is_exact_where_bitset_overflows():
     assert set(np.nonzero(hits[0])[0].tolist()) == {0, ord("z")}
 
 
+# ------------------------------------------------ the screen's compact form
+
+
+def plain_screen(chunks: np.ndarray, bank: tn.ScreenTensors) -> np.ndarray:
+    """The compact form evaluated plainly: rule r hits at position i when
+    each of its n_taps[r] listed taps' class holds at i + the tap's
+    position (no class past the chunk's end); n_taps 0 hits, -1 never.
+    -> uint32[C, rw] words."""
+    bits = np.unpackbits(bank.cls_bits.numpy().view(np.uint8), axis=1,
+                         bitorder="little").astype(bool)
+    member = np.zeros((257, bits.shape[1]), dtype=bool)
+    member[:256] = bits
+    taps, n_taps = bank.taps.numpy(), bank.n_taps.numpy()
+    c, length = chunks.shape
+    ext = np.concatenate([chunks.astype(np.int64),
+                          np.full((c, tn.K_ANCHOR - 1), 256)], axis=1)
+    hit = np.zeros((c, bank.rw * 32), dtype=bool)
+    for r, n in enumerate(n_taps.tolist()):
+        acc = np.full((c, length), n >= 0)
+        for e in taps[r, : max(n, 0)].tolist():
+            acc &= member[:, e >> 3][ext[:, (e & 7): (e & 7) + length]]
+        hit[:, r] = acc.any(axis=1)
+    return np.packbits(hit, axis=1, bitorder="little").view("<u4")
+
+
+def check_taps(bank: tn.ScreenTensors, tap_cls, tap_act, never) -> int:
+    """Each rule's compact taps are its active (class, position) pairs,
+    rarest class first, the rest of the row zero; never rows count -1
+    and rows without an active tap 0. -> rules whose taps were
+    reordered."""
+    count = np.unpackbits(bank.cls_bits.numpy().view(np.uint8), axis=1,
+                          bitorder="little").sum(axis=0)
+    taps, n_taps = bank.taps.numpy(), bank.n_taps.numpy()
+    reordered = 0
+    for r in range(taps.shape[0]):
+        if never[r].any():
+            assert n_taps[r] == -1
+            continue
+        js = np.nonzero(tap_act[r])[0].tolist()
+        assert n_taps[r] == len(js)
+        got = [(e >> 3, e & 7) for e in taps[r, : len(js)].tolist()]
+        assert sorted(got, key=lambda p: p[1]) == [(tap_cls[r, j], j)
+                                                   for j in js]
+        keys = [(count[k], j) for k, j in got]
+        assert keys == sorted(keys)
+        assert not taps[r, len(js):].any()
+        reordered += [j for _k, j in got] != js
+    return reordered
+
+
+def screen_edge_case(rng):
+    """make_table_case rows plus three never rows (an active tap on a
+    word past the table, on bit 40, on word -1), an active tap on an
+    empty class (no byte holds it), and the two no-tap rows."""
+    chunks, words, bit_word, bit_idx, active = make_table_case(rng, 2, 2, 40)
+    for r, (w, b) in zip((5, 6, 7), ((2, 3), (0, 40), (-1, 3))):
+        j = int(np.nonzero(active[r])[0][0])
+        bit_word[r, j], bit_idx[r, j] = w, b
+    empty = np.nonzero(~(words[:, 1:2] >> np.arange(32, dtype=np.uint32)
+                         & 1).any(axis=0))[0]
+    j = int(np.nonzero(active[8])[0][-1])
+    if len(empty):
+        bit_word[8, j], bit_idx[8, j] = 1, empty[0]
+    else:
+        words[:, 1] &= ~np.uint32(1 << 7)  # class 39 holds no byte
+        bit_word[8, j], bit_idx[8, j] = 1, 7
+    return chunks, words, bit_word, bit_idx, active
+
+
+@pytest.mark.parametrize("which", ["builtin", "overflow", "edges"])
+def test_screen_form_equals_references(which):
+    """The compact form both CUDA screens read holds the bank's contract:
+    evaluated plainly it gives anchor_words_ref's, conv_anchor_words_ref's
+    and the JAX kernels' words, and its taps are each rule's active taps,
+    rarest class first."""
+    rng = np.random.default_rng([SEED, len(which)])
+    if which == "edges":
+        chunks, words, bit_word, bit_idx, active = screen_edge_case(rng)
+        at = tn.AnchorTensors.from_arrays(words, bit_word, bit_idx, active,
+                                          CPU)
+        n, nw, rw = bit_word.shape[0], words.shape[1], at.rw
+        valid = (bit_word >= 0) & (bit_word < nw) & (bit_idx < 32)
+        check_taps(at, bit_word * 32 + bit_idx.astype(np.int64),
+                   active & valid, active & ~valid)
+        assert at.n_taps[[5, 6, 7]].tolist() == [-1] * 3
+        assert at.n_taps[[1, 39]].tolist() == [0, 0]
+        rows = None
+    else:
+        rows = builtin_rows() if which == "builtin" else singleton_rows(130)
+        bank = tn.AnchorBank(rows)
+        at = tn.AnchorTensors.from_bank(bank, CPU)
+        n, nw, rw = bank.n, bank.words, bank.rw
+        reordered = check_taps(at, bank.bit_word * 32 + bank.bit_idx,
+                               bank.active, np.zeros_like(bank.active))
+        assert reordered if which == "builtin" else not reordered
+        if which == "builtin":
+            contents = [c for _p, c in secret_corpus(seed=5, n_files=8)]
+            chunks = tn.chunk_files_packed(contents)[0][:3]
+        else:
+            chunks = np.zeros((2, tn.CHUNK), dtype=np.uint8)
+            chunks[0, :256] = np.arange(256)
+            chunks[1, 100:110] = 200
+    args = (chunks, *at.host)
+    want = np.asarray(jn._anchor_kernel(n, nw, rw)(
+        *(jnp.asarray(a) for a in args)))
+    np.testing.assert_array_equal(plain_screen(chunks, at), want)
+    np.testing.assert_array_equal(port_anchor(*args), want)
+    np.testing.assert_array_equal(port_anchor(*args, fn=tn.anchor_words),
+                                  want)
+    bit = want[:, np.arange(n) // 32] >> (np.arange(n) % 32) & 1
+    np.testing.assert_array_equal(bit[:, at.n_taps.numpy() == 0], 1)
+    np.testing.assert_array_equal(bit[:, at.n_taps.numpy() < 0], 0)
+    if rows is None:
+        return
+    cb = tn.ConvAnchorBank(rows)
+    ct = tn.ConvTensors.from_bank(cb, CPU)
+    check_taps(ct, cb.tap_cls, cb.tap_act, np.zeros_like(cb.tap_act))
+    cwant = np.asarray(jn._conv_anchor_kernel(cb.nc, cb.r_pad, cb.rw)(
+        jnp.asarray(chunks), *(jnp.asarray(a) for a in conv_inputs(cb))))
+    np.testing.assert_array_equal(plain_screen(chunks, ct), cwant)
+    got = tn.conv_anchor_words(torch.from_numpy(chunks), ct)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), cwant)
+    if which == "builtin":  # no overflow: both banks screen alike
+        np.testing.assert_array_equal(cwant, want)
+    else:  # the two overflow rows hit everywhere in the bitset bank only
+        assert (bit[:, 128:] == 1).all() and cwant.any()
+
+
+def test_screen_layout_fills_the_card():
+    """The grid of a screen launch: 2,048-position tiles for the builtin
+    bank and the overflow bank's 256 classes, 1,024 for 384 classes and
+    384 rules, one run of tiles per
+    chunk once the batch fills the card's block slots, down to one tile
+    per block for a small batch; too many classes raise."""
+    n_sm = 132
+    main = tn.screen_layout(256, tn.CHUNK, 3, 204, 7, n_sm)
+    assert (main.tile_words, main.tiles_per_block, main.blocks) \
+        == (64, 4, 512) and main.blocks <= main.slots
+    conv = tn.screen_layout(128, tn.CHUNK, 8, 332, 11, n_sm)
+    assert (conv.tile_words, conv.tiles_per_block, conv.blocks) \
+        == (64, 4, 256) and conv.smem <= tn.SCREEN_SMEM_TARGET
+    assert tn.screen_layout(128, tn.CHUNK, 12, 384, 12, n_sm).tile_words \
+        == 32
+    for c in (1, 3, 7, 64, 600):
+        for ncw, r, rw in ((1, 1, 1), (3, 204, 7), (8, 332, 11),
+                           (12, 384, 12)):
+            lay = tn.screen_layout(c, tn.CHUNK, ncw, r, rw, n_sm)
+            tiles = tn.CHUNK // (32 * lay.tile_words)
+            runs, rest = divmod(lay.blocks, c)
+            assert not rest and runs == -(-tiles // lay.tiles_per_block)
+            assert lay.smem == tn.screen_smem(ncw, r, rw, lay.tile_words)
+            assert lay.smem <= tn.BLOCK_SMEM_MAX
+            if c * tiles <= lay.slots:
+                assert runs == tiles
+            if c >= lay.slots:
+                assert runs == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tn.screen_layout(1, tn.CHUNK, 64, 10, 1, n_sm)
+
+
 # ------------------------------------------------------------ matcher
 
 
@@ -402,17 +570,28 @@ def test_matcher_equals_jax(batch_chunks):
 
 
 def test_wrappers_reject_malformed_inputs_on_a_card():
-    """The CUDA path checks types before it launches (a meta tensor
-    stands in for a card's, so nothing runs)."""
+    """The CUDA path checks types, shapes and alignment before it
+    launches (a meta tensor stands in for a card's, so nothing runs)."""
     meta = torch.device("meta")
     chunks = torch.empty((2, tn.CHUNK), dtype=torch.uint8, device=meta)
-    table = torch.empty((256, 5), dtype=torch.int32, device=meta)
-    taps = torch.empty((3, tn.K_ANCHOR), dtype=torch.int32, device=meta)
-    act = torch.empty((3, tn.K_ANCHOR), dtype=torch.bool, device=meta)
+    good = tn.AnchorTensors(
+        cls_bits=torch.empty((256, 3), dtype=torch.int32, device=meta),
+        taps=torch.empty((3, tn.K_ANCHOR), dtype=torch.int32, device=meta),
+        n_taps=torch.empty(3, dtype=torch.int32, device=meta), rw=1,
+        host=())
     with pytest.raises(ValueError, match="class words"):
-        tn.anchor_words(chunks, table, taps, taps, act)
+        tn.anchor_words(chunks, dataclasses.replace(
+            good, cls_bits=torch.empty((256, 5), dtype=torch.int32,
+                                       device=meta)))
     with pytest.raises(ValueError, match="int32"):
-        tn.anchor_words(chunks, table[:, :3], taps.long(), taps, act)
+        tn.anchor_words(chunks, dataclasses.replace(good,
+                                                    taps=good.taps.long()))
+    with pytest.raises(ValueError, match="do not fit"):
+        tn.anchor_words(chunks, dataclasses.replace(good, rw=0))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tn.conv_anchor_words(torch.empty((2, 100), dtype=torch.uint8,
+                                         device=meta), tn.ConvTensors(
+            good.cls_bits, good.taps, good.n_taps, 1, bank=None))
 
 
 @pytest.mark.cuda
@@ -424,13 +603,12 @@ def test_cuda_anchor_kernels_equal_plain_versions():
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED + 2)
     for nw, r, c in [(1, 1, 1), (3, 204, 3), (4, 33, 2)]:
-        case = make_table_case(rng, c, nw, r)
-        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-             for a in (case[0], case[1].view(np.int32), case[2],
-                       case[3].view(np.int32), case[4])]
-        got = tn.anchor_words(*t)
+        chunks, *arrays = make_table_case(rng, c, nw, r)
+        bank = tn.AnchorTensors.from_arrays(*arrays, dev)
+        ch = torch.from_numpy(chunks).to(dev)
+        got = tn.anchor_words(ch, bank)
         torch.cuda.synchronize()
-        assert torch.equal(got, tn.anchor_words_ref(*t))
+        assert torch.equal(got, tn.anchor_words_ref(ch, *bank.reference()))
     for n_cls, r in [(100, 33), (300, 90)]:
         rows = make_rows(rng, n_cls, r, full=True)
         bank = tn.ConvTensors.from_bank(tn.ConvAnchorBank(rows), dev)
@@ -459,6 +637,27 @@ def test_random_corpus_rows_equal_jax_matcher():
 
 
 # ------------------------------------------------------------ building
+
+
+def test_entry_argtypes_match_the_sources():
+    """Each ctypes binding in ops/kernels.py names its source's extern "C"
+    entry with one argtype per parameter: c_void_p for a pointer, c_int
+    for an int (ctypes would pass anything else as a 32-bit int)."""
+    import ctypes
+    import re
+
+    from trivy_tpu_torch.ops import kernels
+
+    for name, (fn, argtypes) in kernels._ENTRY.items():
+        src = (kernels._CSRC / f"{name}.cu").read_text()
+        m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+        assert m, (name, fn)
+        params = [p.strip() for p in m.group(1).split(",")]
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                for p in params]
+        assert all(p.startswith(("int ", "const void*", "void*"))
+                   for p in params), params
+        assert argtypes == want, name
 
 
 def test_kernel_build_hashes_headers_and_builds_in_parallel(tmp_path,

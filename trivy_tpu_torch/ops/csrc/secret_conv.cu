@@ -10,85 +10,51 @@
 // contract of the bitset kernel without its 128-class budget.
 //
 // What bounds it: as a GEMM, 2 x L x 8 x nc x r_pad operations per chunk
-// (8.6 GFLOP at nc = 128, r_pad = 256) on 0/1 values. Evaluated directly
-// the only large input is the chunk bytes, so the least time is the
-// bytes over the memory rate, far below the GEMM's operation time.
+// (3.57 TFLOP for 128 chunks at nc 256, r_pad 384) on 0/1 values.
+// Evaluated directly the only large input is the chunk bytes, so the
+// least time is the bytes over the memory rate: 0.63 us for 128 chunks
+// at 3.35 TB/s. The bit-sliced design's own floor at that shape (128
+// chunks, 332 rules, nc 256 in 8 class words; chip_smoke.py
+// screen_floor) with every tap of every rule on every word: 151M
+// tap-words, about 0.7 GB of shared-memory reads and 0.56 G integer
+// operations, about 0.034 ms at 132 SMs x 128 B a clock.
 //
-// What the design does about it: it evaluates directly, from the bank's
-// compact form (ConvAnchorBank.cls_bits / tap_cls / tap_act: the class
-// table as a bitset of ncw = ceil(nc / 32) words, and the class index
-// and active flag of each (rule, tap)), with the bit-sliced screen of
-// secret_screen.cuh: per tile, one position bitmap per class in shared
-// memory, then 8 funnel shifts and ANDs per 32 positions per rule. nc is
-// unbounded, so the tile shrinks as nc grows to keep the bitmaps within
-// kSmemBudget of dynamic shared memory (2048 positions up to nc = 384).
-// Rule bits at or past n stay zero: only rules [0, n) are screened, into
-// an output the wrapper (ops/secret_nfa.py:conv_anchor_words) zeroes.
+// What the design does about it: the same screen as the bitset bank
+// (secret_screen.cuh), on the bank's compact form (ConvAnchorBank
+// cls_bits, and its tap_cls / tap_act ordered rarest class first by
+// ops/secret_nfa.py:screen_taps). nc is unbounded: the tile shrinks from
+// 2,048 to 1,024 positions when a block's shared memory would keep fewer
+// than two blocks on an SM (ops/secret_nfa.py:screen_layout); past that
+// the launch is refused. Rule bits at or past n stay zero: only rules
+// [0, n) are screened, into an output the wrapper
+// (ops/secret_nfa.py:conv_anchor_words) zeroes.
 
 #include "secret_screen.cuh"
 
 namespace {
 
-constexpr int kMaxTileWords = 64;  // at most 2048 positions per tile
-constexpr int kSmemBudget = 100 * 1024;
-
-__global__ void __launch_bounds__(screen::kThreads)
+__global__ void __launch_bounds__(screen::kThreads, screen::kMinBlocks)
 conv_kernel(const uint8_t* __restrict__ chunks,
             const uint32_t* __restrict__ cls_bits,  // [256, ncw]
-            const int32_t* __restrict__ tap_cls,  // [n, 8]
-            const uint8_t* __restrict__ tap_act,  // [n, 8] bool
+            const int32_t* __restrict__ taps,  // [n, 8]
+            const int32_t* __restrict__ n_taps,  // [n]
             uint32_t* __restrict__ out,  // [c, rw], zeroed
-            int len, int ncw, int n_rules, int rw, int tiles,
-            int tile_words) {
-  extern __shared__ uint32_t bm[];  // [ncw * 32, tile_words + 1]
-  const int wpt = tile_words + 1;
-  const long long c = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x % tiles) * (tile_words * 32);
-  screen::build_class_bitmaps(chunks + c * len, len, t0, cls_bits, ncw, bm,
-                              wpt);
-  __syncthreads();
-  const int n_words = min(tile_words, (len - t0 + 31) / 32);
-  const int n_cls = ncw * 32;
-  auto tap = [&](int r, int j) -> int {
-    const int i = r * screen::kTaps + j;
-    if (!tap_act[i]) return screen::kInactive;
-    const int k = tap_cls[i];
-    return (k < 0 || k >= n_cls) ? screen::kNever : k;
-  };
-  screen::screen_rules(bm, wpt, len, t0, n_words, n_rules, tap,
-                       out + c * rw);
+            int len, int ncw, int n_rules, int rw, int tile_words,
+            int tiles_per_block) {
+  screen::screen_block(chunks, cls_bits, taps, n_taps, out, len, ncw,
+                       n_rules, rw, tile_words, tiles_per_block);
 }
 
 }  // namespace
 
 extern "C" int trivy_conv_anchor_words(const void* chunks,
                                        const void* cls_bits,
-                                       const void* tap_cls,
-                                       const void* tap_act, void* out, int c,
-                                       int len, int ncw, int n_rules, int rw,
+                                       const void* taps, const void* n_taps,
+                                       void* out, int c, int len, int ncw,
+                                       int n_rules, int rw, int tile_words,
+                                       int tiles_per_block, int smem,
                                        void* stream) {
-  if (c <= 0 || len <= 0 || n_rules <= 0) return 0;
-  if (ncw < 1) return static_cast<int>(cudaErrorInvalidValue);
-  // the largest even tile (odd row pitch: conflict-free transposes)
-  // whose bitmaps fit the budget
-  int tile_words = kSmemBudget / (ncw * 32 * 4) - 1;
-  tile_words = min(kMaxTileWords, tile_words) & ~1;
-  if (tile_words < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      static_cast<size_t>(ncw) * 32 * (tile_words + 1) * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (len + tile_words * 32 - 1) / (tile_words * 32);
-  const long long blocks = static_cast<long long>(c) * tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  conv_kernel<<<static_cast<unsigned>(blocks), screen::kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(chunks),
-      static_cast<const uint32_t*>(cls_bits),
-      static_cast<const int32_t*>(tap_cls),
-      static_cast<const uint8_t*>(tap_act), static_cast<uint32_t*>(out), len,
-      ncw, n_rules, rw, tiles, tile_words);
-  return static_cast<int>(cudaGetLastError());
+  return screen::launch(conv_kernel, chunks, cls_bits, taps, n_taps, out, c,
+                        len, ncw, n_rules, rw, tile_words, tiles_per_block,
+                        smem, stream);
 }

@@ -1,22 +1,42 @@
 // Bit-sliced anchor screen shared by secret_anchor.cu (AnchorBank) and
 // secret_conv.cu (ConvAnchorBank).
 //
-// A block screens one tile of positions of one chunk. It first turns the
-// tile's bytes into one position bitmap per byte class, in shared memory:
-//   bit q of bm[cls * wpt + k] = class cls holds at position t0 + 32k + q,
-// with k in [0, tile_words] (the last word is the halo: anchors starting
-// in the tile read up to K-1 = 7 positions past it). Positions at or past
-// the chunk's end hold no class, which is the reference's zero predicate
-// past the chunk (and its sentinel byte 256 for the conv bank). A byte 0
-// inside the chunk is a real byte and maps through the class table.
+// Both banks reduce, on the host (ops/secret_nfa.py:screen_taps), to one
+// compact form:
+//   cls_bits[256][ncw]  byte -> class bitset (class i = bit i % 32 of
+//                       word i / 32);
+//   taps[r][8]          (class << 3) | shift of each active tap of rule
+//                       r, rarest class first (fewest bytes), slots at
+//                       or past n_taps[r] unused;
+//   n_taps[r]           active taps; 0 = no active tap (hits wherever
+//                       the chunk has a position), -1 = a tap names no
+//                       class (never hits).
+// Rule r hits at position i of a chunk when every tap's class holds at
+// i + shift; its output bit is the any-hit over the chunk.
 //
-// Then rule r hits in word k iff
-//   AND over active taps j of (bm[cls(r, j)] >> j, funnel-shifted across
-//   words k and k + 1)
-// is non-zero within the positions of the chunk: 32 positions per
-// instruction instead of one, so the screen reads each chunk byte once
-// and spends a few word operations per 32 positions per rule. A rule with
-// no active tap hits wherever the tile has a position.
+// A block owns a run of tiles (tile_words * 32 positions each) of one
+// chunk and walks them in order:
+//  - the tile's bytes (plus one 32-byte halo word) arrive in shared
+//    memory by cp.async, 16 B a thread; the next tile's copy is in flight
+//    while the current tile is screened;
+//  - the bytes become one position bitmap per class: each lane looks up
+//    its byte's class word and a five-step shuffle transpose turns 32
+//    lanes x 32 classes into 32 classes x 32 positions. Positions at or
+//    past the chunk's end hold no class (the reference's zero predicate
+//    and conv sentinel 256); a byte 0 inside the chunk maps normally;
+//  - one warp per rule over the whole tile, tile_words / 32 position
+//    words a lane: AND over the taps of the class bitmap funnel-shifted
+//    by the tap's shift, the neighbour word taken from the next lane by
+//    a shuffle (the last lane's from lane 0's next word, or the tile's
+//    halo word); the rule leaves as soon as no lane has a candidate left
+//    (__any_sync);
+//  - a per-chunk hit mask in shared memory skips rules already hit in
+//    an earlier tile, and picks up bits other blocks of the chunk have
+//    published; after each tile the block ORs its mask into the zeroed
+//    output row (atomicOr: blocks finish in any order, a bit once set is
+//    never cleared, so the result does not depend on the order).
+// Skipping is a speed-up only: every rule not yet hit is screened on
+// every tile.
 
 #pragma once
 
@@ -27,79 +47,243 @@ namespace screen {
 
 constexpr int kTaps = 8;  // K_ANCHOR
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 4;  // per SM: caps registers at 64 a thread
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kInactive = -1;  // tap contributes nothing (always holds)
-constexpr int kNever = -2;     // tap names a class outside the table
 
-// Fill bm[ncw * 32][wpt] for the tile at t0 of `chunk` (len bytes) from
-// the class table cls_words[256][ncw] (class i = bit i % 32 of word
-// i / 32). One warp per position word: each lane looks up its byte's
-// class words, and 32 ballots per class word transpose them into
-// position bitmaps; lane q keeps the bitmap of class 32w + q.
+__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
+
+// Byte offsets of the block's dynamic shared memory. ops/secret_nfa.py
+// (screen_smem) computes the same total to choose the tile.
+struct Layout {
+  int tile_bytes, tab, taps, counts, mask, bm, total;
+  __host__ __device__ Layout(int ncw, int n_rules, int rw, int tile_words)
+      : tile_bytes(align16(tile_words * 32 + 32)),
+        tab(2 * tile_bytes),
+        taps(tab + align16(256 * ncw * 4)),
+        counts(taps + align16(n_rules * kTaps * 4)),
+        mask(counts + align16(n_rules)),
+        bm(mask + align16(rw * 4)),
+        total(bm + ncw * 32 * (tile_words + 1) * 4) {}
+};
+
+// 16 bytes from global to shared memory, asynchronously; zero-filled and
+// nothing read when !valid.
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void copy_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Lane i holds row i of a 32 x 32 bit matrix (bit q = column q); returns
+// column `lane` (bit i = bit `lane` of row i).
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  const uint32_t masks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
+                             0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int s = 16 >> i;
+    const uint32_t m = masks[i];
+    const uint32_t y = __shfl_xor_sync(kFull, x, s);
+    x = (lane & s) ? ((x & ~m) | ((y >> s) & m)) : ((x & m) | ((y & m) << s));
+  }
+  return x;
+}
+
+// bm[cls * wpt + k], bit q = class cls holds at tile position 32k + q,
+// for k in [0, tile_words] (the last word is the halo). A warp takes
+// two position words at a time, so that their transposes interleave.
 __device__ __forceinline__ void build_class_bitmaps(
-    const uint8_t* __restrict__ chunk, int len, int t0,
-    const uint32_t* __restrict__ cls_words, int ncw, uint32_t* bm,
-    int wpt) {
+    const uint8_t* bytes, int len, int t0, const uint32_t* tab, int ncw,
+    uint32_t* bm, int tile_words) {
+  constexpr int kWarps = kThreads / 32;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int k = warp; k < wpt; k += nwarps) {  // uniform across the warp
-    const int p = t0 + 32 * k + lane;
-    const bool valid = p < len;
-    const int b = valid ? chunk[p] : 0;
+  const int wpt = tile_words + 1;
+  for (int k = threadIdx.x >> 5; k <= tile_words; k += 2 * kWarps) {
+    const int k2 = k + kWarps;
+    const bool two = k2 <= tile_words;  // warp-uniform
+    const bool valid = t0 + 32 * k + lane < len;
+    const bool valid2 = two && t0 + 32 * k2 + lane < len;
+    const uint32_t* row = tab + bytes[32 * k + lane] * ncw;
+    const uint32_t* row2 = tab + (two ? bytes[32 * k2 + lane] : 0) * ncw;
     for (int w = 0; w < ncw; ++w) {
-      const uint32_t v = valid ? cls_words[b * ncw + w] : 0u;
-      uint32_t mine = 0;
-#pragma unroll
-      for (int q = 0; q < 32; ++q) {
-        const uint32_t m = __ballot_sync(kFull, (v >> q) & 1u);
-        if (lane == q) mine = m;
-      }
-      bm[(32 * w + lane) * wpt + k] = mine;
+      const uint32_t t = transpose32(valid ? row[w] : 0u, lane);
+      const uint32_t t2 = transpose32(valid2 ? row2[w] : 0u, lane);
+      bm[(32 * w + lane) * wpt + k] = t;
+      if (two) bm[(32 * w + lane) * wpt + k2] = t2;
     }
   }
 }
 
-// Positions of word k of the tile at t0 that lie inside the chunk.
-__device__ __forceinline__ uint32_t valid_mask(int len, int t0, int k) {
-  const int n = len - (t0 + 32 * k);
-  return n >= 32 ? kFull : (n > 0 ? (1u << n) - 1u : 0u);
-}
-
-// Screen rules [0, n_rules) against the tile's bitmaps, one warp per rule
-// (lanes over the tile's words), and OR each hitting rule's bit into the
-// chunk's output row. tap(r, j) -> class index, kInactive or kNever.
-template <class Tap>
-__device__ __forceinline__ void screen_rules(const uint32_t* bm, int wpt,
-                                             int len, int t0, int n_words,
-                                             int n_rules, Tap tap,
-                                             uint32_t* __restrict__ out_row) {
+// Screen every live rule against the tile's bitmaps, one warp per rule,
+// and set the hit ones in `mask`. W = tile_words / 32 position words a
+// lane (1 or 2), evaluated together: W independent loads in flight per
+// tap and one vote per tap for the whole tile.
+template <int W>
+__device__ __forceinline__ void screen_rules_w(const uint32_t* bm,
+                                               const uint32_t* taps,
+                                               const int8_t* counts,
+                                               int n_rules, uint32_t* mask) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = warp; r < n_rules; r += nwarps) {  // uniform across the warp
-    const int mine = lane < kTaps ? tap(r, lane) : kInactive;
-    int cls[kTaps];
+  for (int r = threadIdx.x >> 5; r < n_rules; r += kThreads / 32) {
+    const int n = counts[r];
+    const uint32_t done = __shfl_sync(kFull, mask[r >> 5], 0);
+    if (n <= 0 || ((done >> (r & 31)) & 1u)) continue;  // warp-uniform
+    const uint4 a = reinterpret_cast<const uint4*>(taps + r * kTaps)[0];
+    const uint4 b = reinterpret_cast<const uint4*>(taps + r * kTaps)[1];
+    const uint32_t tap[kTaps] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint32_t h[W];
 #pragma unroll
-    for (int j = 0; j < kTaps; ++j) cls[j] = __shfl_sync(kFull, mine, j);
-    bool any = false;
-    for (int k = lane; k < n_words; k += 32) {
-      uint32_t h = valid_mask(len, t0, k);
+    for (int i = 0; i < W; ++i) h[i] = kFull;
+    uint32_t any = 1;
 #pragma unroll
-      for (int j = 0; j < kTaps; ++j) {
-        if (cls[j] >= 0) {
-          const uint32_t* row = bm + cls[j] * wpt;
-          h &= __funnelshift_r(row[k], row[k + 1], j);
-        } else if (cls[j] == kNever) {
-          h = 0;
-        }
+    for (int t = 0; t < kTaps; ++t) {
+      if (t == n) break;
+      const uint32_t* row = bm + (tap[t] >> 3);
+      uint32_t lo[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) lo[i] = row[32 * i + lane];
+      // word 32i + lane + 1: the next lane's, or for the last lane the
+      // next group's first word (lane 0's lo[i + 1]), or the halo word
+      const uint32_t halo = lane == 31 ? row[32 * W] : 0u;
+      uint32_t acc = 0;
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const uint32_t give = (i + 1 < W && lane == 0) ? lo[(i + 1) % W]
+                                                         : lo[i];
+        uint32_t hi = __shfl_sync(kFull, give, (lane + 1) & 31);
+        if (i + 1 == W && lane == 31) hi = halo;
+        h[i] &= __funnelshift_r(lo[i], hi, tap[t] & 7u);
+        acc |= h[i];
       }
-      any |= h != 0;
+      any = __any_sync(kFull, acc != 0);
+      if (!any) break;
     }
-    if (__any_sync(kFull, any) && lane == 0) {
-      atomicOr(out_row + (r >> 5), 1u << (r & 31));
+    if (any && lane == 0) atomicOr(mask + (r >> 5), 1u << (r & 31));
+  }
+}
+
+__device__ __forceinline__ void screen_rules(const uint32_t* bm,
+                                             int tile_words,
+                                             const uint32_t* taps,
+                                             const int8_t* counts,
+                                             int n_rules, uint32_t* mask) {
+  if (tile_words == 64) {
+    screen_rules_w<2>(bm, taps, counts, n_rules, mask);
+  } else {
+    screen_rules_w<1>(bm, taps, counts, n_rules, mask);
+  }
+}
+
+// The whole screen of one block: tiles [first, first + tiles_per_block)
+// of chunk blockIdx.x / splits.
+__device__ __forceinline__ void screen_block(
+    const uint8_t* __restrict__ chunks, const uint32_t* __restrict__ cls_bits,
+    const int32_t* __restrict__ taps_in, const int32_t* __restrict__ n_taps,
+    uint32_t* __restrict__ out, int len, int ncw, int n_rules, int rw,
+    int tile_words, int tiles_per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(ncw, n_rules, rw, tile_words);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + lay.tab);
+  uint32_t* taps = reinterpret_cast<uint32_t*>(smem + lay.taps);
+  int8_t* counts = reinterpret_cast<int8_t*>(smem + lay.counts);
+  uint32_t* mask = reinterpret_cast<uint32_t*>(smem + lay.mask);
+  uint32_t* bm = reinterpret_cast<uint32_t*>(smem + lay.bm);
+
+  const int tile_pos = tile_words * 32;
+  const int tiles = (len + tile_pos - 1) / tile_pos;
+  const int splits = (tiles + tiles_per_block - 1) / tiles_per_block;
+  const long long c = blockIdx.x / splits;
+  const int first = (blockIdx.x % splits) * tiles_per_block;
+  const int last = min(tiles, first + tiles_per_block);
+  const uint8_t* chunk = chunks + c * len;
+  uint32_t* out_row = out + c * rw;
+
+  // the tile's bytes and its halo word into buffer (tile - first) % 2
+  auto fetch = [&](int tile) {
+    unsigned char* dst = smem + ((tile - first) & 1) * lay.tile_bytes;
+    const int t0 = tile * tile_pos;
+    for (int s = threadIdx.x; s < (tile_pos + 32) / 16; s += kThreads) {
+      const bool valid = t0 + 16 * s < len;  // len % 16 == 0
+      copy16(dst + 16 * s, valid ? chunk + t0 + 16 * s : chunk, valid);
+    }
+    copy_commit();
+  };
+  fetch(first);
+
+  // rule metadata and class table, once per block; tap offsets resolved
+  // to bitmap rows of this tile size
+  const int wpt = tile_words + 1;
+  for (int i = threadIdx.x; i < 256 * ncw; i += kThreads) tab[i] = cls_bits[i];
+  for (int i = threadIdx.x; i < n_rules * kTaps; i += kThreads) {
+    const uint32_t e = static_cast<uint32_t>(taps_in[i]);
+    taps[i] = (((e >> 3) * wpt) << 3) | (e & 7u);
+  }
+  for (int r = threadIdx.x; r < n_rules; r += kThreads) {
+    counts[r] = static_cast<int8_t>(n_taps[r]);
+  }
+  for (int w = threadIdx.x; w < rw; w += kThreads) mask[w] = 0;
+  __syncthreads();
+  for (int r = threadIdx.x; r < n_rules; r += kThreads) {
+    if (counts[r] == 0) atomicOr(mask + (r >> 5), 1u << (r & 31));
+  }
+
+  for (int tile = first; tile < last; ++tile) {
+    copy_wait_all();
+    __syncthreads();  // the tile's bytes are in; the last screen is done
+    if (tile + 1 < last) fetch(tile + 1);
+    build_class_bitmaps(smem + ((tile - first) & 1) * lay.tile_bytes, len,
+                        tile * tile_pos, tab, ncw, bm, tile_words);
+    for (int w = threadIdx.x; w < rw; w += kThreads) {
+      mask[w] |= *reinterpret_cast<volatile const uint32_t*>(out_row + w);
+    }
+    __syncthreads();
+    screen_rules(bm, tile_words, taps, counts, n_rules, mask);
+    __syncthreads();
+    for (int w = threadIdx.x; w < rw; w += kThreads) {
+      if (mask[w]) atomicOr(out_row + w, mask[w]);
     }
   }
+}
+
+// Check the arguments and launch `kernel` (a __global__ wrapper of
+// screen_block) on `stream`. -> a cudaError_t as an int.
+template <class Kernel>
+int launch(Kernel kernel, const void* chunks, const void* cls_bits,
+           const void* taps, const void* n_taps, void* out, int c, int len,
+           int ncw, int n_rules, int rw, int tile_words, int tiles_per_block,
+           int smem, void* stream) {
+  if (c <= 0 || len <= 0 || n_rules <= 0) return 0;
+  const int tile_pos = tile_words * 32;
+  if (ncw < 1 || rw < 1 || n_rules > 32 * rw ||
+      (tile_words != 32 && tile_words != 64) || tiles_per_block < 1 ||
+      len % 16 || reinterpret_cast<uintptr_t>(chunks) % 16 ||
+      smem < Layout(ncw, n_rules, rw, tile_words).total) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (len + tile_pos - 1) / tile_pos;
+  const int splits = (tiles + tiles_per_block - 1) / tiles_per_block;
+  const long long blocks = static_cast<long long>(c) * splits;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(chunks),
+      static_cast<const uint32_t*>(cls_bits),
+      static_cast<const int32_t*>(taps), static_cast<const int32_t*>(n_taps),
+      static_cast<uint32_t*>(out), len, ncw, n_rules, rw, tile_words,
+      tiles_per_block);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace screen

@@ -12,6 +12,7 @@ nvcc process each.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,7 +26,7 @@ import torch
 _CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C entry points of each source: name -> (function, argtypes); every
 # one returns cudaGetLastError() as an int
@@ -33,10 +34,10 @@ _ENTRY = {
     "match": ("trivy_match_words",
               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "secret_anchor": ("trivy_anchor_words",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                       + [ctypes.c_void_p]),
     "secret_conv": ("trivy_conv_anchor_words",
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                     + [ctypes.c_void_p]),
     "secret_prefilter": ("trivy_prefilter_hits",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -45,6 +46,9 @@ _ENTRY = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# what nvcc printed for each source built by this process (ptxas -v:
+# registers, shared memory and spills of each kernel)
+BUILD_LOG: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -87,6 +91,7 @@ def _build_locked(names: list[str]) -> dict[str, tuple[Path, float]]:
     failed = []
     for name, (proc, tmp) in procs.items():
         _out, err = proc.communicate()
+        BUILD_LOG[name] = err
         so = built[name][0]
         built[name] = (so, time.perf_counter() - t0)
         if proc.returncode != 0:
@@ -158,28 +163,26 @@ def _launch(name: str, what: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def anchor_words_cuda(chunks: torch.Tensor, table: torch.Tensor,
-                      bit_word: torch.Tensor, bit_idx: torch.Tensor,
-                      active: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch csrc/secret_anchor.cu into the zeroed `out`. Callers
-    check shapes, dtypes and devices (ops/secret_nfa.py:anchor_words)."""
+def screen_words_cuda(name: str, chunks: torch.Tensor,
+                      cls_bits: torch.Tensor, taps: torch.Tensor,
+                      n_taps: torch.Tensor, out: torch.Tensor,
+                      tile_words: int, tiles_per_block: int,
+                      smem: int) -> None:
+    """Launch the shared secret screen through csrc/<name>.cu
+    (secret_anchor or secret_conv) into the zeroed `out`. Callers check
+    shapes, dtypes, devices and alignment and choose the layout
+    (ops/secret_nfa.py:screen_words)."""
     c, length = chunks.shape
-    _launch("secret_anchor", "anchor", out.device, chunks.data_ptr(),
-            table.data_ptr(), bit_word.data_ptr(), bit_idx.data_ptr(),
-            active.data_ptr(), out.data_ptr(), c, length, table.shape[1],
-            bit_word.shape[0], out.shape[1])
+    _launch(name, name, out.device, chunks.data_ptr(), cls_bits.data_ptr(),
+            taps.data_ptr(), n_taps.data_ptr(), out.data_ptr(), c, length,
+            cls_bits.shape[1], taps.shape[0], out.shape[1], tile_words,
+            tiles_per_block, smem)
 
 
-def conv_anchor_words_cuda(chunks: torch.Tensor, cls_bits: torch.Tensor,
-                           tap_cls: torch.Tensor, tap_act: torch.Tensor,
-                           out: torch.Tensor) -> None:
-    """Launch csrc/secret_conv.cu into the zeroed `out`. Callers check
-    shapes, dtypes and devices (ops/secret_nfa.py:conv_anchor_words)."""
-    c, length = chunks.shape
-    _launch("secret_conv", "conv anchor", out.device, chunks.data_ptr(),
-            cls_bits.data_ptr(), tap_cls.data_ptr(), tap_act.data_ptr(),
-            out.data_ptr(), c, length, cls_bits.shape[1], tap_cls.shape[0],
-            out.shape[1])
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def prefilter_hits_cuda(chunks: torch.Tensor, kw: torch.Tensor,

@@ -24,12 +24,16 @@ overlap covers the anchor span, and any anchor that cannot be encoded
 Two banks, two kernels, one contract (chunks -> uint32[C, rw] words,
 carried as int32 bit patterns):
 
-- `AnchorBank` (<= 128 distinct classes): `anchor_words`, the
-  hand-written kernel ops/csrc/secret_anchor.cu on a CUDA tensor, the
-  plain version `anchor_words_ref` on a CPU tensor;
-- `ConvAnchorBank` (no class budget): `conv_anchor_words`, kernel
-  ops/csrc/secret_conv.cu, plain version `conv_anchor_words_ref` (the
-  reference's one-hot convolution, in float32).
+- `AnchorBank` (<= 128 distinct classes): `anchor_words` on an
+  `AnchorTensors`, the hand-written kernel ops/csrc/secret_anchor.cu on
+  a CUDA tensor, the plain version `anchor_words_ref` on a CPU tensor;
+- `ConvAnchorBank` (no class budget): `conv_anchor_words` on a
+  `ConvTensors`, kernel ops/csrc/secret_conv.cu, plain version
+  `conv_anchor_words_ref` (the reference's one-hot convolution, in
+  float32).
+
+Both kernels are one bit-sliced screen (ops/csrc/secret_screen.cuh) on
+one compact form of the bank (`screen_taps`), built once per matcher.
 
 The class-sequence compiler, the anchors, both banks' arrays and the
 chunking are copies of the reference's, so the banks hold identical
@@ -472,12 +476,12 @@ class ConvAnchorBank:
     semantics: products are 0/1, sums never exceed K_ANCHOR.
 
     Beside the reference's dense arrays (classtab, taps, n_active),
-    which the plain version contracts, the bank keeps the compact form
-    the CUDA kernel reads: tap_cls / tap_act (the class index and
-    active flag of each (rule, tap), the reference's locals) and
-    cls_bits, the class table as a uint32[256, ceil(nc / 32)] bitset
-    (class i = bit i % 32 of word i // 32), i.e. an AnchorBank without
-    the class budget."""
+    which the plain version contracts, the bank keeps what the CUDA
+    screen's compact form is built from (ConvTensors, screen_taps):
+    tap_cls / tap_act (the class index and active flag of each (rule,
+    tap), the reference's locals) and cls_bits, the class table as a
+    uint32[256, ceil(nc / 32)] bitset (class i = bit i % 32 of word
+    i // 32), i.e. an AnchorBank without the class budget."""
 
     def __init__(self, rows: list[list[np.ndarray]]):
         self.n = len(rows)
@@ -603,48 +607,6 @@ def anchor_words_ref(chunks: torch.Tensor, table: torch.Tensor,
     return _pack_hits(hit, rw)
 
 
-def anchor_words(chunks: torch.Tensor, table: torch.Tensor,
-                 bit_word: torch.Tensor, bit_idx: torch.Tensor,
-                 active: torch.Tensor) -> torch.Tensor:
-    """-> int32[C, ceil(R / 32)] packed per-chunk rule-hit words
-    (uint32 bit patterns) of an AnchorBank.
-
-    On a CUDA tensor: the hand-written kernel (ops/csrc/secret_anchor.cu;
-    raises if it cannot launch). On a CPU tensor: `anchor_words_ref`."""
-    if chunks.device.type == "cpu":
-        return anchor_words_ref(chunks, table, bit_word, bit_idx, active)
-    from trivy_tpu_torch.ops import kernels
-
-    dev = chunks.device
-    if chunks.dim() != 2 or table.dim() != 2 or bit_word.dim() != 2:
-        raise ValueError("anchor_words: chunks, table and bit_word must "
-                         "be 2-d")
-    c, length = chunks.shape
-    nw = table.shape[1]
-    r = bit_word.shape[0]
-    check = kernels.check_tensor
-    check("anchor_words: chunks", chunks, torch.uint8, (c, length), dev)
-    check("anchor_words: table", table, torch.int32, (256, nw), dev)
-    for name, t, dtype in (("bit_word", bit_word, torch.int32),
-                           ("bit_idx", bit_idx, torch.int32),
-                           ("active", active, torch.bool)):
-        check(f"anchor_words: {name}", t, dtype, (r, K_ANCHOR), dev)
-    if not 1 <= nw <= MAX_CLASS_WORDS:
-        raise ValueError(f"anchor_words: table has {nw} class words; the "
-                         f"kernel takes 1..{MAX_CLASS_WORDS}")
-    out = torch.zeros((c, _rule_words(r)), dtype=torch.int32, device=dev)
-    if c == 0 or length == 0 or r == 0:
-        return out
-    kernels.anchor_words_cuda(chunks, table, bit_word, bit_idx, active,
-                              out)
-    with _count_lock:
-        anchor_words.launches += 1
-    return out
-
-
-anchor_words.launches = 0  # kernel launches (CUDA path only)
-
-
 def conv_anchor_words_ref(chunks: torch.Tensor, classtab: torch.Tensor,
                           taps: torch.Tensor, n_active: torch.Tensor,
                           rw: int) -> torch.Tensor:
@@ -685,33 +647,133 @@ def conv_anchor_words_ref(chunks: torch.Tensor, classtab: torch.Tensor,
     return _pack_hits(hit, rw)
 
 
-@dataclass
-class ConvTensors:
-    """A ConvAnchorBank on one device: the compact form the CUDA kernel
-    reads (cls_bits, tap_cls, tap_act; see ConvAnchorBank), uint32 words
-    as int32 bit patterns. The dense reference contract stays in the
-    host bank; `dense` puts it on a device for the plain version."""
+# ------------------------------------------------------ the CUDA screen
+#
+# Both banks reach the card in one compact form, and one hand-written
+# screen (ops/csrc/secret_screen.cuh) serves both, through the entry
+# points of ops/csrc/secret_anchor.cu and ops/csrc/secret_conv.cu.
 
-    bank: ConvAnchorBank
-    cls_bits: torch.Tensor  # int32[256, ceil(nc / 32)]
-    tap_cls: torch.Tensor  # int32[n, K_ANCHOR]
-    tap_act: torch.Tensor  # bool[n, K_ANCHOR]
+SCREEN_MIN_BLOCKS = 4  # blocks an SM holds at least (__launch_bounds__)
+SM_SMEM = 228 * 1024  # shared memory of one H100 SM
+BLOCK_SMEM_MAX = 227 * 1024  # the most one block may take
+# the most shared memory a block may take with 2,048-position tiles: two
+# blocks an SM (1 KB each is the card's own). On the H100 the larger tile
+# screened the overflow bank's 256 classes faster at two blocks an SM
+# than the smaller one at four (PERF.md)
+SCREEN_SMEM_TARGET = SM_SMEM // 2 - 1024
+
+
+def screen_taps(cls_bits: np.ndarray, tap_cls: np.ndarray,
+                tap_act: np.ndarray, tap_never: np.ndarray):
+    """A bank's taps in the screen's compact form. -> (taps int32[R, 8],
+    n_taps int32[R]).
+
+    cls_bits uint32[256, ncw] (class i = bit i % 32 of word i // 32);
+    tap_cls int[R, 8] class of each tap; tap_act bool[R, 8] active taps;
+    tap_never bool[R, 8] active taps that name no class. Row r lists its
+    active taps as (class << 3) | tap position, rarest class first (the
+    class's byte count, then the position); the rest of the row is 0.
+    n_taps[r] is the number of active taps, -1 when one names no class
+    (the rule never hits), 0 when none is active (it hits wherever the
+    chunk has a position). AND does not depend on the order, so the
+    screen's result does not either; the order lets it leave a rule
+    early."""
+    bits = np.unpackbits(np.ascontiguousarray(cls_bits).view(np.uint8),
+                         axis=1, bitorder="little")
+    count = bits.sum(axis=0)
+    r = tap_cls.shape[0]
+    taps = np.zeros((r, K_ANCHOR), dtype=np.int32)
+    n_taps = np.zeros(r, dtype=np.int32)
+    for i in range(r):
+        if tap_never[i].any():
+            n_taps[i] = -1
+            continue
+        js = sorted(np.nonzero(tap_act[i])[0].tolist(),
+                    key=lambda j: (count[tap_cls[i, j]], j))
+        n_taps[i] = len(js)
+        for t, j in enumerate(js):
+            taps[i, t] = int(tap_cls[i, j]) << 3 | j
+    return taps, n_taps
+
+
+def _put(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@dataclass
+class ScreenTensors:
+    """A bank in the screen's compact form on one device (screen_taps),
+    uint32 words as int32 bit patterns."""
+
+    cls_bits: torch.Tensor  # int32[256, ncw]
+    taps: torch.Tensor  # int32[R, K_ANCHOR]
+    n_taps: torch.Tensor  # int32[R]
+    rw: int  # output words per chunk
 
     @property
     def device(self) -> torch.device:
-        return self.tap_cls.device
+        return self.taps.device
 
-    @property
-    def rw(self) -> int:
-        return self.bank.rw
+
+@dataclass
+class AnchorTensors(ScreenTensors):
+    """An AnchorBank on one device: the compact form the CUDA kernel
+    reads. The reference arrays (table, bit_word, bit_idx, active) stay
+    on the host; `reference` puts them on a device for the plain
+    version."""
+
+    host: tuple  # (table, bit_word, bit_idx, active) as numpy arrays
+
+    @classmethod
+    def from_arrays(cls, table: np.ndarray, bit_word: np.ndarray,
+                    bit_idx: np.ndarray, active: np.ndarray,
+                    device) -> "AnchorTensors":
+        """table uint32[256, NW]; bit_word int32[R, 8]; bit_idx uint32[R,
+        8]; active bool[R, 8] (the _anchor_kernel contract). A tap whose
+        word or bit lies outside the table never holds."""
+        nw = table.shape[1]
+        bw = bit_word.astype(np.int64)
+        bi = bit_idx.astype(np.int64) & _MASK32
+        valid = (bw >= 0) & (bw < nw) & (bi < 32)
+        taps, n_taps = screen_taps(table, np.where(valid, bw * 32 + bi, 0),
+                                   active & valid, active & ~valid)
+        return cls(cls_bits=_put(table.view(np.int32), device),
+                   taps=_put(taps, device), n_taps=_put(n_taps, device),
+                   rw=_rule_words(bit_word.shape[0]),
+                   host=(table, bit_word, bit_idx, active))
+
+    @classmethod
+    def from_bank(cls, bank: AnchorBank, device) -> "AnchorTensors":
+        return cls.from_arrays(bank.table, bank.bit_word, bank.bit_idx,
+                               bank.active, device)
+
+    def reference(self, device=None) -> tuple[torch.Tensor, ...]:
+        """-> (table, bit_word, bit_idx, active), the plain version's
+        operands, on `device` (default: the compact form's)."""
+        device = self.device if device is None else torch.device(device)
+        table, bit_word, bit_idx, active = self.host
+        return tuple(_put(a, device) for a in (
+            table.view(np.int32), bit_word, bit_idx.view(np.int32), active))
+
+
+@dataclass
+class ConvTensors(ScreenTensors):
+    """A ConvAnchorBank on one device: the compact form the CUDA kernel
+    reads (the bank's cls_bits, and its tap_cls / tap_act through
+    screen_taps). The dense reference contract stays in the host bank;
+    `dense` puts it on a device for the plain version."""
+
+    bank: ConvAnchorBank
 
     @classmethod
     def from_bank(cls, bank: ConvAnchorBank, device) -> "ConvTensors":
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-        return cls(bank=bank, cls_bits=put(bank.cls_bits.view(np.int32)),
-                   tap_cls=put(bank.tap_cls), tap_act=put(bank.tap_act))
+        n_cls = bank.cls_bits.shape[1] * 32
+        never = bank.tap_act & ((bank.tap_cls < 0) | (bank.tap_cls >= n_cls))
+        taps, n_taps = screen_taps(bank.cls_bits, bank.tap_cls,
+                                   bank.tap_act, never)
+        return cls(cls_bits=_put(bank.cls_bits.view(np.int32), device),
+                   taps=_put(taps, device), n_taps=_put(n_taps, device),
+                   rw=bank.rw, bank=bank)
 
     def dense(self, device=None) -> tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
@@ -721,6 +783,114 @@ class ConvTensors:
         device = self.device if device is None else torch.device(device)
         return tuple(torch.from_numpy(a).to(device) for a in (
             self.bank.classtab, self.bank.taps, self.bank.n_active))
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def screen_smem(ncw: int, n_rules: int, rw: int, tile_words: int) -> int:
+    """Dynamic shared memory of one screen block, in bytes: two byte
+    buffers of a tile and its halo word, the class table, the taps, the
+    tap counts, the hit mask and the tile's class bitmaps (the Layout of
+    ops/csrc/secret_screen.cuh)."""
+    return (2 * _align16(tile_words * 32 + 32) + _align16(1024 * ncw)
+            + _align16(32 * n_rules) + _align16(n_rules) + _align16(4 * rw)
+            + 128 * ncw * (tile_words + 1))
+
+
+@dataclass(frozen=True)
+class ScreenLayout:
+    tile_words: int  # 32-position words per tile (64 or 32)
+    tiles_per_block: int  # the run of one chunk's tiles a block walks
+    blocks: int
+    smem: int  # dynamic shared memory per block, bytes
+    slots: int  # blocks the card holds at once (estimate)
+
+
+def screen_layout(c: int, length: int, ncw: int, n_rules: int, rw: int,
+                  n_sm: int) -> ScreenLayout:
+    """The grid of one screen launch over `c` chunks of `length` bytes on
+    a card of `n_sm` SMs. Tiles hold 2,048 positions while a block's
+    shared memory lets two blocks share an SM, else 1,024.
+    A block walks a run of one chunk's tiles in order (so a rule hit in
+    one tile is skipped in the later ones); a batch with fewer chunks
+    than the card has block slots splits each chunk into several runs."""
+    for tile_words in (64, 32):
+        smem = screen_smem(ncw, n_rules, rw, tile_words)
+        if smem <= SCREEN_SMEM_TARGET:
+            break
+    if smem > BLOCK_SMEM_MAX:
+        raise ValueError(f"screen: {ncw} class words and {n_rules} rules "
+                         f"need {smem} bytes of shared memory a block; "
+                         f"the card has {BLOCK_SMEM_MAX}")
+    slots = min(SCREEN_MIN_BLOCKS, SM_SMEM // (smem + 1024)) * n_sm
+    tiles = -(-length // (32 * tile_words))
+    runs = max(1, min(tiles, slots // max(c, 1)))
+    per_block = -(-tiles // runs)
+    return ScreenLayout(tile_words=tile_words, tiles_per_block=per_block,
+                        blocks=c * -(-tiles // per_block), smem=smem,
+                        slots=slots)
+
+
+def _screen_words(name: str, what: str, chunks: torch.Tensor,
+                  bank: ScreenTensors) -> tuple[torch.Tensor, bool]:
+    """The shared screen through csrc/<name>.cu on a card tensor: check
+    the arguments, lay out the grid, zero the output and launch. ->
+    (int32[C, rw] words, whether the kernel was launched)."""
+    from trivy_tpu_torch.ops import kernels
+
+    dev = chunks.device
+    if chunks.dim() != 2 or bank.cls_bits.dim() != 2 \
+            or bank.taps.dim() != 2:
+        raise ValueError(f"{what}: chunks, cls_bits and taps must be 2-d")
+    c, length = chunks.shape
+    ncw = bank.cls_bits.shape[1]
+    r = bank.taps.shape[0]
+    check = kernels.check_tensor
+    check(f"{what}: chunks", chunks, torch.uint8, (c, length), dev)
+    check(f"{what}: cls_bits", bank.cls_bits, torch.int32, (256, ncw), dev)
+    check(f"{what}: taps", bank.taps, torch.int32, (r, K_ANCHOR), dev)
+    check(f"{what}: n_taps", bank.n_taps, torch.int32, (r,), dev)
+    if r > bank.rw * 32:
+        raise ValueError(f"{what}: {r} rules do not fit {bank.rw} words")
+    out = torch.zeros((c, bank.rw), dtype=torch.int32, device=dev)
+    if c == 0 or length == 0 or r == 0:
+        return out, False
+    if length % 16 or chunks.data_ptr() % 16:
+        raise ValueError(f"{what}: chunk rows must be 16-byte aligned "
+                         f"(length {length})")
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    lay = screen_layout(c, length, ncw, r, bank.rw, kernels.sm_count(index))
+    kernels.screen_words_cuda(name, chunks, bank.cls_bits, bank.taps,
+                              bank.n_taps, out, lay.tile_words,
+                              lay.tiles_per_block, lay.smem)
+    return out, True
+
+
+def anchor_words(chunks: torch.Tensor, bank: AnchorTensors) -> torch.Tensor:
+    """-> int32[C, bank.rw] packed per-chunk rule-hit words (uint32 bit
+    patterns) of an AnchorBank.
+
+    On a CUDA tensor: the hand-written kernel (ops/csrc/secret_anchor.cu)
+    on the compact form; raises if it cannot launch. On a CPU tensor:
+    `anchor_words_ref` on the reference arrays."""
+    if chunks.device.type == "cpu":
+        return anchor_words_ref(chunks, *bank.reference(chunks.device))
+    nw = bank.cls_bits.shape[-1]
+    if not 1 <= nw <= MAX_CLASS_WORDS:
+        raise ValueError(f"anchor_words: table has {nw} class words; the "
+                         f"kernel takes 1..{MAX_CLASS_WORDS}")
+    out, launched = _screen_words("secret_anchor", "anchor_words", chunks,
+                                  bank)
+    if launched:
+        with _count_lock:
+            anchor_words.launches += 1
+    return out
+
+
+anchor_words.launches = 0  # kernel launches (CUDA path only)
 
 
 def conv_anchor_words(chunks: torch.Tensor,
@@ -734,35 +904,11 @@ def conv_anchor_words(chunks: torch.Tensor,
     if chunks.device.type == "cpu":
         return conv_anchor_words_ref(chunks, *bank.dense(chunks.device),
                                      bank.rw)
-    from trivy_tpu_torch.ops import kernels
-
-    dev = chunks.device
-    if chunks.dim() != 2 or bank.cls_bits.dim() != 2 \
-            or bank.tap_cls.dim() != 2:
-        raise ValueError("conv_anchor_words: chunks, cls_bits and tap_cls "
-                         "must be 2-d")
-    c, length = chunks.shape
-    ncw = bank.cls_bits.shape[1]
-    n = bank.tap_cls.shape[0]
-    check = kernels.check_tensor
-    check("conv_anchor_words: chunks", chunks, torch.uint8, (c, length),
-          dev)
-    check("conv_anchor_words: cls_bits", bank.cls_bits, torch.int32,
-          (256, ncw), dev)
-    check("conv_anchor_words: tap_cls", bank.tap_cls, torch.int32,
-          (n, K_ANCHOR), dev)
-    check("conv_anchor_words: tap_act", bank.tap_act, torch.bool,
-          (n, K_ANCHOR), dev)
-    if n > bank.rw * 32:
-        raise ValueError(f"conv_anchor_words: {n} rules do not fit "
-                         f"{bank.rw} words")
-    out = torch.zeros((c, bank.rw), dtype=torch.int32, device=dev)
-    if c == 0 or length == 0 or n == 0:
-        return out
-    kernels.conv_anchor_words_cuda(chunks, bank.cls_bits, bank.tap_cls,
-                                   bank.tap_act, out)
-    with _count_lock:
-        conv_anchor_words.launches += 1
+    out, launched = _screen_words("secret_conv", "conv_anchor_words",
+                                  chunks, bank)
+    if launched:
+        with _count_lock:
+            conv_anchor_words.launches += 1
     return out
 
 
@@ -908,14 +1054,7 @@ class AnchorMatcher:
         if isinstance(bank, ConvAnchorBank):
             self._dev = ConvTensors.from_bank(bank, self.device)
         else:
-            def put(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(
-                    self.device)
-
-            self._dev = (put(bank.table.view(np.int32)),
-                         put(bank.bit_word),
-                         put(bank.bit_idx.view(np.int32)),
-                         put(bank.active))
+            self._dev = AnchorTensors.from_bank(bank, self.device)
 
     def _dispatch(self, batch: np.ndarray) -> _Pending:
         """Copy one [n, CHUNK] batch to the device and enqueue the
@@ -931,7 +1070,7 @@ class AnchorMatcher:
         if isinstance(self.bank, ConvAnchorBank):
             words = conv_anchor_words(chunks, self._dev)
         else:
-            words = anchor_words(chunks, *self._dev)
+            words = anchor_words(chunks, self._dev)
         if words.device.type == "cpu":
             return _Pending(host=words, event=None)
         host = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
