@@ -6,8 +6,8 @@
 Phases, each fatal on failure:
   1. print the card (name, power limit) and build the four CUDA kernels
      from the sources in this checkout, one nvcc process each, all at
-     once, and print ptxas's registers, spills and shared memory of the
-     two screen kernels;
+     once, and print the registers, stack and local (spill) bytes of the
+     two screen kernels as cuobjdump reads them from the built libraries;
   2. hold the match kernel against its plain PyTorch version on the
      card, bit for bit, over ragged DB sizes, windows and batch sizes;
   3. drive the match engine's main path at trivy-db scale: a synthetic
@@ -22,10 +22,13 @@ Phases, each fatal on failure:
      card, bit for bit, over ragged cases: pad semantics, classes
      holding byte 0, bit 31, rules with no active tap or a tap naming no
      class, NW 1-4, nc 128/256/384 with up to 12 output words, batches
-     of 1, 3, 7 and 600 chunks (more than one wave of blocks); counters
-     show the screen's mechanisms were exercised (rules hit in several
-     tiles, only across a tile cut, first in the last tile, rules whose
-     rarest class is absent from the chunk);
+     of 1, 3, 7 and 600 chunks (more than one wave of blocks), and banks
+     too large for one block's shared memory at once (7,000 rules in
+     slices, 48 class words in 512-position tiles, 300 class words with
+     the class table in global memory); counters show the screen's
+     mechanisms were exercised (rules hit in several tiles, only across
+     a tile cut, first in the last tile, rules whose rarest class is
+     absent from the chunk);
   5. drive the secret scanner's main path at a real size: a seeded
      256 MiB source-code-like corpus (about 7,000 files of 256 B to
      256 KiB, two 12 MiB files that take the stream path, some 2,000
@@ -46,7 +49,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -135,6 +140,26 @@ def kernel_ms(fn, iters: int, key: str) -> float | None:
         if count:
             return ms / count
     return None
+
+
+def resource_usage(so) -> list[str]:
+    """-> one line per kernel of a built library: its name and the
+    registers, stack, shared and local (spill) bytes that cuobjdump
+    -res-usage reads from it."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", str(so)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    lines, fn = [], None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            fn = line[len("Function "):].rstrip(":")
+        elif line.startswith("REG:") and fn:
+            lines.append(f"{fn} {line}")
+    if not lines:
+        raise RuntimeError(f"cuobjdump found no kernel in {so}")
+    return lines
 
 
 def words_err(a, b) -> int:
@@ -653,7 +678,9 @@ def check_secret_kernel_cases(dev) -> dict:
     """The three secret kernels == their plain versions, bit for bit,
     over C x bank shapes, with coverage of the screen's mechanisms (tile
     skip, tile cuts, last tile, early exit, batches of 1, 3, 7 chunks
-    and more than one wave of blocks). -> {kernel: max_abs_err}."""
+    and more than one wave of blocks, rules in slices, tiles under 1,024
+    positions, the class table in global memory). -> {kernel:
+    max_abs_err}."""
     import torch
 
     from trivy_tpu_torch.ops import kernels
@@ -671,7 +698,7 @@ def check_secret_kernel_cases(dev) -> dict:
     cov = {"bit31": 0, "no_tap": 0, "multi_tile": 0, "straddle_only": 0,
            "last_tile_first": 0, "rarest_absent": 0, "never_rules": 0,
            "over_one_wave": 0}
-    tiles_seen = set()
+    layouts = set()  # (kernel, tile_words, rules in slices, table in smem)
 
     def run(name, fn, ref, ch, bank, shape):
         lay = nfa.screen_layout(ch.shape[0], ch.shape[1],
@@ -686,7 +713,9 @@ def check_secret_kernel_cases(dev) -> dict:
                                  f"version: {shape} max_abs_err={e}")
         cases[name] += 1
         screen_coverage(cov, ref, ch, bank, lay.tile_words * 32)
-        tiles_seen.add((name, lay.tile_words))
+        layouts.add((name, lay.tile_words,
+                     lay.rules_per_slice < bank.taps.shape[0],
+                     lay.tab_in_smem))
         cov["over_one_wave"] += lay.blocks > lay.slots
         return want.cpu().numpy().view(np.uint32)
 
@@ -716,6 +745,34 @@ def check_secret_kernel_cases(dev) -> dict:
                     lambda x: nfa.conv_anchor_words_ref(x, *dense, bank.rw),
                     put(plant_rows(rng, c, rows)), bank,
                     f"nc={bank.bank.nc} R={r} C={c}")
+    # banks too large for one block's shared memory at once: 7,000 rules
+    # (slices), 48 class words (smaller tiles), 300 (table in global)
+    big = set()
+    for name, n_cls, r in (("anchor", 120, 7000), ("conv", 1530, 7000),
+                           ("conv", 1530, 2000), ("conv", 9600, 1200)):
+        rows = secret_rows(rng, n_cls, r)
+        ch = put(plant_rows(rng, 3, rows))
+        if name == "anchor":
+            bank = nfa.AnchorTensors.from_bank(nfa.AnchorBank(rows), dev)
+            args = bank.reference()
+            fn = nfa.anchor_words
+            run(name, fn, lambda x: nfa.anchor_words_ref(x, *args), ch, bank,
+                f"large R={r}")
+        else:
+            bank = nfa.ConvTensors.from_bank(nfa.ConvAnchorBank(rows), dev)
+            dense = bank.dense()
+            fn = nfa.conv_anchor_words
+            run(name, fn,
+                lambda x: nfa.conv_anchor_words_ref(x, *dense, bank.rw), ch,
+                bank, f"large nc={bank.bank.nc} R={r}")
+        ncw = bank.cls_bits.shape[1]
+        big.add((name, ncw, r))
+        lay = nfa.screen_layout(3, nfa.CHUNK, ncw, r, bank.rw, n_sm)
+        print(f"phase4 large_bank kernel={name} C=3 class_words={ncw} R={r} "
+              f"tile_words={lay.tile_words} "
+              f"rules_per_slice={lay.rules_per_slice} "
+              f"tab_in_smem={int(lay.tab_in_smem)} smem={lay.smem} "
+              f"ms={time_ms(lambda: fn(ch, bank), 5, reps=3):.5f}")
     zero_len = 0
     for max_len in (1, 5, 24):
         for k in (1, 114):
@@ -733,16 +790,22 @@ def check_secret_kernel_cases(dev) -> dict:
                 cases["prefilter"] += 1
                 zero_len += int(ref[:, 0].sum())
     nc_set = sorted({nc for nc, _rw in ncs})
+    tiles = {t for _n, t, _s, _m in layouts}
     if not all(cov.values()) or nc_set != [128, 256, 384] \
             or max(rw for _nc, rw in ncs) != 12 or not zero_len \
-            or {t for _n, t in tiles_seen} != {32, 64}:
+            or not {32, 64} < tiles or min(tiles) > 4 \
+            or not any(s for _n, _t, s, _m in layouts) \
+            or all(m for _n, _t, _s, m in layouts) \
+            or ("anchor", 4, 7000) not in big \
+            or max(ncw for _n, ncw, _r in big) < 44:
         raise AssertionError(
             f"case set lacks coverage: {json.dumps(cov)} nc={nc_set} "
-            f"tiles={sorted(tiles_seen)} zero_length_hits={zero_len}")
+            f"layouts={sorted(layouts)} large={sorted(big)} "
+            f"zero_length_hits={zero_len}")
     print(f"phase4 kernel_vs_plain cases={json.dumps(cases)} "
           f"max_abs_err={json.dumps(err)} coverage={json.dumps(cov)} "
-          f"conv_nc_rw={sorted(ncs)} tile_words={sorted(tiles_seen)} "
-          f"zero_length_keyword_hits={zero_len}")
+          f"conv_nc_rw={sorted(ncs)} layouts={sorted(layouts)} "
+          f"large_banks={sorted(big)} zero_length_keyword_hits={zero_len}")
     return err
 
 
@@ -1259,10 +1322,8 @@ def main() -> int:
     for name, sec in kernels.build(sources).items():
         print(f"phase1 build {name}.cu seconds={sec:.3f}")
     for name in ("secret_anchor", "secret_conv"):
-        for line in kernels.BUILD_LOG.get(name, "").splitlines():
-            if "spill" in line or ("ptxas info" in line and (
-                    "Used" in line or "Compiling" in line)):
-                print(f"phase1 ptxas {name}.cu {line.strip()}")
+        for line in resource_usage(kernels.so_path(name)):
+            print(f"phase1 resources {name}.cu {line}")
     for name in sources:
         kernels.load(name)
 

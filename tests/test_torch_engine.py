@@ -290,7 +290,7 @@ print("\\n".join(sorted(set(sys.modules) - before)))
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "trivy_tpu_torch").rglob("*.py"),
-              ROOT / "chip_smoke.py", ROOT / "screen_ablation.py"]))
+              ROOT / "chip_smoke.py"]))
 def test_port_sources_import_no_jax(path):
     """Static scan: no import statement in the port names jax or the
     JAX package."""

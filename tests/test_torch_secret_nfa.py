@@ -518,7 +518,7 @@ def test_screen_layout_fills_the_card():
     bank and the overflow bank's 256 classes, 1,024 for 384 classes and
     384 rules, one run of tiles per
     chunk once the batch fills the card's block slots, down to one tile
-    per block for a small batch; too many classes raise."""
+    per block for a small batch."""
     n_sm = 132
     main = tn.screen_layout(256, tn.CHUNK, 3, 204, 7, n_sm)
     assert (main.tile_words, main.tiles_per_block, main.blocks) \
@@ -535,14 +535,58 @@ def test_screen_layout_fills_the_card():
             tiles = tn.CHUNK // (32 * lay.tile_words)
             runs, rest = divmod(lay.blocks, c)
             assert not rest and runs == -(-tiles // lay.tiles_per_block)
+            assert (lay.rules_per_slice, lay.tab_in_smem) == (r, True)
             assert lay.smem == tn.screen_smem(ncw, r, rw, lay.tile_words)
             assert lay.smem <= tn.BLOCK_SMEM_MAX
             if c * tiles <= lay.slots:
                 assert runs == tiles
             if c >= lay.slots:
                 assert runs == 1
+
+
+@pytest.mark.parametrize("ncw, r, want", [
+    (4, 7000, (64, 1750, True)),  # rules in four slices
+    (43, 2000, (16, 2000, True)),  # past 1,024-position tiles
+    (48, 7000, (16, 1750, True)),  # both
+    (64, 10, (16, 10, True)),
+    (266, 2000, (4, 1000, False)),  # the class table in global memory
+    (300, 1200, (4, 1200, False)),
+    (880, 100, (1, 100, False)),  # 28,160 classes, 32-position tiles
+])
+def test_screen_layout_takes_large_banks(ncw, r, want):
+    """A bank too large for one block's shared memory at once still
+    fits: its rules in even slices of at least SCREEN_MIN_SLICE, one
+    slice a block, then smaller tiles, then the class table in global
+    memory; only a class count whose 32-position bitmaps alone overflow
+    a block raises."""
+    n_sm = 132
+    rw = -(-r // 32)
+    for c in (1, 3, 600):
+        lay = tn.screen_layout(c, tn.CHUNK, ncw, r, rw, n_sm)
+        assert (lay.tile_words, lay.rules_per_slice, lay.tab_in_smem) == want
+        assert lay.smem == tn.screen_smem(ncw, lay.rules_per_slice, rw,
+                                          lay.tile_words, lay.tab_in_smem)
+        assert lay.smem <= tn.BLOCK_SMEM_MAX
+        slices = -(-r // lay.rules_per_slice)
+        assert slices * lay.rules_per_slice - r < slices  # even slices
+        assert lay.rules_per_slice >= min(r, tn.SCREEN_MIN_SLICE)
+        # the next larger tile, or the table in shared memory, overflows
+        bigger = tn.SCREEN_TILE_WORDS.index(lay.tile_words) - 1
+        if bigger >= 0 and lay.tile_words < 32:
+            assert tn.screen_smem(
+                ncw, min(r, tn.SCREEN_MIN_SLICE), rw,
+                tn.SCREEN_TILE_WORDS[bigger], lay.tab_in_smem) \
+                > tn.BLOCK_SMEM_MAX
+        if not lay.tab_in_smem:
+            assert tn.screen_smem(ncw, min(r, tn.SCREEN_MIN_SLICE), rw, 1) \
+                > tn.BLOCK_SMEM_MAX
+        runs, rest = divmod(lay.blocks, c * slices)
+        tiles = tn.CHUNK // (32 * lay.tile_words)
+        assert not rest and runs == -(-tiles // lay.tiles_per_block)
+        if c * slices * tiles <= lay.slots:
+            assert runs == tiles
     with pytest.raises(ValueError, match="shared memory"):
-        tn.screen_layout(1, tn.CHUNK, 64, 10, 1, n_sm)
+        tn.screen_layout(1, tn.CHUNK, 1000, 10, 1, n_sm)
 
 
 # ------------------------------------------------------------ matcher
@@ -609,7 +653,9 @@ def test_cuda_anchor_kernels_equal_plain_versions():
         got = tn.anchor_words(ch, bank)
         torch.cuda.synchronize()
         assert torch.equal(got, tn.anchor_words_ref(ch, *bank.reference()))
-    for n_cls, r in [(100, 33), (300, 90)]:
+    # the last two fit a block only in slices of rules, or in
+    # 512-position tiles (48 class words)
+    for n_cls, r in [(100, 33), (300, 90), (120, 3000), (1530, 400)]:
         rows = make_rows(rng, n_cls, r, full=True)
         bank = tn.ConvTensors.from_bank(tn.ConvAnchorBank(rows), dev)
         chunks = torch.from_numpy(plant_rows(rng, 3, rows)).to(dev)
@@ -674,9 +720,9 @@ def test_kernel_build_hashes_headers_and_builds_in_parallel(tmp_path,
     (csrc / "shared.cuh").write_text("1")
     monkeypatch.setattr(kernels, "_CSRC", csrc)
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
-    first = kernels._so_path("a")
+    first = kernels.so_path("a")
     (csrc / "shared.cuh").write_text("2")
-    assert kernels._so_path("a") != first
+    assert kernels.so_path("a") != first
     nvcc = tmp_path / "nvcc"
     nvcc.write_text('#!/bin/sh\n'
                     'for a; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
@@ -686,8 +732,8 @@ def test_kernel_build_hashes_headers_and_builds_in_parallel(tmp_path,
     monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
     seconds = kernels.build(["a", "b"])
     assert set(seconds) == {"a", "b"} and min(seconds.values()) > 0
-    assert kernels._so_path("a").read_text() == "built\n"
+    assert kernels.so_path("a").read_text() == "built\n"
     assert kernels.build(["a", "b"]) == {"a": 0.0, "b": 0.0}
     with pytest.raises(RuntimeError, match="nvcc failed on bad.cu"):
         kernels.build(["bad"])
-    assert not kernels._so_path("bad").exists()
+    assert not kernels.so_path("bad").exists()

@@ -28,9 +28,14 @@
 // over the whole tile with an early exit when no lane has a candidate
 // left, and a per-chunk hit mask that skips rules already hit. The grid
 // is chunks x runs of tiles, as many runs per chunk as fill the card
-// (ops/secret_nfa.py:screen_layout). On the H100 the kernel sits at
-// about 2.5x that floor: the bitmap build (a five-shuffle transpose per
-// 32 positions per class word) takes about 0.03 ms of it (PERF.md).
+// (ops/secret_nfa.py:screen_layout); a bank whose rules do not fit a
+// block's shared memory at once is split into slices, one a block. On
+// the H100 the kernel sits at about 2.5x that floor. Of its 0.088 ms,
+// the ablations in PERF.md give about 0.029 ms to the bitmap build
+// (0.035 ms with the rule screen cut out, less a 0.006 ms skeleton of
+// copies and syncs), 0.020 ms of that to its transposes (five shuffles
+// per 32 positions per class word), and about 0.053 ms to the rule
+// screen.
 
 #include "secret_screen.cuh"
 
@@ -43,9 +48,10 @@ anchor_kernel(const uint8_t* __restrict__ chunks,
               const int32_t* __restrict__ n_taps,  // [r]
               uint32_t* __restrict__ out,  // [c, rw], zeroed
               int len, int nw, int n_rules, int rw, int tile_words,
-              int tiles_per_block) {
+              int tiles_per_block, int rules_per_slice, int tab_in_smem) {
   screen::screen_block(chunks, cls_bits, taps, n_taps, out, len, nw, n_rules,
-                       rw, tile_words, tiles_per_block);
+                       rw, tile_words, tiles_per_block, rules_per_slice,
+                       tab_in_smem);
 }
 
 }  // namespace
@@ -54,10 +60,10 @@ extern "C" int trivy_anchor_words(const void* chunks, const void* cls_bits,
                                   const void* taps, const void* n_taps,
                                   void* out, int c, int len, int nw,
                                   int n_rules, int rw, int tile_words,
-                                  int tiles_per_block, int smem,
-                                  void* stream) {
+                                  int tiles_per_block, int rules_per_slice,
+                                  int tab_in_smem, void* stream) {
   if (nw > 4) return static_cast<int>(cudaErrorInvalidValue);  // 128 classes
   return screen::launch(anchor_kernel, chunks, cls_bits, taps, n_taps, out, c,
                         len, nw, n_rules, rw, tile_words, tiles_per_block,
-                        smem, stream);
+                        rules_per_slice, tab_in_smem, stream);
 }

@@ -14,18 +14,21 @@
 // Evaluated directly the only large input is the chunk bytes, so the
 // least time is the bytes over the memory rate: 0.63 us for 128 chunks
 // at 3.35 TB/s. The bit-sliced design's own floor at that shape (128
-// chunks, 332 rules, nc 256 in 8 class words; chip_smoke.py
-// screen_floor) with every tap of every rule on every word: 151M
-// tap-words, about 0.7 GB of shared-memory reads and 0.56 G integer
-// operations, about 0.034 ms at 132 SMs x 128 B a clock.
+// chunks, 332 rules; the dense form pads its classes to nc 256, the
+// compact form holds them in 6 class words; chip_smoke.py screen_floor)
+// with every tap of every rule on every word: 151M tap-words, about
+// 0.7 GB of shared-memory reads and 0.56 G integer operations, about
+// 0.034 ms at 132 SMs x 128 B a clock.
 //
 // What the design does about it: the same screen as the bitset bank
 // (secret_screen.cuh), on the bank's compact form (ConvAnchorBank
 // cls_bits, and its tap_cls / tap_act ordered rarest class first by
-// ops/secret_nfa.py:screen_taps). nc is unbounded: the tile shrinks from
-// 2,048 to 1,024 positions when a block's shared memory would keep fewer
-// than two blocks on an SM (ops/secret_nfa.py:screen_layout); past that
-// the launch is refused. Rule bits at or past n stay zero: only rules
+// ops/secret_nfa.py:screen_taps). The bank has no class budget, and the
+// screen takes any rule count and up to about 870 class words (27,800
+// classes): ops/secret_nfa.py:screen_layout keeps 2,048-position tiles
+// while two blocks fit an SM, then splits the rules into slices (one a
+// block), shrinks the tile down to 32 positions and, past that, reads
+// the class table from global memory. Rule bits at or past n stay zero: only rules
 // [0, n) are screened, into an output the wrapper
 // (ops/secret_nfa.py:conv_anchor_words) zeroes.
 
@@ -40,9 +43,10 @@ conv_kernel(const uint8_t* __restrict__ chunks,
             const int32_t* __restrict__ n_taps,  // [n]
             uint32_t* __restrict__ out,  // [c, rw], zeroed
             int len, int ncw, int n_rules, int rw, int tile_words,
-            int tiles_per_block) {
+            int tiles_per_block, int rules_per_slice, int tab_in_smem) {
   screen::screen_block(chunks, cls_bits, taps, n_taps, out, len, ncw,
-                       n_rules, rw, tile_words, tiles_per_block);
+                       n_rules, rw, tile_words, tiles_per_block,
+                       rules_per_slice, tab_in_smem);
 }
 
 }  // namespace
@@ -52,9 +56,10 @@ extern "C" int trivy_conv_anchor_words(const void* chunks,
                                        const void* taps, const void* n_taps,
                                        void* out, int c, int len, int ncw,
                                        int n_rules, int rw, int tile_words,
-                                       int tiles_per_block, int smem,
+                                       int tiles_per_block,
+                                       int rules_per_slice, int tab_in_smem,
                                        void* stream) {
   return screen::launch(conv_kernel, chunks, cls_bits, taps, n_taps, out, c,
                         len, ncw, n_rules, rw, tile_words, tiles_per_block,
-                        smem, stream);
+                        rules_per_slice, tab_in_smem, stream);
 }

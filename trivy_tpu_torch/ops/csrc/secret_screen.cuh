@@ -14,8 +14,8 @@
 // Rule r hits at position i of a chunk when every tap's class holds at
 // i + shift; its output bit is the any-hit over the chunk.
 //
-// A block owns a run of tiles (tile_words * 32 positions each) of one
-// chunk and walks them in order:
+// A block owns one slice of the rules and a run of tiles (tile_words *
+// 32 positions each) of one chunk, and walks the tiles in order:
 //  - the tile's bytes (plus one 32-byte halo word) arrive in shared
 //    memory by cp.async, 16 B a thread; the next tile's copy is in flight
 //    while the current tile is screened;
@@ -24,12 +24,13 @@
 //    lanes x 32 classes into 32 classes x 32 positions. Positions at or
 //    past the chunk's end hold no class (the reference's zero predicate
 //    and conv sentinel 256); a byte 0 inside the chunk maps normally;
-//  - one warp per rule over the whole tile, tile_words / 32 position
-//    words a lane: AND over the taps of the class bitmap funnel-shifted
-//    by the tap's shift, the neighbour word taken from the next lane by
-//    a shuffle (the last lane's from lane 0's next word, or the tile's
-//    halo word); the rule leaves as soon as no lane has a candidate left
-//    (__any_sync);
+//  - tiles of 32 or 64 words: one warp per rule over the whole tile,
+//    tile_words / 32 position words a lane; smaller tiles: a warp takes
+//    32 / tile_words rules at once, one word a lane. AND over the taps
+//    of the class bitmap funnel-shifted by the tap's shift, the
+//    neighbour word taken from the next lane by a shuffle (the last
+//    lane's from lane 0's next word, or the tile's halo word); the warp
+//    leaves as soon as no lane has a candidate left (__any_sync);
 //  - a per-chunk hit mask in shared memory skips rules already hit in
 //    an earlier tile, and picks up bits other blocks of the chunk have
 //    published; after each tile the block ORs its mask into the zeroed
@@ -37,6 +38,16 @@
 //    never cleared, so the result does not depend on the order).
 // Skipping is a speed-up only: every rule not yet hit is screened on
 // every tile.
+//
+// No bank is too large for the screen. The host (ops/secret_nfa.py:
+// screen_layout) sizes the block's shared memory (Layout) to fit:
+//  - rule metadata in slices of rules_per_slice rules, one slice a
+//    block, staged once: the grid is chunks x slices x runs of tiles;
+//  - the class table in shared memory, or read from global memory
+//    (tab_in_smem 0) when it does not fit;
+//  - tiles of 2,048 positions down to 32, so that the class bitmaps of
+//    every class word fit: 32 positions hold 256 B a class word, so a
+//    block takes up to about 870 class words (27,800 classes).
 
 #pragma once
 
@@ -52,16 +63,20 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
-// Byte offsets of the block's dynamic shared memory. ops/secret_nfa.py
-// (screen_smem) computes the same total to choose the tile.
+// Byte offsets of the block's dynamic shared memory: two tile byte
+// buffers, the class table (when in shared memory), the block's slice
+// of rule metadata, the chunk's hit mask and the tile's class bitmaps.
+// ops/secret_nfa.py (screen_smem) computes the same total to choose the
+// layout; the launch sizes the block from this one.
 struct Layout {
   int tile_bytes, tab, taps, counts, mask, bm, total;
-  __host__ __device__ Layout(int ncw, int n_rules, int rw, int tile_words)
+  __host__ __device__ Layout(int ncw, int rw, int tile_words, int slice,
+                             bool tab_in_smem)
       : tile_bytes(align16(tile_words * 32 + 32)),
         tab(2 * tile_bytes),
-        taps(tab + align16(256 * ncw * 4)),
-        counts(taps + align16(n_rules * kTaps * 4)),
-        mask(counts + align16(n_rules)),
+        taps(tab + (tab_in_smem ? align16(256 * ncw * 4) : 0)),
+        counts(taps + align16(slice * kTaps * 4)),
+        mask(counts + align16(slice)),
         bm(mask + align16(rw * 4)),
         total(bm + ncw * 32 * (tile_words + 1) * 4) {}
 };
@@ -99,14 +114,25 @@ __device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
 }
 
 // bm[cls * wpt + k], bit q = class cls holds at tile position 32k + q,
-// for k in [0, tile_words] (the last word is the halo). A warp takes
-// two position words at a time, so that their transposes interleave.
+// for k in [0, tile_words] (the last word is the halo). `tab` is the
+// class table in shared or global memory. A warp takes two position
+// words at a time, so that their transposes interleave; a tile of fewer
+// words than warps is split over (position word, class word) pairs.
 __device__ __forceinline__ void build_class_bitmaps(
     const uint8_t* bytes, int len, int t0, const uint32_t* tab, int ncw,
     uint32_t* bm, int tile_words) {
   constexpr int kWarps = kThreads / 32;
   const int lane = threadIdx.x & 31;
   const int wpt = tile_words + 1;
+  if (tile_words < 32) {
+    for (int p = threadIdx.x >> 5; p < wpt * ncw; p += kWarps) {
+      const int k = p / ncw, w = p - k * ncw;
+      const bool valid = t0 + 32 * k + lane < len;
+      const uint32_t v = valid ? tab[bytes[32 * k + lane] * ncw + w] : 0u;
+      bm[(32 * w + lane) * wpt + k] = transpose32(v, lane);
+    }
+    return;
+  }
   for (int k = threadIdx.x >> 5; k <= tile_words; k += 2 * kWarps) {
     const int k2 = k + kWarps;
     const bool two = k2 <= tile_words;  // warp-uniform
@@ -123,20 +149,23 @@ __device__ __forceinline__ void build_class_bitmaps(
   }
 }
 
-// Screen every live rule against the tile's bitmaps, one warp per rule,
-// and set the hit ones in `mask`. W = tile_words / 32 position words a
-// lane (1 or 2), evaluated together: W independent loads in flight per
-// tap and one vote per tap for the whole tile.
+// Screen every live rule of a slice (rules base + [0, n_rules), its taps
+// and counts at slice index r) against the tile's bitmaps, one warp per
+// rule, and set the hit ones in `mask`. W = tile_words / 32 position
+// words a lane (1 or 2), evaluated together: W independent loads in
+// flight per tap and one vote per tap for the whole tile.
 template <int W>
 __device__ __forceinline__ void screen_rules_w(const uint32_t* bm,
                                                const uint32_t* taps,
                                                const int8_t* counts,
-                                               int n_rules, uint32_t* mask) {
+                                               int n_rules, int base,
+                                               uint32_t* mask) {
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < n_rules; r += kThreads / 32) {
     const int n = counts[r];
-    const uint32_t done = __shfl_sync(kFull, mask[r >> 5], 0);
-    if (n <= 0 || ((done >> (r & 31)) & 1u)) continue;  // warp-uniform
+    const int g = base + r;
+    const uint32_t done = __shfl_sync(kFull, mask[g >> 5], 0);
+    if (n <= 0 || ((done >> (g & 31)) & 1u)) continue;  // warp-uniform
     const uint4 a = reinterpret_cast<const uint4*>(taps + r * kTaps)[0];
     const uint4 b = reinterpret_cast<const uint4*>(taps + r * kTaps)[1];
     const uint32_t tap[kTaps] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
@@ -167,7 +196,45 @@ __device__ __forceinline__ void screen_rules_w(const uint32_t* bm,
       any = __any_sync(kFull, acc != 0);
       if (!any) break;
     }
-    if (any && lane == 0) atomicOr(mask + (r >> 5), 1u << (r & 31));
+    if (any && lane == 0) atomicOr(mask + (g >> 5), 1u << (g & 31));
+  }
+}
+
+// screen_rules_w for tiles of tile_words < 32 words: a warp takes
+// 32 / tile_words rules at once, lane = slot * tile_words + word; each
+// slot's last lane takes its neighbour word from the halo word.
+__device__ __forceinline__ void screen_rules_small(const uint32_t* bm,
+                                                   int tile_words,
+                                                   const uint32_t* taps,
+                                                   const int8_t* counts,
+                                                   int n_rules, int base,
+                                                   uint32_t* mask) {
+  const int lane = threadIdx.x & 31;
+  const int per_warp = 32 / tile_words;
+  const int slot = lane / tile_words, k = lane - slot * tile_words;
+  const uint32_t slot_lanes = (kFull >> (32 - tile_words))
+                              << (slot * tile_words);
+  for (int r0 = (threadIdx.x >> 5) * per_warp; r0 < n_rules;
+       r0 += (kThreads / 32) * per_warp) {
+    const int r = r0 + slot;
+    const int g = base + r;
+    int n = r < n_rules ? counts[r] : 0;
+    if (n > 0 && ((mask[g >> 5] >> (g & 31)) & 1u)) n = 0;
+    const int most = __reduce_max_sync(kFull, max(n, 0));
+    uint32_t h = n > 0 ? kFull : 0u;
+    for (int t = 0; t < most; ++t) {
+      const uint32_t tap = t < n ? taps[r * kTaps + t] : 0u;
+      const uint32_t* row = bm + (tap >> 3);
+      const uint32_t lo = row[k];
+      uint32_t hi = __shfl_down_sync(kFull, lo, 1);
+      if (k == tile_words - 1) hi = row[tile_words];  // the halo word
+      if (t < n) h &= __funnelshift_r(lo, hi, tap & 7u);
+      if (!__any_sync(kFull, h != 0)) break;
+    }
+    const uint32_t hits = __ballot_sync(kFull, h != 0);
+    if (k == 0 && n > 0 && (hits & slot_lanes)) {
+      atomicOr(mask + (g >> 5), 1u << (g & 31));
+    }
   }
 }
 
@@ -175,23 +242,27 @@ __device__ __forceinline__ void screen_rules(const uint32_t* bm,
                                              int tile_words,
                                              const uint32_t* taps,
                                              const int8_t* counts,
-                                             int n_rules, uint32_t* mask) {
+                                             int n_rules, int base,
+                                             uint32_t* mask) {
   if (tile_words == 64) {
-    screen_rules_w<2>(bm, taps, counts, n_rules, mask);
+    screen_rules_w<2>(bm, taps, counts, n_rules, base, mask);
+  } else if (tile_words == 32) {
+    screen_rules_w<1>(bm, taps, counts, n_rules, base, mask);
   } else {
-    screen_rules_w<1>(bm, taps, counts, n_rules, mask);
+    screen_rules_small(bm, tile_words, taps, counts, n_rules, base, mask);
   }
 }
 
-// The whole screen of one block: tiles [first, first + tiles_per_block)
-// of chunk blockIdx.x / splits.
+// The whole screen of one block: rules [r0, r0 + slice) on tiles
+// [first, first + tiles_per_block) of one chunk. Block b is chunk
+// b / (slices * runs), slice b / runs % slices, run b % runs.
 __device__ __forceinline__ void screen_block(
     const uint8_t* __restrict__ chunks, const uint32_t* __restrict__ cls_bits,
     const int32_t* __restrict__ taps_in, const int32_t* __restrict__ n_taps,
     uint32_t* __restrict__ out, int len, int ncw, int n_rules, int rw,
-    int tile_words, int tiles_per_block) {
+    int tile_words, int tiles_per_block, int slice, int tab_in_smem) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(ncw, n_rules, rw, tile_words);
+  const Layout lay(ncw, rw, tile_words, slice, tab_in_smem);
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem + lay.tab);
   uint32_t* taps = reinterpret_cast<uint32_t*>(smem + lay.taps);
   int8_t* counts = reinterpret_cast<int8_t*>(smem + lay.counts);
@@ -200,9 +271,12 @@ __device__ __forceinline__ void screen_block(
 
   const int tile_pos = tile_words * 32;
   const int tiles = (len + tile_pos - 1) / tile_pos;
-  const int splits = (tiles + tiles_per_block - 1) / tiles_per_block;
-  const long long c = blockIdx.x / splits;
-  const int first = (blockIdx.x % splits) * tiles_per_block;
+  const int runs = (tiles + tiles_per_block - 1) / tiles_per_block;
+  const int slices = (n_rules + slice - 1) / slice;
+  const long long c = blockIdx.x / (slices * runs);
+  const int r0 = (blockIdx.x / runs % slices) * slice;
+  const int n = min(slice, n_rules - r0);
+  const int first = (blockIdx.x % runs) * tiles_per_block;
   const int last = min(tiles, first + tiles_per_block);
   const uint8_t* chunk = chunks + c * len;
   uint32_t* out_row = out + c * rw;
@@ -219,34 +293,45 @@ __device__ __forceinline__ void screen_block(
   };
   fetch(first);
 
-  // rule metadata and class table, once per block; tap offsets resolved
-  // to bitmap rows of this tile size
+  // the slice's rule metadata (tap offsets resolved to bitmap rows of
+  // this tile size) and the class table, once per block
   const int wpt = tile_words + 1;
-  for (int i = threadIdx.x; i < 256 * ncw; i += kThreads) tab[i] = cls_bits[i];
-  for (int i = threadIdx.x; i < n_rules * kTaps; i += kThreads) {
-    const uint32_t e = static_cast<uint32_t>(taps_in[i]);
+  for (int i = threadIdx.x; i < n * kTaps; i += kThreads) {
+    const uint32_t e = static_cast<uint32_t>(taps_in[r0 * kTaps + i]);
     taps[i] = (((e >> 3) * wpt) << 3) | (e & 7u);
   }
-  for (int r = threadIdx.x; r < n_rules; r += kThreads) {
-    counts[r] = static_cast<int8_t>(n_taps[r]);
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    counts[r] = static_cast<int8_t>(n_taps[r0 + r]);
+  }
+  if (tab_in_smem) {
+    for (int i = threadIdx.x; i < 256 * ncw; i += kThreads) {
+      tab[i] = cls_bits[i];
+    }
   }
   for (int w = threadIdx.x; w < rw; w += kThreads) mask[w] = 0;
   __syncthreads();
-  for (int r = threadIdx.x; r < n_rules; r += kThreads) {
-    if (counts[r] == 0) atomicOr(mask + (r >> 5), 1u << (r & 31));
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    const int g = r0 + r;
+    if (counts[r] == 0) atomicOr(mask + (g >> 5), 1u << (g & 31));
   }
 
   for (int tile = first; tile < last; ++tile) {
     copy_wait_all();
     __syncthreads();  // the tile's bytes are in; the last screen is done
     if (tile + 1 < last) fetch(tile + 1);
-    build_class_bitmaps(smem + ((tile - first) & 1) * lay.tile_bytes, len,
-                        tile * tile_pos, tab, ncw, bm, tile_words);
+    const uint8_t* bytes = smem + ((tile - first) & 1) * lay.tile_bytes;
+    if (tab_in_smem) {
+      build_class_bitmaps(bytes, len, tile * tile_pos, tab, ncw, bm,
+                          tile_words);
+    } else {
+      build_class_bitmaps(bytes, len, tile * tile_pos, cls_bits, ncw, bm,
+                          tile_words);
+    }
     for (int w = threadIdx.x; w < rw; w += kThreads) {
       mask[w] |= *reinterpret_cast<volatile const uint32_t*>(out_row + w);
     }
     __syncthreads();
-    screen_rules(bm, tile_words, taps, counts, n_rules, mask);
+    screen_rules(bm, tile_words, taps, counts, n, r0, mask);
     __syncthreads();
     for (int w = threadIdx.x; w < rw; w += kThreads) {
       if (mask[w]) atomicOr(out_row + w, mask[w]);
@@ -255,23 +340,27 @@ __device__ __forceinline__ void screen_block(
 }
 
 // Check the arguments and launch `kernel` (a __global__ wrapper of
-// screen_block) on `stream`. -> a cudaError_t as an int.
+// screen_block) on `stream`, its shared memory sized by Layout. -> a
+// cudaError_t as an int.
 template <class Kernel>
 int launch(Kernel kernel, const void* chunks, const void* cls_bits,
            const void* taps, const void* n_taps, void* out, int c, int len,
            int ncw, int n_rules, int rw, int tile_words, int tiles_per_block,
-           int smem, void* stream) {
+           int slice, int tab_in_smem, void* stream) {
   if (c <= 0 || len <= 0 || n_rules <= 0) return 0;
-  const int tile_pos = tile_words * 32;
-  if (ncw < 1 || rw < 1 || n_rules > 32 * rw ||
-      (tile_words != 32 && tile_words != 64) || tiles_per_block < 1 ||
-      len % 16 || reinterpret_cast<uintptr_t>(chunks) % 16 ||
-      smem < Layout(ncw, n_rules, rw, tile_words).total) {
+  if (ncw < 1 || rw < 1 || n_rules > 32 * rw || tile_words < 1 ||
+      tile_words > 64 || (tile_words & (tile_words - 1)) ||
+      tiles_per_block < 1 || slice < 1 || len % 16 ||
+      reinterpret_cast<uintptr_t>(chunks) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int smem =
+      Layout(ncw, rw, tile_words, min(slice, n_rules), tab_in_smem != 0).total;
+  const int tile_pos = tile_words * 32;
   const int tiles = (len + tile_pos - 1) / tile_pos;
-  const int splits = (tiles + tiles_per_block - 1) / tiles_per_block;
-  const long long blocks = static_cast<long long>(c) * splits;
+  const int runs = (tiles + tiles_per_block - 1) / tiles_per_block;
+  const int slices = (n_rules + slice - 1) / slice;
+  const long long blocks = static_cast<long long>(c) * slices * runs;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -282,7 +371,7 @@ int launch(Kernel kernel, const void* chunks, const void* cls_bits,
       static_cast<const uint32_t*>(cls_bits),
       static_cast<const int32_t*>(taps), static_cast<const int32_t*>(n_taps),
       static_cast<uint32_t*>(out), len, ncw, n_rules, rw, tile_words,
-      tiles_per_block);
+      tiles_per_block, min(slice, n_rules), tab_in_smem != 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,7 @@ import torch
 _CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # C entry points of each source: name -> (function, argtypes); every
 # one returns cudaGetLastError() as an int
@@ -34,10 +34,10 @@ _ENTRY = {
     "match": ("trivy_match_words",
               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "secret_anchor": ("trivy_anchor_words",
-                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p]),
     "secret_conv": ("trivy_conv_anchor_words",
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p]),
     "secret_prefilter": ("trivy_prefilter_hits",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -46,9 +46,6 @@ _ENTRY = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# what nvcc printed for each source built by this process (ptxas -v:
-# registers, shared memory and spills of each kernel)
-BUILD_LOG: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -62,7 +59,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _so_path(name: str) -> Path:
+def so_path(name: str) -> Path:
     """-> where the library of csrc/<name>.cu lands, named by a hash of
     the source, the shared headers and the flags."""
     digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
@@ -79,7 +76,7 @@ def _build_locked(names: list[str]) -> dict[str, tuple[Path, float]]:
     already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    built = {name: (_so_path(name), 0.0) for name in names}
+    built = {name: (so_path(name), 0.0) for name in names}
     procs = {}
     for name, (so, _s) in built.items():
         if so.exists():
@@ -91,7 +88,6 @@ def _build_locked(names: list[str]) -> dict[str, tuple[Path, float]]:
     failed = []
     for name, (proc, tmp) in procs.items():
         _out, err = proc.communicate()
-        BUILD_LOG[name] = err
         so = built[name][0]
         built[name] = (so, time.perf_counter() - t0)
         if proc.returncode != 0:
@@ -165,18 +161,16 @@ def _launch(name: str, what: str, device: torch.device, *args) -> None:
 
 def screen_words_cuda(name: str, chunks: torch.Tensor,
                       cls_bits: torch.Tensor, taps: torch.Tensor,
-                      n_taps: torch.Tensor, out: torch.Tensor,
-                      tile_words: int, tiles_per_block: int,
-                      smem: int) -> None:
+                      n_taps: torch.Tensor, out: torch.Tensor, lay) -> None:
     """Launch the shared secret screen through csrc/<name>.cu
-    (secret_anchor or secret_conv) into the zeroed `out`. Callers check
-    shapes, dtypes, devices and alignment and choose the layout
-    (ops/secret_nfa.py:screen_words)."""
+    (secret_anchor or secret_conv) into the zeroed `out`, on the grid of
+    `lay` (a secret_nfa.ScreenLayout). Callers check shapes, dtypes,
+    devices and alignment (ops/secret_nfa.py:_screen_words)."""
     c, length = chunks.shape
     _launch(name, name, out.device, chunks.data_ptr(), cls_bits.data_ptr(),
             taps.data_ptr(), n_taps.data_ptr(), out.data_ptr(), c, length,
-            cls_bits.shape[1], taps.shape[0], out.shape[1], tile_words,
-            tiles_per_block, smem)
+            cls_bits.shape[1], taps.shape[0], out.shape[1], lay.tile_words,
+            lay.tiles_per_block, lay.rules_per_slice, int(lay.tab_in_smem))
 
 
 @functools.cache

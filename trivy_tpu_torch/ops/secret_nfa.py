@@ -661,6 +661,10 @@ BLOCK_SMEM_MAX = 227 * 1024  # the most one block may take
 # screened the overflow bank's 256 classes faster at two blocks an SM
 # than the smaller one at four (PERF.md)
 SCREEN_SMEM_TARGET = SM_SMEM // 2 - 1024
+SCREEN_TILE_WORDS = (64, 32, 16, 8, 4, 2, 1)  # 32-position words a tile
+# the fewest rules a slice of a bank too large for one block takes
+# before the tile shrinks instead
+SCREEN_MIN_SLICE = 256
 
 
 def screen_taps(cls_bits: np.ndarray, tap_cls: np.ndarray,
@@ -789,48 +793,74 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def screen_smem(ncw: int, n_rules: int, rw: int, tile_words: int) -> int:
+def screen_smem(ncw: int, rules: int, rw: int, tile_words: int,
+                tab_in_smem: bool = True) -> int:
     """Dynamic shared memory of one screen block, in bytes: two byte
-    buffers of a tile and its halo word, the class table, the taps, the
-    tap counts, the hit mask and the tile's class bitmaps (the Layout of
-    ops/csrc/secret_screen.cuh)."""
-    return (2 * _align16(tile_words * 32 + 32) + _align16(1024 * ncw)
-            + _align16(32 * n_rules) + _align16(n_rules) + _align16(4 * rw)
+    buffers of a tile and its halo word, the class table (unless it is
+    read from global memory), the taps and tap counts of a slice of
+    `rules` rules, the hit mask and the tile's class bitmaps (the Layout
+    of ops/csrc/secret_screen.cuh)."""
+    return (2 * _align16(tile_words * 32 + 32)
+            + (_align16(1024 * ncw) if tab_in_smem else 0)
+            + _align16(32 * rules) + _align16(rules) + _align16(4 * rw)
             + 128 * ncw * (tile_words + 1))
 
 
 @dataclass(frozen=True)
 class ScreenLayout:
-    tile_words: int  # 32-position words per tile (64 or 32)
+    tile_words: int  # 32-position words per tile (64 down to 1)
     tiles_per_block: int  # the run of one chunk's tiles a block walks
+    rules_per_slice: int  # the slice of the rules one block screens
+    tab_in_smem: bool  # the class table in shared (else global) memory
     blocks: int
     smem: int  # dynamic shared memory per block, bytes
     slots: int  # blocks the card holds at once (estimate)
+
+
+def _screen_fit(ncw: int, n_rules: int, rw: int) -> tuple[int, int, bool]:
+    """-> (tile_words, rules_per_slice, tab_in_smem) of a block that fits
+    the card: the largest tile (2,048 positions only while two blocks
+    share an SM), the class table in shared memory before global, and
+    the fewest slices of rules, each of at least SCREEN_MIN_SLICE rules
+    (or all of them)."""
+    least = min(n_rules, SCREEN_MIN_SLICE)
+    for tab in (True, False):
+        for tw in SCREEN_TILE_WORDS:
+            limit = SCREEN_SMEM_TARGET if tw == 64 else BLOCK_SMEM_MAX
+            room = limit - screen_smem(ncw, 0, rw, tw, tab)
+            most = max(0, room // 33)  # 32 B of taps and a count a rule
+            while most and _align16(32 * most) + _align16(most) > room:
+                most -= 1
+            if most >= least:
+                slices = -(-n_rules // most)
+                return tw, -(-n_rules // slices), tab
+    raise ValueError(f"screen: {ncw} class words need more shared memory "
+                     f"than a block has ({BLOCK_SMEM_MAX} bytes)")
 
 
 def screen_layout(c: int, length: int, ncw: int, n_rules: int, rw: int,
                   n_sm: int) -> ScreenLayout:
     """The grid of one screen launch over `c` chunks of `length` bytes on
     a card of `n_sm` SMs. Tiles hold 2,048 positions while a block's
-    shared memory lets two blocks share an SM, else 1,024.
-    A block walks a run of one chunk's tiles in order (so a rule hit in
-    one tile is skipped in the later ones); a batch with fewer chunks
-    than the card has block slots splits each chunk into several runs."""
-    for tile_words in (64, 32):
-        smem = screen_smem(ncw, n_rules, rw, tile_words)
-        if smem <= SCREEN_SMEM_TARGET:
-            break
-    if smem > BLOCK_SMEM_MAX:
-        raise ValueError(f"screen: {ncw} class words and {n_rules} rules "
-                         f"need {smem} bytes of shared memory a block; "
-                         f"the card has {BLOCK_SMEM_MAX}")
+    shared memory lets two blocks share an SM, else 1,024; a bank too
+    large for that is staged in slices of rules, then screened in
+    smaller tiles, then with its class table in global memory
+    (_screen_fit). A block screens one slice of the rules over a run of
+    one chunk's tiles, in order (so a rule hit in one tile is skipped in
+    the later ones); a batch with fewer chunk slices than the card has
+    block slots splits each chunk into several runs."""
+    n_rules = max(n_rules, 1)
+    tile_words, per_slice, tab = _screen_fit(ncw, n_rules, rw)
+    smem = screen_smem(ncw, per_slice, rw, tile_words, tab)
     slots = min(SCREEN_MIN_BLOCKS, SM_SMEM // (smem + 1024)) * n_sm
+    slices = -(-n_rules // per_slice)
     tiles = -(-length // (32 * tile_words))
-    runs = max(1, min(tiles, slots // max(c, 1)))
+    runs = max(1, min(tiles, slots // max(c * slices, 1)))
     per_block = -(-tiles // runs)
     return ScreenLayout(tile_words=tile_words, tiles_per_block=per_block,
-                        blocks=c * -(-tiles // per_block), smem=smem,
-                        slots=slots)
+                        rules_per_slice=per_slice, tab_in_smem=tab,
+                        blocks=c * slices * -(-tiles // per_block),
+                        smem=smem, slots=slots)
 
 
 def _screen_words(name: str, what: str, chunks: torch.Tensor,
@@ -864,8 +894,7 @@ def _screen_words(name: str, what: str, chunks: torch.Tensor,
         else torch.cuda.current_device()
     lay = screen_layout(c, length, ncw, r, bank.rw, kernels.sm_count(index))
     kernels.screen_words_cuda(name, chunks, bank.cls_bits, bank.taps,
-                              bank.n_taps, out, lay.tile_words,
-                              lay.tiles_per_block, lay.smem)
+                              bank.n_taps, out, lay)
     return out, True
 
 
