@@ -6,10 +6,14 @@
 Phases, each fatal on failure:
   1. print the card (name, power limit) and build the four CUDA kernels
      from the sources in this checkout, one nvcc process each, all at
-     once, and print the registers, stack and local (spill) bytes of the
-     two screen kernels as cuobjdump reads them from the built libraries;
+     once, and print the registers, stack and local (spill) bytes of all
+     four as cuobjdump reads them from the built libraries;
   2. hold the match kernel against its plain PyTorch version on the
-     card, bit for bit, over ragged DB sizes, windows and batch sizes;
+     card, bit for bit, over ragged DB sizes, windows and batch sizes,
+     and over name groups longer than the window, ending on a word
+     boundary or at the table's last row, batches of only tall queries
+     or of one name, and 1,752,822 rows under windows of 960 and 4,000
+     (the search's five steps);
   3. drive the match engine's main path at trivy-db scale: a synthetic
      2,000,000-advisory DB resident on the card answering a 240,000-query
      registry-crawl stream through MatchEngine.detect_many, checked
@@ -18,8 +22,9 @@ Phases, each fatal on failure:
      counted per tier; then time the kernel and its plain version at the
      main path's shapes and compute the kernel's memory bound;
   4. hold the three secret kernels (bitset anchor screen, conv anchor
-     screen, keyword prefilter) against their plain versions on the
-     card, bit for bit, over ragged cases: pad semantics, classes
+     screen, keyword prefilter: three users of one shared screen)
+     against their plain versions on the card, bit for bit, over ragged
+     cases: pad semantics, classes
      holding byte 0, bit 31, rules with no active tap or a tap naming no
      class, NW 1-4, nc 128/256/384 with up to 12 output words, batches
      of 1, 3, 7 and 600 chunks (more than one wave of blocks), and banks
@@ -28,7 +33,9 @@ Phases, each fatal on failure:
      the class table in global memory); counters show the screen's
      mechanisms were exercised (rules hit in several tiles, only across
      a tile cut, first in the last tile, rules whose rarest class is
-     absent from the chunk);
+     absent from the chunk); the prefilter over max_len 1 to 24, batches
+     of 1 to 1,024 chunks and rows of any length, with the same counters
+     for keywords and zero-length keywords;
   5. drive the secret scanner's main path at a real size: a seeded
      256 MiB source-code-like corpus (about 7,000 files of 256 B to
      256 KiB, two 12 MiB files that take the stream path, some 2,000
@@ -41,7 +48,9 @@ Phases, each fatal on failure:
   6. the keyword prefilter (DevicePrefilter) over the whole corpus
      against HostPrefilter;
 then times each secret kernel and its plain version at the main path's
-shapes, with the screen design's own full-evaluation floor. Prints a `kernels` JSON line, the card line, and last
+shapes, with the screen design's own full-evaluation floor, beside each
+kernel's time before its latest redesign. Prints a `kernels` JSON line,
+the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 
@@ -72,6 +81,15 @@ CORPUS_BYTES = 256 << 20
 BIG_FILE_BYTES = 12 << 20
 N_PLANTED = 2_000
 CONV_BYTES = 64 << 20
+# device ms recorded in PERF.md's kernel table at the same shapes (NVIDIA
+# H100 80GB HBM3 at 700 W), by the PR that recorded them: printed on an
+# informational line beside this run's, never in the kernels line
+RECORDED_DEVICE_MS = {"main": ("PR 1", 0.00599), "hot": ("PR 1", 0.00994),
+                      "tall": ("PR 1", 0.0347),
+                      "main_w512": ("PR 1", 0.00750),
+                      "prefilter": ("PR 2", 0.534),
+                      "anchor": ("PR 3", [0.0882, 0.0889]),
+                      "conv": ("PR 3", [0.0769, 0.0837])}
 
 
 def card_line() -> str:
@@ -271,7 +289,118 @@ def check_kernel_cases(dev) -> dict:
             f"last-row hits={last_row}")
     print(f"phase2 kernel_vs_plain cases={cases} max_abs_err={err} "
           f"bit31_hits={bit31} last_row_queries_hit={last_row}")
+    err = max(err, check_group_cases(dev, rng))
     return {"max_abs_err": err}
+
+
+def groups_case(rng: np.random.Generator, sizes, b: int, pick,
+                n_pad: int = 0):
+    """Rows from explicit name-group sizes (h1 sorted across the uint32
+    range, the top bit set on about half; random intervals and flags;
+    `n_pad` shard pad rows at the end) and `b` queries on the groups
+    `pick` (group indices), a tenth with a mismatched h2, sorted by h1
+    as match_dispatch sends them."""
+    g = len(sizes)
+    g_h1 = np.sort(rng.integers(0, 2**32 - 1, size=g, dtype=np.uint64)
+                   ).astype(np.uint32)
+    g_h2 = rng.integers(0, 2**32 - 1, size=g, dtype=np.uint64).astype(
+        np.uint32)
+    h1, h2 = np.repeat(g_h1, sizes), np.repeat(g_h2, sizes)
+    n = len(h1)
+    lo = rng.integers(-4, 40, size=n).astype(np.int32)
+    hi = (lo + rng.integers(-2, 40, size=n)).astype(np.int32)
+    flags = rng.choice(np.array([0, 0, 0, 1, 4, 5], dtype=np.int32), size=n)
+    pad = np.full(n_pad, 0xFFFFFFFF, dtype=np.uint32)
+    rows = (np.concatenate([h1, pad]), np.concatenate([h2, pad]),
+            np.concatenate([lo, np.zeros(n_pad, np.int32)]),
+            np.concatenate([hi, np.full(n_pad, -1, np.int32)]),
+            np.concatenate([flags, np.zeros(n_pad, np.int32)]))
+    gi = np.asarray(pick)[rng.integers(0, len(pick), size=b)]
+    q_h2 = g_h2[gi].copy()
+    q_h2[rng.random(b) < 0.1] ^= np.uint32(1)
+    q = (g_h1[gi], q_h2, rng.integers(-4, 80, size=b).astype(np.int32),
+         rng.choice(np.array([0, 1, 2, 3], dtype=np.int32), size=b))
+    order = np.argsort(q[0], kind="stable")
+    return rows, tuple(a[order] for a in q)
+
+
+def check_group_cases(dev, rng: np.random.Generator) -> int:
+    """The match kernel == its plain version, bit for bit, on the name
+    groups its search and walk treat apart: groups longer than the
+    window (the window cuts them), groups ending exactly at a word
+    boundary, a group that ends at the table's last row, batches of
+    only tall queries and of one name, and 1,752,822 rows (the main
+    tier's size) under windows of 960 and 4,000 (the search's five
+    steps). -> max_abs_err."""
+    import torch
+
+    from trivy_tpu_torch.ops import kernels
+    from trivy_tpu_torch.ops import match as m
+
+    def small(k: int) -> list[int]:
+        return rng.integers(1, 6, size=k).tolist()
+
+    cases = []
+    for window in (40, 512):  # groups two to three windows long
+        sizes = small(300) + rng.integers(2 * window, 3 * window + 1,
+                                          size=20).tolist()
+        cases.append(("longer_than_window", window, sizes, 4501,
+                      range(300, 320), 16))
+    sizes = small(100) + [32 * k for k in rng.integers(1, 6, size=40)]
+    cases.append(("word_boundary_end", 128, sizes, 1000, range(100, 140),
+                  16))
+    sizes = small(500) + [70]  # the last group runs to the last row
+    cases.append(("last_row_group", 96, sizes, 129, [500], 0))
+    sizes = small(2000) + rng.integers(3000, 4001, size=60).tolist()
+    cases.append(("only_tall", 4000, sizes, 993, range(2000, 2060), 16))
+    cases.append(("one_name", 4000, sizes, 4501, [2030], 16))
+    cases.append(("one_name_small", 56, sizes, 4501, [7], 16))
+    for window in (960, 4000):  # 1,752,822 rows: five search steps
+        big = rng.integers(window // 2, window + 1, size=200)
+        rest = 1_752_822 - 16 - int(big.sum())
+        cum = np.cumsum(rng.integers(1, 6, size=rest // 2))
+        small_sizes = np.diff(cum[cum < rest], prepend=0)
+        sizes = np.concatenate([small_sizes, [rest - cum[cum < rest][-1]],
+                                big])
+        cases.append((f"n1752822_w{window}", window,
+                      rng.permutation(sizes).tolist(), 4501,
+                      range(len(sizes)), 16))
+    err = 0
+    most_steps = 0
+    for name, window, sizes, b, pick, n_pad in cases:
+        rows, q = groups_case(rng, sizes, b, list(pick), n_pad)
+        ddb = m.DeviceDB.from_arrays(*rows, window=window, device=dev)
+        qt = [torch.from_numpy(a.view(np.int32)).to(dev) for a in q]
+        got = m.match_words(ddb, *qt)
+        ref = m.match_words_ref(ddb, *qt)
+        torch.cuda.synchronize()
+        e = words_err(got, ref)
+        if e:
+            raise AssertionError(f"match kernel differs from its plain "
+                                 f"version: case {name} N={ddb.n_rows} "
+                                 f"W={window} B={b} max_abs_err={e}")
+        # the name groups' ends; a step for each index level and one for
+        # the keys (tests/test_torch_match.py models the search itself)
+        run = (np.searchsorted(rows[0], q[0], side="right")
+               - np.searchsorted(rows[0], q[0], side="left"))
+        steps = m.index_levels(ddb.n_rows) + 1
+        words = ref.cpu().numpy().view(np.uint32)
+        cut = int(((run > words.shape[1] * 32)
+                   & (words[:, -1] != 0)).sum())
+        wq = m.match_layout(words.shape[1], b,
+                            kernels.sm_count(dev.index or 0))
+        most_steps = max(most_steps, steps)
+        print(f"phase2 group_case {name} N={ddb.n_rows} W={window} B={b} "
+              f"warps_per_query={wq} search_steps={steps} "
+              f"hit_words={int((words != 0).sum())} "
+              f"cut_by_window={cut} max_abs_err={e}")
+        if name.startswith("longer") and not cut:
+            raise AssertionError(f"{name}: no query's hits reach the "
+                                 f"window's last word")
+    if most_steps != 5:
+        raise AssertionError(f"the search took {most_steps} steps at most, "
+                             f"not 5, at 1,752,822 rows")
+    return err
 
 
 # --------------------------------------------------------------- phase 3
@@ -341,6 +470,7 @@ def time_tier(name: str, ddb, key_h1: np.ndarray, sub, dev) -> dict:
     pipeline chunk; check they agree; compute the bound."""
     import torch
 
+    from trivy_tpu_torch.ops import kernels
     from trivy_tpu_torch.ops import match as m
 
     order, q = m.query_tensors(sub, dev)
@@ -353,6 +483,11 @@ def time_tier(name: str, ddb, key_h1: np.ndarray, sub, dev) -> dict:
     if err:
         raise AssertionError(f"{name}: kernel differs from plain version")
     ms = time_ms(lambda: m.match_words(ddb, *q), TIMED_ITERS)
+    # the bare launch, without the wrapper's checks, allocation and
+    # layout pick: what of `ms` is the ctypes call and the CUDA launch
+    wq = m.match_layout(nw, b, kernels.sm_count(dev.index or 0))
+    launch_ms = time_ms(lambda: kernels.match_words_cuda(
+        ddb.h1, ddb.h1_index, ddb.table, *q, got, wq), TIMED_ITERS)
     dev_ms = kernel_ms(lambda: m.match_words(ddb, *q), TIMED_ITERS,
                        "match_kernel")
     plain_ms = time_ms(lambda: m.match_words_ref(ddb, *q), 5, reps=3)
@@ -363,12 +498,44 @@ def time_tier(name: str, ddb, key_h1: np.ndarray, sub, dev) -> dict:
               + io_b)
     bound_ms = need_b / HBM_BYTES_PER_S * 1e3
     out = {"B": b, "W": ddb.window, "N": ddb.n_rows, "ms": ms,
+           "launch_only_ms": launch_ms, "warps_per_query": wq,
            "kernel_device_ms": dev_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms,
            "bytes_needed": need_b, "bytes_full_window": full_b,
            "full_window_bound_ms": full_b / HBM_BYTES_PER_S * 1e3,
            "max_abs_err": err}
     print(f"phase3 kernel tier={name} " + json.dumps(out))
+    return out
+
+
+def match_split(ddb, sub, dev) -> dict:
+    """Where the match kernel's time goes on one tier, from its inputs
+    alone: the same launch with every query's h1 moved to a value absent
+    from the table (the whole search, no row read), and on a one-row
+    table (a one-step search, no row read: the grid, the query loads and
+    the stores). Device ms each."""
+    import torch
+
+    from trivy_tpu_torch.ops import match as m
+
+    rng = np.random.default_rng(5)
+    keys = ddb.h1.cpu().numpy().view(np.uint32)
+    miss = rng.integers(0, 2**32, size=2 * len(sub.h1), dtype=np.uint64
+                        ).astype(np.uint32)
+    miss = np.sort(miss[~np.isin(miss, keys)][: len(sub.h1)])
+    _order, q = m.query_tensors(sub, dev)
+    q_miss = (torch.from_numpy(miss.view(np.int32)).to(dev), *q[1:])
+    one = m.DeviceDB.from_arrays(
+        np.zeros(1, np.uint32), np.zeros(1, np.uint32), np.zeros(1, np.int32),
+        np.zeros(1, np.int32), np.zeros(1, np.int32), window=ddb.window,
+        device=dev)
+    out = {}
+    for name, db, qs in (("search_only", ddb, q_miss),
+                         ("one_row_table", one, q_miss)):
+        out[f"split_{name}_device_ms"] = kernel_ms(
+            lambda db=db, qs=qs: m.match_words(db, *qs), TIMED_ITERS,
+            "match_kernel")
+    print(f"phase3 kernel_split tier=main {json.dumps(out)}")
     return out
 
 
@@ -470,6 +637,7 @@ def main_path(dev) -> dict:
                             queries=[uniq[j] for j in sel])
         timings[name] = time_tier(name, tiers[name], key_h1, part, dev)
         if name == "main":
+            timings[name].update(match_split(tiers[name], part, dev))
             # the main tier's rows under the 512-row window the main
             # tier had before tall names split off (W the kernel was
             # sized for); an extra shape, not a main-path launch
@@ -608,13 +776,17 @@ def plant_rows(rng: np.random.Generator, c: int, rows):
     return chunks
 
 
-def prefilter_case(rng: np.random.Generator, c: int, k: int, max_len: int):
+def prefilter_case(rng: np.random.Generator, c: int, k: int, max_len: int,
+                   length: int | None = None):
     """Keywords of 1..max_len bytes over an alphabet holding byte 0 (a
     zero-length row first, some ending in NUL so the zero pad completes
-    them), and chunks with keywords planted at the end, cut by it, and
-    inside."""
+    them), and chunks of `length` bytes (default CHUNK) with keywords
+    planted at the end, cut by it, and inside; full-size chunks also
+    get keywords across the tile cut at 2,048, in the last tile and in
+    three tiles (the positions of plant_positions)."""
     from trivy_tpu_torch.ops.secret_prefilter import CHUNK, MAX_KW
 
+    length = CHUNK if length is None else length
     alphabet = np.frombuffer(
         b"abcdefghijklmnopqrstuvwxyz0123456789_-:\x00", dtype=np.uint8)
     kw = np.zeros((k, MAX_KW), dtype=np.uint8)
@@ -624,19 +796,77 @@ def prefilter_case(rng: np.random.Generator, c: int, k: int, max_len: int):
         kw[i, : kw_len[i]] = rng.choice(alphabet, size=kw_len[i])
         if i % 5 == 1 and kw_len[i] > 1:
             kw[i, kw_len[i] - 1] = 0
-    chunks = rng.choice(alphabet[:-1], size=(c, CHUNK)).astype(np.uint8)
+    chunks = rng.choice(alphabet[:-1], size=(c, length)).astype(np.uint8)
+
+    def plant(ci: int, i: int, pos: int) -> None:
+        n = min(int(kw_len[i]), length - pos)
+        chunks[ci, pos: pos + n] = kw[i, :n]
+
     for ci in range(c):
         i = int(rng.integers(1, k)) if k > 1 else 0
         n = int(kw_len[i])
-        if n:
-            chunks[ci, CHUNK - n:] = kw[i, :n]
+        if n <= length:
+            plant(ci, i, length - n)
         j = int(rng.integers(0, k))
         n = int(kw_len[j])
-        if n > 1:
-            chunks[ci, CHUNK - n + 1:] = kw[j, : n - 1]
-        pos = int(rng.integers(0, CHUNK - MAX_KW))
-        chunks[ci, pos: pos + int(kw_len[j])] = kw[j, : kw_len[j]]
+        if 1 < n <= length + 1:
+            plant(ci, j, length - n + 1)  # all but its last byte
+        if length > MAX_KW:
+            plant(ci, j, int(rng.integers(0, length - MAX_KW)))
+        if length == CHUNK and k > 3:
+            i = 1 + ci % (k - 1)
+            plant(ci, i, STRADDLE_AT - int(kw_len[i]) // 2)
+            plant(ci, 1 + (ci + 1) % (k - 1), LAST_TILE_AT)
+            for pos in MULTI_AT:
+                plant(ci, 1 + (ci + 2) % (k - 1), pos)
     return chunks, kw, kw_len
+
+
+def keyword_tile_hits(ch, kw, kw_len, max_len: int, tile: int):
+    """-> (found, alone), bool[C, tiles, K] each: keyword k starts at a
+    position of tile t of chunk c (the plain version's test at each start
+    position); `alone` counts only the starts whose keyword ends inside
+    the tile, or in the zero pad after the chunk's last tile (without the
+    tile's halo word). On the chunks' device."""
+    import torch
+
+    c, length = ch.shape
+    k = kw.shape[0]
+    dev = ch.device
+    ext = torch.cat([ch, torch.zeros((c, max_len - 1), dtype=torch.uint8,
+                                     device=dev)], dim=1)
+    tiles = -(-length // tile)
+    pos = torch.arange(length, device=dev)[:, None]
+    last = pos + kw_len.clamp(0, max_len)[None, :] - 1
+    inside = (last < (pos // tile + 1) * tile) | (pos >= (tiles - 1) * tile)
+    pad = torch.zeros((tiles * tile - length, k), dtype=torch.bool,
+                      device=dev)
+    found = torch.zeros((c, tiles, k), dtype=torch.bool, device=dev)
+    alone = torch.zeros_like(found)
+    for ci in range(c):
+        acc = torch.ones((length, k), dtype=torch.bool, device=dev)
+        for j in range(max_len):
+            acc &= ((ext[ci, j: j + length, None] == kw[None, :, j])
+                    | (j >= kw_len)[None, :])
+        found[ci] = torch.cat([acc, pad]).view(tiles, tile, k).any(dim=1)
+        alone[ci] = torch.cat([acc & inside, pad]).view(
+            tiles, tile, k).any(dim=1)
+    return found, alone
+
+
+def keyword_coverage(cov: dict, ch, kw, kw_len, max_len: int, want,
+                     tile: int) -> None:
+    """Add to `cov` what one prefilter case exercises in the screen, from
+    plain runs: (chunk, keyword) pairs found only through a tile's halo
+    word (across a tile cut), first found in the last tile, found in two
+    or more tiles (skipped after the first), and hits of zero-length
+    keywords."""
+    found, alone = keyword_tile_hits(ch, kw, kw_len, max_len, tile)
+    cov["kw_straddle_only"] += int((want & ~alone.any(dim=1)).sum())
+    cov["kw_last_tile_first"] += int(
+        (found[:, -1] & ~found[:, :-1].any(dim=1)).sum())
+    cov["kw_skipped_after_hit"] += int((found.sum(dim=1) >= 2).sum())
+    cov["kw_zero_length"] += int(want[:, kw_len <= 0].sum())
 
 
 def word_bits(words, n: int) -> np.ndarray:
@@ -773,22 +1003,38 @@ def check_secret_kernel_cases(dev) -> dict:
               f"rules_per_slice={lay.rules_per_slice} "
               f"tab_in_smem={int(lay.tab_in_smem)} smem={lay.smem} "
               f"ms={time_ms(lambda: fn(ch, bank), 5, reps=3):.5f}")
-    zero_len = 0
-    for max_len in (1, 5, 24):
-        for k in (1, 114):
-            for c in (1, 3, 257):
-                ch, kw, kl = prefilter_case(rng, c, k, max_len)
-                args = [put(ch), put(kw), put(kl)]
-                got = pf.prefilter_hits(*args, max_len)
-                ref = pf.prefilter_hits_ref(*args, max_len)
-                torch.cuda.synchronize()
-                e = int((got.int() - ref.int()).abs().max())
-                if e:
-                    raise AssertionError(
-                        f"prefilter kernel differs from its plain version: "
-                        f"max_len={max_len} K={k} C={c}")
-                cases["prefilter"] += 1
-                zero_len += int(ref[:, 0].sum())
+    # the keyword prefilter on the shared screen: max_len 1 to 24,
+    # batches of 1 to 1,024 chunks, rows of lengths that are not a
+    # multiple of 16 (not 16-byte aligned: copied byte by byte)
+    kw_cov = {"kw_straddle_only": 0, "kw_last_tile_first": 0,
+              "kw_skipped_after_hit": 0, "kw_zero_length": 0,
+              "kw_unaligned_rows": 0}
+    kw_tiles = set()
+    pf_cases = [(m, k, c, pf.CHUNK) for m in (1, 5, 24) for k in (1, 114)
+                for c in (1, 3, 257)]
+    pf_cases += [(20, 114, 1024, pf.CHUNK), (24, 114, 3, pf.CHUNK - 1),
+                 (7, 33, 5, 1000), (24, 40, 2, 100)]
+    for max_len, k, c, length in pf_cases:
+        ch, kw, kl = prefilter_case(rng, c, k, max_len, length)
+        args = [put(ch), put(kw), put(kl)]
+        got = pf.prefilter_hits(*args, max_len)
+        ref = pf.prefilter_hits_ref(*args, max_len)
+        torch.cuda.synchronize()
+        e = int((got.int() - ref.int()).abs().max())
+        if e:
+            raise AssertionError(
+                f"prefilter kernel differs from its plain version: "
+                f"max_len={max_len} K={k} C={c} L={length}")
+        cases["prefilter"] += 1
+        form = pf.KeywordTensors.from_arrays(kw, kl, max_len, dev)
+        lay = nfa.screen_layout(c, length, form.cls_bits.shape[1], k,
+                                form.rw, n_sm, taps=pf.MAX_KW)
+        kw_tiles.add(lay.tile_words)
+        keyword_coverage(kw_cov, args[0], args[1], args[2], max_len, ref,
+                         lay.tile_words * 32)
+        kw_cov["kw_unaligned_rows"] += length % 16 != 0 and c > 1
+    cov.update(kw_cov)
+    zero_len = kw_cov["kw_zero_length"]
     nc_set = sorted({nc for nc, _rw in ncs})
     tiles = {t for _n, t, _s, _m in layouts}
     if not all(cov.values()) or nc_set != [128, 256, 384] \
@@ -805,7 +1051,8 @@ def check_secret_kernel_cases(dev) -> dict:
     print(f"phase4 kernel_vs_plain cases={json.dumps(cases)} "
           f"max_abs_err={json.dumps(err)} coverage={json.dumps(cov)} "
           f"conv_nc_rw={sorted(ncs)} layouts={sorted(layouts)} "
-          f"large_banks={sorted(big)} zero_length_keyword_hits={zero_len}")
+          f"large_banks={sorted(big)} keyword_tile_words={sorted(kw_tiles)} "
+          f"zero_length_keyword_hits={zero_len}")
     return err
 
 
@@ -1217,7 +1464,7 @@ def screen_bank_bytes(bank) -> int:
                 + bank.n_taps.numel())
 
 
-def screen_floor(ch, bank) -> dict:
+def screen_floor(ch, bank, taps: int | None = None) -> dict:
     """The bit-sliced design's own floor at this launch: every listed tap
     of every live rule on every position word of every chunk (no early
     exit, no skip), one 4-byte shared-memory read and two integer
@@ -1225,7 +1472,8 @@ def screen_floor(ch, bank) -> dict:
     a table read and a bitmap write per position word and class word,
     and 32 lanes x 5 shuffle steps x 4 operations of transpose. Times at
     132 SMs x 128 B a clock of shared memory and 132 x 64 int32 lanes,
-    at 1.98 GHz (the H100 SXM data sheet's boost clock)."""
+    at 1.98 GHz (the H100 SXM data sheet's boost clock). `taps`: tap
+    words a rule (K_ANCHOR for the anchor banks, MAX_KW for keywords)."""
     from trivy_tpu_torch.ops import kernels
     from trivy_tpu_torch.ops import secret_nfa as nfa
 
@@ -1233,8 +1481,9 @@ def screen_floor(ch, bank) -> dict:
     ncw = bank.cls_bits.shape[1]
     n_taps = bank.n_taps.cpu().numpy()
     lay = nfa.screen_layout(c, length, ncw, n_taps.shape[0], bank.rw,
-                            kernels.sm_count(ch.device.index or 0))
-    words = c * (length // 32)
+                            kernels.sm_count(ch.device.index or 0),
+                            taps=taps or nfa.K_ANCHOR)
+    words = c * (-(-length // 32))
     built = c * (-(-length // (32 * lay.tile_words))) * (lay.tile_words + 1)
     tap_words = words * int(n_taps.clip(min=0).sum())
     smem_b = 4 * tap_words + built * ncw * 2 * 4 * 32
@@ -1286,20 +1535,62 @@ def time_secret_kernels(dev, p5: dict, p6: dict) -> dict:
          "reference_gemm_bound_ms": gemm_flops / BF16_FLOP_PER_S * 1e3,
          **screen_floor(chc, t)})
     # the prefilter kernel: one dispatch of DevicePrefilter (1024 chunks)
+    # on the bank's compact form, built once as DevicePrefilter does
     bank = p6["bank"]
     low, _o, _s = nfa.chunk_files(contents[:4000],
                                   overlap=bank.max_len - 1, lower=True)
     chp = torch.from_numpy(low[:1024]).to(dev)
     kw = torch.from_numpy(bank.kw).to(dev)
     kl = torch.from_numpy(bank.kw_len).to(dev)
+    form = pf.KeywordTensors.of_bank(kw, kl, bank.max_len)
     cp = chp.shape[0]
     out["prefilter"] = time_secret_kernel(
         "prefilter", "prefilter_kernel",
-        lambda: pf.prefilter_hits(chp, kw, kl, bank.max_len),
+        lambda: pf.prefilter_hits(chp, kw, kl, bank.max_len, form),
         lambda: pf.prefilter_hits_ref(chp, kw, kl, bank.max_len),
         chp.numel() + kw.numel() + 4 * kl.numel(), cp * kw.shape[0],
-        {"C": cp, "K": kw.shape[0], "max_len": bank.max_len})
+        {"C": cp, "K": kw.shape[0], "max_len": bank.max_len,
+         "classes": int(np.unpackbits(
+             form.cls_bits.cpu().numpy().view(np.uint8)).sum()),
+         **screen_floor(chp, form, taps=pf.MAX_KW),
+         **prefilter_split(chp, form)})
     return out
+
+
+def prefilter_split(chp, form) -> dict:
+    """Where the prefilter kernel's time goes, from its inputs alone: the
+    same launch (straight through kernels.prefilter_hits_cuda, on the
+    wrapper's grid) with every keyword's taps dropped (each keyword then
+    hits at the block's start and is skipped on every tile: what remains
+    is the copies, the class bitmaps of the bank's class words and the
+    syncs), and that again with one class word. Device ms each."""
+    import dataclasses
+
+    import torch
+
+    from trivy_tpu_torch.ops import kernels
+    from trivy_tpu_torch.ops import secret_nfa as nfa
+    from trivy_tpu_torch.ops import secret_prefilter as pf
+
+    c, length = chp.shape
+    k = form.n_taps.shape[0]
+    no_taps = dataclasses.replace(form, n_taps=torch.zeros_like(form.n_taps))
+    one_word = dataclasses.replace(
+        no_taps, cls_bits=form.cls_bits[:, :1].contiguous())
+
+    def launch(f):
+        words = torch.zeros((c, f.rw), dtype=torch.int32, device=chp.device)
+        out = torch.zeros((c, k), dtype=torch.bool, device=chp.device)
+        lay = nfa.screen_layout(c, length, f.cls_bits.shape[1], k, f.rw,
+                                kernels.sm_count(chp.device.index or 0),
+                                taps=pf.MAX_KW)
+        kernels.prefilter_hits_cuda(chp, f, words, out, lay)
+        return out
+
+    return {f"split_{name}_device_ms": kernel_ms(
+        lambda f=f: launch(f), TIMED_ITERS, "prefilter_kernel")
+        for name, f in (("no_keywords", no_taps),
+                        ("no_keywords_one_word", one_word))}
 
 
 def main() -> int:
@@ -1321,7 +1612,7 @@ def main() -> int:
     sources = ["match", "secret_anchor", "secret_conv", "secret_prefilter"]
     for name, sec in kernels.build(sources).items():
         print(f"phase1 build {name}.cu seconds={sec:.3f}")
-    for name in ("secret_anchor", "secret_conv"):
+    for name in sources:
         for line in resource_usage(kernels.so_path(name)):
             print(f"phase1 resources {name}.cu {line}")
     for name in sources:
@@ -1388,6 +1679,11 @@ def main() -> int:
                       if k not in ("ms", "kernel_device_ms", "plain_ms",
                                    "bound_ms", "bound_by", "max_abs_err")},
         })
+    this_run = {**p3["timings"], **st}
+    for name, (pr, ms) in RECORDED_DEVICE_MS.items():
+        dev_ms = this_run[name]["kernel_device_ms"]
+        print(f"compare kernel={name} device_ms={dev_ms} "
+              f"recorded_in_perf_md={pr}: {ms}")
     print(f"total seconds={time.perf_counter() - t_all:.3f}")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -194,6 +194,118 @@ def test_unsigned_order_of_the_search():
     assert got[:, 0].tolist() == [1, 1, 1, 1]
 
 
+def group_bounds_model(keys: np.ndarray, x: np.ndarray):
+    """A plain model of the match kernel's search (csrc/match.cu
+    find_group): the lower and the upper bound of each x in the sorted
+    uint32 keys, each by a 32-ary descent of search_index(keys) and then
+    the keys themselves, the two in step. At each level a step reads the
+    32 entries of the current block and counts those below the bound;
+    the block one level down starts 32 entries after the last one below.
+    -> (start int64[B], end int64[B], steps: the dependent steps of
+    every query)."""
+    keys = np.asarray(keys, dtype=np.uint32).astype(np.int64)
+    x = np.asarray(x, dtype=np.uint32).astype(np.int64)[:, None]
+    n = len(keys)
+    levels = tm.index_levels(n)
+    lane = np.arange(32)[None, :]
+    j = {"lower": np.zeros((len(x), 1), np.int64),
+         "upper": np.zeros((len(x), 1), np.int64)}
+    for level in range(levels, -1, -1):
+        entries = keys[:: 32 ** level]
+        for side in j:
+            at = j[side] + lane
+            e = entries[np.minimum(at, len(entries) - 1)] if n else at
+            below = (at < len(entries)) & (
+                (e < x) if side == "lower" else (e <= x))
+            cnt = below.sum(axis=1, keepdims=True)
+            j[side] = j[side] + cnt if level == 0 \
+                else (j[side] + np.maximum(cnt, 1) - 1) * 32
+    return j["lower"][:, 0], j["upper"][:, 0], levels + 1
+
+
+@pytest.mark.parametrize("n", [1, 32, 33, 1024, 1_752_822])
+def test_search_model_equals_searchsorted(n):
+    """The kernel's 32-ary search (group_bounds_model, the steps of
+    csrc/match.cu find_group over search_index) finds the lower and the
+    upper bound that torch.searchsorted and jnp.searchsorted find, over
+    keys with bit 31 set, long runs of one key and queries below,
+    between, on and past the keys; 1,752,822 rows (the main tier) take
+    five steps."""
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(0, 2**32, size=n, dtype=np.uint64)
+                   ).astype(np.uint32)
+    keys[n // 3: n // 3 + n // 4] = keys[n // 3]  # duplicates
+    if n > 1:
+        keys[-n // 2:] |= np.uint32(1 << 31)
+        keys.sort()
+    x = np.concatenate([
+        keys[rng.integers(0, n, size=300)],
+        rng.integers(0, 2**32, size=300, dtype=np.uint64).astype(np.uint32),
+        keys[rng.integers(0, n, size=100)] + np.uint32(1),
+        np.array([0, 2**31 - 1, 2**31, 2**32 - 1], dtype=np.uint32),
+    ]).astype(np.uint32)
+    start, end, steps = group_bounds_model(keys, x)
+    k64 = torch.from_numpy(keys.astype(np.int64))
+    x64 = torch.from_numpy(x.astype(np.int64))
+    np.testing.assert_array_equal(start, torch.searchsorted(k64, x64).numpy())
+    np.testing.assert_array_equal(
+        end, torch.searchsorted(k64, x64, side="right").numpy())
+    np.testing.assert_array_equal(
+        start, np.asarray(jnp.searchsorted(jnp.asarray(keys),
+                                           jnp.asarray(x), side="left")))
+    np.testing.assert_array_equal(
+        end, np.asarray(jnp.searchsorted(jnp.asarray(keys),
+                                         jnp.asarray(x), side="right")))
+    # one step for each level of the index, and one for the keys
+    assert steps == {1: 1, 32: 1, 33: 2, 1024: 2, 1_752_822: 5}[n]
+    assert steps == tm.index_levels(n) + 1
+    index = tm.search_index(keys)
+    assert len(index) == tm.index_size(n) == sum(
+        -(-n // 32 ** level) for level in range(1, steps))
+    if steps > 1:  # top level first; its last level is every 32nd key
+        np.testing.assert_array_equal(index[-(-(-n // 32)):], keys[::32])
+
+
+def test_words_past_the_group_are_zero():
+    """The kernel reads only the words that reach into the query's name
+    group (ceil((end - start) / 32), from the search) and stores the rest
+    as zeros: in the JAX kernel's words, no bit lies past the group."""
+    rng = np.random.default_rng(9)
+    for n, window in ((2000, 100), (5000, 512)):
+        cols, q = synth_case(rng, n, window, 129)
+        want = jax_words(cols, q, window)
+        start, end, _steps = group_bounds_model(cols[0], q[0])
+        live = np.minimum(want.shape[1], -(-(end - start) // 32))
+        past = np.arange(want.shape[1])[None, :] >= live[:, None]
+        assert not want[past].any() and want[~past].any()
+        assert (live < want.shape[1]).any() and (live == 0).any()
+
+
+@pytest.mark.parametrize("tier,n_words,b,wq", [
+    ("main", 2, 6553, 1),  # the crawl's main tier: W 56
+    ("main_w512", 16, 6553, 1),
+    ("hot", 30, 34, 8),  # W 960
+    ("tall", 125, 993, 4),  # W 4,000
+    ("tall_3166", 125, 3166, 1),
+    ("tall_full_card", 125, 131_072, 1),
+    ("one", 1, 1, 1),
+])
+def test_match_layout(tier, n_words, b, wq):
+    """The grid of one match launch per tier's window and batch: the main
+    tier keeps one warp a query; the long windows of the hot and tall
+    tiers spread a query's words over several warps while the doubled
+    grid still fits the card at once (eight for 34 queries, four for
+    993), and not at all when the batch alone fills it; every word of
+    every query has one warp."""
+    assert tm.match_layout(n_words, b, 132) == wq
+    assert tm.MATCH_WARPS % wq == 0
+    owners = [k % wq for k in range(n_words)]  # word k -> warp k mod wq
+    assert sorted(set(owners)) == list(range(min(wq, n_words)))
+    if wq > 1:  # the doubled grid would not have fitted the card at once
+        assert wq == tm.MATCH_WARPS or n_words <= 4 * wq \
+            or 2 * wq * b > 132 * tm.MATCH_RESIDENT_WARPS
+
+
 def test_wrapper_on_cpu_runs_the_plain_version():
     """A CPU tensor takes match_words_ref, and counts no launch."""
     rng = np.random.default_rng(11)
@@ -313,7 +425,9 @@ def test_cuda_kernel_equals_plain_version():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2)
-    for n, window, b in [(1, 8, 1), (1000, 40, 129), (5000, 512, 4501)]:
+    # the last two spread a query's words over eight warps
+    for n, window, b in [(1, 8, 1), (1000, 40, 129), (5000, 512, 4501),
+                         (20000, 960, 34), (20000, 4000, 993)]:
         cols, q = synth_case(rng, n, window, b)
         ddb = tm.DeviceDB.from_arrays(*cols, window=window, device=dev)
         qt = [torch.from_numpy(a.view(np.int32)).to(dev) for a in q]
@@ -324,3 +438,20 @@ def test_cuda_kernel_equals_plain_version():
                                       jax_words(cols, q, window))
     with pytest.raises(ValueError, match="int32"):
         tm.match_words(ddb, qt[0].long(), *qt[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wq", [1, 2, 4, 8])
+def test_cuda_kernel_equals_plain_version_on_every_layout(monkeypatch, wq):
+    """On a card: the kernel with a query's words on 1, 2, 4 or 8 warps,
+    against its plain version, on a window longer than its groups."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr(tm, "match_layout", lambda nw, b, n_sm: wq)
+    cols, q = synth_case(np.random.default_rng(wq), 8000, 700, 1001)
+    ddb = tm.DeviceDB.from_arrays(*cols, window=700, device=dev)
+    qt = [torch.from_numpy(a.view(np.int32)).to(dev) for a in q]
+    got = tm.match_words(ddb, *qt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tm.match_words_ref(ddb, *qt))

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from trivy_tpu.ops import secret_prefilter as jp
+from trivy_tpu_torch.ops import secret_nfa as tn
 from trivy_tpu_torch.ops import secret_prefilter as tp
 from trivy_tpu_torch.secret.rules import BUILTIN_RULES
 
@@ -117,6 +118,206 @@ def test_keyword_bank_equals_jax():
     assert len(builtin_keywords()) == 114
 
 
+# ------------------------------------- the keyword bank's compact form
+
+
+def plain_keyword_screen(chunks: np.ndarray,
+                         form: tp.KeywordTensors) -> np.ndarray:
+    """The compact form evaluated plainly, as the shared screen reads it:
+    keyword k hits at start position i < L when the class of each listed
+    tap holds at i + the tap's offset, positions past the chunk's end
+    holding byte 0's class; no tap hits everywhere. -> bool[C, K]."""
+    bits = np.unpackbits(form.cls_bits.numpy().view(np.uint8), axis=1,
+                         bitorder="little").astype(bool)
+    taps, n_taps = form.taps.numpy(), form.n_taps.numpy()
+    c, length = chunks.shape
+    ext = np.concatenate([chunks, np.zeros((c, tp.MAX_KW - 1), np.uint8)],
+                         axis=1)
+    hit = np.zeros((c, taps.shape[0]), dtype=bool)
+    for r, n in enumerate(n_taps.tolist()):
+        acc = np.ones((c, length), dtype=bool)
+        for e in taps[r, :n].tolist():
+            s = e & ((1 << tp.KW_SHIFT_BITS) - 1)
+            acc &= bits[:, e >> tp.KW_SHIFT_BITS][ext[:, s: s + length]]
+        hit[:, r] = acc.any(axis=1)
+    return hit
+
+
+def check_keyword_taps(form: tp.KeywordTensors, kw, kw_len, max_len):
+    """Keyword k's taps are its (byte class, offset) pairs for offsets <
+    min(kw_len, max_len), rarest byte first (byte_rarity, then offset);
+    each class holds exactly one byte value, one of the keywords'."""
+    bits = np.unpackbits(form.cls_bits.numpy().view(np.uint8), axis=1,
+                         bitorder="little").astype(bool)
+    assert (bits.sum(axis=0) <= 1).all()
+    value = bits.argmax(axis=0)  # the byte value of each class
+    rarity = tp.byte_rarity()
+    taps, n_taps = form.taps.numpy(), form.n_taps.numpy()
+    for k in range(kw.shape[0]):
+        n = int(np.clip(kw_len[k], 0, max_len))
+        assert n_taps[k] == n
+        got = [(int(value[e >> tp.KW_SHIFT_BITS]),
+                e & ((1 << tp.KW_SHIFT_BITS) - 1))
+               for e in taps[k, :n].tolist()]
+        assert sorted(got, key=lambda p: p[1]) == [
+            (int(kw[k, j]), j) for j in range(n)]
+        keys = [(rarity[b], j) for b, j in got]
+        assert keys == sorted(keys)
+        assert not taps[k, n:].any()
+
+
+@pytest.mark.parametrize("case,max_len,k,c,length", [
+    ("random", 1, 7, 3, tp.CHUNK),
+    ("random", 20, 114, 2, tp.CHUNK),
+    ("random", 24, 114, 2, tp.CHUNK),
+    ("random", 24, 40, 3, 100),  # not a multiple of 32
+    ("random", 7, 33, 3, 1000),
+    ("random", 20, 9, 2, 31),
+    ("builtin", 20, 114, 3, tp.CHUNK),
+])
+def test_keyword_form_equals_references(case, max_len, k, c, length):
+    """The compact form the prefilter kernel reads holds the bank's
+    contract: evaluated plainly it gives prefilter_hits_ref's hits (and
+    the JAX _kernel's, which takes CHUNK-byte chunks only), over
+    keywords holding byte 0, keywords the zero pad completes, a
+    zero-length keyword, max_len 1 to 24, keywords cut by the chunk's
+    end, and chunk lengths that are not a multiple of 32."""
+    rng = np.random.default_rng([SEED, max_len, k, c, length])
+    if case == "builtin":
+        kws = builtin_keywords()
+        bank = tp.KeywordBank(kws)
+        kw, kw_len = bank.kw, bank.kw_len
+        _kw, contents = fanal_corpus()
+        body = b"".join(contents).lower()
+        chunks = np.frombuffer(body[: c * length], dtype=np.uint8).reshape(
+            c, length).copy()
+    else:
+        chunks, kw, kw_len = make_case(rng, c, k, max_len)
+        chunks = chunks[:, :length].copy()
+        chunks[0, length - 2:] = kw[1, :2]  # keyword 1 ends in NUL
+    form = tp.KeywordTensors.from_arrays(kw, kw_len, max_len, "cpu")
+    check_keyword_taps(form, kw, kw_len, max_len)
+    args = (torch.from_numpy(chunks), torch.from_numpy(kw),
+            torch.from_numpy(kw_len))
+    want = tp.prefilter_hits_ref(*args, max_len).numpy()
+    np.testing.assert_array_equal(plain_keyword_screen(chunks, form), want)
+    if length == tp.CHUNK:
+        np.testing.assert_array_equal(want, np.asarray(
+            jp._kernel(k, max_len)(*(jnp.asarray(a)
+                                     for a in (chunks, kw, kw_len)))))
+    if case == "random":
+        assert want[:, 0].all()  # the zero-length keyword
+        assert form.n_taps[0] == 0
+    assert want.any()
+
+
+def test_keyword_form_of_the_builtin_bank():
+    """The builtin bank's 114 keywords use 38 distinct byte values: two
+    class words, 789 taps, the first of each keyword its rarest byte."""
+    bank = tp.KeywordBank(builtin_keywords())
+    form = tp.KeywordTensors.from_arrays(bank.kw, bank.kw_len, bank.max_len,
+                                         "cpu")
+    bits = np.unpackbits(form.cls_bits.numpy().view(np.uint8), axis=1,
+                         bitorder="little").astype(bool)
+    assert bits.any(axis=0).sum() == 38 and form.cls_bits.shape == (256, 2)
+    assert form.taps.shape == (114, tp.MAX_KW) and form.rw == 4
+    assert int(form.n_taps.sum()) == int(bank.kw_len.sum()) == 789
+    check_keyword_taps(form, bank.kw, bank.kw_len, bank.max_len)
+    empty = tp.KeywordTensors.from_arrays(np.zeros((2, tp.MAX_KW), np.uint8),
+                                          np.zeros(2, np.int32), 5, "cpu")
+    assert empty.cls_bits.shape == (256, 1) and not empty.cls_bits.any()
+    assert empty.n_taps.tolist() == [0, 0]
+
+
+def test_keyword_layout_at_1024_chunks():
+    """The grid of the main path's prefilter launch (1,024 chunks, the
+    builtin bank): 2,048-position tiles, one block a chunk walking its 8
+    tiles in order (so a keyword found in one tile is skipped in the
+    later ones), every keyword in one slice, the class table in shared
+    memory, and a block small enough for four an SM."""
+    n_sm = 132
+    lay = tn.screen_layout(1024, tp.CHUNK, 2, 114, 4, n_sm, taps=tp.MAX_KW)
+    assert (lay.tile_words, lay.tiles_per_block, lay.rules_per_slice,
+            lay.tab_in_smem, lay.blocks) == (64, 8, 114, True, 1024)
+    assert lay.smem == tn.screen_smem(2, 114, 4, 64, True, tp.MAX_KW)
+    assert 4 * (lay.smem + 1024) <= tn.SM_SMEM and lay.slots == 4 * n_sm
+    # a small batch splits its chunks into runs of tiles
+    small = tn.screen_layout(3, tp.CHUNK, 2, 114, 4, n_sm, taps=tp.MAX_KW)
+    assert (small.tiles_per_block, small.blocks) == (1, 24)
+    # 256 byte classes and 1,000 keywords still fit
+    big = tn.screen_layout(1024, tp.CHUNK, 8, 1000, 32, n_sm, taps=tp.MAX_KW)
+    assert big.smem <= tn.BLOCK_SMEM_MAX and big.rules_per_slice <= 1000
+
+
+def test_keyword_form_is_tied_to_its_bank():
+    """prefilter_hits takes a compact form only with the very bank
+    tensors of_bank built it from, unchanged since, at its max_len: a
+    form of another bank of the same shape, a form built from host
+    arrays, another max_len and an in-place edit of the bank raise."""
+    rng = np.random.default_rng(SEED + 5)
+    chunks, kw, kw_len = (torch.from_numpy(a)
+                          for a in make_case(rng, 2, 9, 12))
+    form = tp.KeywordTensors.of_bank(kw, kw_len, 12)
+    assert form.is_of(kw, kw_len, 12)
+    np.testing.assert_array_equal(
+        plain_keyword_screen(chunks.numpy(), form),
+        tp.prefilter_hits(chunks, kw, kw_len, 12, form).numpy())
+    _c, kw2, kw_len2 = (torch.from_numpy(a)
+                        for a in make_case(rng, 2, 9, 12))
+    loose = tp.KeywordTensors.from_arrays(kw.numpy(), kw_len.numpy(), 12,
+                                          "cpu")
+    for bad in ((kw2, kw_len2, 12, form), (kw, kw_len, 12, loose),
+                (kw, kw_len, 11, form)):
+        with pytest.raises(ValueError, match="of_bank"):
+            tp.prefilter_hits(chunks, *bad)
+    kw[1, 0] += 1
+    assert not form.is_of(kw, kw_len, 12)
+    with pytest.raises(ValueError, match="of_bank"):
+        tp.prefilter_hits(chunks, kw, kw_len, 12, form)
+
+
+def test_cuda_bindings_pass_every_argument(monkeypatch):
+    """The prefilter and match wrappers hand their entry points one
+    argument per ctypes argtype (the stream is added by _launch), in the
+    order of the sources' extern "C" parameters."""
+    from trivy_tpu_torch.ops import kernels
+    from trivy_tpu_torch.ops import match as tm
+    from trivy_tpu_torch.ops import secret_nfa as nfa
+
+    seen = {}
+    monkeypatch.setattr(kernels, "_launch",
+                        lambda name, what, device, *args:
+                        seen.setdefault(name, args))
+    bank = tp.KeywordBank([b"akia", b"ghp_"])
+    form = tp.KeywordTensors.from_arrays(bank.kw, bank.kw_len, bank.max_len,
+                                         "cpu")
+    chunks = torch.zeros((3, 100), dtype=torch.uint8)
+    words = torch.zeros((3, form.rw), dtype=torch.int32)
+    out = torch.zeros((3, 2), dtype=torch.bool)
+    lay = nfa.screen_layout(3, 100, 1, 2, 1, 132, taps=tp.MAX_KW)
+    kernels.prefilter_hits_cuda(chunks, form, words, out, lay)
+    args = seen["secret_prefilter"]
+    assert len(args) + 1 == len(kernels._ENTRY["secret_prefilter"][1])
+    assert args[:6] == (chunks.data_ptr(), form.cls_bits.data_ptr(),
+                        form.taps.data_ptr(), form.n_taps.data_ptr(),
+                        words.data_ptr(), out.data_ptr())
+    assert args[6:] == (3, 100, 1, 2, 1, lay.tile_words, lay.tiles_per_block,
+                        lay.rules_per_slice, 1)
+    ddb = tm.DeviceDB.from_arrays(np.arange(5, dtype=np.uint32),
+                                  np.zeros(5, np.uint32),
+                                  np.zeros(5, np.int32), np.zeros(5, np.int32),
+                                  np.zeros(5, np.int32), window=40,
+                                  device="cpu")
+    q = [torch.zeros(7, dtype=torch.int32) for _ in range(4)]
+    mout = torch.zeros((7, 2), dtype=torch.int32)
+    kernels.match_words_cuda(ddb.h1, ddb.h1_index, ddb.table, *q, mout, 2)
+    args = seen["match"]
+    assert len(args) + 1 == len(kernels._ENTRY["match"][1])
+    assert args[:3] == (ddb.h1.data_ptr(), ddb.h1_index.data_ptr(),
+                        ddb.table.data_ptr())
+    assert args[8:] == (5, 7, 2, 2)
+
+
 def fanal_corpus():
     """tests/test_fanal.py's prefilter corpus: random printable bodies,
     half with an upper-cased keyword, and one file bigger than a chunk
@@ -180,9 +381,22 @@ def test_cuda_prefilter_kernel_equals_plain_version():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED + 3)
-    for max_len, k, c in [(1, 1, 1), (24, 114, 5), (7, 33, 2)]:
-        args = [torch.from_numpy(a).to(dev)
-                for a in make_case(rng, c, k, max_len)]
+    # rows of 1,000 and 16,383 bytes are not 16-byte aligned: the screen
+    # copies them byte by byte
+    for max_len, k, c, length in [(1, 1, 1, tp.CHUNK), (24, 114, 5, tp.CHUNK),
+                                  (7, 33, 2, tp.CHUNK), (24, 114, 3, 1000),
+                                  (20, 40, 2, tp.CHUNK - 1)]:
+        chunks, kw, kw_len = make_case(rng, c, k, max_len)
+        args = [torch.from_numpy(a).to(dev) for a in (
+            chunks[:, :length].copy(), kw, kw_len)]
+        form = tp.KeywordTensors.of_bank(args[1], args[2], max_len)
         got = tp.prefilter_hits(*args, max_len)
         torch.cuda.synchronize()
-        assert torch.equal(got, tp.prefilter_hits_ref(*args, max_len))
+        want = tp.prefilter_hits_ref(*args, max_len)
+        assert torch.equal(got, want)
+        assert torch.equal(tp.prefilter_hits(*args, max_len, form), want)
+    kw, contents = fanal_corpus()
+    bank = tp.KeywordBank(kw)
+    np.testing.assert_array_equal(
+        tp.DevicePrefilter(bank, device=dev).keyword_hits(contents),
+        tp.HostPrefilter(bank).keyword_hits(contents))

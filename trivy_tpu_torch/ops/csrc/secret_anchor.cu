@@ -47,11 +47,12 @@ anchor_kernel(const uint8_t* __restrict__ chunks,
               const int32_t* __restrict__ taps,  // [r, 8]
               const int32_t* __restrict__ n_taps,  // [r]
               uint32_t* __restrict__ out,  // [c, rw], zeroed
+              uint8_t* __restrict__ hits,  // unused (keyword banks)
               int len, int nw, int n_rules, int rw, int tile_words,
               int tiles_per_block, int rules_per_slice, int tab_in_smem) {
-  screen::screen_block(chunks, cls_bits, taps, n_taps, out, len, nw, n_rules,
-                       rw, tile_words, tiles_per_block, rules_per_slice,
-                       tab_in_smem);
+  screen::screen_block<screen::AnchorCfg>(
+      chunks, cls_bits, taps, n_taps, out, hits, len, nw, n_rules, rw,
+      tile_words, tiles_per_block, rules_per_slice, tab_in_smem);
 }
 
 }  // namespace
@@ -63,7 +64,8 @@ extern "C" int trivy_anchor_words(const void* chunks, const void* cls_bits,
                                   int tiles_per_block, int rules_per_slice,
                                   int tab_in_smem, void* stream) {
   if (nw > 4) return static_cast<int>(cudaErrorInvalidValue);  // 128 classes
-  return screen::launch(anchor_kernel, chunks, cls_bits, taps, n_taps, out, c,
-                        len, nw, n_rules, rw, tile_words, tiles_per_block,
-                        rules_per_slice, tab_in_smem, stream);
+  return screen::launch<screen::AnchorCfg>(
+      anchor_kernel, chunks, cls_bits, taps, n_taps, out, nullptr, c, len,
+      nw, n_rules, rw, tile_words, tiles_per_block, rules_per_slice,
+      tab_in_smem, stream);
 }

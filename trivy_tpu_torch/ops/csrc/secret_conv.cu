@@ -42,11 +42,12 @@ conv_kernel(const uint8_t* __restrict__ chunks,
             const int32_t* __restrict__ taps,  // [n, 8]
             const int32_t* __restrict__ n_taps,  // [n]
             uint32_t* __restrict__ out,  // [c, rw], zeroed
+            uint8_t* __restrict__ hits,  // unused (keyword banks)
             int len, int ncw, int n_rules, int rw, int tile_words,
             int tiles_per_block, int rules_per_slice, int tab_in_smem) {
-  screen::screen_block(chunks, cls_bits, taps, n_taps, out, len, ncw,
-                       n_rules, rw, tile_words, tiles_per_block,
-                       rules_per_slice, tab_in_smem);
+  screen::screen_block<screen::AnchorCfg>(
+      chunks, cls_bits, taps, n_taps, out, hits, len, ncw, n_rules, rw,
+      tile_words, tiles_per_block, rules_per_slice, tab_in_smem);
 }
 
 }  // namespace
@@ -59,7 +60,8 @@ extern "C" int trivy_conv_anchor_words(const void* chunks,
                                        int tiles_per_block,
                                        int rules_per_slice, int tab_in_smem,
                                        void* stream) {
-  return screen::launch(conv_kernel, chunks, cls_bits, taps, n_taps, out, c,
-                        len, ncw, n_rules, rw, tile_words, tiles_per_block,
-                        rules_per_slice, tab_in_smem, stream);
+  return screen::launch<screen::AnchorCfg>(
+      conv_kernel, chunks, cls_bits, taps, n_taps, out, nullptr, c, len, ncw,
+      n_rules, rw, tile_words, tiles_per_block, rules_per_slice, tab_in_smem,
+      stream);
 }

@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # one returns cudaGetLastError() as an int
 _ENTRY = {
     "match": ("trivy_match_words",
-              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "secret_anchor": ("trivy_anchor_words",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p]),
@@ -40,7 +40,7 @@ _ENTRY = {
                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p]),
     "secret_prefilter": ("trivy_prefilter_hits",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                          + [ctypes.c_void_p]),
 }
 
@@ -123,17 +123,19 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def match_words_cuda(row_h1: torch.Tensor, table: torch.Tensor,
-                     h1: torch.Tensor, h2: torch.Tensor, rank: torch.Tensor,
-                     flags: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch csrc/match.cu on the current stream of `out`'s device.
+def match_words_cuda(row_h1: torch.Tensor, h1_index: torch.Tensor,
+                     table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+                     rank: torch.Tensor, flags: torch.Tensor,
+                     out: torch.Tensor, warps_per_query: int) -> None:
+    """Launch csrc/match.cu on the current stream of `out`'s device, a
+    query's words on `warps_per_query` warps (match.match_layout).
     Callers check shapes, dtypes and devices (ops/match.py:match_words)."""
     if table.data_ptr() % 16:
         raise ValueError("match table must be 16-byte aligned")
     _launch("match", "match", out.device, row_h1.data_ptr(),
-            table.data_ptr(), h1.data_ptr(), h2.data_ptr(), rank.data_ptr(),
-            flags.data_ptr(), out.data_ptr(), row_h1.shape[0], h1.shape[0],
-            out.shape[1])
+            h1_index.data_ptr(), table.data_ptr(), h1.data_ptr(),
+            h2.data_ptr(), rank.data_ptr(), flags.data_ptr(), out.data_ptr(),
+            row_h1.shape[0], h1.shape[0], out.shape[1], warps_per_query)
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -179,13 +181,18 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def prefilter_hits_cuda(chunks: torch.Tensor, kw: torch.Tensor,
-                        kw_len: torch.Tensor, max_len: int,
-                        out: torch.Tensor) -> None:
-    """Launch csrc/secret_prefilter.cu into the zeroed `out`. Callers
-    check shapes, dtypes and devices
+def prefilter_hits_cuda(chunks: torch.Tensor, form, words: torch.Tensor,
+                        out: torch.Tensor, lay) -> None:
+    """Launch the shared secret screen through csrc/secret_prefilter.cu
+    on a keyword bank's compact form (`form`, a
+    secret_prefilter.KeywordTensors) into the zeroed bool `out` and
+    packed `words`, on the grid of `lay` (a secret_nfa.ScreenLayout).
+    Callers check shapes, dtypes and devices
     (ops/secret_prefilter.py:prefilter_hits)."""
     c, length = chunks.shape
     _launch("secret_prefilter", "prefilter", out.device, chunks.data_ptr(),
-            kw.data_ptr(), kw_len.data_ptr(), out.data_ptr(), c, length,
-            kw.shape[0], kw.shape[1], max_len)
+            form.cls_bits.data_ptr(), form.taps.data_ptr(),
+            form.n_taps.data_ptr(), words.data_ptr(), out.data_ptr(), c,
+            length, form.cls_bits.shape[1], form.taps.shape[0], form.rw,
+            lay.tile_words, lay.tiles_per_block, lay.rules_per_slice,
+            int(lay.tab_in_smem))

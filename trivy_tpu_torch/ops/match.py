@@ -15,8 +15,9 @@ kernel evaluates a whole query batch against them:
      read back as uint32.
 
 `match_words` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel (ops/csrc/match.cu), on a CPU tensor it runs the
-plain PyTorch version `match_words_ref`. The host maps set bits back to
+hand-written kernel (ops/csrc/match.cu) on the grid `match_layout`
+picks, on a CPU tensor it runs the plain PyTorch version
+`match_words_ref`. The host maps set bits back to
 advisory ids from its resident numpy copies (detector/engine.py).
 
 Ids, hashes and flags are int32 tensors throughout: uint32 hashes ride
@@ -27,6 +28,7 @@ int64 copy masked to 32 bits).
 
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass
 
@@ -75,16 +77,44 @@ def _pack_table(h1, h2, lo, hi, flags) -> np.ndarray:
     return t
 
 
+def index_levels(n: int) -> int:
+    """Levels of the search index above n keys: the fewest whose top
+    level has at most 32 entries (csrc/match.cu index_levels)."""
+    levels = 0
+    while -(-n // 32 ** levels) > 32:
+        levels += 1
+    return levels
+
+
+@functools.cache
+def index_size(n: int) -> int:
+    """Entries of search_index over n keys."""
+    return sum(-(-n // 32 ** level)
+               for level in range(1, index_levels(n) + 1))
+
+
+def search_index(keys: np.ndarray) -> np.ndarray:
+    """The match kernel's search index over sorted keys: for each level l
+    from index_levels(n) down to 1, keys[::32 ** l] (every 32 ** l-th
+    key: what one 32-ary search step reads, stored together), top level
+    first; empty for 32 keys or fewer. -> uint32[~n / 31]."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    levels = index_levels(len(keys))
+    return np.concatenate([keys[:: 32 ** l] for l in range(levels, 0, -1)]
+                          + [np.empty(0, np.uint32)])
+
+
 @dataclass
 class DeviceDB:
     """Advisory rows resident on a device: the sorted h1 key column
-    (search target, int32 bit pattern of uint32 hashes) plus the
-    interleaved row table."""
+    (search target, int32 bit pattern of uint32 hashes), its search
+    index (search_index) and the interleaved row table."""
 
     h1: torch.Tensor  # int32[N], sorted as uint32
     table: torch.Tensor  # int32[N, TABLE_LANES]
     n_rows: int
     window: int
+    h1_index: torch.Tensor  # int32 bit patterns of search_index(h1)
     # largest batch bucket dispatched so far (bookkeeping the scheduler
     # reads; the CUDA kernel launches on the real batch size)
     bucket_floor: int = 0
@@ -110,6 +140,8 @@ class DeviceDB:
                 flags)).to(device),
             n_rows=len(h1),
             window=window,
+            h1_index=torch.from_numpy(
+                search_index(h1).view(np.int32)).to(device),
         )
 
     @classmethod
@@ -179,6 +211,31 @@ def match_words_ref(ddb: DeviceDB, h1: torch.Tensor, h2: torch.Tensor,
                        words).to(torch.int32)
 
 
+MATCH_WARPS = 8  # warps a block of the match kernel (csrc/match.cu)
+# warps an SM holds of the long-window kernel (4 blocks of 8 warps: its
+# __launch_bounds__)
+MATCH_RESIDENT_WARPS = 32
+
+
+def match_layout(n_words: int, b: int, n_sm: int) -> int:
+    """The layout of one match launch: `b` queries of `n_words` words on
+    a card of `n_sm` SMs, in blocks of MATCH_WARPS warps. -> warps per
+    query: a query's words are spread over 1, 2, 4 or 8 warps (word k to
+    warp k mod warps per query), doubling while a warp would take more
+    than 4 words and the doubled grid would still fit the card's
+    resident warps at once. A grid that fills the card without spreading
+    (the main tier's 2-word window, or a batch large for its window)
+    keeps one warp a query; the kernel then loads 2 words at a time (the
+    instance whose registers let 8 blocks share an SM), a spread query 4.
+    The hot tier's 30 words (34 queries) take eight warps, the tall
+    tier's 125 (993 queries) four."""
+    wq = 1
+    while (wq < MATCH_WARPS and n_words > 4 * wq
+           and 2 * wq * max(b, 1) <= n_sm * MATCH_RESIDENT_WARPS):
+        wq *= 2
+    return wq
+
+
 def match_words(ddb: DeviceDB, h1: torch.Tensor, h2: torch.Tensor,
                 rank: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
     """-> int32[B, ceil(W/32)] packed hit words (uint32 bit patterns).
@@ -205,14 +262,21 @@ def match_words(ddb: DeviceDB, h1: torch.Tensor, h2: torch.Tensor,
             or ddb.table.shape != (ddb.n_rows, TABLE_LANES) \
             or ddb.table.dtype != torch.int32 \
             or not ddb.h1.is_contiguous() or not ddb.table.is_contiguous() \
-            or ddb.h1.device != dev:
+            or ddb.h1.device != dev or ddb.h1_index.device != dev \
+            or ddb.h1_index.dtype != torch.int32 \
+            or ddb.h1_index.shape != (index_size(ddb.n_rows),) \
+            or not ddb.h1_index.is_contiguous():
         raise ValueError("match_words: malformed DeviceDB tensors")
     if ddb.n_rows >= _INT32_LIMIT or b >= _INT32_LIMIT:
         raise ValueError("match_words: more rows or queries than int32 holds")
     out = torch.empty((b, nw), dtype=torch.int32, device=dev)
     if ddb.n_rows == 0 or b == 0:
         return out.zero_()
-    kernels.match_words_cuda(ddb.h1, ddb.table, h1, h2, rank, flags, out)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    kernels.match_words_cuda(ddb.h1, ddb.h1_index, ddb.table, h1, h2, rank,
+                             flags, out,
+                             match_layout(nw, b, kernels.sm_count(index)))
     with _count_lock:
         match_words.launches += 1
         ddb.launches += 1

@@ -33,7 +33,8 @@ carried as int32 bit patterns):
   float32).
 
 Both kernels are one bit-sliced screen (ops/csrc/secret_screen.cuh) on
-one compact form of the bank (`screen_taps`), built once per matcher.
+one compact form of the bank (`screen_taps`), built once per matcher;
+the keyword prefilter (ops/secret_prefilter.py) is its third user.
 
 The class-sequence compiler, the anchors, both banks' arrays and the
 chunking are copies of the reference's, so the banks hold identical
@@ -651,7 +652,8 @@ def conv_anchor_words_ref(chunks: torch.Tensor, classtab: torch.Tensor,
 #
 # Both banks reach the card in one compact form, and one hand-written
 # screen (ops/csrc/secret_screen.cuh) serves both, through the entry
-# points of ops/csrc/secret_anchor.cu and ops/csrc/secret_conv.cu.
+# points of ops/csrc/secret_anchor.cu and ops/csrc/secret_conv.cu (and
+# a keyword bank through ops/csrc/secret_prefilter.cu).
 
 SCREEN_MIN_BLOCKS = 4  # blocks an SM holds at least (__launch_bounds__)
 SM_SMEM = 228 * 1024  # shared memory of one H100 SM
@@ -668,35 +670,38 @@ SCREEN_MIN_SLICE = 256
 
 
 def screen_taps(cls_bits: np.ndarray, tap_cls: np.ndarray,
-                tap_act: np.ndarray, tap_never: np.ndarray):
-    """A bank's taps in the screen's compact form. -> (taps int32[R, 8],
-    n_taps int32[R]).
+                tap_act: np.ndarray, tap_never: np.ndarray,
+                rarity: np.ndarray | None = None, shift_bits: int = 3):
+    """A bank's taps in the screen's compact form. -> (taps int32[R, T],
+    n_taps int32[R]), T = tap_cls.shape[1] (K_ANCHOR for the anchor
+    banks, MAX_KW for a keyword bank).
 
     cls_bits uint32[256, ncw] (class i = bit i % 32 of word i // 32);
-    tap_cls int[R, 8] class of each tap; tap_act bool[R, 8] active taps;
-    tap_never bool[R, 8] active taps that name no class. Row r lists its
-    active taps as (class << 3) | tap position, rarest class first (the
-    class's byte count, then the position); the rest of the row is 0.
-    n_taps[r] is the number of active taps, -1 when one names no class
-    (the rule never hits), 0 when none is active (it hits wherever the
-    chunk has a position). AND does not depend on the order, so the
-    screen's result does not either; the order lets it leave a rule
-    early."""
-    bits = np.unpackbits(np.ascontiguousarray(cls_bits).view(np.uint8),
-                         axis=1, bitorder="little")
-    count = bits.sum(axis=0)
-    r = tap_cls.shape[0]
-    taps = np.zeros((r, K_ANCHOR), dtype=np.int32)
+    tap_cls int[R, T] class of each tap; tap_act bool[R, T] active taps;
+    tap_never bool[R, T] active taps that name no class. Row r lists its
+    active taps as (class << shift_bits) | tap position, rarest class
+    first (by `rarity[class]`, default the class's byte count, then the
+    position); the rest of the row is 0. n_taps[r] is the number of
+    active taps, -1 when one names no class (the rule never hits), 0
+    when none is active (it hits wherever the chunk has a position). AND
+    does not depend on the order, so the screen's result does not
+    either; the order lets it leave a rule early."""
+    if rarity is None:
+        rarity = np.unpackbits(
+            np.ascontiguousarray(cls_bits).view(np.uint8), axis=1,
+            bitorder="little").sum(axis=0)
+    r, width = tap_cls.shape
+    taps = np.zeros((r, width), dtype=np.int32)
     n_taps = np.zeros(r, dtype=np.int32)
     for i in range(r):
         if tap_never[i].any():
             n_taps[i] = -1
             continue
         js = sorted(np.nonzero(tap_act[i])[0].tolist(),
-                    key=lambda j: (count[tap_cls[i, j]], j))
+                    key=lambda j: (rarity[tap_cls[i, j]], j))
         n_taps[i] = len(js)
         for t, j in enumerate(js):
-            taps[i, t] = int(tap_cls[i, j]) << 3 | j
+            taps[i, t] = int(tap_cls[i, j]) << shift_bits | j
     return taps, n_taps
 
 
@@ -710,7 +715,7 @@ class ScreenTensors:
     uint32 words as int32 bit patterns."""
 
     cls_bits: torch.Tensor  # int32[256, ncw]
-    taps: torch.Tensor  # int32[R, K_ANCHOR]
+    taps: torch.Tensor  # int32[R, K_ANCHOR] (MAX_KW for keywords)
     n_taps: torch.Tensor  # int32[R]
     rw: int  # output words per chunk
 
@@ -794,16 +799,16 @@ def _align16(n: int) -> int:
 
 
 def screen_smem(ncw: int, rules: int, rw: int, tile_words: int,
-                tab_in_smem: bool = True) -> int:
+                tab_in_smem: bool = True, taps: int = K_ANCHOR) -> int:
     """Dynamic shared memory of one screen block, in bytes: two byte
     buffers of a tile and its halo word, the class table (unless it is
-    read from global memory), the taps and tap counts of a slice of
-    `rules` rules, the hit mask and the tile's class bitmaps (the Layout
-    of ops/csrc/secret_screen.cuh)."""
+    read from global memory), the `taps` tap words and the tap count of
+    each of a slice of `rules` rules, the hit mask and the tile's class
+    bitmaps (the Layout of ops/csrc/secret_screen.cuh)."""
     return (2 * _align16(tile_words * 32 + 32)
             + (_align16(1024 * ncw) if tab_in_smem else 0)
-            + _align16(32 * rules) + _align16(rules) + _align16(4 * rw)
-            + 128 * ncw * (tile_words + 1))
+            + _align16(4 * taps * rules) + _align16(rules)
+            + _align16(4 * rw) + 128 * ncw * (tile_words + 1))
 
 
 @dataclass(frozen=True)
@@ -817,19 +822,22 @@ class ScreenLayout:
     slots: int  # blocks the card holds at once (estimate)
 
 
-def _screen_fit(ncw: int, n_rules: int, rw: int) -> tuple[int, int, bool]:
+def _screen_fit(ncw: int, n_rules: int, rw: int,
+                taps: int) -> tuple[int, int, bool]:
     """-> (tile_words, rules_per_slice, tab_in_smem) of a block that fits
     the card: the largest tile (2,048 positions only while two blocks
     share an SM), the class table in shared memory before global, and
     the fewest slices of rules, each of at least SCREEN_MIN_SLICE rules
     (or all of them)."""
     least = min(n_rules, SCREEN_MIN_SLICE)
+    per_rule = 4 * taps + 1  # its tap words and its count
     for tab in (True, False):
         for tw in SCREEN_TILE_WORDS:
             limit = SCREEN_SMEM_TARGET if tw == 64 else BLOCK_SMEM_MAX
-            room = limit - screen_smem(ncw, 0, rw, tw, tab)
-            most = max(0, room // 33)  # 32 B of taps and a count a rule
-            while most and _align16(32 * most) + _align16(most) > room:
+            room = limit - screen_smem(ncw, 0, rw, tw, tab, taps)
+            most = max(0, room // per_rule)
+            while most and (_align16(4 * taps * most) + _align16(most)
+                            > room):
                 most -= 1
             if most >= least:
                 slices = -(-n_rules // most)
@@ -839,7 +847,7 @@ def _screen_fit(ncw: int, n_rules: int, rw: int) -> tuple[int, int, bool]:
 
 
 def screen_layout(c: int, length: int, ncw: int, n_rules: int, rw: int,
-                  n_sm: int) -> ScreenLayout:
+                  n_sm: int, taps: int = K_ANCHOR) -> ScreenLayout:
     """The grid of one screen launch over `c` chunks of `length` bytes on
     a card of `n_sm` SMs. Tiles hold 2,048 positions while a block's
     shared memory lets two blocks share an SM, else 1,024; a bank too
@@ -848,10 +856,11 @@ def screen_layout(c: int, length: int, ncw: int, n_rules: int, rw: int,
     (_screen_fit). A block screens one slice of the rules over a run of
     one chunk's tiles, in order (so a rule hit in one tile is skipped in
     the later ones); a batch with fewer chunk slices than the card has
-    block slots splits each chunk into several runs."""
+    block slots splits each chunk into several runs. `taps`: tap words a
+    rule (K_ANCHOR, or MAX_KW for a keyword bank)."""
     n_rules = max(n_rules, 1)
-    tile_words, per_slice, tab = _screen_fit(ncw, n_rules, rw)
-    smem = screen_smem(ncw, per_slice, rw, tile_words, tab)
+    tile_words, per_slice, tab = _screen_fit(ncw, n_rules, rw, taps)
+    smem = screen_smem(ncw, per_slice, rw, tile_words, tab, taps)
     slots = min(SCREEN_MIN_BLOCKS, SM_SMEM // (smem + 1024)) * n_sm
     slices = -(-n_rules // per_slice)
     tiles = -(-length // (32 * tile_words))
