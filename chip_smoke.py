@@ -49,8 +49,22 @@ Phases, each fatal on failure:
      against HostPrefilter;
 then times each secret kernel and its plain version at the main path's
 shapes, with the screen design's own full-evaluation floor, beside each
-kernel's time before its latest redesign. Prints a `kernels` JSON line,
-the card line, and last
+kernel's time before its latest redesign; then
+  7. drive the `sbom` CLI on the card: (a) `python -m trivy_tpu_torch
+     sbom` as a subprocess on tests/test_sbom_e2e.py's fixture (read
+     from its source), its JSON equal to tests/golden/sbom_cdx.json.golden
+     byte for byte, its table totalling 2; (b) phase 3's DB saved with
+     AdvisoryDB.save and a seeded 3,000-component image SBOM (1,000
+     debian OS packages with every hot name of the bucket, an npm
+     lockfile of 1,500, 500 pip packages) scanned in process through
+     trivy_tpu_torch.cli.main.main cold (compile, save the compiled
+     entry), warm (load it) and with --no-tpu: the three reports byte
+     for byte, the warm run a compiled-cache hit, the match kernel
+     launched on all three tiers in both device runs, the native
+     collector used; each run's wall split as the CLI's run module keeps
+     it, and the device idle share of a profiled rerun of each device run.
+Phase 3 runs with the native collector (native/collect.cpp) too.
+Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 
@@ -81,6 +95,16 @@ CORPUS_BYTES = 256 << 20
 BIG_FILE_BYTES = 12 << 20
 N_PLANTED = 2_000
 CONV_BYTES = 64 << 20
+# phase 3's crunch-lane busy seconds with the numpy decoder, as PERF.md
+# records them (NVIDIA H100 80GB HBM3 at 700 W): printed beside this run's
+NUMPY_CRUNCH_BUSY_S = 3.788
+# phase 7: the sbom CLI
+SBOM_SEED = 20261017
+SBOM_OS, SBOM_NPM, SBOM_PIP = 1_000, 1_500, 500
+# debian 11, not 12: in the synthetic DB debian 12's hot names are all
+# over the tall split, debian 11's 40 span the hot and tall tiers
+SBOM_OS_BUCKET, SBOM_OS_VERSION = "debian 11", "11.11"
+FAKE_TIME = "2024-01-01T00:00:00+00:00"
 # device ms recorded in PERF.md's kernel table at the same shapes (NVIDIA
 # H100 80GB HBM3 at 700 W), by the PR that recorded them: printed on an
 # informational line beside this run's, never in the kernels line
@@ -539,6 +563,33 @@ def match_split(ddb, sub, dev) -> dict:
     return out
 
 
+def collector_ab(engine, queries, want) -> None:
+    """The crawl again with a cold crawl cache (the rescreen memo warm),
+    the numpy and the native collector in turns (numpy, native, native,
+    numpy): each turn's wall and crunch-lane busy seconds."""
+    from trivy_tpu_torch.native import collect as ncollect
+
+    available = ncollect.available
+    turns = []
+    try:
+        for name in ("numpy", "native", "native", "numpy"):
+            ncollect.available = available if name == "native" \
+                else (lambda: False)
+            engine._crawl_cache.clear()
+            t0 = time.perf_counter()
+            got = engine.detect_many(queries, BATCH)
+            wall = time.perf_counter() - t0
+            st = engine.last_pipeline_stats or {}
+            if st.get("collector") != name or \
+                    [r.adv_indices for r in got] != want:
+                raise AssertionError(f"collector turn {name} disagrees")
+            turns.append({"collector": name, "wall_s": round(wall, 4),
+                          "crunch_busy_s": round(st["crunch_busy_s"], 4)})
+    finally:
+        ncollect.available = available
+    print(f"phase3 collector_ab {json.dumps(turns)}")
+
+
 def main_path(dev) -> dict:
     from trivy_tpu_torch.detector.engine import MatchEngine
     from trivy_tpu_torch.ops import match as m
@@ -569,13 +620,19 @@ def main_path(dev) -> dict:
     wall = time.perf_counter() - t0
     launches = m.match_words.launches
     per_tier = {k: t.launches for k, t in tiers.items()}
+    stats = engine.last_pipeline_stats or {}
     print(f"phase3 detect_many queries={len(queries)} wall_s={wall:.3f} "
           f"pkg_per_s={len(queries) / wall:.1f} "
           f"matches={sum(len(r.adv_indices) for r in res)} "
           f"launches={launches} per_tier={json.dumps(per_tier)} "
-          f"pipeline={json.dumps(engine.last_pipeline_stats)}")
+          f"pipeline={json.dumps(stats)}")
+    print(f"phase3 collector={stats.get('collector')} "
+          f"crunch_busy_s={stats.get('crunch_busy_s', 0.0):.3f} "
+          f"recorded_numpy_crunch_busy_s={NUMPY_CRUNCH_BUSY_S}")
     if not all(per_tier.values()):
         raise AssertionError(f"a tier was never launched: {per_tier}")
+    if stats.get("collector") != "native":
+        raise AssertionError("phase 3 did not run the native collector")
 
     # right answers: the oracle, detect and submit on a sample
     idx = pick_sample(engine, queries, SAMPLE)
@@ -620,6 +677,8 @@ def main_path(dev) -> dict:
           f"device_idle_share={1 - busy_ms / 1e3 / wall2:.6f} "
           f"pipeline={json.dumps(engine.last_pipeline_stats)}")
 
+    collector_ab(engine, queries, [r.adv_indices for r in res])
+
     # kernel time at the main path's shapes: one pipeline chunk of the
     # crawl's unique queries, routed to the three tiers as the engine does
     stats = engine.last_pipeline_stats or {}
@@ -648,7 +707,7 @@ def main_path(dev) -> dict:
                                              part, dev)
             del wide
     return {"launches": launches, "per_tier": per_tier, "timings": timings,
-            "pkg_per_s": len(queries) / wall}
+            "pkg_per_s": len(queries) / wall, "db": db}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1593,6 +1652,200 @@ def prefilter_split(chp, form) -> dict:
                         ("no_keywords_one_word", one_word))}
 
 
+# --------------------------------------------------------------- phase 7
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(REPO, "tests", "golden", "sbom_cdx.json.golden")
+
+
+def golden_fixture():
+    """The CycloneDX document and the five-advisory DB of
+    tests/test_sbom_e2e.py, read from its source (not imported: the test
+    module imports the JAX package) and built with the port's types."""
+    import ast
+
+    from trivy_tpu_torch.db import Advisory, AdvisoryDB, VulnerabilityMeta
+    from trivy_tpu_torch.db.model import DataSourceInfo
+
+    path = os.path.join(REPO, "tests", "test_sbom_e2e.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    doc, fn = None, None
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", "") == "CDX_DOC":
+            doc = ast.literal_eval(node.value)
+        elif isinstance(node, ast.FunctionDef) and node.name == "_fixture_db":
+            fn = node
+    ns = {"Advisory": Advisory, "AdvisoryDB": AdvisoryDB,
+          "VulnerabilityMeta": VulnerabilityMeta,
+          "DataSourceInfo": DataSourceInfo}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), path, "exec"), ns)
+    return doc, ns["_fixture_db"]()
+
+
+def cli_golden(tmp: str) -> None:
+    """(a) the real entry point as a subprocess, on the card it picks by
+    itself: its JSON equals the golden report, its table totals 2."""
+    doc, db = golden_fixture()
+    db.save(os.path.join(tmp, "gdb"))
+    bom = os.path.join(tmp, "golden_bom.json")
+    with open(bom, "w") as f:
+        json.dump(doc, f)
+    env = {**os.environ, "TRIVY_TPU_FAKE_TIME": FAKE_TIME}
+    with open(GOLDEN) as f:
+        golden = f.read()
+    for fmt in ("json", "table"):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "trivy_tpu_torch", "sbom", bom,
+             "--format", fmt, "--db-path", os.path.join(tmp, "gdb"),
+             "--cache-dir", os.path.join(tmp, "gcache"), "--quiet"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        ok = out.returncode == 0 and (
+            out.stdout == golden if fmt == "json" else
+            "Total: 2" in out.stdout)
+        print(f"phase7 golden format={fmt} rc={out.returncode} "
+              f"wall_s={wall:.3f} bytes={len(out.stdout)} ok={ok}")
+        if not ok:
+            raise AssertionError(f"sbom CLI ({fmt}) on cuda:0: "
+                                 f"{out.stderr[-2000:]}")
+
+
+def cli_run(argv: list[str], report: str, tiers: bool) -> dict:
+    """One in-process CLI scan with the launch counts at 0 just before
+    it -> its numbers (the run module's own split, launches per tier)."""
+    from trivy_tpu_torch.cli import main as cli_main
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.ops import match as m
+
+    run._ENGINE_CACHE.clear()
+    m.match_words.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main.main(argv + ["--output", report])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"sbom CLI returned {rc}")
+    engine = next(iter(run._ENGINE_CACHE.values()))
+    with open(report, "rb") as f:
+        body = f.read()
+    doc = json.loads(body)
+    out = {
+        "wall_s": wall, **run.STATS,
+        "components": sum(len(r.get("Packages", []))
+                          for r in doc.get("Results", [])),
+        "vulnerabilities": sum(len(r.get("Vulnerabilities", []))
+                               for r in doc.get("Results", [])),
+        "report_bytes": len(body), "launches": m.match_words.launches,
+        "collector": engine.collector,
+    }
+    if tiers:
+        out["per_tier"] = {k: t.launches for k, t in (
+            ("main", engine._ddb), ("hot", engine._ddb_hot),
+            ("tall", engine._ddb_tall))}
+    return out
+
+
+def cli_profiled(argv: list[str], report: str) -> dict:
+    """The same scan again under torch.profiler's CUDA activity: the
+    device's busy and idle share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = cli_run(argv, report, tiers=False)
+    busy_ms, _ = device_busy_ms(prof)
+    kern_ms, kern_n = device_busy_ms(prof, "match_kernel")
+    return {"wall_s": r["wall_s"], "device_busy_ms": busy_ms,
+            "match_kernel_ms": kern_ms, "match_kernel_launches": kern_n,
+            "device_idle_share": 1 - busy_ms / 1e3 / r["wall_s"]}
+
+
+def sbom_cli_path(db) -> dict:
+    """Phase 7: the sbom CLI on the card. (a) the golden fixture through
+    the real entry point; (b) phase 3's 2,000,000-advisory DB saved with
+    the port's AdvisoryDB.save and a seeded 3,000-component image SBOM,
+    scanned cold (compile + save the compiled entry), warm (load it) and
+    on the host oracle (--no-tpu): the three reports byte for byte."""
+    import tempfile
+
+    from trivy_tpu_torch.native import collect as ncollect
+    from trivy_tpu_torch.tensorize import cache as ccache
+    from trivy_tpu_torch.tensorize.synth import synth_sbom
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sbom_")
+    try:
+        if not ncollect.available():
+            print("phase7 native collector did not build (g++)")
+            raise AssertionError("native collector unavailable")
+        cli_golden(tmp)
+
+        os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+        root = os.path.join(tmp, "db")
+        t0 = time.perf_counter()
+        db.save(root)
+        save_s = time.perf_counter() - t0
+        db_mb = os.path.getsize(os.path.join(root, "trivy_tpu.db.json.gz"))
+        bom = os.path.join(tmp, "bom.json")
+        with open(bom, "w") as f:
+            json.dump(synth_sbom(db, SBOM_OS, SBOM_NPM, SBOM_PIP,
+                                 seed=SBOM_SEED, os_bucket=SBOM_OS_BUCKET,
+                                 os_version=SBOM_OS_VERSION), f)
+        n_comp = SBOM_OS + SBOM_NPM + SBOM_PIP
+        print(f"phase7 db advisories={db.stats()['advisories']} "
+              f"save_s={save_s:.3f} gz_mb={db_mb / 1e6:.3f} "
+              f"sbom components={n_comp} os={SBOM_OS_BUCKET!r} "
+              f"npm={SBOM_NPM} pip={SBOM_PIP}")
+        argv = ["sbom", bom, "--format", "json", "--db-path", root,
+                "--cache-dir", os.path.join(tmp, "cache"), "--quiet",
+                "--list-all-pkgs"]
+        runs = {}
+        reports = {}
+        for name, extra in (("cold", []), ("warm", []),
+                            ("no_tpu", ["--no-tpu"])):
+            reports[name] = os.path.join(tmp, f"{name}.json")
+            runs[name] = cli_run(argv + extra, reports[name],
+                                 tiers=name != "no_tpu")
+            if name == "cold":
+                entry = ccache.entry_path(root, ccache.db_digest(root), None)
+                runs[name]["entry_mb"] = os.path.getsize(entry) / 1e6
+            print(f"phase7 run={name} {json.dumps(runs[name])}")
+        with open(reports["no_tpu"], "rb") as f:
+            want = f.read()
+        diff = 0
+        for name in ("cold", "warm"):
+            with open(reports[name], "rb") as f:
+                diff += f.read() != want
+        print(f"phase7 reports_diff_vs_no_tpu={diff}")
+        if diff:
+            raise AssertionError("device reports differ from --no-tpu")
+        if runs["cold"]["compile_cache"] != "miss" or \
+                runs["warm"]["compile_cache"] != "hit":
+            raise AssertionError("the warm run did not hit the compiled "
+                                 f"cache: {runs['warm']['compile_cache']}")
+        for name in ("cold", "warm"):
+            if not all(runs[name]["per_tier"].values()):
+                raise AssertionError(f"{name}: a tier was never launched")
+            if runs[name]["collector"] != "native":
+                raise AssertionError(f"{name}: numpy collector ran")
+            if runs[name]["components"] != n_comp:
+                raise AssertionError(f"{name}: components missing")
+
+        # device idle share: each device run again under the profiler
+        # (cold: the compiled entry removed first)
+        os.unlink(entry)
+        prof = {"cold": cli_profiled(argv, os.path.join(tmp, "p.json"))}
+        prof["warm"] = cli_profiled(argv, os.path.join(tmp, "p.json"))
+        for name, p in prof.items():
+            print(f"phase7 profiled_rerun run={name} {json.dumps(p)}")
+        return {"runs": runs, "profiled": prof,
+                "launches": runs["cold"]["launches"]
+                + runs["warm"]["launches"]}
+    finally:
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1642,6 +1895,10 @@ def main() -> int:
     st = time_secret_kernels(dev, p5, p6)
     print(f"timings seconds={time.perf_counter() - t0:.3f}")
 
+    t0 = time.perf_counter()
+    p7 = sbom_cli_path(p3.pop("db"))
+    print(f"phase7 seconds={time.perf_counter() - t0:.3f}")
+
     main_t = p3["timings"]["main"]
     entries = [{
         "name": "match", "route": "cuda",
@@ -1656,6 +1913,9 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "launches_per_tier": p3["per_tier"],
+        "launches_sbom_cli": {k: r["per_tier"]
+                              for k, r in p7["runs"].items()
+                              if "per_tier" in r},
         "tiers": p3["timings"],
     }]
     for name, source, replaces, launches in (

@@ -253,8 +253,9 @@ def _forbidden(name: str) -> bool:
 
 def test_port_imports_no_jax_in_a_fresh_process():
     """Importing the port, running a CPU detect, a CPU secret scan on
-    every path and the keyword prefilter loads no jax module and
-    nothing of the JAX package."""
+    every path, the keyword prefilter and a CPU sbom scan through the
+    port's CLI (DB save and load, compiled-DB cache, native collect)
+    loads no jax module and nothing of the JAX package."""
     code = """
 import sys
 before = set(sys.modules)
@@ -275,6 +276,17 @@ for mode in (False, True, "hybrid"):
 assert scanner.scan_stream("a/.env", files[0][1]) is not None
 pre = DevicePrefilter(KeywordBank([b"akia", b"ghp_"]), device="cpu")
 assert pre.keyword_hits([c for _p, c in files]).any()
+import json, tempfile
+from trivy_tpu_torch.cli.main import main
+from trivy_tpu_torch.tensorize.synth import synth_sbom
+tmp = tempfile.mkdtemp()
+db.save(tmp + "/db")
+with open(tmp + "/bom.json", "w") as f:
+    json.dump(synth_sbom(db, 20, 20, 10), f)
+for _ in range(2):
+    assert main(["sbom", tmp + "/bom.json", "--db-path", tmp + "/db",
+                 "--cache-dir", tmp + "/c", "--device", "cpu", "--quiet",
+                 "--format", "json", "--output", tmp + "/r.json"]) == 0
 print("\\n".join(sorted(set(sys.modules) - before)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -284,6 +296,9 @@ print("\\n".join(sorted(set(sys.modules) - before)))
     loaded = out.stdout.split()
     assert "trivy_tpu_torch.ops.match" in loaded
     assert "trivy_tpu_torch.secret.stream" in loaded
+    assert "trivy_tpu_torch.cli.run" in loaded
+    assert "trivy_tpu_torch.tensorize.cache" in loaded
+    assert "trivy_tpu_torch.native.collect" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -1,0 +1,136 @@
+"""trivy-tpu-torch CLI: the `sbom` and `version` subcommands of
+trivy_tpu/cli/main.py, with the match kernel on a CUDA card.
+
+    python -m trivy_tpu_torch sbom bom.json --format json
+
+Copy of trivy_tpu/cli/main.py trimmed to the flags the sbom scan path
+reads. A flag whose feature is not ported yet is absent, so argparse
+refuses it. `--device` is the port's own: the scan runs on ``cuda:0``
+unless it names another device (``cpu`` runs the kernels' plain
+versions); `--no-tpu` keeps the reference's name for the host-oracle
+match path, which needs no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import trivy_tpu_torch
+from trivy_tpu_torch import log
+
+
+def _add_global_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--debug", action="store_true", help="debug logging")
+    p.add_argument("--quiet", "-q", action="store_true", help="suppress logs")
+    p.add_argument("--config", "-c", default=None,
+                   help="config file (default trivy-tpu.yaml if present)")
+    p.add_argument(
+        "--cache-dir",
+        default=os.environ.get(
+            "TRIVY_TPU_CACHE_DIR",
+            os.path.join(os.path.expanduser("~"), ".cache", "trivy-tpu"),
+        ),
+        help="cache directory",
+    )
+
+
+def _add_scan_flags(p: argparse.ArgumentParser) -> None:
+    from trivy_tpu_torch.report.writer import FORMATS
+
+    p.add_argument("--format", "-f", default="table",
+                   help=f"output format ({','.join(FORMATS)})")
+    p.add_argument("--output", "-o", default=None, help="output file")
+    p.add_argument("--severity", "-s", default=None,
+                   help="comma-separated severities (UNKNOWN,LOW,MEDIUM,HIGH,CRITICAL)")
+    p.add_argument("--scanners", default="vuln,secret",
+                   help="comma-separated scanners (vuln,secret)")
+    p.add_argument("--pkg-types", default="os,library",
+                   help="comma-separated package types (os,library)")
+    p.add_argument("--db-path", default=None,
+                   help="advisory DB directory (default <cache>/db)")
+    p.add_argument("--list-all-pkgs", action="store_true")
+    p.add_argument("--ignorefile", default=".trivyignore")
+    p.add_argument("--ignore-unfixed", action="store_true",
+                   help="hide vulnerabilities with no fixed version")
+    p.add_argument("--ignore-status", default=None,
+                   help="comma-separated statuses to ignore")
+    p.add_argument("--exit-code", type=int, default=0)
+    p.add_argument("--exit-on-eol", type=int, default=0)
+    p.add_argument("--no-tpu", action="store_true",
+                   help="run matching on the host instead of the match "
+                        "kernel (needs no card)")
+    p.add_argument("--device", default=None,
+                   help="torch device of the match kernel (default "
+                        "cuda:0; 'cpu' runs its plain version)")
+    p.add_argument("--timeout", default="5m",
+                   help="per-scan deadline (e.g. 300s, 5m, 1h; "
+                        "reference --timeout default 5m)")
+    p.add_argument("--cache-backend", default="fs",
+                   help="cache backend: fs or memory")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        allow_abbrev=False,
+        prog="trivy-tpu-torch",
+        description="security scanner on a CUDA card (SBOM -> "
+        "vulnerabilities)",
+    )
+    _add_global_flags(parser)
+    sub = parser.add_subparsers(dest="command")
+    p = sub.add_parser("sbom", help="scan an SBOM file (CycloneDX/SPDX json)",
+                       allow_abbrev=False)
+    _add_global_flags(p)
+    _add_scan_flags(p)
+    p.add_argument("target")
+    sub.add_parser("version", help="print version", allow_abbrev=False)
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = argv if argv is not None else sys.argv[1:]
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    # layered resolution: CLI > TRIVY_TPU_* env > config file > default
+    from trivy_tpu_torch.cli.config import apply_layers
+
+    try:
+        apply_layers(args, parser, argv)
+    except (ValueError, FileNotFoundError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    log.init(debug=getattr(args, "debug", False),
+             quiet=getattr(args, "quiet", False))
+
+    if args.command is None:
+        parser.print_help()
+        return 0
+    if args.command == "version":
+        print(f"Version: {trivy_tpu_torch.__version__}")
+        return 0
+
+    from trivy_tpu_torch.cli import run
+
+    try:
+        return run.run_scan(args)
+    except run.FatalError as e:
+        log.logger().error(str(e))
+        return 1
+    except FileNotFoundError as e:
+        log.logger().error(f"file not found: {e.filename or e}")
+        return 1
+    except (ValueError, OSError) as e:
+        log.logger().error(str(e))
+        return 1
+    except Exception as e:  # scan-level failures render as one error line
+        if getattr(args, "debug", False):
+            raise
+        log.logger().error(f"{type(e).__name__}: {e}")
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,279 @@
+"""Scan runner: DB bootstrap -> scanner selection -> scan -> filter ->
+report -> exit code (reference pkg/commands/artifact/run.go Runner).
+
+Copy of trivy_tpu/cli/run.py trimmed to the `sbom` scan: no fleet mode,
+monitor index, compliance, modules, VEX, ignore policies, mesh, server
+client or tracing yet. The engine is the port's MatchEngine on the
+device `--device` names (``cuda:0`` by default).
+
+`STATS` keeps the wall seconds of the last scan's phases, split by this
+module's own code: DB load, engine build (compile or compiled-cache
+load, plus the upload to the card), detect, report render.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.types.enums import Scanner as ScannerEnum, Severity
+from trivy_tpu_torch.types.scan import ScanOptions
+
+_log = logger()
+
+# scanners whose results the port computes (license and misconfig scans
+# are not ported yet)
+SCANNERS = ("vuln", "secret")
+
+STATS: dict = {}
+
+
+class FatalError(Exception):
+    pass
+
+
+def _severities(arg: str | None) -> list[Severity] | None:
+    if not arg:
+        return None
+    return [Severity.parse(s) for s in arg.split(",") if s.strip()]
+
+
+def _db_path(args) -> str:
+    return getattr(args, "db_path", None) or os.path.join(
+        args.cache_dir, "db"
+    )
+
+
+def _device(args):
+    """The torch device of the match kernel; None on the host-oracle
+    path (--no-tpu). Resolved before any DB work, so a missing card
+    fails at once."""
+    if getattr(args, "no_tpu", False):
+        return None
+    from trivy_tpu_torch.device import resolve_device
+
+    try:
+        return resolve_device(getattr(args, "device", None))
+    except (RuntimeError, ValueError) as exc:
+        raise FatalError(f"--device: {exc} (or --no-tpu for the host "
+                         "match path)")
+
+
+def _load_db(args):
+    from trivy_tpu_torch.db.store import AdvisoryDB
+
+    path = _db_path(args)
+    try:
+        db = AdvisoryDB.load(path)
+        _log.info("advisory DB loaded", path=path, **db.stats())
+        return db
+    except FileNotFoundError:
+        _log.warn(
+            "no advisory DB found; vulnerability results will be empty",
+            path=path,
+        )
+        return AdvisoryDB()
+
+
+_ENGINE_CACHE: dict = {}
+
+
+def new_engine(args):
+    """Fresh MatchEngine. The on-disk DB path is threaded through so a
+    warm start with an unchanged DB loads the persistent compiled-tensor
+    cache instead of recompiling (tensorize.cache)."""
+    from trivy_tpu_torch.detector.engine import MatchEngine
+
+    device = _device(args)
+    t0 = time.perf_counter()
+    db = _load_db(args)
+    t1 = time.perf_counter()
+    engine = MatchEngine(
+        db, use_device=not getattr(args, "no_tpu", False), device=device,
+        db_path=_db_path(args) if db.buckets else None)
+    STATS.update(db_load_s=t1 - t0,
+                 engine_build_s=time.perf_counter() - t1,
+                 **engine.build_stats)
+    return engine
+
+
+def build_engine(args):
+    """MatchEngine, cached per db-path and device within the process."""
+    key = (_db_path(args), getattr(args, "no_tpu", False),
+           str(_device(args)))
+    if key not in _ENGINE_CACHE:
+        _ENGINE_CACHE[key] = new_engine(args)
+    else:
+        STATS.update(db_load_s=0.0, engine_build_s=0.0)
+    return _ENGINE_CACHE[key]
+
+
+def make_scan_options(args) -> ScanOptions:
+    scanners = []
+    for s in (args.scanners or "").split(","):
+        if not s:
+            continue
+        if s not in SCANNERS:
+            raise FatalError(f"scanner {s!r} is not ported yet "
+                             f"(supported: {', '.join(SCANNERS)})")
+        scanners.append(ScannerEnum(s))
+    return ScanOptions(
+        pkg_types=args.pkg_types.split(","),
+        scanners=scanners,
+        list_all_pkgs=args.list_all_pkgs,
+    )
+
+
+def run_scan(args) -> int:
+    STATS.clear()
+    t0 = time.perf_counter()
+    rc = _run_scan_core(args)
+    STATS["wall_s"] = time.perf_counter() - t0
+    return rc
+
+
+def _parse_duration(spec: str | None) -> float:
+    """Go-style duration ("5m", "300s", "1h30m", "500ms") or bare
+    seconds -> seconds (reference --timeout, default 5m). Trailing
+    garbage is an error, not silently dropped."""
+    import math
+    import re
+
+    if not spec:
+        return 300.0
+    try:
+        v = float(spec)
+        if not math.isfinite(v) or v <= 0:
+            raise FatalError(f"invalid --timeout {spec!r}")
+        return v
+    except ValueError:
+        pass
+    unit_rx = r"(\d+(?:\.\d+)?)(ms|h|m|s)"
+    if not re.fullmatch(f"(?:{unit_rx})+", spec):
+        raise FatalError(f"invalid --timeout {spec!r}")
+    total = 0.0
+    for n, unit in re.findall(unit_rx, spec):
+        total += float(n) * {"h": 3600.0, "m": 60.0, "s": 1.0,
+                             "ms": 0.001}[unit]
+    if total <= 0:
+        raise FatalError(f"invalid --timeout {spec!r}")
+    return total
+
+
+def _scan_with_timeout(scanner, options, timeout_s: float):
+    """Per-scan deadline (reference artifact/run.go:338 ctx timeout).
+    The scan runs in a worker thread; on deadline the CLI fails with the
+    reference's DeadlineExceeded advice (the worker, being a daemon
+    thread, cannot outlive the process)."""
+    import threading
+
+    box: dict = {}
+
+    def work():
+        try:
+            box["report"] = scanner.scan_artifact(options)
+        except BaseException as exc:  # re-raised on the main thread
+            box["error"] = exc
+
+    t = threading.Thread(target=work, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        raise FatalError(
+            f"scan deadline exceeded ({timeout_s:.0f}s); increase "
+            "--timeout (e.g. --timeout 10m)")
+    if "error" in box:
+        raise box["error"]
+    return box["report"]
+
+
+def _build_cache(args):
+    """Blob cache backend selection."""
+    from trivy_tpu_torch.cache.cache import FSCache, MemoryCache
+
+    backend = getattr(args, "cache_backend", "fs") or "fs"
+    if backend == "memory":
+        return MemoryCache()
+    if backend == "fs":
+        return FSCache(args.cache_dir)
+    raise FatalError(
+        f"unknown cache backend {backend!r} (fs, memory; redis is not "
+        "ported yet)")
+
+
+def _scan_target(args, cache):
+    """Build the scanner for args.target and run it under --timeout ->
+    raw (unfiltered) Report."""
+    from trivy_tpu_torch.scanner.scan import Scanner
+
+    options = make_scan_options(args)
+    timeout_s = _parse_duration(getattr(args, "timeout", None))
+    artifact, driver = _select_scanner(args, cache)
+    report = _scan_with_timeout(Scanner(driver, artifact), options,
+                                timeout_s)
+    STATS.update(apply_s=driver.stats["apply_s"],
+                 detect_s=driver.stats["detect_s"])
+    return report
+
+
+def _run_scan_core(args) -> int:
+    from trivy_tpu_torch.report.writer import write_report
+
+    cache = _build_cache(args)
+    report = _scan_target(args, cache)
+    severities = _postprocess_report(args, report)
+    t0 = time.perf_counter()
+    write_report(report, fmt=args.format, output=args.output,
+                 severities=severities)
+    STATS["render_s"] = time.perf_counter() - t0
+    return _exit_code(args, report)
+
+
+def _exit_code(args, report) -> int:
+    # exit-code policy (reference pkg/commands/operation/operation.go:118):
+    # FINDINGS drive the exit code; retained package lists do not
+    if args.exit_code:
+        for res in report.results:
+            if (res.vulnerabilities or res.misconfigurations
+                    or res.secrets or res.licenses):
+                return args.exit_code
+    if args.exit_on_eol and report.metadata.os and report.metadata.os.eosl:
+        return args.exit_on_eol
+    return 0
+
+
+def _postprocess_report(args, report):
+    """Result shaping between scan and render: severity/status/ignore
+    filtering, package stripping. Returns the parsed severity list (the
+    table renderer wants it again)."""
+    from trivy_tpu_torch.result.filter import filter_report
+    from trivy_tpu_torch.result.ignore import load_ignore_file
+
+    severities = _severities(args.severity)
+    ignore_cfg = load_ignore_file(args.ignorefile)
+    statuses = (args.ignore_status or "").split(",") \
+        if args.ignore_status else None
+    filter_report(report, severities=severities, ignore_statuses=statuses,
+                  ignore_config=ignore_cfg,
+                  ignore_unfixed=getattr(args, "ignore_unfixed", False))
+
+    # packages travel with results internally; they render under
+    # --list-all-pkgs
+    if not getattr(args, "list_all_pkgs", False):
+        for res in report.results:
+            res.packages = []
+    return severities
+
+
+def _select_scanner(args, cache):
+    """reference pkg/commands/artifact/scanner.go: artifact kind ->
+    (artifact, driver). Only the sbom kind is ported."""
+    from trivy_tpu_torch.scanner.local import LocalDriver
+
+    if args.command != "sbom":
+        raise FatalError(f"unsupported scan command {args.command!r}")
+    from trivy_tpu_torch.artifact.sbom import SBOMArtifact
+
+    driver = LocalDriver(build_engine(args), cache)
+    return SBOMArtifact(args.target, cache), driver

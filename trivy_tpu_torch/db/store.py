@@ -1,4 +1,4 @@
-"""Advisory DB store (in memory).
+"""Advisory DB store.
 
 Bucket layout mirrors trivy-db's BoltDB:
 - OS buckets: "<family> <release>" (e.g. "alpine 3.10", "debian 11")
@@ -7,17 +7,43 @@ Bucket layout mirrors trivy-db's BoltDB:
   sources (reference pkg/detector/library/driver.go:115-124)
 - metadata: vuln_id -> VulnerabilityMeta
 
-Copy of trivy_tpu/db/store.py without persistence (save/load) and the
-Red Hat CPE expansion: those come with the DB slice of the port.
+Persistence is a directory of JSON files (one per bucket family) with a
+metadata.json manifest — the moral equivalent of the reference's
+`trivy.db` + `metadata.json` pair (reference pkg/db/db.go:97-140).
+
+Copy of trivy_tpu/db/store.py. The on-disk format is the same, so a DB
+saved by either package loads in the other. A downloaded BoltDB
+`trivy.db` is not read yet (it comes with the port's `db import`).
 """
 
 from __future__ import annotations
 
+import gzip
+import json
+import os
 from dataclasses import dataclass, field
 
 from trivy_tpu_torch.db.model import Advisory, VulnerabilityMeta
 
 SCHEMA_VERSION = 2
+
+
+def validate_db(db: "AdvisoryDB") -> str | None:
+    """Is a DB fit to serve? Returns a rejection reason or None: the DB
+    must carry a schema this build understands and actually contain
+    advisories — serving an empty DB silently zeroes every CVE match,
+    the worst possible failure mode."""
+    if db.meta.version > SCHEMA_VERSION:
+        return (f"unsupported schema version {db.meta.version} "
+                f"(this build reads <= {SCHEMA_VERSION})")
+    try:
+        s = db.stats()
+    except Exception as exc:  # stats must be computable
+        return f"stats unreadable: {exc}"
+    if not s.get("advisories") and not s.get("metadata") \
+            and not db.redhat_entries:
+        return "candidate DB is empty"
+    return None
 
 
 @dataclass
@@ -38,7 +64,7 @@ class Metadata:
 
 @dataclass
 class AdvisoryDB:
-    """In-memory advisory database."""
+    """In-memory advisory database with JSON(.gz) persistence."""
 
     buckets: dict[str, dict[str, list[Advisory]]] = field(default_factory=dict)
     metadata_bucket: dict[str, VulnerabilityMeta] = field(default_factory=dict)
@@ -62,6 +88,13 @@ class AdvisoryDB:
                          entries: list[dict]) -> None:
         self.redhat_entries.setdefault(pkg_name, []).append(
             {"key": key, "entries": entries})
+
+    def expand_redhat(self) -> None:
+        """Resolve CPE-indexed Red Hat entries into plain per-major
+        "redhat N" buckets (see trivy_tpu_torch.detector.redhat)."""
+        from trivy_tpu_torch.detector.redhat import expand_redhat_entries
+
+        expand_redhat_entries(self)
 
     # ------------------------------------------------------------ read
 
@@ -95,3 +128,81 @@ class AdvisoryDB:
             "advisories": n_adv,
             "metadata": len(self.metadata_bucket),
         }
+
+    # ------------------------------------------------------------ io
+
+    def save(self, path: str, compress: bool = True) -> None:
+        from trivy_tpu_torch.durability import atomic
+
+        os.makedirs(path, exist_ok=True)
+        blob = {
+            "buckets": {
+                bucket: {
+                    name: [a.to_json() for a in advs]
+                    for name, advs in pkgs.items()
+                }
+                for bucket, pkgs in self.buckets.items()
+            },
+            "vulnerability": {
+                vid: m.to_json() for vid, m in self.metadata_bucket.items()
+            },
+        }
+        if self.redhat_entries:
+            blob["redhat"] = self.redhat_entries
+        if self.redhat_cpe:
+            blob["redhat_cpe"] = self.redhat_cpe
+        data = json.dumps(blob, separators=(",", ":")).encode()
+        fname = os.path.join(path, "trivy_tpu.db.json")
+        # atomic + fsynced: a crash mid-save leaves the previous DB (or
+        # nothing), never a torn one a reader would half-parse
+        if compress:
+            atomic.atomic_write(fname + ".gz", gzip.compress(data),
+                                fault_site="db.save")
+        else:
+            atomic.atomic_write(fname, data, fault_site="db.save")
+        atomic.atomic_write(os.path.join(path, "metadata.json"),
+                            json.dumps(self.meta.to_json()).encode(),
+                            fault_site="db.save.metadata")
+
+    @classmethod
+    def load(cls, path: str) -> "AdvisoryDB":
+        from trivy_tpu_torch.db import generations
+
+        # a generation-managed root (verified OCI downloads) is read
+        # through its last-good link; flat layouts load as before
+        path = generations.resolve(path)
+        db = cls()
+        fname = os.path.join(path, "trivy_tpu.db.json")
+        if os.path.exists(fname + ".gz"):
+            with gzip.open(fname + ".gz", "rb") as f:
+                blob = json.loads(f.read())
+        elif os.path.exists(fname):
+            with open(fname, "rb") as f:
+                blob = json.loads(f.read())
+        elif os.path.exists(os.path.join(path, "trivy.db")):
+            raise ValueError(
+                f"{os.path.join(path, 'trivy.db')}: BoltDB trivy-db files "
+                "are not readable yet (db import is not ported)")
+        else:
+            raise FileNotFoundError(f"no advisory DB at {path}")
+        for bucket, pkgs in blob.get("buckets", {}).items():
+            for name, advs in pkgs.items():
+                for a in advs:
+                    db.put_advisory(bucket, name, Advisory.from_json(a))
+        for vid, m in blob.get("vulnerability", {}).items():
+            db.put_meta(VulnerabilityMeta.from_json(vid, m))
+        db.redhat_entries = blob.get("redhat", {}) or {}
+        db.redhat_cpe = blob.get("redhat_cpe", {}) or {}
+        if db.redhat_entries:
+            db.expand_redhat()
+        mpath = os.path.join(path, "metadata.json")
+        if os.path.exists(mpath):
+            with open(mpath) as f:
+                md = json.load(f)
+            db.meta = Metadata(
+                version=md.get("Version", SCHEMA_VERSION),
+                next_update=md.get("NextUpdate", ""),
+                updated_at=md.get("UpdatedAt", ""),
+                downloaded_at=md.get("DownloadedAt", ""),
+            )
+        return db

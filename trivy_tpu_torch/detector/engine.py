@@ -5,7 +5,8 @@ zero-diff reference.
 Port of trivy_tpu/detector/engine.py, single-device path. Pipeline per
 batch:
   host encode (hash + rank) -> CUDA kernel (join + containment) ->
-  host decode -> exact rescreen of candidates -> matches.
+  host decode (native collect.cpp where it builds, numpy otherwise) ->
+  exact rescreen of candidates -> matches.
 
 The oracle path runs the exact check over every advisory for each name via
 dict lookup — semantically identical to the reference's
@@ -28,6 +29,7 @@ from trivy_tpu_torch.db.store import AdvisoryDB
 from trivy_tpu_torch.detector.exact import AdvisoryChecker
 from trivy_tpu_torch.device import resolve_device
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.native import collect as ncollect
 from trivy_tpu_torch.ops import match as m
 from trivy_tpu_torch.tensorize.compile import (
     CompiledDB,
@@ -109,13 +111,48 @@ class MatchEngine:
         window: int | None = None,
         use_device: bool = True,
         device=None,
+        db_path: str | None = None,
     ):
         """`use_device=False` is the explicit host-oracle path. With
         `use_device=True` the rows live on `device` (default ``cuda:0``;
         ``"cpu"`` only when asked for — the kernel's plain version then
-        answers)."""
+        answers).
+
+        `db_path`: the on-disk root `db` was loaded from. When given,
+        the compiled tensor set is loaded from / saved to the persistent
+        compiled-DB cache keyed by the DB digest + compile params
+        (tensorize.cache) — a warm process start with an unchanged DB
+        skips the recompile."""
         self.db = db
-        self.cdb: CompiledDB = compile_db(db, window=window)
+        # where the build's time went: compile or cache load, and the
+        # upload of the three tiers to the card
+        self.build_stats: dict = {"compile_cache": "off"}
+        t0 = time.perf_counter()
+        self.cdb: CompiledDB | None = None
+        digest = None
+        if db_path:
+            from trivy_tpu_torch.tensorize import cache as compile_cache
+
+            digest = compile_cache.db_digest(db_path) \
+                if compile_cache.enabled() else None
+            if digest is not None:
+                # the loaded DB's metadata document cross-checks that
+                # the entry was compiled from THIS db, not from another
+                # generation the digest may have moved to meanwhile
+                db_meta = db.meta.to_json()
+                self.cdb = compile_cache.load_compiled(
+                    db_path, db, window=window, digest=digest,
+                    db_meta=db_meta)
+                self.build_stats["compile_cache"] = \
+                    "miss" if self.cdb is None else "hit"
+                if self.cdb is None:
+                    self.cdb = compile_db(db, window=window)
+                    compile_cache.save_compiled(
+                        db_path, self.cdb, window=window, digest=digest,
+                        db_meta=db_meta)
+        if self.cdb is None:
+            self.cdb = compile_db(db, window=window)
+        self.build_stats["compile_s"] = time.perf_counter() - t0
         self.use_device = use_device
         self.device = resolve_device(device) if use_device else None
         self._ddb = None
@@ -156,8 +193,11 @@ class MatchEngine:
         # stage accounting of the most recent pipelined crawl (wall,
         # per-stage busy seconds, occupancy) — diagnostics
         self.last_pipeline_stats: dict | None = None
+        # which decoder the last _crunch ran: "native" or "numpy"
+        self.collector: str | None = None
         self._name_tokens: dict[tuple[str, str], int] | None = None
         self._adv_tok = None
+        t0 = time.perf_counter()
         if use_device:
             # let encode_packages fill per-query tokens in its existing
             # pass (saves a second per-query loop at collection time)
@@ -171,6 +211,7 @@ class MatchEngine:
                                                          self.device)
             self._ddb_tall = m.DeviceDB.tall_from_compiled(self.cdb,
                                                            self.device)
+        self.build_stats["upload_s"] = time.perf_counter() - t0
 
     # ------------------------------------------------------------ helpers
 
@@ -524,6 +565,7 @@ class MatchEngine:
             "chunk": chunk,
             "workers": workers,
             "occupancy": min(sum(busy.values()) / (lanes * wall), 1.0),
+            "collector": self.collector,
         }
 
     def _enforce_memo_bounds(self) -> None:
@@ -650,7 +692,9 @@ class MatchEngine:
         The kernel returns bit-packed hit words; the host maps set bits
         to row indices with its own searchsorted over the resident numpy
         copies, screens hash collisions with one vectorized token
-        compare, and confirms exact hits with no per-hit Python at all.
+        compare, and confirms exact hits with no per-hit Python at all:
+        the native collector (native/collect.cpp) decodes, sort-dedupes
+        and groups where it builds, numpy otherwise.
         Only flagged rescreen candidates — needs-host versions and npm
         pre-release queries — reach the per-advisory Python comparators,
         behind an (advisory, version) verdict memo."""
@@ -663,9 +707,25 @@ class MatchEngine:
         # injects its token dicts into the CompiledDB at construction)
         q_tok, q_vt = batch.ntok, batch.vtok
 
+        native = ncollect if ncollect.available() else None
+        self.collector = "numpy" if native is None else "native"
+
         # each part: token-screened (rows, ids, resc) for one device
         # source, rows in original query indices
         parts: list[tuple] = []
+
+        def decode_numpy(mask, start, adv, rfl_col, fl, tok):
+            """numpy fallback decode of one source's bool mask."""
+            rows0, offs0 = np.nonzero(mask)
+            ridx = start[rows0] + offs0
+            # mask bits past the row table are skipped, matching the
+            # native decoder's bound
+            inb = ridx < len(adv)
+            rows0, ridx = rows0[inb], ridx[inb]
+            ids0 = adv[ridx].astype(np.int64)
+            resc0 = ((rfl_col[ridx] | fl[rows0]) & flag_mask) != 0
+            valid = self._adv_tok[ids0] == tok[rows0]
+            return rows0[valid], ids0[valid], resc0[valid]
 
         def add_part(pending, key_h1, adv, rfl_col, sub=None, qidx=None):
             """Decode one source's words. sub = sub-batch (hot/tall
@@ -675,15 +735,15 @@ class MatchEngine:
             fl = sub.flags if sub is not None else batch.flags
             tok = q_tok if qidx is None else q_tok[qidx]
             start = np.searchsorted(key_h1, h1).astype(np.int64)
-            rows0, offs0 = np.nonzero(pending.collect())
-            ridx = start[rows0] + offs0
-            # mask bits past the row table are skipped
-            inb = ridx < len(adv)
-            rows0, ridx = rows0[inb], ridx[inb]
-            ids0 = adv[ridx].astype(np.int64)
-            resc0 = ((rfl_col[ridx] | fl[rows0]) & flag_mask) != 0
-            valid = self._adv_tok[ids0] == tok[rows0]
-            rows0, ids0, resc0 = rows0[valid], ids0[valid], resc0[valid]
+            decoded = None
+            if native is not None:
+                decoded = native.decode_mask(
+                    pending.collect_words(), start, len(key_h1),
+                    adv, rfl_col, self._adv_tok, tok, fl, flag_mask)
+            if decoded is None:
+                decoded = decode_numpy(pending.collect(), start, adv,
+                                       rfl_col, fl, tok)
+            rows0, ids0, resc0 = decoded
             if qidx is not None:
                 rows0 = np.asarray(qidx, dtype=np.int64)[rows0]
             parts.append((rows0, ids0, resc0))
@@ -711,12 +771,19 @@ class MatchEngine:
         resc = np.concatenate([p[2] for p in parts])
 
         # dedupe (row, id) keeping the exact (non-rescreen) occurrence
-        # (multi-interval advisories, pre-only twin rows)
-        order = np.lexsort((resc, ids, rows))
-        rows, ids, resc = rows[order], ids[order], resc[order]
-        keep = np.ones(len(rows), dtype=bool)
-        keep[1:] = (rows[1:] != rows[:-1]) | (ids[1:] != ids[:-1])
-        rows, ids, resc = rows[keep], ids[keep], resc[keep]
+        # (multi-interval advisories, pre-only twin rows); native
+        # packed-key sort when available, np.lexsort fallback
+        deduped = None
+        if native is not None:
+            deduped = native.sort_dedupe(rows, ids, resc)
+        if deduped is not None:
+            rows, ids, resc = deduped
+        else:
+            order = np.lexsort((resc, ids, rows))
+            rows, ids, resc = rows[order], ids[order], resc[order]
+            keep = np.ones(len(rows), dtype=bool)
+            keep[1:] = (rows[1:] != rows[:-1]) | (ids[1:] != ids[:-1])
+            rows, ids, resc = rows[keep], ids[keep], resc[keep]
 
         # exact hits confirm as-is; flagged candidates collapse to unique
         # (advisory, version) pairs; the sorted-array memo answers
@@ -761,8 +828,14 @@ class MatchEngine:
                     np.searchsorted(ukeys, fkeys[miss_f])]
             conf[flagged] |= fverd
 
-        rows_c, ids_c = rows[conf], ids[conf]
-        bounds = np.searchsorted(rows_c, np.arange(len(queries) + 1))
+        grouped = None
+        if native is not None:
+            grouped = native.group_confirmed(rows, ids, conf, len(queries))
+        if grouped is not None:
+            ids_c, bounds = grouped
+        else:
+            rows_c, ids_c = rows[conf], ids[conf]
+            bounds = np.searchsorted(rows_c, np.arange(len(queries) + 1))
         with self._memo_lock:  # collect workers run concurrently
             self.rescreen_stats["candidates"] += len(rows)
             self.rescreen_stats["confirmed"] += len(ids_c)

@@ -1,0 +1,113 @@
+"""Crash-safe write primitives (docs/durability.md).
+
+Every durable state path in the system — cache entries, advisory-DB
+files, journal segments — funnels through these helpers so the
+durability contract lives in one place:
+
+- a reader never observes a half-written file (tmp + fsync + rename);
+- silent corruption is detectable (sha256 footer on framed payloads);
+
+Copy of trivy_tpu/durability/atomic.py without the fault injector: the
+port has no resilience.faults yet, so `fault_site` only names the write.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import errno
+import hashlib
+import os
+import uuid
+
+# footer marker for checksummed payloads: <body> "\n#sha256:" <hex>
+CHECKSUM_MARK = b"\n#sha256:"
+
+
+class CorruptEntry(Exception):
+    """A framed payload failed its checksum (or never finished)."""
+
+
+def fsync_dir(path: str) -> None:
+    """fsync a directory so a rename/creation inside it is durable.
+    Best-effort on platforms that refuse O_RDONLY dir fds."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        with contextlib.suppress(OSError):
+            os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def atomic_write(path: str, data: bytes, fault_site: str = "") -> None:
+    """Write `data` to `path` atomically: unique tmp sibling, fsync,
+    rename over the destination, fsync the directory.
+
+    `fault_site` names the write (the reference's fault-injection site;
+    kept so call sites read alike)."""
+    d = os.path.dirname(path) or "."
+    tmp = os.path.join(d, f".{os.path.basename(path)}.tmp-{uuid.uuid4().hex}")
+    fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o644)
+    with os.fdopen(fd, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    fsync_dir(d)
+
+
+def frame(body: bytes) -> bytes:
+    """Append the sha256 checksum footer the reader verifies."""
+    return body + CHECKSUM_MARK + hashlib.sha256(body).hexdigest().encode()
+
+
+def unframe(raw: bytes) -> bytes:
+    """Strip and verify the checksum footer.
+
+    Raises CorruptEntry on a bad or truncated footer. Payloads without
+    any footer are returned as-is — pre-durability writers produced
+    bare JSON, and their entries must keep loading (the caller's parser
+    is the integrity check for those)."""
+    body, sep, footer = raw.rpartition(CHECKSUM_MARK)
+    if not sep:
+        return raw
+    if hashlib.sha256(body).hexdigest().encode() != footer.strip():
+        raise CorruptEntry("checksum footer mismatch")
+    return body
+
+
+# a tmp file this old cannot belong to a live writer; younger ones
+# might (a concurrently starting process must not unlink an in-flight
+# sibling out from under its os.replace)
+STALE_TMP_AGE_S = 3600.0
+
+
+def sweep_stale_tmp(directory: str, min_age_s: float = STALE_TMP_AGE_S) -> int:
+    """Remove leftover atomic-write tmp files (a crash between fsync and
+    rename orphans exactly one) older than `min_age_s` — the age gate
+    keeps a startup sweep from racing a live writer. Returns how many
+    were removed."""
+    import time
+
+    removed = 0
+    cutoff = time.time() - min_age_s
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return 0
+    for name in names:
+        if not (name.startswith(".") and ".tmp-" in name):
+            continue
+        p = os.path.join(directory, name)
+        with contextlib.suppress(FileNotFoundError, IsADirectoryError):
+            try:
+                if os.stat(p).st_mtime > cutoff:
+                    continue
+                os.unlink(p)
+                removed += 1
+            except OSError as e:  # pragma: no cover - platform specific
+                if e.errno != errno.EISDIR:
+                    raise
+    return removed

@@ -1,5 +1,5 @@
-"""Build/load scaffolding for the port's C++ host helpers (ac.cpp):
-compile on first use with g++, cache under
+"""Build/load scaffolding for the port's C++ host helpers (ac.cpp,
+collect.cpp): compile on first use with g++, cache under
 ~/.cache/trivy-tpu-torch/native keyed by source hash, fall back to the
 caller's pure-Python path when no toolchain is available.
 

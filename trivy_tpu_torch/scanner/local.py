@@ -1,0 +1,163 @@
+"""Standalone (local) scan driver (reference pkg/scanner/local/scan.go):
+applier squash -> per-class scans -> metadata fill -> post-scan hooks.
+The vulnerability matching inside runs on the card via MatchEngine.
+
+Copy of trivy_tpu/scanner/local.py without the match scheduler, the
+monitor capture, rekor SBOM discovery, licenses and misconfigurations
+(not ported yet). `stats` keeps the seconds of the last scan's phases.
+"""
+
+from __future__ import annotations
+
+import time
+
+from trivy_tpu_torch import vulnerability
+from trivy_tpu_torch.detector import langpkg, ospkg
+from trivy_tpu_torch.detector.engine import MatchEngine
+from trivy_tpu_torch.detector.langpkg import PKG_TARGETS
+from trivy_tpu_torch.fanal.applier import apply_layers
+from trivy_tpu_torch.types.artifact import ArtifactDetail, BlobInfo
+from trivy_tpu_torch.types.enums import ResultClass, Scanner as ScannerEnum
+from trivy_tpu_torch.types.report import DetectedSecret, Result
+from trivy_tpu_torch.types.scan import ScanOptions
+from trivy_tpu_torch.types.serde import from_dict
+
+
+class LocalDriver:
+    def __init__(self, engine: MatchEngine, cache):
+        self.engine = engine
+        self.cache = cache
+        # seconds of the last scan: blob reads + squash, detection
+        self.stats: dict = {}
+
+    def scan(self, target, artifact_key, blob_keys, options: ScanOptions):
+        from trivy_tpu_torch.scanner import post
+
+        t0 = time.perf_counter()
+        detail = self._apply_layers(blob_keys)
+        self._merge_artifact_info(detail, artifact_key)
+        if not options.include_dev_deps:
+            # development dependencies are excluded unless requested
+            # (reference pkg/scanner/local/scan.go:438 excludeDevDeps)
+            for app in detail.applications:
+                if any(getattr(p, "dev", False) for p in app.packages):
+                    app.packages = [p for p in app.packages
+                                    if not getattr(p, "dev", False)]
+        t1 = time.perf_counter()
+        results = self._scan_detail(target, detail, options)
+        t2 = time.perf_counter()
+        self.stats = {"apply_s": t1 - t0, "detect_s": t2 - t1}
+        # globally registered hooks (reference
+        # pkg/scanner/local/scan.go:152 -> post/post_scan.go:35)
+        results = post.scan(results, options)
+        return results, detail.os
+
+    def _merge_artifact_info(self, detail: ArtifactDetail,
+                             artifact_key: str) -> None:
+        """Merge image-config analysis (env secrets, apk-history
+        packages) into the squashed detail (reference applier
+        ApplyLayers consumes ArtifactInfo alongside the blobs)."""
+        if not artifact_key:
+            return
+        raw = self.cache.get_artifact(artifact_key)
+        if not raw:
+            return
+        from trivy_tpu_torch.types.artifact import ArtifactInfo
+
+        info = from_dict(ArtifactInfo, raw)
+        detail.image_config = info
+        if info.secret is not None and info.secret.findings:
+            detail.secrets.append(info.secret)
+
+    # ------------------------------------------------------------ layers
+
+    def _apply_layers(self, blob_keys: list[str]) -> ArtifactDetail:
+        blobs = []
+        for key in blob_keys:
+            raw = self.cache.get_blob(key)
+            if not raw:
+                raise RuntimeError(f"missing blob in cache: {key}")
+            blob = from_dict(BlobInfo, raw)
+            blob.diff_id = blob.diff_id or key
+            blobs.append(blob)
+        return apply_layers(blobs)
+
+    # ------------------------------------------------------------ scans
+
+    def _scan_detail(
+        self, target: str, detail: ArtifactDetail, options: ScanOptions
+    ) -> list[Result]:
+        results: list[Result] = []
+        if ScannerEnum.VULN in options.scanners:
+            results.extend(self._scan_vulns(target, detail, options))
+        if ScannerEnum.SECRET in options.scanners:
+            results.extend(self._secret_results(detail))
+        return results
+
+    def _scan_vulns(
+        self, target: str, detail: ArtifactDetail, options: ScanOptions
+    ) -> list[Result]:
+        results: list[Result] = []
+        include_os = "os" in options.pkg_types
+        include_lib = "library" in options.pkg_types
+        engine = self.engine
+
+        if include_os and (detail.os.detected or detail.packages):
+            vulns, eosl = ([], False)
+            if detail.os.detected and detail.packages:
+                vulns, eosl = ospkg.detect(
+                    engine, detail.os, detail.repository, detail.packages
+                )
+                detail.os.eosl = eosl
+            vulnerability.fill_info(self.engine.db, vulns)
+            res = Result(
+                target=f"{target} ({detail.os.family} {detail.os.name})"
+                if detail.os.detected else target,
+                result_class=ResultClass.OS_PKGS,
+                type=detail.os.family,
+                vulnerabilities=sorted(vulns, key=lambda v: v.sort_key()),
+            )
+            # packages always travel with the result; the runner strips
+            # them at render time unless --list-all-pkgs (reference
+            # behavior). Result ROWS still appear only for findings /
+            # detected OS / explicit package listing.
+            res.packages = detail.packages
+            if res.vulnerabilities or detail.os.detected \
+                    or options.list_all_pkgs:
+                results.append(res)
+
+        if include_lib:
+            for app in detail.applications:
+                if not app.packages:
+                    continue
+                vulns = langpkg.detect_app(engine, app)
+                vulnerability.fill_info(self.engine.db, vulns)
+                res = Result(
+                    target=app.file_path
+                    or PKG_TARGETS.get(app.type, app.type),
+                    result_class=ResultClass.LANG_PKGS,
+                    type=app.type,
+                    vulnerabilities=sorted(vulns, key=lambda v: v.sort_key()),
+                )
+                res.packages = app.packages
+                if res.vulnerabilities or options.list_all_pkgs:
+                    results.append(res)
+        return results
+
+    def _secret_results(self, detail: ArtifactDetail) -> list[Result]:
+        results = []
+        for secret in sorted(detail.secrets, key=lambda s: s.file_path):
+            results.append(Result(
+                target=secret.file_path,
+                result_class=ResultClass.SECRET,
+                secrets=[
+                    DetectedSecret(
+                        rule_id=f.rule_id, category=f.category,
+                        severity=f.severity, title=f.title,
+                        start_line=f.start_line, end_line=f.end_line,
+                        match=f.match, layer=f.layer,
+                    )
+                    for f in secret.findings
+                ],
+            ))
+        return results

@@ -1,0 +1,317 @@
+"""Persistent compiled-DB artifact cache.
+
+Tensorizing a real advisory DB costs seconds of CPU per process start
+while the resulting tensor set is tens of MB — so an unchanged DB should
+compile ONCE per digest and every later process (CLI re-runs, server
+restarts) should load the finished tensors instead.
+
+Layout, riding the durability primitives:
+
+    <db_root>/compiled-torch/
+      <digest>.<params>.npz             one checksummed tensor set
+      <digest>.<params>.npz.quarantine  an entry that failed its
+                                        checksum or decode (never
+                                        silently reused)
+
+- the npz payload is framed with the `durability.atomic` sha256 footer
+  and written via `atomic_write` (tmp + fsync + rename), so a reader
+  never sees a torn entry and silent bit rot is caught at load;
+- entries are keyed by advisory-DB digest (the OCI generation name
+  when the root is generation-managed, else a content hash) plus the
+  compile parameters and a format version — any mismatch is a miss;
+- a corrupt entry is quarantined aside (like a rejected DB generation)
+  and the caller recompiles from the DB: scan results can never differ
+  because of cache state, only warm-start latency can.
+
+Hits and misses are counted in `COUNTS`.
+
+Copy of the compiled-DB part of trivy_tpu/tensorize/cache.py. The
+port's entries live under their own directory (`compiled-torch`, the
+reference's are under `compiled`), so the two packages never load each
+other's entries. The keymap, mesh-shard, host-slice and compiled-NFA
+entries are not ported yet.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import io
+import json
+import os
+import time
+
+import numpy as np
+
+from trivy_tpu_torch.durability import atomic
+from trivy_tpu_torch.log import logger
+
+_log = logger("tensorize.cache")
+
+CACHE_DIR = "compiled-torch"
+QUARANTINE_SUFFIX = ".quarantine"
+# bump on any change to the serialized layout or to compile_db's row
+# semantics that old tensors would misrepresent
+FORMAT_VERSION = 1
+
+# bulk CompiledDB array fields serialized verbatim (optional ones may be
+# None and are simply absent from the npz)
+_ARRAY_FIELDS = (
+    "row_h1", "row_h2", "row_lo", "row_hi", "row_flags", "row_adv",
+    "hot_h1", "hot_h2", "hot_lo", "hot_hi", "hot_flags", "hot_adv",
+    "tall_h1", "tall_h2", "tall_lo", "tall_hi", "tall_flags", "tall_adv",
+)
+
+# compiled-DB cache lookups of this process, by outcome
+COUNTS = {"hits": 0, "misses": 0}
+
+
+def enabled() -> bool:
+    """TRIVY_TPU_COMPILE_CACHE=0 disables the cache entirely."""
+    return os.environ.get("TRIVY_TPU_COMPILE_CACHE", "1") != "0"
+
+
+def params_key(window: int | None) -> str:
+    """Compile-parameter component of the entry key. `window` is the
+    REQUESTED window (None = auto-sized), not the resolved one — an
+    auto entry must not satisfy an explicit-window request."""
+    w = "auto" if window is None else str(int(window))
+    return f"w{w}-f{FORMAT_VERSION}"
+
+
+def cache_root(db_root: str) -> str:
+    return os.path.join(db_root, CACHE_DIR)
+
+
+def entry_path(db_root: str, digest: str, window: int | None) -> str:
+    return os.path.join(cache_root(db_root),
+                        f"{digest}.{params_key(window)}.npz")
+
+
+def db_digest(db_path: str) -> str | None:
+    """Digest identifying the advisory-DB bytes an entry was compiled
+    from. A generation-managed root reuses the generation's OCI digest
+    (its directory name — already verified at install); a flat layout
+    hashes the DB payload + metadata files. None when there is no DB."""
+    from trivy_tpu_torch.db import generations
+
+    real = os.path.realpath(generations.resolve(db_path))
+    base = os.path.basename(real)
+    if base.startswith("sha256-"):
+        return base
+    h = hashlib.sha256()
+    found = False
+    for name in ("trivy_tpu.db.json.gz", "trivy_tpu.db.json",
+                 "trivy.db", "metadata.json"):
+        p = os.path.join(real, name)
+        try:
+            with open(p, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 20), b""):
+                    h.update(chunk)
+        except OSError:
+            continue
+        h.update(b"\x00" + name.encode() + b"\x00")
+        if name != "metadata.json":
+            found = True
+    return "content-" + h.hexdigest() if found else None
+
+
+def _quarantine(path: str) -> str | None:
+    """Move a bad entry aside (numbered, like db.generations) so the
+    next lookup recompiles instead of re-reading known-bad bytes."""
+    dest = path + QUARANTINE_SUFFIX
+    n = 0
+    while os.path.exists(dest):
+        n += 1
+        dest = f"{path}{QUARANTINE_SUFFIX}.{n}"
+    try:
+        os.replace(path, dest)
+    except OSError:
+        return None
+    atomic.fsync_dir(os.path.dirname(path))
+    _log.warn("quarantined corrupt compiled-DB cache entry", path=dest)
+    return dest
+
+
+def _prune_superseded(root: str, keep_digest: str,
+                      min_age_s: float = atomic.STALE_TMP_AGE_S) -> int:
+    """Remove entries (and their quarantine copies) for OTHER digests,
+    age-gated so a sibling process actively serving the previous
+    generation isn't raced mid-rollout. Mirrors db/generations'
+    staging sweep: without this, every DB update would leave its
+    tensor set behind forever. Returns how many were removed."""
+    removed = 0
+    cutoff = time.time() - min_age_s
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return 0
+    for name in names:
+        if name.startswith(keep_digest + ".") or ".tmp-" in name:
+            continue
+        p = os.path.join(root, name)
+        try:
+            if os.stat(p).st_mtime > cutoff:
+                continue
+            os.unlink(p)
+            removed += 1
+        except OSError:
+            continue
+    if removed:
+        _log.info("pruned superseded compiled-DB cache entries",
+                  removed=removed)
+    return removed
+
+
+def save_compiled(db_path: str, cdb, window: int | None,
+                  digest: str | None = None,
+                  db_meta: dict | None = None) -> str | None:
+    """Serialize a CompiledDB under its DB digest + compile params.
+    Returns the entry path, or None when saving is impossible/disabled.
+    Never raises: the cache is an accelerator, not a dependency."""
+    if not enabled():
+        return None
+    try:
+        digest = digest or db_digest(db_path)
+        if digest is None:
+            return None
+        root = cache_root(db_path)
+        os.makedirs(root, exist_ok=True)
+        atomic.sweep_stale_tmp(root)
+        _prune_superseded(root, digest)
+        t0 = time.perf_counter()
+        arrays = {}
+        for f in _ARRAY_FIELDS:
+            a = getattr(cdb, f)
+            if a is not None:
+                arrays[f] = a
+        schemes = sorted(cdb.boundaries)
+        for i, s in enumerate(schemes):
+            arrays[f"bnd_{i}"] = cdb.boundaries[s]
+        meta = {
+            "format": FORMAT_VERSION,
+            "digest": digest,
+            "params": params_key(window),
+            # identity of the DB object the tensors were compiled FROM
+            # (not just the path): guards the load-then-promote race
+            # where the on-disk digest has moved to a different
+            # generation than the advisories in memory
+            "db_meta": db_meta or {},
+            "n_advisories": len(cdb.advisories),
+            "window": cdb.window,
+            "hot_window": cdb.hot_window,
+            "tall_window": cdb.tall_window,
+            "schemes": schemes,
+            "tall_names": sorted(list(k) for k in cdb.tall_names),
+            "host_fallback": sorted(
+                [s, n, v] for (s, n), v in cdb.host_fallback.items()),
+            "stats": cdb.stats,
+        }
+        arrays["meta_json"] = np.frombuffer(
+            json.dumps(meta).encode(), dtype=np.uint8).copy()
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        path = entry_path(db_path, digest, window)
+        atomic.atomic_write(path, atomic.frame(buf.getvalue()),
+                            fault_site="compile_cache.save")
+        _log.info("compiled-DB cache entry saved", path=path,
+                  mb=round(buf.tell() / 1e6, 1),
+                  save_s=round(time.perf_counter() - t0, 2))
+        return path
+    except Exception as exc:  # pragma: no cover - best-effort
+        _log.warn("compiled-DB cache save failed", err=str(exc))
+        return None
+
+
+def load_compiled(db_path: str, db, window: int | None,
+                  digest: str | None = None,
+                  db_meta: dict | None = None):
+    """-> CompiledDB from the cache, or None on a miss.
+
+    `db` is the (already loaded) AdvisoryDB the tensors index into:
+    the flat advisory list is rebuilt from it in the canonical order
+    (`compile.flat_advisories`) — the digest key guarantees the DB
+    bytes match what the entry was compiled from, and `db_meta` (the
+    loaded DB's metadata document) cross-checks that the in-memory DB
+    is the one the entry was compiled FROM even if the on-disk digest
+    moved between the DB load and this lookup (concurrent generation
+    promote). A metadata mismatch is a plain miss; only corruption
+    quarantines.
+
+    A corrupt or inconsistent entry is quarantined and reported as a
+    miss so the caller recompiles — zero-diff by construction."""
+    from trivy_tpu_torch.tensorize.compile import CompiledDB, flat_advisories
+
+    if not enabled():
+        return None
+    digest = digest or db_digest(db_path)
+    path = entry_path(db_path, digest, window) if digest else None
+    if path is None or not os.path.exists(path):
+        COUNTS["misses"] += 1
+        return None
+    t0 = time.perf_counter()
+    try:
+        with open(path, "rb") as f:
+            raw = f.read()
+    except OSError as exc:
+        # transient read failure (EMFILE, NFS blip): a miss, NOT a
+        # quarantine — the entry on disk may be perfectly healthy
+        COUNTS["misses"] += 1
+        _log.warn("compiled-DB cache entry unreadable (io); recompiling",
+                  path=path, err=str(exc))
+        return None
+    try:
+        body = atomic.unframe(raw)
+        if body is raw:
+            # a framed entry is the only thing save_compiled writes: a
+            # missing footer means the tail was torn off exactly at the
+            # marker boundary or the file predates framing — reject
+            raise atomic.CorruptEntry("missing checksum footer")
+        z = np.load(io.BytesIO(body), allow_pickle=False)
+        meta = json.loads(z["meta_json"].tobytes())
+        if meta.get("format") != FORMAT_VERSION \
+                or meta.get("digest") != digest \
+                or meta.get("params") != params_key(window):
+            raise atomic.CorruptEntry("metadata/key mismatch")
+        if db_meta is not None and meta.get("db_meta") != db_meta:
+            # the loaded DB is not the one this entry was compiled
+            # from (digest moved under us): a healthy entry for a
+            # DIFFERENT generation — miss, don't quarantine
+            COUNTS["misses"] += 1
+            _log.warn("compiled-DB cache entry is for a different DB "
+                      "generation; recompiling", path=path)
+            return None
+        advisories = flat_advisories(db)
+        if len(advisories) != meta["n_advisories"]:
+            raise atomic.CorruptEntry(
+                f"advisory count mismatch (entry {meta['n_advisories']}, "
+                f"db {len(advisories)})")
+        arr = {f: (z[f] if f in z.files else None)
+               for f in _ARRAY_FIELDS}
+        for f in _ARRAY_FIELDS[:6]:  # main row tensors are mandatory
+            if arr[f] is None:
+                raise atomic.CorruptEntry(f"missing array {f}")
+        boundaries = {s: z[f"bnd_{i}"]
+                      for i, s in enumerate(meta["schemes"])}
+        cdb = CompiledDB(
+            **arr,
+            boundaries=boundaries,
+            advisories=advisories,
+            host_fallback={(s, n): v
+                           for s, n, v in meta["host_fallback"]},
+            window=meta["window"],
+            hot_window=meta["hot_window"],
+            tall_window=meta["tall_window"],
+            tall_names={tuple(t) for t in meta["tall_names"]},
+            stats=dict(meta["stats"], compile_cache="hit"),
+        )
+    except Exception as exc:
+        _quarantine(path)
+        COUNTS["misses"] += 1
+        _log.warn("compiled-DB cache entry unreadable; recompiling",
+                  path=path, err=str(exc))
+        return None
+    COUNTS["hits"] += 1
+    _log.info("compiled-DB cache hit", path=path,
+              load_s=round(time.perf_counter() - t0, 3),
+              rows=cdb.n_rows)
+    return cdb

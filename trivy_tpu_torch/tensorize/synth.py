@@ -190,3 +190,106 @@ def synth_queries(db: AdvisoryDB, n_queries: int,
             v += f"-{rng.randint(1, 5)}"
         out.append(PkgQuery(space, name, v, scheme))
     return out
+
+
+def _synth_version(rng: random.Random, advs: list, os_pkg: bool) -> str:
+    """An installed version for a package with these advisories: a
+    third at one advisory's fixed version (that advisory is fixed), a
+    third low (most advisories match), a third anywhere."""
+    r = rng.random()
+    fixed = [a.fixed_version for a in advs if a.fixed_version]
+    if r < 1 / 3 and fixed:
+        return fixed[rng.randrange(len(fixed))]
+    major = 0 if r < 2 / 3 else rng.randint(0, 30)
+    v = f"{major}.{rng.randint(0, 20)}.{rng.randint(0, 30)}"
+    return f"{v}-{rng.randint(1, 5)}" if os_pkg else v
+
+
+def synth_sbom(db: AdvisoryDB, n_os: int = 1000, n_npm: int = 1500,
+               n_pip: int = 500, seed: int = 20261017,
+               fmt: str = "cyclonedx", os_bucket: str = "debian 12",
+               os_version: str = "12.7", miss_frac: float = 0.1) -> dict:
+    """A seeded SBOM document of a distro-based service image drawn from
+    `db`: `n_os` OS packages of `os_bucket` (every name of the bucket
+    with over 500 advisories first, so the hot and tall tiers run), one
+    npm lockfile application of `n_npm` packages and `n_pip` pip
+    packages with no parent (aggregated as "Python"). A `miss_frac`
+    share of each group names no package of the DB. `fmt` is
+    "cyclonedx" or "spdx" (JSON documents as trivy writes them)."""
+    rng = random.Random(seed)
+    family = os_bucket.split()[0]
+
+    def draw(bucket: str, n: int, os_pkg: bool) -> list[tuple[str, str]]:
+        pkgs = db.buckets.get(bucket, {})
+        names = sorted(pkgs)
+        hot = [nm for nm in names if len(pkgs[nm]) > 500]
+        cold = [nm for nm in names if len(pkgs[nm]) <= 500]
+        out: list[tuple[str, str]] = []
+        for i in range(n):
+            if i < len(hot):
+                name = hot[i]
+            elif rng.random() < miss_frac or not cold:
+                name = f"nosuch-{bucket.split(':')[0].split()[0]}-{i}"
+            else:
+                name = cold[rng.randrange(len(cold))]
+            out.append((name, _synth_version(rng, pkgs.get(name, []),
+                                             os_pkg)))
+        return out
+
+    os_pkgs = draw(os_bucket, n_os, True)
+    npm_pkgs = draw("npm::ghsa", n_npm, False)
+    pip_pkgs = draw("pip::ghsa", n_pip, False)
+    distro = f"{family}-{os_version}"
+    purls = ([f"pkg:deb/{family}/{n}@{v}?distro={distro}" for n, v in os_pkgs]
+             + [f"pkg:npm/{n}@{v}" for n, v in npm_pkgs]
+             + [f"pkg:pypi/{n}@{v}" for n, v in pip_pkgs])
+    versions = [v for _n, v in os_pkgs + npm_pkgs + pip_pkgs]
+    names = [n for n, _v in os_pkgs + npm_pkgs + pip_pkgs]
+    lock = "srv/app/package-lock.json"
+    npm_refs = range(n_os, n_os + n_npm)
+    if fmt == "spdx":
+        packages = [
+            {"SPDXID": "SPDXRef-OperatingSystem-0", "name": family,
+             "versionInfo": os_version,
+             "primaryPackagePurpose": "OPERATING-SYSTEM"},
+            {"SPDXID": "SPDXRef-Application-0", "name": lock},
+        ]
+        packages += [{
+            "SPDXID": f"SPDXRef-Package-{i}", "name": names[i],
+            "versionInfo": versions[i],
+            "externalRefs": [{"referenceCategory": "PACKAGE-MANAGER",
+                              "referenceType": "purl",
+                              "referenceLocator": purls[i]}],
+        } for i in range(len(purls))]
+        return {
+            "spdxVersion": "SPDX-2.3", "dataLicense": "CC0-1.0",
+            "SPDXID": "SPDXRef-DOCUMENT", "name": "registry.example/svc:1",
+            "packages": packages,
+            "relationships": [{
+                "spdxElementId": "SPDXRef-Application-0",
+                "relationshipType": "DEPENDS_ON",
+                "relatedSpdxElement": f"SPDXRef-Package-{i}",
+            } for i in npm_refs],
+        }
+    components = [{"bom-ref": "os", "type": "operating-system",
+                   "name": family, "version": os_version},
+                  {"bom-ref": "app", "type": "application", "name": lock,
+                   "properties": [
+                       {"name": "aquasecurity:trivy:Type", "value": "npm"},
+                       {"name": "aquasecurity:trivy:FilePath",
+                        "value": lock}]}]
+    components += [{"bom-ref": f"pkg-{i}", "type": "library",
+                    "name": names[i], "version": versions[i],
+                    "purl": purls[i]} for i in range(len(purls))]
+    return {
+        "bomFormat": "CycloneDX", "specVersion": "1.5",
+        "metadata": {"component": {
+            "bom-ref": "root", "type": "container",
+            "name": "registry.example/svc:1",
+            "properties": [{"name": "aquasecurity:trivy:ImageID",
+                            "value": "sha256:" + "ab" * 32}]}},
+        "components": components,
+        "dependencies": [
+            {"ref": "root", "dependsOn": ["os", "app"]},
+            {"ref": "app", "dependsOn": [f"pkg-{i}" for i in npm_refs]}],
+    }

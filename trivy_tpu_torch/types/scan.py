@@ -1,0 +1,21 @@
+"""Scan options (reference pkg/types/scan.go:115-126).
+
+Copy of trivy_tpu/types/scan.py, trimmed to the options the sbom scan
+path reads.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from trivy_tpu_torch.types.enums import Scanner
+
+
+@dataclass
+class ScanOptions:
+    pkg_types: list[str] = field(default_factory=lambda: ["os", "library"])
+    scanners: list[Scanner] = field(
+        default_factory=lambda: [Scanner.VULN, Scanner.SECRET]
+    )
+    include_dev_deps: bool = False
+    list_all_pkgs: bool = False
