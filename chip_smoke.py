@@ -62,7 +62,20 @@ kernel's time before its latest redesign; then
      for byte, the warm run a compiled-cache hit, the match kernel
      launched on all three tiers in both device runs, the native
      collector used; each run's wall split as the CLI's run module keeps
-     it, and the device idle share of a profiled rerun of each device run.
+     it, and the device idle share of a profiled rerun of each device run;
+  8. drive the `fs` and `rootfs` CLI on the card, in process, on phase
+     7's saved DB (its compiled entry on disk): phase 5's corpus written
+     out with a debian 11 root holding phase 7's image packages (a dpkg
+     status of 1,000, an npm lockfile of 1,500, 500 pip requirements);
+     `fs` as a user runs it (the engine loaded anew, the hybrid probe
+     deciding, its verdict printed), `fs` with the probe off under
+     torch.profiler (anchor and match launches, the device idle share of
+     that run's own trace), `fs --no-tpu`; `rootfs` on the root plus the
+     corpus's first 16 MiB, on the card (all three match tiers) and with
+     --no-tpu; `fs --secret-config` with phase 5's 64 custom rules on the
+     first 64 MiB (the conv screen) and with --no-tpu. Every device
+     report equals its --no-tpu report byte for byte, and the finding
+     counts equal what the planted secrets make.
 Phase 3 runs with the native collector (native/collect.cpp) too.
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
@@ -1205,7 +1218,8 @@ def build_corpus(total: int, big: int, n_planted: int, conv_bytes: int,
     kinds (about a quarter placed across a 16 KiB chunk cut of a file
     larger than a chunk) and custom-rule tokens in the files of the
     first `conv_bytes`. -> (files [(path, bytes)], planted kinds,
-    number of files in the first conv_bytes)."""
+    number of files in the first conv_bytes, the builtin kinds planted
+    per file index)."""
     from trivy_tpu_torch.ops.secret_nfa import CHUNK, K_ANCHOR
 
     rng = random.Random(seed)
@@ -1240,6 +1254,7 @@ def build_corpus(total: int, big: int, n_planted: int, conv_bytes: int,
     files.insert(2 * third, ["data/big1.sql", text(big)])
     files.insert(third, ["data/big0.sql", text(big)])
     plants: dict[int, list] = {}
+    per_file: dict[int, list] = {}
     step = CHUNK - (K_ANCHOR - 1)
     for n in range(n_planted):
         kind = SECRET_KINDS[n % len(SECRET_KINDS)]
@@ -1254,6 +1269,7 @@ def build_corpus(total: int, big: int, n_planted: int, conv_bytes: int,
         else:
             pos = rng.randrange(max(size - len(secret) - 1, 1))
         plants.setdefault(fi, []).append((pos, secret))
+        per_file.setdefault(fi, []).append(kind)
     for i in range(N_CUSTOM):
         fi = rng.randrange(n_conv)
         plants.setdefault(fi, []).append(
@@ -1272,7 +1288,7 @@ def build_corpus(total: int, big: int, n_planted: int, conv_bytes: int,
             body[pos: pos + len(piece)] = piece
             end = pos + len(piece)
         files[fi][1] = bytes(body) + b"".join(tail)
-    return [tuple(f) for f in files], set(SECRET_KINDS), n_conv
+    return [tuple(f) for f in files], set(SECRET_KINDS), n_conv, per_file
 
 
 def finding_keys(secrets) -> list:
@@ -1297,8 +1313,8 @@ def secret_main_path(dev) -> dict:
     from trivy_tpu_torch.secret.rules import Rule
 
     t0 = time.perf_counter()
-    corpus, kinds, n_conv = build_corpus(CORPUS_BYTES, BIG_FILE_BYTES,
-                                         N_PLANTED, CONV_BYTES)
+    corpus, kinds, n_conv, per_file = build_corpus(
+        CORPUS_BYTES, BIG_FILE_BYTES, N_PLANTED, CONV_BYTES)
     t_corpus = time.perf_counter() - t0
     mb = sum(len(c) for _p, c in corpus) / 1e6
     big = [(p, c) for p, c in corpus if len(c) > sc.STREAM_THRESHOLD]
@@ -1456,6 +1472,7 @@ def secret_main_path(dev) -> dict:
                              "or the conv kernel never launched")
     return {"corpus": corpus, "scanner": scanner,
             "conv_scanner": conv_scanner, "n_conv": n_conv,
+            "planted_per_file": per_file,
             "launches": launches, "conv_launches": conv_launches,
             "mb_per_s": mb / wall_dev}
 
@@ -1761,19 +1778,18 @@ def cli_profiled(argv: list[str], report: str) -> dict:
             "device_idle_share": 1 - busy_ms / 1e3 / r["wall_s"]}
 
 
-def sbom_cli_path(db) -> dict:
+def sbom_cli_path(db, tmp: str) -> dict:
     """Phase 7: the sbom CLI on the card. (a) the golden fixture through
     the real entry point; (b) phase 3's 2,000,000-advisory DB saved with
-    the port's AdvisoryDB.save and a seeded 3,000-component image SBOM,
-    scanned cold (compile + save the compiled entry), warm (load it) and
-    on the host oracle (--no-tpu): the three reports byte for byte."""
-    import tempfile
-
+    the port's AdvisoryDB.save under `tmp` (kept there, with its
+    compiled entry, for phase 8) and a seeded 3,000-component image
+    SBOM, scanned cold (compile + save the compiled entry), warm (load
+    it) and on the host oracle (--no-tpu): the three reports byte for
+    byte."""
     from trivy_tpu_torch.native import collect as ncollect
     from trivy_tpu_torch.tensorize import cache as ccache
     from trivy_tpu_torch.tensorize.synth import synth_sbom
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sbom_")
     try:
         if not ncollect.available():
             print("phase7 native collector did not build (g++)")
@@ -1840,10 +1856,301 @@ def sbom_cli_path(db) -> dict:
             print(f"phase7 profiled_rerun run={name} {json.dumps(p)}")
         return {"runs": runs, "profiled": prof,
                 "launches": runs["cold"]["launches"]
-                + runs["warm"]["launches"]}
+                + runs["warm"]["launches"],
+                "db_root": root, "sbom": bom}
     finally:
         os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------- phase 8
+
+
+FS_ROOTFS_BYTES = 16 << 20  # the corpus share of the rootfs tree
+OS_RELEASE = ('PRETTY_NAME="Debian GNU/Linux 11 (bullseye)"\n'
+              'NAME="Debian GNU/Linux"\nVERSION_ID="11"\n'
+              'VERSION="11 (bullseye)"\nID=debian\n')
+
+
+def write_files(root: str, files) -> None:
+    for path, body in files:
+        full = os.path.join(root, path)
+        os.makedirs(os.path.dirname(full), exist_ok=True)
+        with open(full, "wb") as f:
+            f.write(body if isinstance(body, bytes) else body.encode())
+
+
+def image_root_files(bom: str) -> tuple[list, list, dict]:
+    """Phase 7's image SBOM as the files of a debian 11 root: its OS
+    packages as a dpkg status database, its npm packages as
+    app/package-lock.json, its pip packages as app/requirements.txt.
+    -> (OS files, lockfiles, package counts)."""
+    with open(bom) as f:
+        doc = json.load(f)
+    pkgs: dict[str, list] = {"deb": [], "npm": [], "pypi": []}
+    for c in doc["components"]:
+        kind = c.get("purl", "").split("/")[0].removeprefix("pkg:")
+        if kind in pkgs:
+            pkgs[kind].append((c["name"], c["version"]))
+    status = "\n".join(
+        f"Package: {n}\nStatus: install ok installed\n"
+        f"Architecture: amd64\nVersion: {v}\n" for n, v in pkgs["deb"])
+    lock = {"name": "svc", "lockfileVersion": 3, "packages": {
+        "": {"name": "svc", "version": "1.0.0"},
+        **{f"node_modules/{n}": {"version": v} for n, v in pkgs["npm"]}}}
+    os_files = [("etc/os-release", OS_RELEASE),
+                ("var/lib/dpkg/status", status)]
+    lockfiles = [("app/package-lock.json", json.dumps(lock, indent=1)),
+                 ("app/requirements.txt",
+                  "".join(f"{n}=={v}\n" for n, v in pkgs["pypi"]))]
+    return os_files, lockfiles, {k: len(v) for k, v in pkgs.items()}
+
+
+def custom_secret_config(path: str) -> None:
+    """Phase 5's 64 custom rules as a --secret-config file (JSON is
+    YAML)."""
+    with open(path, "w") as f:
+        json.dump({"rules": [{
+            "id": f"cust-{i:02d}", "category": "Custom",
+            "title": f"custom {i}", "severity": "HIGH",
+            "regex": custom_rule_regex(i), "keywords": [f"cust{i:02d}_"],
+        } for i in range(N_CUSTOM)]}, f)
+
+
+def planted_findings(corpus, kinds: dict, n_files: int) -> int:
+    """The findings the builtin rules make of the secrets planted in the
+    corpus's first `n_files` files: a Slack bot token also matches the
+    slack-access-token rule, and a password assignment counts only in a
+    *.env file (its rule's path)."""
+    n = 0
+    for i in range(n_files):
+        for kind in kinds.get(i, ()):
+            if kind == "slack-bot-token":
+                n += 2
+            elif kind == "generic-password-assignment":
+                n += corpus[i][0].endswith(".env")
+            else:
+                n += 1
+    return n
+
+
+def fs_run(argv: list[str], report: str, profiled: bool = False) -> dict:
+    """One in-process fs / rootfs CLI scan with every launch count and
+    the compiled-NFA cache's hit and miss counts at 0 just before it ->
+    its numbers: the run module's wall split, the launches of each
+    kernel (the match kernel's per tier), the cache's hits and misses,
+    the findings and, when `profiled`, the device's busy and idle share
+    from a torch.profiler trace of this run itself."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trivy_tpu_torch.cli import main as cli_main
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.ops import match as m
+    from trivy_tpu_torch.ops import secret_nfa as nfa
+    from trivy_tpu_torch.ops import secret_prefilter as pf
+    from trivy_tpu_torch.tensorize.cache import NFA_COUNTS
+    from trivy_tpu_torch.utils import uuid as uuid_util
+
+    def tiers() -> dict:
+        engine = next(iter(run._ENGINE_CACHE.values()), None)
+        if engine is None or not engine.use_device:
+            return {"main": 0, "hot": 0, "tall": 0}
+        return {k: getattr(t, "launches", 0) for k, t in (
+            ("main", engine._ddb), ("hot", engine._ddb_hot),
+            ("tall", engine._ddb_tall))}
+
+    before = tiers()
+    uuid_util.reset()
+    m.match_words.launches = 0
+    nfa.anchor_words.launches = 0
+    nfa.conv_anchor_words.launches = 0
+    pf.prefilter_hits.launches = 0
+    NFA_COUNTS.update(hits=0, misses=0)
+    ctx = profile(activities=[ProfilerActivity.CUDA]) if profiled \
+        else contextlib.nullcontext()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        rc = cli_main.main(argv + ["--output", report])
+        if profiled:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} CLI returned {rc}")
+    after = tiers()
+    with open(report, "rb") as f:
+        body = f.read()
+    results = json.loads(body).get("Results", [])
+    out = {
+        "wall_s": wall, **run.STATS,
+        "secret_findings": sum(len(r.get("Secrets", []))
+                               for r in results),
+        "vulnerabilities": sum(len(r.get("Vulnerabilities", []))
+                               for r in results),
+        "report_bytes": len(body),
+        "launches": {"match": m.match_words.launches,
+                     "match_per_tier": {k: after[k] - before.get(k, 0)
+                                        for k in after},
+                     "anchor": nfa.anchor_words.launches,
+                     "conv": nfa.conv_anchor_words.launches,
+                     "prefilter": pf.prefilter_hits.launches},
+        "nfa_cache": dict(NFA_COUNTS),
+    }
+    if profiled:
+        busy_ms, _ = device_busy_ms(prof)
+        out["device_busy_ms"] = busy_ms
+        out["device_idle_share"] = 1 - busy_ms / 1e3 / wall
+        out["anchor_kernel_ms"] = device_busy_ms(prof, "anchor_kernel")[0]
+        out["match_kernel_ms"] = device_busy_ms(prof, "match_kernel")[0]
+    return out
+
+
+def split_line(name: str, r: dict) -> str:
+    keys = ("wall_s", "db_load_s", "engine_build_s", "walk_s",
+            "post_analyze_s", "secret_s", "apply_s", "detect_s",
+            "render_s")
+    split = " ".join(f"{k}={r[k]:.3f}" for k in keys if k in r)
+    return (f"phase8 run={name} {split} "
+            f"secret_findings={r['secret_findings']} "
+            f"vulnerabilities={r['vulnerabilities']} "
+            f"report_bytes={r['report_bytes']} "
+            f"launches={json.dumps(r['launches'])} "
+            f"nfa_cache={json.dumps(r['nfa_cache'])} "
+            f"secret_device_stats={json.dumps(r.get('secret_device_stats'))}"
+            f" probe={json.dumps(r.get('secret_probe'))}")
+
+
+def fs_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
+    """Phase 8: the fs and rootfs CLI on the card, in process through
+    trivy_tpu_torch.cli.main.main, on phase 7's saved DB (warm: its
+    compiled entry is on disk). Trees: phase 5's corpus plus a debian 11
+    root holding phase 7's image packages (1,000 dpkg packages, an npm
+    lockfile of 1,500, 500 pip requirements); the root plus the corpus's
+    first 16 MiB for rootfs; the first 64 MiB for the custom rules. The
+    first run is as a user runs it (the engine and the DB loaded anew,
+    the hybrid probe deciding); the others reuse the process's engine
+    and set TRIVY_TPU_SECRET_PROBE=0, so the device share always runs;
+    each device report equals its --no-tpu report byte for byte. The
+    first run compiles the builtin rules' screen program into the fresh
+    cache directory (a compiled-NFA cache miss); the last, a rootfs run
+    back on the builtin rules after the custom ones, builds a fresh
+    scanner that loads that entry (a hit): their `program_s` set the
+    cache's saving beside the fs wall."""
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.secret import scanner as sc
+
+    corpus, kinds = p5["corpus"], p5["planted_per_file"]
+    os_files, lockfiles, n_pkgs = image_root_files(p7["sbom"])
+    trees = {k: os.path.join(tmp, k) for k in ("fs", "rootfs", "custom")}
+    t0 = time.perf_counter()
+    write_files(trees["fs"], corpus + os_files + lockfiles)
+    acc, n_rootfs = 0, 0
+    while acc < FS_ROOTFS_BYTES and n_rootfs < len(corpus):
+        acc += len(corpus[n_rootfs][1])
+        n_rootfs += 1
+    write_files(trees["rootfs"], corpus[:n_rootfs] + os_files)
+    write_files(trees["custom"], corpus[:p5["n_conv"]])
+    cfg = os.path.join(tmp, "custom-secret.yaml")
+    custom_secret_config(cfg)
+    want = {"fs": planted_findings(corpus, kinds, len(corpus)),
+            "rootfs": planted_findings(corpus, kinds, n_rootfs),
+            "custom": planted_findings(corpus, kinds, p5["n_conv"])
+            + N_CUSTOM}
+    mb = {k: sum(len(c) for _p, c in files) / 1e6 for k, files in (
+        ("fs", corpus), ("rootfs", corpus[:n_rootfs]),
+        ("custom", corpus[:p5["n_conv"]]))}
+    print(f"phase8 trees written_s={time.perf_counter() - t0:.3f} "
+          f"fs_files={len(corpus) + 4} corpus_mb={mb['fs']:.3f} "
+          f"rootfs_files={n_rootfs + 2} rootfs_corpus_mb={mb['rootfs']:.3f}"
+          f" custom_files={p5['n_conv']} custom_mb={mb['custom']:.3f} "
+          f"packages={json.dumps(n_pkgs)} planted={json.dumps(want)}")
+
+    # a filesystem blob id is a fresh uuid: deterministic ones (the
+    # counter reset before each run) let reports compare byte for byte
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    os.environ["TRIVY_TPU_DETERMINISTIC_UUID"] = "1"
+    base = ["--format", "json", "--db-path", p7["db_root"], "--cache-dir",
+            os.path.join(tmp, "cache"), "--quiet"]
+    runs: dict = {}
+    reports: dict = {}
+
+    def go(name, cmd, tree, extra=(), profiled=False):
+        reports[name] = os.path.join(tmp, f"{name}.json")
+        runs[name] = fs_run([cmd, trees[tree], *base, *extra],
+                            reports[name], profiled)
+        print(split_line(name, runs[name]))
+
+    try:
+        # 1. as a user runs it: a fresh engine, the probe decides
+        run._ENGINE_CACHE.clear()
+        sc.reset_hybrid_probe()
+        go("fs", "fs", "fs")
+        probe = runs["fs"]["secret_probe"]
+        verdict = None if probe is None else (
+            "hybrid" if probe["device"] else "host")
+        print(f"phase8 probe_verdict={verdict} probe={json.dumps(probe)}")
+        # 2-5. the device share always runs
+        os.environ["TRIVY_TPU_SECRET_PROBE"] = "0"
+        go("fs_probe0", "fs", "fs", profiled=True)
+        go("fs_no_tpu", "fs", "fs", ["--no-tpu"])
+        go("rootfs", "rootfs", "rootfs")
+        go("rootfs_no_tpu", "rootfs", "rootfs", ["--no-tpu"])
+        go("custom", "fs", "custom", ["--secret-config", cfg])
+        go("custom_no_tpu", "fs", "custom", ["--secret-config", cfg,
+                                             "--no-tpu"])
+        go("rootfs_fresh", "rootfs", "rootfs")
+    finally:
+        for knob in ("TRIVY_TPU_SECRET_PROBE", "TRIVY_TPU_FAKE_TIME",
+                     "TRIVY_TPU_DETERMINISTIC_UUID"):
+            os.environ.pop(knob, None)
+
+    def body(name):
+        with open(reports[name], "rb") as f:
+            return f.read()
+
+    diffs = {name: int(body(name) != body(ref)) for name, ref in (
+        ("fs", "fs_no_tpu"), ("fs_probe0", "fs_no_tpu"),
+        ("rootfs", "rootfs_no_tpu"), ("custom", "custom_no_tpu"),
+        ("rootfs_fresh", "rootfs_no_tpu"))}
+    found = {k: runs[k]["secret_findings"] for k in want}
+    p = runs["fs_probe0"]
+    print(f"phase8 reports_diff_vs_no_tpu={json.dumps(diffs)} "
+          f"findings={json.dumps(found)} planted={json.dumps(want)}")
+    print(f"phase8 fs_probe0 trace wall_s={p['wall_s']:.3f} "
+          f"device_busy_ms={p['device_busy_ms']:.3f} "
+          f"anchor_kernel_ms={p['anchor_kernel_ms']:.3f} "
+          f"match_kernel_ms={p['match_kernel_ms']:.3f} "
+          f"device_idle_share={p['device_idle_share']:.6f}")
+    miss, hit = runs["fs"], runs["rootfs_fresh"]
+    miss_s = miss["secret_device_stats"]["program_s"]
+    hit_s = hit["secret_device_stats"]["program_s"]
+    print(f"phase8 nfa_cache miss_run=fs miss_counts="
+          f"{json.dumps(miss['nfa_cache'])} miss_program_s={miss_s:.6f} "
+          f"hit_run=rootfs_fresh hit_counts={json.dumps(hit['nfa_cache'])}"
+          f" hit_program_s={hit_s:.6f} saved_s={miss_s - hit_s:.6f} "
+          f"fs_wall_s={miss['wall_s']:.3f} "
+          f"saved_share_of_fs_wall={(miss_s - hit_s) / miss['wall_s']:.6f}")
+    if any(diffs.values()):
+        raise AssertionError("a device report differs from --no-tpu")
+    if found != want:
+        raise AssertionError("finding counts differ from the planted ones")
+    if not p["launches"]["anchor"] or not p["launches"]["match"]:
+        raise AssertionError("the fs path launched no anchor or match "
+                             "kernel with the probe off")
+    if not all(runs["rootfs"]["launches"]["match_per_tier"].values()):
+        raise AssertionError("rootfs: a match tier was never launched")
+    if not runs["custom"]["launches"]["conv"]:
+        raise AssertionError("--secret-config launched no conv kernel")
+    if miss["nfa_cache"] != {"hits": 0, "misses": 1} or \
+            hit["nfa_cache"] != {"hits": 1, "misses": 0}:
+        raise AssertionError("the compiled-NFA cache did not miss on the "
+                             "first fs run and hit on the fresh scanner")
+    for name in ("fs_no_tpu", "rootfs_no_tpu", "custom_no_tpu"):
+        if any(runs[name]["launches"][k] for k in ("match", "anchor",
+                                                   "conv", "prefilter")):
+            raise AssertionError(f"{name} launched a kernel")
+    return {"runs": runs, "verdict": verdict}
 
 
 def main() -> int:
@@ -1895,9 +2202,20 @@ def main() -> int:
     st = time_secret_kernels(dev, p5, p6)
     print(f"timings seconds={time.perf_counter() - t0:.3f}")
 
-    t0 = time.perf_counter()
-    p7 = sbom_cli_path(p3.pop("db"))
-    print(f"phase7 seconds={time.perf_counter() - t0:.3f}")
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        p7 = sbom_cli_path(p3.pop("db"), work)
+        print(f"phase7 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p8 = fs_cli_path(p5, p7, work)
+        print(f"phase8 seconds={time.perf_counter() - t0:.3f}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    fs_launches = {name: r["launches"] for name, r in p8["runs"].items()}
 
     main_t = p3["timings"]["main"]
     entries = [{
@@ -1916,6 +2234,8 @@ def main() -> int:
         "launches_sbom_cli": {k: r["per_tier"]
                               for k, r in p7["runs"].items()
                               if "per_tier" in r},
+        "launches_fs_cli": {k: v["match_per_tier"]
+                            for k, v in fs_launches.items()},
         "tiers": p3["timings"],
     }]
     for name, source, replaces, launches in (
@@ -1932,6 +2252,7 @@ def main() -> int:
             "replaces": f"trivy_tpu/ops/{replaces}",
             "launches": launches,
             "max_abs_err": max(p4[name], t["max_abs_err"]),
+            "launches_fs_cli": {k: v[name] for k, v in fs_launches.items()},
             "ms": t["ms"], "kernel_device_ms": t["kernel_device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -16,12 +16,14 @@ only inside the candidate windows, so findings equal the host path's.
 The keyword prefilter (ops/secret_prefilter.py) has its own kernel
 (ops/csrc/secret_prefilter.cu).
 
-The `sbom` scan command runs end to end on that engine
-(`python -m trivy_tpu_torch sbom BOM.json --format json`, cli/main.py):
-SBOM decode, blob cache, layer applier, OS and language detectors,
-vulnerability metadata, filters and the json and table writers, over an
-advisory DB in trivy_tpu's on-disk format and a compiled-DB cache of
-its own.
+The `sbom`, `filesystem` (`fs`) and `rootfs` scan commands run end to
+end on that engine (`python -m trivy_tpu_torch fs DIR --format json`,
+cli/main.py): the directory walk and the analyzers (OS release, apk,
+dpkg and rpm databases, lockfile and package parsers, the secret
+analyzer on the secret screens), SBOM decode, blob cache, layer
+applier, OS and language detectors, vulnerability metadata, filters and
+the json and table writers, over an advisory DB in trivy_tpu's on-disk
+format and compiled-DB and compiled secret-NFA caches of its own.
 
 The package imports torch, never jax, and nothing of trivy_tpu: the
 device-free modules it needs are its own copies.

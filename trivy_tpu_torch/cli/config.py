@@ -4,6 +4,10 @@ viper binding; here as argparse post-processing).
 
 Copy of trivy_tpu/cli/config.py without --generate-default-config. The
 environment layer reads the same TRIVY_TPU_* names as the reference's.
+An option that the reference's scan subcommands have and the port's
+lack (`UNPORTED`), given a value through the environment or the config
+file that the reference would act on, is refused with one error line:
+the port must not write a different report without a word.
 """
 
 from __future__ import annotations
@@ -16,6 +20,32 @@ _log = logger("config")
 
 CONFIG_NAMES = ("trivy-tpu.yaml", "trivy.yaml")
 ENV_PREFIX = "TRIVY_TPU_"
+
+# dests of the reference's scan-subcommand parsers (sbom, filesystem,
+# fs, rootfs: the same flags) that the port's parsers lack, each with
+# the values that leave the reference's scan as it is: its parser's
+# default first, then the spellings its code reads as unset (the empty
+# string where it tests the option's truth; mesh's single-chip specs)
+UNPORTED = {
+    "check_namespaces": ([],), "checks_bundle_repository": ("",),
+    "compliance": (None, ""), "config_check": ([],), "config_data": ([],),
+    "dependency_tree": (False,), "fallback": (False,),
+    "fleet_parallel": (1,), "generate_default_config": (False,),
+    "helm_set": ([],), "helm_values": ([],), "ignore_policy": (None, ""),
+    "include_deprecated_checks": (False,), "journal": (None, ""),
+    "license_full": (False,), "log_format": ("text",),
+    "mesh": (None, "", "0", "off", "none"), "module_dir": (None,),
+    "monitor_index": (None, ""), "offline_scan": (False,),
+    "redis_ca": ("",), "redis_cert": ("",), "redis_insecure": (False,),
+    "redis_key": ("",), "redis_tls": (False,),
+    "rekor_url": ("https://rekor.sigstore.dev",), "report": ("summary",),
+    "resume": (None, ""), "sbom_sources": ("",),
+    "scan_timeout": (None, ""), "server": (None, ""),
+    "show_suppressed": (False,), "skip_check_update": (False,),
+    "skip_db_update": (False,), "targets": (None, ""),
+    "template": (None, ""), "token": (None, ""), "trace": (False,),
+    "trace_export": (None, ""), "vex": ([],),
+}
 
 
 def _load_config_file(path: str | None) -> dict:
@@ -90,6 +120,8 @@ def apply_layers(args, parser, argv: list[str]) -> None:
     given on the command line always win. Raises ValueError on
     uncoercible env/config values (caught by main's error rendering)."""
     cfg = _load_config_file(getattr(args, "config", None))
+    if getattr(args, "command", None) not in (None, "version"):
+        _refuse_unported(cfg)
     explicit = _explicit_dests(parser, argv)
     defaults = _all_defaults(parser)
     for dest, value in vars(args).copy().items():
@@ -110,6 +142,33 @@ def apply_layers(args, parser, argv: list[str]) -> None:
                 f"invalid value for {flag_key!r} from environment/config: "
                 f"{exc}"
             ) from exc
+
+
+def _refuse_unported(cfg: dict) -> None:
+    """Raise ValueError (one line) when the environment or the config
+    file gives an option the port does not have yet a value that the
+    reference would act on. The layers apply as in `apply_layers`: the
+    environment first, and the config file only where it is unset."""
+    for dest, unset in UNPORTED.items():
+        env_key = ENV_PREFIX + dest.upper()
+        flag_key = dest.replace("_", "-")
+        if env_key in os.environ:
+            where, raw = f"{env_key} (--{flag_key}) is set in the " \
+                "environment", os.environ[env_key]
+        elif flag_key in cfg:
+            where, raw = f"{flag_key!r} is set in the config file", \
+                cfg[flag_key]
+        else:
+            continue
+        try:
+            value = _coerce(raw, unset[0])
+        except (ValueError, TypeError) as exc:
+            raise ValueError(
+                f"invalid value for {flag_key!r} from environment/config: "
+                f"{exc}"
+            ) from exc
+        if value not in unset:
+            raise ValueError(f"{where}; it is not ported yet")
 
 
 def _option_dests(parser) -> dict[str, str]:

@@ -1,11 +1,14 @@
-"""trivy-tpu-torch CLI: the `sbom` and `version` subcommands of
-trivy_tpu/cli/main.py, with the match kernel on a CUDA card.
+"""trivy-tpu-torch CLI: the `sbom`, `filesystem` (alias `fs`), `rootfs`
+and `version` subcommands of trivy_tpu/cli/main.py, with the match
+kernel and the secret screens on a CUDA card.
 
     python -m trivy_tpu_torch sbom bom.json --format json
+    python -m trivy_tpu_torch fs ./project --format json
 
-Copy of trivy_tpu/cli/main.py trimmed to the flags the sbom scan path
-reads. A flag whose feature is not ported yet is absent, so argparse
-refuses it. `--device` is the port's own: the scan runs on ``cuda:0``
+Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
+read. A flag whose feature is not ported yet is absent, so argparse
+refuses it (and cli/config.py refuses it from the environment or a
+config file). `--device` is the port's own: the scan runs on ``cuda:0``
 unless it names another device (``cpu`` runs the kernels' plain
 versions); `--no-tpu` keeps the reference's name for the host-oracle
 match path, which needs no card.
@@ -46,14 +49,22 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="comma-separated severities (UNKNOWN,LOW,MEDIUM,HIGH,CRITICAL)")
     p.add_argument("--scanners", default="vuln,secret",
                    help="comma-separated scanners (vuln,secret)")
+    p.add_argument("--secret-config", default="trivy-secret.yaml",
+                   help="custom secret rule config path (reference "
+                        "--secret-config)")
     p.add_argument("--pkg-types", default="os,library",
                    help="comma-separated package types (os,library)")
     p.add_argument("--db-path", default=None,
                    help="advisory DB directory (default <cache>/db)")
     p.add_argument("--list-all-pkgs", action="store_true")
+    p.add_argument("--include-dev-deps", action="store_true",
+                   help="include development dependencies (supported "
+                        "lockfiles only)")
     p.add_argument("--ignorefile", default=".trivyignore")
     p.add_argument("--ignore-unfixed", action="store_true",
                    help="hide vulnerabilities with no fixed version")
+    p.add_argument("--file-patterns", action="append", default=[],
+                   help="analyzer file pattern (type:regex); repeatable")
     p.add_argument("--ignore-status", default=None,
                    help="comma-separated statuses to ignore")
     p.add_argument("--exit-code", type=int, default=0)
@@ -62,29 +73,57 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="run matching on the host instead of the match "
                         "kernel (needs no card)")
     p.add_argument("--device", default=None,
-                   help="torch device of the match kernel (default "
-                        "cuda:0; 'cpu' runs its plain version)")
+                   help="torch device of the match kernel and the "
+                        "secret screens (default cuda:0; 'cpu' runs "
+                        "their plain versions)")
+    p.add_argument("--secret-pack-mb", type=float, default=None,
+                   metavar="MB",
+                   help="packed super-buffer MiB per device secret "
+                        "anchor-screen dispatch (default per-bank "
+                        "value; env TRIVY_TPU_SECRET_PACK_MB)")
+    p.add_argument("--secret-stream-chunk-mb", type=float, default=None,
+                   metavar="MB",
+                   help="streaming secret-scan chunk MiB for files "
+                        "over 10 MiB (byte-identical to whole-file; "
+                        "default 4; env "
+                        "TRIVY_TPU_SECRET_STREAM_CHUNK_MB)")
     p.add_argument("--timeout", default="5m",
                    help="per-scan deadline (e.g. 300s, 5m, 1h; "
                         "reference --timeout default 5m)")
+    p.add_argument("--parallel", type=int, default=5,
+                   help="number of parallel analysis workers (the "
+                        "reference's flag; the directory walk is "
+                        "serial in both packages)")
     p.add_argument("--cache-backend", default="fs",
                    help="cache backend: fs or memory")
+    p.add_argument("--skip-files", action="append", default=[])
+    p.add_argument("--skip-dirs", action="append", default=[])
+
+
+# the scan subcommands the port serves (the reference's image,
+# repository and vm are not ported yet)
+SCAN_COMMANDS = (
+    ("filesystem", "scan a local filesystem directory"),
+    ("fs", "alias of filesystem"),
+    ("rootfs", "scan a root filesystem"),
+    ("sbom", "scan an SBOM file (CycloneDX/SPDX json)"),
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         allow_abbrev=False,
         prog="trivy-tpu-torch",
-        description="security scanner on a CUDA card (SBOM -> "
-        "vulnerabilities)",
+        description="security scanner on a CUDA card (filesystem, "
+        "rootfs or SBOM -> vulnerabilities, secrets)",
     )
     _add_global_flags(parser)
     sub = parser.add_subparsers(dest="command")
-    p = sub.add_parser("sbom", help="scan an SBOM file (CycloneDX/SPDX json)",
-                       allow_abbrev=False)
-    _add_global_flags(p)
-    _add_scan_flags(p)
-    p.add_argument("target")
+    for name, help_text in SCAN_COMMANDS:
+        p = sub.add_parser(name, help=help_text, allow_abbrev=False)
+        _add_global_flags(p)
+        _add_scan_flags(p)
+        p.add_argument("target")
     sub.add_parser("version", help="print version", allow_abbrev=False)
     return parser
 

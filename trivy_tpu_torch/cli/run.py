@@ -1,14 +1,18 @@
 """Scan runner: DB bootstrap -> scanner selection -> scan -> filter ->
 report -> exit code (reference pkg/commands/artifact/run.go Runner).
 
-Copy of trivy_tpu/cli/run.py trimmed to the `sbom` scan: no fleet mode,
-monitor index, compliance, modules, VEX, ignore policies, mesh, server
-client or tracing yet. The engine is the port's MatchEngine on the
-device `--device` names (``cuda:0`` by default).
+Copy of trivy_tpu/cli/run.py trimmed to the `sbom`, `filesystem` / `fs`
+and `rootfs` scans: no fleet mode, monitor index, compliance, modules,
+VEX, ignore policies, mesh, server client or tracing yet. The match
+engine and the secret analyzer's screen run on the device `--device`
+names (``cuda:0`` by default); `--no-tpu` takes the host paths of both.
 
 `STATS` keeps the wall seconds of the last scan's phases, split by this
 module's own code: DB load, engine build (compile or compiled-cache
-load, plus the upload to the card), detect, report render.
+load, plus the upload to the card), for a filesystem scan the walk with
+the per-file analyzers and the post-analyzers (the secret scan's own
+seconds, its `device_stats` and the hybrid probe's verdict beside
+them), apply, detect, report render.
 """
 
 from __future__ import annotations
@@ -122,13 +126,60 @@ def make_scan_options(args) -> ScanOptions:
         pkg_types=args.pkg_types.split(","),
         scanners=scanners,
         list_all_pkgs=args.list_all_pkgs,
+        include_dev_deps=getattr(args, "include_dev_deps", False),
     )
 
 
 def run_scan(args) -> int:
+    from trivy_tpu_torch.fanal.analyzers import secret_analyzer
+
     STATS.clear()
     t0 = time.perf_counter()
-    rc = _run_scan_core(args)
+
+    # --no-tpu forces the host path; the default is "hybrid" (device
+    # screen + concurrent host AC; host-only when the screen's device
+    # is the CPU). Set per invocation so an earlier --no-tpu run in the
+    # same process doesn't stick. The screen runs on the device the
+    # match kernel does, resolved here so a missing card fails before
+    # any work.
+    secret_analyzer.USE_DEVICE = (
+        False if getattr(args, "no_tpu", False) else "hybrid")
+    secret_analyzer.DEVICE = _device(args)
+
+    # the compiled-NFA cache follows the resolved --cache-dir like
+    # every other cache (set per invocation, same pattern as
+    # USE_DEVICE above)
+    from trivy_tpu_torch.secret import scanner as _secret_scanner
+
+    _secret_scanner.set_cache_dir(getattr(args, "cache_dir", None))
+
+    # secret-engine sizing flags reach the scanner (deep inside the
+    # fanal post-analyzer) through their env knobs; explicit flags win
+    # over an inherited environment, for this scan only
+    knobs = {"TRIVY_TPU_SECRET_PACK_MB": getattr(args, "secret_pack_mb",
+                                                 None),
+             "TRIVY_TPU_SECRET_STREAM_CHUNK_MB": getattr(
+                 args, "secret_stream_chunk_mb", None)}
+    inherited = {k: os.environ.get(k) for k, v in knobs.items()
+                 if v is not None}
+    for k in inherited:
+        os.environ[k] = str(knobs[k])
+
+    # jar sha1->GAV lookups use the java DB when it has been imported
+    # (reference pkg/javadb updater singleton)
+    from trivy_tpu_torch.db import javadb
+
+    jdb_path = javadb.default_path(args.cache_dir)
+    javadb.configure(jdb_path if os.path.exists(jdb_path) else None)
+
+    try:
+        rc = _run_scan_core(args)
+    finally:
+        for k, v in inherited.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     STATS["wall_s"] = time.perf_counter() - t0
     return rc
 
@@ -213,7 +264,8 @@ def _scan_target(args, cache):
     report = _scan_with_timeout(Scanner(driver, artifact), options,
                                 timeout_s)
     STATS.update(apply_s=driver.stats["apply_s"],
-                 detect_s=driver.stats["detect_s"])
+                 detect_s=driver.stats["detect_s"],
+                 **getattr(artifact, "stats", {}))
     return report
 
 
@@ -268,12 +320,44 @@ def _postprocess_report(args, report):
 
 def _select_scanner(args, cache):
     """reference pkg/commands/artifact/scanner.go: artifact kind ->
-    (artifact, driver). Only the sbom kind is ported."""
+    (artifact, driver). The sbom, filesystem and rootfs kinds are
+    ported."""
     from trivy_tpu_torch.scanner.local import LocalDriver
 
-    if args.command != "sbom":
-        raise FatalError(f"unsupported scan command {args.command!r}")
-    from trivy_tpu_torch.artifact.sbom import SBOMArtifact
-
+    cmd = args.command
+    if cmd not in ("sbom", "filesystem", "fs", "rootfs"):
+        raise FatalError(f"unsupported scan command {cmd!r}")
     driver = LocalDriver(build_engine(args), cache)
-    return SBOMArtifact(args.target, cache), driver
+    if cmd == "sbom":
+        from trivy_tpu_torch.artifact.sbom import SBOMArtifact
+
+        return SBOMArtifact(args.target, cache), driver
+
+    # analyzers whose scanner class was not requested are disabled
+    # (reference pkg/commands/artifact/run.go disabledAnalyzers); the
+    # port registers no config or license-file analyzer
+    disabled: set[str] = set()
+    if "secret" not in set((args.scanners or "").split(",")):
+        disabled.add("secret")
+
+    # per-target analyzer gating (reference artifact/run.go:178-215):
+    # fs scans read lockfiles, not installed-package stores; rootfs the
+    # inverse
+    from trivy_tpu_torch.fanal.analyzer import (
+        TYPE_INDIVIDUAL_PKGS,
+        TYPE_LOCKFILES,
+    )
+
+    if cmd in ("filesystem", "fs"):
+        disabled |= TYPE_INDIVIDUAL_PKGS | {"sbom"}
+    else:
+        disabled |= TYPE_LOCKFILES
+    from trivy_tpu_torch.artifact.local_fs import FSArtifact
+
+    return FSArtifact(
+        args.target, cache,
+        skip_files=args.skip_files, skip_dirs=args.skip_dirs,
+        disabled_analyzers=disabled,
+        secret_config=getattr(args, "secret_config", None),
+        file_patterns=getattr(args, "file_patterns", []),
+    ), driver

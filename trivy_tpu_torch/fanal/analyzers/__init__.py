@@ -1,0 +1,17 @@
+"""Built-in analyzers. Importing this package registers everything
+(reference pkg/fanal/analyzer/all).
+
+Copy of trivy_tpu/fanal/analyzers/__init__.py without the config and
+license-file analyzers (misconfiguration and license scans are not
+ported yet).
+"""
+
+from trivy_tpu_torch.fanal.analyzers import (  # noqa: F401
+    lang,
+    misc,
+    os_release,
+    pkg_apk,
+    pkg_dpkg,
+    pkg_rpm,
+    secret_analyzer,
+)

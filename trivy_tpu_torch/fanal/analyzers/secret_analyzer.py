@@ -1,0 +1,124 @@
+"""Secret analyzer (reference pkg/fanal/analyzer/secret/secret.go), as a
+BATCH post-analyzer: files are collected during the walk and scanned in one
+device anchor-screen pass + host regex on candidates, instead of the
+reference's per-file loop.
+
+Copy of trivy_tpu/fanal/analyzers/secret_analyzer.py. The scanner runs
+on the torch device the CLI publishes in `DEVICE` (``cuda:0`` unless
+``--device`` names another), and the warm scanner is kept per (config
+path, device), so a scanner built for one device never answers a scan
+on another.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+from trivy_tpu_torch.fanal.analyzer import (
+    AnalysisInput,
+    AnalysisResult,
+    PostAnalyzer,
+    register_post,
+)
+from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.ops.secret_nfa import KERNEL_VERSION
+from trivy_tpu_torch.secret.scanner import SecretConfig, SecretScanner
+
+_log = logger("secret")
+
+WARN_SIZE = 10 * 1024 * 1024  # reference secret.go:110
+
+_SKIP_DIRS = ("node_modules/.cache/", ".git/", "usr/share/doc/")
+_SKIP_FILES = {"go.sum", "package-lock.json", "yarn.lock", "pnpm-lock.yaml",
+               "Pipfile.lock", "poetry.lock", "Cargo.lock", "composer.lock"}
+
+# module-level toggles set by the CLI per invocation. USE_DEVICE: False
+# under --no-tpu (the host path), else "hybrid" (device batches dispatch
+# first, async, then the host AC path scans the rest while the card
+# computes; host-only when the device is the CPU or the one-shot probe
+# finds the device share slower than it repays — see
+# SecretScanner._scan_files_hybrid). DEVICE: the torch device of the
+# screen (None = the scanner's default, cuda:0).
+USE_DEVICE = "hybrid"
+DEVICE = None
+
+
+# bump on host-side semantic changes (rules, scanner behavior); the
+# kernel component below covers device-screen changes
+_ANALYZER_BASE = 1
+
+
+@register_post
+class SecretAnalyzer(PostAnalyzer):
+    type = "secret"
+    # the cache key must change when EITHER the host scanner or the
+    # device screen's semantics do (reference invalidates on analyzer
+    # version, cache/key.go; here the "analyzer" includes the anchor
+    # kernel)
+    version = _ANALYZER_BASE * 1000 + KERNEL_VERSION
+
+    def __init__(self, config_path: str | None = None):
+        self._scanner = None
+        self._device = None
+        self._config_path = config_path
+        # the last post_analyze: its seconds and what its scan added to
+        # the scanner's device_stats
+        self.scan_s = 0.0
+        self.device_stats: dict = {}
+
+    @property
+    def scanner(self) -> SecretScanner:
+        if self._scanner is not None and self._device != DEVICE:
+            self._scanner = None  # built for another device
+        if self._scanner is None:
+            cfg = None
+            if self._config_path and os.path.exists(self._config_path):
+                cfg = SecretConfig.load(self._config_path)
+            self._scanner = SecretScanner(cfg, device=DEVICE)
+            self._device = DEVICE
+        return self._scanner
+
+    def configure(self, config_path: str | None) -> None:
+        if config_path == self._config_path:
+            return  # unchanged config keeps the warm scanner (and its
+            # uploaded device bank) across scans
+        self._config_path = config_path
+        self._scanner = None
+
+    def required(self, path: str, size: int = 0, mode: int = 0) -> bool:
+        if os.path.basename(path) in _SKIP_FILES:
+            return False
+        # never scan the secret config itself: only the root-level file
+        # named like the config (reference secret.go:175 compares
+        # base(configPath) to the walked relative path)
+        if self._config_path and \
+                os.path.basename(self._config_path) == path:
+            return False
+        if any(s in path for s in _SKIP_DIRS):
+            return False
+        if self.scanner.skip_file(path):
+            return False
+        if size > WARN_SIZE:
+            # the reference warns here and scans anyway (secret.go:110);
+            # scan_files routes files over the threshold through the
+            # streaming chunked path (byte-identical findings, bounded
+            # window memory), so no warn-and-punt
+            _log.debug("large file takes the streaming secret path",
+                       path=path, size=size)
+        return True
+
+    def post_analyze(self, files: dict[str, AnalysisInput]) -> AnalysisResult | None:
+        t0 = time.perf_counter()
+        scanner = self.scanner
+        before = dict(scanner.device_stats)
+        batch = [(path, inp.read()) for path, inp in sorted(files.items())]
+        secrets = scanner.scan_files(batch, use_device=USE_DEVICE)
+        self.scan_s = time.perf_counter() - t0
+        self.device_stats = {k: v - before.get(k, 0)
+                             for k, v in scanner.device_stats.items()}
+        if not secrets:
+            return None
+        res = AnalysisResult()
+        res.secrets = secrets
+        return res

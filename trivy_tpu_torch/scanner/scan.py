@@ -5,7 +5,10 @@ the Driver protocol (scan.go:141-144) is THE seam where local and remote
 execution are swapped — LocalDriver runs the match engine in-process.
 
 Copy of trivy_tpu/scanner/scan.py without the tracing spans and the
-device profile hook.
+device profile hook. Each scan still draws its scan id from
+`utils.uuid` (the reference's `obs.tracing.scan_scope` does), so the
+uuid stream, and with it a filesystem artifact's blob id, stays the
+reference's.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from trivy_tpu_torch.types.artifact import OS
 from trivy_tpu_torch.types.report import Metadata, Report, Result
 from trivy_tpu_torch.types.scan import ScanOptions
 from trivy_tpu_torch.utils import clock
+from trivy_tpu_torch.utils import uuid as uuid_util
 
 REPORT_SCHEMA_VERSION = 2
 
@@ -39,6 +43,9 @@ class Scanner:
         self.artifact = artifact
 
     def scan_artifact(self, options: ScanOptions) -> Report:
+        # the reference's scan_scope draws a scan id here: drawn and
+        # dropped, so fs blob ids take the same place in the uuid stream
+        uuid_util.new()
         ref = self.artifact.inspect()
         try:
             results, os_found = self.driver.scan(

@@ -20,6 +20,8 @@ raises: unlike the reference, no device path degrades to the host.
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import re
 import threading
@@ -78,6 +80,20 @@ def stream_chunk_bytes() -> int:
 # chunked path (the reference warns at 10 MiB and punts; here the
 # streaming scan is byte-identical to whole-file)
 STREAM_THRESHOLD = 10 * 1024 * 1024
+
+# resolved --cache-dir published by the CLI per invocation (the same
+# per-run module-state pattern as secret_analyzer.USE_DEVICE): the
+# compiled-NFA cache must honor an explicit cache dir like every other
+# cache, and the scanner sits too deep to see `args`. None = fall back
+# to TRIVY_TPU_CACHE_DIR / the default.
+_CACHE_DIR_OVERRIDE: str | None = None
+
+
+def set_cache_dir(path: str | None) -> None:
+    """Set (or with None, clear) the compiled-NFA cache root for this
+    process — called by the CLI with the resolved --cache-dir."""
+    global _CACHE_DIR_OVERRIDE
+    _CACHE_DIR_OVERRIDE = path
 
 # one-shot per-process hybrid probe verdict: {"device": bool, "reason",
 # "device_s", "host_s", "corpus_mb"} once measured; None = not probed
@@ -148,7 +164,7 @@ class SecretConfig:
 
 def _new_device_stats() -> dict:
     return {"files": 0, "chunks": 0, "chunk_s": 0.0, "dispatch_s": 0.0,
-            "wait_s": 0.0, "verify_s": 0.0}
+            "wait_s": 0.0, "verify_s": 0.0, "program_s": 0.0}
 
 
 class SecretScanner:
@@ -160,8 +176,11 @@ class SecretScanner:
         self._host_tiers = None  # lazy host-floor / streaming partition
         self._matcher = None  # one AnchorMatcher per scanner (device
         # arrays upload once, not per scan_files call)
+        self.program_source = None  # "cache" / "compiled" once tiered
         # where the device path's time goes, summed over its scans:
-        # chunking, copy + launch, waiting for the words, host regex
+        # chunking, copy + launch, waiting for the words, host regex,
+        # and the screen program's load from the compiled-NFA cache (or
+        # its compile and save on a miss)
         self.device_stats = _new_device_stats()
         config = config or SecretConfig()
         rules = list(BUILTIN_RULES)
@@ -251,6 +270,31 @@ class SecretScanner:
 
     MAX_WINDOW_WIDTH = 4096  # regexes wider than this scan whole-file
 
+    def _ruleset_digest(self) -> str:
+        """Content digest of everything the compiled NFA program depends
+        on: the exact rule list (order matters — anchor rows index into
+        it) plus the kernel/anchor constants whose change would make a
+        cached program stale."""
+        doc = [
+            [cr.rule.id, cr.rule.regex,
+             [k.decode("latin1") for k in cr.keywords],
+             cr.rule.path_pattern]
+            for cr in self.rules
+        ]
+        doc.append(["v", nfa.KERNEL_VERSION, nfa.K_ANCHOR,
+                    nfa.MAX_CLASS_WORDS, nfa.CHUNK, self.MAX_WINDOW_WIDTH])
+        return hashlib.sha256(
+            json.dumps(doc, separators=(",", ":")).encode()
+        ).hexdigest()[:32]
+
+    @staticmethod
+    def _nfa_cache_dir() -> str:
+        if _CACHE_DIR_OVERRIDE:
+            return _CACHE_DIR_OVERRIDE
+        return os.environ.get(
+            "TRIVY_TPU_CACHE_DIR",
+            os.path.join(os.path.expanduser("~"), ".cache", "trivy-tpu"))
+
     def _compile_program(self) -> dict:
         """Compile the ruleset into the NFA program: anchor class rows +
         per-rule tier assignments (no bank yet — the bank choice depends
@@ -290,6 +334,68 @@ class SecretScanner:
         return {"rows": rows, "anchors": anchors, "kw_order": kw_order,
                 "file_idx": file_idx, "always_idx": always_idx}
 
+    def _load_program(self, digest: str) -> dict | None:
+        """Compiled-NFA program from the persistent compiled-artifact
+        cache (tensorize/cache.load_nfa), or None on a miss — warm
+        starts skip the per-rule regex analysis entirely."""
+        from trivy_tpu_torch.tensorize import cache as compile_cache
+
+        hit = compile_cache.load_nfa(self._nfa_cache_dir(), digest)
+        if hit is None:
+            return None
+        arrays, meta = hit
+        try:
+            if meta.get("n_rules") != len(self.rules):
+                raise ValueError("rule count mismatch")
+            rows = nfa.unpack_anchor_rows(arrays["row_bits"],
+                                          arrays["row_lens"])
+            kinds = ("seq", "lit")
+            anchors = [
+                (int(i), int(lo), int(hi), kinds[int(k)])
+                for i, lo, hi, k in zip(
+                    arrays["a_idx"].tolist(), arrays["a_lo"].tolist(),
+                    arrays["a_hi"].tolist(), arrays["a_kind"].tolist())
+            ]
+            return {
+                "rows": rows,
+                "anchors": anchors,
+                "kw_order": [k.encode("latin1")
+                             for k in meta["kw_order"]],
+                "file_idx": [int(i) for i in arrays["file_idx"].tolist()],
+                "always_idx": [int(i)
+                               for i in arrays["always_idx"].tolist()],
+            }
+        except Exception as exc:  # defensive: treat as miss, recompile
+            _log.warn("compiled secret-NFA entry unusable; recompiling",
+                      err=str(exc))
+            return None
+
+    def _save_program(self, digest: str, program: dict) -> None:
+        from trivy_tpu_torch.tensorize import cache as compile_cache
+
+        bits, lens = nfa.pack_anchor_rows(program["rows"])
+        anchors = program["anchors"]
+        kind_id = {"seq": 0, "lit": 1}
+        arrays = {
+            "row_bits": bits,
+            "row_lens": lens,
+            "a_idx": np.array([a[0] for a in anchors], dtype=np.int32),
+            "a_lo": np.array([a[1] for a in anchors], dtype=np.int32),
+            "a_hi": np.array([a[2] for a in anchors], dtype=np.int32),
+            "a_kind": np.array([kind_id[a[3]] for a in anchors],
+                               dtype=np.uint8),
+            "file_idx": np.array(program["file_idx"], dtype=np.int32),
+            "always_idx": np.array(program["always_idx"],
+                                   dtype=np.int32),
+        }
+        meta = {
+            "n_rules": len(self.rules),
+            "kw_order": [k.decode("latin1")
+                         for k in program["kw_order"]],
+        }
+        compile_cache.save_nfa(self._nfa_cache_dir(), digest, arrays,
+                               meta)
+
     def _ensure_tiers(self) -> None:
         """Partition rules into device tiers:
 
@@ -305,11 +411,23 @@ class SecretScanner:
         Every rule keyword also becomes an anchor row, so the reference's
         keyword-prefilter semantics (scanner.go:174-186) read straight
         off the same device bitmap — no host lowercasing pass. The bank
-        and its matcher live on the scanner's device."""
+        and its matcher live on the scanner's device.
+
+        The compiled program (anchor rows + tier table) persists in the
+        compiled-artifact cache keyed by ruleset digest, so warm starts
+        skip the per-rule regex analysis; `program_source` records
+        which ("cache" or "compiled")."""
         if self._tiers is not None:
             return
         t0 = time.perf_counter()
-        program = self._compile_program()
+        digest = self._ruleset_digest()
+        program = self._load_program(digest)
+        self.program_source = "cache"
+        if program is None:
+            program = self._compile_program()
+            self._save_program(digest, program)
+            self.program_source = "compiled"
+        self.device_stats["program_s"] += time.perf_counter() - t0
         rows = program["rows"]
         anchor_rules = [(self.rules[i], lo, hi, kind)
                         for i, lo, hi, kind in program["anchors"]]
@@ -340,6 +458,7 @@ class SecretScanner:
         }
         _log.debug(
             "secret rule tiers",
+            source=self.program_source,
             compile_ms=round((time.perf_counter() - t0) * 1e3, 1),
             seq=sum(1 for a in anchor_rules if a[3] == "seq"),
             lit=sum(1 for a in anchor_rules if a[3] == "lit"),

@@ -28,8 +28,9 @@ Hits and misses are counted in `COUNTS`.
 Copy of the compiled-DB part of trivy_tpu/tensorize/cache.py. The
 port's entries live under their own directory (`compiled-torch`, the
 reference's are under `compiled`), so the two packages never load each
-other's entries. The keymap, mesh-shard, host-slice and compiled-NFA
-entries are not ported yet.
+other's entries. The compiled secret-NFA programs of
+`secret/scanner.py` live in the same directory (`nfa-<digest>...`).
+The keymap, mesh-shard and host-slice entries are not ported yet.
 """
 
 from __future__ import annotations
@@ -61,8 +62,10 @@ _ARRAY_FIELDS = (
     "tall_h1", "tall_h2", "tall_lo", "tall_hi", "tall_flags", "tall_adv",
 )
 
-# compiled-DB cache lookups of this process, by outcome
+# compiled-DB and compiled secret-NFA cache lookups of this process,
+# by outcome
 COUNTS = {"hits": 0, "misses": 0}
+NFA_COUNTS = {"hits": 0, "misses": 0}
 
 
 def enabled() -> bool:
@@ -315,3 +318,90 @@ def load_compiled(db_path: str, db, window: int | None,
               load_s=round(time.perf_counter() - t0, 3),
               rows=cdb.n_rows)
     return cdb
+
+
+# ---------------------------------------------- compiled secret-NFA programs
+
+# bump on any change to the serialized tier layout; the ruleset digest
+# already folds in the kernel/anchor constants (secret/scanner.py
+# _ruleset_digest), so semantic screen changes key new entries on their
+# own
+NFA_FORMAT_VERSION = 1
+
+
+def nfa_entry_path(cache_dir: str, digest: str) -> str:
+    return os.path.join(cache_dir, CACHE_DIR,
+                        f"nfa-{digest}.f{NFA_FORMAT_VERSION}.npz")
+
+
+def save_nfa(cache_dir: str, digest: str, arrays: dict,
+             meta: dict) -> str | None:
+    """Persist a compiled secret-NFA program (anchor class rows + tier
+    metadata, serialized by SecretScanner) under its ruleset digest.
+    Same framing / atomic-write / never-raise contract as the
+    compiled-DB tensor entries: the cache is an accelerator, not a
+    dependency."""
+    if not enabled():
+        return None
+    try:
+        root = os.path.join(cache_dir, CACHE_DIR)
+        os.makedirs(root, exist_ok=True)
+        atomic.sweep_stale_tmp(root)
+        t0 = time.perf_counter()
+        doc = dict(meta, format=NFA_FORMAT_VERSION, digest=digest)
+        payload = dict(arrays)
+        payload["meta_json"] = np.frombuffer(
+            json.dumps(doc).encode(), dtype=np.uint8).copy()
+        buf = io.BytesIO()
+        np.savez(buf, **payload)
+        path = nfa_entry_path(cache_dir, digest)
+        atomic.atomic_write(path, atomic.frame(buf.getvalue()),
+                            fault_site="compile_cache.save")
+        _log.debug("compiled secret-NFA cache entry saved", path=path,
+                   kb=round(buf.tell() / 1e3, 1),
+                   save_s=round(time.perf_counter() - t0, 3))
+        return path
+    except Exception as exc:  # pragma: no cover - best-effort
+        _log.warn("compiled secret-NFA cache save failed", err=str(exc))
+        return None
+
+
+def load_nfa(cache_dir: str, digest: str):
+    """-> (arrays dict, meta dict) for a cached compiled-NFA program,
+    or None on a miss.  Corrupt / mismatched entries are quarantined
+    and the scanner recompiles from the ruleset — scan results can
+    never differ because of cache state, only warm-start latency can."""
+    if not enabled():
+        return None
+    path = nfa_entry_path(cache_dir, digest)
+    if not os.path.exists(path):
+        NFA_COUNTS["misses"] += 1
+        return None
+    try:
+        with open(path, "rb") as f:
+            raw = f.read()
+    except OSError as exc:
+        # transient read failure: a miss, NOT a quarantine
+        NFA_COUNTS["misses"] += 1
+        _log.warn("compiled secret-NFA cache entry unreadable (io); "
+                  "recompiling", path=path, err=str(exc))
+        return None
+    try:
+        body = atomic.unframe(raw)
+        if body is raw:
+            raise atomic.CorruptEntry("missing checksum footer")
+        z = np.load(io.BytesIO(body), allow_pickle=False)
+        meta = json.loads(z["meta_json"].tobytes())
+        if meta.get("format") != NFA_FORMAT_VERSION \
+                or meta.get("digest") != digest:
+            raise atomic.CorruptEntry("metadata/key mismatch")
+        arrays = {k: z[k] for k in z.files if k != "meta_json"}
+    except Exception as exc:
+        _quarantine(path)
+        NFA_COUNTS["misses"] += 1
+        _log.warn("compiled secret-NFA cache entry unreadable; "
+                  "recompiling", path=path, err=str(exc))
+        return None
+    NFA_COUNTS["hits"] += 1
+    _log.debug("compiled secret-NFA cache hit", path=path)
+    return arrays, meta
