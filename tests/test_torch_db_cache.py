@@ -141,8 +141,15 @@ def test_db_load_missing_empty_and_boltdb(tmp_path):
         AdvisoryDB.load(str(tmp_path / "nothing"))
     (tmp_path / "bolt").mkdir()
     (tmp_path / "bolt" / "trivy.db").write_bytes(b"\0" * 16)
-    with pytest.raises(ValueError, match="BoltDB"):
+    # a BoltDB trivy.db directory is read now: one that is not a BoltDB
+    # file raises the reader's error, as in the reference
+    from trivy_tpu.db.bolt import BoltError as JaxBoltError
+    from trivy_tpu_torch.db.bolt import BoltError
+
+    with pytest.raises(BoltError, match="not a boltdb file"):
         AdvisoryDB.load(str(tmp_path / "bolt"))
+    with pytest.raises(JaxBoltError, match="not a boltdb file"):
+        JaxDB.load(str(tmp_path / "bolt"))
     assert validate_db(AdvisoryDB()) == "candidate DB is empty"
     db = port_rich_db()
     db.meta.version = 3

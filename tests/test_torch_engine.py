@@ -302,10 +302,24 @@ print("\\n".join(sorted(set(sys.modules) - before)))
     assert [m for m in loaded if _forbidden(m)] == []
 
 
-@pytest.mark.parametrize("path", sorted(
+PORT_SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "trivy_tpu_torch").rglob("*.py"),
-              ROOT / "chip_smoke.py"]))
+              ROOT / "chip_smoke.py"])
+
+
+def test_static_scan_covers_every_slice():
+    """The static scan below walks every port source, those of the image
+    and db slice included."""
+    for module in ("ops/splitter.py", "artifact/image.py",
+                   "artifact/image_source.py", "artifact/containerd.py",
+                   "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
+                   "db/trivydb.py", "db/oci.py", "db/javadb.py",
+                   "cli/run.py"):
+        assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
 def test_port_sources_import_no_jax(path):
     """Static scan: no import statement in the port names jax or the
     JAX package."""

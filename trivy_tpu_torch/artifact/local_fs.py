@@ -75,7 +75,7 @@ class FSArtifact:
                                     file_patterns=self.file_patterns)
         for a in group.analyzers + group.post_analyzers:
             if a.type == "secret":
-                a.scan_s, a.device_stats = 0.0, {}  # this scan's alone
+                a.reset_last_scan()  # this scan's alone
                 if self.secret_config:
                     a.configure(self.secret_config)
         return group
@@ -101,8 +101,9 @@ class FSArtifact:
                       "post_analyze_s": time.perf_counter() - t1}
         for a in group.post_analyzers:
             if a.type == "secret":
-                self.stats.update(secret_s=a.scan_s,
-                                  secret_device_stats=a.device_stats,
+                scan_s, added = a.last_scan()
+                self.stats.update(secret_s=scan_s,
+                                  secret_device_stats=added,
                                   secret_probe=hybrid_probe_state())
 
         # fs artifacts are keyed by a fresh UUID (reference fs.go:175-188):

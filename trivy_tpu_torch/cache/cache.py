@@ -6,9 +6,8 @@ Interfaces mirror the reference (pkg/cache/cache.go:16-43):
 Backends: in-memory and filesystem JSON (the reference's BoltDB fs cache,
 pkg/cache/fs.go, re-expressed as one JSON file per key).
 
-Copy of trivy_tpu/cache/cache.py without the redis backend and the
-analyzer cache keys (no analyzer runs on the sbom path); corrupt-entry
-evictions are counted in `corrupt_evictions()`.
+Copy of trivy_tpu/cache/cache.py without the redis backend;
+corrupt-entry evictions are counted in `corrupt_evictions()`.
 """
 
 from __future__ import annotations
@@ -37,6 +36,31 @@ def corrupt_evictions() -> int:
 
 def _count_corrupt_eviction() -> None:
     _corrupt["evictions"] += 1
+
+
+def cache_key(
+    base: str,
+    analyzer_versions: dict[str, int] | None = None,
+    hook_versions: dict[str, int] | None = None,
+    skip_files: list[str] | None = None,
+    skip_dirs: list[str] | None = None,
+    patterns: list[str] | None = None,
+    policy: list[str] | None = None,
+) -> str:
+    """Derive a cache key from a base ID + everything that can change the
+    analysis result (reference pkg/cache/key.go:19-69)."""
+    h = hashlib.sha256()
+    payload = {
+        "artifact": base,
+        "analyzerVersions": analyzer_versions or {},
+        "hookVersions": hook_versions or {},
+        "skipFiles": skip_files or [],
+        "skipDirs": skip_dirs or [],
+        "patterns": patterns or [],
+        "policy": policy or [],
+    }
+    h.update(json.dumps(payload, sort_keys=True).encode())
+    return "sha256:" + h.hexdigest()
 
 
 class MemoryCache:

@@ -21,8 +21,9 @@ _log = logger("config")
 CONFIG_NAMES = ("trivy-tpu.yaml", "trivy.yaml")
 ENV_PREFIX = "TRIVY_TPU_"
 
-# dests of the reference's scan-subcommand parsers (sbom, filesystem,
-# fs, rootfs: the same flags) that the port's parsers lack, each with
+# dests of the reference's scan-subcommand parsers (image, sbom,
+# filesystem, fs, rootfs: the same flags, and image's own, which the
+# port has) that the port's parsers lack, each with
 # the values that leave the reference's scan as it is: its parser's
 # default first, then the spellings its code reads as unset (the empty
 # string where it tests the option's truth; mesh's single-chip specs)
@@ -120,7 +121,7 @@ def apply_layers(args, parser, argv: list[str]) -> None:
     given on the command line always win. Raises ValueError on
     uncoercible env/config values (caught by main's error rendering)."""
     cfg = _load_config_file(getattr(args, "config", None))
-    if getattr(args, "command", None) not in (None, "version"):
+    if getattr(args, "command", None) not in (None, "version", "db"):
         _refuse_unported(cfg)
     explicit = _explicit_dests(parser, argv)
     defaults = _all_defaults(parser)

@@ -1,9 +1,11 @@
-"""trivy-tpu-torch CLI: the `sbom`, `filesystem` (alias `fs`), `rootfs`
-and `version` subcommands of trivy_tpu/cli/main.py, with the match
-kernel and the secret screens on a CUDA card.
+"""trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
+`rootfs`, `db` and `version` subcommands of trivy_tpu/cli/main.py, with
+the match kernel and the secret screens on a CUDA card.
 
+    python -m trivy_tpu_torch image --input image.tar --format json
     python -m trivy_tpu_torch sbom bom.json --format json
     python -m trivy_tpu_torch fs ./project --format json
+    python -m trivy_tpu_torch db import advisories.json --db-path DB
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -91,18 +93,19 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="per-scan deadline (e.g. 300s, 5m, 1h; "
                         "reference --timeout default 5m)")
     p.add_argument("--parallel", type=int, default=5,
-                   help="number of parallel analysis workers (the "
-                        "reference's flag; the directory walk is "
-                        "serial in both packages)")
+                   help="number of parallel analysis workers (an "
+                        "image's layer walk lanes; the directory walk "
+                        "is serial in both packages)")
     p.add_argument("--cache-backend", default="fs",
                    help="cache backend: fs or memory")
     p.add_argument("--skip-files", action="append", default=[])
     p.add_argument("--skip-dirs", action="append", default=[])
 
 
-# the scan subcommands the port serves (the reference's image,
-# repository and vm are not ported yet)
+# the scan subcommands the port serves (the reference's repository and
+# vm are not ported yet)
 SCAN_COMMANDS = (
+    ("image", "scan a container image"),
     ("filesystem", "scan a local filesystem directory"),
     ("fs", "alias of filesystem"),
     ("rootfs", "scan a root filesystem"),
@@ -110,12 +113,56 @@ SCAN_COMMANDS = (
 )
 
 
+def _add_image_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--input", default=None,
+                   help="image tar archive path")
+    p.add_argument("--image-src", default="containerd,docker,podman,remote",
+                   help="comma-separated image sources tried in "
+                        "order (containerd,docker,podman,remote)")
+    p.add_argument("--insecure", action="store_true",
+                   help="allow plain-HTTP / unverified registries")
+    p.add_argument("--username", default=os.environ.get(
+        "TRIVY_TPU_USERNAME", ""), help="registry username")
+    p.add_argument("--password", default=os.environ.get(
+        "TRIVY_TPU_PASSWORD", ""), help="registry password")
+
+
+def _add_db_parser(sub) -> None:
+    p = sub.add_parser("db", help="advisory DB operations",
+                       allow_abbrev=False)
+    _add_global_flags(p)
+    dbsub = p.add_subparsers(dest="db_command")
+    pi = dbsub.add_parser("import", help="import advisories from a JSON "
+                          "dump or a BoltDB trivy.db", allow_abbrev=False)
+    _add_global_flags(pi)
+    pi.add_argument("source")
+    pi.add_argument("--db-path", default=None)
+    ps = dbsub.add_parser("stats", help="show DB statistics",
+                          allow_abbrev=False)
+    _add_global_flags(ps)
+    ps.add_argument("--db-path", default=None)
+    pd = dbsub.add_parser(
+        "download", help="download the advisory DB as an OCI artifact",
+        allow_abbrev=False)
+    _add_global_flags(pd)
+    pd.add_argument("--db-repository",
+                    default="ghcr.io/aquasecurity/trivy-db:2")
+    pd.add_argument("--insecure", action="store_true")
+    pj = dbsub.add_parser(
+        "import-java",
+        help="import a java sha1->GAV dump (JSONL: "
+             '{"groupId","artifactId","version","sha1"} per line)',
+        allow_abbrev=False)
+    _add_global_flags(pj)
+    pj.add_argument("source")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         allow_abbrev=False,
         prog="trivy-tpu-torch",
-        description="security scanner on a CUDA card (filesystem, "
-        "rootfs or SBOM -> vulnerabilities, secrets)",
+        description="security scanner on a CUDA card (image, "
+        "filesystem, rootfs or SBOM -> vulnerabilities, secrets)",
     )
     _add_global_flags(parser)
     sub = parser.add_subparsers(dest="command")
@@ -123,7 +170,12 @@ def build_parser() -> argparse.ArgumentParser:
         p = sub.add_parser(name, help=help_text, allow_abbrev=False)
         _add_global_flags(p)
         _add_scan_flags(p)
-        p.add_argument("target")
+        if name == "image":
+            _add_image_flags(p)
+            p.add_argument("target", nargs="?", default=None)
+        else:
+            p.add_argument("target")
+    _add_db_parser(sub)
     sub.add_parser("version", help="print version", allow_abbrev=False)
     return parser
 
@@ -154,6 +206,8 @@ def main(argv: list[str] | None = None) -> int:
     from trivy_tpu_torch.cli import run
 
     try:
+        if args.command == "db":
+            return run.run_db(args)
         return run.run_scan(args)
     except run.FatalError as e:
         log.logger().error(str(e))

@@ -1,18 +1,20 @@
 """Scan runner: DB bootstrap -> scanner selection -> scan -> filter ->
 report -> exit code (reference pkg/commands/artifact/run.go Runner).
 
-Copy of trivy_tpu/cli/run.py trimmed to the `sbom`, `filesystem` / `fs`
-and `rootfs` scans: no fleet mode, monitor index, compliance, modules,
+Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
+`filesystem` / `fs` and `rootfs` scans and the `db` subcommand: no fleet
+mode (`--targets`, `--journal`), monitor index, compliance, modules,
 VEX, ignore policies, mesh, server client or tracing yet. The match
 engine and the secret analyzer's screen run on the device `--device`
 names (``cuda:0`` by default); `--no-tpu` takes the host paths of both.
 
 `STATS` keeps the wall seconds of the last scan's phases, split by this
 module's own code: DB load, engine build (compile or compiled-cache
-load, plus the upload to the card), for a filesystem scan the walk with
-the per-file analyzers and the post-analyzers (the secret scan's own
-seconds, its `device_stats` and the hybrid probe's verdict beside
-them), apply, detect, report render.
+load, plus the upload to the card), for a filesystem or image scan the
+walk with the per-file analyzers and the post-analyzers (an image's
+summed over its layers and walk lanes; the secret scan's own seconds,
+its `device_stats` and the hybrid probe's verdict beside them), apply,
+detect, report render.
 """
 
 from __future__ import annotations
@@ -320,12 +322,12 @@ def _postprocess_report(args, report):
 
 def _select_scanner(args, cache):
     """reference pkg/commands/artifact/scanner.go: artifact kind ->
-    (artifact, driver). The sbom, filesystem and rootfs kinds are
+    (artifact, driver). The image, sbom, filesystem and rootfs kinds are
     ported."""
     from trivy_tpu_torch.scanner.local import LocalDriver
 
     cmd = args.command
-    if cmd not in ("sbom", "filesystem", "fs", "rootfs"):
+    if cmd not in ("image", "sbom", "filesystem", "fs", "rootfs"):
         raise FatalError(f"unsupported scan command {cmd!r}")
     driver = LocalDriver(build_engine(args), cache)
     if cmd == "sbom":
@@ -339,6 +341,28 @@ def _select_scanner(args, cache):
     disabled: set[str] = set()
     if "secret" not in set((args.scanners or "").split(",")):
         disabled.add("secret")
+
+    if cmd == "image":
+        from trivy_tpu_torch.artifact.image import ImageArtifact
+
+        target = getattr(args, "input", None) or args.target
+        if target is None:
+            raise FatalError("image target or --input required")
+        sources = tuple(
+            s.strip() for s in
+            getattr(args, "image_src", "containerd,docker,podman,remote"
+                    ).split(",") if s.strip())
+        return ImageArtifact(
+            target, cache, from_tar=bool(getattr(args, "input", None)),
+            parallel=args.parallel,
+            disabled_analyzers=disabled,
+            secret_config=getattr(args, "secret_config", None),
+            file_patterns=getattr(args, "file_patterns", []),
+            image_sources=sources,
+            insecure=getattr(args, "insecure", False),
+            username=getattr(args, "username", ""),
+            password=getattr(args, "password", ""),
+        ), driver
 
     # per-target analyzer gating (reference artifact/run.go:178-215):
     # fs scans read lockfiles, not installed-package stores; rootfs the
@@ -361,3 +385,94 @@ def _select_scanner(args, cache):
         secret_config=getattr(args, "secret_config", None),
         file_patterns=getattr(args, "file_patterns", []),
     ), driver
+
+
+def run_db(args) -> int:
+    from trivy_tpu_torch.db.store import AdvisoryDB
+
+    if args.db_command == "import":
+        if os.path.isdir(args.source):
+            db = AdvisoryDB.load(args.source)
+        else:
+            from trivy_tpu_torch.db.trivydb import try_load
+
+            # a real trivy-db boltdb artifact imports directly
+            db = try_load(args.source) or _import_json(args.source)
+        path = _db_path(args)
+        db.save(path)
+        # an explicit import is the new truth: drop the last-good link
+        # a previous `db download` left, or every reader would resolve
+        # through it and silently keep serving the old generation
+        from trivy_tpu_torch.db import generations as _gens
+
+        lg = _gens.last_good_path(path)
+        if os.path.islink(lg):
+            os.unlink(lg)
+            _log.info("imported DB supersedes downloaded generation; "
+                      "last-good link removed", path=path)
+        _log.info("imported advisory DB", path=path, **db.stats())
+        return 0
+    if args.db_command == "stats":
+        path = _db_path(args)
+        db = AdvisoryDB.load(path)
+        import json as _json
+
+        print(_json.dumps(db.stats(), indent=2))
+        return 0
+    if args.db_command == "download":
+        from trivy_tpu_torch.db.oci import (
+            DB_MEDIA_TYPE,
+            OCIError,
+            install_artifact,
+        )
+
+        dest = _db_path(args)
+        try:
+            # crash-safe generation install: verified blob, staged
+            # extraction, atomic last-good promotion
+            gen = install_artifact(
+                args.db_repository, dest, media_type=DB_MEDIA_TYPE,
+                insecure=getattr(args, "insecure", False))
+        except OCIError as e:
+            raise FatalError(str(e))
+        _log.info("advisory DB downloaded", path=dest, generation=gen)
+        return 0
+    if args.db_command == "import-java":
+        import gzip
+        import json as _json
+
+        from trivy_tpu_torch.db import javadb
+
+        jdb = javadb.JavaDB.create(javadb.default_path(args.cache_dir))
+        opener = gzip.open if args.source.endswith(".gz") else open
+        with opener(args.source, "rb") as f:
+            entries = (_json.loads(line) for line in f if line.strip())
+            n = jdb.import_entries(entries)
+        jdb.write_metadata()
+        jdb.close()
+        _log.info("imported java DB", entries=n)
+        return 0
+    raise FatalError(
+        "usage: trivy-tpu-torch db {import,import-java,stats,download}")
+
+
+def _import_json(path: str):
+    """Import a flat JSON advisory dump: {"buckets": {...}, "vulnerability":
+    {...}} (same shape the store persists)."""
+    import gzip
+    import json
+
+    from trivy_tpu_torch.db.model import Advisory, VulnerabilityMeta
+    from trivy_tpu_torch.db.store import AdvisoryDB
+
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        blob = json.loads(f.read())
+    db = AdvisoryDB()
+    for bucket, pkgs in blob.get("buckets", {}).items():
+        for name, advs in pkgs.items():
+            for a in advs:
+                db.put_advisory(bucket, name, Advisory.from_json(a))
+    for vid, m in blob.get("vulnerability", {}).items():
+        db.put_meta(VulnerabilityMeta.from_json(vid, m))
+    return db

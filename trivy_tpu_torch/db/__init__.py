@@ -1,5 +1,5 @@
-"""Advisory database: model and store with JSON(.gz) persistence (copy
-of trivy_tpu.db's model and store; the BoltDB import is not ported)."""
+"""Advisory database: model and store with JSON(.gz) persistence, and
+the BoltDB trivy-db import (copy of trivy_tpu.db)."""
 
 from trivy_tpu_torch.db.model import Advisory, DataSourceInfo, VulnerabilityMeta
 from trivy_tpu_torch.db.store import AdvisoryDB

@@ -1,4 +1,4 @@
-"""Advisory-DB generation layout, reader side.
+"""Advisory-DB generation layout.
 
 A DB root managed by the verified download path looks like:
 
@@ -13,17 +13,39 @@ root through `resolve()`: when a `last-good` link exists it wins,
 otherwise the root itself is the (legacy, flat) DB directory — so
 `db import`-style flat installs keep working unchanged.
 
-Copy of trivy_tpu/db/generations.py, trimmed to the reader side: the
-install, promote and quarantine paths come with the port's `db`
-commands.
+Invariants:
+
+- a generation directory appears in `generations/` only after every
+  file in it has been fsynced and the staging dir atomically renamed;
+- `last-good` only ever points at a generation that passed validation,
+  and is swapped via symlink-rename, never edited in place.
+
+Copy of trivy_tpu/db/generations.py with the reader side and what `db
+download` (`db/oci.py` `install_artifact`) needs to install and promote
+a generation; the server's quarantine and generation listing are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import time
+
+from trivy_tpu_torch.durability import atomic
 
 GENERATIONS_DIR = "generations"
 LAST_GOOD = "last-good"
+QUARANTINE_SUFFIX = ".quarantine"
+
+
+def gen_name(digest: str) -> str:
+    """OCI digest -> filesystem-safe generation directory name."""
+    return digest.replace(":", "-")
+
+
+def generations_root(db_root: str) -> str:
+    return os.path.join(db_root, GENERATIONS_DIR)
 
 
 def last_good_path(db_root: str) -> str:
@@ -37,3 +59,62 @@ def resolve(db_root: str) -> str:
     if os.path.isdir(lg):  # follows the symlink
         return lg
     return db_root
+
+
+def promote(db_root: str, gen_dir: str) -> None:
+    """Atomically repoint last-good at `gen_dir` (symlink + rename; a
+    crash leaves either the old or the new link, never neither)."""
+    rel = os.path.relpath(gen_dir, db_root)
+    tmp = os.path.join(db_root, f".{LAST_GOOD}.tmp-{os.getpid()}")
+    # collect tmp symlinks orphaned by a crash mid-promote (age-gated:
+    # a younger one may belong to a live concurrent promoter)
+    for name in os.listdir(db_root):
+        if not name.startswith(f".{LAST_GOOD}.tmp-"):
+            continue
+        p = os.path.join(db_root, name)
+        with contextlib.suppress(OSError):
+            if p == tmp or \
+                    os.lstat(p).st_mtime < time.time() - atomic.STALE_TMP_AGE_S:
+                os.unlink(p)
+    os.symlink(rel, tmp)
+    os.replace(tmp, last_good_path(db_root))
+    atomic.fsync_dir(db_root)
+
+
+def sweep_staging(db_root: str,
+                  min_age_s: float = atomic.STALE_TMP_AGE_S) -> int:
+    """Remove crash leftovers: staging dirs whose rename never happened,
+    older than `min_age_s` (so a concurrent installer's live staging
+    survives). Returns how many were removed."""
+    import shutil
+
+    root = generations_root(db_root)
+    removed = 0
+    cutoff = time.time() - min_age_s
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return 0
+    for name in names:
+        if ".tmp-" not in name:
+            continue
+        p = os.path.join(root, name)
+        try:
+            if os.stat(p).st_mtime > cutoff:
+                continue
+        except OSError:
+            continue
+        shutil.rmtree(p, ignore_errors=True)
+        removed += 1
+    return removed
+
+
+def is_quarantined(db_root: str, name: str) -> bool:
+    """Was a generation of this name ever quarantined? A re-download of
+    the same digest must not silently reinstall known-bad bytes."""
+    root = generations_root(db_root)
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return False
+    return any(n.startswith(name + QUARANTINE_SUFFIX) for n in names)

@@ -14,21 +14,23 @@ dependency/parser/java/jar/parse.go:123-146):
 Populate with `trivy-tpu db import-java <dump.jsonl>` where each line is
 {"groupId":…, "artifactId": …, "version": …, "sha1": …}.
 
-Copy of the lookup side of trivy_tpu/db/javadb.py (the client, its two
-searches, `configure` / `client` / `default_path`); building a DB
-(`create`, `import_entries`, `write_metadata`) waits for the port's
-`db` subcommand. The port reads the same file the reference writes.
+Copy of trivy_tpu/db/javadb.py. The port reads and writes the same
+file the reference does.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sqlite3
 from dataclasses import dataclass
 
+from trivy_tpu_torch.durability.atomic import atomic_write
 from trivy_tpu_torch.log import logger
 
 _log = logger("javadb")
+
+SCHEMA_VERSION = 1
 
 
 @dataclass(frozen=True)
@@ -60,6 +62,50 @@ class JavaDB:
             # from indices(artifact_id,version,sha1 BLOB,archive_type);
             # it is consumed natively, no conversion step
             self._upstream = "indices" in tables
+
+    # ------------------------------------------------------------ build
+
+    @classmethod
+    def create(cls, path: str) -> "JavaDB":
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        conn = sqlite3.connect(path)
+        conn.executescript("""
+            CREATE TABLE IF NOT EXISTS artifacts (
+                sha1 TEXT PRIMARY KEY,
+                group_id TEXT NOT NULL,
+                artifact_id TEXT NOT NULL,
+                version TEXT NOT NULL
+            );
+            CREATE INDEX IF NOT EXISTS idx_artifact_version
+                ON artifacts (artifact_id, version);
+        """)
+        conn.commit()
+        db = cls.__new__(cls)
+        db.path = path
+        db._conn = conn
+        db._upstream = False
+        return db
+
+    def import_entries(self, entries) -> int:
+        assert self._conn is not None
+        rows = [
+            (e["sha1"].lower(), e["groupId"], e["artifactId"], e["version"])
+            for e in entries
+            if e.get("sha1") and e.get("groupId") and e.get("artifactId")
+            and e.get("version")
+        ]
+        self._conn.executemany(
+            "INSERT OR REPLACE INTO artifacts VALUES (?, ?, ?, ?)", rows)
+        self._conn.commit()
+        return len(rows)
+
+    def write_metadata(self) -> None:
+        if not self.path:
+            return
+        meta = {"Version": SCHEMA_VERSION}
+        atomic_write(os.path.join(os.path.dirname(self.path),
+                                  "metadata.json"),
+                     json.dumps(meta).encode())
 
     # ----------------------------------------------------------- search
 

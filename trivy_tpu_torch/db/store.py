@@ -12,8 +12,8 @@ metadata.json manifest — the moral equivalent of the reference's
 `trivy.db` + `metadata.json` pair (reference pkg/db/db.go:97-140).
 
 Copy of trivy_tpu/db/store.py. The on-disk format is the same, so a DB
-saved by either package loads in the other. A downloaded BoltDB
-`trivy.db` is not read yet (it comes with the port's `db import`).
+saved by either package loads in the other, and a directory holding a
+BoltDB `trivy.db` (real trivy-db) loads through `db/trivydb.py`.
 """
 
 from __future__ import annotations
@@ -180,9 +180,12 @@ class AdvisoryDB:
             with open(fname, "rb") as f:
                 blob = json.loads(f.read())
         elif os.path.exists(os.path.join(path, "trivy.db")):
-            raise ValueError(
-                f"{os.path.join(path, 'trivy.db')}: BoltDB trivy-db files "
-                "are not readable yet (db import is not ported)")
+            # a downloaded reference trivy-db artifact (BoltDB); the
+            # sibling metadata.json still loads below
+            from trivy_tpu_torch.db.trivydb import load_trivy_db
+
+            db = load_trivy_db(os.path.join(path, "trivy.db"))
+            blob = {}
         else:
             raise FileNotFoundError(f"no advisory DB at {path}")
         for bucket, pkgs in blob.get("buckets", {}).items():

@@ -111,3 +111,22 @@ def sweep_stale_tmp(directory: str, min_age_s: float = STALE_TMP_AGE_S) -> int:
                 if e.errno != errno.EISDIR:
                     raise
     return removed
+
+
+def fsync_tree(root: str) -> None:
+    """fsync every regular file under `root`, then the directories —
+    used before atomically renaming a fully-staged directory into
+    place (DB generation install)."""
+    for dirpath, _dirnames, filenames in os.walk(root):
+        for name in filenames:
+            p = os.path.join(dirpath, name)
+            try:
+                fd = os.open(p, os.O_RDONLY)
+            except OSError:
+                continue
+            try:
+                with contextlib.suppress(OSError):
+                    os.fsync(fd)
+            finally:
+                os.close(fd)
+        fsync_dir(dirpath)

@@ -8,11 +8,17 @@ on the torch device the CLI publishes in `DEVICE` (``cuda:0`` unless
 ``--device`` names another), and the warm scanner is kept per (config
 path, device), so a scanner built for one device never answers a scan
 on another.
+
+The analyzer is one instance per process, so the walk lanes of an image
+scan call `post_analyze` on it at once: its scanner is built under a
+lock, and what each call spent (`last_scan()`) is kept per thread, so
+each lane reads its own call's seconds and device stats.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 
 from trivy_tpu_torch.fanal.analyzer import (
@@ -62,29 +68,40 @@ class SecretAnalyzer(PostAnalyzer):
         self._scanner = None
         self._device = None
         self._config_path = config_path
-        # the last post_analyze: its seconds and what its scan added to
-        # the scanner's device_stats
-        self.scan_s = 0.0
-        self.device_stats: dict = {}
+        self._lock = threading.Lock()
+        # per thread: the last post_analyze's seconds and what its scan
+        # added to the scanner's device_stats
+        self._last = threading.local()
 
     @property
     def scanner(self) -> SecretScanner:
-        if self._scanner is not None and self._device != DEVICE:
-            self._scanner = None  # built for another device
-        if self._scanner is None:
-            cfg = None
-            if self._config_path and os.path.exists(self._config_path):
-                cfg = SecretConfig.load(self._config_path)
-            self._scanner = SecretScanner(cfg, device=DEVICE)
-            self._device = DEVICE
-        return self._scanner
+        with self._lock:
+            if self._scanner is not None and self._device != DEVICE:
+                self._scanner = None  # built for another device
+            if self._scanner is None:
+                cfg = None
+                if self._config_path and os.path.exists(self._config_path):
+                    cfg = SecretConfig.load(self._config_path)
+                self._scanner = SecretScanner(cfg, device=DEVICE)
+                self._device = DEVICE
+            return self._scanner
 
     def configure(self, config_path: str | None) -> None:
-        if config_path == self._config_path:
-            return  # unchanged config keeps the warm scanner (and its
-            # uploaded device bank) across scans
-        self._config_path = config_path
-        self._scanner = None
+        with self._lock:
+            if config_path == self._config_path:
+                return  # unchanged config keeps the warm scanner (and
+                # its uploaded device bank) across scans
+            self._config_path = config_path
+            self._scanner = None
+
+    def last_scan(self) -> tuple[float, dict]:
+        """(seconds, device_stats added) of this thread's last
+        post_analyze; (0.0, {}) before any."""
+        return (getattr(self._last, "scan_s", 0.0),
+                getattr(self._last, "device_stats", {}))
+
+    def reset_last_scan(self) -> None:
+        self._last.scan_s, self._last.device_stats = 0.0, {}
 
     def required(self, path: str, size: int = 0, mode: int = 0) -> bool:
         if os.path.basename(path) in _SKIP_FILES:
@@ -111,12 +128,11 @@ class SecretAnalyzer(PostAnalyzer):
     def post_analyze(self, files: dict[str, AnalysisInput]) -> AnalysisResult | None:
         t0 = time.perf_counter()
         scanner = self.scanner
-        before = dict(scanner.device_stats)
         batch = [(path, inp.read()) for path, inp in sorted(files.items())]
-        secrets = scanner.scan_files(batch, use_device=USE_DEVICE)
-        self.scan_s = time.perf_counter() - t0
-        self.device_stats = {k: v - before.get(k, 0)
-                             for k, v in scanner.device_stats.items()}
+        with scanner.stats_scope() as added:
+            secrets = scanner.scan_files(batch, use_device=USE_DEVICE)
+        self._last.scan_s = time.perf_counter() - t0
+        self._last.device_stats = added
         if not secrets:
             return None
         res = AnalysisResult()

@@ -1,0 +1,435 @@
+"""Pipelined, dedupe-aware layer-analysis executor (reference
+pkg/parallel/pipeline.go).
+
+Two mechanisms attack the artifact-analysis share of an image scan:
+
+1. **Prefetch pipeline** — ``run_layer_pipeline`` overlaps the I/O-bound
+   fetch+decode of layer N+1 with the CPU-bound walk/analyze of layer N
+   (a double-buffered coordinator and lane). One fetch lane reads layer streams out of the image
+   source sequentially — tar/daemon/registry handles are not required to
+   be thread-safe, so exactly one thread ever touches them — while the
+   coordinator (the scanning thread) analyzes in layer order, so results
+   are byte-identical to the serial path by construction. Depth-bounded:
+   at most ``prefetch_depth`` layers are materialized ahead.
+
+2. **Content-addressed cross-image dedupe** — layer cache keys are
+   already content addressed (diffID x analyzer versions, cache_key),
+   so a base layer shared by every debian/alpine image hits the blob
+   cache after its first analysis. ``LayerSingleflight`` closes the
+   remaining window: two *concurrent* in-process scans that both miss
+   the cache on the same blob_id coordinate so exactly one analyzes it;
+   the rest wait on the completed BlobInfo document and replay it into
+   their own cache handle when it differs from the leader's.
+
+``TRIVY_TPU_ANALYSIS_PIPELINE=0`` disables both and restores the serial
+per-layer path byte-identically (artifact/image.py keeps the legacy loop
+verbatim behind the switch).
+
+3. **Multi-lane walk** — ``run_layer_lanes`` generalizes the pair into
+   one in-order fetch lane feeding N walk lanes (``--parallel N`` /
+   ``TRIVY_TPU_ANALYSIS_WORKERS``, reference-parity default 5 matching
+   pkg/parallel/pipeline.go). Per-layer analysis is independent, so
+   lanes split+analyze distinct layers concurrently — mostly inside
+   GIL-dropping native/numpy code (ops/splitter.py, the vectorized
+   analyzers) — while the coordinator applies every BlobInfo document
+   strictly in layer order: cache writes and singleflight publishes
+   happen exactly as the serial path would emit them, so the output is
+   byte-identical by construction at any lane count. ``workers<=1`` IS
+   the two-stage pipeline, code path and all.
+
+Copy of trivy_tpu/fanal/pipeline.py without the fault sites
+``analysis.fetch`` and ``analysis.lane`` (their ``fetch_with_retry``
+and ``lane_with_retry`` answer injected faults: here the fetch and the
+walk are called directly), the tracing spans, the
+metrics and usage meters, the lock-order witness and the fleet journal
+hook: the port has none of those layers yet. Each run still returns its
+stage-busy stats.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import queue
+import threading
+import time
+
+from trivy_tpu_torch.log import logger
+
+_log = logger("fanal.pipeline")
+
+#: reference parity: pkg/parallel/pipeline.go runs 5 workers by default
+DEFAULT_WORKERS = 5
+#: the hard lane cap
+MAX_WORKERS = 32
+
+# in-process leaders always finish (try/finally), so this is a hang
+# guard, not a tuning knob
+_INPROC_WAIT_S = 600.0
+
+
+def enabled() -> bool:
+    """The ``TRIVY_TPU_ANALYSIS_PIPELINE`` kill switch (default on)."""
+    return os.environ.get("TRIVY_TPU_ANALYSIS_PIPELINE", "1") != "0"
+
+
+def prefetch_depth() -> int:
+    raw = os.environ.get("TRIVY_TPU_ANALYSIS_PREFETCH")
+    if raw:
+        try:
+            return max(int(raw), 1)
+        except ValueError:
+            _log.warn("bad TRIVY_TPU_ANALYSIS_PREFETCH; using default",
+                      value=raw)
+    return 2
+
+
+def analysis_workers(requested: int | None = None) -> int:
+    """Walk-lane count: ``TRIVY_TPU_ANALYSIS_WORKERS`` overrides the
+    caller's ``--parallel`` value; malformed values warn-and-default
+    like ``TRIVY_TPU_ANALYSIS_PREFETCH``. Clamped to [1, MAX_WORKERS]."""
+    n = requested if requested is not None else DEFAULT_WORKERS
+    raw = os.environ.get("TRIVY_TPU_ANALYSIS_WORKERS")
+    if raw:
+        try:
+            n = int(raw)
+        except ValueError:
+            _log.warn("bad TRIVY_TPU_ANALYSIS_WORKERS; using default",
+                      value=raw)
+    return max(1, min(n, MAX_WORKERS))
+
+
+# ------------------------------------------------------------ singleflight
+
+
+class _Slot:
+    """One in-flight layer analysis other scans can wait on."""
+
+    __slots__ = ("event", "doc", "ok", "src_cache", "done")
+
+    def __init__(self, src_cache):
+        self.event = threading.Event()
+        self.doc: dict | None = None
+        self.ok = False
+        self.src_cache = src_cache  # leader's cache handle (may be None)
+        self.done = False
+
+
+class LayerSingleflight:
+    """blob_id-keyed in-flight registry: first claimer leads, the rest
+    wait on the leader's completed blob document. Leaders are code
+    paths with a try/finally around :meth:`finish`, so slots always
+    resolve. (The reference's server-gate mode, with claims that
+    expire, is not ported.)"""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._inflight: dict[str, _Slot] = {}
+
+    def claim(self, blob_id: str, src_cache=None) -> tuple[_Slot, bool]:
+        """-> (slot, is_leader). Leaders MUST eventually call
+        :meth:`finish` on their slot."""
+        with self._lock:
+            slot = self._inflight.get(blob_id)
+            if slot is None:
+                slot = _Slot(src_cache)
+                self._inflight[blob_id] = slot
+                return slot, True
+            return slot, False
+
+    def finish(self, blob_id: str, slot: _Slot, doc: dict | None = None,
+               ok: bool = False) -> None:
+        """Resolve a claim (idempotent). ``ok=True`` publishes ``doc``
+        to waiters; ``ok=False`` sends them back to claim()."""
+        with self._lock:
+            if slot.done:
+                return
+            slot.done = True
+            if self._inflight.get(blob_id) is slot:
+                del self._inflight[blob_id]
+        slot.doc = doc
+        slot.ok = ok
+        slot.event.set()
+
+    def inflight(self) -> int:
+        with self._lock:
+            return len(self._inflight)
+
+
+#: process-wide registry for in-process scans — content-addressed
+#: blob_ids make cross-scan sharing safe by construction
+SINGLEFLIGHT = LayerSingleflight()
+
+
+def _close_quietly(obj) -> None:
+    """Discarded layer streams may be real OS files (containerd content
+    store); a discard must not leak the descriptor."""
+    close = getattr(obj, "close", None)
+    if close is not None:
+        with contextlib.suppress(Exception):
+            close()
+
+
+# ------------------------------------------------------------ pipeline
+
+
+def run_layer_pipeline(items: list, fetch, process,
+                       depth: int | None = None) -> dict:
+    """Overlap ``fetch(item)`` (fetch lane) with ``process(item,
+    payload)`` (calling thread, strict item order).
+
+    ``fetch`` must be the only code touching the image source while the
+    pipeline runs (the lane serializes all fetches on one thread).
+    Returns stage-busy stats.
+    """
+    depth = depth or prefetch_depth()
+    stats = {"layers": len(items), "fetch_busy_s": 0.0,
+             "walk_busy_s": 0.0, "wall_s": 0.0, "occupancy": 0.0}
+    if not items:
+        return stats
+    wall0 = time.perf_counter()
+
+    if len(items) == 1:
+        # nothing to overlap: fetch inline (no lane)
+        t0 = time.perf_counter()
+        payload = fetch(items[0])
+        stats["fetch_busy_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        process(items[0], payload)
+        stats["walk_busy_s"] = time.perf_counter() - t0
+    else:
+        out: queue.Queue = queue.Queue(maxsize=max(depth - 1, 1))
+        stop = threading.Event()
+
+        def fetch_lane():
+            for item in items:
+                if stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                try:
+                    payload = fetch(item)
+                except BaseException as exc:  # delivered to the analyzing thread in layer order
+                    stats["fetch_busy_s"] += time.perf_counter() - t0
+                    _put_interruptible(out, (item, exc, True), stop)
+                    return
+                stats["fetch_busy_s"] += time.perf_counter() - t0
+                if not _put_interruptible(out, (item, payload, False),
+                                          stop):
+                    _close_quietly(payload)  # coordinator aborted
+                    return
+
+        lane = threading.Thread(target=fetch_lane, daemon=True,
+                                name="ttpu-layer-fetch")
+        lane.start()
+
+        def next_payload():
+            # never a bare blocking get: a lane that died without
+            # enqueuing (failure outside its guarded fetch) must not
+            # wedge the scan — and the singleflight claims it holds —
+            # forever
+            while True:
+                try:
+                    return out.get(timeout=1.0)
+                except queue.Empty:
+                    if not lane.is_alive():
+                        raise RuntimeError(
+                            "layer fetch lane died without a result")
+
+        try:
+            for _ in items:
+                item, payload, is_err = next_payload()
+                if is_err:
+                    raise payload
+                t0 = time.perf_counter()
+                process(item, payload)
+                stats["walk_busy_s"] += time.perf_counter() - t0
+        finally:
+            stop.set()
+
+            def drain():
+                with contextlib.suppress(queue.Empty):
+                    while True:  # unblock a lane stuck on put(); close
+                        _it, payload, is_err = out.get_nowait()  # orphans
+                        if not is_err:
+                            _close_quietly(payload)
+
+            drain()
+            lane.join(timeout=30.0)
+            if lane.is_alive():
+                # a wedged fetch (stalled registry/daemon read): the
+                # caller will close the image source under it — the
+                # lane's fault handler swallows the resulting error,
+                # but say why the source teardown may log noise
+                _log.warn("layer fetch lane still running at abort; "
+                          "a stalled fetch will be abandoned")
+            # a put that was already past its stop check can land
+            # between the first drain and the lane exiting
+            drain()
+
+    wall = max(time.perf_counter() - wall0, 1e-9)
+    stats["wall_s"] = wall
+    stats["occupancy"] = min(
+        (stats["fetch_busy_s"] + stats["walk_busy_s"]) / (2 * wall), 1.0)
+    return stats
+
+
+def run_layer_lanes(items: list, fetch, walk, apply,
+                    depth: int | None = None, workers: int = 1) -> dict:
+    """Multi-lane layer executor: one in-order fetch lane feeds
+    ``workers`` walk lanes running ``walk(item, payload) -> doc``
+    concurrently; the calling thread applies every document strictly in
+    item order via ``apply(item, doc)``.
+
+    Ordering invariant: ``apply`` — cache writes, singleflight
+    publishes, counters — runs only on the calling
+    thread and only for item k after items 0..k-1 were applied, so the
+    externally visible effects are exactly the serial sequence and the
+    output is byte-identical by construction at any lane count. Errors
+    (fetch or walk) surface at their item's position in that order.
+
+    ``workers<=1`` (or a single item) delegates to
+    :func:`run_layer_pipeline` with ``walk``+``apply`` composed — the
+    two-stage pipeline, same code path.
+    """
+    workers = max(1, min(int(workers), MAX_WORKERS))
+    if workers <= 1 or len(items) <= 1:
+        return run_layer_pipeline(
+            items, fetch,
+            lambda item, payload: apply(item, walk(item, payload)),
+            depth=depth)
+
+    # each lane needs a layer in hand plus one in the queue to stay
+    # busy; a caller-set prefetch depth still wins when larger
+    depth = depth or max(prefetch_depth(), workers + 1)
+    n_lanes = min(workers, len(items))
+    stats = {"layers": len(items), "fetch_busy_s": 0.0,
+             "walk_busy_s": 0.0, "apply_busy_s": 0.0, "wall_s": 0.0,
+             "occupancy": 0.0, "workers": n_lanes,
+             "lane_busy_s": [0.0] * n_lanes}
+    wall0 = time.perf_counter()
+
+    dispatch: queue.Queue = queue.Queue(maxsize=max(depth - 1, n_lanes))
+    stop = threading.Event()
+
+    cond = threading.Condition()
+    results: dict[int, tuple[object, bool]] = {}
+    active = [0]  # walks in flight, guarded by cond
+
+    def deliver(seq: int, value, is_err: bool) -> None:
+        with cond:
+            results[seq] = (value, is_err)
+            cond.notify_all()
+
+    def fetch_lane():
+        for seq, item in enumerate(items):
+            if stop.is_set():
+                return
+            t0 = time.perf_counter()
+            try:
+                payload = fetch(item)
+            except BaseException as exc:  # delivered to the coordinator at this layer's position
+                stats["fetch_busy_s"] += time.perf_counter() - t0
+                deliver(seq, exc, True)
+                return
+            stats["fetch_busy_s"] += time.perf_counter() - t0
+            if not _put_interruptible(dispatch, (seq, item, payload),
+                                      stop):
+                _close_quietly(payload)  # coordinator aborted
+                return
+
+    def walk_lane(lane_id: int):
+        while not stop.is_set():
+            try:
+                task = dispatch.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if task is None:
+                return
+            seq, item, payload = task
+            with cond:
+                active[0] += 1
+            t0 = time.perf_counter()
+            try:
+                doc = walk(item, payload)
+            except BaseException as exc:  # surfaces at this layer's position in apply order
+                deliver(seq, exc, True)
+            else:
+                deliver(seq, doc, False)
+            finally:
+                stats["lane_busy_s"][lane_id] += time.perf_counter() - t0
+                with cond:
+                    active[0] -= 1
+                    cond.notify_all()
+
+    fetcher = threading.Thread(target=fetch_lane, daemon=True,
+                               name="ttpu-layer-fetch")
+    lanes = [threading.Thread(target=walk_lane, args=(k,), daemon=True,
+                              name=f"ttpu-analysis-lane-{k}")
+             for k in range(n_lanes)]
+    fetcher.start()
+    for t in lanes:
+        t.start()
+
+    def wait_result(seq: int):
+        # never a bare blocking wait: lanes that died without
+        # delivering (failure outside their guarded stages) must not
+        # wedge the scan — and the singleflight claims it holds
+        with cond:
+            while seq not in results:
+                cond.wait(timeout=1.0)
+                if seq in results:
+                    break
+                if (not fetcher.is_alive() and dispatch.empty()
+                        and active[0] == 0):
+                    raise RuntimeError(
+                        "analysis lanes died without a result")
+            return results.pop(seq)
+
+    def drain():
+        with contextlib.suppress(queue.Empty):
+            while True:  # unblock a fetch stuck on put(); close orphans
+                task = dispatch.get_nowait()
+                if task is not None:
+                    _close_quietly(task[2])
+
+    try:
+        for seq, item in enumerate(items):
+            value, is_err = wait_result(seq)
+            if is_err:
+                raise value
+            t0 = time.perf_counter()
+            apply(item, value)
+            stats["apply_busy_s"] += time.perf_counter() - t0
+    finally:
+        stop.set()
+        drain()
+        for _ in lanes:  # wake lanes parked on get() immediately
+            with contextlib.suppress(queue.Full):
+                dispatch.put_nowait(None)
+        fetcher.join(timeout=30.0)
+        for t in lanes:
+            t.join(timeout=30.0)
+        if fetcher.is_alive() or any(t.is_alive() for t in lanes):
+            _log.warn("analysis lanes still running at abort; a "
+                      "stalled fetch/walk will be abandoned")
+        drain()
+
+    wall = max(time.perf_counter() - wall0, 1e-9)
+    stats["wall_s"] = wall
+    stats["walk_busy_s"] = sum(stats["lane_busy_s"])
+    busy = (stats["fetch_busy_s"] + stats["walk_busy_s"]
+            + stats["apply_busy_s"])
+    stats["occupancy"] = min(busy / ((2 + n_lanes) * wall), 1.0)
+    return stats
+
+
+def _put_interruptible(q: queue.Queue, obj, stop: threading.Event) -> bool:
+    """Bounded put that gives up when the coordinator aborted (its
+    finally-drain empties the queue, so one-second polls suffice)."""
+    while not stop.is_set():
+        try:
+            q.put(obj, timeout=1.0)
+            return True
+        except queue.Full:
+            continue
+    return False

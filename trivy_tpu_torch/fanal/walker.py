@@ -1,14 +1,18 @@
-"""File-tree walker (reference pkg/fanal/walker/fs.go:25): directory
-traversal with skip globs.
+"""File-tree walkers (reference pkg/fanal/walker):
+- FSWalker: directory traversal with skip globs (fs.go:25)
+- walk_layer_tar: container layer tars with whiteout/opaque-dir handling
+  (tar.go:35-60: ".wh." prefix files delete, ".wh..wh..opq" marks opaque)
 
-Copy of the directory walk of trivy_tpu/fanal/walker.py. The layer-tar
-walk (whiteouts, opaque dirs, the native splitter) is not ported yet.
+Copy of trivy_tpu/fanal/walker.py without FSWalker's `only_dirs`, which
+no ported scan sets. `walk_layer_tar` counts which walk produced the
+members (`ops/splitter.py` `WALKS`).
 """
 
 from __future__ import annotations
 
 import os
 import stat
+import tarfile
 from dataclasses import dataclass, field
 from typing import Iterator
 
@@ -63,3 +67,89 @@ class FSWalker:
                     mode=st.st_mode,
                     open=lambda p=full: open(p, "rb").read(),
                 )
+
+
+@dataclass
+class LayerFile:
+    input: AnalysisInput | None = None
+    whiteout: str | None = None  # path deleted by this layer
+    opaque_dir: str | None = None
+
+
+def _collect(members) -> tuple[list[AnalysisInput], list[str], list[str]]:
+    """Shared whiteout/opaque/size classification over an in-order
+    iterable of ``(name, is_reg, size, mode, read)`` member records —
+    the one place the layer-walk semantics live, whether the records
+    came from tarfile or the native splitter."""
+    files: list[AnalysisInput] = []
+    opaque_dirs: list[str] = []
+    whiteout_files: list[str] = []
+    for name, is_reg, size, mode, read in members:
+        # strip only a leading "./", not dots of root-level dotfiles
+        name = name.removeprefix("./").lstrip("/")
+        if not name:
+            continue
+        base = os.path.basename(name)
+        dirn = os.path.dirname(name)
+        if base == ".wh..wh..opq":
+            opaque_dirs.append(dirn)
+            continue
+        if base.startswith(".wh."):
+            whiteout_files.append(
+                os.path.join(dirn, base[len(".wh."):]).replace(os.sep, "/")
+            )
+            continue
+        if not is_reg:
+            continue
+        if size > MAX_FILE_SIZE:
+            continue
+        content = read()
+        if content is None:
+            continue
+        files.append(AnalysisInput(
+            path=name, content=content, size=size, mode=mode,
+        ))
+    return files, opaque_dirs, whiteout_files
+
+
+def walk_layer_tar(tar_src) -> tuple[list[AnalysisInput], list[str], list[str]]:
+    """-> (files, opaque_dirs, whiteout_files). Accepts layer bytes, a
+    path, or a readable file-like object (reference walker/tar.go).
+
+    The native streaming splitter (ops/splitter.py) handles the fast
+    path: incremental gunzip + tar framing with the GIL released. It
+    declines anything outside tarfile's exact semantics, replaying the
+    consumed bytes so the pure-Python walk below re-reads the layer
+    from the start — results can never diverge from the tarfile path.
+
+    The file-like form opens in tarfile *stream* mode (``r|*``), which
+    gunzips compressed layers incrementally: peak RSS is one tar member
+    plus the source stream, never a full decompressed layer copy. The
+    walk below already consumes members strictly in order, which is the
+    only constraint stream mode adds."""
+    from trivy_tpu_torch.ops import splitter
+
+    if splitter.enabled() and splitter.available():
+        members, tar_src = splitter.try_split(tar_src, MAX_FILE_SIZE)
+        if members is not None:
+            splitter.count_walk("native")
+            return _collect(members)
+    splitter.count_walk("tarfile")
+
+    if isinstance(tar_src, (bytes, bytearray)):
+        import io
+
+        tf = tarfile.open(fileobj=io.BytesIO(tar_src))
+    elif hasattr(tar_src, "read"):
+        tf = tarfile.open(fileobj=tar_src, mode="r|*")
+    else:
+        tf = tarfile.open(tar_src)
+
+    def gen():
+        for member in tf:
+            yield (member.name, member.isreg(), member.size, member.mode,
+                   lambda m=member: (lambda f: f.read() if f is not None
+                                     else None)(tf.extractfile(m)))
+
+    with tf:
+        return _collect(gen())

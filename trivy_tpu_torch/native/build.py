@@ -4,7 +4,9 @@ collect.cpp): compile on first use with g++, cache under
 caller's pure-Python path when no toolchain is available.
 
 Copy of trivy_tpu/native/build.py with its own cache directory, so the
-two packages never load each other's builds."""
+two packages never load each other's builds, and a per-library
+`build_dir` (the layer splitter builds into the port's git-ignored
+`ops/_build/`)."""
 
 from __future__ import annotations
 
@@ -28,21 +30,24 @@ def cache_dir() -> str:
 
 
 def build_library(src_path: str, lib_prefix: str,
-                  link_flags: tuple[str, ...] = ()) -> str | None:
-    """Compile `src_path` to a cached shared library; None on failure.
+                  link_flags: tuple[str, ...] = (),
+                  build_dir: str | None = None) -> str | None:
+    """Compile `src_path` to a cached shared library in `build_dir`
+    (default `cache_dir()`); None on failure.
 
     `link_flags` (e.g. ("-lz",)) participate in the cache key so the
     same source built with different libraries does not collide.
     """
+    build_dir = build_dir or cache_dir()
     with open(src_path, "rb") as f:
         src = f.read()
     digest = hashlib.sha256(src + b"\0" +
                             " ".join(link_flags).encode()).hexdigest()[:16]
-    out = os.path.join(cache_dir(), f"{lib_prefix}-{digest}.so")
+    out = os.path.join(build_dir, f"{lib_prefix}-{digest}.so")
     if os.path.exists(out):
         return out
-    os.makedirs(cache_dir(), exist_ok=True)
-    tmp = tempfile.mktemp(suffix=".so", dir=cache_dir())
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mktemp(suffix=".so", dir=build_dir)
     cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src_path,
            "-o", tmp, *link_flags]
     try:
@@ -62,11 +67,13 @@ class LazyLibrary:
     ctypes signatures on first success."""
 
     def __init__(self, src_path: str, lib_prefix: str, configure,
-                 link_flags: tuple[str, ...] = ()):
+                 link_flags: tuple[str, ...] = (),
+                 build_dir: str | None = None):
         self._src = src_path
         self._prefix = lib_prefix
         self._configure = configure
         self._link_flags = link_flags
+        self._build_dir = build_dir
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         self._failed = False
@@ -78,7 +85,7 @@ class LazyLibrary:
             if self._lib is not None or self._failed:
                 return self._lib
             path = build_library(self._src, self._prefix,
-                                 self._link_flags)
+                                 self._link_flags, self._build_dir)
             if path is None:
                 self._failed = True
                 return None

@@ -16,10 +16,16 @@ The device runs on ``cuda:0`` unless the caller passes ``device="cpu"``
 (the screen's plain PyTorch version). A failure of the device screen
 raises: unlike the reference, no device path degrades to the host.
 ``use_device=False`` stays the explicit host path.
+
+One scanner may serve several threads at once (an image scan's walk
+lanes share the analyzer's scanner): the lazy builds run once under a
+lock, and `device_stats` is added to under a lock, with each thread's
+own additions readable through `stats_scope()`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -182,6 +188,13 @@ class SecretScanner:
         # and the screen program's load from the compiled-NFA cache (or
         # its compile and save on a miss)
         self.device_stats = _new_device_stats()
+        self._stats_lock = threading.Lock()
+        # per thread: the open stats scopes, and whether the hybrid
+        # probe runs (its device scans are not the caller's)
+        self._tls = threading.local()
+        # the lazy builds (_ensure_tiers, _ensure_kw_matcher,
+        # _ensure_host_tiers) run once, whichever thread comes first
+        self._build_lock = threading.RLock()
         config = config or SecretConfig()
         rules = list(BUILTIN_RULES)
         if config.enable_builtin_rules:
@@ -236,6 +249,31 @@ class SecretScanner:
         if self._device is None:
             self._device = resolve_device(self._device_arg)
         return self._device
+
+    # ----------------------------------------------------------- stats
+
+    def _stat(self, key: str, delta) -> None:
+        """Add `delta` to `device_stats[key]` and to every stats scope
+        this thread has open; nothing while the hybrid probe runs."""
+        if getattr(self._tls, "quiet", False):
+            return
+        with self._stats_lock:
+            self.device_stats[key] += delta
+        for scope in getattr(self._tls, "scopes", ()):
+            scope[key] += delta
+
+    @contextlib.contextmanager
+    def stats_scope(self):
+        """-> a `device_stats`-shaped dict that receives what this
+        thread adds to `device_stats` inside the block (other threads'
+        scans sharing the scanner are not counted)."""
+        scope = _new_device_stats()
+        scopes = self._tls.__dict__.setdefault("scopes", [])
+        scopes.append(scope)
+        try:
+            yield scope
+        finally:
+            scopes.remove(scope)
 
     # ------------------------------------------------------------ scan
 
@@ -419,6 +457,11 @@ class SecretScanner:
         which ("cache" or "compiled")."""
         if self._tiers is not None:
             return
+        with self._build_lock:
+            if self._tiers is None:
+                self._build_tiers()
+
+    def _build_tiers(self) -> None:
         t0 = time.perf_counter()
         digest = self._ruleset_digest()
         program = self._load_program(digest)
@@ -427,7 +470,7 @@ class SecretScanner:
             program = self._compile_program()
             self._save_program(digest, program)
             self.program_source = "compiled"
-        self.device_stats["program_s"] += time.perf_counter() - t0
+        self._stat("program_s", time.perf_counter() - t0)
         rows = program["rows"]
         anchor_rules = [(self.rules[i], lo, hi, kind)
                         for i, lo, hi, kind in program["anchors"]]
@@ -552,16 +595,15 @@ class SecretScanner:
         if len(chunks) == 0:
             n = self._tiers["bank"].n
             return lambda: np.zeros((0, n), dtype=bool)
-        stats = self.device_stats
         t0 = time.perf_counter()
         pend = matcher.dispatch_chunks(chunks)
-        stats["dispatch_s"] += time.perf_counter() - t0
-        stats["chunks"] += len(chunks)
+        self._stat("dispatch_s", time.perf_counter() - t0)
+        self._stat("chunks", len(chunks))
 
         def collect():
             t1 = time.perf_counter()
             hits = matcher.collect_chunks(pend)
-            stats["wait_s"] += time.perf_counter() - t1
+            self._stat("wait_s", time.perf_counter() - t1)
             return hits
 
         return collect
@@ -610,12 +652,16 @@ class SecretScanner:
                   for i in range(24)]
         corpus_mb = sum(len(c) for (_i, _p, c) in corpus) / 1e6
         self._ensure_tiers()  # probe may run before any batch scan
-        stats = dict(self.device_stats)
-        self._scan_files_device(corpus)  # warm (kernel build, first use)
-        t0 = time.perf_counter()
-        self._scan_files_device(corpus)
-        dev_s = time.perf_counter() - t0
-        self.device_stats = stats  # the probe is not the caller's scan
+        # the probe is not the caller's scan: its device scans add
+        # nothing to device_stats
+        self._tls.quiet = True
+        try:
+            self._scan_files_device(corpus)  # warm (kernel build)
+            t0 = time.perf_counter()
+            self._scan_files_device(corpus)
+            dev_s = time.perf_counter() - t0
+        finally:
+            self._tls.quiet = False
         t0 = time.perf_counter()
         self._scan_files_host(corpus)
         host_s = time.perf_counter() - t0
@@ -673,7 +719,7 @@ class SecretScanner:
         t0 = time.perf_counter()
         chunks, segments = nfa.chunk_files_packed(
             [c for (_i, _p, c) in eligible])
-        self.device_stats["chunk_s"] += time.perf_counter() - t0
+        self._stat("chunk_s", time.perf_counter() - t0)
         return self._screen_submit(chunks), segments
 
     def _scan_files_host(self, eligible) -> list[Secret]:
@@ -693,22 +739,28 @@ class SecretScanner:
         builds, None otherwise (callers use bytes.find on the host).
         -> (matcher | None, per-rule keyword-index lists,
         keyword -> index map)."""
-        if self._kw_state is None:
-            kw_ids: dict[bytes, int] = {}
-            rule_kws: list[list[int]] = []
-            for cr in self.rules:
-                rule_kws.append([kw_ids.setdefault(k, len(kw_ids))
-                                 for k in cr.keywords])
-            matcher = None
-            if kw_ids:
-                try:
-                    from trivy_tpu_torch.native.ac import NativeMatcher
-
-                    matcher = NativeMatcher(list(kw_ids))
-                except (RuntimeError, OSError):
-                    matcher = None
-            self._kw_state = (matcher, rule_kws, kw_ids)
+        if self._kw_state is not None:
+            return self._kw_state
+        with self._build_lock:
+            if self._kw_state is None:
+                self._kw_state = self._build_kw_matcher()
         return self._kw_state
+
+    def _build_kw_matcher(self):
+        kw_ids: dict[bytes, int] = {}
+        rule_kws: list[list[int]] = []
+        for cr in self.rules:
+            rule_kws.append([kw_ids.setdefault(k, len(kw_ids))
+                             for k in cr.keywords])
+        matcher = None
+        if kw_ids:
+            try:
+                from trivy_tpu_torch.native.ac import NativeMatcher
+
+                matcher = NativeMatcher(list(kw_ids))
+            except (RuntimeError, OSError):
+                matcher = None
+        return matcher, rule_kws, kw_ids
 
     def _kw_present_set(self, content: bytes) -> set[bytes]:
         """All configured rule keywords occurring in `content`, via one
@@ -742,6 +794,12 @@ class SecretScanner:
           semantics via the streaming full pass."""
         if self._host_tiers is not None:
             return self._host_tiers
+        with self._build_lock:
+            if self._host_tiers is None:
+                self._build_host_tiers()
+        return self._host_tiers
+
+    def _build_host_tiers(self) -> None:
         lit_ids: dict[bytes, int] = {}
         rule_lit: dict[int, tuple[int, int]] = {}
         bounded: list[int] = []
@@ -776,7 +834,6 @@ class SecretScanner:
             "lit_lens": [len(lit) for lit in lit_ids],
             "lit_matcher": matcher,
         }
-        return self._host_tiers
 
     def _host_matches(self, cr: CompiledRule, content: bytes,
                       pos_cache: dict):
@@ -831,8 +888,7 @@ class SecretScanner:
 
     def _scan_files_device(self, eligible, prefetched=None) -> list[Secret]:
         t = self._tiers
-        stats = self.device_stats
-        stats["files"] += len(eligible)
+        self._stat("files", len(eligible))
         contents = [c for (_i, _p, c) in eligible]
         anchor_rules = t["anchor_rules"]
         n_a = len(anchor_rules)
@@ -942,7 +998,7 @@ class SecretScanner:
             if findings:
                 findings.sort(key=lambda f: (f.start_line, f.rule_id))
                 out.append(Secret(file_path=path, findings=findings))
-        stats["verify_s"] += time.perf_counter() - t0
+        self._stat("verify_s", time.perf_counter() - t0)
         return out
 
     def _verify_windows(self, cr: CompiledRule, path: str, content: bytes,
