@@ -62,7 +62,7 @@ kernel's time before its latest redesign; then
      for byte, the warm run a compiled-cache hit, the match kernel
      launched on all three tiers in both device runs, the native
      collector used; each run's wall split as the CLI's run module keeps
-     it, and the device idle share of a profiled rerun of each device run;
+     it, and the device idle share of each device run, traced as it runs;
   8. drive the `fs` and `rootfs` CLI on the card, in process, on phase
      7's saved DB (its compiled entry on disk): phase 5's corpus written
      out with a debian 11 root holding phase 7's image packages (a dpkg
@@ -90,6 +90,20 @@ kernel's time before its latest redesign; then
      byte for byte, (e)'s results equal (a)'s, (g) its --no-tpu report;
      the findings equal what the plants make, and every layer walk took
      the native splitter (ops/splitter.cpp, built with g++).
+ 10. drive the report side on the card, in process, on phase 7's DB and
+     phase 9's blob caches: (a) `image --input` of phase 9's archive in
+     sarif, cyclonedx, spdx-json, github, cosign-vuln, template
+     (@contrib/junit.tpl) and table --dependency-tree, each on the card
+     and with --no-tpu, byte for byte, every device run launching the
+     match kernel 3 / 1 / 3 times per tier; (b) `convert` of phase 9
+     (a)'s json report into the six formats but the table; (c) phase
+     7's SBOM in a cosign DSSE envelope through `sbom`, bare (its
+     results those of phase 7's warm report) and with --vex (an OpenVEX
+     document marking not_affected a seeded 200 of its (vulnerability,
+     purl) pairs) and --show-suppressed, each on the card and with
+     --no-tpu: equal bytes, and the findings those pairs name move to
+     the suppressed list. Every run prints its wall, render seconds,
+     report bytes and launches.
 Phase 3 runs with the native collector (native/collect.cpp) too.
 Prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
@@ -1778,18 +1792,19 @@ def cli_run(argv: list[str], report: str, tiers: bool) -> dict:
     return out
 
 
-def cli_profiled(argv: list[str], report: str) -> dict:
-    """The same scan again under torch.profiler's CUDA activity: the
-    device's busy and idle share of its wall time."""
+def cli_profiled(argv: list[str], report: str) -> tuple[dict, dict]:
+    """`cli_run` under torch.profiler's CUDA activity -> its numbers,
+    and the device's busy and idle share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        r = cli_run(argv, report, tiers=False)
+        r = cli_run(argv, report, tiers=True)
     busy_ms, _ = device_busy_ms(prof)
     kern_ms, kern_n = device_busy_ms(prof, "match_kernel")
-    return {"wall_s": r["wall_s"], "device_busy_ms": busy_ms,
-            "match_kernel_ms": kern_ms, "match_kernel_launches": kern_n,
-            "device_idle_share": 1 - busy_ms / 1e3 / r["wall_s"]}
+    return r, {"wall_s": r["wall_s"], "device_busy_ms": busy_ms,
+               "match_kernel_ms": kern_ms,
+               "match_kernel_launches": kern_n,
+               "device_idle_share": 1 - busy_ms / 1e3 / r["wall_s"]}
 
 
 def sbom_cli_path(db, tmp: str) -> dict:
@@ -1799,7 +1814,9 @@ def sbom_cli_path(db, tmp: str) -> dict:
     compiled entry, for phase 8) and a seeded 3,000-component image
     SBOM, scanned cold (compile + save the compiled entry), warm (load
     it) and on the host oracle (--no-tpu): the three reports byte for
-    byte."""
+    byte. The two device runs run under the profiler for their device
+    idle share (a rerun of each for the profile alone would cost about
+    125 s of the script's time limit)."""
     from trivy_tpu_torch.native import collect as ncollect
     from trivy_tpu_torch.tensorize import cache as ccache
     from trivy_tpu_torch.tensorize.synth import synth_sbom
@@ -1831,11 +1848,16 @@ def sbom_cli_path(db, tmp: str) -> dict:
                 "--list-all-pkgs"]
         runs = {}
         reports = {}
+        prof = {}
         for name, extra in (("cold", []), ("warm", []),
                             ("no_tpu", ["--no-tpu"])):
             reports[name] = os.path.join(tmp, f"{name}.json")
-            runs[name] = cli_run(argv + extra, reports[name],
-                                 tiers=name != "no_tpu")
+            if name == "no_tpu":
+                runs[name] = cli_run(argv + extra, reports[name],
+                                     tiers=False)
+            else:
+                runs[name], prof[name] = cli_profiled(argv + extra,
+                                                      reports[name])
             if name == "cold":
                 entry = ccache.entry_path(root, ccache.db_digest(root), None)
                 runs[name]["entry_mb"] = os.path.getsize(entry) / 1e6
@@ -1860,18 +1882,13 @@ def sbom_cli_path(db, tmp: str) -> dict:
                 raise AssertionError(f"{name}: numpy collector ran")
             if runs[name]["components"] != n_comp:
                 raise AssertionError(f"{name}: components missing")
-
-        # device idle share: each device run again under the profiler
-        # (cold: the compiled entry removed first)
-        os.unlink(entry)
-        prof = {"cold": cli_profiled(argv, os.path.join(tmp, "p.json"))}
-        prof["warm"] = cli_profiled(argv, os.path.join(tmp, "p.json"))
         for name, p in prof.items():
-            print(f"phase7 profiled_rerun run={name} {json.dumps(p)}")
+            print(f"phase7 profiled run={name} {json.dumps(p)}")
         return {"runs": runs, "profiled": prof,
                 "launches": runs["cold"]["launches"]
                 + runs["warm"]["launches"],
-                "db_root": root, "sbom": bom}
+                "db_root": root, "sbom": bom,
+                "warm_report": reports["warm"]}
     finally:
         os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
 
@@ -1947,6 +1964,20 @@ def planted_findings(corpus, kinds: dict, n_files: int) -> int:
     return n
 
 
+def device_tier_launches() -> dict:
+    """The match kernel's launches so far on each tier of the CLI's
+    device engine (a --no-tpu engine may sit beside it in the cache)."""
+    from trivy_tpu_torch.cli import run
+
+    engine = next((e for e in run._ENGINE_CACHE.values()
+                   if e.use_device), None)
+    if engine is None:
+        return {"main": 0, "hot": 0, "tall": 0}
+    return {k: getattr(t, "launches", 0) for k, t in (
+        ("main", engine._ddb), ("hot", engine._ddb_hot),
+        ("tall", engine._ddb_tall))}
+
+
 def fs_run(argv: list[str], report: str, profiled: bool = False) -> dict:
     """One in-process fs / rootfs / image CLI scan with every launch
     count, the compiled-NFA cache's hit and miss counts and the layer
@@ -1969,18 +2000,7 @@ def fs_run(argv: list[str], report: str, profiled: bool = False) -> dict:
     from trivy_tpu_torch.tensorize.cache import NFA_COUNTS
     from trivy_tpu_torch.utils import uuid as uuid_util
 
-    def tiers() -> dict:
-        # the device engine's per-tier counts (a --no-tpu engine may
-        # sit beside it in the cache)
-        engine = next((e for e in run._ENGINE_CACHE.values()
-                       if e.use_device), None)
-        if engine is None:
-            return {"main": 0, "hot": 0, "tall": 0}
-        return {k: getattr(t, "launches", 0) for k, t in (
-            ("main", engine._ddb), ("hot", engine._ddb_hot),
-            ("tall", engine._ddb_tall))}
-
-    before = tiers()
+    before = device_tier_launches()
     uuid_util.reset()
     m.match_words.launches = 0
     nfa.anchor_words.launches = 0
@@ -1998,7 +2018,7 @@ def fs_run(argv: list[str], report: str, profiled: bool = False) -> dict:
         wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"{argv[0]} CLI returned {rc}")
-    after = tiers()
+    after = device_tier_launches()
     with open(report, "rb") as f:
         body = f.read()
     results = json.loads(body).get("Results", [])
@@ -2420,7 +2440,227 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
         if any(runs[name]["launches"][k] for k in ("match", "anchor",
                                                    "conv", "prefilter")):
             raise AssertionError(f"{name} launched a kernel")
-    return {"runs": runs, "verdict": verdict}
+    return {"runs": runs, "verdict": verdict, "tar": tars["docker"],
+            "report": reports["a_user"],
+            "caches": {"device": os.path.join(tmp, "cache_a"),
+                       "host": os.path.join(tmp, "cache_b")}}
+
+
+# -------------------------------------------------------------- phase 10
+
+
+# the formats of phase 10 (a): every writer but json, the template
+# through a builtin, the table with the dependency tree
+REPORT_FORMATS = (("sarif", ()), ("cyclonedx", ()), ("spdx-json", ()),
+                  ("github", ()), ("cosign-vuln", ()),
+                  ("template", ("--template", "@contrib/junit.tpl")),
+                  ("table", ("--dependency-tree",)))
+N_VEX_PAIRS = 200
+VEX_SEED = 20261018
+
+
+def report_run(argv: list[str], report: str) -> dict:
+    """One in-process CLI run in any format with the match kernel's
+    launch counts and the uuid counter at 0 just before it -> its wall,
+    the run module's split (empty for `convert`, which keeps none), the
+    report's bytes and the launches per tier."""
+    from trivy_tpu_torch.cli import main as cli_main
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.ops import match as m
+    from trivy_tpu_torch.utils import uuid as uuid_util
+
+    before = device_tier_launches()
+    uuid_util.reset()
+    m.match_words.launches = 0
+    run.STATS.clear()
+    t0 = time.perf_counter()
+    rc = cli_main.main(argv + ["--output", report])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{argv[:2]} CLI returned {rc}")
+    after = device_tier_launches()
+    with open(report, "rb") as f:
+        body = f.read()
+    split = {k: run.STATS[k] for k in ("inspect_s", "apply_s",
+                                       "detect_s", "render_s")
+             if k in run.STATS}
+    return {"wall_s": wall, "split": split,
+            "report_bytes": len(body), "body": body,
+            "launches": m.match_words.launches,
+            "match_per_tier": {k: after[k] - before.get(k, 0)
+                               for k in after}}
+
+
+def parse_report(fmt: str, body: bytes) -> None:
+    """Raises unless the report parses: JSON, or the junit template's
+    XML; a table must name its targets."""
+    if fmt == "template":
+        import xml.etree.ElementTree as ET
+
+        if ET.fromstring(body).tag != "testsuites":
+            raise AssertionError("junit report without <testsuites>")
+    elif fmt == "table":
+        if b"Total:" not in body:
+            raise AssertionError("table report without a total")
+    else:
+        json.loads(body)
+
+
+def dsse_envelope(sbom_path: str, out: str) -> None:
+    """A cosign SBOM attestation of the SBOM at `sbom_path`: a DSSE
+    envelope whose in-toto statement's predicate Data is the SBOM."""
+    import base64
+
+    with open(sbom_path) as f:
+        bom = json.load(f)
+    statement = {"_type": "https://in-toto.io/Statement/v0.1",
+                 "predicateType": "https://cyclonedx.org/bom",
+                 "subject": [{"name": "registry.example/svc:1",
+                              "digest": {"sha256": "ab" * 32}}],
+                 "predicate": {"Data": bom}}
+    with open(out, "w") as f:
+        json.dump({"payloadType": "application/vnd.in-toto+json",
+                   "payload": base64.b64encode(
+                       json.dumps(statement).encode()).decode(),
+                   "signatures": [{"keyid": "", "sig": "x"}]}, f)
+
+
+def results_without_blob_id(body: bytes, sbom_path: str) -> list:
+    """A report's Results with its SBOM's blob id taken out: an SBOM
+    scan names each finding's layer by the blob id, a hash of the file's
+    bytes, so the wrapped SBOM's findings name another layer than the
+    bare SBOM's."""
+    import hashlib
+
+    from trivy_tpu_torch.artifact.sbom import SBOM_ARTIFACT_VERSION
+
+    with open(sbom_path, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update(str(SBOM_ARTIFACT_VERSION).encode())
+    blob_id = "sha256:" + h.hexdigest()
+    results = json.loads(body)["Results"]
+    return json.loads(json.dumps(results).replace(blob_id, ""))
+
+
+def findings(doc: dict) -> list:
+    return [(v["VulnerabilityID"], v["PkgIdentifier"]["PURL"])
+            for r in doc["Results"] for v in r.get("Vulnerabilities", [])]
+
+
+def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
+    """Phase 10: the report formats, `convert`, an attestation-wrapped
+    SBOM and VEX on the card, in process through
+    trivy_tpu_torch.cli.main.main, on phase 7's saved DB (its device and
+    host engines already loaded) and phase 9's blob caches. (a) `image
+    --input` of phase 9's docker-save archive in each of REPORT_FORMATS,
+    on the card on phase 9 (a)'s cache and with --no-tpu on (b)'s
+    (every layer a dedupe hit): each pair byte for byte, every device
+    run launching all three match tiers; (b) `convert` of phase 9 (a)'s
+    json report into the six formats but the table; (c) phase 7's SBOM
+    in a cosign DSSE envelope, scanned on the card and with --no-tpu:
+    bare, its results those of phase 7's warm report, and with `--vex`
+    (an OpenVEX doc marking not_affected a seeded 200 of its
+    (vulnerability, purl) pairs) and --show-suppressed: the findings
+    those pairs name move to the suppressed list."""
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    os.environ["TRIVY_TPU_DETERMINISTIC_UUID"] = "1"
+    runs: dict = {}
+
+    def go(name, argv, fmt):
+        r = report_run(argv, os.path.join(tmp, f"report_{name}"))
+        parse_report(fmt, r["body"])
+        runs[name] = r
+        split = " ".join(f"{k}={v:.3f}" for k, v in r["split"].items())
+        print(f"phase10 run={name} wall_s={r['wall_s']:.3f} {split} "
+              f"report_bytes={r['report_bytes']} "
+              f"launches={r['launches']} "
+              f"match_per_tier={json.dumps(r['match_per_tier'])}")
+        return r
+
+    try:
+        # (a) every format, device against host
+        base = ["image", "--input", p9["tar"], "--db-path", p7["db_root"],
+                "--quiet"]
+        diffs = {}
+        for fmt, extra in REPORT_FORMATS:
+            argv = base + ["--format", fmt, *extra]
+            dev = go(f"a_{fmt}", argv + ["--cache-dir",
+                                         p9["caches"]["device"]], fmt)
+            host = go(f"a_{fmt}_no_tpu",
+                      argv + ["--cache-dir", p9["caches"]["host"],
+                              "--no-tpu"], fmt)
+            diffs[fmt] = int(dev["body"] != host["body"])
+            if host["launches"]:
+                raise AssertionError(f"{fmt} --no-tpu launched the kernel")
+        print(f"phase10 formats_diff_vs_no_tpu={json.dumps(diffs)}")
+        if any(diffs.values()):
+            raise AssertionError("a device report differs from --no-tpu")
+
+        # (b) convert the saved json report
+        for fmt, extra in REPORT_FORMATS[:-1]:
+            go(f"b_convert_{fmt}", ["convert", p9["report"], "--format",
+                                    fmt, *extra, "--quiet"], fmt)
+
+        # (c) the attestation-wrapped SBOM, bare and with VEX
+        att = os.path.join(tmp, "bom.att.json")
+        dsse_envelope(p7["sbom"], att)
+        sbom = ["sbom", att, "--format", "json", "--db-path",
+                p7["db_root"], "--cache-dir", os.path.join(tmp, "cache"),
+                "--quiet", "--list-all-pkgs"]
+        bare = go("c_attestation", sbom, "json")
+        bare_host = go("c_attestation_no_tpu", sbom + ["--no-tpu"], "json")
+        with open(p7["warm_report"], "rb") as f:
+            warm = f.read()
+        bare_diff = {
+            "vs_no_tpu": int(bare["body"] != bare_host["body"]),
+            "results_vs_phase7_warm": int(
+                results_without_blob_id(bare["body"], att)
+                != results_without_blob_id(warm, p7["sbom"]))}
+        pairs_all = findings(json.loads(bare["body"]))
+        pairs = random.Random(VEX_SEED).sample(sorted(set(pairs_all)),
+                                               N_VEX_PAIRS)
+        vex = os.path.join(tmp, "vex.openvex.json")
+        with open(vex, "w") as f:
+            json.dump({"@context": "https://openvex.dev/ns/v0.2.0",
+                       "@id": "https://example.com/vex/svc-1",
+                       "author": "vendor", "statements": [
+                           {"vulnerability": {"name": vid},
+                            "products": [{"@id": purl}],
+                            "status": "not_affected",
+                            "justification": "component_not_present"}
+                           for vid, purl in pairs]}, f)
+        named = sum(f in set(pairs) for f in pairs_all)
+        vexed = go("c_vex", sbom + ["--vex", vex, "--show-suppressed"],
+                   "json")
+        vexed_host = go("c_vex_no_tpu", sbom + ["--vex", vex,
+                                                "--show-suppressed",
+                                                "--no-tpu"], "json")
+        doc = json.loads(vexed["body"])
+        dropped = len(pairs_all) - len(findings(doc))
+        modified = sum(len(r.get("ExperimentalModifiedFindings", []))
+                       for r in doc["Results"])
+        vex_diff = int(vexed["body"] != vexed_host["body"])
+        print(f"phase10 attestation diff={json.dumps(bare_diff)} "
+              f"vulnerabilities={len(pairs_all)} vex_pairs={N_VEX_PAIRS} "
+              f"named_findings={named} dropped={dropped} "
+              f"modified_findings={modified} vex_diff_vs_no_tpu={vex_diff}")
+        if any(bare_diff.values()) or vex_diff:
+            raise AssertionError("attestation / VEX reports differ")
+        if not dropped == modified == named:
+            raise AssertionError("VEX suppressed other than the doc names")
+    finally:
+        for knob in ("TRIVY_TPU_FAKE_TIME", "TRIVY_TPU_DETERMINISTIC_UUID"):
+            os.environ.pop(knob, None)
+    device = {k: r["match_per_tier"] for k, r in runs.items()
+              if not k.startswith("b_") and not k.endswith("_no_tpu")}
+    for name, t in device.items():
+        if t != {"main": 3, "hot": 1, "tall": 3}:
+            raise AssertionError(f"{name}: match launches per tier {t}, "
+                                 "not 3 / 1 / 3")
+    for name, r in runs.items():
+        if name not in device and r["launches"]:
+            raise AssertionError(f"{name} launched the match kernel")
+    return {"runs": runs, "launches": device}
 
 
 def main() -> int:
@@ -2487,6 +2727,10 @@ def main() -> int:
         t0 = time.perf_counter()
         p9 = image_cli_path(p5, p7, work)
         print(f"phase9 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p10 = report_cli_path(p7, p9, work)
+        print(f"phase10 seconds={time.perf_counter() - t0:.3f}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     fs_launches = {name: r["launches"] for name, r in p8["runs"].items()}
@@ -2514,6 +2758,7 @@ def main() -> int:
                             for k, v in fs_launches.items()},
         "launches_image_cli": {k: v["match_per_tier"]
                                for k, v in image_launches.items()},
+        "launches_report_cli": p10["launches"],
         "tiers": p3["timings"],
     }]
     for name, source, replaces, launches in (

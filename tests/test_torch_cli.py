@@ -207,7 +207,7 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
     assert capsys.readouterr().out == GOLDEN.read_text()
 
 
-@pytest.mark.parametrize("flag", [["--vex", "x"], ["--mesh", "2x1"],
+@pytest.mark.parametrize("flag", [["--trace"], ["--mesh", "2x1"],
                                   ["--server", "http://localhost:1"],
                                   ["--ignore-policy", "p.yaml"],
                                   ["--compliance", "docker-cis-1.6.0"]])
@@ -218,7 +218,7 @@ def test_unported_flags_are_refused(golden_env, flag):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--format", "sarif"], "not ported yet"),
+    (["--scanners", "vuln,misconfig"], "not ported yet"),
     (["--scanners", "vuln,license"], "not ported yet"),
     (["--cache-backend", "redis://localhost:6379"], "unknown cache backend"),
     (["--timeout", "5parsecs"], "invalid --timeout"),
@@ -235,6 +235,9 @@ def test_errors_are_one_line_and_rc_1(golden_env, capsys, extra, message):
 
 
 def test_attestation_sbom_is_refused(golden_env, tmp_path, capsys):
+    """An attestation whose statement holds no SBOM is refused with the
+    reference's message (an attestation that wraps one is scanned:
+    tests/test_torch_report.py)."""
     att = tmp_path / "att.json"
     att.write_text(json.dumps({"payloadType": "application/vnd.in-toto+json",
                                "payload": "e30=", "signatures": []}))
@@ -242,7 +245,12 @@ def test_attestation_sbom_is_refused(golden_env, tmp_path, capsys):
     argv[1] = str(att)
     argv.remove("--quiet")
     assert main(argv) == 1
-    assert "attestations" in capsys.readouterr().err
+    port_err = capsys.readouterr().err
+    i = argv.index("--device")
+    assert jax_main.main(argv[:i] + argv[i + 2:] + ["--no-tpu"]) == 1
+    ref_err = capsys.readouterr().err
+    assert "unsupported SBOM format" in port_err
+    assert port_err.split("unsupported")[1] == ref_err.split("unsupported")[1]
 
 
 def test_memory_cache_backend_and_output_file(golden_env, tmp_path,

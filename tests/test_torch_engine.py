@@ -310,12 +310,16 @@ PORT_SOURCES = sorted(
 
 def test_static_scan_covers_every_slice():
     """The static scan below walks every port source, those of the image
-    and db slice included."""
+    and db slice and of the report, VEX and attestation slice included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
                    "db/trivydb.py", "db/oci.py", "db/javadb.py",
-                   "cli/run.py"):
+                   "cli/run.py", "report/sarif.py", "report/cyclonedx.py",
+                   "report/spdx.py", "report/github.py", "report/cosign.py",
+                   "report/template.py", "report/table.py", "vex/vex.py",
+                   "vex/repo.py", "vex/oci.py", "attestation/statement.py",
+                   "attestation/rekor.py", "fanal/unpackaged.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

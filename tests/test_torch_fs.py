@@ -358,9 +358,9 @@ def test_unported_list_is_reference_dests_minus_ports(cmd):
 
 
 @pytest.mark.parametrize("cmd", ["sbom", "fs", "rootfs"])
-@pytest.mark.parametrize("dest,value", [("vex", "vex.json"),
+@pytest.mark.parametrize("dest,value", [("compliance", "docker-cis-1.6.0"),
                                         ("ignore_policy", "p.yaml"),
-                                        ("show_suppressed", "true"),
+                                        ("license_full", "true"),
                                         ("mesh", "2x1"),
                                         ("skip_db_update", "1"),
                                         ("trace", "1")])
@@ -380,8 +380,8 @@ def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
 
 
 @pytest.mark.parametrize("cmd", ["sbom", "fs", "rootfs"])
-@pytest.mark.parametrize("doc", ["vex: vex.json\n",
-                                 "scan:\n  dependency-tree: true\n",
+@pytest.mark.parametrize("doc", ["compliance: docker-cis-1.6.0\n",
+                                 "scan:\n  license-full: true\n",
                                  "server: http://localhost:4954\n"])
 def test_unported_option_from_config_file_is_refused(dbs, mk_rootfs,
                                                      tmp_path, capsys, cmd,
@@ -487,9 +487,9 @@ def test_ported_options_from_env_and_config_equal_reference(
     assert any(r == "acme-deploy-token" for _t, r, _l in found)
 
 
-@pytest.mark.parametrize("flag", [["--vex", "x"], ["--server", "http://h:1"],
-                                  ["--dependency-tree"],
-                                  ["--sbom-sources", "rekor"]])
+@pytest.mark.parametrize("flag", [["--ignore-policy", "p.yaml"],
+                                  ["--server", "http://h:1"],
+                                  ["--license-full"], ["--trace"]])
 def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):
     with pytest.raises(SystemExit) as exc, \
             contextlib.redirect_stderr(io.StringIO()):
@@ -500,7 +500,7 @@ def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):
 @pytest.mark.parametrize("extra,message", [
     (["--scanners", "vuln,misconfig"], "not ported yet"),
     (["--file-patterns", "pip"], "invalid file pattern"),
-    (["--format", "sarif"], "not ported yet"),
+    (["--scanners", "vuln,license"], "not ported yet"),
 ])
 def test_errors_are_one_line_and_rc_1(dbs, mk_rootfs, tmp_path, capsys,
                                       extra, message):

@@ -16,14 +16,17 @@ only inside the candidate windows, so findings equal the host path's.
 The keyword prefilter (ops/secret_prefilter.py) has its own kernel
 (ops/csrc/secret_prefilter.cu).
 
-The `sbom`, `filesystem` (`fs`) and `rootfs` scan commands run end to
-end on that engine (`python -m trivy_tpu_torch fs DIR --format json`,
-cli/main.py): the directory walk and the analyzers (OS release, apk,
-dpkg and rpm databases, lockfile and package parsers, the secret
-analyzer on the secret screens), SBOM decode, blob cache, layer
-applier, OS and language detectors, vulnerability metadata, filters and
-the json and table writers, over an advisory DB in trivy_tpu's on-disk
-format and compiled-DB and compiled secret-NFA caches of its own.
+The `image`, `sbom`, `filesystem` (`fs`) and `rootfs` scan commands run
+end to end on that engine (`python -m trivy_tpu_torch fs DIR --format
+sarif`, cli/main.py): the image sources and layer walk, the directory
+walk and the analyzers (OS release, apk, dpkg and rpm databases,
+lockfile and package parsers, the secret analyzer on the secret
+screens), SBOM decode (attestations included), blob cache, layer
+applier, OS and language detectors, vulnerability metadata, VEX,
+filters and every report writer (json, table, sarif, cyclonedx,
+spdx-json, github, cosign-vuln, template), over an advisory DB in
+trivy_tpu's on-disk format and compiled-DB and compiled secret-NFA
+caches of its own; `convert` re-renders a saved json report.
 
 The package imports torch, never jax, and nothing of trivy_tpu: the
 device-free modules it needs are its own copies.

@@ -30,22 +30,19 @@ ENV_PREFIX = "TRIVY_TPU_"
 UNPORTED = {
     "check_namespaces": ([],), "checks_bundle_repository": ("",),
     "compliance": (None, ""), "config_check": ([],), "config_data": ([],),
-    "dependency_tree": (False,), "fallback": (False,),
-    "fleet_parallel": (1,), "generate_default_config": (False,),
-    "helm_set": ([],), "helm_values": ([],), "ignore_policy": (None, ""),
+    "fallback": (False,), "fleet_parallel": (1,),
+    "generate_default_config": (False,), "helm_set": ([],),
+    "helm_values": ([],), "ignore_policy": (None, ""),
     "include_deprecated_checks": (False,), "journal": (None, ""),
     "license_full": (False,), "log_format": ("text",),
     "mesh": (None, "", "0", "off", "none"), "module_dir": (None,),
     "monitor_index": (None, ""), "offline_scan": (False,),
     "redis_ca": ("",), "redis_cert": ("",), "redis_insecure": (False,),
-    "redis_key": ("",), "redis_tls": (False,),
-    "rekor_url": ("https://rekor.sigstore.dev",), "report": ("summary",),
-    "resume": (None, ""), "sbom_sources": ("",),
-    "scan_timeout": (None, ""), "server": (None, ""),
-    "show_suppressed": (False,), "skip_check_update": (False,),
-    "skip_db_update": (False,), "targets": (None, ""),
-    "template": (None, ""), "token": (None, ""), "trace": (False,),
-    "trace_export": (None, ""), "vex": ([],),
+    "redis_key": ("",), "redis_tls": (False,), "report": ("summary",),
+    "resume": (None, ""), "scan_timeout": (None, ""), "server": (None, ""),
+    "skip_check_update": (False,), "skip_db_update": (False,),
+    "targets": (None, ""), "token": (None, ""), "trace": (False,),
+    "trace_export": (None, ""),
 }
 
 
@@ -121,7 +118,8 @@ def apply_layers(args, parser, argv: list[str]) -> None:
     given on the command line always win. Raises ValueError on
     uncoercible env/config values (caught by main's error rendering)."""
     cfg = _load_config_file(getattr(args, "config", None))
-    if getattr(args, "command", None) not in (None, "version", "db"):
+    if getattr(args, "command", None) not in (None, "version", "db",
+                                              "convert"):
         _refuse_unported(cfg)
     explicit = _explicit_dests(parser, argv)
     defaults = _all_defaults(parser)

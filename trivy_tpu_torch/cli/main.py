@@ -1,10 +1,12 @@
 """trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
-`rootfs`, `db` and `version` subcommands of trivy_tpu/cli/main.py, with
-the match kernel and the secret screens on a CUDA card.
+`rootfs`, `convert`, `db` and `version` subcommands of
+trivy_tpu/cli/main.py, with the match kernel and the secret screens on
+a CUDA card.
 
-    python -m trivy_tpu_torch image --input image.tar --format json
-    python -m trivy_tpu_torch sbom bom.json --format json
-    python -m trivy_tpu_torch fs ./project --format json
+    python -m trivy_tpu_torch image --input image.tar --format sarif
+    python -m trivy_tpu_torch sbom bom.json --format json --vex vex.json
+    python -m trivy_tpu_torch fs ./project --format cyclonedx
+    python -m trivy_tpu_torch convert report.json --format spdx-json
     python -m trivy_tpu_torch db import advisories.json --db-path DB
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
@@ -47,6 +49,7 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--format", "-f", default="table",
                    help=f"output format ({','.join(FORMATS)})")
     p.add_argument("--output", "-o", default=None, help="output file")
+    p.add_argument("--template", "-t", default=None, help="go-style template path/string")
     p.add_argument("--severity", "-s", default=None,
                    help="comma-separated severities (UNKNOWN,LOW,MEDIUM,HIGH,CRITICAL)")
     p.add_argument("--scanners", default="vuln,secret",
@@ -65,6 +68,9 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ignorefile", default=".trivyignore")
     p.add_argument("--ignore-unfixed", action="store_true",
                    help="hide vulnerabilities with no fixed version")
+    p.add_argument("--dependency-tree", action="store_true",
+                   help="show a reversed dependency origin tree for "
+                        "vulnerable packages (table format)")
     p.add_argument("--file-patterns", action="append", default=[],
                    help="analyzer file pattern (type:regex); repeatable")
     p.add_argument("--ignore-status", default=None,
@@ -100,6 +106,18 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="cache backend: fs or memory")
     p.add_argument("--skip-files", action="append", default=[])
     p.add_argument("--skip-dirs", action="append", default=[])
+    p.add_argument("--sbom-sources", default="",
+                   help="comma-separated SBOM discovery sources for "
+                        "unpackaged binaries (rekor)")
+    p.add_argument("--rekor-url", default="https://rekor.sigstore.dev",
+                   help="rekor server URL for --sbom-sources rekor")
+    p.add_argument("--vex", action="append", default=[],
+                   help="VEX source: a document path (OpenVEX / CycloneDX "
+                        "VEX / CSAF), 'repo' (cached VEX repositories), "
+                        "or 'oci' (image-attached attestation); "
+                        "repeatable")
+    p.add_argument("--show-suppressed", action="store_true",
+                   help="include VEX-suppressed findings in the report")
 
 
 # the scan subcommands the port serves (the reference's repository and
@@ -175,6 +193,13 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("target", nargs="?", default=None)
         else:
             p.add_argument("target")
+    p = sub.add_parser("convert", help="convert a saved JSON report", allow_abbrev=False)
+    _add_global_flags(p)
+    p.add_argument("--format", "-f", default="table")
+    p.add_argument("--output", "-o", default=None)
+    p.add_argument("--template", "-t", default=None)
+    p.add_argument("--severity", "-s", default=None)
+    p.add_argument("report")
     _add_db_parser(sub)
     sub.add_parser("version", help="print version", allow_abbrev=False)
     return parser
@@ -208,6 +233,8 @@ def main(argv: list[str] | None = None) -> int:
     try:
         if args.command == "db":
             return run.run_db(args)
+        if args.command == "convert":
+            return run.run_convert(args)
         return run.run_scan(args)
     except run.FatalError as e:
         log.logger().error(str(e))

@@ -2,11 +2,12 @@
 report -> exit code (reference pkg/commands/artifact/run.go Runner).
 
 Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
-`filesystem` / `fs` and `rootfs` scans and the `db` subcommand: no fleet
-mode (`--targets`, `--journal`), monitor index, compliance, modules,
-VEX, ignore policies, mesh, server client or tracing yet. The match
-engine and the secret analyzer's screen run on the device `--device`
-names (``cuda:0`` by default); `--no-tpu` takes the host paths of both.
+`filesystem` / `fs` and `rootfs` scans and the `convert` and `db`
+subcommands: no fleet mode (`--targets`, `--journal`), monitor index,
+compliance, modules, ignore policies, mesh, server client or tracing
+yet. The match engine and the secret analyzer's screen run on the
+device `--device` names (``cuda:0`` by default); `--no-tpu` takes the
+host paths of both.
 
 `STATS` keeps the wall seconds of the last scan's phases, split by this
 module's own code: DB load, engine build (compile or compiled-cache
@@ -115,6 +116,14 @@ def build_engine(args):
     return _ENGINE_CACHE[key]
 
 
+def normalize_args(args) -> None:
+    """Cross-flag defaults applied once after parsing. SBOM-shaped
+    output formats ARE package lists: force full package listing
+    (reference flag/report_flags.go forces ListAllPkgs there)."""
+    if getattr(args, "format", "") in ("cyclonedx", "spdx-json", "github"):
+        args.list_all_pkgs = True
+
+
 def make_scan_options(args) -> ScanOptions:
     scanners = []
     for s in (args.scanners or "").split(","):
@@ -129,6 +138,9 @@ def make_scan_options(args) -> ScanOptions:
         scanners=scanners,
         list_all_pkgs=args.list_all_pkgs,
         include_dev_deps=getattr(args, "include_dev_deps", False),
+        sbom_sources=[s for s in
+                      getattr(args, "sbom_sources", "").split(",") if s],
+        rekor_url=getattr(args, "rekor_url", "https://rekor.sigstore.dev"),
     )
 
 
@@ -137,6 +149,7 @@ def run_scan(args) -> int:
 
     STATS.clear()
     t0 = time.perf_counter()
+    normalize_args(args)
 
     # --no-tpu forces the host path; the default is "hybrid" (device
     # screen + concurrent host AC; host-only when the screen's device
@@ -279,7 +292,8 @@ def _run_scan_core(args) -> int:
     severities = _postprocess_report(args, report)
     t0 = time.perf_counter()
     write_report(report, fmt=args.format, output=args.output,
-                 severities=severities)
+                 template=args.template, severities=severities,
+                 dependency_tree=getattr(args, "dependency_tree", False))
     STATS["render_s"] = time.perf_counter() - t0
     return _exit_code(args, report)
 
@@ -298,11 +312,42 @@ def _exit_code(args, report) -> int:
 
 
 def _postprocess_report(args, report):
-    """Result shaping between scan and render: severity/status/ignore
-    filtering, package stripping. Returns the parsed severity list (the
-    table renderer wants it again)."""
+    """Result shaping between scan and render: VEX suppression,
+    severity/status/ignore filtering, package stripping. Returns the
+    parsed severity list (the table renderer wants it again)."""
     from trivy_tpu_torch.result.filter import filter_report
     from trivy_tpu_torch.result.ignore import load_ignore_file
+
+    # VEX suppression runs before severity/ignore filtering
+    # (reference pkg/result/filter.go:37 -> pkg/vex/vex.go:65).
+    # Sources: a document path, "repo" (cached VEX repositories), or
+    # "oci" (attestation attached to the scanned image).
+    vex_specs = getattr(args, "vex", None) or []
+    if vex_specs:
+        from trivy_tpu_torch.vex import filter_report_vex, load_vex
+
+        sources = []
+        for spec in vex_specs:
+            if spec == "repo":
+                from trivy_tpu_torch.vex.repo import RepositorySet
+
+                rs = RepositorySet(args.cache_dir)
+                if rs:
+                    sources.append(rs)
+            elif spec == "oci":
+                from trivy_tpu_torch.vex.oci import load_oci_vex
+
+                doc = load_oci_vex(report)
+                if doc is not None:
+                    sources.append(doc)
+            else:
+                sources.append(load_vex(spec))
+        n = filter_report_vex(report, sources) if sources else 0
+        if n:
+            _log.info("vex suppressed findings", count=n)
+    if not getattr(args, "show_suppressed", False):
+        for res in report.results:
+            res.modified_findings = []
 
     severities = _severities(args.severity)
     ignore_cfg = load_ignore_file(args.ignorefile)
@@ -312,9 +357,13 @@ def _postprocess_report(args, report):
                   ignore_config=ignore_cfg,
                   ignore_unfixed=getattr(args, "ignore_unfixed", False))
 
-    # packages travel with results internally; they render under
-    # --list-all-pkgs
-    if not getattr(args, "list_all_pkgs", False):
+    # packages travel with results internally (VEX reachability, the
+    # dependency tree); they render under --list-all-pkgs, the
+    # dependency tree, and SBOM-shaped formats (which ARE package lists
+    # — the reference forces list-all-pkgs for them)
+    keep_pkgs = (getattr(args, "list_all_pkgs", False)
+                 or getattr(args, "dependency_tree", False))
+    if not keep_pkgs:
         for res in report.results:
             res.packages = []
     return severities
@@ -385,6 +434,143 @@ def _select_scanner(args, cache):
         secret_config=getattr(args, "secret_config", None),
         file_patterns=getattr(args, "file_patterns", []),
     ), driver
+
+
+def run_convert(args) -> int:
+    import json
+
+    from trivy_tpu_torch.report.writer import write_report
+    from trivy_tpu_torch.result.filter import filter_report
+
+    with open(args.report) as f:
+        doc = json.load(f)
+    report = _report_from_json(doc)
+    severities = _severities(args.severity)
+    if severities:
+        filter_report(report, severities=severities)
+    write_report(report, fmt=args.format, output=args.output,
+                 template=args.template, severities=severities)
+    return 0
+
+
+def _report_from_json(doc: dict):
+    """Rebuild a Report (subset) from its JSON rendering for `convert`."""
+    from trivy_tpu_torch.types import report as R
+    from trivy_tpu_torch.types.artifact import OS, Layer, Package, PkgIdentifier
+    from trivy_tpu_torch.types.enums import Status
+
+    rep = R.Report(
+        schema_version=doc.get("SchemaVersion", 2),
+        created_at=doc.get("CreatedAt", ""),
+        artifact_name=doc.get("ArtifactName", ""),
+        artifact_type=doc.get("ArtifactType", ""),
+    )
+    md = doc.get("Metadata") or {}
+    rep.metadata = R.Metadata(
+        size=md.get("Size", 0),
+        os=OS(family=md.get("OS", {}).get("Family", ""),
+              name=md.get("OS", {}).get("Name", ""),
+              eosl=md.get("OS", {}).get("EOSL", False),
+              extended=md.get("OS", {}).get("Extended", False))
+        if md.get("OS") else None,
+        image_id=md.get("ImageID", ""),
+        diff_ids=md.get("DiffIDs", []) or [],
+        repo_tags=md.get("RepoTags", []) or [],
+        repo_digests=md.get("RepoDigests", []) or [],
+        degraded=md.get("Degraded", ""),
+    )
+    for rdoc in doc.get("Results") or []:
+        res = R.Result(
+            target=rdoc.get("Target", ""),
+            result_class=rdoc.get("Class", ""),
+            type=rdoc.get("Type", ""),
+        )
+        for v in rdoc.get("Vulnerabilities") or []:
+            ident = v.get("PkgIdentifier") or {}
+            res.vulnerabilities.append(R.DetectedVulnerability(
+                vulnerability_id=v.get("VulnerabilityID", ""),
+                vendor_ids=v.get("VendorIDs", []) or [],
+                pkg_id=v.get("PkgID", ""),
+                pkg_name=v.get("PkgName", ""),
+                pkg_path=v.get("PkgPath", ""),
+                pkg_identifier=PkgIdentifier(
+                    purl=ident.get("PURL", ""), uid=ident.get("UID", "")
+                ),
+                installed_version=v.get("InstalledVersion", ""),
+                fixed_version=v.get("FixedVersion", ""),
+                status=Status.parse(v.get("Status", "unknown")),
+                severity_source=v.get("SeveritySource", ""),
+                primary_url=v.get("PrimaryURL", ""),
+                layer=Layer(
+                    digest=(v.get("Layer") or {}).get("Digest", ""),
+                    diff_id=(v.get("Layer") or {}).get("DiffID", ""),
+                ),
+                data_source=R.DataSource(
+                    id=(v.get("DataSource") or {}).get("ID", ""),
+                    base_id=(v.get("DataSource") or {}).get("BaseID", ""),
+                    name=(v.get("DataSource") or {}).get("Name", ""),
+                    url=(v.get("DataSource") or {}).get("URL", ""),
+                ) if v.get("DataSource") else None,
+                info=R.VulnerabilityInfo(
+                    title=v.get("Title", ""),
+                    description=v.get("Description", ""),
+                    severity=v.get("Severity", "UNKNOWN"),
+                    cwe_ids=v.get("CweIDs", []) or [],
+                    cvss=v.get("CVSS", {}) or {},
+                    references=v.get("References", []) or [],
+                    published_date=v.get("PublishedDate", ""),
+                    last_modified_date=v.get("LastModifiedDate", ""),
+                    vendor_severity=v.get("VendorSeverity", {}) or {},
+                ),
+            ))
+        for p in rdoc.get("Packages") or []:
+            ident = p.get("Identifier") or {}
+            res.packages.append(Package(
+                id=p.get("ID", ""), name=p.get("Name", ""),
+                version=p.get("Version", ""),
+                release=p.get("Release", ""),
+                epoch=p.get("Epoch", 0) or 0,
+                arch=p.get("Arch", ""),
+                src_name=p.get("SrcName", ""),
+                src_version=p.get("SrcVersion", ""),
+                src_release=p.get("SrcRelease", ""),
+                licenses=p.get("Licenses", []) or [],
+                relationship=p.get("Relationship", ""),
+                depends_on=p.get("DependsOn", []) or [],
+                file_path=p.get("FilePath", ""),
+                identifier=PkgIdentifier(
+                    purl=ident.get("PURL", ""), uid=ident.get("UID", "")),
+                layer=Layer(
+                    digest=(p.get("Layer") or {}).get("Digest", ""),
+                    diff_id=(p.get("Layer") or {}).get("DiffID", ""),
+                ),
+            ))
+        for s in rdoc.get("Secrets") or []:
+            res.secrets.append(R.DetectedSecret(
+                rule_id=s.get("RuleID", ""), category=s.get("Category", ""),
+                severity=s.get("Severity", "UNKNOWN"),
+                title=s.get("Title", ""), start_line=s.get("StartLine", 0),
+                end_line=s.get("EndLine", 0), match=s.get("Match", ""),
+            ))
+        for m in rdoc.get("Misconfigurations") or []:
+            res.misconfigurations.append(R.DetectedMisconfiguration(
+                type=m.get("Type", ""), id=m.get("ID", ""),
+                avd_id=m.get("AVDID", ""), title=m.get("Title", ""),
+                description=m.get("Description", ""),
+                message=m.get("Message", ""), namespace=m.get("Namespace", ""),
+                resolution=m.get("Resolution", ""),
+                severity=m.get("Severity", "UNKNOWN"),
+                primary_url=m.get("PrimaryURL", ""),
+                references=m.get("References", []) or [],
+                status=m.get("Status", ""),
+            ))
+        if rdoc.get("MisconfSummary"):
+            res.misconf_summary = R.MisconfSummary(
+                successes=rdoc["MisconfSummary"].get("Successes", 0),
+                failures=rdoc["MisconfSummary"].get("Failures", 0),
+            )
+        rep.results.append(res)
+    return rep
 
 
 def run_db(args) -> int:

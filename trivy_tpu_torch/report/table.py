@@ -1,9 +1,7 @@
 """Table report writer (reference pkg/report/table/): per-target summary
 header + vulnerability/secret/misconfig tables with severity colors.
 
-Copy of trivy_tpu/report/table.py without the dependency tree and the
-suppressed-findings section (no --dependency-tree, --vex or
---show-suppressed in the port's CLI yet).
+Copy of trivy_tpu/report/table.py.
 """
 
 from __future__ import annotations
@@ -12,6 +10,7 @@ import os
 import shutil
 import sys
 
+from trivy_tpu_torch.types.enums import Severity
 from trivy_tpu_torch.types.report import Report, Result
 
 _SEV_ORDER = ["CRITICAL", "HIGH", "MEDIUM", "LOW", "UNKNOWN"]
@@ -94,14 +93,57 @@ def _wrap(s: str, width: int) -> list[str]:
     return lines or [""]
 
 
-def render_table(report: Report, severities=None) -> str:
+def render_table(report: Report, severities=None,
+                 dependency_tree: bool = False) -> str:
     color = _color_enabled()
     out = []
     sev_names = [str(s) for s in severities] if severities else _SEV_ORDER
     for res in report.results:
-        out.append(_render_result(res, color, sev_names))
+        rendered = _render_result(res, color, sev_names)
+        if rendered and dependency_tree and res.vulnerabilities:
+            tree = _render_dependency_tree(res)
+            if tree:
+                rendered += tree
+        out.append(rendered)
     text = "\n".join(x for x in out if x)
     return text if text else "No issues detected.\n"
+
+
+def _render_dependency_tree(res: Result) -> str:
+    """--dependency-tree: why is each vulnerable package present?
+    Reversed origin tree from the lockfile dependency graph
+    (reference pkg/report/table renderedDeps)."""
+    parents: dict[str, list[str]] = {}
+    by_id: dict[str, object] = {}
+    for p in res.packages:
+        pid = p.id or f"{p.name}@{p.version}"
+        by_id[pid] = p
+        for dep in p.depends_on:
+            parents.setdefault(dep, []).append(pid)
+    if not parents:
+        return ""
+    vuln_ids = []
+    seen = set()
+    for v in res.vulnerabilities:
+        pid = v.pkg_id or f"{v.pkg_name}@{v.installed_version}"
+        if pid not in seen:
+            seen.add(pid)
+            vuln_ids.append(pid)
+    lines = ["", "Dependency Origin Tree (Reversed)", "=" * 33]
+    for pid in vuln_ids:
+        lines.append(f"{pid} (vulnerable)")
+        chain = []
+        cur, depth = pid, 0
+        while depth < 8:
+            ups = parents.get(cur) or []
+            if not ups:
+                break
+            cur = sorted(ups)[0]
+            chain.append(cur)
+            depth += 1
+        for i, anc in enumerate(chain):
+            lines.append("    " * i + "└── " + anc)
+    return "\n".join(lines) + "\n"
 
 
 def _render_result(res: Result, color: bool, sev_names) -> str:
@@ -181,6 +223,34 @@ def _render_result(res: Result, color: bool, sev_names) -> str:
             ["Package/File", "License", "Category", "Severity"], rows, color
         )
     else:
+        if not res.modified_findings:
+            return ""
+    tail = _render_suppressed(res, color)
+    if not header_lines and not tail:
         return ""
-    head = "\n".join(header_lines) + "\n\n"
-    return head + (body or "") + "\n"
+    head = "\n".join(header_lines) + "\n\n" if header_lines else ""
+    return head + (body or "") + tail + "\n"
+
+
+def _render_suppressed(res: Result, color: bool) -> str:
+    """--show-suppressed section (reference pkg/report/table renders
+    suppressed vulnerabilities with status/statement/source columns)."""
+    if not res.modified_findings:
+        return ""
+    rows = []
+    for m in res.modified_findings:
+        f = m.get("Finding", {})
+        rows.append([
+            f.get("PkgName", ""),
+            f.get("VulnerabilityID", ""),
+            _sev(f.get("Severity", "UNKNOWN"), color),
+            m.get("Status", ""),
+            m.get("Statement", ""),
+            m.get("Source", ""),
+        ])
+    title = f"\nSuppressed Vulnerabilities (Total: {len(rows)})\n"
+    return title + "=" * (len(title) - 2) + "\n" + _render_grid(
+        ["Library", "Vulnerability", "Severity", "Status", "Statement",
+         "Source"],
+        rows, color,
+    )

@@ -8,8 +8,7 @@ Model: reference pkg/sbom/io/decode.go —
   graph, else aggregated per language type (decode.go addLangPkgs /
   addOrphanPkgs)
 
-Copy of trivy_tpu/sbom/decode.py. An in-toto / cosign attestation that
-wraps an SBOM is detected but not unwrapped yet: decoding one raises.
+Copy of trivy_tpu/sbom/decode.py.
 """
 
 from __future__ import annotations
@@ -65,16 +64,11 @@ def detect_sbom_format(path: str) -> str | None:
     fmt = _classify_doc(doc)
     if fmt:
         return fmt
-    if _is_attestation(doc):
+    from trivy_tpu_torch.attestation import is_attestation
+
+    if is_attestation(doc):
         return "attestation"
     return None
-
-
-def _is_attestation(doc) -> bool:
-    """A DSSE envelope (copy of trivy_tpu/attestation/statement.py
-    is_attestation)."""
-    return isinstance(doc, dict) and "payloadType" in doc and \
-        "payload" in doc
 
 
 def decode_sbom_bytes(content: bytes) -> tuple[BlobInfo, SBOMMeta]:
@@ -100,9 +94,16 @@ def decode_sbom_file(path: str) -> tuple[BlobInfo, SBOMMeta]:
         # cosign SBOM attestation: DSSE envelope -> in-toto statement ->
         # predicate(.Data) holds the actual SBOM (reference
         # pkg/attestation + sbom.go attestation decode)
-        raise ValueError(
-            f"{path}: SBOM attestations (in-toto / cosign) are not "
-            "ported yet; scan the SBOM document itself")
+        from trivy_tpu_torch.attestation import (
+            parse_statement,
+            unwrap_cosign_predicate,
+        )
+
+        inner = unwrap_cosign_predicate(parse_statement(doc))
+        if isinstance(inner, str):
+            inner = json.loads(inner)
+        doc = inner
+        fmt = _classify_doc(doc)
     if fmt == "cyclonedx-json":
         return _decode_cyclonedx(doc)
     if fmt == "spdx-json":

@@ -3,8 +3,9 @@ applier squash -> per-class scans -> metadata fill -> post-scan hooks.
 The vulnerability matching inside runs on the card via MatchEngine.
 
 Copy of trivy_tpu/scanner/local.py without the match scheduler, the
-monitor capture, rekor SBOM discovery, licenses and misconfigurations
-(not ported yet). `stats` keeps the seconds of the last scan's phases.
+monitor capture, licenses and misconfigurations (not ported yet).
+`stats` keeps the seconds of the last scan's phases (the rekor SBOM
+discovery of `--sbom-sources rekor` counts with the apply phase).
 """
 
 from __future__ import annotations
@@ -43,6 +44,10 @@ class LocalDriver:
                 if any(getattr(p, "dev", False) for p in app.packages):
                     app.packages = [p for p in app.packages
                                     if not getattr(p, "dev", False)]
+        if "rekor" in (options.sbom_sources or []):
+            from trivy_tpu_torch.fanal.unpackaged import discover_sboms
+
+            discover_sboms(detail, options.rekor_url)
         t1 = time.perf_counter()
         results = self._scan_detail(target, detail, options)
         t2 = time.perf_counter()

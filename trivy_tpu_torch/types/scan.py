@@ -1,7 +1,7 @@
 """Scan options (reference pkg/types/scan.go:115-126).
 
-Copy of trivy_tpu/types/scan.py, trimmed to the options the sbom scan
-path reads.
+Copy of trivy_tpu/types/scan.py, trimmed to the options the port's
+scan paths read.
 """
 
 from __future__ import annotations
@@ -19,3 +19,6 @@ class ScanOptions:
     )
     include_dev_deps: bool = False
     list_all_pkgs: bool = False
+    # SBOM discovery sources for unpackaged binaries ("rekor")
+    sbom_sources: list[str] = field(default_factory=list)
+    rekor_url: str = "https://rekor.sigstore.dev"
