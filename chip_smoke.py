@@ -104,8 +104,25 @@ kernel's time before its latest redesign; then
      --no-tpu: equal bytes, and the findings those pairs name move to
      the suppressed list. Every run prints its wall, render seconds,
      report bytes and launches.
+ 11. drive the `vm` and `repository` CLIs on the card, in process, on
+     phase 7's DB with the probe off (`repo_vm_cli_path`): (c) phase 8's
+     fs tree as a raw ext4 image (mkfs.ext4 -d), on the card (traced:
+     the device idle share) and with --no-tpu (equal bytes, every file
+     walked, the plants' findings, all three match tiers and the anchor
+     screen launched); (d) phase
+     8's rootfs tree as one ext4 filesystem raw, in an MBR partition,
+     a GPT partition and a sparse VMDK written here (equal results; raw
+     equal to --no-tpu), then raw with phase 8's custom rules (the conv
+     screen) and --no-tpu; (a) the fs tree made a git repository,
+     `repo DIR` equal to phase 8's fs results less the OS result; (b) a
+     small repository through a file:// URL at a tag, a commit and a
+     branch, each on the card and with --no-tpu (equal bytes, tag and
+     commit equal, the user's checkout unchanged, no temp clone left).
+     Prints git's and mkfs.ext4's versions and the image's features.
 Phase 3 runs with the native collector (native/collect.cpp) too.
-Prints a `kernels` JSON line, the card line, and last
+The `kernels` line's launch counts of the CLI paths are per run
+(`launches_fs_cli` ... `launches_vm_cli`). Prints a `kernels` JSON
+line, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 
@@ -1949,11 +1966,17 @@ def custom_secret_config(path: str) -> None:
 
 def planted_findings(corpus, kinds: dict, n_files: int) -> int:
     """The findings the builtin rules make of the secrets planted in the
-    corpus's first `n_files` files: a Slack bot token also matches the
+    corpus's first `n_files` files."""
+    return planted_in(corpus, kinds, range(n_files))
+
+
+def planted_in(corpus, kinds: dict, indices) -> int:
+    """The findings the builtin rules make of the secrets planted in the
+    corpus files `indices`: a Slack bot token also matches the
     slack-access-token rule, and a password assignment counts only in a
     *.env file (its rule's path)."""
     n = 0
-    for i in range(n_files):
+    for i in indices:
         for kind in kinds.get(i, ()):
             if kind == "slack-bot-token":
                 n += 2
@@ -2191,7 +2214,9 @@ def fs_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
         if any(runs[name]["launches"][k] for k in ("match", "anchor",
                                                    "conv", "prefilter")):
             raise AssertionError(f"{name} launched a kernel")
-    return {"runs": runs, "verdict": verdict}
+    return {"runs": runs, "verdict": verdict, "trees": trees,
+            "reports": reports, "want": want, "n_rootfs": n_rootfs,
+            "config": cfg}
 
 
 # --------------------------------------------------------------- phase 9
@@ -2663,6 +2688,414 @@ def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
     return {"runs": runs, "launches": device}
 
 
+# -------------------------------------------------------------- phase 11
+
+
+GIT_ENV = {"GIT_AUTHOR_NAME": "smoke", "GIT_AUTHOR_EMAIL": "smoke@example.com",
+           "GIT_COMMITTER_NAME": "smoke",
+           "GIT_COMMITTER_EMAIL": "smoke@example.com",
+           "GIT_AUTHOR_DATE": FAKE_TIME, "GIT_COMMITTER_DATE": FAKE_TIME,
+           "GIT_CONFIG_NOSYSTEM": "1", "GIT_CONFIG_GLOBAL": os.devnull}
+SECTOR = 512
+PART_LBA = 2048  # the partition of a partitioned disk starts at 1 MiB
+VMDK_GRAIN_SECTORS = 8  # 4 KiB grains
+VMDK_GTES = 512  # grain-table entries: one table maps 2 MiB
+SMALL_REPO_FILES = 24
+
+
+def git(repo: str, *args: str) -> str:
+    """git in `repo` with a pinned identity and dates and no system or
+    global configuration -> its standard output."""
+    return subprocess.run(["git", "-C", repo, *args], check=True,
+                          capture_output=True, text=True,
+                          env={**os.environ, **GIT_ENV}).stdout.strip()
+
+
+def tool_versions() -> str:
+    out = []
+    for cmd in (["git", "--version"], ["mkfs.ext4", "-V"]):
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=True)
+        out.append((proc.stdout + proc.stderr).splitlines()[0].strip())
+    return " | ".join(out)
+
+
+def tree_stats(root: str) -> tuple[int, int]:
+    """-> (regular files, their bytes) under `root`."""
+    n = size = 0
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            n += 1
+            size += os.path.getsize(os.path.join(d, f))
+    return n, size
+
+
+def ext4_image(tree: str, path: str) -> dict:
+    """`tree` as a raw ext4 image built by mkfs.ext4 -d, 4 KiB blocks,
+    sized at the tree's bytes x 1.3 + 64 MiB -> its size, the mkfs
+    seconds and the filesystem's features as dumpe2fs reads them."""
+    _n, size = tree_stats(tree)
+    total = (int(size * 1.3) + (64 << 20) + (1 << 20) - 1) >> 20 << 20
+    with open(path, "wb") as f:
+        f.truncate(total)
+    t0 = time.perf_counter()
+    subprocess.run(["mkfs.ext4", "-q", "-F", "-b", "4096", "-d", tree,
+                    path], check=True, capture_output=True)
+    mkfs_s = time.perf_counter() - t0
+    head = subprocess.run(["dumpe2fs", "-h", path], check=True,
+                          capture_output=True, text=True).stdout
+    features = next(ln.split(":", 1)[1].split() for ln in head.splitlines()
+                    if ln.startswith("Filesystem features"))
+    return {"bytes": total, "mkfs_s": mkfs_s, "features": features}
+
+
+def _copy_into(src: str, dst, at: int) -> None:
+    dst.seek(at)
+    with open(src, "rb") as f:
+        shutil.copyfileobj(f, dst, 8 << 20)
+
+
+def mbr_disk(fs_img: str, path: str) -> None:
+    """A disk whose MBR holds one Linux partition (type 0x83) at 1 MiB,
+    holding the filesystem image `fs_img`."""
+    n = os.path.getsize(fs_img) // SECTOR
+    mbr = bytearray(SECTOR)
+    mbr[446 + 4] = 0x83
+    mbr[446 + 8:446 + 16] = (PART_LBA.to_bytes(4, "little")
+                             + n.to_bytes(4, "little"))
+    mbr[510:512] = b"\x55\xaa"
+    with open(path, "wb") as f:
+        f.write(mbr)
+        _copy_into(fs_img, f, PART_LBA * SECTOR)
+
+
+def gpt_disk(fs_img: str, path: str) -> None:
+    """A GPT disk (protective MBR, primary header and 128-entry table;
+    no backup copy) whose one Linux-filesystem partition at 1 MiB holds
+    the filesystem image `fs_img`."""
+    import uuid as uuid_mod
+    import zlib
+
+    n = os.path.getsize(fs_img) // SECTOR
+    last = PART_LBA + n - 1
+    mbr = bytearray(SECTOR)
+    mbr[446 + 4] = 0xEE
+    mbr[446 + 8:446 + 16] = (1).to_bytes(4, "little") + min(
+        last, 0xFFFFFFFF).to_bytes(4, "little")
+    mbr[510:512] = b"\x55\xaa"
+    entries = bytearray(128 * 128)
+    entries[0:16] = uuid_mod.UUID(
+        "0fc63daf-8483-4772-8e79-3d69d8477de4").bytes_le
+    entries[16:32] = uuid_mod.UUID(int=SBOM_SEED).bytes_le
+    entries[32:48] = PART_LBA.to_bytes(8, "little") + last.to_bytes(
+        8, "little")
+    hdr = bytearray(92)
+    hdr[0:8] = b"EFI PART"
+    hdr[8:12] = (0x10000).to_bytes(4, "little")  # revision 1.0
+    hdr[12:16] = (92).to_bytes(4, "little")
+    hdr[24:32] = (1).to_bytes(8, "little")  # this header's LBA
+    hdr[40:48] = (34).to_bytes(8, "little")  # first usable LBA
+    hdr[48:56] = last.to_bytes(8, "little")  # last usable LBA
+    hdr[56:72] = uuid_mod.UUID(int=SBOM_SEED + 1).bytes_le
+    hdr[72:80] = (2).to_bytes(8, "little")  # the table's LBA
+    hdr[80:88] = (128).to_bytes(4, "little") + (128).to_bytes(4, "little")
+    hdr[88:92] = zlib.crc32(entries).to_bytes(4, "little")
+    hdr[16:20] = zlib.crc32(hdr).to_bytes(4, "little")
+    with open(path, "wb") as f:
+        f.write(mbr)
+        f.write(bytes(hdr) + bytes(SECTOR - len(hdr)))
+        f.write(entries)
+        _copy_into(fs_img, f, PART_LBA * SECTOR)
+
+
+def sparse_vmdk(flat: str, path: str) -> int:
+    """The disk image `flat` as a monolithic-sparse VMDK extent: the
+    header, a grain directory, one grain table per 2 MiB that holds data
+    (an all-zero span gets none) and the non-zero 4 KiB grains ->
+    the number of grain tables."""
+    grain = VMDK_GRAIN_SECTORS * SECTOR
+    capacity = -(-os.path.getsize(flat) // grain) * VMDK_GRAIN_SECTORS
+    n_tables = -(-capacity // (VMDK_GRAIN_SECTORS * VMDK_GTES))
+    gd_sectors = -(-4 * n_tables // SECTOR)
+    gt_sectors = 4 * VMDK_GTES // SECTOR
+    with open(flat, "rb") as f:
+        data = f.read()
+    zero = bytes(grain)
+    tables: dict[int, list] = {}
+    grains = []
+    for g in range(capacity // VMDK_GRAIN_SECTORS):
+        body = data[g * grain:(g + 1) * grain]
+        if body.strip(b"\0"):
+            tables.setdefault(g // VMDK_GTES, []).append(g % VMDK_GTES)
+            grains.append(body + zero[len(body):])
+    gd_at = 1
+    gt_at = gd_at + gd_sectors
+    data_at = gt_at + gt_sectors * len(tables)
+    header = bytearray(SECTOR)
+    header[0:4] = b"KDMV"
+    header[4:4 + 68] = (
+        (1).to_bytes(4, "little") + (3).to_bytes(4, "little")
+        + capacity.to_bytes(8, "little")
+        + VMDK_GRAIN_SECTORS.to_bytes(8, "little")
+        + bytes(16) + VMDK_GTES.to_bytes(4, "little") + bytes(8)
+        + gd_at.to_bytes(8, "little") + data_at.to_bytes(8, "little"))
+    gd = np.zeros(gd_sectors * SECTOR // 4, np.uint32)
+    gts = np.zeros((len(tables), VMDK_GTES), np.uint32)
+    next_grain = data_at
+    for k, t in enumerate(sorted(tables)):
+        gd[t] = gt_at + k * gt_sectors
+        for e in tables[t]:
+            gts[k, e] = next_grain
+            next_grain += VMDK_GRAIN_SECTORS
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(gd.astype("<u4").tobytes())
+        f.write(gts.astype("<u4").tobytes())
+        for body in grains:
+            f.write(body)
+    return len(tables)
+
+
+def custom_tokens(files) -> int:
+    """The custom rules' matches in `files` (each rule's regex over each
+    file's bytes)."""
+    import re
+
+    rules = [re.compile(custom_rule_regex(i).encode())
+             for i in range(N_CUSTOM)]
+    return sum(len(r.findall(body)) for _p, body in files
+               if b"cust" in body for r in rules)
+
+
+def worktree_state(repo: str) -> tuple:
+    """The user's checkout: HEAD, the porcelain status, and a digest of
+    every file outside .git."""
+    import hashlib
+
+    paths = []
+    for d, dirs, files in os.walk(repo):
+        dirs[:] = [x for x in dirs if x != ".git"]
+        paths += [os.path.join(d, f) for f in files]
+    h = hashlib.sha256()
+    for p in sorted(paths):
+        h.update(os.path.relpath(p, repo).encode())
+        with open(p, "rb") as fh:
+            h.update(fh.read())
+    return (git(repo, "rev-parse", "HEAD"),
+            git(repo, "status", "--porcelain"), h.hexdigest())
+
+
+def repo_clones() -> int:
+    import glob
+    import tempfile
+
+    return len(glob.glob(os.path.join(tempfile.gettempdir(),
+                                      "trivy-tpu-repo-*")))
+
+
+def small_repo(path: str, corpus, kinds: dict, lockfiles) -> dict:
+    """A repository of corpus files with plants and phase 7's lockfiles:
+    commit 1 (tagged v1) the npm lockfile and 12 files; commit 2 on main
+    the pip requirements and 6 more; branch `release` from v1 with 6
+    others. The checkout is left on main -> the files each revision
+    holds, by corpus index, and commit 1's id."""
+    idx = [i for i in sorted(kinds) if len(corpus[i][1]) < (32 << 10)
+           ][:SMALL_REPO_FILES]
+    if len(idx) < SMALL_REPO_FILES:
+        raise AssertionError("too few small planted files")
+    subprocess.run(["git", "init", "-q", "-b", "main", path], check=True,
+                   capture_output=True, env={**os.environ, **GIT_ENV})
+
+    def commit(files, msg):
+        write_files(path, files)
+        git(path, "add", "-A")
+        git(path, "commit", "-q", "-m", msg)
+
+    commit([lockfiles[0]] + [corpus[i] for i in idx[:12]], "v1")
+    git(path, "tag", "v1")
+    first = git(path, "rev-parse", "HEAD")
+    commit([lockfiles[1]] + [corpus[i] for i in idx[12:18]], "main")
+    git(path, "checkout", "-q", "-b", "release", "v1")
+    commit([corpus[i] for i in idx[18:]], "release")
+    git(path, "checkout", "-q", "main")
+    return {"v1": idx[:12], "release": idx[:12] + idx[18:],
+            "first": first}
+
+
+def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
+    """Phase 11: the repository and vm CLIs on the card, in process
+    through trivy_tpu_torch.cli.main.main, on phase 7's saved DB (its
+    engines warm) with the probe off, so the device share always runs.
+    (c) phase 8's fs tree as a raw ext4 image (mkfs.ext4 -d), scanned on
+    the card (traced: the device idle share) and with --no-tpu: equal
+    bytes, every tree file walked
+    (lost+found holds none), the findings the plants make, all three
+    match tiers and the anchor screen launched. (d) phase 8's rootfs
+    tree as one ext4 filesystem in four containers (raw, an MBR
+    partition at 1 MiB, a GPT partition, a sparse VMDK of many grain
+    tables): equal results, the raw run equal to its --no-tpu run; then
+    the raw image with phase 8's custom rules (the conv screen) and its
+    --no-tpu run. (a) the fs tree made a git repository: `repo DIR`
+    equals phase 8's fs report's results less the OS-packages result,
+    which the repository gating drops; the findings the plants make.
+    (b) a small repository at a tag, a commit and a branch through a
+    file:// URL, each on the card and with --no-tpu: equal bytes, the
+    tag's and the commit's results equal, the user's HEAD and working
+    tree unchanged, no temp clone left. (c) and (d) run first: the
+    images hold the tree without its .git."""
+    corpus, kinds = p5["corpus"], p5["planted_per_file"]
+    _os_files, lockfiles, _n = image_root_files(p7["sbom"])
+    trees = p8["trees"]
+    print(f"phase11 tools {tool_versions()}")
+    base = ["--format", "json", "--db-path", p7["db_root"], "--cache-dir",
+            os.path.join(tmp, "cache11"), "--quiet"]
+    runs: dict = {}
+    reports: dict = {}
+
+    def go(name, argv, profiled=False):
+        reports[name] = os.path.join(tmp, f"p11_{name}.json")
+        runs[name] = fs_run([*argv, *base], reports[name], profiled)
+        r = runs[name]
+        print(split_line(name, r, "phase11")
+              + f" walked_files={r.get('walked_files')}")
+
+    def body(name):
+        with open(reports[name], "rb") as f:
+            return f.read()
+
+    def results(name):
+        """The report's results, its artifact name in an OS result's
+        target (`<disk> (debian 11)`) read as `<artifact>`."""
+        doc = json.loads(body(name))
+        for r in doc["Results"]:
+            if r["Target"].startswith(doc["ArtifactName"] + " "):
+                r["Target"] = "<artifact>" + r["Target"][
+                    len(doc["ArtifactName"]):]
+        return doc["Results"]
+
+    os.environ.update(TRIVY_TPU_FAKE_TIME=FAKE_TIME,
+                      TRIVY_TPU_DETERMINISTIC_UUID="1",
+                      TRIVY_TPU_SECRET_PROBE="0")
+    clones = repo_clones()
+    try:
+        # (c) the full tree as a raw ext4 image
+        n_files, n_bytes = tree_stats(trees["fs"])
+        full = os.path.join(tmp, "full.img")
+        img = ext4_image(trees["fs"], full)
+        print(f"phase11 (c) image tree_files={n_files} tree_bytes="
+              f"{n_bytes} image_bytes={img['bytes']} "
+              f"mkfs_s={img['mkfs_s']:.3f} "
+              f"features={','.join(img['features'])}")
+        go("c_vm", ["vm", full], profiled=True)
+        go("c_vm_no_tpu", ["vm", full, "--no-tpu"])
+
+        # (d) the rootfs tree in four containers
+        disks = {k: os.path.join(tmp, f"rootfs.{k}") for k in (
+            "raw", "mbr", "gpt", "vmdk")}
+        img_d = ext4_image(trees["rootfs"], disks["raw"])
+        t0 = time.perf_counter()
+        mbr_disk(disks["raw"], disks["mbr"])
+        gpt_disk(disks["raw"], disks["gpt"])
+        n_tables = sparse_vmdk(disks["raw"], disks["vmdk"])
+        print(f"phase11 (d) image bytes={img_d['bytes']} "
+              f"mkfs_s={img_d['mkfs_s']:.3f} containers_s="
+              f"{time.perf_counter() - t0:.3f} vmdk_bytes="
+              f"{os.path.getsize(disks['vmdk'])} vmdk_grain_tables="
+              f"{n_tables}")
+        for k, disk in disks.items():
+            go(f"d_{k}", ["vm", disk])
+        go("d_raw_no_tpu", ["vm", disks["raw"], "--no-tpu"])
+        cfg = ["--secret-config", p8["config"]]
+        go("d_custom", ["vm", disks["raw"], *cfg])
+        go("d_custom_no_tpu", ["vm", disks["raw"], *cfg, "--no-tpu"])
+
+        # (a) the full tree as a git repository
+        t0 = time.perf_counter()
+        subprocess.run(["git", "init", "-q", "-b", "main", trees["fs"]],
+                       check=True, capture_output=True,
+                       env={**os.environ, **GIT_ENV})
+        git(trees["fs"], "add", "-A")
+        git(trees["fs"], "commit", "-q", "-m", "svc")
+        print(f"phase11 (a) git init_add_commit_s="
+              f"{time.perf_counter() - t0:.3f} files={n_files} "
+              f"head={git(trees['fs'], 'rev-parse', 'HEAD')}")
+        go("a_repo", ["repo", trees["fs"]])
+
+        # (b) revisions of a small repository through a file:// URL
+        small = os.path.join(tmp, "small_repo")
+        revs = small_repo(small, corpus, kinds, lockfiles)
+        before = worktree_state(small)
+        url = f"file://{small}"
+        for name, flag in (("tag", ["--tag", "v1"]),
+                           ("commit", ["--commit", revs["first"]]),
+                           ("branch", ["--branch", "release"])):
+            go(f"b_{name}", ["repo", url, *flag])
+            go(f"b_{name}_no_tpu", ["repo", url, *flag, "--no-tpu"])
+        after = worktree_state(small)
+    finally:
+        for knob in ("TRIVY_TPU_SECRET_PROBE", "TRIVY_TPU_FAKE_TIME",
+                     "TRIVY_TPU_DETERMINISTIC_UUID"):
+            os.environ.pop(knob, None)
+
+    rootfs_files = corpus[:p8["n_rootfs"]]
+    want = {"a_repo": p8["want"]["fs"], "c_vm": p8["want"]["fs"],
+            **{f"d_{k}": p8["want"]["rootfs"] for k in disks},
+            "d_custom": p8["want"]["rootfs"] + custom_tokens(rootfs_files),
+            "b_tag": planted_in(corpus, kinds, revs["v1"]),
+            "b_commit": planted_in(corpus, kinds, revs["v1"]),
+            "b_branch": planted_in(corpus, kinds, revs["release"])}
+    found = {k: runs[k]["secret_findings"] for k in want}
+    diffs = {name: int(body(name) != body(f"{name}_no_tpu")) for name in (
+        "c_vm", "d_raw", "d_custom", "b_tag", "b_commit", "b_branch")}
+    diffs.update({f"{k}_results": int(results(k) != results("d_raw"))
+                  for k in ("d_mbr", "d_gpt", "d_vmdk")})
+    diffs["b_tag_vs_commit_results"] = int(
+        results("b_tag") != results("b_commit"))
+    with open(p8["reports"]["fs_probe0"], "rb") as f:
+        fs_results = json.loads(f.read())["Results"]
+    diffs["a_repo_vs_fs_less_os"] = int(
+        results("a_repo") != [r for r in fs_results
+                              if r["Class"] != "os-pkgs"])
+    unchanged = int(before == after)
+    left = repo_clones() - clones
+    p = runs["c_vm"]
+    print(f"phase11 c_vm trace wall_s={p['wall_s']:.3f} "
+          f"device_busy_ms={p['device_busy_ms']:.3f} "
+          f"anchor_kernel_ms={p['anchor_kernel_ms']:.3f} "
+          f"match_kernel_ms={p['match_kernel_ms']:.3f} "
+          f"device_idle_share={p['device_idle_share']:.6f}")
+    print(f"phase11 reports_diff={json.dumps(diffs)} "
+          f"findings={json.dumps(found)} want={json.dumps(want)} "
+          f"user_checkout_unchanged={unchanged} temp_clones_left={left} "
+          f"walked_files={runs['c_vm'].get('walked_files')} "
+          f"tree_files={n_files}")
+    if any(diffs.values()):
+        raise AssertionError("phase 11 reports differ")
+    if found != want:
+        raise AssertionError("phase 11 finding counts differ from the "
+                             "planted ones")
+    if not unchanged or left:
+        raise AssertionError("a repository scan changed the user's "
+                             "checkout or left a temp clone")
+    if runs["c_vm"].get("walked_files") != n_files:
+        raise AssertionError("the vm walk missed or added files")
+    for name in ("a_repo", "c_vm"):
+        launches = runs[name]["launches"]
+        if not launches["anchor"] or not launches["match"]:
+            raise AssertionError(f"{name} launched no anchor or match "
+                                 "kernel")
+    if not all(runs["c_vm"]["launches"]["match_per_tier"].values()):
+        raise AssertionError("vm: a match tier was never launched")
+    if not runs["d_custom"]["launches"]["conv"]:
+        raise AssertionError("vm --secret-config launched no conv kernel")
+    for name, r in runs.items():
+        if name.endswith("_no_tpu") and any(
+                r["launches"][k] for k in ("match", "anchor", "conv",
+                                           "prefilter")):
+            raise AssertionError(f"{name} launched a kernel")
+    return {"runs": runs}
+
+
 def main() -> int:
     import torch
 
@@ -2731,11 +3164,19 @@ def main() -> int:
         t0 = time.perf_counter()
         p10 = report_cli_path(p7, p9, work)
         print(f"phase10 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p11 = repo_vm_cli_path(p5, p7, p8, work)
+        print(f"phase11 seconds={time.perf_counter() - t0:.3f}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     fs_launches = {name: r["launches"] for name, r in p8["runs"].items()}
     image_launches = {name: r["launches"]
                       for name, r in p9["runs"].items()}
+    repo_launches = {name: r["launches"] for name, r in p11["runs"].items()
+                     if name.startswith(("a_", "b_"))}
+    vm_launches = {name: r["launches"] for name, r in p11["runs"].items()
+                   if name.startswith(("c_", "d_"))}
 
     main_t = p3["timings"]["main"]
     entries = [{
@@ -2759,6 +3200,10 @@ def main() -> int:
         "launches_image_cli": {k: v["match_per_tier"]
                                for k, v in image_launches.items()},
         "launches_report_cli": p10["launches"],
+        "launches_repo_cli": {k: v["match_per_tier"]
+                              for k, v in repo_launches.items()},
+        "launches_vm_cli": {k: v["match_per_tier"]
+                            for k, v in vm_launches.items()},
         "tiers": p3["timings"],
     }]
     for name, source, replaces, launches in (
@@ -2778,6 +3223,9 @@ def main() -> int:
             "launches_fs_cli": {k: v[name] for k, v in fs_launches.items()},
             "launches_image_cli": {k: v[name]
                                    for k, v in image_launches.items()},
+            "launches_repo_cli": {k: v[name]
+                                  for k, v in repo_launches.items()},
+            "launches_vm_cli": {k: v[name] for k, v in vm_launches.items()},
             "ms": t["ms"], "kernel_device_ms": t["kernel_device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -310,7 +310,8 @@ PORT_SOURCES = sorted(
 
 def test_static_scan_covers_every_slice():
     """The static scan below walks every port source, those of the image
-    and db slice and of the report, VEX and attestation slice included."""
+    and db slice, of the report, VEX and attestation slice and of the
+    repository and vm slice included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -319,7 +320,10 @@ def test_static_scan_covers_every_slice():
                    "report/spdx.py", "report/github.py", "report/cosign.py",
                    "report/template.py", "report/table.py", "vex/vex.py",
                    "vex/repo.py", "vex/oci.py", "attestation/statement.py",
-                   "attestation/rekor.py", "fanal/unpackaged.py"):
+                   "attestation/rekor.py", "fanal/unpackaged.py",
+                   "artifact/repo.py", "artifact/vm.py",
+                   "fanal/vm/__init__.py", "fanal/vm/disk.py",
+                   "fanal/vm/ext4.py", "fanal/vm/xfs.py", "fanal/vm/ebs.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

@@ -346,7 +346,8 @@ def _scan_defaults(parser, cmd) -> dict:
             if a.dest and a.dest != "help"}
 
 
-@pytest.mark.parametrize("cmd", ["sbom", "filesystem", "fs", "rootfs"])
+@pytest.mark.parametrize("cmd", ["sbom", "filesystem", "fs", "rootfs",
+                                 "repository", "repo", "vm"])
 def test_unported_list_is_reference_dests_minus_ports(cmd):
     ref = _scan_defaults(jax_main.build_parser(), cmd)
     port = _scan_defaults(build_parser(), cmd)

@@ -16,10 +16,12 @@ only inside the candidate windows, so findings equal the host path's.
 The keyword prefilter (ops/secret_prefilter.py) has its own kernel
 (ops/csrc/secret_prefilter.cu).
 
-The `image`, `sbom`, `filesystem` (`fs`) and `rootfs` scan commands run
-end to end on that engine (`python -m trivy_tpu_torch fs DIR --format
-sarif`, cli/main.py): the image sources and layer walk, the directory
-walk and the analyzers (OS release, apk, dpkg and rpm databases,
+The `image`, `sbom`, `filesystem` (`fs`), `rootfs`, `repository`
+(`repo`) and `vm` scan commands run end to end on that engine (`python
+-m trivy_tpu_torch fs DIR --format sarif`, cli/main.py): the image
+sources and layer walk, the git checkout, the VM disk readers (raw,
+MBR / GPT partitions, sparse VMDK, EBS snapshots) with the ext4 and XFS
+walkers (fanal/vm/), the directory walk and the analyzers (OS release, apk, dpkg and rpm databases,
 lockfile and package parsers, the secret analyzer on the secret
 screens), SBOM decode (attestations included), blob cache, layer
 applier, OS and language detectors, vulnerability metadata, VEX,

@@ -22,8 +22,9 @@ CONFIG_NAMES = ("trivy-tpu.yaml", "trivy.yaml")
 ENV_PREFIX = "TRIVY_TPU_"
 
 # dests of the reference's scan-subcommand parsers (image, sbom,
-# filesystem, fs, rootfs: the same flags, and image's own, which the
-# port has) that the port's parsers lack, each with
+# filesystem, fs, rootfs, repository, repo, vm: the same flags, and
+# image's and repository's own, which the port has) that the port's
+# parsers lack, each with
 # the values that leave the reference's scan as it is: its parser's
 # default first, then the spellings its code reads as unset (the empty
 # string where it tests the option's truth; mesh's single-chip specs)

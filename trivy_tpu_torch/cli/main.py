@@ -1,11 +1,13 @@
 """trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
-`rootfs`, `convert`, `db` and `version` subcommands of
-trivy_tpu/cli/main.py, with the match kernel and the secret screens on
-a CUDA card.
+`rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db` and
+`version` subcommands of trivy_tpu/cli/main.py, with the match kernel
+and the secret screens on a CUDA card.
 
     python -m trivy_tpu_torch image --input image.tar --format sarif
     python -m trivy_tpu_torch sbom bom.json --format json --vex vex.json
     python -m trivy_tpu_torch fs ./project --format cyclonedx
+    python -m trivy_tpu_torch repo https://host/org/svc.git --tag v1.2
+    python -m trivy_tpu_torch vm disk.vmdk --format json
     python -m trivy_tpu_torch convert report.json --format spdx-json
     python -m trivy_tpu_torch db import advisories.json --db-path DB
 
@@ -120,14 +122,16 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="include VEX-suppressed findings in the report")
 
 
-# the scan subcommands the port serves (the reference's repository and
-# vm are not ported yet)
+# the scan subcommands the port serves: every one of the reference's
 SCAN_COMMANDS = (
     ("image", "scan a container image"),
     ("filesystem", "scan a local filesystem directory"),
     ("fs", "alias of filesystem"),
     ("rootfs", "scan a root filesystem"),
+    ("repository", "scan a git repository"),
+    ("repo", "alias of repository"),
     ("sbom", "scan an SBOM file (CycloneDX/SPDX json)"),
+    ("vm", "scan a VM image"),
 )
 
 
@@ -180,7 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
         allow_abbrev=False,
         prog="trivy-tpu-torch",
         description="security scanner on a CUDA card (image, "
-        "filesystem, rootfs or SBOM -> vulnerabilities, secrets)",
+        "filesystem, rootfs, repository, VM image or SBOM -> "
+        "vulnerabilities, secrets)",
     )
     _add_global_flags(parser)
     sub = parser.add_subparsers(dest="command")
@@ -188,6 +193,12 @@ def build_parser() -> argparse.ArgumentParser:
         p = sub.add_parser(name, help=help_text, allow_abbrev=False)
         _add_global_flags(p)
         _add_scan_flags(p)
+        if name in ("repository", "repo"):
+            p.add_argument("--branch", default="",
+                           help="git branch to check out")
+            p.add_argument("--tag", default="", help="git tag to check out")
+            p.add_argument("--commit", default="",
+                           help="git commit to check out")
         if name == "image":
             _add_image_flags(p)
             p.add_argument("target", nargs="?", default=None)

@@ -2,8 +2,8 @@
 report -> exit code (reference pkg/commands/artifact/run.go Runner).
 
 Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
-`filesystem` / `fs` and `rootfs` scans and the `convert` and `db`
-subcommands: no fleet mode (`--targets`, `--journal`), monitor index,
+`filesystem` / `fs`, `rootfs`, `repository` / `repo` and `vm` scans
+and the `convert` and `db` subcommands: no fleet mode (`--targets`, `--journal`), monitor index,
 compliance, modules, ignore policies, mesh, server client or tracing
 yet. The match engine and the secret analyzer's screen run on the
 device `--device` names (``cuda:0`` by default); `--no-tpu` takes the
@@ -15,7 +15,9 @@ load, plus the upload to the card), for a filesystem or image scan the
 walk with the per-file analyzers and the post-analyzers (an image's
 summed over its layers and walk lanes; the secret scan's own seconds,
 its `device_stats` and the hybrid probe's verdict beside them), apply,
-detect, report render.
+detect, report render. A `vm` scan keeps the image scan's split:
+`inspect_s` (disk open, guest walks, post-analyzers) with `walk_s`,
+`post_analyze_s` and `secret_s` inside it.
 """
 
 from __future__ import annotations
@@ -371,12 +373,13 @@ def _postprocess_report(args, report):
 
 def _select_scanner(args, cache):
     """reference pkg/commands/artifact/scanner.go: artifact kind ->
-    (artifact, driver). The image, sbom, filesystem and rootfs kinds are
-    ported."""
+    (artifact, driver). Every scan kind of the reference but the
+    config scan is ported."""
     from trivy_tpu_torch.scanner.local import LocalDriver
 
     cmd = args.command
-    if cmd not in ("image", "sbom", "filesystem", "fs", "rootfs"):
+    if cmd not in ("image", "sbom", "filesystem", "fs", "rootfs",
+                   "repository", "repo", "vm"):
         raise FatalError(f"unsupported scan command {cmd!r}")
     driver = LocalDriver(build_engine(args), cache)
     if cmd == "sbom":
@@ -415,16 +418,43 @@ def _select_scanner(args, cache):
 
     # per-target analyzer gating (reference artifact/run.go:178-215):
     # fs scans read lockfiles, not installed-package stores; rootfs the
-    # inverse
+    # inverse; repository additionally skips OS analyzers; vm gates
+    # nothing
     from trivy_tpu_torch.fanal.analyzer import (
         TYPE_INDIVIDUAL_PKGS,
         TYPE_LOCKFILES,
+        TYPE_OSES,
     )
 
     if cmd in ("filesystem", "fs"):
         disabled |= TYPE_INDIVIDUAL_PKGS | {"sbom"}
-    else:
+    elif cmd == "rootfs":
         disabled |= TYPE_LOCKFILES
+    elif cmd in ("repository", "repo"):
+        disabled |= TYPE_INDIVIDUAL_PKGS | TYPE_OSES | {"sbom"}
+    if cmd in ("repository", "repo"):
+        from trivy_tpu_torch.artifact.repo import RepoArtifact
+
+        return RepoArtifact(
+            args.target, cache,
+            skip_files=args.skip_files, skip_dirs=args.skip_dirs,
+            parallel=args.parallel,
+            disabled_analyzers=disabled,
+            secret_config=getattr(args, "secret_config", None),
+            branch=getattr(args, "branch", ""),
+            tag=getattr(args, "tag", ""),
+            commit=getattr(args, "commit", ""),
+        ), driver
+    if cmd == "vm":
+        from trivy_tpu_torch.artifact.vm import VMArtifact
+
+        return VMArtifact(
+            args.target, cache,
+            parallel=args.parallel,
+            disabled_analyzers=disabled,
+            secret_config=getattr(args, "secret_config", None),
+            file_patterns=getattr(args, "file_patterns", []),
+        ), driver
     from trivy_tpu_torch.artifact.local_fs import FSArtifact
 
     return FSArtifact(
