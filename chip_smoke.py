@@ -119,10 +119,34 @@ kernel's time before its latest redesign; then
      branch, each on the card and with --no-tpu (equal bytes, tag and
      commit equal, the user's checkout unchanged, no temp clone left).
      Prints git's and mkfs.ext4's versions and the image's features.
+ 12. drive the scan server and client mode on the card
+     (`server_path`): (a) `python -m trivy_tpu_torch server` as a
+     subprocess on phase 7's DB directory (its compiled entry a cache
+     hit), started before phase 11 so that its DB load overlaps it, and
+     ready on /readyz within a bounded wait; (d) in process, the hot
+     reload of a 20,000-advisory generation root to a 25,000-advisory
+     one (the port's MatchEngine on the same device, a rescan equal to
+     a fresh engine's) and a corrupt third generation quarantined while
+     last-good serves; (b) CLI clients against (a), all at once, each a
+     subprocess: `sbom --server` on phase 7's SBOM, `image --server` on
+     phase 9's archive and on its custom-rules image (the conv screen),
+     `fs --server` on phase 8's tree, each report equal to the
+     standalone run's byte for byte, the screens through each client's
+     secret lane; while they run, (c) in process, a burst: a Server on
+     the engine the process holds (phase 7's 2,000,000 advisories on
+     the card), 32 seeded blobs of 50 to 3,000 of phase 7's SBOM
+     packages scanned from 32 threads at once through the match
+     scheduler, traced (the device idle share), each response equal to
+     the same scan alone afterwards and to a burst through a
+     TRIVY_TPU_SCHED=0 server (the match launches per tier of both
+     bursts, the scheduler's stats: more than one request coalesced, no
+     shed); (e) SIGTERM: (a) drains and exits 0 within its budget.
 Phase 3 runs with the native collector (native/collect.cpp) too.
 The `kernels` line's launch counts of the CLI paths are per run
-(`launches_fs_cli` ... `launches_vm_cli`). Prints a `kernels` JSON
-line, the card line, and last
+(`launches_fs_cli` ... `launches_vm_cli`), the server's per burst
+(`launches_server`) and its clients' per client
+(`launches_server_clients`). Prints a `kernels` JSON line, the card
+line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 
@@ -2466,7 +2490,8 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
                                                    "conv", "prefilter")):
             raise AssertionError(f"{name} launched a kernel")
     return {"runs": runs, "verdict": verdict, "tar": tars["docker"],
-            "report": reports["a_user"],
+            "report": reports["a_user"], "custom_tar": tars["custom"],
+            "custom_report": reports["g_custom"], "config": cfg,
             "caches": {"device": os.path.join(tmp, "cache_a"),
                        "host": os.path.join(tmp, "cache_b")}}
 
@@ -3014,8 +3039,11 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
         subprocess.run(["git", "init", "-q", "-b", "main", trees["fs"]],
                        check=True, capture_output=True,
                        env={**os.environ, **GIT_ENV})
-        git(trees["fs"], "add", "-A")
-        git(trees["fs"], "commit", "-q", "-m", "svc")
+        # set-up only: loose objects without zlib (the object ids, and
+        # so the checks, are the same) halve the add of 294 MB
+        nozip = ("-c", "core.compression=0", "-c", "core.looseCompression=0")
+        git(trees["fs"], *nozip, "add", "-A")
+        git(trees["fs"], *nozip, "commit", "-q", "-m", "svc")
         print(f"phase11 (a) git init_add_commit_s="
               f"{time.perf_counter() - t0:.3f} files={n_files} "
               f"head={git(trees['fs'], 'rev-parse', 'HEAD')}")
@@ -3096,6 +3124,591 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
     return {"runs": runs}
 
 
+# -------------------------------------------------------------- phase 12
+
+
+N_BURST = 32  # concurrent scans of (c)
+BURST_SEED = 20261019
+BURST_PKGS = (50, 3_000)  # packages per burst blob, log-uniform
+RELOAD_SEED = 20261020
+RELOAD_ADVISORIES = (20_000, 25_000)  # (d)'s two generations
+SERVER_READY_S = 300.0  # (a)'s bounded wait on /readyz
+DRAIN_TIMEOUT_S = 30.0
+CLIENT_TIMEOUT_S = 400.0
+
+# a CLI client as a subprocess: trivy_tpu_torch.cli.main.main on argv
+# (what `python -m trivy_tpu_torch` calls), then its wall, the kernels'
+# launch counts (0 when the process started) and the secret lane's
+# scheduler stats written to the file named first
+CLIENT_CODE = """
+import json, sys, time
+from trivy_tpu_torch.cli.main import main
+from trivy_tpu_torch.fanal import analyzer
+from trivy_tpu_torch.ops import match, secret_nfa
+t0 = time.perf_counter()
+rc = main(sys.argv[2:])
+wall = time.perf_counter() - t0
+lane = None
+for a in analyzer._POST_ANALYZERS:
+    sched = getattr(getattr(a, "_scanner", None), "_sched", None)
+    if a.type == "secret" and sched is not None:
+        lane = dict(sched.stats)
+with open(sys.argv[1], "w") as f:
+    json.dump({"rc": rc, "wall_s": wall,
+               "match": match.match_words.launches,
+               "anchor": secret_nfa.anchor_words.launches,
+               "conv": secret_nfa.conv_anchor_words.launches,
+               "lane": lane}, f)
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(url: str, timeout: float = 5.0) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        with exc:
+            return exc.code, exc.read()
+
+
+def tail(path: str, n: int = 3000) -> str:
+    try:
+        with open(path, errors="replace") as f:
+            return f.read()[-n:]
+    except OSError:
+        return ""
+
+
+def start_server(db_root: str, tmp: str) -> dict:
+    """(a) `python -m trivy_tpu_torch server` as a subprocess on the
+    card, on phase 7's DB directory (its compiled entry on disk)."""
+    port = free_port()
+    log = os.path.join(tmp, "server.log")
+    # the clock of the standalone runs: an OS's end of life depends on it
+    env = {**os.environ, "TRIVY_TPU_FAKE_TIME": FAKE_TIME}
+    with open(log, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "trivy_tpu_torch", "server", "--listen",
+             f"127.0.0.1:{port}", "--db-path", db_root, "--cache-dir",
+             os.path.join(tmp, "server_cache"), "--drain-timeout",
+             f"{DRAIN_TIMEOUT_S:g}s"],
+            cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return {"proc": proc, "addr": f"http://127.0.0.1:{port}", "log": log,
+            "t0": time.perf_counter(), "wall0": time.time()}
+
+
+def listening_after_s(srv: dict) -> float | None:
+    """Seconds from (a)'s start to its "server listening" log line (the
+    log's stamps are whole seconds: +-1 s)."""
+    import datetime
+
+    for line in tail(srv["log"], 1 << 22).splitlines():
+        if "server listening" in line:
+            stamp = datetime.datetime.strptime(
+                line.split("\t", 1)[0], "%Y-%m-%dT%H:%M:%SZ").replace(
+                    tzinfo=datetime.timezone.utc)
+            return stamp.timestamp() - srv["wall0"]
+    return None
+
+
+def wait_ready(srv: dict) -> float:
+    """Poll (a)'s /readyz until it answers 200 ok (bounded) -> seconds
+    since the process started (an upper bound of its start time when
+    the first poll finds it ready)."""
+    import urllib.error
+
+    while True:
+        if srv["proc"].poll() is not None:
+            raise AssertionError("server exited before ready: "
+                                 + tail(srv["log"]))
+        try:
+            status, body = http_get(srv["addr"] + "/readyz", timeout=2.0)
+            if status == 200 and body.startswith(b"ok"):
+                return time.perf_counter() - srv["t0"]
+        except (urllib.error.URLError, OSError):
+            pass
+        if time.perf_counter() - srv["t0"] > SERVER_READY_S:
+            raise AssertionError("server not ready within "
+                                 f"{SERVER_READY_S:g} s: " + tail(srv["log"]))
+        time.sleep(0.25)
+
+
+def stop_server(srv: dict) -> dict:
+    """(e) SIGTERM: the server drains and must exit 0 within its drain
+    budget."""
+    import signal
+
+    proc = srv["proc"]
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=DRAIN_TIMEOUT_S + 15)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise AssertionError("server did not stop within its drain budget")
+    return {"rc": rc, "stop_s": time.perf_counter() - t0}
+
+
+def start_clients(srv: dict, p7: dict, p8: dict, p9: dict,
+                  tmp: str) -> dict:
+    """(b) the CLI clients against (a), all at once, each a subprocess:
+    `sbom --server` on phase 7's SBOM, `image --server` on phase 9's
+    archive and on its custom-rules image (the conv screen), and `fs
+    --server` on phase 8's tree, with the flags of the standalone runs
+    whose reports they must equal byte for byte. The secret screens run
+    on the card (probe off) through each client's secret lane."""
+    env = {**os.environ, "TRIVY_TPU_FAKE_TIME": FAKE_TIME,
+           "TRIVY_TPU_DETERMINISTIC_UUID": "1",
+           "TRIVY_TPU_SECRET_PROBE": "0"}
+    server = ["--server", srv["addr"], "--format", "json", "--quiet"]
+    clients = {
+        "sbom": (["sbom", p7["sbom"], *server, "--list-all-pkgs"],
+                 p7["warm_report"]),
+        "image": (["image", "--input", p9["tar"], *server],
+                  p9["report"]),
+        "image_custom": (["image", "--input", p9["custom_tar"], *server,
+                          "--secret-config", p9["config"]],
+                         p9["custom_report"]),
+        "fs": (["fs", p8["trees"]["fs"], *server], p8["reports"]["fs"]),
+    }
+    procs = {}
+    for name, (argv, _want) in clients.items():
+        counts = os.path.join(tmp, f"client_{name}.counts.json")
+        report = os.path.join(tmp, f"client_{name}.json")
+        log = os.path.join(tmp, f"client_{name}.log")
+        with open(log, "wb") as out:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", CLIENT_CODE, counts, *argv,
+                 "--cache-dir", os.path.join(tmp, f"client_{name}_cache"),
+                 "--output", report],
+                cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT),
+                counts, report, log, clients[name][1])
+    return procs
+
+
+def collect_clients(procs: dict) -> dict:
+    """Wait for (b)'s clients (bounded) -> each one's numbers, and
+    whether its report equals its standalone run's."""
+    out = {}
+    for name, (proc, counts, report, log, want) in procs.items():
+        try:
+            rc = proc.wait(timeout=CLIENT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p, *_rest in procs.values():
+                p.kill()
+                p.wait(timeout=30)
+            raise AssertionError(f"client {name} did not finish")
+        if rc != 0:
+            raise AssertionError(f"client {name} returned {rc}: "
+                                 + tail(log))
+        with open(counts) as f:
+            r = json.load(f)
+        with open(report, "rb") as f:
+            body = f.read()
+        with open(want, "rb") as f:
+            r["diff_vs_standalone"] = int(body != f.read())
+        r["report_bytes"] = len(body)
+        out[name] = r
+    return out
+
+
+def burst_blobs(sbom: str, rng: random.Random) -> list[dict]:
+    """(c)'s artifacts: N_BURST blobs, each a seeded draw of 50 to 3,000
+    of the SBOM's packages (log-uniform sizes), OS packages and
+    lockfile packages in the SBOM's proportions."""
+    import dataclasses
+
+    from trivy_tpu_torch.sbom.decode import decode_sbom_file
+
+    blob, _meta = decode_sbom_file(sbom)
+    base = dataclasses.asdict(blob)
+    groups = [pi["packages"] for pi in base["package_infos"]] + \
+        [app["packages"] for app in base["applications"]]
+    total = sum(len(g) for g in groups)
+    lo, hi = BURST_PKGS
+    out = []
+    for _ in range(N_BURST):
+        n = int(round(math.exp(rng.uniform(math.log(lo), math.log(hi)))))
+        picks = iter([sorted(rng.sample(range(len(g)),
+                                        max(1, len(g) * n // total)))
+                      for g in groups])
+        # new holder dicts over shared package dicts (nothing on the
+        # scan path writes to a cached blob)
+        doc = dict(base)
+        for key in ("package_infos", "applications"):
+            doc[key] = []
+            for holder in base[key]:
+                idx = next(picks)
+                doc[key].append({**holder, "packages": [
+                    holder["packages"][i] for i in idx]})
+        out.append(doc)
+    return out
+
+
+def scan_conn(addr: str, conns: dict):
+    """This thread's keep-alive connection to `addr`, connected."""
+    import http.client
+    import threading
+    from urllib.parse import urlsplit
+
+    tid = threading.get_ident()
+    conn = conns.get(tid)
+    if conn is None:
+        conn = conns[tid] = http.client.HTTPConnection(
+            urlsplit(addr).netloc, timeout=300)
+        conn.connect()
+    return conn
+
+
+def raw_scan(addr: str, key: str, conns: dict) -> bytes:
+    """One Scan RPC on this thread's keep-alive connection, the plain
+    JSON wire (no gzip, no columnar offer) -> the response bytes, which
+    are `wire.scan_response` of the server's results."""
+    from trivy_tpu_torch.rpc import wire
+    from trivy_tpu_torch.rpc.server import SCAN_PATH
+    from trivy_tpu_torch.types.scan import ScanOptions
+
+    conn = scan_conn(addr, conns)
+    body = wire.scan_request(key, "", [key], ScanOptions())
+    conn.request("POST", SCAN_PATH, body=body, headers={
+        "Content-Type": "application/json",
+        "X-Trivy-Tpu-Wire": "internal"})
+    r = conn.getresponse()
+    data = r.read()
+    if r.status != 200:
+        raise AssertionError(f"scan {key}: {r.status} {data[:300]!r}")
+    return data
+
+
+def burst_run(addr: str, keys: list[str], profiled: bool) -> dict:
+    """All of `keys` scanned at once, one thread each, with the match
+    launch counts at 0 just before -> responses, wall, launches per
+    tier and, when `profiled`, the device idle share of the burst."""
+    import contextlib
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trivy_tpu_torch.ops import match as m
+
+    conns: dict = {}
+    got: dict = {}
+    errs: list = []
+    start = threading.Barrier(len(keys) + 1, timeout=60)
+
+    def worker(key):
+        try:
+            scan_conn(addr, conns)  # connected before the burst starts
+            start.wait()
+            got[key] = raw_scan(addr, key, conns)
+        except Exception as exc:  # reported below
+            errs.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in keys]
+    before = device_tier_launches()
+    m.match_words.launches = 0
+    ctx = profile(activities=[ProfilerActivity.CUDA]) if profiled \
+        else contextlib.nullcontext()
+    for t in threads:
+        t.start()
+    with ctx as prof:
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for c in conns.values():
+        c.close()
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"burst failed: {errs[:3]}")
+    after = device_tier_launches()
+    out = {"responses": got, "wall_s": wall,
+           "launches": m.match_words.launches,
+           "per_tier": {k: after[k] - before[k] for k in after}}
+    if profiled:
+        busy_ms, _ = device_busy_ms(prof)
+        out["device_busy_ms"] = busy_ms
+        out["match_kernel_ms"] = device_busy_ms(prof, "match_kernel")[0]
+        out["device_idle_share"] = 1 - busy_ms / 1e3 / wall
+    return out
+
+
+def burst(engine, p7: dict, tmp: str) -> dict:
+    """(c) a burst at full width, in process: a Server on the engine the
+    process holds (phase 7's 2 M DB on the card), N_BURST seeded blobs
+    scanned from N_BURST threads at once through the match scheduler
+    (traced), each response held against the same artifact scanned
+    alone afterwards and against a burst through a TRIVY_TPU_SCHED=0
+    server on the same engine."""
+    from trivy_tpu_torch.cache.cache import MemoryCache
+    from trivy_tpu_torch.rpc.server import Server
+
+    t0 = time.perf_counter()
+    blobs = burst_blobs(p7["sbom"], random.Random(BURST_SEED))
+    cache = MemoryCache()
+    keys = []
+    for i, blob in enumerate(blobs):
+        key = f"sha256:burst{i:02d}"
+        cache.put_blob(key, blob)
+        keys.append(key)
+    sizes = [sum(len(h["packages"]) for h in b["package_infos"]
+                 + b["applications"]) for b in blobs]
+    setup_s = time.perf_counter() - t0
+    out: dict = {"packages": sizes, "setup_s": setup_s}
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    try:
+        srv = Server(engine, cache, host="127.0.0.1", port=0)
+        srv.start()
+        try:
+            sched = srv.service.scheduler
+            out["sched"] = r = burst_run(srv.address, keys, profiled=True)
+            out["stats"] = dict(sched.stats)
+            alone = {}
+            conns: dict = {}
+            t1 = time.perf_counter()
+            for key in keys:
+                alone[key] = raw_scan(srv.address, key, conns)
+            out["alone_wall_s"] = time.perf_counter() - t1
+            for c in conns.values():
+                c.close()
+            out["alone_diff"] = sum(alone[k] != r["responses"][k]
+                                    for k in keys)
+            out["sheds"] = srv.service.metrics.scans_shed_total
+        finally:
+            srv.shutdown()
+        os.environ["TRIVY_TPU_SCHED"] = "0"
+        try:
+            srv0 = Server(engine, cache, host="127.0.0.1", port=0)
+        finally:
+            os.environ.pop("TRIVY_TPU_SCHED", None)
+        srv0.start()
+        try:
+            if srv0.service.scheduler is not None:
+                raise AssertionError("TRIVY_TPU_SCHED=0 kept a scheduler")
+            out["unsched"] = u = burst_run(srv0.address, keys,
+                                           profiled=False)
+        finally:
+            srv0.shutdown()
+    finally:
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+    out["unsched_diff"] = sum(u["responses"][k] != r["responses"][k]
+                              for k in keys)
+    out["response_mb"] = sum(len(v) for v in r["responses"].values()) / 1e6
+    return out
+
+
+def reload_gen(root: str, name: str, db) -> str:
+    from trivy_tpu_torch.db import generations
+
+    gen = os.path.join(generations.generations_root(root), name)
+    os.makedirs(gen)
+    if db is None:  # a torn download: not gzip, with new metadata
+        with open(os.path.join(gen, "trivy_tpu.db.json.gz"), "wb") as f:
+            f.write(b"\x1f\x8bthis is not gzip data")
+        with open(os.path.join(gen, "metadata.json"), "w") as f:
+            json.dump({"Version": 2, "UpdatedAt": "2024-03-03T00:00:00Z"},
+                      f)
+    else:
+        db.save(gen)
+    generations.promote(root, gen)
+    return gen
+
+
+def hot_reload(dev, tmp: str) -> dict:
+    """(d) the hot reload on the card: a service on a generation root of
+    20,000 advisories; a second generation of 25,000 promoted and
+    reloaded (the engine stays the port's MatchEngine on the same
+    device, and a rescan equals a fresh port engine on the new DB); a
+    corrupt third generation quarantined while last-good serves."""
+    import dataclasses
+
+    from trivy_tpu_torch.cache.cache import MemoryCache
+    from trivy_tpu_torch.db import AdvisoryDB, generations
+    from trivy_tpu_torch.detector.engine import MatchEngine
+    from trivy_tpu_torch.rpc import wire
+    from trivy_tpu_torch.rpc.server import ScanService
+    from trivy_tpu_torch.sbom.decode import decode_sbom_file
+    from trivy_tpu_torch.tensorize.synth import synth_sbom, synth_trivy_db
+    from trivy_tpu_torch.types.scan import ScanOptions
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "reload_db")
+    dbs = []
+    for n, updated in zip(RELOAD_ADVISORIES, ("2024-01-01T00:00:00Z",
+                                              "2024-02-02T00:00:00Z")):
+        db = synth_trivy_db(n_advisories=n, seed=RELOAD_SEED)
+        db.meta.updated_at = updated
+        dbs.append(db)
+    bom = os.path.join(tmp, "reload_bom.json")
+    with open(bom, "w") as f:
+        json.dump(synth_sbom(dbs[1], 200, 300, 100, seed=RELOAD_SEED,
+                             os_bucket=SBOM_OS_BUCKET,
+                             os_version=SBOM_OS_VERSION), f)
+    blob, _meta = decode_sbom_file(bom)
+    cache = MemoryCache()
+    cache.put_blob("sha256:reload", dataclasses.asdict(blob))
+    reload_gen(root, "sha256-aaa", dbs[0])
+    engine = MatchEngine(AdvisoryDB.load(root), device=dev, db_path=root)
+    svc = ScanService(engine, cache, db_path=root)
+    fresh_svc = None
+
+    def scan(service) -> bytes:
+        return wire.scan_response(*service.scan(
+            "reload", "", ["sha256:reload"], ScanOptions()))
+
+    try:
+        first = scan(svc)
+        good = reload_gen(root, "sha256-bbb", dbs[1])
+        t1 = time.perf_counter()
+        swapped = svc.maybe_reload_db()
+        swap_s = time.perf_counter() - t1
+        new = svc.engine
+        second = scan(svc)
+        fresh = MatchEngine(AdvisoryDB.load(root), device=dev)
+        fresh_svc = ScanService(fresh, cache)
+        want = scan(fresh_svc)
+        bad = reload_gen(root, "sha256-ccc", None)
+        rejected = not svc.maybe_reload_db()
+        third = scan(svc)
+        quarantined = any(
+            n.startswith("sha256-ccc" + generations.QUARANTINE_SUFFIX)
+            for n in os.listdir(generations.generations_root(root)))
+        ok_note = svc.ready()
+    finally:
+        svc.close()
+        if fresh_svc is not None:
+            fresh_svc.close()
+    out = {
+        "swapped": swapped, "swap_s": swap_s,
+        "engine_class": f"{type(new).__module__}.{type(new).__name__}",
+        "device": str(new.device), "device_before": str(engine.device),
+        "findings_before": first.count(b'"vulnerability_id"'),
+        "findings_after": second.count(b'"vulnerability_id"'),
+        "rescan_equals_fresh": second == want,
+        "corrupt_rejected": rejected,
+        "corrupt_quarantined": quarantined and not os.path.isdir(bad),
+        "serving_last_good": os.path.realpath(generations.resolve(root))
+        == os.path.realpath(good) and third == second,
+        "ready": ok_note[0], "ready_note": ok_note[1],
+        "reloads": svc.metrics.db_reloads_total,
+        "reload_failures": svc.metrics.db_reload_failures_total,
+        "wall_s": time.perf_counter() - t0,
+    }
+    return out
+
+
+def server_path(dev, srv: dict, p7: dict, p8: dict, p9: dict,
+                tmp: str) -> dict:
+    """Phase 12: the scan server and client mode on the card. (a)
+    `python -m trivy_tpu_torch server` on phase 7's DB, started before
+    phase 11 (`start_server`) so that its DB load overlaps it; (d) the
+    hot reload runs in process; once (a) is ready, (b) its CLI clients
+    start as subprocesses and, while they run, (c) the burst runs in
+    process (the launch counts and the trace are this process's own);
+    then (e) (a)'s SIGTERM drain."""
+    from trivy_tpu_torch.cli import run
+
+    card = card_line()
+    engine = next((e for e in run._ENGINE_CACHE.values()
+                   if e.use_device), None)
+    procs: dict = {}
+    try:
+        if engine is None:
+            raise AssertionError("no device engine left from phase 7")
+        d = hot_reload(dev, tmp)
+        print(f"phase12 (d) reload card={card!r} {json.dumps(d)}")
+        if not (d["swapped"] and d["rescan_equals_fresh"]
+                and d["corrupt_rejected"] and d["corrupt_quarantined"]
+                and d["serving_last_good"] and d["ready"]
+                and d["engine_class"]
+                == "trivy_tpu_torch.detector.engine.MatchEngine"
+                and d["device"] == d["device_before"] == str(dev)):
+            raise AssertionError(f"hot reload: {d}")
+
+        ready_s = wait_ready(srv)
+        hit = "compiled-DB cache hit" in tail(srv["log"], 1 << 22)
+        listening = listening_after_s(srv)
+        print(f"phase12 (a) server card={card!r} ready_by_s={ready_s:.3f} "
+              f"listening_after_s={listening} compiled_cache_hit={hit}")
+        if not hit:
+            raise AssertionError("the server did not load phase 7's "
+                                 "compiled entry: " + tail(srv["log"]))
+        t0 = time.perf_counter()
+        procs = start_clients(srv, p7, p8, p9, tmp)
+
+        c = burst(engine, p7, tmp)
+        s, u = c["sched"], c["unsched"]
+        print(f"phase12 (c) burst card={card!r} scans={N_BURST} "
+              f"packages={json.dumps(c['packages'])} "
+              f"setup_s={c['setup_s']:.3f} response_mb="
+              f"{c['response_mb']:.3f}")
+        print(f"phase12 (c) burst sched wall_s={s['wall_s']:.3f} "
+              f"stats={json.dumps(c['stats'])} launches_per_tier="
+              f"{json.dumps(s['per_tier'])} device_busy_ms="
+              f"{s['device_busy_ms']:.3f} match_kernel_ms="
+              f"{s['match_kernel_ms']:.3f} device_idle_share="
+              f"{s['device_idle_share']:.6f}")
+        print(f"phase12 (c) burst unsched wall_s={u['wall_s']:.3f} "
+              f"launches_per_tier={json.dumps(u['per_tier'])} "
+              f"diff_vs_sched={c['unsched_diff']} alone_diff="
+              f"{c['alone_diff']} alone_wall_s={c['alone_wall_s']:.3f} "
+              f"sheds={c['sheds']} burst_s="
+              f"{time.perf_counter() - t0:.3f}")
+        if c["unsched_diff"] or c["alone_diff"]:
+            raise AssertionError("burst responses differ from the "
+                                 "unscheduled or the lone scans")
+        if c["stats"]["coalesced"] <= 1 or c["stats"]["sheds"] or \
+                c["sheds"]:
+            raise AssertionError(f"burst: no coalescing or a shed: "
+                                 f"{c['stats']}")
+        if not all(s["per_tier"].values()):
+            raise AssertionError("burst: a match tier was never launched")
+
+        b = collect_clients(procs)
+        procs = {}
+        for name, r in b.items():
+            print(f"phase12 (b) client={name} card={card!r} "
+                  f"{json.dumps(r)}")
+        print(f"phase12 (b) clients wall_s={time.perf_counter() - t0:.3f}")
+        if any(r["diff_vs_standalone"] for r in b.values()):
+            raise AssertionError("a client report differs from the "
+                                 "standalone one")
+        if any(r["match"] for r in b.values()):
+            raise AssertionError("a client launched the match kernel")
+        for name in ("image", "image_custom", "fs"):
+            kernel = "conv" if name == "image_custom" else "anchor"
+            lane = b[name]["lane"] or {}
+            if not b[name][kernel] or not lane.get("batches"):
+                raise AssertionError(f"client {name}: no {kernel} launch "
+                                     f"through the secret lane: {b[name]}")
+    finally:
+        for proc, *_rest in procs.values():
+            proc.kill()
+            proc.wait(timeout=30)
+        e = stop_server(srv)
+    print(f"phase12 (e) drain card={card!r} rc={e['rc']} "
+          f"stop_s={e['stop_s']:.3f} drain_timeout_s={DRAIN_TIMEOUT_S:g}")
+    if e["rc"] != 0 or e["stop_s"] > DRAIN_TIMEOUT_S:
+        raise AssertionError(f"SIGTERM drain: {e}" + tail(srv["log"]))
+    return {"burst": c, "reload": d, "clients": b, "ready_s": ready_s,
+            "drain": e}
+
+
 def main() -> int:
     import torch
 
@@ -3148,6 +3761,7 @@ def main() -> int:
     import tempfile
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    srv = None
     try:
         t0 = time.perf_counter()
         p7 = sbom_cli_path(p3.pop("db"), work)
@@ -3165,10 +3779,19 @@ def main() -> int:
         p10 = report_cli_path(p7, p9, work)
         print(f"phase10 seconds={time.perf_counter() - t0:.3f}")
 
+        # phase 12's server loads phase 7's DB while phase 11 runs
+        srv = start_server(p7["db_root"], work)
         t0 = time.perf_counter()
         p11 = repo_vm_cli_path(p5, p7, p8, work)
         print(f"phase11 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p12 = server_path(dev, srv, p7, p8, p9, work)
+        print(f"phase12 seconds={time.perf_counter() - t0:.3f}")
     finally:
+        if srv is not None and srv["proc"].poll() is None:
+            srv["proc"].kill()
+            srv["proc"].wait(timeout=30)
         shutil.rmtree(work, ignore_errors=True)
     fs_launches = {name: r["launches"] for name, r in p8["runs"].items()}
     image_launches = {name: r["launches"]
@@ -3204,6 +3827,11 @@ def main() -> int:
                               for k, v in repo_launches.items()},
         "launches_vm_cli": {k: v["match_per_tier"]
                             for k, v in vm_launches.items()},
+        "launches_server": {
+            "burst_sched": p12["burst"]["sched"]["per_tier"],
+            "burst_unsched": p12["burst"]["unsched"]["per_tier"],
+            "clients": {k: r["match"] for k, r in
+                        p12["clients"].items()}},
         "tiers": p3["timings"],
     }]
     for name, source, replaces, launches in (
@@ -3226,6 +3854,8 @@ def main() -> int:
             "launches_repo_cli": {k: v[name]
                                   for k, v in repo_launches.items()},
             "launches_vm_cli": {k: v[name] for k, v in vm_launches.items()},
+            "launches_server_clients": {
+                k: r.get(name, 0) for k, r in p12["clients"].items()},
             "ms": t["ms"], "kernel_device_ms": t["kernel_device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -208,7 +208,7 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--trace"], ["--mesh", "2x1"],
-                                  ["--server", "http://localhost:1"],
+                                  ["--fallback"],
                                   ["--ignore-policy", "p.yaml"],
                                   ["--compliance", "docker-cis-1.6.0"]])
 def test_unported_flags_are_refused(golden_env, flag):

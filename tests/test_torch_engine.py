@@ -253,9 +253,11 @@ def _forbidden(name: str) -> bool:
 
 def test_port_imports_no_jax_in_a_fresh_process():
     """Importing the port, running a CPU detect, a CPU secret scan on
-    every path, the keyword prefilter and a CPU sbom scan through the
-    port's CLI (DB save and load, compiled-DB cache, native collect)
-    loads no jax module and nothing of the JAX package."""
+    every path, the keyword prefilter, a CPU sbom scan through the
+    port's CLI (DB save and load, compiled-DB cache, native collect) and
+    a client scan against an in-process port server (the scheduler, the
+    JSON and columnar wires, Twirp) loads no jax module and nothing of
+    the JAX package."""
     code = """
 import sys
 before = set(sys.modules)
@@ -287,6 +289,23 @@ for _ in range(2):
     assert main(["sbom", tmp + "/bom.json", "--db-path", tmp + "/db",
                  "--cache-dir", tmp + "/c", "--device", "cpu", "--quiet",
                  "--format", "json", "--output", tmp + "/r.json"]) == 0
+from trivy_tpu_torch.cache.cache import MemoryCache
+from trivy_tpu_torch.rpc import twirp
+from trivy_tpu_torch.rpc.client import RemoteCache, RemoteDriver, close_pool
+from trivy_tpu_torch.rpc.server import Server
+from trivy_tpu_torch.types.scan import ScanOptions
+srv = Server(engine, MemoryCache(), host="127.0.0.1", port=0)
+srv.start()
+try:
+    RemoteCache(srv.address).put_blob("sha256:b", {"schema_version": 2})
+    for _ in range(2):  # the JSON wire, then the columnar one
+        RemoteDriver(srv.address).scan("t", "", ["sha256:b"], ScanOptions())
+    assert srv.service.scheduler.stats["batches"] == 0  # no packages
+    assert twirp.encode_message("OS", {"family": "debian"})
+finally:
+    close_pool()
+    srv.shutdown()
+scanner.close()
 print("\\n".join(sorted(set(sys.modules) - before)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -298,6 +317,10 @@ print("\\n".join(sorted(set(sys.modules) - before)))
     assert "trivy_tpu_torch.secret.stream" in loaded
     assert "trivy_tpu_torch.cli.run" in loaded
     assert "trivy_tpu_torch.tensorize.cache" in loaded
+    for module in ("rpc.server", "rpc.client", "rpc.wire", "rpc.columnar",
+                   "rpc.twirp", "sched.scheduler", "resilience.faults",
+                   "resilience.retry", "obs.usage"):
+        assert f"trivy_tpu_torch.{module}" in loaded, module
     assert "trivy_tpu_torch.native.collect" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -310,8 +333,9 @@ PORT_SOURCES = sorted(
 
 def test_static_scan_covers_every_slice():
     """The static scan below walks every port source, those of the image
-    and db slice, of the report, VEX and attestation slice and of the
-    repository and vm slice included."""
+    and db slice, of the report, VEX and attestation slice, of the
+    repository and vm slice and of the server and scheduler slice
+    included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -323,7 +347,11 @@ def test_static_scan_covers_every_slice():
                    "attestation/rekor.py", "fanal/unpackaged.py",
                    "artifact/repo.py", "artifact/vm.py",
                    "fanal/vm/__init__.py", "fanal/vm/disk.py",
-                   "fanal/vm/ext4.py", "fanal/vm/xfs.py", "fanal/vm/ebs.py"):
+                   "fanal/vm/ext4.py", "fanal/vm/xfs.py", "fanal/vm/ebs.py",
+                   "resilience/retry.py", "resilience/faults.py",
+                   "obs/usage.py", "sched/scheduler.py", "rpc/wire.py",
+                   "rpc/columnar.py", "rpc/twirp.py", "rpc/server.py",
+                   "rpc/client.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

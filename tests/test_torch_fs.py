@@ -383,7 +383,7 @@ def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
 @pytest.mark.parametrize("cmd", ["sbom", "fs", "rootfs"])
 @pytest.mark.parametrize("doc", ["compliance: docker-cis-1.6.0\n",
                                  "scan:\n  license-full: true\n",
-                                 "server: http://localhost:4954\n"])
+                                 "fallback: true\n"])
 def test_unported_option_from_config_file_is_refused(dbs, mk_rootfs,
                                                      tmp_path, capsys, cmd,
                                                      doc):
@@ -489,7 +489,7 @@ def test_ported_options_from_env_and_config_equal_reference(
 
 
 @pytest.mark.parametrize("flag", [["--ignore-policy", "p.yaml"],
-                                  ["--server", "http://h:1"],
+                                  ["--fallback"],
                                   ["--license-full"], ["--trace"]])
 def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):
     with pytest.raises(SystemExit) as exc, \

@@ -969,7 +969,7 @@ def test_image_parser_is_the_reference_minus_unported():
 
 @pytest.mark.parametrize("dest,value", [("targets", "targets.txt"),
                                         ("journal", "scan.jsonl"),
-                                        ("server", "http://localhost:1")])
+                                        ("resume", "j.jsonl")])
 def test_fleet_options_from_env_are_refused(seeded, tmp_path, capsys,
                                             monkeypatch, dest, value):
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
@@ -1002,7 +1002,7 @@ def test_fleet_options_from_config_are_refused(seeded, tmp_path, capsys,
 @pytest.mark.parametrize("flag", [["--targets", "t.txt"],
                                   ["--journal", "j.jsonl"],
                                   ["--resume", "j.jsonl"],
-                                  ["--server", "http://h:1"]])
+                                  ["--fleet-parallel", "4"]])
 def test_fleet_flags_are_refused_on_argv(seeded, flag):
     with pytest.raises(SystemExit) as exc, \
             contextlib.redirect_stderr(io.StringIO()):

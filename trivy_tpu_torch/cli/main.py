@@ -1,7 +1,7 @@
 """trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
-`rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db` and
-`version` subcommands of trivy_tpu/cli/main.py, with the match kernel
-and the secret screens on a CUDA card.
+`rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db`, `server`
+and `version` subcommands of trivy_tpu/cli/main.py, with the match
+kernel and the secret screens on a CUDA card.
 
     python -m trivy_tpu_torch image --input image.tar --format sarif
     python -m trivy_tpu_torch sbom bom.json --format json --vex vex.json
@@ -10,6 +10,8 @@ and the secret screens on a CUDA card.
     python -m trivy_tpu_torch vm disk.vmdk --format json
     python -m trivy_tpu_torch convert report.json --format spdx-json
     python -m trivy_tpu_torch db import advisories.json --db-path DB
+    python -m trivy_tpu_torch server --listen 0.0.0.0:4954 --db-path DB
+    python -m trivy_tpu_torch image --input image.tar --server http://host:4954
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -100,10 +102,21 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--timeout", default="5m",
                    help="per-scan deadline (e.g. 300s, 5m, 1h; "
                         "reference --timeout default 5m)")
+    p.add_argument("--scan-timeout", default=None,
+                   help="per-scan deadline BUDGET propagated through the "
+                        "scan spine and to the server via the "
+                        "X-Trivy-Deadline header; the server sheds work "
+                        "it cannot finish in time (503 + Retry-After). "
+                        "Go-style duration; unset = no budget")
     p.add_argument("--parallel", type=int, default=5,
                    help="number of parallel analysis workers (an "
                         "image's layer walk lanes; the directory walk "
                         "is serial in both packages)")
+    p.add_argument("--server", default=None,
+                   help="scan server URL (client mode): analysis runs "
+                        "here, detection on the server (one URL; a "
+                        "replica set is not ported yet)")
+    p.add_argument("--token", default=None, help="server auth token")
     p.add_argument("--cache-backend", default="fs",
                    help="cache backend: fs or memory")
     p.add_argument("--skip-files", action="append", default=[])
@@ -179,6 +192,44 @@ def _add_db_parser(sub) -> None:
     pj.add_argument("source")
 
 
+def _add_server_parser(sub) -> None:
+    from trivy_tpu_torch.sched.scheduler import (
+        DEFAULT_MAX_ROWS,
+        DEFAULT_WINDOW_MS,
+    )
+
+    p = sub.add_parser("server", help="run the scan server",
+                       allow_abbrev=False)
+    _add_global_flags(p)
+    p.add_argument("--listen", default="localhost:4954")
+    p.add_argument("--token", default=None)
+    p.add_argument("--db-path", default=None)
+    p.add_argument("--no-tpu", action="store_true",
+                   help="match on the host instead of the match kernel "
+                        "(needs no card)")
+    p.add_argument("--device", default=None,
+                   help="torch device of the match kernel (default "
+                        "cuda:0; 'cpu' runs its plain version)")
+    p.add_argument("--drain-timeout", default="30s",
+                   help="graceful-drain budget on SIGTERM: /readyz goes "
+                        "503 immediately, in-flight scans get this long "
+                        "to finish, the rest are shed with Retry-After "
+                        "(go-style duration)")
+    p.add_argument("--sched-window-ms", type=float,
+                   default=DEFAULT_WINDOW_MS,
+                   help="match-scheduler coalesce window: max "
+                        "milliseconds a scan's detect batch waits to "
+                        "share a device micro-batch with concurrent "
+                        "requests (TRIVY_TPU_SCHED=0 disables the "
+                        "scheduler entirely — exact per-request path)")
+    p.add_argument("--sched-max-rows", type=int,
+                   default=DEFAULT_MAX_ROWS,
+                   help="match-scheduler target micro-batch size in "
+                        "package-query rows; larger requests are "
+                        "chunk-interleaved across batches so small "
+                        "scans are never starved")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         allow_abbrev=False,
@@ -212,6 +263,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--severity", "-s", default=None)
     p.add_argument("report")
     _add_db_parser(sub)
+    _add_server_parser(sub)
     sub.add_parser("version", help="print version", allow_abbrev=False)
     return parser
 
@@ -246,6 +298,8 @@ def main(argv: list[str] | None = None) -> int:
             return run.run_db(args)
         if args.command == "convert":
             return run.run_convert(args)
+        if args.command == "server":
+            return run.run_server(args)
         return run.run_scan(args)
     except run.FatalError as e:
         log.logger().error(str(e))

@@ -2,12 +2,14 @@
 report -> exit code (reference pkg/commands/artifact/run.go Runner).
 
 Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
-`filesystem` / `fs`, `rootfs`, `repository` / `repo` and `vm` scans
-and the `convert` and `db` subcommands: no fleet mode (`--targets`, `--journal`), monitor index,
-compliance, modules, ignore policies, mesh, server client or tracing
-yet. The match engine and the secret analyzer's screen run on the
-device `--device` names (``cuda:0`` by default); `--no-tpu` takes the
-host paths of both.
+`filesystem` / `fs`, `rootfs`, `repository` / `repo` and `vm` scans,
+their client mode (`--server`: analysis here, detection on one scan
+server; no `--fallback`), and the `convert`, `db` and `server`
+subcommands: no fleet mode (`--targets`, `--journal`), monitor index,
+compliance, modules, ignore policies, mesh or tracing yet. The match
+engine and the secret analyzer's screen run on the device `--device`
+names (``cuda:0`` by default); `--no-tpu` takes the host paths of
+both.
 
 `STATS` keeps the wall seconds of the last scan's phases, split by this
 module's own code: DB load, engine build (compile or compiled-cache
@@ -40,6 +42,17 @@ STATS: dict = {}
 
 class FatalError(Exception):
     pass
+
+
+def _validate_fault_spec() -> None:
+    """Fail fast on a malformed or unported TRIVY_TPU_FAULTS before any
+    scan work."""
+    from trivy_tpu_torch.resilience import faults
+
+    try:
+        faults.validate_env()
+    except faults.FaultSpecError as e:
+        raise FatalError(f"TRIVY_TPU_FAULTS: {e}")
 
 
 def _severities(arg: str | None) -> list[Severity] | None:
@@ -152,6 +165,7 @@ def run_scan(args) -> int:
     STATS.clear()
     t0 = time.perf_counter()
     normalize_args(args)
+    _validate_fault_spec()
 
     # --no-tpu forces the host path; the default is "hybrid" (device
     # screen + concurrent host AC; host-only when the screen's device
@@ -229,18 +243,31 @@ def _parse_duration(spec: str | None) -> float:
     return total
 
 
-def _scan_with_timeout(scanner, options, timeout_s: float):
+def _scan_with_timeout(scanner, options, timeout_s: float,
+                       budget_s: float | None = None):
     """Per-scan deadline (reference artifact/run.go:338 ctx timeout).
     The scan runs in a worker thread; on deadline the CLI fails with the
     reference's DeadlineExceeded advice (the worker, being a daemon
-    thread, cannot outlive the process)."""
+    thread, cannot outlive the process). `budget_s` (--scan-timeout)
+    additionally arms the cooperative deadline budget that propagates
+    through the scan spine and to the server via X-Trivy-Deadline —
+    the scope is entered inside the worker because it is thread-local."""
     import threading
 
     box: dict = {}
 
     def work():
         try:
-            box["report"] = scanner.scan_artifact(options)
+            if budget_s:
+                from trivy_tpu_torch.resilience.retry import (
+                    Deadline,
+                    deadline_scope,
+                )
+
+                with deadline_scope(Deadline.after(budget_s)):
+                    box["report"] = scanner.scan_artifact(options)
+            else:
+                box["report"] = scanner.scan_artifact(options)
         except BaseException as exc:  # re-raised on the main thread
             box["error"] = exc
 
@@ -271,18 +298,24 @@ def _build_cache(args):
 
 
 def _scan_target(args, cache):
-    """Build the scanner for args.target and run it under --timeout ->
-    raw (unfiltered) Report."""
+    """Build the scanner for args.target and run it under the timeout /
+    budget flags -> raw (unfiltered) Report."""
+    from trivy_tpu_torch.resilience.retry import DeadlineExceeded
     from trivy_tpu_torch.scanner.scan import Scanner
 
     options = make_scan_options(args)
     timeout_s = _parse_duration(getattr(args, "timeout", None))
+    budget_spec = getattr(args, "scan_timeout", None)
+    budget_s = _parse_duration(budget_spec) if budget_spec else None
     artifact, driver = _select_scanner(args, cache)
-    report = _scan_with_timeout(Scanner(driver, artifact), options,
-                                timeout_s)
-    STATS.update(apply_s=driver.stats["apply_s"],
-                 detect_s=driver.stats["detect_s"],
-                 **getattr(artifact, "stats", {}))
+    try:
+        report = _scan_with_timeout(Scanner(driver, artifact), options,
+                                    timeout_s, budget_s=budget_s)
+    except DeadlineExceeded as e:
+        raise FatalError(
+            f"scan deadline exceeded: {e} (increase --scan-timeout)")
+    # a client-mode scan's apply and detect phases run on the server
+    STATS.update(**driver.stats, **getattr(artifact, "stats", {}))
     return report
 
 
@@ -372,16 +405,24 @@ def _postprocess_report(args, report):
 
 
 def _select_scanner(args, cache):
-    """reference pkg/commands/artifact/scanner.go: artifact kind ->
-    (artifact, driver). Every scan kind of the reference but the
-    config scan is ported."""
-    from trivy_tpu_torch.scanner.local import LocalDriver
-
+    """reference pkg/commands/artifact/scanner.go: artifact kind x
+    standalone/client -> (artifact, driver). Every scan kind of the
+    reference but the config scan is ported."""
     cmd = args.command
     if cmd not in ("image", "sbom", "filesystem", "fs", "rootfs",
                    "repository", "repo", "vm"):
         raise FatalError(f"unsupported scan command {cmd!r}")
-    driver = LocalDriver(build_engine(args), cache)
+    if getattr(args, "server", None):
+        from trivy_tpu_torch.rpc.client import RemoteCache, RemoteDriver
+
+        driver = RemoteDriver(args.server, token=args.token)
+        # analysis runs client-side but blobs land in the SERVER's cache
+        # (reference pkg/commands/artifact/scanner.go remote scanners)
+        cache = RemoteCache(args.server, token=args.token)
+    else:
+        from trivy_tpu_torch.scanner.local import LocalDriver
+
+        driver = LocalDriver(build_engine(args), cache)
     if cmd == "sbom":
         from trivy_tpu_torch.artifact.sbom import SBOMArtifact
 
@@ -464,6 +505,26 @@ def _select_scanner(args, cache):
         secret_config=getattr(args, "secret_config", None),
         file_patterns=getattr(args, "file_patterns", []),
     ), driver
+
+
+def run_server(args) -> int:
+    """`server`: load the DB, build the engine on the card (`--device`;
+    `--no-tpu` matches on the host) and serve until SIGTERM, which
+    drains in-flight scans within `--drain-timeout`."""
+    from trivy_tpu_torch.cache.cache import FSCache
+    from trivy_tpu_torch.rpc.server import serve
+
+    _validate_fault_spec()
+    engine = new_engine(args)
+    host, _, port = args.listen.partition(":")
+    serve(engine, host=host or "localhost", port=int(port or 4954),
+          token=args.token, cache=FSCache(args.cache_dir),
+          db_path=_db_path(args),
+          drain_timeout=_parse_duration(
+              getattr(args, "drain_timeout", None) or "30s"),
+          sched_window_ms=getattr(args, "sched_window_ms", None),
+          sched_max_rows=getattr(args, "sched_max_rows", None))
+    return 0
 
 
 def run_convert(args) -> int:

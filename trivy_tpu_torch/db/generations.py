@@ -20,10 +20,10 @@ Invariants:
 - `last-good` only ever points at a generation that passed validation,
   and is swapped via symlink-rename, never edited in place.
 
-Copy of trivy_tpu/db/generations.py with the reader side and what `db
+Copy of trivy_tpu/db/generations.py with the reader side, what `db
 download` (`db/oci.py` `install_artifact`) needs to install and promote
-a generation; the server's quarantine and generation listing are not
-ported yet.
+a generation, and the server's quarantine of a rejected one; the
+generation listing is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +33,9 @@ import os
 import time
 
 from trivy_tpu_torch.durability import atomic
+from trivy_tpu_torch.log import logger
+
+_log = logger("db.generations")
 
 GENERATIONS_DIR = "generations"
 LAST_GOOD = "last-good"
@@ -79,6 +82,29 @@ def promote(db_root: str, gen_dir: str) -> None:
     os.symlink(rel, tmp)
     os.replace(tmp, last_good_path(db_root))
     atomic.fsync_dir(db_root)
+
+
+def quarantine(db_root: str, gen_dir: str) -> str | None:
+    """Move a rejected generation aside so it is never served or
+    silently reinstalled; repairs last-good if it pointed there.
+    Returns the quarantine path (None when gen_dir is already gone)."""
+    if not os.path.isdir(gen_dir):
+        return None
+    dest = gen_dir.rstrip("/") + QUARANTINE_SUFFIX
+    n = 0
+    while os.path.exists(dest):
+        n += 1
+        dest = f"{gen_dir.rstrip('/')}{QUARANTINE_SUFFIX}.{n}"
+    os.rename(gen_dir, dest)
+    atomic.fsync_dir(os.path.dirname(gen_dir))
+    lg = last_good_path(db_root)
+    if os.path.islink(lg) and not os.path.isdir(lg):
+        # last-good dangled at the quarantined generation: drop it so
+        # readers fall back to the flat layout instead of ENOENT
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(lg)
+    _log.warn("quarantined advisory-DB generation", path=dest)
+    return dest
 
 
 def sweep_staging(db_root: str,

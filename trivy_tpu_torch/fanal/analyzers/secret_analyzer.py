@@ -73,11 +73,24 @@ class SecretAnalyzer(PostAnalyzer):
         # added to the scanner's device_stats
         self._last = threading.local()
 
+    def _drop_scanner(self) -> None:
+        """Forget the scanner (caller holds the lock), stopping its
+        secret-lane scheduler thread."""
+        if self._scanner is not None:
+            self._scanner.close()
+            self._scanner = None
+
+    def close(self) -> None:
+        """Stop the scanner's secret-lane thread (tests, embedding); the
+        next scan builds a fresh scanner."""
+        with self._lock:
+            self._drop_scanner()
+
     @property
     def scanner(self) -> SecretScanner:
         with self._lock:
             if self._scanner is not None and self._device != DEVICE:
-                self._scanner = None  # built for another device
+                self._drop_scanner()  # built for another device
             if self._scanner is None:
                 cfg = None
                 if self._config_path and os.path.exists(self._config_path):
@@ -92,7 +105,7 @@ class SecretAnalyzer(PostAnalyzer):
                 return  # unchanged config keeps the warm scanner (and
                 # its uploaded device bank) across scans
             self._config_path = config_path
-            self._scanner = None
+            self._drop_scanner()
 
     def last_scan(self) -> tuple[float, dict]:
         """(seconds, device_stats added) of this thread's last

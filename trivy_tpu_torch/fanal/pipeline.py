@@ -19,7 +19,10 @@ Two mechanisms attack the artifact-analysis share of an image scan:
    remaining window: two *concurrent* in-process scans that both miss
    the cache on the same blob_id coordinate so exactly one analyzes it;
    the rest wait on the completed BlobInfo document and replay it into
-   their own cache handle when it differs from the leader's.
+   their own cache handle when it differs from the leader's. The same
+   registry, in TTL mode, gates the RPC server's MissingBlobs endpoint
+   so concurrent *remote* clients sharing the server cache dedupe too
+   (rpc/server.py).
 
 ``TRIVY_TPU_ANALYSIS_PIPELINE=0`` disables both and restores the serial
 per-layer path byte-identically (artifact/image.py keeps the legacy loop
@@ -63,6 +66,12 @@ DEFAULT_WORKERS = 5
 #: the hard lane cap
 MAX_WORKERS = 32
 
+# a server-side MissingBlobs claim with no PutBlob after this long is
+# presumed dead (client crashed mid-analysis) and may be re-claimed
+SERVER_CLAIM_TTL_S = 300.0
+# total seconds one MissingBlobs request spends waiting on other
+# clients' in-flight layers before telling the caller to analyze them
+SERVER_WAIT_BUDGET_S = 10.0
 # in-process leaders always finish (try/finally), so this is a hang
 # guard, not a tuning knob
 _INPROC_WAIT_S = 600.0
@@ -105,37 +114,74 @@ def analysis_workers(requested: int | None = None) -> int:
 class _Slot:
     """One in-flight layer analysis other scans can wait on."""
 
-    __slots__ = ("event", "doc", "ok", "src_cache", "done")
+    __slots__ = ("event", "doc", "ok", "src_cache", "created", "done",
+                 "holder")
 
-    def __init__(self, src_cache):
+    def __init__(self, src_cache, holder=None):
         self.event = threading.Event()
         self.doc: dict | None = None
         self.ok = False
         self.src_cache = src_cache  # leader's cache handle (may be None)
+        self.created = time.monotonic()
         self.done = False
+        self.holder = holder        # opaque claimant identity (server
+        #                             gate: the scan's trace id)
 
 
 class LayerSingleflight:
     """blob_id-keyed in-flight registry: first claimer leads, the rest
-    wait on the leader's completed blob document. Leaders are code
-    paths with a try/finally around :meth:`finish`, so slots always
-    resolve. (The reference's server-gate mode, with claims that
-    expire, is not ported.)"""
+    wait on the leader's completed blob document.
 
-    def __init__(self):
+    Two modes share the implementation:
+
+    - in-process (``ttl_s=None``): leaders are code paths with a
+      try/finally around :meth:`finish`, so slots always resolve;
+    - server gate (``ttl_s`` set): leaders are remote clients that may
+      die between MissingBlobs and PutBlob, so a stale claim expires
+      and the next claimer takes over.
+    """
+
+    def __init__(self, ttl_s: float | None = None):
         self._lock = threading.Lock()
         self._inflight: dict[str, _Slot] = {}
+        self.ttl_s = ttl_s
 
-    def claim(self, blob_id: str, src_cache=None) -> tuple[_Slot, bool]:
+    def claim(self, blob_id: str, src_cache=None,
+              holder=None) -> tuple[_Slot, bool]:
         """-> (slot, is_leader). Leaders MUST eventually call
-        :meth:`finish` on their slot."""
+        :meth:`finish` on their slot (TTL mode excepted). A non-None
+        ``holder`` matching the live claim's holder re-leads instead of
+        waiting — a retried RPC (lost response, resent request) must
+        not park on its own first attempt's claim, which nobody else
+        will ever complete."""
+        now = time.monotonic()
         with self._lock:
             slot = self._inflight.get(blob_id)
+            if slot is not None and self.ttl_s is not None \
+                    and now - slot.created > self.ttl_s:
+                # presumed-dead leader: release its waiters (they
+                # re-probe and analyze) and take the claim over
+                slot.done = True
+                slot.event.set()
+                slot = None
+            if slot is not None and holder is not None \
+                    and slot.holder == holder:
+                slot.created = now  # idempotent re-claim extends TTL
+                return slot, True
             if slot is None:
-                slot = _Slot(src_cache)
+                if self.ttl_s is not None and len(self._inflight) > 1024:
+                    self._sweep_expired(now)
+                slot = _Slot(src_cache, holder=holder)
                 self._inflight[blob_id] = slot
                 return slot, True
             return slot, False
+
+    def _sweep_expired(self, now: float) -> None:
+        # caller holds the lock; TTL mode only
+        for bid in [b for b, s in self._inflight.items()
+                    if now - s.created > self.ttl_s]:
+            s = self._inflight.pop(bid)
+            s.event.set()
 
     def finish(self, blob_id: str, slot: _Slot, doc: dict | None = None,
                ok: bool = False) -> None:
@@ -150,6 +196,30 @@ class LayerSingleflight:
         slot.doc = doc
         slot.ok = ok
         slot.event.set()
+
+    def reclaim(self, blob_id: str, holder=None) -> None:
+        """Forcibly take over a claim whose holder is presumed dead
+        (a waiter timed out on it). The stale slot's waiters are
+        released (they re-probe and analyze); the fresh claim carries a
+        fresh TTL and resolves at the new holder's completion, so later
+        callers park on a live analysis instead of the ghost."""
+        with self._lock:
+            old = self._inflight.get(blob_id)
+            if old is not None:
+                old.done = True
+                old.event.set()
+            self._inflight[blob_id] = _Slot(None, holder=holder)
+
+    def complete(self, blob_id: str) -> None:
+        """Server-gate completion: a PutBlob for ``blob_id`` landed in
+        the shared cache, so any slot resolves successfully (no doc —
+        waiters re-probe the now-populated cache)."""
+        with self._lock:
+            slot = self._inflight.pop(blob_id, None)
+        if slot is not None:
+            slot.done = True
+            slot.ok = True
+            slot.event.set()
 
     def inflight(self) -> int:
         with self._lock:

@@ -47,7 +47,7 @@ _PAD_H1 = np.uint32(0xFFFFFFFF)
 _MASK32 = 0xFFFFFFFF
 _INT32_LIMIT = 1 << 31  # the kernel indexes rows and queries with int
 
-_count_lock = threading.Lock()  # guards the launch counters
+_count_lock = threading.Lock()  # guards the launch counters and bucket_floor
 
 
 def _words(window: int) -> int:
@@ -362,7 +362,9 @@ def match_dispatch(ddb: DeviceDB, batch: PackageBatch) -> Pending | None:
     b = len(batch.h1)
     if ddb.n_rows == 0 or b == 0:
         return None
-    ddb.bucket_floor = max(_bucket(b), ddb.bucket_floor)
+    # the match scheduler dispatches from more than one thread at once
+    with _count_lock:
+        ddb.bucket_floor = max(_bucket(b), ddb.bucket_floor)
     order, q = query_tensors(batch, ddb.device)
     words = match_words(ddb, *q)
     if words.device.type == "cpu":

@@ -1,0 +1,294 @@
+"""Deterministic, config-driven fault injector for the scan spine.
+
+A fault plan is a list of rules compiled from a compact spec string —
+either installed programmatically (tests) or read from the
+`TRIVY_TPU_FAULTS` environment variable (operators / CI fault matrices).
+Instrumented call sites ask `fire(site)` which rules apply to the current
+call; the injector itself never touches the network or the device, it
+only tells the call site what to simulate.
+
+Spec grammar (rules joined by ";" or ","):
+
+    rule     := site ":" action [ "=" param ] [ "@" selector ]
+    site     := "rpc" | "rpc.scan" | "rpc.cache" | "rpc.cache.PutBlob"
+                | "rpc.wire" | "sched.submit"
+                | ...  (dotted, prefix-matched)
+    action   := "drop" | "timeout" | "delay" | "error" | "corrupt"
+    selector := N        fire on the Nth matching call only (1-based)
+              | N "+"    fire on the Nth and every later call
+              | N "-" M  fire on calls N..M inclusive
+              | "p" F    fire with probability F (seeded, deterministic)
+              | (none)   fire on every matching call
+    seed     := "seed=" INT   (plan-wide RNG seed for "p" selectors;
+                               defaults to TRIVY_TPU_FAULT_SEED, then 0)
+
+Examples:
+
+    TRIVY_TPU_FAULTS="rpc.scan:drop"             # remote scans never land
+    TRIVY_TPU_FAULTS="rpc:error=503@1-2"         # first two RPCs get a 503
+    TRIVY_TPU_FAULTS="rpc.scan:delay=0.2@3+"     # slow from the 3rd scan on
+    TRIVY_TPU_FAULTS="seed=7;rpc:drop@p0.3"      # 30% drop, deterministic
+    TRIVY_TPU_FAULTS="sched.submit:error@1"      # first submission sheds
+
+Each rule keeps its own call counter, so selectors are deterministic per
+rule regardless of how many rules share a site.
+
+Copy of trivy_tpu/resilience/faults.py trimmed to the sites the port
+fires: the RPC client's (`rpc`, `rpc.scan`, `rpc.cache.*`, `rpc.wire`)
+and the match scheduler's (`sched.submit`). A rule naming any other
+site of the reference (`engine`, `secret.device`, `analysis.*`,
+`db.*`, ...), or an action its site does not handle, is refused with a
+FaultSpecError when the plan compiles: a rule is never accepted and
+then left to do nothing. No fault-fire metrics, no durability fault
+kinds (`kill`, `torn-write`, `bitflip`), no round trip of a plan back
+to a spec (the chaos campaign's shrinker is not ported).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import re
+import threading
+from dataclasses import dataclass, field
+
+ENV_VAR = "TRIVY_TPU_FAULTS"
+SEED_ENV_VAR = "TRIVY_TPU_FAULT_SEED"
+
+# the site grammar as structured data: each entry is (site, the actions
+# its call site handles). Sites are prefix-matched at fire() time, so
+# "rpc" covers every rpc.* child.
+SITES: tuple[tuple[str, tuple[str, ...]], ...] = (
+    ("rpc", ("drop", "timeout", "delay", "error", "corrupt")),
+    ("rpc.scan", ("drop", "timeout", "delay", "error", "corrupt")),
+    ("rpc.cache", ("drop", "timeout", "delay", "error", "corrupt")),
+    ("rpc.wire", ("drop", "delay", "error", "corrupt")),
+    ("sched.submit", ("drop", "delay", "error")),
+)
+
+ACTIONS = {a for _site, acts in SITES for a in acts}
+
+
+def site_actions(site: str) -> set[str] | None:
+    """The actions a rule naming `site` may use: those of the ported
+    site it names, or of the most specific ported site it extends
+    (``rpc.cache.PutBlob`` extends ``rpc.cache``), or of every ported
+    site it prefixes (``sched`` prefixes ``sched.submit``). None when
+    it reaches no site the port fires."""
+    acts = dict(SITES)
+    under = [name for name in acts
+             if site == name or site.startswith(name + ".")]
+    if under:
+        return set(acts[max(under, key=len)])
+    above = [a for name, a in SITES if name.startswith(site + ".")]
+    if above:
+        return set().union(*above)
+    return None
+
+
+class FaultError(Exception):
+    """Base class for injected faults."""
+
+
+class InjectedHTTPError(FaultError):
+    """Injected HTTP error response (site ``rpc*``, action ``error``)."""
+
+    def __init__(self, code: int):
+        super().__init__(f"injected HTTP {code}")
+        self.code = code
+
+
+class FaultSpecError(ValueError):
+    """The fault spec string does not parse."""
+
+
+_RULE_RX = re.compile(
+    r"(?P<site>[A-Za-z0-9_.]+):(?P<action>[a-z-]+)"
+    r"(?:=(?P<param>[0-9.]+))?"
+    r"(?:@(?P<sel>[0-9p.+-]+))?$"
+)
+
+
+@dataclass
+class Rule:
+    site: str
+    action: str
+    param: float | None = None
+    start: int = 1
+    stop: int | None = None  # inclusive; None = open-ended
+    prob: float | None = None
+    calls: int = field(default=0, compare=False)
+    fired: int = field(default=0, compare=False)
+
+    def fires(self, n: int, rng: random.Random) -> bool:
+        if self.prob is not None:
+            return rng.random() < self.prob
+        if n < self.start:
+            return False
+        return self.stop is None or n <= self.stop
+
+    def matches(self, site: str) -> bool:
+        return site == self.site or site.startswith(self.site + ".")
+
+
+def _parse_selector(sel: str | None) -> tuple[int, int | None, float | None]:
+    """-> (start, stop, prob)."""
+    if sel is None:
+        return 1, None, None
+    if sel.startswith("p"):
+        try:
+            prob = float(sel[1:])
+        except ValueError:
+            raise FaultSpecError(f"bad probability selector {sel!r}")
+        if not 0.0 <= prob <= 1.0:
+            raise FaultSpecError(f"probability out of [0,1]: {sel!r}")
+        return 1, None, prob
+    if sel.endswith("+"):
+        return int(sel[:-1]), None, None
+    if "-" in sel:
+        lo, _, hi = sel.partition("-")
+        start, stop = int(lo), int(hi)
+        if stop < start:
+            raise FaultSpecError(f"empty selector range {sel!r}")
+        return start, stop, None
+    n = int(sel)
+    return n, n, None
+
+
+class FaultPlan:
+    """A compiled fault spec; thread-safe (call counters live under one
+    lock so concurrent RPC workers see a consistent ordinal per rule)."""
+
+    def __init__(self, rules: list[Rule], seed: int = 0):
+        self.rules = list(rules)
+        self.seed = seed
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_spec(cls, spec: str) -> "FaultPlan":
+        """Compile a spec string.  When the spec carries no `seed=` token,
+        the plan-wide RNG seed for `@pF` selectors falls back to
+        TRIVY_TPU_FAULT_SEED (default 0), so probabilistic specs replay
+        deterministically without editing the spec itself."""
+        rules: list[Rule] = []
+        try:
+            seed = int(os.environ.get(SEED_ENV_VAR, "0"))
+        except ValueError:
+            raise FaultSpecError(
+                f"bad {SEED_ENV_VAR}={os.environ.get(SEED_ENV_VAR)!r}")
+        for tok in re.split(r"[;,]", spec):
+            tok = tok.strip()
+            if not tok:
+                continue
+            if tok.startswith("seed="):
+                try:
+                    seed = int(tok[5:])
+                except ValueError:
+                    raise FaultSpecError(f"bad seed {tok!r}")
+                continue
+            m = _RULE_RX.match(tok)
+            if not m:
+                raise FaultSpecError(f"bad fault rule {tok!r}")
+            action = m.group("action")
+            site = m.group("site")
+            acts = site_actions(site)
+            if acts is None:
+                raise FaultSpecError(
+                    f"fault site {site!r} in {tok!r} is not ported yet "
+                    f"(ported: {', '.join(n for n, _a in SITES)})")
+            if action not in acts:
+                raise FaultSpecError(
+                    f"fault action {action!r} is not handled at site "
+                    f"{site!r} (valid: {', '.join(sorted(acts))})")
+            try:
+                start, stop, prob = _parse_selector(m.group("sel"))
+            except ValueError as exc:
+                raise FaultSpecError(f"bad selector in {tok!r}: {exc}")
+            param = m.group("param")
+            rules.append(Rule(
+                site=site, action=action,
+                param=float(param) if param is not None else None,
+                start=start, stop=stop, prob=prob,
+            ))
+        return cls(rules, seed=seed)
+
+    def fire(self, site: str) -> list[Rule]:
+        """Which rules apply to this call at `site`? Increments the call
+        counter of every matching rule, firing or not."""
+        out: list[Rule] = []
+        with self._lock:
+            for r in self.rules:
+                if r.matches(site):
+                    r.calls += 1
+                    if r.fires(r.calls, self._rng):
+                        r.fired += 1
+                        out.append(r)
+        return out
+
+
+# ------------------------------------------------------------ module state
+
+_installed: FaultPlan | None = None
+_env_cache: tuple[str, FaultPlan] | None = None
+
+
+def install(plan: FaultPlan) -> FaultPlan:
+    """Activate a plan for the whole process (tests)."""
+    global _installed
+    _installed = plan
+    return plan
+
+
+def install_spec(spec: str) -> FaultPlan:
+    return install(FaultPlan.from_spec(spec))
+
+
+def reset() -> None:
+    global _installed, _env_cache
+    _installed = None
+    _env_cache = None
+
+
+def active() -> FaultPlan | None:
+    """The installed plan, else one compiled from TRIVY_TPU_FAULTS."""
+    if _installed is not None:
+        return _installed
+    spec = os.environ.get(ENV_VAR, "")
+    if not spec:
+        return None
+    global _env_cache
+    if _env_cache is None or _env_cache[0] != spec:
+        _env_cache = (spec, FaultPlan.from_spec(spec))
+    return _env_cache[1]
+
+
+def fire(site: str) -> list[Rule]:
+    plan = active()
+    return plan.fire(site) if plan is not None else []
+
+
+def validate_env() -> None:
+    """Compile the TRIVY_TPU_FAULTS spec now so an operator typo fails
+    at process startup with a clean FaultSpecError naming the bad rule,
+    not mid-scan at the first instrumented call site."""
+    spec = os.environ.get(ENV_VAR, "")
+    if spec:
+        FaultPlan.from_spec(spec)
+
+
+# ------------------------------------------------------------ site helpers
+
+def rpc_site(path: str) -> str:
+    """Map an RPC URL path onto a dotted fault site."""
+    tail = path.rsplit("/", 1)[-1]
+    if "/trivy.cache." in path:
+        return f"rpc.cache.{tail}"
+    if tail == "Scan":
+        return "rpc.scan"
+    return f"rpc.{tail}"
+
+
+def corrupt_bytes(raw: bytes) -> bytes:
+    """Deterministically mangle a response body so decoding fails."""
+    return b"\xff\x00corrupted\x00" + raw[: len(raw) // 2]

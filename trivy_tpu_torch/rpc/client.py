@@ -1,0 +1,591 @@
+"""RPC client: remote scan driver + remote cache
+(reference pkg/rpc/client/client.go + pkg/cache/remote.go).
+
+RemoteDriver implements the scanner Driver seam over HTTP; RemoteCache
+implements the ArtifactCache write interface so analysis results land in
+the server's cache. Transport is a persistent keep-alive
+http.client.HTTPConnection per thread (image walk lanes each hold their
+own socket), so a run pays TCP connect + handshake once per lane instead
+of once per request; a stale keep-alive socket (server closed it idle)
+is rebuilt transparently. Transient failures retry under a RetryPolicy
+with decorrelated jitter; 503 responses honor Retry-After; the ambient
+per-scan deadline budget (resilience.retry.deadline_scope) rides the
+X-Trivy-Deadline header and bounds both the per-request socket timeout
+and the total retry loop. Large bodies gzip under the wire.py
+negotiation, and the columnar wire (rpc/columnar.py) is used once the
+server advertises it. Fault-injection rules (resilience.faults) are
+consulted before every request so degraded-network behavior is testable
+deterministically.
+
+Copy of trivy_tpu/rpc/client.py for one server URL: the reference routes
+through the fleet's EndpointSet (replica sets, failover, hedging), which
+is not ported yet, so a comma-separated URL is refused. Default-
+configured clients share one pooled _Conn per (url, token). No tracing
+spans, metrics or usage meters.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import random
+import threading
+import urllib.error
+import urllib.request
+from urllib.parse import urlsplit
+
+from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.resilience import faults
+from trivy_tpu_torch.resilience.retry import (
+    DEADLINE_HEADER,
+    DeadlineExceeded,
+    RetryPolicy,
+    current_deadline,
+    parse_retry_after,
+)
+from trivy_tpu_torch.rpc import columnar as colwire
+from trivy_tpu_torch.rpc import wire
+from trivy_tpu_torch.rpc.server import CACHE_PREFIX, SCAN_PATH
+
+_log = logger("rpc.client")
+
+DEFAULT_RETRY = RetryPolicy(attempts=3, base_s=0.5, cap_s=10.0)
+
+# fault-injection site for the columnar wire negotiation itself: drop
+# renegotiates to JSON, error costs the columnar attempt (one retry,
+# then JSON), corrupt flips bytes in the outgoing frame so the server's
+# checksum reject drives the resend
+WIRE_SITE = "rpc.wire"
+
+
+class RPCError(Exception):
+    pass
+
+
+class _WireError(RPCError):
+    """Internal: an injected columnar wire error; retryable within
+    _post_attempts (never escapes it)."""
+
+
+class RPCUnavailable(RPCError):
+    """Transport-level / retries-exhausted failure: the endpoint did
+    not produce a definite answer. Distinct from a deterministic 4xx
+    RPCError."""
+
+
+class RPCBackpressure(RPCUnavailable):
+    """Retries exhausted against a server that was deliberately
+    shedding (503 + Retry-After from drain or overload)."""
+
+
+def single_url(url: str) -> str:
+    """The one server URL of `url`; raises ValueError (one line) for a
+    comma-separated replica set, which the port does not serve yet."""
+    urls = [u.strip() for u in (url or "").split(",") if u.strip()]
+    if len(urls) != 1:
+        raise ValueError(
+            f"--server {url!r}: a comma-separated replica set is not "
+            "ported yet (give one server URL)")
+    return urls[0]
+
+
+class _Conn:
+    def __init__(self, url: str, token: str | None = None,
+                 custom_headers: dict | None = None, timeout: float = 300.0,
+                 retry: RetryPolicy | None = None):
+        self.base = url.rstrip("/")
+        parts = urlsplit(self.base if "//" in self.base
+                         else "http://" + self.base)
+        self._https = parts.scheme == "https"
+        self._netloc = parts.netloc
+        self._path_prefix = parts.path.rstrip("/")
+        self.token = token
+        self.custom_headers = custom_headers or {}
+        self.timeout = timeout
+        self.retry = retry or DEFAULT_RETRY
+        self._rng = random.Random(self.retry.seed)
+        # one persistent keep-alive connection PER THREAD: walk lanes
+        # never share a socket (http.client is not thread-safe), and
+        # each lane amortizes its TCP connect across its whole run
+        self._tls = threading.local()
+        self._all_conns: set = set()
+        self._conns_lock = threading.Lock()
+        # sticky capability learned from the first response's
+        # X-Trivy-Gzip header: only then are REQUEST bodies gzipped
+        # (an old server must never see a gzip request body)
+        self._server_gzip = False
+        # same ladder for the columnar wire: only after a response
+        # carries X-Trivy-Columnar are REQUEST bodies sent columnar
+        # (an old server must never see a columnar request body)
+        self._server_columnar = False
+        # http_proxy/https_proxy/no_proxy targets go through urllib
+        # (which implements proxy routing); keep-alive sockets are for
+        # direct connections only
+        self._via_proxy = self._proxy_configured()
+
+    def _proxy_configured(self) -> bool:
+        proxies = urllib.request.getproxies()
+        scheme = "https" if self._https else "http"
+        if scheme not in proxies:
+            return False
+        host = self._netloc.rsplit("@", 1)[-1]
+        try:
+            return not urllib.request.proxy_bypass(host)
+        except OSError:
+            return True
+
+    # ------------------------------------------------------- transport
+
+    def _connection(self, timeout: float) -> http.client.HTTPConnection:
+        c = getattr(self._tls, "conn", None)
+        if c is not None and getattr(c, "_ttpu_close_deferred", False):
+            # a concurrent close() asked for teardown while this thread
+            # was mid-request: honor it now, then hand out a fresh conn
+            self._drop_connection()
+            c = None
+        if c is None:
+            cls = (http.client.HTTPSConnection if self._https
+                   else http.client.HTTPConnection)
+            c = cls(self._netloc, timeout=timeout)
+            self._tls.conn = c
+        # (re-)register every handout: a thread whose socket close()
+        # severed may auto-reopen this conn object, and a later close()
+        # must still find it
+        with self._conns_lock:
+            self._all_conns.add(c)
+        c.timeout = timeout
+        if c.sock is not None:
+            try:
+                c.sock.settimeout(timeout)
+            except OSError:
+                # the socket died under us (closed fd): rebuild fresh
+                self._drop_connection()
+                return self._connection(timeout)
+        return c
+
+    def _drop_connection(self) -> None:
+        c = getattr(self._tls, "conn", None)
+        if c is not None:
+            self._tls.conn = None
+            with self._conns_lock:
+                self._all_conns.discard(c)
+            try:
+                c.close()
+            except OSError:
+                pass
+
+    def close(self) -> None:
+        """Close every IDLE thread's keep-alive socket (best effort).
+        A pooled connection stays usable: the next request auto-reopens
+        and re-registers its socket.
+
+        Pooled _Conns are shared across threads (one socket per
+        thread), so a conn currently INSIDE a request on another
+        thread must not be torn down under it — closing it there races
+        http.client's response read. Busy conns are marked
+        close-deferred instead; the owning thread finishes its round
+        trip and closes on its next handout."""
+        with self._conns_lock:
+            conns, self._all_conns = list(self._all_conns), set()
+        for c in conns:
+            if getattr(c, "_ttpu_busy", False):
+                c._ttpu_close_deferred = True
+                continue
+            try:
+                c.close()
+            except OSError:
+                pass
+        self._tls.conn = None
+
+    def _request_once(self, path: str, body: bytes, headers: dict,
+                      timeout: float):
+        """One HTTP round trip on this thread's keep-alive connection.
+        -> (status, response headers, body bytes). A stale keep-alive
+        (the server closed the idle socket between requests) is rebuilt
+        and resent ONCE transparently, so the retry policy only ever
+        sees real failures; timeouts are never transparently resent
+        (the deadline budget owns those)."""
+        if self._via_proxy:
+            return self._request_via_urllib(path, body, headers, timeout)
+        reused = getattr(self._tls, "conn", None) is not None \
+            and getattr(self._tls.conn, "sock", None) is not None
+        conn = self._connection(timeout)
+        url_path = self._path_prefix + path
+        try:
+            resp, data = self._roundtrip(conn, url_path, body, headers)
+        except TimeoutError:
+            self._drop_connection()
+            raise
+        except (http.client.HTTPException, ConnectionError, OSError):
+            self._drop_connection()
+            if not reused:
+                raise
+            conn = self._connection(timeout)
+            try:
+                resp, data = self._roundtrip(conn, url_path, body,
+                                             headers)
+            except (http.client.HTTPException, ConnectionError, OSError):
+                self._drop_connection()
+                raise
+        return resp.status, resp.headers, data
+
+    def _roundtrip(self, conn, url_path: str, body: bytes,
+                   headers: dict):
+        """One request/response on `conn`, marked busy for the
+        duration so a concurrent close() of this (pooled, shared)
+        _Conn defers teardown instead of yanking the socket out from
+        under the in-flight response read."""
+        conn._ttpu_busy = True
+        try:
+            conn.request("POST", url_path, body=body, headers=headers)
+            resp = conn.getresponse()
+            data = resp.read()
+            return resp, data
+        finally:
+            conn._ttpu_busy = False
+            if getattr(conn, "_ttpu_close_deferred", False):
+                # the close that was deferred to us: the response is
+                # consumed, teardown is safe now
+                self._drop_connection()
+
+    def _request_via_urllib(self, path: str, body: bytes, headers: dict,
+                            timeout: float):
+        """Proxy-routed fallback (no keep-alive): urllib implements the
+        http_proxy/https_proxy/no_proxy handling this client must keep
+        honoring. Same (status, headers, body) contract."""
+        req = urllib.request.Request(
+            self.base + path, data=body, headers=headers, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                return r.status, r.headers, r.read()
+        except urllib.error.HTTPError as exc:
+            with exc:
+                return exc.code, exc.headers, exc.read()
+
+    # ------------------------------------------------------------ post
+
+    def post(self, path: str, body: bytes, columnar=None,
+             json_only: bool = False) -> bytes:
+        method = path.rsplit("/", 1)[-1]
+        return self._post_attempts(path, method, body, columnar=columnar,
+                                   json_only=json_only)
+
+    def _post_attempts(self, path: str, method: str, body: bytes,
+                       attempts: int | None = None, columnar=None,
+                       json_only: bool = False) -> bytes:
+        # the extended-fidelity internal encoding is marked so the server
+        # can tell it apart from reference Twirp clients on the same paths
+        headers = {"Content-Type": "application/json",
+                   "X-Trivy-Tpu-Wire": "internal",
+                   "Accept-Encoding": "gzip",
+                   **self.custom_headers}
+        if self.token:
+            headers["Trivy-Token"] = self.token
+        policy = self.retry
+        attempts = policy.attempts if attempts is None else attempts
+        deadline = current_deadline()
+        delays = policy.delays(self._rng)
+        site = faults.rpc_site(path)
+        # columnar offer: ``columnar`` is a zero-arg thunk producing the
+        # columnar request bytes, evaluated lazily at most once — and
+        # only after this conn has learned the server speaks columnar
+        # (the X-Trivy-Columnar capability ladder)
+        offer_columnar = (columnar is not None and colwire.enabled()
+                          and not json_only)
+        col_bytes: bytes | None = None
+        col_fails = 0    # columnar attempts lost to the wire ladder
+        wire_extra = 0   # extra attempts granted for columnar->JSON
+        last_err: Exception | None = None
+        shed = False  # last failure was a deliberate 503 + Retry-After
+        attempt = 0
+        while attempt < attempts + wire_extra:
+            if deadline is not None and deadline.expired:
+                raise DeadlineExceeded(
+                    f"rpc to {self.base}{path}: deadline of "
+                    f"{deadline.budget_s:.3f}s exhausted"
+                    + (f" (last error: {last_err})" if last_err else ""),
+                    budget_s=deadline.budget_s)
+            hdrs = dict(headers)
+            if deadline is not None:
+                hdrs[DEADLINE_HEADER] = deadline.header_value()
+            use_columnar = (offer_columnar and self._server_columnar
+                            and col_fails < 2)
+            if offer_columnar:
+                hdrs["Accept"] = (colwire.CONTENT_TYPE
+                                  + ", application/json")
+            if use_columnar:
+                if col_bytes is None:
+                    col_bytes = columnar()
+                # frames carry their own per-frame deflate; whole-body
+                # gzip would defeat frame-at-a-time decode
+                send_body = col_bytes
+                hdrs["Content-Type"] = colwire.CONTENT_TYPE
+            else:
+                send_body = body
+                if self._server_gzip and len(body) >= wire.GZIP_MIN_BYTES:
+                    send_body = wire.gzip_bytes(body)
+                    hdrs["Content-Encoding"] = "gzip"
+            retry_after: float | None = None
+            corrupt = False
+            try:
+                for rule in faults.fire(site):
+                    if rule.action == "delay":
+                        policy.sleep(rule.param or 0.0)
+                    elif rule.action == "drop":
+                        raise urllib.error.URLError(
+                            ConnectionRefusedError("injected drop"))
+                    elif rule.action == "timeout":
+                        raise TimeoutError("injected timeout")
+                    elif rule.action == "error":
+                        raise faults.InjectedHTTPError(
+                            int(rule.param or 503))
+                    elif rule.action == "corrupt":
+                        corrupt = True
+                if offer_columnar:
+                    for rule in faults.fire(WIRE_SITE):
+                        if rule.action == "delay":
+                            policy.sleep(rule.param or 0.0)
+                        elif rule.action == "drop" and use_columnar:
+                            # the columnar channel dropped mid-flight:
+                            # forget the capability and renegotiate —
+                            # the retry goes JSON, and the next 2xx
+                            # response re-advertises columnar
+                            self._server_columnar = False
+                            wire_extra = min(wire_extra + 1, 2)
+                            raise urllib.error.URLError(
+                                ConnectionResetError(
+                                    "injected columnar drop"))
+                        elif rule.action == "error" and use_columnar:
+                            # one columnar retry; a second error falls
+                            # this call back to JSON for good
+                            col_fails += 1
+                            wire_extra = min(wire_extra + 1, 2)
+                            raise _WireError(
+                                "injected columnar wire error")
+                        elif rule.action == "corrupt" and use_columnar:
+                            # flip bytes in the outgoing frames: the
+                            # server's checksum reject (400) drives the
+                            # JSON resend below
+                            send_body = faults.corrupt_bytes(send_body)
+                timeout = self.timeout
+                if deadline is not None:
+                    # small grace past the budget: a deadline-aware
+                    # server sheds AT the deadline and replies 503 +
+                    # Retry-After — waiting a moment longer turns a
+                    # blind socket timeout into that definite answer
+                    timeout = max(0.001, min(
+                        timeout, deadline.remaining() + 0.5))
+                status, rhdrs, raw = self._request_once(
+                    path, send_body, hdrs, timeout)
+                if rhdrs.get(wire.GZIP_CAPABLE_HEADER):
+                    self._server_gzip = True
+                if rhdrs.get(colwire.CAPABLE_HEADER):
+                    self._server_columnar = True
+                if "gzip" in (rhdrs.get("Content-Encoding")
+                              or "").lower():
+                    raw = wire.gunzip_bytes(raw)
+                if status >= 300:
+                    # non-2xx is an error, named by status: 3xx included
+                    # (a redirecting ingress is a config problem this
+                    # client won't chase) and deterministic like 4xx —
+                    # only 5xx retries
+                    detail = raw.decode("utf-8", "replace")[:500]
+                    if hdrs.get("Content-Encoding") == "gzip" \
+                            and not rhdrs.get(wire.GZIP_CAPABLE_HEADER):
+                        # ANY error (4xx or 5xx) to our gzip request
+                        # from a server NOT advertising gzip capability
+                        # is an old/rolled-back replica choking on the
+                        # encoding: forget the sticky capability and
+                        # let the retry resend plain
+                        self._server_gzip = False
+                        shed = False
+                        last_err = RPCError(
+                            f"{status} to gzip request from a server "
+                            f"without gzip capability: {detail}")
+                    elif use_columnar \
+                            and not rhdrs.get(colwire.CAPABLE_HEADER):
+                        # same unlearn for the columnar wire: ANY error
+                        # to our columnar request from a server NOT
+                        # advertising the capability is an old or
+                        # rolled-back replica choking on the encoding —
+                        # forget the sticky capability and let the
+                        # (granted) retry resend JSON
+                        self._server_columnar = False
+                        wire_extra = min(wire_extra + 1, 2)
+                        shed = False
+                        last_err = RPCError(
+                            f"{status} to columnar request from a "
+                            f"server without columnar capability: "
+                            f"{detail}")
+                    elif use_columnar and status == 400:
+                        # a columnar-capable server rejected our frames
+                        # (checksum/truncation — corrupted in transit):
+                        # resend this call as JSON
+                        col_fails = 2
+                        wire_extra = min(wire_extra + 1, 2)
+                        shed = False
+                        last_err = RPCError(
+                            f"400 columnar frame reject: {detail}")
+                    elif status < 500:
+                        raise RPCError(f"{status}: {detail}")
+                    else:
+                        last_err = RPCError(f"{status}: {detail}")
+                        # 503 WITH Retry-After is the shed handshake
+                        # (drain / overload): the server is alive and
+                        # telling us to come back later
+                        shed = (status == 503
+                                and rhdrs.get("Retry-After") is not None)
+                        if status == 503 and policy.respect_retry_after:
+                            retry_after = parse_retry_after(
+                                rhdrs.get("Retry-After"))
+                else:
+                    return faults.corrupt_bytes(raw) if corrupt else raw
+            except _WireError as exc:
+                shed = False
+                last_err = exc
+            except faults.InjectedHTTPError as exc:
+                if exc.code < 500:
+                    raise RPCError(f"{exc.code}: {exc}") from exc
+                shed = False
+                last_err = RPCError(f"{exc.code}: {exc}")
+            except (urllib.error.URLError, http.client.HTTPException,
+                    OSError, TimeoutError) as exc:
+                shed = False
+                last_err = exc
+            attempt += 1
+            if attempt < attempts + wire_extra:
+                delay = next(delays)
+                if retry_after is not None:
+                    # the server told us when it expects to recover;
+                    # never retry earlier than that
+                    delay = max(delay, retry_after)
+                if deadline is not None and deadline.remaining() <= delay:
+                    raise DeadlineExceeded(
+                        f"rpc to {self.base}{path}: deadline of "
+                        f"{deadline.budget_s:.3f}s leaves no room to retry "
+                        f"(last error: {last_err})",
+                        budget_s=deadline.budget_s)
+                policy.sleep(delay)
+        if shed:
+            raise RPCBackpressure(
+                f"rpc to {self.base}{path} shed after {attempts} "
+                f"attempts: {last_err}")
+        raise RPCUnavailable(
+            f"rpc to {self.base}{path} failed after {attempts} "
+            f"attempts: {last_err}")
+
+
+# process-wide connection pool keyed by (url, token) for default-
+# configured clients: the CLI builds a fresh RemoteDriver + RemoteCache
+# per scan, and without sharing each would open its own sockets. Custom
+# retry policies or headers opt out (tests and special callers keep
+# private connections).
+_CONN_POOL: dict[tuple, _Conn] = {}
+_CONN_POOL_LOCK = threading.Lock()
+
+
+def _pooled_conn(url: str, token: str | None,
+                 custom_headers: dict | None,
+                 retry: RetryPolicy | None) -> _Conn:
+    url = single_url(url).rstrip("/")
+    if retry is not None or custom_headers:
+        return _Conn(url, token, custom_headers, retry=retry)
+    key = (url, token)
+    with _CONN_POOL_LOCK:
+        c = _CONN_POOL.get(key)
+        if c is None:
+            c = _CONN_POOL[key] = _Conn(url, token)
+        return c
+
+
+def close_pool() -> None:
+    """Close every pooled connection's idle sockets (tests, embedding)."""
+    with _CONN_POOL_LOCK:
+        conns = list(_CONN_POOL.values())
+    for c in conns:
+        c.close()
+
+
+class RemoteDriver:
+    """Driver implementation that ships the scan to a server
+    (reference pkg/rpc/client/client.go:48-73)."""
+
+    def __init__(self, url: str, token: str | None = None,
+                 custom_headers: dict | None = None,
+                 retry: RetryPolicy | None = None):
+        self.conn = _pooled_conn(url, token, custom_headers, retry)
+        # the scan's phases run on the server
+        self.stats: dict = {}
+
+    def scan(self, target, artifact_key, blob_keys, options):
+        body = wire.scan_request(target, artifact_key, blob_keys, options)
+        raw = self.conn.post(SCAN_PATH, body, columnar=lambda:
+                             colwire.encode_scan_request(
+                                 target, artifact_key, blob_keys,
+                                 options))
+        if colwire.is_columnar(raw):
+            try:
+                return colwire.decode_scan_response(raw)
+            except colwire.WireFormatError as exc:
+                # a columnar response that fails its frame checksums
+                # (torn/corrupted in transit): refetch once as JSON
+                _log.warn("columnar scan response rejected; "
+                          "refetching as JSON", err=str(exc))
+                raw = self.conn.post(SCAN_PATH, body, json_only=True)
+        return wire.decode_scan_response(raw)
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+class RemoteCache:
+    """ArtifactCache over RPC (reference pkg/cache/remote.go:27): analysis
+    blobs are written into the SERVER's cache; reads happen server-side."""
+
+    def __init__(self, url: str, token: str | None = None,
+                 custom_headers: dict | None = None,
+                 retry: RetryPolicy | None = None):
+        self.conn = _pooled_conn(url, token, custom_headers, retry)
+
+    def put_artifact(self, artifact_id: str, info) -> None:
+        self.conn.post(CACHE_PREFIX + "PutArtifact", wire.encode(
+            {"artifact_id": artifact_id, "artifact_info": info}
+        ))
+
+    def put_blob(self, blob_id: str, blob) -> None:
+        self.conn.post(CACHE_PREFIX + "PutBlob", wire.encode(
+            {"diff_id": blob_id, "blob_info": blob}
+        ), columnar=lambda: colwire.encode_put_blob(blob_id, blob))
+
+    def missing_blobs(self, artifact_id: str, blob_ids: list[str]):
+        body = wire.encode(
+            {"artifact_id": artifact_id, "blob_ids": blob_ids})
+        raw = self.conn.post(
+            CACHE_PREFIX + "MissingBlobs", body,
+            columnar=lambda: colwire.encode_missing_blobs(
+                artifact_id, blob_ids))
+        if colwire.is_columnar(raw):
+            try:
+                return colwire.decode_missing_response(raw)
+            except colwire.WireFormatError as exc:
+                _log.warn("columnar MissingBlobs response rejected; "
+                          "refetching as JSON", err=str(exc))
+                raw = self.conn.post(CACHE_PREFIX + "MissingBlobs",
+                                     body, json_only=True)
+        doc = json.loads(raw)
+        return doc.get("missing_artifact", True), \
+            doc.get("missing_blob_ids", []) or []
+
+    def delete_blobs(self, blob_ids: list[str]) -> None:
+        self.conn.post(CACHE_PREFIX + "DeleteBlobs",
+                       wire.encode({"blob_ids": blob_ids}))
+
+    # LocalArtifactCache reads never happen client-side in server mode
+    def get_artifact(self, artifact_id: str) -> dict:
+        return {}
+
+    def get_blob(self, blob_id: str) -> dict:
+        return {}
+
+    def close(self) -> None:
+        self.conn.close()

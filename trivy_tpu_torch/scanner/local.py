@@ -2,10 +2,12 @@
 applier squash -> per-class scans -> metadata fill -> post-scan hooks.
 The vulnerability matching inside runs on the card via MatchEngine.
 
-Copy of trivy_tpu/scanner/local.py without the match scheduler, the
-monitor capture, licenses and misconfigurations (not ported yet).
-`stats` keeps the seconds of the last scan's phases (the rekor SBOM
-discovery of `--sbom-sources rekor` counts with the apply phase).
+Copy of trivy_tpu/scanner/local.py without the monitor capture,
+licenses and misconfigurations (not ported yet). In server mode the
+detect phase goes through the cross-request match scheduler, and the
+ambient deadline budget is checked between phases. `stats` keeps the
+seconds of the last scan's phases (the rekor SBOM discovery of
+`--sbom-sources rekor` counts with the apply phase).
 """
 
 from __future__ import annotations
@@ -25,15 +27,36 @@ from trivy_tpu_torch.types.serde import from_dict
 
 
 class LocalDriver:
-    def __init__(self, engine: MatchEngine, cache):
+    def __init__(self, engine: MatchEngine, cache, scheduler=None):
         self.engine = engine
         self.cache = cache
+        # server mode attaches the cross-request match scheduler so the
+        # detect phase joins shared device micro-batches instead of
+        # dispatching privately (trivy_tpu_torch/sched); None = direct
+        self.scheduler = scheduler
         # seconds of the last scan: blob reads + squash, detection
         self.stats: dict = {}
 
+    def _match_engine(self):
+        """Engine handle for the detect phase: with a scheduler
+        attached, detect() routes through its coalesced micro-batches —
+        byte-identical results, one saturated dispatch lane. Everything
+        else (db, cdb, advisories) reads through to the real engine."""
+        if self.scheduler is None:
+            return self.engine
+        from trivy_tpu_torch.sched.scheduler import SchedEngine
+
+        return SchedEngine(self.engine, self.scheduler)
+
     def scan(self, target, artifact_key, blob_keys, options: ScanOptions):
+        from trivy_tpu_torch.resilience.retry import checkpoint
         from trivy_tpu_torch.scanner import post
 
+        # phase-boundary deadline checkpoints: under an ambient deadline
+        # budget (server header / --scan-timeout) a scan that cannot
+        # finish sheds promptly between phases instead of burning device
+        # time nobody will wait for
+        checkpoint("apply_layers")
         t0 = time.perf_counter()
         detail = self._apply_layers(blob_keys)
         self._merge_artifact_info(detail, artifact_key)
@@ -47,11 +70,14 @@ class LocalDriver:
         if "rekor" in (options.sbom_sources or []):
             from trivy_tpu_torch.fanal.unpackaged import discover_sboms
 
+            checkpoint("rekor_sbom_discovery")
             discover_sboms(detail, options.rekor_url)
+        checkpoint("detect")
         t1 = time.perf_counter()
         results = self._scan_detail(target, detail, options)
         t2 = time.perf_counter()
         self.stats = {"apply_s": t1 - t0, "detect_s": t2 - t1}
+        checkpoint("post_hooks")
         # globally registered hooks (reference
         # pkg/scanner/local/scan.go:152 -> post/post_scan.go:35)
         results = post.scan(results, options)
@@ -105,7 +131,7 @@ class LocalDriver:
         results: list[Result] = []
         include_os = "os" in options.pkg_types
         include_lib = "library" in options.pkg_types
-        engine = self.engine
+        engine = self._match_engine()
 
         if include_os and (detail.os.detected or detail.packages):
             vulns, eosl = ([], False)

@@ -20,7 +20,11 @@ raises: unlike the reference, no device path degrades to the host.
 One scanner may serve several threads at once (an image scan's walk
 lanes share the analyzer's scanner): the lazy builds run once under a
 lock, and `device_stats` is added to under a lock, with each thread's
-own additions readable through `stats_scope()`.
+own additions readable through `stats_scope()`. The anchor screens of
+concurrent scans coalesce in the scanner's secret-lane scheduler
+(sched/scheduler.py, rows of 16 KiB chunks) into shared dispatches;
+`TRIVY_TPU_SCHED=0` dispatches each scan's chunks directly. `close()`
+stops the lane's thread.
 """
 
 from __future__ import annotations
@@ -182,6 +186,8 @@ class SecretScanner:
         self._host_tiers = None  # lazy host-floor / streaming partition
         self._matcher = None  # one AnchorMatcher per scanner (device
         # arrays upload once, not per scan_files call)
+        self._sched = None  # lazy secret-lane MatchScheduler
+        self._sched_lock = threading.Lock()
         self.program_source = None  # "cache" / "compiled" once tiered
         # where the device path's time goes, summed over its scans:
         # chunking, copy + launch, waiting for the words, host regex,
@@ -585,10 +591,39 @@ class SecretScanner:
 
     # ------------------------------------------------- screen dispatch
 
+    def _screen_scheduler(self):
+        """Lazy per-scanner secret-lane MatchScheduler: the anchor
+        screens of concurrent scans (walk lanes, embedded concurrent
+        scans) coalesce into shared super-buffer dispatches — the same
+        micro-batch machinery the vuln-match path rides, with chunk
+        rows instead of package-query rows. None when
+        TRIVY_TPU_SCHED=0 (direct per-scan dispatch)."""
+        from trivy_tpu_torch import sched as sched_mod
+
+        if not sched_mod.enabled():
+            return None
+        with self._sched_lock:
+            if self._sched is None:
+                pack = _pack_chunks() or self._matcher.batch_chunks
+                self._sched = sched_mod.MatchScheduler(
+                    lambda: _ScreenEngine(self),
+                    max_rows=pack,
+                    chunk_rows=max(pack // 8, 16),
+                    lane="secret")
+            return self._sched
+
+    def close(self) -> None:
+        """Stop the secret-lane scheduler thread (tests/embedding)."""
+        with self._sched_lock:
+            if self._sched is not None:
+                self._sched.close()
+                self._sched = None
+
     def _screen_submit(self, chunks: np.ndarray):
         """Enqueue the anchor screen for one packed super-buffer
         without blocking -> zero-arg collect(). DISPATCH-FIRST: the
-        chunks go to the device as async batches so the card computes
+        chunks are handed to the shared secret-lane scheduler (or
+        enqueued directly as async device batches) so the card computes
         while the caller does host work; collect() blocks only on
         whatever is still in flight."""
         matcher = self._matcher
@@ -596,13 +631,23 @@ class SecretScanner:
             n = self._tiers["bank"].n
             return lambda: np.zeros((0, n), dtype=bool)
         t0 = time.perf_counter()
-        pend = matcher.dispatch_chunks(chunks)
+        sched = self._screen_scheduler()
+        if sched is not None:
+            p = sched.submit_async(list(chunks))
+
+            def wait():
+                return np.stack(sched.collect(p))
+        else:
+            pend = matcher.dispatch_chunks(chunks)
+
+            def wait():
+                return matcher.collect_chunks(pend)
         self._stat("dispatch_s", time.perf_counter() - t0)
         self._stat("chunks", len(chunks))
 
         def collect():
             t1 = time.perf_counter()
-            hits = matcher.collect_chunks(pend)
+            hits = wait()
             self._stat("wait_s", time.perf_counter() - t1)
             return hits
 
@@ -1115,3 +1160,37 @@ class SecretScanner:
             match=match_text,
             offset=start,
         )
+
+
+class _ScreenEngine:
+    """MatchScheduler-compatible facade over the anchor screen: a
+    'query' is one packed uint8[CHUNK] super-buffer row, a 'result'
+    that chunk's rule-hit bool row — the scheduler's coalescing /
+    fairness / deadline machinery is reused verbatim for the secret
+    lane, so concurrent scans share device dispatches. The screen is
+    the matcher's kernel: the anchor kernel, or the conv kernel for a
+    conv bank."""
+
+    __slots__ = ("_scanner",)
+
+    def __init__(self, scanner: SecretScanner):
+        self._scanner = scanner
+
+    def detect(self, chunks: list) -> list:
+        """Private re-dispatch path (the scheduler's per-slice fault
+        isolation)."""
+        m = self._scanner._matcher
+        return list(m._run_chunks(np.stack(chunks)))
+
+    def submit(self, lists: list[list]) -> list[list]:
+        """ONE screen dispatch over the coalesced union of every
+        waiting scan's chunks."""
+        m = self._scanner._matcher
+        flat = [c for qs in lists for c in qs]
+        hits = m._run_chunks(np.stack(flat))
+        out: list[list] = []
+        i = 0
+        for qs in lists:
+            out.append(list(hits[i: i + len(qs)]))
+            i += len(qs)
+        return out
