@@ -58,8 +58,8 @@ kernel's time before its latest redesign; then
      debian OS packages with every hot name of the bucket, an npm
      lockfile of 1,500, 500 pip packages) scanned in process through
      trivy_tpu_torch.cli.main.main cold (compile, save the compiled
-     entry), warm (load it) and with --no-tpu: the three reports byte
-     for byte, the warm run a compiled-cache hit, the match kernel
+     entry), warm (load it) and with --no-tpu, each as a user runs it
+     (its own DB load): the three reports byte for byte, the warm run a compiled-cache hit, the match kernel
      launched on all three tiers in both device runs, the native
      collector used; each run's wall split as the CLI's run module keeps
      it, and the device idle share of each device run, traced as it runs;
@@ -67,21 +67,24 @@ kernel's time before its latest redesign; then
      7's saved DB (its compiled entry on disk): phase 5's corpus written
      out with a debian 11 root holding phase 7's image packages (a dpkg
      status of 1,000, an npm lockfile of 1,500, 500 pip requirements);
-     `fs` as a user runs it (the engine loaded anew, the hybrid probe
-     deciding, its verdict printed), `fs` with the probe off under
+     `fs` on the parsed DB (the engine built anew on phase 7's
+     --no-tpu DB objects, the hybrid probe deciding, its verdict
+     printed), `fs` with the probe off under
      torch.profiler (anchor and match launches, the device idle share of
-     that run's own trace), `fs --no-tpu`; `rootfs` on the root plus the
-     corpus's first 16 MiB, on the card (all three match tiers) and with
-     --no-tpu; `fs --secret-config` with phase 5's 64 custom rules on the
-     first 64 MiB (the conv screen) and with --no-tpu. Every device
-     report equals its --no-tpu report byte for byte, and the finding
-     counts equal what the planted secrets make.
+     that run's own trace), `fs --no-tpu` (on phase 7's host engine);
+     `rootfs` on the root plus the corpus's first 16 MiB, on the card
+     (all three match tiers) and with --no-tpu; `fs --secret-config`
+     with phase 5's 64 custom rules on the first 64 MiB (the conv
+     screen) and with --no-tpu. Every device report equals its
+     --no-tpu report byte for byte, and the finding counts equal what
+     the planted secrets make.
   9. drive the `image` CLI on the card, in process, on phase 7's saved
      DB: phase 8's tree as a three-layer image (a base layer with the
      debian root, the lockfiles and half the sources, the rest with
      the stream files, whiteouts and an opaque directory; an AWS key
      pair in the config Env) in a docker-save and an OCI-layout
-     archive: (a) as a user runs it (5 walk lanes, the probe deciding),
+     archive: (a) on the parsed DB (5 walk lanes, the probe deciding;
+     the engine built anew on phase 7's --no-tpu DB objects),
      (b) --no-tpu, (c) --parallel 1, (d) on (a)'s blob cache (all
      dedupe hits), (e) the OCI layout, (f) under torch.profiler with
      the probe off (the device idle share; match and anchor launches),
@@ -137,21 +140,50 @@ kernel's time before its latest redesign; then
      the card), 32 seeded blobs of 50 to 3,000 of phase 7's SBOM
      packages scanned from 32 threads at once through the match
      scheduler, traced (the device idle share), each response equal to
-     the same scan alone afterwards and to a burst through a
-     TRIVY_TPU_SCHED=0 server (the match launches per tier of both
-     bursts, the scheduler's stats: more than one request coalesced, no
-     shed); (e) SIGTERM: (a) drains and exits 0 within its budget.
+     a burst through a TRIVY_TPU_SCHED=0 server, and 4 seeded ones to
+     the same scan alone afterwards (the match launches per tier of
+     both bursts, the scheduler's stats: more than one request
+     coalesced, no shed); (e) SIGTERM: (a) drains and exits 0 within
+     its budget.
+ 13. drive the serving mesh and the device-loss ladders on the card, in
+     process (`mesh_path`, with cyclic garbage collection off), on the
+     engine phase 12 holds (phase 7's 2,000,000 advisories), every cell
+     of every mesh on the one card:
+     (a) 2x4 built cold (a shard-cache miss and save) and warm (a hit),
+     1x8 and 1x1, each driving phase 3's 4,000-query sample through
+     detect and submit and its first 24,000 crawl queries through
+     detect_many, equal to the single-device engine (equal to phase 3's
+     oracle), every cell and tier launched; (b) on the 2x4 engine the
+     engine.shard rungs (error once: retried; error: every shard
+     degraded; device-lost; drop) with a reresolve after each degrading
+     rung, the engine.device drop and delay on the crawl, then the two
+     whole-engine losses (engine.device, engine) on main-tier queries;
+     (c) the secret.device drop, error, device-lost and delay on the
+     corpus's first 16 MiB and a device loss under a 12 MiB stream
+     file, each equal to the host findings, one degradation a faulted
+     run; (d) a ScanService on the 2x4 engine: /readyz's "mesh 2x4", a
+     shard lost under a scan (equal response bytes, /readyz naming the
+     shard), reresolve_mesh; (e) `sbom --mesh 1x1` on phase 12 (d)'s
+     root equal to the run without --mesh byte for byte, `sbom --mesh
+     2x4` failing with rc 1 and one error line, and the hot reload of
+     that root keeping a prebuilt 2x2 grid.
 Phase 3 runs with the native collector (native/collect.cpp) too.
+Phase 9 runs the hybrid probe alone twice, dispatched directly and
+through the secret lane (as it ran before it bypassed the lane), and
+prints both probes' seconds and verdicts.
 The `kernels` line's launch counts of the CLI paths are per run
 (`launches_fs_cli` ... `launches_vm_cli`), the server's per burst
-(`launches_server`) and its clients' per client
-(`launches_server_clients`). Prints a `kernels` JSON line, the card
-line, and last
+(`launches_server`), its clients' per client
+(`launches_server_clients`) and the mesh's per cell and tier
+(`launches_mesh`). Prints a `kernels` JSON line, the card line, and
+last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -789,7 +821,8 @@ def main_path(dev) -> dict:
                                              part, dev)
             del wide
     return {"launches": launches, "per_tier": per_tier, "timings": timings,
-            "pkg_per_s": len(queries) / wall, "db": db}
+            "pkg_per_s": len(queries) / wall, "db": db, "sample": sample,
+            "oracle": oracle, "crawl": queries[:MESH_CRAWL]}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1772,7 +1805,8 @@ def golden_fixture():
 
 def cli_golden(tmp: str) -> None:
     """(a) the real entry point as a subprocess, on the card it picks by
-    itself: its JSON equals the golden report, its table totals 2."""
+    itself: its JSON equals the golden report, its table totals 2 (the
+    two processes run at once)."""
     doc, db = golden_fixture()
     db.save(os.path.join(tmp, "gdb"))
     bom = os.path.join(tmp, "golden_bom.json")
@@ -1781,22 +1815,33 @@ def cli_golden(tmp: str) -> None:
     env = {**os.environ, "TRIVY_TPU_FAKE_TIME": FAKE_TIME}
     with open(GOLDEN) as f:
         golden = f.read()
-    for fmt in ("json", "table"):
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "trivy_tpu_torch", "sbom", bom,
-             "--format", fmt, "--db-path", os.path.join(tmp, "gdb"),
-             "--cache-dir", os.path.join(tmp, "gcache"), "--quiet"],
-            cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    t0 = time.perf_counter()
+    procs = {fmt: subprocess.Popen(
+        [sys.executable, "-m", "trivy_tpu_torch", "sbom", bom,
+         "--format", fmt, "--db-path", os.path.join(tmp, "gdb"),
+         "--cache-dir", os.path.join(tmp, f"gcache_{fmt}"), "--quiet"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for fmt in ("json", "table")}
+    for fmt, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.communicate()
+            raise
         wall = time.perf_counter() - t0
-        ok = out.returncode == 0 and (
-            out.stdout == golden if fmt == "json" else
-            "Total: 2" in out.stdout)
-        print(f"phase7 golden format={fmt} rc={out.returncode} "
-              f"wall_s={wall:.3f} bytes={len(out.stdout)} ok={ok}")
+        ok = proc.returncode == 0 and (
+            stdout == golden if fmt == "json" else "Total: 2" in stdout)
+        print(f"phase7 golden format={fmt} rc={proc.returncode} "
+              f"wall_s={wall:.3f} bytes={len(stdout)} ok={ok}")
         if not ok:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
             raise AssertionError(f"sbom CLI ({fmt}) on cuda:0: "
-                                 f"{out.stderr[-2000:]}")
+                                 f"{stderr[-2000:]}")
 
 
 def cli_run(argv: list[str], report: str, tiers: bool) -> dict:
@@ -1848,14 +1893,41 @@ def cli_profiled(argv: list[str], report: str) -> tuple[dict, dict]:
                "device_idle_share": 1 - busy_ms / 1e3 / r["wall_s"]}
 
 
+@contextlib.contextmanager
+def shared_db(engine):
+    """The CLI's DB load answers with `engine`'s DB: the process's copy
+    of the same directory, parsed once already (one 2 M-advisory load,
+    20-35 s, less a run). The run still builds its engine anew. Only
+    phase 7's runs time a user's DB load; no engine writes to the DB
+    objects, and phase 7 holds two independent loads' reports equal."""
+    from trivy_tpu_torch.cli import run
+
+    load = run._load_db
+    run._load_db = lambda args: engine.db
+    try:
+        yield
+    finally:
+        run._load_db = load
+
+
+def host_db():
+    """shared_db on the process's --no-tpu engine (phase 7's, on the
+    same DB directory), or a plain load when there is none."""
+    from trivy_tpu_torch.cli import run
+
+    host = next((e for e in run._ENGINE_CACHE.values()
+                 if not e.use_device), None)
+    return contextlib.nullcontext() if host is None else shared_db(host)
+
+
 def sbom_cli_path(db, tmp: str) -> dict:
     """Phase 7: the sbom CLI on the card. (a) the golden fixture through
     the real entry point; (b) phase 3's 2,000,000-advisory DB saved with
     the port's AdvisoryDB.save under `tmp` (kept there, with its
     compiled entry, for phase 8) and a seeded 3,000-component image
     SBOM, scanned cold (compile + save the compiled entry), warm (load
-    it) and on the host oracle (--no-tpu): the three reports byte for
-    byte. The two device runs run under the profiler for their device
+    it) and on the host oracle (--no-tpu, its own DB load): the three
+    reports byte for byte, each from a DB load of its own. The two device runs run under the profiler for their device
     idle share (a rerun of each for the profile alone would cost about
     125 s of the script's time limit)."""
     from trivy_tpu_torch.native import collect as ncollect
@@ -2033,8 +2105,6 @@ def fs_run(argv: list[str], report: str, profiled: bool = False) -> dict:
     per tier), the cache's hits and misses, which layer walks ran, the
     findings and, when `profiled`, the device's busy and idle share from
     a torch.profiler trace of this run itself."""
-    import contextlib
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2116,8 +2186,8 @@ def fs_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
     root holding phase 7's image packages (1,000 dpkg packages, an npm
     lockfile of 1,500, 500 pip requirements); the root plus the corpus's
     first 16 MiB for rootfs; the first 64 MiB for the custom rules. The
-    first run is as a user runs it (the engine and the DB loaded anew,
-    the hybrid probe deciding); the others reuse the process's engine
+    first run builds its engine anew on phase 7's --no-tpu DB objects
+    (no DB load; the hybrid probe deciding); the others reuse its engine
     and set TRIVY_TPU_SECRET_PROBE=0, so the device share always runs;
     each device report equals its --no-tpu report byte for byte. The
     first run compiles the builtin rules' screen program into the fresh
@@ -2170,10 +2240,14 @@ def fs_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
         print(split_line(name, runs[name]))
 
     try:
-        # 1. as a user runs it: a fresh engine, the probe decides
-        run._ENGINE_CACHE.clear()
+        # 1. on the parsed DB: the device engine built anew on phase 7's
+        # host engine's DB (which stays for the --no-tpu runs), the
+        # probe decides
+        for key in [k for k in run._ENGINE_CACHE if not k[1]]:
+            del run._ENGINE_CACHE[key]
         sc.reset_hybrid_probe()
-        go("fs", "fs", "fs")
+        with host_db():
+            go("fs", "fs", "fs")
         probe = runs["fs"]["secret_probe"]
         verdict = None if probe is None else (
             "hybrid" if probe["device"] else "host")
@@ -2349,13 +2423,37 @@ def image_layer_files(corpus, os_files, lockfiles) -> tuple[list, list]:
     return [os_files, lockfiles + l2, l3], history
 
 
+def probe_paths() -> dict:
+    """The hybrid probe alone on a fresh builtin-rules scanner on the
+    CLI's device, its screens dispatched directly (as every scan's
+    probe runs) and then through the secret lane (as they ran before
+    the probe bypassed it): each probe's verdict and seconds."""
+    from trivy_tpu_torch.fanal.analyzers import secret_analyzer
+    from trivy_tpu_torch.secret import scanner as sc
+
+    s = sc.SecretScanner(device=secret_analyzer.DEVICE)
+    try:
+        out = {"direct": s._run_hybrid_probe()}
+        bypass = sc.SecretScanner._direct_dispatch
+        sc.SecretScanner._direct_dispatch = \
+            lambda self: contextlib.nullcontext()
+        try:
+            out["lane"] = s._run_hybrid_probe()
+        finally:
+            sc.SecretScanner._direct_dispatch = bypass
+    finally:
+        s.close()
+    return out
+
+
 def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
     """Phase 9: the image CLI on the card, in process through
     trivy_tpu_torch.cli.main.main, on phase 7's saved DB (its compiled
     entry on disk). A docker-save archive of phase 8's tree in three
     gzipped layers (image_layer_files) and the same layers as an OCI
     layout; the config Env holds one AWS key pair. Runs: (a) as a user
-    runs it (the device engine loaded anew, the hybrid probe deciding,
+    runs it (the device engine built anew on the host engine's parsed
+    DB, the hybrid probe deciding,
     --parallel 5, an empty blob cache); (b) --no-tpu; (c) --parallel 1;
     (d) (a) again on (a)'s cache (every layer a dedupe hit); (e) the OCI
     layout; (f) (a) under torch.profiler with the probe off; (g)
@@ -2412,13 +2510,15 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
               f" analysis={json.dumps(r['analysis'])}")
 
     try:
-        # (a) as a user runs it: the device engine loaded anew (phase 8's
-        # host engine stays for the --no-tpu runs), the probe decides
+        # (a) on the parsed DB: the device engine built anew on the
+        # host engine's DB (which stays for the --no-tpu runs), the
+        # probe decides
         for key in [k for k in run._ENGINE_CACHE if not k[1]]:
             del run._ENGINE_CACHE[key]
         sc.reset_hybrid_probe()
-        go("a_user", "docker", "cache_a")
-        probe = runs["a_user"]["secret_probe"]
+        with host_db():
+            go("a_parsed", "docker", "cache_a")
+        probe = runs["a_parsed"]["secret_probe"]
         verdict = None if probe is None else (
             "hybrid" if probe["device"] else "host")
         print(f"phase9 probe_verdict={verdict} probe={json.dumps(probe)}")
@@ -2426,6 +2526,10 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
         go("c_parallel1", "docker", "cache_c", ["--parallel", "1"])
         go("d_cached", "docker", "cache_a")
         go("e_oci", "oci", "cache_e")
+        paths = probe_paths()
+        print("phase9 probe_paths " + " ".join(
+            f"{way}_{k}={paths[way][k]}" for way in ("direct", "lane")
+            for k in ("device_s", "host_s", "device")))
         # (f), (g): the device share always runs
         os.environ["TRIVY_TPU_SECRET_PROBE"] = "0"
         go("f_traced", "docker", "cache_f", profiled=True)
@@ -2441,13 +2545,13 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
             return f.read()
 
     diffs = {name: int(body(name) != body(ref)) for name, ref in (
-        ("a_user", "b_no_tpu"), ("c_parallel1", "a_user"),
-        ("d_cached", "a_user"), ("f_traced", "a_user"),
+        ("a_parsed", "b_no_tpu"), ("c_parallel1", "a_parsed"),
+        ("d_cached", "a_parsed"), ("f_traced", "a_parsed"),
         ("g_custom", "g_custom_no_tpu"))}
     diffs["e_oci_results"] = int(
         json.loads(body("e_oci"))["Results"]
-        != json.loads(body("a_user"))["Results"])
-    found = {"image": runs["a_user"]["secret_findings"],
+        != json.loads(body("a_parsed"))["Results"])
+    found = {"image": runs["a_parsed"]["secret_findings"],
              "custom": runs["g_custom"]["secret_findings"]}
     p = runs["f_traced"]
     walks = {k: r["layer_walks"] for k, r in runs.items()}
@@ -2467,14 +2571,14 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
                              "planted ones")
     if any(w["tarfile"] for w in walks.values()) or \
             not all(runs[k]["layer_walks"]["native"] == 3
-                    for k in ("a_user", "b_no_tpu", "c_parallel1",
+                    for k in ("a_parsed", "b_no_tpu", "c_parallel1",
                               "e_oci", "f_traced")):
         raise AssertionError("a layer walk did not take the native "
                              "splitter")
     d = runs["d_cached"]["analysis"]
     if d["analyzed"] or d["deduped"] != 3:
         raise AssertionError(f"(d) was not all dedupe hits: {d}")
-    if runs["a_user"]["analysis"]["workers"] != 5 or \
+    if runs["a_parsed"]["analysis"]["workers"] != 5 or \
             runs["c_parallel1"]["analysis"]["workers"] != 1:
         raise AssertionError("lane counts other than asked")
     if not p["launches"]["anchor"] or \
@@ -2490,7 +2594,7 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
                                                    "conv", "prefilter")):
             raise AssertionError(f"{name} launched a kernel")
     return {"runs": runs, "verdict": verdict, "tar": tars["docker"],
-            "report": reports["a_user"], "custom_tar": tars["custom"],
+            "report": reports["a_parsed"], "custom_tar": tars["custom"],
             "custom_report": reports["g_custom"], "config": cfg,
             "caches": {"device": os.path.join(tmp, "cache_a"),
                        "host": os.path.join(tmp, "cache_b")}}
@@ -2505,7 +2609,7 @@ REPORT_FORMATS = (("sarif", ()), ("cyclonedx", ()), ("spdx-json", ()),
                   ("github", ()), ("cosign-vuln", ()),
                   ("template", ("--template", "@contrib/junit.tpl")),
                   ("table", ("--dependency-tree",)))
-N_VEX_PAIRS = 200
+N_VEX_PAIRS = 50
 VEX_SEED = 20261018
 
 
@@ -3128,6 +3232,7 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
 
 
 N_BURST = 32  # concurrent scans of (c)
+N_ALONE = 4  # of (c)'s scans, rescanned alone
 BURST_SEED = 20261019
 BURST_PKGS = (50, 3_000)  # packages per burst blob, log-uniform
 RELOAD_SEED = 20261020
@@ -3397,7 +3502,6 @@ def burst_run(addr: str, keys: list[str], profiled: bool) -> dict:
     """All of `keys` scanned at once, one thread each, with the match
     launch counts at 0 just before -> responses, wall, launches per
     tier and, when `profiled`, the device idle share of the burst."""
-    import contextlib
     import threading
 
     import torch
@@ -3452,9 +3556,9 @@ def burst(engine, p7: dict, tmp: str) -> dict:
     """(c) a burst at full width, in process: a Server on the engine the
     process holds (phase 7's 2 M DB on the card), N_BURST seeded blobs
     scanned from N_BURST threads at once through the match scheduler
-    (traced), each response held against the same artifact scanned
-    alone afterwards and against a burst through a TRIVY_TPU_SCHED=0
-    server on the same engine."""
+    (traced), each response held against a burst through a
+    TRIVY_TPU_SCHED=0 server on the same engine, and N_ALONE seeded ones
+    against the same artifact scanned alone afterwards."""
     from trivy_tpu_torch.cache.cache import MemoryCache
     from trivy_tpu_torch.rpc.server import Server
 
@@ -3481,13 +3585,14 @@ def burst(engine, p7: dict, tmp: str) -> dict:
             alone = {}
             conns: dict = {}
             t1 = time.perf_counter()
-            for key in keys:
+            for key in sorted(random.Random(BURST_SEED).sample(keys,
+                                                                N_ALONE)):
                 alone[key] = raw_scan(srv.address, key, conns)
             out["alone_wall_s"] = time.perf_counter() - t1
             for c in conns.values():
                 c.close()
             out["alone_diff"] = sum(alone[k] != r["responses"][k]
-                                    for k in keys)
+                                    for k in alone)
             out["sheds"] = srv.service.metrics.scans_shed_total
         finally:
             srv.shutdown()
@@ -3609,7 +3714,9 @@ def hot_reload(dev, tmp: str) -> dict:
         "reload_failures": svc.metrics.db_reload_failures_total,
         "wall_s": time.perf_counter() - t0,
     }
-    return out
+    # for phase 13 (e): the root (serving the 25,000 advisories), its
+    # SBOM and the first generation's DB
+    return out, {"root": root, "bom": bom, "db0": dbs[0]}
 
 
 def server_path(dev, srv: dict, p7: dict, p8: dict, p9: dict,
@@ -3630,7 +3737,7 @@ def server_path(dev, srv: dict, p7: dict, p8: dict, p9: dict,
     try:
         if engine is None:
             raise AssertionError("no device engine left from phase 7")
-        d = hot_reload(dev, tmp)
+        d, d13 = hot_reload(dev, tmp)
         print(f"phase12 (d) reload card={card!r} {json.dumps(d)}")
         if not (d["swapped"] and d["rescan_equals_fresh"]
                 and d["corrupt_rejected"] and d["corrupt_quarantined"]
@@ -3666,7 +3773,8 @@ def server_path(dev, srv: dict, p7: dict, p8: dict, p9: dict,
         print(f"phase12 (c) burst unsched wall_s={u['wall_s']:.3f} "
               f"launches_per_tier={json.dumps(u['per_tier'])} "
               f"diff_vs_sched={c['unsched_diff']} alone_diff="
-              f"{c['alone_diff']} alone_wall_s={c['alone_wall_s']:.3f} "
+              f"{c['alone_diff']} alone_scans={N_ALONE} "
+              f"alone_wall_s={c['alone_wall_s']:.3f} "
               f"sheds={c['sheds']} burst_s="
               f"{time.perf_counter() - t0:.3f}")
         if c["unsched_diff"] or c["alone_diff"]:
@@ -3706,7 +3814,465 @@ def server_path(dev, srv: dict, p7: dict, p8: dict, p9: dict,
     if e["rc"] != 0 or e["stop_s"] > DRAIN_TIMEOUT_S:
         raise AssertionError(f"SIGTERM drain: {e}" + tail(srv["log"]))
     return {"burst": c, "reload": d, "clients": b, "ready_s": ready_s,
-            "drain": e}
+            "drain": e, "reload_root": d13}
+
+
+# -------------------------------------------------------------- phase 13
+
+MESH_CRAWL = 24_000  # phase 3's first crawl queries, replayed on the mesh
+# (name, dp, db): (a)'s meshes in order, every cell on the one card
+MESH_SHAPES = (("2x4_cold", 2, 4), ("2x4_warm", 2, 4), ("1x8", 1, 8),
+               ("1x1", 1, 1))
+# (b)'s engine.shard rungs on the 2x4 engine: (spec, shards degraded)
+SHARD_RUNGS = (("engine.shard:error@1", []),
+               ("engine.shard:error", [0, 1, 2, 3]),
+               ("engine.shard:device-lost@1", [0]),
+               ("engine.shard:drop@1", []))
+DEVICE_RUNGS = ("engine.device:drop@2", "engine.device:delay=0.01@1-3")
+SECRET_RUNGS = ("secret.device:drop", "secret.device:error",
+                "secret.device:device-lost", "secret.device:delay=0.001")
+MESH_SECRET_BYTES = 16 << 20  # (c)'s corpus head
+# (b)'s crawl rungs dispatch in chunks of this batch's size, so the
+# engine.device rungs fire on several in-flight chunks
+MESH_RUNG_BATCH = 8_192
+MESH_LOST_QUERIES = 6_000  # main-tier crawl queries under a whole loss
+
+
+def hits_of(results) -> list:
+    return [r.adv_indices for r in results]
+
+
+def zero_mesh_launches(me) -> None:
+    """Every launch count of a mesh engine at 0: the wrapper's total,
+    each cell's and the hot and tall tiers'."""
+    from trivy_tpu_torch.ops import match as m
+
+    m.match_words.launches = 0
+    for row in me._mdb.grid:
+        for ddb in row:
+            ddb.launches = 0
+    for t in (me._ddb_hot, me._ddb_tall):
+        if t is not None:
+            t.launches = 0
+
+
+def mesh_launches(me) -> dict:
+    """A mesh engine's launches since zero_mesh_launches: per (data
+    group, db shard) cell, the main tier's sum, the hot and tall tiers,
+    and the wrapper's total."""
+    from trivy_tpu_torch.ops import match as m
+
+    cells = [[ddb.launches for ddb in row] for row in me._mdb.grid]
+    return {"cells": cells, "main": sum(map(sum, cells)),
+            "hot": getattr(me._ddb_hot, "launches", 0),
+            "tall": getattr(me._ddb_tall, "launches", 0),
+            "total": m.match_words.launches}
+
+
+def mesh_drive(me, sample, crawl, want: dict) -> dict:
+    """(a)'s drive of one mesh engine: the sample through detect (cold
+    memo, then warm), submit in three lists, and the crawl through
+    detect_many; each against the single-device engine's hits."""
+    zero_mesh_launches(me)
+    t0 = time.perf_counter()
+    det = hits_of(me.detect(sample))
+    t_det = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    det2 = hits_of(me.detect(sample))
+    t_det2 = time.perf_counter() - t0
+    third = len(sample) // 3
+    lists = [sample[:third], sample[third: 2 * third], sample[2 * third:]]
+    sub = [r.adv_indices for rl in me.submit(lists) for r in rl]
+    t0 = time.perf_counter()
+    crawl_hits = hits_of(me.detect_many(crawl, BATCH))
+    t_crawl = time.perf_counter() - t0
+    diff = sum(a != b for got in (det, det2, sub)
+               for a, b in zip(got, want["sample"]))
+    diff += sum(a != b for a, b in zip(crawl_hits, want["crawl"]))
+    return {"sample_wall_s": t_det, "sample_warm_wall_s": t_det2,
+            "crawl_wall_s": t_crawl, "diff": diff,
+            "launches": mesh_launches(me), "health": me.shard_health()}
+
+
+def secret_ladder(dev, corpus) -> dict:
+    """(c): the secret.device rungs on the corpus's head and a device
+    loss under one stream-path file, each against the host findings,
+    one degradation counted a faulted run and none for a delay."""
+    from trivy_tpu_torch.ops import secret_nfa as nfa
+    from trivy_tpu_torch.resilience import faults
+    from trivy_tpu_torch.secret import scanner as sc
+
+    head, acc = [], 0
+    for p, c in corpus:
+        if acc >= MESH_SECRET_BYTES:
+            break
+        if len(c) <= sc.STREAM_THRESHOLD:
+            head.append((p, c))
+            acc += len(c)
+    big = next((p, c) for p, c in corpus if len(c) > sc.STREAM_THRESHOLD)
+    s = sc.SecretScanner(device=dev)
+    out: dict = {"files": len(head), "mb": acc / 1e6}
+    try:
+        host = finding_keys(s.scan_files(head, use_device=False))
+        for spec in SECRET_RUNGS:
+            before = s.device_stats["degraded"]
+            nfa.anchor_words.launches = 0
+            faults.install_spec(spec)
+            t0 = time.perf_counter()
+            try:
+                got = finding_keys(s.scan_files(head, use_device=True))
+            finally:
+                faults.reset()
+            out[spec] = {"wall_s": time.perf_counter() - t0,
+                         "diff": int(sorted(got) != sorted(host)),
+                         "degraded": s.device_stats["degraded"] - before,
+                         "anchor_launches": nfa.anchor_words.launches}
+        want = s.scan_file(*big)
+        before = s.device_stats["degraded"]
+        faults.install_spec("secret.device:device-lost")
+        t0 = time.perf_counter()
+        try:
+            got = s.scan_stream(big[0], big[1], use_device=True)
+        finally:
+            faults.reset()
+        out["stream:device-lost"] = {
+            "wall_s": time.perf_counter() - t0,
+            "mb": len(big[1]) / 1e6,
+            "diff": findings_diff([got] if got else [],
+                                  [want] if want else []),
+            "degraded": s.device_stats["degraded"] - before}
+    finally:
+        s.close()
+    return out
+
+
+def mesh_server(engine, p7: dict) -> dict:
+    """(d): a ScanService on the 2x4 engine: /readyz's mesh note, a
+    shard lost under a scan (the same response bytes, the shard named
+    degraded), reresolve_mesh restoring it."""
+    from trivy_tpu_torch.cache.cache import MemoryCache
+    from trivy_tpu_torch.resilience import faults
+    from trivy_tpu_torch.rpc import wire
+    from trivy_tpu_torch.rpc.server import ScanService
+    from trivy_tpu_torch.types.scan import ScanOptions
+
+    cache = MemoryCache()
+    cache.put_blob("sha256:mesh",
+                   burst_blobs(p7["sbom"], random.Random(BURST_SEED))[0])
+    svc = ScanService(engine, cache)
+
+    def scan() -> bytes:
+        return wire.scan_response(*svc.scan("mesh", "", ["sha256:mesh"],
+                                            ScanOptions()))
+
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    try:
+        zero_mesh_launches(engine)
+        ready0 = svc.ready()
+        first = scan()
+        faults.install_spec("engine.shard:device-lost@1")
+        try:
+            lost = scan()
+        finally:
+            faults.reset()
+        ready1 = svc.ready()
+        rr = svc.reresolve_mesh()
+        ready2 = svc.ready()
+        again = scan()
+        launches = mesh_launches(engine)
+    finally:
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+        svc.close()
+    return {"ready": ready0[1], "ready_degraded": ready1[1],
+            "ready_after": ready2[1], "reresolve": rr,
+            "response_mb": len(first) / 1e6,
+            "diff_lost": int(lost != first), "diff_after": int(again != first),
+            "launches": launches,
+            "ok": (ready0[0] and "mesh 2x4" in ready0[1]
+                   and "degraded" not in ready0[1] and ready1[0]
+                   and "shard(s) 0 degraded to host" in ready1[1]
+                   and rr.get("reresolved") is True
+                   and "degraded" not in ready2[1])}
+
+
+def mesh_reload_cli(dev, d13: dict, tmp: str) -> dict:
+    """(e): `sbom --mesh 1x1` on phase 12 (d)'s generation root (25,000
+    advisories) against the run without --mesh, byte for byte; `sbom
+    --mesh 2x4` failing on one card with rc 1 and one error line; the
+    hot reload of that root keeping a prebuilt 2x2 grid."""
+    import dataclasses
+    import io
+
+    import torch
+
+    from trivy_tpu_torch import log
+    from trivy_tpu_torch.cache.cache import MemoryCache
+    from trivy_tpu_torch.cli import main as cli_main
+    from trivy_tpu_torch.db import AdvisoryDB
+    from trivy_tpu_torch.detector.engine import MatchEngine
+    from trivy_tpu_torch.ops.mesh import build_mesh
+    from trivy_tpu_torch.rpc import wire
+    from trivy_tpu_torch.rpc.server import ScanService
+    from trivy_tpu_torch.sbom.decode import decode_sbom_file
+    from trivy_tpu_torch.types.scan import ScanOptions
+
+    root, bom = d13["root"], d13["bom"]
+    base = ["sbom", bom, "--format", "json", "--db-path", root,
+            "--cache-dir", os.path.join(tmp, "mesh_cache")]
+    out: dict = {}
+    reports = {}
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    try:
+        for name, extra in (("plain", []), ("mesh_1x1", ["--mesh", "1x1"])):
+            reports[name] = os.path.join(tmp, f"mesh_{name}.json")
+            r = cli_run(base + ["--quiet"] + extra, reports[name], False)
+            out[name] = {k: r[k] for k in ("wall_s", "report_bytes",
+                                           "vulnerabilities", "launches")}
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main.main(base + ["--mesh", "2x4"])
+        log.init()
+        errors = [ln for ln in err.getvalue().splitlines() if "ERROR" in ln]
+        out["mesh_2x4"] = {"rc": rc, "errors": errors,
+                           "wall_s": time.perf_counter() - t0}
+        want_line = (f"--mesh/TRIVY_TPU_MESH: mesh 2x4 needs 8 devices, "
+                     f"have {torch.cuda.device_count()}")
+        with open(reports["plain"], "rb") as f:
+            plain = f.read()
+        with open(reports["mesh_1x1"], "rb") as f:
+            out["diff_1x1"] = int(f.read() != plain)
+
+        blob, _meta = decode_sbom_file(bom)
+        cache = MemoryCache()
+        cache.put_blob("sha256:reload", dataclasses.asdict(blob))
+        grid = build_mesh(2, 2, devices=[dev] * 4)
+        engine = MatchEngine(AdvisoryDB.load(root), device=dev,
+                             db_path=root, mesh=grid)
+        svc = ScanService(engine, cache, db_path=root)
+
+        def scan(service) -> bytes:
+            return wire.scan_response(*service.scan(
+                "reload", "", ["sha256:reload"], ScanOptions()))
+
+        fresh_svc = None
+        try:
+            db0 = d13["db0"]
+            db0.meta.updated_at = "2024-04-04T00:00:00Z"
+            reload_gen(root, "sha256-ddd", db0)
+            t0 = time.perf_counter()
+            swapped = svc.maybe_reload_db()
+            out["reload_swap_s"] = time.perf_counter() - t0
+            new = svc.engine
+            got = scan(svc)
+            fresh_svc = ScanService(
+                MatchEngine(AdvisoryDB.load(root), device=dev), cache)
+            want = scan(fresh_svc)
+        finally:
+            svc.close()
+            if fresh_svc is not None:
+                fresh_svc.close()
+    finally:
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+    out["reload"] = {"swapped": swapped, "shape": new.shard_health(),
+                     "grid_kept": new.mesh is grid and new is not engine,
+                     "rescan_equals_fresh": got == want}
+    out["ok"] = (out["diff_1x1"] == 0 and rc == 1 and len(errors) == 1
+                 and want_line in errors[0] and swapped
+                 and out["reload"]["grid_kept"]
+                 and new.shard_health()["shape"] == "2x2"
+                 and got == want and out["mesh_1x1"]["launches"] > 0)
+    return out
+
+
+def mesh_path(dev, p3: dict, p5: dict, p7: dict, p12: dict,
+              tmp: str) -> dict:
+    """Phase 13: the serving mesh and the device-loss ladders on the
+    card, in process, on the engine phase 12 holds (phase 7's
+    2,000,000 advisories; every cell of every mesh on the one card).
+    (a) 2x4 cold (shard-cache miss and save) and warm (hit), 1x8 and
+    1x1 on phase 7's DB directory, each driving phase 3's sample through
+    detect and submit and its first MESH_CRAWL queries through
+    detect_many, equal to the single-device engine (itself equal to
+    phase 3's oracle on the sample); (b) the engine.shard rungs and the
+    engine.device drop and delay on the 2x4 engine, each equal to (a),
+    and the two whole-engine losses (engine.device on the cold 2x4
+    engine's crawl, engine on the warm one's sample), on main-tier
+    queries (the host oracle takes 17.7 s for the whole sample); (c)
+    the secret.device rungs; (d) a ScanService on the 2x4 engine; (e)
+    the CLI and the reload (mesh_reload_cli)."""
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.detector.engine import MatchEngine
+    from trivy_tpu_torch.ops.match import host_shards
+    from trivy_tpu_torch.ops.mesh import build_mesh
+    from trivy_tpu_torch.resilience import faults
+    from trivy_tpu_torch.tensorize import cache as compile_cache
+
+    card = card_line()
+    engine = next((e for e in run._ENGINE_CACHE.values()
+                   if e.use_device), None)
+    if engine is None:
+        raise AssertionError("no device engine left from phase 7")
+    sample, crawl = p3["sample"], p3["crawl"]
+    t0 = time.perf_counter()
+    want = {"sample": hits_of(engine.detect(sample))}
+    single_s = time.perf_counter() - t0
+    want["crawl"] = hits_of(engine.detect_many(crawl, BATCH))
+    oracle_diff = sum(a != b for a, b in zip(want["sample"], p3["oracle"]))
+    print(f"phase13 single card={card!r} sample={len(sample)} "
+          f"crawl={len(crawl)} sample_wall_s={single_s:.3f} "
+          f"diff_vs_phase3_oracle={oracle_diff}")
+    if oracle_diff:
+        raise AssertionError("the single-device engine disagrees with "
+                             "phase 3's oracle on the sample")
+
+    # (a) the meshes
+    engines: dict = {}
+    shapes: dict = {}
+    for name, dp, n_db in MESH_SHAPES:
+        grid = build_mesh(dp, n_db, devices=[dev] * (dp * n_db))
+        counts0 = dict(compile_cache.COUNTS)
+        t0 = time.perf_counter()
+        me = MatchEngine(engine.db, device=dev, db_path=p7["db_root"],
+                         mesh=grid)
+        build_s = time.perf_counter() - t0
+        r = mesh_drive(me, sample, crawl, want)
+        r.update(build_s=build_s, **{k: v for k, v in me.build_stats.items()
+                                     if k != "compile_cache"},
+                 compile_cache=me.build_stats.get("compile_cache"),
+                 cache_counts={k: compile_cache.COUNTS[k] - counts0[k]
+                               for k in counts0},
+                 shard_len=me._mdb.shard_len, shard_base=me._mdb.shard_base)
+        shapes[name] = r
+        print(f"phase13 (a) mesh={name} {json.dumps(r)}")
+        if name in ("2x4_cold", "2x4_warm"):
+            engines[name] = me
+        del me
+    # the slicing alone, beside the warm build's shard-cache hit
+    cut_s = {}
+    for n_db in (4, 8):
+        t0 = time.perf_counter()
+        host_shards(engine.cdb, n_db)
+        cut_s[n_db] = time.perf_counter() - t0
+    print(f"phase13 (a) host_shards_s={json.dumps(cut_s)} shard_hit_s="
+          f"{shapes['2x4_warm']['mesh_shard_s']} card={card!r}")
+    bad = [n for n, r in shapes.items()
+           if r["diff"] or not all(c >= 1 for row in r["launches"]["cells"]
+                                   for c in row)
+           or not (r["launches"]["hot"] and r["launches"]["tall"])]
+    if bad:
+        raise AssertionError(f"meshes {bad}: hits differ from the single-"
+                             "device engine, or a cell or tier never "
+                             "launched")
+    if shapes["2x4_cold"]["mesh_shard_cache"] != "miss" \
+            or shapes["2x4_warm"]["mesh_shard_cache"] != "hit" \
+            or shapes["1x1"]["mesh_shard_cache"] != "off":
+        raise AssertionError("the shard cache: 2x4 cold must miss, warm "
+                             "hit, 1x1 write no entry")
+
+    # (b) the match ladders on the warm 2x4 engine
+    me = engines["2x4_warm"]
+    ladder: dict = {}
+    for spec, degraded in SHARD_RUNGS:
+        zero_mesh_launches(me)
+        deg0 = dict(me._mdb.degradations)
+        faults.install_spec(spec)
+        t0 = time.perf_counter()
+        try:
+            got = hits_of(me.detect(sample))
+            fired = [rule.fired for rule in faults.active().rules]
+        finally:
+            faults.reset()
+        r = {"wall_s": time.perf_counter() - t0,
+             "diff": sum(a != b for a, b in zip(got, want["sample"])),
+             "health": me.shard_health()["degraded"], "fired": fired,
+             "retries": dict(me._mdb.shard_retry_count),
+             "degradations": {d: n - deg0.get(d, 0)
+                              for d, n in me._mdb.degradations.items()},
+             "launches": mesh_launches(me)}
+        r["reresolved"] = me.reresolve_mesh()
+        ladder[spec] = r
+        print(f"phase13 (b) rung={spec} {json.dumps(r)}")
+        if r["diff"] or r["health"] != degraded \
+                or r["reresolved"] != bool(degraded):
+            raise AssertionError(f"rung {spec}: {r}")
+    for spec in DEVICE_RUNGS:
+        me._crawl_cache.clear()
+        zero_mesh_launches(me)
+        faults.install_spec(spec)
+        t0 = time.perf_counter()
+        try:
+            got = hits_of(me.detect_many(crawl, MESH_RUNG_BATCH))
+            fired = [rule.fired for rule in faults.active().rules]
+        finally:
+            faults.reset()
+        r = {"wall_s": time.perf_counter() - t0,
+             "diff": sum(a != b for a, b in zip(got, want["crawl"])),
+             "fired": fired, "use_device": me.use_device,
+             "launches": mesh_launches(me)}
+        ladder[spec] = r
+        print(f"phase13 (b) rung={spec} {json.dumps(r)}")
+        if r["diff"] or not me.use_device or not all(fired):
+            raise AssertionError(f"rung {spec}: {r}")
+
+    # (c) the secret ladder
+    t0 = time.perf_counter()
+    sec = secret_ladder(dev, p5["corpus"])
+    print(f"phase13 (c) secret card={card!r} {json.dumps(sec)} "
+          f"seconds={time.perf_counter() - t0:.3f}")
+    for spec in (*SECRET_RUNGS, "stream:device-lost"):
+        r = sec[spec]
+        if r["diff"] or r["degraded"] != (0 if "delay" in spec else 1) \
+                or ("delay" in spec and not r["anchor_launches"]):
+            raise AssertionError(f"secret rung {spec}: {r}")
+
+    # (d) the server on the 2x4 engine
+    srv = mesh_server(me, p7)
+    print(f"phase13 (d) server {json.dumps(srv)}")
+    if not srv["ok"] or srv["diff_lost"] or srv["diff_after"]:
+        raise AssertionError(f"mesh server: {srv}")
+
+    # (b) the whole-engine losses, last: they leave the engine on the
+    # host oracle for good
+    cdb = engine.cdb
+    main_s = [i for i, q in enumerate(sample)
+              if (q.space, q.name) not in cdb.host_fallback]
+    main_c = [i for i, q in enumerate(crawl)
+              if (q.space, q.name) not in cdb.host_fallback]
+    main_c = main_c[:MESH_LOST_QUERIES]
+    for name, spec, e, qs, idx, ref in (
+            ("lost_crawl", "engine.device:device-lost", engines["2x4_cold"],
+             crawl, main_c, want["crawl"]),
+            ("lost_sample", "engine:device-lost@1", me, sample, main_s,
+             want["sample"])):
+        e._crawl_cache.clear()
+        faults.install_spec(spec)
+        t0 = time.perf_counter()
+        try:
+            sub = [qs[i] for i in idx]
+            got = hits_of(e.detect_many(sub, MESH_RUNG_BATCH)
+                          if name == "lost_crawl" else e.detect(sub))
+        finally:
+            faults.reset()
+        r = {"queries": len(idx), "wall_s": time.perf_counter() - t0,
+             "diff": sum(a != ref[i] for a, i in zip(got, idx)),
+             "device_lost": e.device_lost, "degraded": e.degraded}
+        ladder[spec] = r
+        print(f"phase13 (b) rung={spec} on={name} {json.dumps(r)}")
+        if r["diff"] or not e.device_lost or e.degraded != 1:
+            raise AssertionError(f"rung {spec}: {r}")
+    engines.clear()
+    del me
+
+    # (e) the CLI and the reload
+    t0 = time.perf_counter()
+    cli = mesh_reload_cli(dev, p12["reload_root"], tmp)
+    print(f"phase13 (e) cli_reload {json.dumps(cli)} "
+          f"seconds={time.perf_counter() - t0:.3f}")
+    if not cli["ok"]:
+        raise AssertionError(f"mesh CLI / reload: {cli}")
+    return {"shapes": shapes, "ladder": ladder, "secret": sec,
+            "server": srv, "cli": cli}
 
 
 def main() -> int:
@@ -3788,6 +4354,16 @@ def main() -> int:
         t0 = time.perf_counter()
         p12 = server_path(dev, srv, p7, p8, p9, work)
         print(f"phase12 seconds={time.perf_counter() - t0:.3f}")
+
+        # no cyclic garbage collection inside phase 13: a full pass over
+        # the 2 M DB's objects stalled a mesh build for 9 s (PERF.md §7)
+        t0 = time.perf_counter()
+        gc.disable()
+        try:
+            p13 = mesh_path(dev, p3, p5, p7, p12, work)
+        finally:
+            gc.enable()
+        print(f"phase13 seconds={time.perf_counter() - t0:.3f}")
     finally:
         if srv is not None and srv["proc"].poll() is None:
             srv["proc"].kill()
@@ -3832,6 +4408,12 @@ def main() -> int:
             "burst_unsched": p12["burst"]["unsched"]["per_tier"],
             "clients": {k: r["match"] for k, r in
                         p12["clients"].items()}},
+        "launches_mesh": {
+            **{k: r["launches"] for k, r in p13["shapes"].items()},
+            **{f"rung {k}": r["launches"]
+               for k, r in p13["ladder"].items() if "launches" in r},
+            "server": p13["server"]["launches"],
+            "sbom_cli_mesh_1x1": p13["cli"]["mesh_1x1"]["launches"]},
         "tiers": p3["timings"],
     }]
     for name, source, replaces, launches in (

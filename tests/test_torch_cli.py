@@ -207,7 +207,7 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
     assert capsys.readouterr().out == GOLDEN.read_text()
 
 
-@pytest.mark.parametrize("flag", [["--trace"], ["--mesh", "2x1"],
+@pytest.mark.parametrize("flag", [["--trace"], ["--journal", "j.log"],
                                   ["--fallback"],
                                   ["--ignore-policy", "p.yaml"],
                                   ["--compliance", "docker-cis-1.6.0"]])

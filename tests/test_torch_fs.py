@@ -339,6 +339,33 @@ def test_no_card_fails_and_names_cuda(dbs, mk_rootfs, tmp_path, capsys,
     assert json.loads(capsys.readouterr().out)["Results"]
 
 
+@pytest.mark.parametrize("cmd", ["sbom", "fs"])
+@pytest.mark.parametrize("flag", ["--skip-db-update", "--offline-scan"])
+def test_db_update_flags_change_no_report_byte(dbs, mk_rootfs, tmp_path,
+                                               capsys, cmd, flag):
+    """--skip-db-update and --offline-scan are accepted and ignored, as
+    in the reference (whose parser takes the same argv and whose code
+    reads neither): the report equals the run without the flag, and the
+    reference's report with it."""
+    import test_sbom_e2e
+
+    target = mk_rootfs
+    if cmd == "sbom":
+        target = str(tmp_path / "bom.json")
+        with open(target, "w") as f:
+            json.dump(test_sbom_e2e.CDX_DOC, f)
+    argv = [cmd, target, "--format", "json", "--db-path", dbs["fixture"],
+            "--quiet"]
+    args = jax_main.build_parser().parse_args(argv + [flag])
+    assert getattr(args, flag[2:].replace("-", "_")) is True
+    plain = scan(main, argv + ["--device", "cpu", "--cache-dir",
+                               str(tmp_path / "c0")], capsys, port_uuid)
+    (jrc, jout), (rc, out) = both(argv + [flag], tmp_path, capsys)
+    assert rc == jrc == plain[0] == 0
+    assert out == plain[1] == jout
+    assert json.loads(out)["Results"]
+
+
 def _scan_defaults(parser, cmd) -> dict:
     sub = next(a for a in parser._actions
                if isinstance(a, argparse._SubParsersAction))
@@ -362,8 +389,8 @@ def test_unported_list_is_reference_dests_minus_ports(cmd):
 @pytest.mark.parametrize("dest,value", [("compliance", "docker-cis-1.6.0"),
                                         ("ignore_policy", "p.yaml"),
                                         ("license_full", "true"),
-                                        ("mesh", "2x1"),
-                                        ("skip_db_update", "1"),
+                                        ("journal", "j.log"),
+                                        ("redis_tls", "1"),
                                         ("trace", "1")])
 def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
                                              capsys, monkeypatch, cmd,

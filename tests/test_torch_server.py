@@ -980,8 +980,8 @@ def test_replica_set_url_is_refused(golden_dbs, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["sbom", "bom.json", "--server", "http://h:1", "--fallback"],
-    ["server", "--mesh", "2x1"],
-    ["server", "--monitor-index", "idx"]], ids=["fallback", "mesh",
+    ["sbom", "bom.json", "--redis-tls"],
+    ["server", "--monitor-index", "idx"]], ids=["fallback", "redis-tls",
                                                 "monitor-index"])
 def test_unported_flags_are_refused_on_argv(argv):
     with pytest.raises(SystemExit) as exc, \
@@ -990,7 +990,7 @@ def test_unported_flags_are_refused_on_argv(argv):
     assert exc.value.code == 2
 
 
-@pytest.mark.parametrize("dest,value", [("mesh", "2x1"),
+@pytest.mark.parametrize("dest,value", [("mesh", "2x1x4"),
                                         ("monitor_index", "idx")])
 def test_unported_server_options_from_env_are_refused(monkeypatch, capsys,
                                                       dest, value):
@@ -1003,8 +1003,8 @@ def test_unported_server_options_from_env_are_refused(monkeypatch, capsys,
     assert dest.replace("_", "-") in lines[0]
 
 
-@pytest.mark.parametrize("spec", ["engine:device-lost@1",
-                                  "secret.device:drop",
+@pytest.mark.parametrize("spec", ["engine.host:device-lost@1",
+                                  "monitor.index:error",
                                   "analysis.fetch:delay=1",
                                   "db.download:bitflip",
                                   "sched.submit:kill",
@@ -1022,7 +1022,7 @@ def test_unported_fault_spec_is_refused(spec):
 def test_unported_fault_site_in_env_fails_the_command(golden_dbs, tmp_path,
                                                       monkeypatch, capsys,
                                                       command):
-    monkeypatch.setenv("TRIVY_TPU_FAULTS", "engine:device-lost@1")
+    monkeypatch.setenv("TRIVY_TPU_FAULTS", "engine.host:device-lost@1")
     if command == "sbom":
         argv = ["sbom", golden_dbs["sbom"], "--db-path", golden_dbs["db"]]
     else:

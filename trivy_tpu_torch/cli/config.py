@@ -27,7 +27,7 @@ ENV_PREFIX = "TRIVY_TPU_"
 # parsers lack, each with
 # the values that leave the reference's scan as it is: its parser's
 # default first, then the spellings its code reads as unset (the empty
-# string where it tests the option's truth; mesh's single-chip specs)
+# string where it tests the option's truth)
 UNPORTED = {
     "check_namespaces": ([],), "checks_bundle_repository": ("",),
     "compliance": (None, ""), "config_check": ([],), "config_data": ([],),
@@ -36,20 +36,17 @@ UNPORTED = {
     "helm_values": ([],), "ignore_policy": (None, ""),
     "include_deprecated_checks": (False,), "journal": (None, ""),
     "license_full": (False,), "log_format": ("text",),
-    "mesh": (None, "", "0", "off", "none"), "module_dir": (None,),
-    "monitor_index": (None, ""), "offline_scan": (False,),
+    "module_dir": (None,), "monitor_index": (None, ""),
     "redis_ca": ("",), "redis_cert": ("",), "redis_insecure": (False,),
     "redis_key": ("",), "redis_tls": (False,), "report": ("summary",),
     "resume": (None, ""), "skip_check_update": (False,),
-    "skip_db_update": (False,), "targets": (None, ""), "trace": (False,),
+    "targets": (None, ""), "trace": (False,),
     "trace_export": (None, ""),
 }
 
-# the same for the reference's `server` subcommand: the serving mesh
-# and the monitor index are not ported yet
-UNPORTED_SERVER = {
-    "mesh": (None, "", "0", "off", "none"), "monitor_index": (None, ""),
-}
+# the same for the reference's `server` subcommand: the monitor index
+# is not ported yet
+UNPORTED_SERVER = {"monitor_index": (None, "")}
 
 
 def _load_config_file(path: str | None) -> dict:

@@ -65,6 +65,10 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="comma-separated package types (os,library)")
     p.add_argument("--db-path", default=None,
                    help="advisory DB directory (default <cache>/db)")
+    # accepted and without effect, as in the reference (no DB update or
+    # online lookup runs at scan time in either package)
+    p.add_argument("--skip-db-update", action="store_true")
+    p.add_argument("--offline-scan", action="store_true")
     p.add_argument("--list-all-pkgs", action="store_true")
     p.add_argument("--include-dev-deps", action="store_true",
                    help="include development dependencies (supported "
@@ -88,6 +92,7 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="torch device of the match kernel and the "
                         "secret screens (default cuda:0; 'cpu' runs "
                         "their plain versions)")
+    _add_mesh_flag(p)
     p.add_argument("--secret-pack-mb", type=float, default=None,
                    metavar="MB",
                    help="packed super-buffer MiB per device secret "
@@ -192,6 +197,18 @@ def _add_db_parser(sub) -> None:
     pj.add_argument("source")
 
 
+def _add_mesh_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh", default=None, metavar="DPxDB",
+                   help="serve matching from a sharded device mesh: "
+                        "'DPxDB' (e.g. 2x4: 2 data-parallel groups x 4 "
+                        "advisory shards over the first 8 CUDA devices; "
+                        "every cell on the CPU with --device cpu), "
+                        "'auto' (topology from the DB size and the "
+                        "device count), or 'off' (default; env "
+                        "TRIVY_TPU_MESH). The cross-host HOSTSxDPxDB "
+                        "form is not ported yet")
+
+
 def _add_server_parser(sub) -> None:
     from trivy_tpu_torch.sched.scheduler import (
         DEFAULT_MAX_ROWS,
@@ -210,6 +227,7 @@ def _add_server_parser(sub) -> None:
     p.add_argument("--device", default=None,
                    help="torch device of the match kernel (default "
                         "cuda:0; 'cpu' runs its plain version)")
+    _add_mesh_flag(p)
     p.add_argument("--drain-timeout", default="30s",
                    help="graceful-drain budget on SIGTERM: /readyz goes "
                         "503 immediately, in-flight scans get this long "

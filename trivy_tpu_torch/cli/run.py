@@ -6,10 +6,10 @@ Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
 their client mode (`--server`: analysis here, detection on one scan
 server; no `--fallback`), and the `convert`, `db` and `server`
 subcommands: no fleet mode (`--targets`, `--journal`), monitor index,
-compliance, modules, ignore policies, mesh or tracing yet. The match
+compliance, modules, ignore policies or tracing yet. The match
 engine and the secret analyzer's screen run on the device `--device`
-names (``cuda:0`` by default); `--no-tpu` takes the host paths of
-both.
+names (``cuda:0`` by default), the engine's main tier on the serving
+mesh `--mesh` names; `--no-tpu` takes the host paths of both.
 
 `STATS` keeps the wall seconds of the last scan's phases, split by this
 module's own code: DB load, engine build (compile or compiled-cache
@@ -101,19 +101,46 @@ def _load_db(args):
 _ENGINE_CACHE: dict = {}
 
 
+def _mesh_spec(args) -> str:
+    """--mesh, else TRIVY_TPU_MESH; a malformed spec fails here."""
+    from trivy_tpu_torch.ops import mesh as mesh_ops
+
+    spec = getattr(args, "mesh", None)
+    if spec is None:
+        spec = mesh_ops.spec_from_env()
+    try:
+        mesh_ops.parse_spec(spec)
+    except ValueError as exc:
+        raise FatalError(f"--mesh/TRIVY_TPU_MESH: {exc}")
+    return spec
+
+
 def new_engine(args):
     """Fresh MatchEngine. The on-disk DB path is threaded through so a
     warm start with an unchanged DB loads the persistent compiled-tensor
-    cache instead of recompiling (tensorize.cache)."""
+    cache instead of recompiling (tensorize.cache). `--mesh` /
+    TRIVY_TPU_MESH serves matching from a sharded device mesh
+    (ops/mesh.py); a spec the devices cannot place fails here."""
     from trivy_tpu_torch.detector.engine import MatchEngine
+    from trivy_tpu_torch.ops import mesh as mesh_ops
 
     device = _device(args)
+    mesh_spec = _mesh_spec(args)
     t0 = time.perf_counter()
     db = _load_db(args)
     t1 = time.perf_counter()
-    engine = MatchEngine(
-        db, use_device=not getattr(args, "no_tpu", False), device=device,
-        db_path=_db_path(args) if db.buckets else None)
+    kw = dict(use_device=not getattr(args, "no_tpu", False), device=device,
+              db_path=_db_path(args) if db.buckets else None)
+    if mesh_ops.parse_spec(mesh_spec) is None:
+        # no mesh in play: engine errors must not read as mesh problems
+        engine = MatchEngine(db, **kw)
+    else:
+        try:
+            engine = MatchEngine(db, mesh_spec=mesh_spec, **kw)
+        except ValueError as exc:
+            # the spec parsed, so this is a topology the devices cannot
+            # place (too few of them)
+            raise FatalError(f"--mesh/TRIVY_TPU_MESH: {exc}")
     STATS.update(db_load_s=t1 - t0,
                  engine_build_s=time.perf_counter() - t1,
                  **engine.build_stats)
@@ -121,9 +148,10 @@ def new_engine(args):
 
 
 def build_engine(args):
-    """MatchEngine, cached per db-path and device within the process."""
+    """MatchEngine, cached per db-path, device and mesh spec within the
+    process."""
     key = (_db_path(args), getattr(args, "no_tpu", False),
-           str(_device(args)))
+           str(_device(args)), _mesh_spec(args))
     if key not in _ENGINE_CACHE:
         _ENGINE_CACHE[key] = new_engine(args)
     else:

@@ -2,11 +2,18 @@
 per-package detection loops, plus the pure-host oracle used as the
 zero-diff reference.
 
-Port of trivy_tpu/detector/engine.py, single-device path. Pipeline per
-batch:
+Port of trivy_tpu/detector/engine.py. Pipeline per batch:
   host encode (hash + rank) -> CUDA kernel (join + containment) ->
   host decode (native collect.cpp where it builds, numpy otherwise) ->
   exact rescreen of candidates -> matches.
+With a serving mesh (`mesh` / `mesh_spec`, ops/mesh.py) the main tier's
+kernel runs once per (data group, db shard) cell and the host merges
+the shards' masks; the hot and tall tiers stay on the engine's device.
+
+Device-loss ladders: the fault site ``engine`` (a DeviceLost flips the
+engine to the host oracle for good, logged once and counted in
+`degraded`) and ``engine.device`` (the in-flight stage: delay, drop
+with a second dispatch, device-lost). Any other device error raises.
 
 The oracle path runs the exact check over every advisory for each name via
 dict lookup — semantically identical to the reference's
@@ -31,6 +38,7 @@ from trivy_tpu_torch.device import resolve_device
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.native import collect as ncollect
 from trivy_tpu_torch.ops import match as m
+from trivy_tpu_torch.resilience import faults
 from trivy_tpu_torch.tensorize.compile import (
     CompiledDB,
     PackageBatch,
@@ -112,6 +120,8 @@ class MatchEngine:
         use_device: bool = True,
         device=None,
         db_path: str | None = None,
+        mesh=None,
+        mesh_spec: str | None = None,
     ):
         """`use_device=False` is the explicit host-oracle path. With
         `use_device=True` the rows live on `device` (default ``cuda:0``;
@@ -122,14 +132,22 @@ class MatchEngine:
         the compiled tensor set is loaded from / saved to the persistent
         compiled-DB cache keyed by the DB digest + compile params
         (tensorize.cache) — a warm process start with an unchanged DB
-        skips the recompile."""
+        skips the recompile.
+
+        `mesh`: a prebuilt `device.DeviceGrid`: the main tier serves
+        from a sharded mesh (ops/mesh.py MeshDB) with per-shard fault
+        isolation. `mesh_spec`: an operator topology string ("DPxDB",
+        "auto", "off": --mesh / TRIVY_TPU_MESH), resolved against the
+        compiled DB's row count on the CUDA devices (every cell on the
+        CPU for ``device="cpu"``); an invalid spec, or one the devices
+        cannot place, raises ValueError here."""
         self.db = db
         # where the build's time went: compile or cache load, and the
         # upload of the three tiers to the card
         self.build_stats: dict = {"compile_cache": "off"}
         t0 = time.perf_counter()
         self.cdb: CompiledDB | None = None
-        digest = None
+        digest = db_meta = None
         if db_path:
             from trivy_tpu_torch.tensorize import cache as compile_cache
 
@@ -153,10 +171,29 @@ class MatchEngine:
         if self.cdb is None:
             self.cdb = compile_db(db, window=window)
         self.build_stats["compile_s"] = time.perf_counter() - t0
+        # routes the mesh's shard slices through the compiled-DB cache
+        self._cache_ctx = (db_path, digest, db_meta, window) \
+            if db_path else None
         self.use_device = use_device
         self.device = resolve_device(device) if use_device else None
+        if use_device and mesh is None and mesh_spec:
+            from trivy_tpu_torch.ops import mesh as mesh_ops
+
+            mesh = mesh_ops.build_from_spec(
+                mesh_spec, n_rows=self.cdb.n_rows, device=self.device)
+        self.mesh = mesh
+        # the requested spec, kept so an engine rebuild (the server's
+        # hot DB reload) resolves the topology against the NEW DB
+        # instead of dropping the mesh
+        self.mesh_spec = mesh_spec
+        self._mdb = None
         self._ddb = None
         self.rescreen_stats = {"candidates": 0, "confirmed": 0}
+        # set when an (injected or real) device loss degraded this
+        # engine to the host oracle mid-scan; `degraded` counts those
+        # degradations (the reference's DEGRADED_TOTAL metric)
+        self.device_lost = False
+        self.degraded = 0
         # lazy (space, name) -> advisory-indices index for the oracle path
         self._oracle_index: dict | None = None
         # lazy per-advisory compiled checkers + parsed-version memo
@@ -204,7 +241,16 @@ class MatchEngine:
             self._ensure_tokens()
             self.cdb.name_tokens = self._name_tokens
             self.cdb.version_tokens = self._version_tokens
-            self._ddb = m.DeviceDB.from_compiled(self.cdb, self.device)
+            if mesh is not None:
+                from trivy_tpu_torch.ops import mesh as mesh_ops
+
+                self._mdb = mesh_ops.MeshDB.from_compiled(
+                    self.cdb, mesh, cache_ctx=self._cache_ctx)
+                self.build_stats.update(
+                    {f"mesh_{k}": v
+                     for k, v in self._mdb.build_stats.items()})
+            else:
+                self._ddb = m.DeviceDB.from_compiled(self.cdb, self.device)
             # hot names match on the card against their own partitions
             # (mid tier + tall "linux"-class tier)
             self._ddb_hot = m.DeviceDB.hot_from_compiled(self.cdb,
@@ -217,9 +263,39 @@ class MatchEngine:
 
     @property
     def device_db(self):
-        """The resident main-tier DB tensors (None in host mode) —
-        public handle for benches and diagnostics."""
+        """The resident main-tier DB tensors (None in mesh and host
+        modes) — public handle for benches and diagnostics."""
         return self._ddb
+
+    @property
+    def mesh_data_axis(self) -> int:
+        """Data-parallel width of the serving mesh (1 = single device).
+        The match scheduler composes its coalesced batches to fill
+        it."""
+        return self._mdb.n_data if self._mdb is not None else 1
+
+    @property
+    def mesh_row_floor(self) -> int:
+        """Largest batch bucket the mesh's cells have been dispatched
+        (ops/match DeviceDB.bucket_floor; 0 = single device / cold): the
+        match scheduler tops coalesced batches up to it."""
+        if self._mdb is None:
+            return 0
+        return max((ddb.bucket_floor for row in self._mdb.grid
+                    for ddb in row), default=0)
+
+    def shard_health(self) -> dict | None:
+        """Mesh shard health for /readyz: the topology and which db
+        shards are degraded to the host mask. None on the single-device
+        path."""
+        return self._mdb.health() if self._mdb is not None else None
+
+    def reresolve_mesh(self) -> bool:
+        """Upload degraded shards' slices to their devices again.
+        Callers quiesce in-flight scans first (the server takes its
+        write lock). True when a shard was restored; a single-device
+        engine or a healthy mesh is a no-op."""
+        return self._mdb.reresolve() if self._mdb is not None else False
 
     @staticmethod
     def dedupe_queries(queries: list[PkgQuery]):
@@ -343,13 +419,20 @@ class MatchEngine:
                 return [MatchResult(q, u[idx_map[j]].adv_indices)
                         for j, q in enumerate(queries)]
             return self.oracle_detect(queries)
-        if len(uniq) < len(queries):
-            uniq_hits = self._detect_unique(uniq)
-            out = [MatchResult(q, uniq_hits[idx_map[j]])
-                   for j, q in enumerate(queries)]
-        else:
-            hits = self._detect_unique(queries)
-            out = [MatchResult(q, h) for q, h in zip(queries, hits)]
+        try:
+            faults.check_device("engine")
+            if len(uniq) < len(queries):
+                uniq_hits = self._detect_unique(uniq)
+                out = [MatchResult(q, uniq_hits[idx_map[j]])
+                       for j, q in enumerate(queries)]
+            else:
+                hits = self._detect_unique(queries)
+                out = [MatchResult(q, h) for q, h in zip(queries, hits)]
+        except faults.DeviceLost as exc:
+            self._degrade_device(exc)
+            # re-enter through the (now) host branch so the fallback
+            # pass dedupes like every other detect call
+            return self.detect(queries)
         self._enforce_memo_bounds()
         return out
 
@@ -391,12 +474,29 @@ class MatchEngine:
         Unique-query results memoize ACROSS batches: a registry crawl's
         images share most of their packages, so later batches dispatch
         only the queries never seen before."""
-        if not self.use_device:
-            out = []
-            for i in range(0, len(queries), batch_size):
-                out.extend(self.oracle_detect(queries[i: i + batch_size]))
-            return out
-        return self._detect_many_device(queries, batch_size, depth)
+        if self.use_device:
+            try:
+                faults.check_device("engine")
+                return self._detect_many_device(queries, batch_size, depth)
+            except faults.DeviceLost as exc:
+                self._degrade_device(exc)
+        out = []
+        for i in range(0, len(queries), batch_size):
+            out.extend(self.oracle_detect(queries[i: i + batch_size]))
+        return out
+
+    def _degrade_device(self, exc: Exception) -> None:
+        """The card was lost mid-scan: flip this engine to the host
+        oracle for good (the compiled host copies answer every query
+        the kernel would: zero match diff, only slower), log it once and
+        count it. Only a DeviceLost gets here; any other device error
+        raises to the caller."""
+        _log.warn("device lost; degrading match engine to the host "
+                  "oracle", err=str(exc))
+        with self._memo_lock:
+            self.degraded += 1
+        self.use_device = False
+        self.device_lost = True
 
     # pipelined-executor tuning: collect workers overlap the host
     # compress/rescreen of earlier batches with the encode+dispatch of
@@ -414,6 +514,28 @@ class MatchEngine:
                 _log.warn("bad TRIVY_TPU_PIPELINE_WORKERS; using default",
                           value=w)
         return min(2, os.cpu_count() or 1)
+
+    def _check_device_stage(self, ctx: dict, queries: list[PkgQuery]):
+        """Fault hook of the in-flight device stage (site
+        ``engine.device``): ``delay`` sleeps (a slow link), ``drop``
+        discards the in-flight result and dispatches the batch again
+        (a lost result is recomputed: the match set stays the same),
+        ``device-lost`` raises so the scan degrades to the host
+        oracle."""
+        redo = False
+        for r in faults.fire("engine.device"):
+            if r.action == "delay":
+                time.sleep(r.param if r.param is not None else 0.05)
+            elif r.action == "drop":
+                redo = True
+            elif r.action == "device-lost":
+                raise faults.DeviceLost(
+                    "injected device loss at engine.device")
+        if redo:
+            # safe from a crunch lane: these queries were encoded once
+            # already, so the re-encode only reads the intern tables
+            ctx = self._dispatch_unique(queries)
+        return ctx
 
     def _detect_many_device(self, queries: list[PkgQuery],
                             batch_size: int, depth: int
@@ -463,12 +585,14 @@ class MatchEngine:
 
             def flush_one():
                 us, qs, ctx = pend.popleft()
+                ctx = self._check_device_stage(ctx, qs)
                 for u, q, h in zip(us, qs, self._collect_unique(ctx)):
                     hits_by_u[u] = h
                     cache[q.key] = h
 
             for i in range(0, len(fresh), chunk):
                 qs = fresh[i: i + chunk]
+                faults.check_device("engine")
                 pend.append((fresh_u[i: i + chunk], qs,
                              self._dispatch_unique(qs)))
                 while len(pend) >= depth:
@@ -507,8 +631,9 @@ class MatchEngine:
         busy = {"encode": 0.0, "crunch": 0.0, "finalize": 0.0}
         busy_lock = threading.Lock()
 
-        def crunch_stage(ctx):
+        def crunch_stage(ctx, qs):
             t0 = time.perf_counter()
+            ctx = self._check_device_stage(ctx, qs)
             ids_c, bounds = self._crunch(ctx)
             # tolist here (single C calls) so the coordinator's
             # finalize only pays the per-query slicing
@@ -537,10 +662,11 @@ class MatchEngine:
             for i in range(0, len(fresh), chunk):
                 qs = fresh[i: i + chunk]
                 t0 = time.perf_counter()
+                faults.check_device("engine")
                 ctx = self._dispatch_unique(qs)
                 busy["encode"] += time.perf_counter() - t0
                 pend.append((fresh_u[i: i + chunk], qs,
-                             crunch_ex.submit(crunch_stage, ctx)))
+                             crunch_ex.submit(crunch_stage, ctx, qs)))
                 # drain finished chunks eagerly, and block once `depth`
                 # chunks are in flight
                 while pend and (len(pend) >= depth or pend[0][2].done()):
@@ -549,10 +675,14 @@ class MatchEngine:
                 drain_one()
         finally:
             # on an error path undrained futures must not leak
-            # "exception never retrieved" noise
+            # "exception never retrieved" noise. A cancelled future has
+            # none to retrieve: reading it would raise CancelledError
+            # over the DeviceLost that detect_many degrades on (the
+            # reference reads it, and its pipelined crawl then fails on
+            # an engine.device loss instead of degrading)
             crunch_ex.shutdown(wait=False, cancel_futures=True)
             for _us, _qs, f in list(pend):
-                if f.done():
+                if f.done() and not f.cancelled():
                     f.exception()
         wall = max(time.perf_counter() - wall0, 1e-9)
         lanes = 1 + workers
@@ -657,8 +787,11 @@ class MatchEngine:
         batch = self.cdb.encode_packages([q.key for q in queries])
         ctx = {"queries": queries, "batch": batch,
                "memo_gen": self._memo_gen,
-               "main": m.match_dispatch(self._ddb, batch),
-               "hot": None, "tall": None}
+               "main": None, "sharded": None, "hot": None, "tall": None}
+        if self._mdb is not None:
+            ctx["sharded"] = self._mdb.dispatch(batch)
+        else:
+            ctx["main"] = m.match_dispatch(self._ddb, batch)
         # hot/tall tier routing comes gathered from the name intern
         # table (batch.route)
         hot_idx = np.nonzero(batch.route == 1)[0]
@@ -679,7 +812,9 @@ class MatchEngine:
         return ctx
 
     def _detect_unique(self, queries: list[PkgQuery]) -> list[list[int]]:
-        return self._collect_unique(self._dispatch_unique(queries))
+        ctx = self._check_device_stage(self._dispatch_unique(queries),
+                                       queries)
+        return self._collect_unique(ctx)
 
     def _collect_unique(self, ctx: dict) -> list[list[int]]:
         """-> sorted advisory-index list per (unique) query."""
@@ -748,7 +883,22 @@ class MatchEngine:
                 rows0 = np.asarray(qidx, dtype=np.int64)[rows0]
             parts.append((rows0, ids0, resc0))
 
-        if ctx["main"] is not None:
+        if ctx["sharded"] is not None:
+            # the mesh's [D, B, W] shard masks: shard d's window starts
+            # at the query's place in its own rows (numpy decode)
+            masks = ctx["sharded"].collect()
+            base = self._mdb.shard_base
+            for d in range(masks.shape[0]):
+                lo_i = d * base
+                hi_i = min(lo_i + self._mdb.shard_len, cdb.n_rows)
+                if lo_i >= cdb.n_rows:
+                    break
+                start = np.searchsorted(
+                    cdb.row_h1[lo_i:hi_i], batch.h1).astype(np.int64) + lo_i
+                parts.append(decode_numpy(
+                    masks[d], start, cdb.row_adv, cdb.row_flags,
+                    batch.flags, q_tok))
+        elif ctx["main"] is not None:
             add_part(ctx["main"], cdb.row_h1, cdb.row_adv, cdb.row_flags)
         # hot-name queries additionally run against their tier's
         # partition

@@ -385,3 +385,55 @@ def match_batch(ddb: DeviceDB, batch: PackageBatch) -> np.ndarray:
     if p is None:
         return np.zeros((len(batch.h1), _words(ddb.window) * 32), dtype=bool)
     return p.collect()
+
+
+# --------------------------------------------------------------- sharded
+
+
+def host_shards(cdb: CompiledDB, n_db: int):
+    """Halo-padded per-shard host arrays of the main tier: (h1s uint32
+    [D, S], tables int32 [D, S, TABLE_LANES], shard_len, shard_base).
+    Shard d holds rows [d * shard_base, d * shard_base + shard_len) of
+    the row table, shard_len = ceil(N / D) + W (the halo: a name group
+    that starts in one shard is whole in it), and pad rows past the end
+    of the table with h1 = h2 = 0xFFFFFFFF, lo 0, hi -1.
+
+    The rows keep the row table's unsigned h1 order, and the pad rows
+    come last in it: 0xFFFFFFFF is the largest uint32 (as int32 it
+    would be -1, the smallest, so a shard's keys and its search index
+    are built from the uint32 column, never from the int32 bit
+    pattern). A pad row's name never equals a query's, so it hits
+    nothing. The one partition the mesh (ops/mesh.py MeshDB) and its
+    host mask both read."""
+    w = cdb.window
+    n = cdb.n_rows
+    base = -(-max(n, 1) // n_db)
+    shard_len = base + w  # ceil + halo
+
+    def shard(arr, fill):
+        out = np.full((n_db, shard_len), fill, dtype=arr.dtype)
+        for d in range(n_db):
+            lo_i = d * base
+            hi_i = min(lo_i + shard_len, n)
+            if lo_i < n:
+                out[d, : hi_i - lo_i] = arr[lo_i:hi_i]
+        return out
+
+    h1s = shard(np.asarray(cdb.row_h1, dtype=np.uint32), _PAD_H1)
+    h2s = shard(np.asarray(cdb.row_h2, dtype=np.uint32), _PAD_H1)
+    los = shard(cdb.row_lo, 0)
+    his = shard(cdb.row_hi, -1)
+    fls = shard(cdb.row_flags, 0)
+    tables = np.stack([_pack_table(h1s[d], h2s[d], los[d], his[d], fls[d])
+                       for d in range(n_db)])
+    return h1s, tables, shard_len, base
+
+
+def shard_device_db(h1: np.ndarray, table: np.ndarray, window: int,
+                    device) -> DeviceDB:
+    """One shard of host_shards on `device`, through DeviceDB.from_arrays
+    (so the shard gets its own search index over its padded uint32
+    h1)."""
+    return DeviceDB.from_arrays(
+        h1, table[:, 1].view(np.uint32), table[:, 2], table[:, 3],
+        table[:, 4], window, device)

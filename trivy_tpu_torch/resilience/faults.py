@@ -11,9 +11,11 @@ Spec grammar (rules joined by ";" or ","):
 
     rule     := site ":" action [ "=" param ] [ "@" selector ]
     site     := "rpc" | "rpc.scan" | "rpc.cache" | "rpc.cache.PutBlob"
-                | "rpc.wire" | "sched.submit"
+                | "rpc.wire" | "sched.submit" | "engine" | "engine.device"
+                | "engine.shard" | "secret.device"
                 | ...  (dotted, prefix-matched)
     action   := "drop" | "timeout" | "delay" | "error" | "corrupt"
+                | "device-lost"
     selector := N        fire on the Nth matching call only (1-based)
               | N "+"    fire on the Nth and every later call
               | N "-" M  fire on calls N..M inclusive
@@ -29,17 +31,19 @@ Examples:
     TRIVY_TPU_FAULTS="rpc.scan:delay=0.2@3+"     # slow from the 3rd scan on
     TRIVY_TPU_FAULTS="seed=7;rpc:drop@p0.3"      # 30% drop, deterministic
     TRIVY_TPU_FAULTS="sched.submit:error@1"      # first submission sheds
+    TRIVY_TPU_FAULTS="engine:device-lost@1"      # the card dies on batch 1
 
 Each rule keeps its own call counter, so selectors are deterministic per
 rule regardless of how many rules share a site.
 
 Copy of trivy_tpu/resilience/faults.py trimmed to the sites the port
-fires: the RPC client's (`rpc`, `rpc.scan`, `rpc.cache.*`, `rpc.wire`)
-and the match scheduler's (`sched.submit`). A rule naming any other
-site of the reference (`engine`, `secret.device`, `analysis.*`,
-`db.*`, ...), or an action its site does not handle, is refused with a
-FaultSpecError when the plan compiles: a rule is never accepted and
-then left to do nothing. No fault-fire metrics, no durability fault
+fires: the RPC client's (`rpc`, `rpc.scan`, `rpc.cache.*`, `rpc.wire`),
+the match scheduler's (`sched.submit`), the match engine's device-loss
+ladders (`engine`, `engine.device`, `engine.shard`) and the secret
+scanner's (`secret.device`). A rule naming any other site of the
+reference (`engine.host`, `analysis.*`, `db.*`, ...), or an action its
+site does not handle, is refused with a FaultSpecError when the plan
+compiles: a rule is never accepted and then left to do nothing. No fault-fire metrics, no durability fault
 kinds (`kill`, `torn-write`, `bitflip`), no round trip of a plan back
 to a spec (the chaos campaign's shrinker is not ported).
 """
@@ -63,21 +67,31 @@ SITES: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("rpc.scan", ("drop", "timeout", "delay", "error", "corrupt")),
     ("rpc.cache", ("drop", "timeout", "delay", "error", "corrupt")),
     ("rpc.wire", ("drop", "delay", "error", "corrupt")),
+    ("engine", ("device-lost",)),
+    ("engine.device", ("drop", "delay", "device-lost")),
+    ("engine.shard", ("drop", "delay", "error", "device-lost")),
     ("sched.submit", ("drop", "delay", "error")),
+    ("secret.device", ("drop", "delay", "error", "device-lost")),
 )
 
 ACTIONS = {a for _site, acts in SITES for a in acts}
 
+# the one family whose call sites fire children of their own: rpc_site
+# names each RPC's path (rpc.cache.PutBlob, rpc.Version)
+OPEN_SITE = "rpc"
+
 
 def site_actions(site: str) -> set[str] | None:
     """The actions a rule naming `site` may use: those of the ported
-    site it names, or of the most specific ported site it extends
+    site it names, or of the most specific ported RPC site it extends
     (``rpc.cache.PutBlob`` extends ``rpc.cache``), or of every ported
-    site it prefixes (``sched`` prefixes ``sched.submit``). None when
-    it reaches no site the port fires."""
+    site it prefixes (``sched`` prefixes ``sched.submit``, ``engine``
+    also ``engine.device`` and ``engine.shard``). None when it reaches
+    no site the port fires (``engine.host``)."""
     acts = dict(SITES)
     under = [name for name in acts
-             if site == name or site.startswith(name + ".")]
+             if site == name or (site.startswith(name + ".")
+                                 and name.split(".")[0] == OPEN_SITE)]
     if under:
         return set(acts[max(under, key=len)])
     above = [a for name, a in SITES if name.startswith(site + ".")]
@@ -88,6 +102,10 @@ def site_actions(site: str) -> set[str] | None:
 
 class FaultError(Exception):
     """Base class for injected faults."""
+
+
+class DeviceLost(FaultError):
+    """Injected accelerator loss (site ``engine``)."""
 
 
 class InjectedHTTPError(FaultError):
@@ -287,6 +305,13 @@ def rpc_site(path: str) -> str:
     if tail == "Scan":
         return "rpc.scan"
     return f"rpc.{tail}"
+
+
+def check_device(site: str = "engine") -> None:
+    """Raise DeviceLost when a device-lost rule fires for `site`."""
+    for r in fire(site):
+        if r.action == "device-lost":
+            raise DeviceLost(f"injected device loss at {site}")
 
 
 def corrupt_bytes(raw: bytes) -> bytes:

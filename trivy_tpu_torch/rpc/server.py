@@ -15,11 +15,14 @@ match engine between requests, quiescing in-flight scans first
 lock so the card holds at most the old and the new DB during it).
 
 Copy of trivy_tpu/rpc/server.py. The hot reload builds the port's
-MatchEngine on the device the served engine is on. Left out, and
-answering 404: `/metrics` and `/debug/*` (the metrics registry and the
-bottleneck attribution are not ported yet), `/monitor/events`
-(continuous monitoring) and `/fleet/*` (the fleet control surface); the
-redis layer gate and the serving mesh are not ported either. `Metrics`
+MatchEngine on the device the served engine is on, and keeps its
+serving mesh (a spec-built mesh resolves again against the new DB, a
+prebuilt grid carries over); /readyz reports the mesh's shard health.
+Left out, and answering 404: `/metrics` and `/debug/*` (the metrics
+registry and the bottleneck attribution are not ported yet),
+`/monitor/events` (continuous monitoring) and `/fleet/*` (the fleet
+control surface, so `ScanService.reresolve_mesh` has no endpoint); the
+redis layer gate is not ported either. `Metrics`
 keeps the integer counters behind the reference's legacy properties.
 The listen backlog is 128 connections (the reference's is
 socketserver's 5).
@@ -315,16 +318,27 @@ class ScanService:
             return False, "engine not loaded"
         if self.lock.write_busy:
             return False, "advisory-DB swap in progress"
+        # mesh shard health: a shard degraded to the host mask keeps the
+        # server ready (zero finding diff, less throughput) but /readyz
+        # says so, the way serving last-good does
+        note = ""
+        health_fn = getattr(self.engine, "shard_health", None)
+        health = health_fn() if callable(health_fn) else None
+        if health:
+            note = f"; mesh {health['shape']}"
+            if health["degraded"]:
+                note += (" shard(s) "
+                         + ",".join(str(d) for d in health["degraded"])
+                         + " degraded to host")
         # hybrid secret probe verdict: once this process has measured
         # its device-vs-host split, /readyz says which path secret
         # scans take; absent until the one-shot probe runs
         from trivy_tpu_torch.secret.scanner import hybrid_probe_state
 
-        note = ""
         probe = hybrid_probe_state()
         if probe is not None:
-            note = ("; secret probe: "
-                    + ("device" if probe["device"] else "host"))
+            note += ("; secret probe: "
+                     + ("device" if probe["device"] else "host"))
         if self.db_degraded:
             return True, f"ok (serving last-good: {self.db_degraded})" + note
         return True, "ok" + note
@@ -351,12 +365,36 @@ class ScanService:
             "generation": self.generation_name(),
             "monitor": False,
         }
+        health_fn = getattr(self.engine, "shard_health", None)
+        health = health_fn() if callable(health_fn) else None
+        if health:
+            doc["mesh"] = {"shape": health["shape"],
+                           "degraded": list(health["degraded"])}
         from trivy_tpu_torch.secret.scanner import hybrid_probe_state
 
         probe = hybrid_probe_state()
         if probe is not None:
             doc["secret_probe"] = "device" if probe["device"] else "host"
         return doc
+
+    def reresolve_mesh(self) -> dict:
+        """Upload the serving mesh's degraded shards to their devices
+        again (MatchEngine.reresolve_mesh) with in-flight scans quiesced
+        under the write lock; serialized against hot swaps by the reload
+        lock. A failed upload raises to the caller; its shard stays
+        degraded on the host mask."""
+        with self._reload_lock:
+            engine = self.engine
+            fn = getattr(engine, "reresolve_mesh", None)
+            if not callable(fn):
+                return {"reresolved": False,
+                        "reason": "engine has no serving mesh"}
+            self.lock.acquire_write()  # quiesce in-flight scans
+            try:
+                changed = bool(fn())
+            finally:
+                self.lock.release_write()
+            return {"reresolved": changed, "mesh": engine.shard_health()}
 
     def begin_scan(self) -> None:
         """Admission control: refused while draining (503 + Retry-After
@@ -540,9 +578,16 @@ class ScanService:
                 # compiled-DB cache: a generation already compiled by a
                 # sibling process (or a rollback to last-good) swaps in
                 # without paying the full tensorize cost again
+                # the swap keeps the serving mesh: a spec-built mesh
+                # resolves again against the new DB's row count, a
+                # prebuilt grid carries over as it is
+                mesh_spec = getattr(self.engine, "mesh_spec", None)
                 new_engine = MatchEngine(
                     db, use_device=self.engine.use_device,
-                    device=self.engine.device, db_path=self.db_path)
+                    device=self.engine.device, db_path=self.db_path,
+                    mesh=None if mesh_spec else getattr(
+                        self.engine, "mesh", None),
+                    mesh_spec=mesh_spec)
         except Exception as exc:
             problem = f"unloadable: {exc}"
         if problem is not None:

@@ -64,8 +64,8 @@ Copy of trivy_tpu/sched/scheduler.py without the metric handles and
 the tracing spans (the port keeps the ``stats`` dict the reference
 keeps beside them) and without the usage meters (queue-wait seconds,
 admitted rows): the scheduler reads the submitting request's tenant
-only. ``_mesh_fill`` reads the port's ``ops.match._bucket``; it is
-inert until the engine serves from a mesh. No bulk entry point
+only. ``_mesh_fill`` reads the port's ``ops.match._bucket`` and tops
+batches up at a data axis above 1 (ops/mesh.py). No bulk entry point
 (``submit_lists``, ``SchedEngine.submit``): its one caller, the
 monitor's delta re-scoring, is not ported.
 """

@@ -13,9 +13,14 @@ chunks) and the host regex runs only inside the candidate windows the
 screen reports.
 
 The device runs on ``cuda:0`` unless the caller passes ``device="cpu"``
-(the screen's plain PyTorch version). A failure of the device screen
-raises: unlike the reference, no device path degrades to the host.
-``use_device=False`` stays the explicit host path.
+(the screen's plain PyTorch version). ``use_device=False`` stays the
+explicit host path. The ``secret.device`` fault ladder is the
+reference's: a screen that is unavailable (``ScreenUnavailable``) or a
+card that is lost (``faults.DeviceLost``) degrades that scan to the
+host scanner with zero finding diff, counted in
+``device_stats["degraded"]``. Unlike the reference, which falls back on
+any exception, every other failure of the device screen (a kernel that
+does not build or launch, a CUDA error) raises.
 
 One scanner may serve several threads at once (an image scan's walk
 lanes share the analyzer's scanner): the lazy builds run once under a
@@ -44,6 +49,7 @@ import numpy as np
 from trivy_tpu_torch.device import resolve_device
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.ops import secret_nfa as nfa
+from trivy_tpu_torch.resilience import faults
 from trivy_tpu_torch.secret.rules import (
     BUILTIN_ALLOW_RULES,
     BUILTIN_RULES,
@@ -54,6 +60,16 @@ from trivy_tpu_torch.secret.rules import (
 from trivy_tpu_torch.types.artifact import Secret, SecretFinding
 
 _log = logger("secret")
+
+
+class ScreenUnavailable(RuntimeError):
+    """The device anchor screen cannot serve this dispatch (an injected
+    ``secret.device`` drop or error): callers degrade to the host
+    scanner with zero finding diff."""
+
+
+# what the secret.device ladder degrades on; any other error raises
+DEGRADE_ON = (ScreenUnavailable, faults.DeviceLost)
 
 
 def _pack_chunks() -> int | None:
@@ -174,7 +190,8 @@ class SecretConfig:
 
 def _new_device_stats() -> dict:
     return {"files": 0, "chunks": 0, "chunk_s": 0.0, "dispatch_s": 0.0,
-            "wait_s": 0.0, "verify_s": 0.0, "program_s": 0.0}
+            "wait_s": 0.0, "verify_s": 0.0, "program_s": 0.0,
+            "degraded": 0}
 
 
 class SecretScanner:
@@ -577,7 +594,17 @@ class SecretScanner:
             # or the one-shot probe measured the device screen slower
             # than its share repays: the host scans it all
             return self._scan_files_host(eligible)
-        return self._scan_files_device(eligible)
+        try:
+            return self._scan_files_device(eligible)
+        except DEGRADE_ON as exc:
+            self._degrade("device secret screen", exc)
+            return self._scan_files_host(eligible)
+
+    def _degrade(self, what: str, exc: Exception) -> None:
+        """One scan (or one streamed file) leaves the device for the
+        host scanner: logged and counted in device_stats["degraded"]."""
+        _log.warn(f"{what} unavailable; scanning on the host", err=str(exc))
+        self._stat("degraded", 1)
 
     # device share of a hybrid scan: this fraction of the bytes is
     # dispatched to the device up front; the host scans the rest while
@@ -590,6 +617,33 @@ class SecretScanner:
         return self.device.type == "cuda"
 
     # ------------------------------------------------- screen dispatch
+
+    def _screen_fire(self) -> None:
+        """``secret.device`` fault site, fired once per anchor-screen
+        submission: drop/error make the screen unavailable (the caller
+        degrades to the host scanner, zero finding diff), delay stalls
+        the dispatch, device-lost raises faults.DeviceLost."""
+        for rule in faults.fire("secret.device"):
+            if rule.action == "delay":
+                time.sleep(rule.param if rule.param is not None
+                           else 0.002)
+            elif rule.action in ("drop", "error"):
+                raise ScreenUnavailable(
+                    f"injected secret.device {rule.action}")
+            elif rule.action == "device-lost":
+                raise faults.DeviceLost(
+                    "injected device loss at secret.device")
+
+    @contextlib.contextmanager
+    def _direct_dispatch(self):
+        """This thread's screens bypass the secret lane: the hybrid
+        probe times the screen itself, not a wait behind the lane's
+        coalescing window and the other threads of a concurrent scan."""
+        self._tls.direct = True
+        try:
+            yield
+        finally:
+            self._tls.direct = False
 
     def _screen_scheduler(self):
         """Lazy per-scanner secret-lane MatchScheduler: the anchor
@@ -626,12 +680,14 @@ class SecretScanner:
         enqueued directly as async device batches) so the card computes
         while the caller does host work; collect() blocks only on
         whatever is still in flight."""
+        self._screen_fire()
         matcher = self._matcher
         if len(chunks) == 0:
             n = self._tiers["bank"].n
             return lambda: np.zeros((0, n), dtype=bool)
         t0 = time.perf_counter()
-        sched = self._screen_scheduler()
+        sched = None if getattr(self._tls, "direct", False) \
+            else self._screen_scheduler()
         if sched is not None:
             p = sched.submit_async(list(chunks))
 
@@ -671,9 +727,10 @@ class SecretScanner:
         per-process probe: times the device anchor screen against the
         native host path on a small synthetic corpus and keeps the host
         alone when the device is measurably slower. The verdict is
-        cached for the process. A device that fails the probe raises.
-        TRIVY_TPU_SECRET_PROBE=0 skips the probe (always keep the
-        device share)."""
+        cached for the process. A screen the secret.device ladder
+        reports unavailable keeps the host alone; any other device
+        failure raises. TRIVY_TPU_SECRET_PROBE=0 skips the probe (always
+        keep the device share)."""
         if os.environ.get("TRIVY_TPU_SECRET_PROBE", "1") == "0":
             return True
         global _HYBRID_PROBE
@@ -698,13 +755,22 @@ class SecretScanner:
         corpus_mb = sum(len(c) for (_i, _p, c) in corpus) / 1e6
         self._ensure_tiers()  # probe may run before any batch scan
         # the probe is not the caller's scan: its device scans add
-        # nothing to device_stats
+        # nothing to device_stats, and dispatch directly (through the
+        # lane, a probe inside a concurrent image walk timed the other
+        # walk lanes' turns)
         self._tls.quiet = True
         try:
-            self._scan_files_device(corpus)  # warm (kernel build)
-            t0 = time.perf_counter()
-            self._scan_files_device(corpus)
-            dev_s = time.perf_counter() - t0
+            with self._direct_dispatch():
+                self._scan_files_device(corpus)  # warm (kernel build)
+                t0 = time.perf_counter()
+                self._scan_files_device(corpus)
+                dev_s = time.perf_counter() - t0
+        except DEGRADE_ON as exc:
+            _log.debug("secret hybrid probe: device screen unavailable; "
+                       "hybrid keeps the host alone", err=str(exc))
+            return {"device": False, "reason": f"unavailable: {exc}",
+                    "device_s": None, "host_s": None,
+                    "corpus_mb": corpus_mb}
         finally:
             self._tls.quiet = False
         t0 = time.perf_counter()
@@ -731,8 +797,9 @@ class SecretScanner:
         host AC path, DISPATCH-FIRST: every device batch is enqueued
         (async, non-blocking) before the host share is scanned, so the
         card computes and its results stream back while the host CPU
-        chews its own share — no threads, no GIL contention. A device
-        failure raises."""
+        chews its own share — no threads, no GIL contention. A screen the
+        secret.device ladder reports unavailable leaves the device share
+        to the host; any other device failure raises."""
         share = self._effective_device_share()
         total = sum(len(c) for (_i, _p, c) in eligible) or 1
         budget = total * share
@@ -745,11 +812,21 @@ class SecretScanner:
                 acc += len(item[2])
             else:
                 host_part.append(item)
-        pre = self._dispatch_device(dev_part)
+        try:
+            pre = self._dispatch_device(dev_part)
+        except DEGRADE_ON as exc:
+            self._degrade("hybrid device dispatch", exc)
+            pre = None
         host_res = self._scan_files_host(host_part)
+        dev_res = None
         if pre is not None:
-            dev_res = self._scan_files_device(dev_part, prefetched=pre)
-        else:  # nothing to screen (no anchor rows, or no device share)
+            try:
+                dev_res = self._scan_files_device(dev_part, prefetched=pre)
+            except DEGRADE_ON as exc:
+                self._degrade("hybrid device collect", exc)
+        if dev_res is None:
+            # nothing to screen (no anchor rows, no device share), or
+            # the screen was unavailable
             dev_res = self._scan_files_host(dev_part)
         by_path = {s.file_path: s for part in (dev_res, host_res)
                    for s in part}
@@ -1092,7 +1169,8 @@ class SecretScanner:
         (secret/stream.py): overlapping halo windows sized by
         MAX_WINDOW_WIDTH, findings byte-identical to scan_file on the
         full content.  `source` is bytes or a seekable binary file.
-        A device-screen failure raises."""
+        A screen the secret.device ladder reports unavailable restarts
+        the file on the host; any other device failure raises."""
         from trivy_tpu_torch.secret.stream import stream_scan
 
         return stream_scan(self, path, source, use_device)

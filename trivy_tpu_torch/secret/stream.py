@@ -106,8 +106,16 @@ def stream_scan(scanner, path: str, source,
         use_device = bool(scanner._accel_backend()
                           and scanner._hybrid_device_ok())
     if use_device:
+        from trivy_tpu_torch.secret.scanner import DEGRADE_ON
+
         scanner._ensure_tiers()
-    return _run(scanner, path, src, device=bool(use_device))
+        try:
+            return _run(scanner, path, src, device=True)
+        except DEGRADE_ON as exc:
+            # the secret.device ladder: the whole file restarts on the
+            # host (findings are the same)
+            scanner._degrade(f"streaming screen of {path}", exc)
+    return _run(scanner, path, src, device=False)
 
 
 def _run(scanner, path: str, src: _Source, device: bool) -> Secret | None:

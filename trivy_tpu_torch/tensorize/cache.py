@@ -9,6 +9,7 @@ Layout, riding the durability primitives:
 
     <db_root>/compiled-torch/
       <digest>.<params>.npz             one checksummed tensor set
+      <digest>.<params>.mesh<D>.npz     a serving mesh's D shard slices
       <digest>.<params>.npz.quarantine  an entry that failed its
                                         checksum or decode (never
                                         silently reused)
@@ -23,14 +24,14 @@ Layout, riding the durability primitives:
   and the caller recompiles from the DB: scan results can never differ
   because of cache state, only warm-start latency can.
 
-Hits and misses are counted in `COUNTS`.
+Hits and misses (of both entry kinds) are counted in `COUNTS`.
 
 Copy of the compiled-DB part of trivy_tpu/tensorize/cache.py. The
 port's entries live under their own directory (`compiled-torch`, the
 reference's are under `compiled`), so the two packages never load each
 other's entries. The compiled secret-NFA programs of
 `secret/scanner.py` live in the same directory (`nfa-<digest>...`).
-The keymap, mesh-shard and host-slice entries are not ported yet.
+The keymap and host-slice entries are not ported yet.
 """
 
 from __future__ import annotations
@@ -88,6 +89,17 @@ def cache_root(db_root: str) -> str:
 def entry_path(db_root: str, digest: str, window: int | None) -> str:
     return os.path.join(cache_root(db_root),
                         f"{digest}.{params_key(window)}.npz")
+
+
+def shard_entry_path(db_root: str, digest: str, window: int | None,
+                     n_db: int) -> str:
+    """Key of a serving mesh's shard-slice set: the base params plus the
+    db-shard count (the slices depend on nothing else; dp only
+    replicates them). A single-device engine and a 1x1 mesh never write
+    one, so the base entry's key is the same with or without a mesh."""
+    return os.path.join(
+        cache_root(db_root),
+        f"{digest}.{params_key(window)}.mesh{int(n_db)}.npz")
 
 
 def db_digest(db_path: str) -> str | None:
@@ -318,6 +330,121 @@ def load_compiled(db_path: str, db, window: int | None,
               load_s=round(time.perf_counter() - t0, 3),
               rows=cdb.n_rows)
     return cdb
+
+
+# ------------------------------------------------------- mesh shard slices
+
+
+def save_shards(db_path: str, cdb, n_db: int, shards,
+                window: int | None = None, digest: str | None = None,
+                db_meta: dict | None = None) -> str | None:
+    """Serialize a mesh's shard slices (`shards` = (h1s [D, S], tables
+    [D, S, L], shard_len, shard_base) from ops/match.host_shards) under
+    the digest + params + shard-count key. The same framing and
+    never-raise contract as save_compiled."""
+    if not enabled():
+        return None
+    try:
+        digest = digest or db_digest(db_path)
+        if digest is None:
+            return None
+        h1s, tables, shard_len, shard_base = shards
+        root = cache_root(db_path)
+        os.makedirs(root, exist_ok=True)
+        t0 = time.perf_counter()
+        meta = {
+            "format": FORMAT_VERSION,
+            "digest": digest,
+            "params": params_key(window),
+            "db_meta": db_meta or {},
+            "n_db": int(n_db),
+            "n_rows": int(cdb.n_rows),
+            # the RESOLVED window (the halo width of the slices), not
+            # the requested one in `params`
+            "window": int(cdb.window),
+            "shard_len": int(shard_len),
+            "shard_base": int(shard_base),
+        }
+        buf = io.BytesIO()
+        np.savez(buf, h1s=h1s, tables=tables,
+                 meta_json=np.frombuffer(json.dumps(meta).encode(),
+                                         dtype=np.uint8).copy())
+        path = shard_entry_path(db_path, digest, window, n_db)
+        atomic.atomic_write(path, atomic.frame(buf.getvalue()),
+                            fault_site="compile_cache.save")
+        _log.info("mesh shard-slice cache entry saved", path=path,
+                  n_db=n_db, mb=round(buf.tell() / 1e6, 1),
+                  save_s=round(time.perf_counter() - t0, 2))
+        return path
+    except Exception as exc:  # pragma: no cover - best-effort
+        _log.warn("mesh shard-slice cache save failed", err=str(exc))
+        return None
+
+
+def load_shards(db_path: str, cdb, n_db: int,
+                window: int | None = None, digest: str | None = None,
+                db_meta: dict | None = None):
+    """-> (h1s, tables, shard_len, shard_base) from the cache, or None
+    on a miss. `cdb` is the CompiledDB the slices must belong to: its
+    row count and resolved window cross-check the entry. A `db_meta`
+    mismatch is a plain miss (the generation moved); a corrupt entry is
+    quarantined and the caller slices again."""
+    if not enabled():
+        return None
+    digest = digest or db_digest(db_path)
+    path = shard_entry_path(db_path, digest, window, n_db) \
+        if digest else None
+    if path is None or not os.path.exists(path):
+        COUNTS["misses"] += 1
+        return None
+    t0 = time.perf_counter()
+    try:
+        with open(path, "rb") as f:
+            raw = f.read()
+    except OSError as exc:
+        COUNTS["misses"] += 1
+        _log.warn("mesh shard-slice cache entry unreadable (io); "
+                  "slicing again", path=path, err=str(exc))
+        return None
+    try:
+        body = atomic.unframe(raw)
+        if body is raw:
+            raise atomic.CorruptEntry("missing checksum footer")
+        z = np.load(io.BytesIO(body), allow_pickle=False)
+        meta = json.loads(z["meta_json"].tobytes())
+        if meta.get("format") != FORMAT_VERSION \
+                or meta.get("digest") != digest \
+                or meta.get("params") != params_key(window) \
+                or meta.get("n_db") != int(n_db):
+            raise atomic.CorruptEntry("metadata/key mismatch")
+        if db_meta is not None and meta.get("db_meta") != db_meta:
+            COUNTS["misses"] += 1
+            _log.warn("mesh shard-slice cache entry is for a different "
+                      "DB generation; slicing again", path=path)
+            return None
+        if meta.get("n_rows") != int(cdb.n_rows) \
+                or meta.get("window") != int(cdb.window):
+            raise atomic.CorruptEntry(
+                f"slice/DB mismatch (entry rows={meta.get('n_rows')} "
+                f"window={meta.get('window')}, db rows={cdb.n_rows} "
+                f"window={cdb.window})")
+        h1s, tables = z["h1s"], z["tables"]
+        shard_len = int(meta["shard_len"])
+        shard_base = int(meta["shard_base"])
+        if h1s.shape != (n_db, shard_len) or h1s.dtype != np.uint32 \
+                or tables.shape != (n_db, shard_len, 8) \
+                or tables.dtype != np.int32:
+            raise atomic.CorruptEntry("shard array shape mismatch")
+    except Exception as exc:
+        _quarantine(path)
+        COUNTS["misses"] += 1
+        _log.warn("mesh shard-slice cache entry unreadable; slicing "
+                  "again", path=path, err=str(exc))
+        return None
+    COUNTS["hits"] += 1
+    _log.info("mesh shard-slice cache hit", path=path, n_db=n_db,
+              load_s=round(time.perf_counter() - t0, 3))
+    return h1s, tables, shard_len, shard_base
 
 
 # ---------------------------------------------- compiled secret-NFA programs
