@@ -15,7 +15,9 @@ Phases, each fatal on failure:
      or of one name, and 1,752,822 rows under windows of 960 and 4,000
      (the search's five steps);
   3. drive the match engine's main path at trivy-db scale: a synthetic
-     2,000,000-advisory DB resident on the card answering a 240,000-query
+     2,000,000-advisory DB (its engine loaded from the compiled entry
+     phase 7's cold run saved: phase 7 runs before it, so the 2 M DB
+     compiles once) resident on the card answering a 240,000-query
      registry-crawl stream through MatchEngine.detect_many, checked
      against the host oracle and MatchEngine.detect / submit on a sample
      that includes hot- and tall-tier names, with the kernel's launches
@@ -53,13 +55,18 @@ kernel's time before its latest redesign; then
   7. drive the `sbom` CLI on the card: (a) `python -m trivy_tpu_torch
      sbom` as a subprocess on tests/test_sbom_e2e.py's fixture (read
      from its source), its JSON equal to tests/golden/sbom_cdx.json.golden
-     byte for byte, its table totalling 2; (b) phase 3's DB saved with
-     AdvisoryDB.save and a seeded 3,000-component image SBOM (1,000
+     byte for byte, its table totalling 2; (b) phase 3's synthetic DB
+     (made before phase 7 runs) saved with
+     AdvisoryDB.save as generation A of a generation-managed root (its
+     digest the generation's name) and a seeded 3,000-component image
+     SBOM (1,000
      debian OS packages with every hot name of the bucket, an npm
      lockfile of 1,500, 500 pip packages) scanned in process through
      trivy_tpu_torch.cli.main.main cold (compile, save the compiled
      entry), warm (load it) and with --no-tpu, each as a user runs it
-     (its own DB load): the three reports byte for byte, the warm run a compiled-cache hit, the match kernel
+     (its own DB load): the three reports byte for byte, the warm run a
+     compiled-cache hit recording its scan with --monitor-index, the
+     cold run saving the advisory-key fingerprints (keymap), the match kernel
      launched on all three tiers in both device runs, the native
      collector used; each run's wall split as the CLI's run module keeps
      it, and the device idle share of each device run, traced as it runs;
@@ -137,8 +144,8 @@ kernel's time before its latest redesign; then
      standalone run's byte for byte, the screens through each client's
      secret lane; while they run, (c) in process, a burst: a Server on
      the engine the process holds (phase 7's 2,000,000 advisories on
-     the card), 32 seeded blobs of 50 to 3,000 of phase 7's SBOM
-     packages scanned from 32 threads at once through the match
+     the card), 16 seeded blobs of 50 to 3,000 of phase 7's SBOM
+     packages scanned from 16 threads at once through the match
      scheduler, traced (the device idle share), each response equal to
      a burst through a TRIVY_TPU_SCHED=0 server, and 4 seeded ones to
      the same scan alone afterwards (the match launches per tier of
@@ -167,15 +174,44 @@ kernel's time before its latest redesign; then
      root equal to the run without --mesh byte for byte, `sbom --mesh
      2x4` failing with rc 1 and one error line, and the hot reload of
      that root keeping a prebuilt 2x2 grid.
-Phase 3 runs with the native collector (native/collect.cpp) too.
+ 14. drive continuous monitoring on the card at phase 7's width
+     (`monitor_setup` after the kernel timings, `monitor_path` last):
+     phase 7's warm --monitor-index record equal to an in-process
+     capture of its SBOM on phase 7's engine; 256 seeded artifacts of
+     50-3,000 of its packages and a seeded delta of 500 advisory edits
+     (seed 20261020: 100 added on held names at vulnerable versions,
+     100 fixes moved below every version, 50 removed, on 30 held names
+     of all three tiers; 250 on names no artifact holds) make
+     generation B. (a) a runner subprocess started then (its work
+     overlaps phases 8-11) records the artifacts through the scan tap
+     on a generation A engine (phase 7's compiled entry), saves
+     generation B beside A, runs `watch --once --verify` (gen B's load,
+     compile and keymap) and a second `watch --once`, each a subprocess:
+     the re-score incremental and verified, exactly the artifacts
+     holding a touched name rematched, its events equal to a full
+     re-match of all 256 on gen B (detect_many on the card) against the
+     gen A baselines, the artifacts with events plus 16 others equal to
+     the host oracle, the second run silent; (b) in process, a Server
+     with a monitor index on the engine phase 12 holds: 8 seeded scans
+     recorded through the scheduler, gen B promoted and hot-swapped
+     (its compiled entry from (a) a hit; the reload's DB load answers
+     with gen B made in memory from the served gen A), the background
+     re-score through the scheduler, and /monitor/events read by a
+     `watch --server --once` subprocess equal to a full re-match of
+     those 8 (`launches_monitor`).
+The phases run in the order 1, 2, 7, 3, 4, 5, 6, the kernel timings,
+14's set-up, 8-13, 14. Phase 3 runs with the native collector
+(native/collect.cpp) too.
 Phase 9 runs the hybrid probe alone twice, dispatched directly and
 through the secret lane (as it ran before it bypassed the lane), and
 prints both probes' seconds and verdicts.
 The `kernels` line's launch counts of the CLI paths are per run
 (`launches_fs_cli` ... `launches_vm_cli`), the server's per burst
 (`launches_server`), its clients' per client
-(`launches_server_clients`) and the mesh's per cell and tier
-(`launches_mesh`). Prints a `kernels` JSON line, the card line, and
+(`launches_server_clients`), the mesh's per cell and tier
+(`launches_mesh`) and the monitor's per tier, during the watch's
+re-score, its verify pass and the server's re-score
+(`launches_monitor`). Prints a `kernels` JSON line, the card line, and
 last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
@@ -704,26 +740,32 @@ def collector_ab(engine, queries, want) -> None:
     print(f"phase3 collector_ab {json.dumps(turns)}")
 
 
-def main_path(dev) -> dict:
+def main_path(dev, db, db_root: str, t_synth: float) -> dict:
+    """Phase 3 on `db` (the synthetic DB, made in `t_synth` seconds),
+    its engine built from the compiled entry phase 7's cold run saved
+    under `db_root`: the same tensors as a compile, without compiling
+    the 2 M DB a second time."""
     from trivy_tpu_torch.detector.engine import MatchEngine
     from trivy_tpu_torch.ops import match as m
     from trivy_tpu_torch.tensorize.compile import PackageBatch
-    from trivy_tpu_torch.tensorize.synth import synth_trivy_db
 
     t0 = time.perf_counter()
-    db = synth_trivy_db(n_advisories=N_ADVISORIES)
     queries = build_queries(db, N_QUERIES)
-    t_synth = time.perf_counter() - t0
+    t_synth += time.perf_counter() - t0
     t0 = time.perf_counter()
-    engine = MatchEngine(db, device=dev)
+    engine = MatchEngine(db, device=dev, db_path=db_root)
     t_engine = time.perf_counter() - t0
+    if engine.build_stats["compile_cache"] != "hit":
+        raise AssertionError("phase 3 did not load phase 7's compiled "
+                             f"entry: {engine.build_stats}")
     cdb = engine.cdb
     tiers = {"main": engine._ddb, "hot": engine._ddb_hot,
              "tall": engine._ddb_tall}
     if any(t is None for t in tiers.values()):
         raise AssertionError(f"a tier is empty: {cdb.stats}")
     print(f"phase3 db advisories={N_ADVISORIES} synth_s={t_synth:.3f} "
-          f"engine_build_s={t_engine:.3f} stats={json.dumps(cdb.stats)}")
+          f"engine_build_s={t_engine:.3f} compile_cache=hit "
+          f"stats={json.dumps(cdb.stats)}")
 
     # the main path, with every launch count at 0 just before it
     m.match_words.launches = 0
@@ -821,7 +863,7 @@ def main_path(dev) -> dict:
                                              part, dev)
             del wide
     return {"launches": launches, "per_tier": per_tier, "timings": timings,
-            "pkg_per_s": len(queries) / wall, "db": db, "sample": sample,
+            "pkg_per_s": len(queries) / wall, "sample": sample,
             "oracle": oracle, "crawl": queries[:MESH_CRAWL]}
 
 
@@ -1930,6 +1972,8 @@ def sbom_cli_path(db, tmp: str) -> dict:
     reports byte for byte, each from a DB load of its own. The two device runs run under the profiler for their device
     idle share (a rerun of each for the profile alone would cost about
     125 s of the script's time limit)."""
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.db import generations
     from trivy_tpu_torch.native import collect as ncollect
     from trivy_tpu_torch.tensorize import cache as ccache
     from trivy_tpu_torch.tensorize.synth import synth_sbom
@@ -1941,11 +1985,15 @@ def sbom_cli_path(db, tmp: str) -> dict:
         cli_golden(tmp)
 
         os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+        # a generation-managed root: gen A's digest is its directory
+        # name, so phase 14's roots share its entries by hard link
         root = os.path.join(tmp, "db")
+        gen_a = os.path.join(generations.generations_root(root), GEN_A)
         t0 = time.perf_counter()
-        db.save(root)
+        db.save(gen_a)
+        generations.promote(root, gen_a)
         save_s = time.perf_counter() - t0
-        db_mb = os.path.getsize(os.path.join(root, "trivy_tpu.db.json.gz"))
+        db_mb = os.path.getsize(os.path.join(gen_a, "trivy_tpu.db.json.gz"))
         bom = os.path.join(tmp, "bom.json")
         with open(bom, "w") as f:
             json.dump(synth_sbom(db, SBOM_OS, SBOM_NPM, SBOM_PIP,
@@ -1962,7 +2010,11 @@ def sbom_cli_path(db, tmp: str) -> dict:
         runs = {}
         reports = {}
         prof = {}
-        for name, extra in (("cold", []), ("warm", []),
+        # the warm run records its scan in a monitor index (phase 14)
+        mon7 = os.path.join(tmp, "monitor7.jsonl")
+        warm_engine = None
+        for name, extra in (("cold", []),
+                            ("warm", ["--monitor-index", mon7]),
                             ("no_tpu", ["--no-tpu"])):
             reports[name] = os.path.join(tmp, f"{name}.json")
             if name == "no_tpu":
@@ -1974,7 +2026,22 @@ def sbom_cli_path(db, tmp: str) -> dict:
             if name == "cold":
                 entry = ccache.entry_path(root, ccache.db_digest(root), None)
                 runs[name]["entry_mb"] = os.path.getsize(entry) / 1e6
+                runs[name]["keymap_mb"] = os.path.getsize(
+                    ccache.keymap_path(root, GEN_A)) / 1e6
+            if name == "warm":
+                warm_engine = next(iter(run._ENGINE_CACHE.values()))
             print(f"phase7 run={name} {json.dumps(runs[name])}")
+        # what the keymap's digest re-read costs a warm build on a flat
+        # root (this root names its generation, so it reads no bytes)
+        flat = os.path.join(tmp, "db_flat")
+        link_tree(gen_a, flat)
+        t0 = time.perf_counter()
+        ccache.db_digest(flat)
+        flat_s = time.perf_counter() - t0
+        shutil.rmtree(flat)
+        print(f"phase7 keymap cold_s={runs['cold']['keymap_s']:.3f} "
+              f"warm_s={runs['warm']['keymap_s']:.3f} "
+              f"flat_root_digest_s={flat_s:.3f}")
         with open(reports["no_tpu"], "rb") as f:
             want = f.read()
         diff = 0
@@ -2001,7 +2068,8 @@ def sbom_cli_path(db, tmp: str) -> dict:
                 "launches": runs["cold"]["launches"]
                 + runs["warm"]["launches"],
                 "db_root": root, "sbom": bom,
-                "warm_report": reports["warm"]}
+                "warm_report": reports["warm"], "monitor_index": mon7,
+                "warm_engine": warm_engine}
     finally:
         os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
 
@@ -3231,7 +3299,9 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
 # -------------------------------------------------------------- phase 12
 
 
-N_BURST = 32  # concurrent scans of (c)
+# concurrent scans of (c): 16 since phase 14 joined (was 32; the time
+# limit, PERF.md §5)
+N_BURST = 16
 N_ALONE = 4  # of (c)'s scans, rescanned alone
 BURST_SEED = 20261019
 BURST_PKGS = (50, 3_000)  # packages per burst blob, log-uniform
@@ -3430,10 +3500,11 @@ def collect_clients(procs: dict) -> dict:
     return out
 
 
-def burst_blobs(sbom: str, rng: random.Random) -> list[dict]:
-    """(c)'s artifacts: N_BURST blobs, each a seeded draw of 50 to 3,000
-    of the SBOM's packages (log-uniform sizes), OS packages and
-    lockfile packages in the SBOM's proportions."""
+def burst_blobs(sbom: str, rng: random.Random,
+                n: int = N_BURST) -> list[dict]:
+    """(c)'s artifacts: `n` blobs, each a seeded draw of 50 to 3,000 of
+    the SBOM's packages (log-uniform sizes), OS packages and lockfile
+    packages in the SBOM's proportions."""
     import dataclasses
 
     from trivy_tpu_torch.sbom.decode import decode_sbom_file
@@ -3445,10 +3516,11 @@ def burst_blobs(sbom: str, rng: random.Random) -> list[dict]:
     total = sum(len(g) for g in groups)
     lo, hi = BURST_PKGS
     out = []
-    for _ in range(N_BURST):
-        n = int(round(math.exp(rng.uniform(math.log(lo), math.log(hi)))))
+    for _ in range(n):
+        size = int(round(math.exp(rng.uniform(math.log(lo),
+                                              math.log(hi)))))
         picks = iter([sorted(rng.sample(range(len(g)),
-                                        max(1, len(g) * n // total)))
+                                        max(1, len(g) * size // total)))
                       for g in groups])
         # new holder dicts over shared package dicts (nothing on the
         # scan path writes to a cached blob)
@@ -4275,6 +4347,677 @@ def mesh_path(dev, p3: dict, p5: dict, p7: dict, p12: dict,
             "server": srv, "cli": cli}
 
 
+# -------------------------------------------------------------- phase 14
+
+MONITOR_SEED = 20261020
+N_MONITOR_ARTIFACTS = 256
+MONITOR_PKGS = (50, 3_000)  # packages per indexed artifact, log-uniform
+N_MONITOR_SCANS = 8  # (b)'s recorded server scans
+N_ORACLE_OTHERS = 16  # artifacts without events held to the host oracle
+# the delta: held (space, name) keys it edits, and its edits by kind
+MONITOR_KEYS, MONITOR_HOT, MONITOR_TALL = 30, 4, 1
+MONITOR_EDITS = {"add": 100, "fix_below": 100, "remove": 50, "unheld": 250}
+# generation names (what a verified OCI install names its directory)
+GEN_A = "sha256-" + "a1" * 32
+GEN_B = "sha256-" + "b2" * 32
+GEN_B_UPDATED = "2026-10-20T00:00:00Z"
+MONITOR_TIMEOUT_S = 900.0  # (a)'s runner, bounded
+EVENT_RING = 4096  # monitor/watch.py's ring
+
+# a `watch` run as a subprocess: trivy_tpu_torch.cli.main.main on argv
+# (what `python -m trivy_tpu_torch` calls), its wall, the run module's
+# split, the delta's diff seconds, the re-score's report (its `verified`
+# is on no output line: the lines are the reference's), the match
+# launches per tier of the re-score and of its verify pass, and its
+# peak RSS at its start and end, written to the file named first
+WATCH_CODE = """
+import json, sys, time
+import chip_smoke
+start_rss = chip_smoke.peak_rss_mb()
+from trivy_tpu_torch.cli import run
+from trivy_tpu_torch.cli.main import main
+from trivy_tpu_torch.monitor import rematch, watch
+from trivy_tpu_torch.ops import match
+engines = []
+build = run.new_engine
+def new_engine(args):
+    engines.append(build(args))
+    return engines[-1]
+run.new_engine = new_engine
+def tiers():
+    if not engines:
+        return {"main": 0, "hot": 0, "tall": 0}
+    e = engines[-1]
+    return {k: getattr(t, "launches", 0) for k, t in (
+        ("main", e._ddb), ("hot", e._ddb_hot), ("tall", e._ddb_tall))}
+marks = {}
+full = rematch.full_findings
+def full_findings(engine, index):
+    marks["rescore"] = tiers()
+    t0 = time.perf_counter()
+    out = full(engine, index)
+    marks["verify_s"] = time.perf_counter() - t0
+    return out
+rematch.full_findings = full_findings
+plan = watch.compute_delta
+def compute_delta(*a, **kw):
+    t0 = time.perf_counter()
+    out = plan(*a, **kw)
+    marks["diff_s"] = time.perf_counter() - t0
+    return out
+watch.compute_delta = compute_delta
+reports = []
+rescore = rematch.rescore
+def rescore_kept(*a, **kw):
+    reports.append(rescore(*a, **kw))
+    return reports[-1]
+rematch.rescore = rescore_kept
+t0 = time.perf_counter()
+rc = main(sys.argv[2:])
+wall = time.perf_counter() - t0
+end = tiers()
+mid = marks.get("rescore", end)
+with open(sys.argv[1], "w") as f:
+    json.dump({"rc": rc, "wall_s": wall, "stats": run.STATS,
+               "diff_s": marks.get("diff_s", 0.0),
+               "launches": match.match_words.launches,
+               "rescore_per_tier": mid,
+               "verify_per_tier": {k: end[k] - mid[k] for k in end},
+               "verify_s": marks.get("verify_s"),
+               "reports": [{k: v for k, v in vars(r).items()
+                            if k != "events"} for r in reports],
+               "start_rss_mb": start_rss,
+               "max_rss_mb": chip_smoke.peak_rss_mb()}, f, default=str)
+sys.exit(rc)
+"""
+
+# (a)'s runner: a subprocess started right after phase 7, whose work
+# overlaps phases 8-11 (`monitor_runner`)
+RUNNER_CODE = """
+import sys
+import chip_smoke
+chip_smoke.monitor_runner(*sys.argv[1:])
+"""
+
+
+def peak_rss_mb() -> float:
+    """This process's peak resident set: VmHWM (unlike ru_maxrss it
+    does not carry a forking parent's size across exec), else
+    ru_maxrss where /proc has no VmHWM. A subprocess reads it at its
+    start too: when ru_maxrss is all there is, an end above the start
+    is the process's own peak, an end equal to it a bound only."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 1024
+    except OSError:
+        pass
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def tier_launches(engine) -> dict:
+    return {k: getattr(t, "launches", 0) for k, t in (
+        ("main", engine._ddb), ("hot", engine._ddb_hot),
+        ("tall", engine._ddb_tall))}
+
+
+def bucket_of(db, space: str, name: str) -> str | None:
+    """The first bucket of `space` that holds `name`."""
+    from trivy_tpu_torch.tensorize.compile import space_of_bucket
+
+    for bucket, pkgs in db.buckets.items():
+        s = space_of_bucket(bucket)
+        if s is not None and s[0] == space and name in pkgs:
+            return bucket
+    return None
+
+
+def monitor_delta(engine, pool: list, findings: set,
+                  rng: random.Random) -> tuple[list, set]:
+    """The seeded delta from gen A to gen B -> (edits, the held keys it
+    touches). On MONITOR_KEYS held (space, name) keys with findings
+    (MONITOR_HOT of them hot-tier names, MONITOR_TALL tall-tier):
+    advisories added at vulnerable versions, fixes moved below every
+    version, and advisories removed; the rest on names no artifact
+    holds (new names and existing ones)."""
+    from trivy_tpu_torch.tensorize.compile import space_of_bucket
+
+    db, cdb = engine.db, engine.cdb
+    found: dict = {}
+    for s, n, _v, _sch, vid in sorted(findings):
+        found.setdefault((s, n), set()).add(vid)
+    held = sorted(found)
+    tall = [k for k in held if k in cdb.tall_names]
+    hot = [k for k in held if k in cdb.host_fallback and k not in tall]
+    main = [k for k in held if k not in cdb.host_fallback]
+    picked = (rng.sample(tall, min(MONITOR_TALL, len(tall)))
+              + rng.sample(hot, min(MONITOR_HOT, len(hot))))
+    keys = picked + rng.sample(main, MONITOR_KEYS - len(picked))
+    edits: list = []
+    for i in range(MONITOR_EDITS["add"]):
+        s, n = keys[i % len(keys)]
+        adv = ({"VulnerabilityID": f"CVE-2026-9{i:05d}",
+                "FixedVersion": "99.0.0"} if s == "debian 11" else
+               {"VulnerabilityID": f"GHSA-mon-{i:05d}",
+                "VulnerableVersions": ["<99.0.0"]})
+        edits.append({"op": "add", "bucket": bucket_of(db, s, n),
+                      "name": n, "adv": adv})
+    pairs = sorted((k, vid) for k in keys for vid in found[k])
+    rng.shuffle(pairs)
+    taken = pairs[:MONITOR_EDITS["fix_below"] + MONITOR_EDITS["remove"]]
+    left = {k: len(db.buckets[bucket_of(db, *k)][k[1]]) for k in keys}
+    for j, ((s, n), vid) in enumerate(taken):
+        op = "fix_below" if j < MONITOR_EDITS["fix_below"] else "remove"
+        if op == "remove":
+            if left[(s, n)] <= 1:
+                op = "fix_below"  # a name keeps an advisory
+            else:
+                left[(s, n)] -= 1
+        edits.append({"op": op, "bucket": bucket_of(db, s, n), "name": n,
+                      "vuln_id": vid})
+    held_names = {(p[0], p[1]) for p in pool}
+    buckets = [b for b in db.buckets if space_of_bucket(b) is not None]
+    names_of = {b: list(db.buckets[b]) for b in buckets}
+    for i in range(MONITOR_EDITS["unheld"]):
+        bucket = buckets[i % len(buckets)]
+        space = space_of_bucket(bucket)[0]
+        if i % 2:
+            name = f"monitor-new-{i}"
+        else:
+            name = next(nm for nm in (rng.choice(names_of[bucket])
+                                      for _ in range(100))
+                        if (space, nm) not in held_names)
+        adv = ({"VulnerabilityID": f"CVE-2026-8{i:05d}",
+                "FixedVersion": "1.0.0"} if "::" not in bucket else
+               {"VulnerabilityID": f"GHSA-unheld-{i:05d}",
+                "VulnerableVersions": ["<1.0.0"]})
+        edits.append({"op": "add", "bucket": bucket, "name": name,
+                      "adv": adv, "unheld": True})
+    return edits, set(keys)
+
+
+def apply_delta(db, edits: list):
+    """gen B: a new AdvisoryDB over `db`'s buckets with `edits` applied
+    (new lists and new Advisory objects for every edited name: `db`,
+    which other engines index into, is left as it was; a name left
+    without advisories goes, as a save and load would drop it). The
+    metadata is gen B's."""
+    from trivy_tpu_torch.db.model import Advisory
+    from trivy_tpu_torch.db.store import AdvisoryDB, Metadata
+
+    buckets = {b: dict(p) for b, p in db.buckets.items()}
+    for e in edits:
+        names = buckets.setdefault(e["bucket"], {})
+        advs = list(names.get(e["name"], []))
+        if e["op"] == "add":
+            advs.append(Advisory.from_json(e["adv"]))
+        else:
+            out = []
+            for a in advs:
+                if a.vulnerability_id != e["vuln_id"]:
+                    out.append(a)
+                elif e["op"] == "fix_below":
+                    doc = a.to_json()
+                    if a.is_range_style:
+                        doc.pop("PatchedVersions", None)
+                        doc.pop("UnaffectedVersions", None)
+                        doc["VulnerableVersions"] = ["<0"]
+                    else:
+                        doc["FixedVersion"] = "0"
+                    out.append(Advisory.from_json(doc))
+            advs = out
+        if advs:
+            names[e["name"]] = advs
+        else:
+            names.pop(e["name"], None)
+    return AdvisoryDB(buckets=buckets, metadata_bucket=db.metadata_bucket,
+                      meta=Metadata(version=db.meta.version,
+                                    updated_at=GEN_B_UPDATED))
+
+
+def link_tree(src: str, dst: str) -> None:
+    """Hard links of `src`'s files under `dst` (one level)."""
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(src):
+        p = os.path.join(src, name)
+        if os.path.isfile(p):
+            os.link(p, os.path.join(dst, name))
+
+
+def link_generation(src_root: str, dst_root: str, gen: str,
+                    promote: bool) -> None:
+    """Generation `gen` of `src_root` and its compiled-torch entries
+    (tensors and keymap) hard-linked into `dst_root`: no second compile
+    of it there."""
+    from trivy_tpu_torch.db import generations
+    from trivy_tpu_torch.tensorize import cache as ccache
+
+    dst = os.path.join(generations.generations_root(dst_root), gen)
+    link_tree(os.path.join(generations.generations_root(src_root), gen),
+              dst)
+    croot = ccache.cache_root(src_root)
+    os.makedirs(ccache.cache_root(dst_root), exist_ok=True)
+    for name in os.listdir(croot):
+        if name.startswith(gen + ".") and ".tmp-" not in name:
+            os.link(os.path.join(croot, name),
+                    os.path.join(ccache.cache_root(dst_root), name))
+    if promote:
+        generations.promote(dst_root, dst)
+
+
+def expected_events(aids, baselines: dict, now: dict) -> list:
+    """The events a re-score emits for `aids`, in its order: per
+    artifact, introduced then resolved, each sorted."""
+    out = []
+    for aid in sorted(aids):
+        old, new = baselines[aid], now[aid]
+        out += [("introduced", aid, *k) for k in sorted(new - old)]
+        out += [("resolved", aid, *k) for k in sorted(old - new)]
+    return out
+
+
+def event_tuples(lines: list) -> list:
+    return [(e["event"], e["artifact"], e["space"], e["name"],
+             e["version"], e["scheme"], e["vuln_id"]) for e in lines]
+
+
+def read_lines(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def monitor_setup(p7: dict, dev, tmp: str) -> dict:
+    """Right after phase 7, on phase 7's warm engine (gen A on the
+    card): the warm `sbom --monitor-index` run's record held against an
+    in-process capture of the same SBOM; N_MONITOR_ARTIFACTS seeded
+    artifacts of 50-3,000 of its packages and the seeded delta written
+    for (a)'s runner; the two monitor roots (gen A and its compiled
+    entries hard-linked from phase 7's root); then the runner starts,
+    so that its work overlaps phases 8-11."""
+    from trivy_tpu_torch.artifact.sbom import SBOMArtifact
+    from trivy_tpu_torch.cache.cache import MemoryCache
+    from trivy_tpu_torch.monitor import capture_scan
+    from trivy_tpu_torch.monitor.index import MonitorIndex
+    from trivy_tpu_torch.scanner.local import LocalDriver
+    from trivy_tpu_torch.scanner.scan import Scanner
+    from trivy_tpu_torch.types.scan import ScanOptions
+
+    engine = p7.pop("warm_engine")
+    t0 = time.perf_counter()
+    cache = MemoryCache()
+    with capture_scan() as cap:
+        Scanner(LocalDriver(engine, cache),
+                SBOMArtifact(p7["sbom"], cache)).scan_artifact(
+            ScanOptions(list_all_pkgs=True))
+    idx7 = MonitorIndex.open(p7["monitor_index"])
+    try:
+        rec_ok = (idx7.artifacts() == [p7["sbom"]]
+                  and idx7.packages_of(p7["sbom"]) == sorted(cap.packages)
+                  and idx7.findings_of(p7["sbom"]) == cap.findings
+                  and idx7.db_digest == GEN_A)
+    finally:
+        idx7.close()
+    print(f"phase14 setup sbom_record_equals_capture={rec_ok} "
+          f"packages={len(cap.packages)} findings={len(cap.findings)} "
+          f"capture_s={time.perf_counter() - t0:.3f}")
+    if not rec_ok or not cap.findings:
+        raise AssertionError("the --monitor-index record of phase 7's "
+                             "warm run differs from a direct capture")
+    rng = random.Random(MONITOR_SEED)
+    pool = sorted(cap.packages)
+    lo, hi = MONITOR_PKGS
+    arts = {}
+    for a in range(N_MONITOR_ARTIFACTS):
+        n = int(round(math.exp(rng.uniform(math.log(lo), math.log(hi)))))
+        arts[f"art{a:03d}"] = sorted(rng.sample(pool, min(n, len(pool))))
+    edits, touched = monitor_delta(engine, pool, cap.findings, rng)
+    kinds: dict = {}
+    for e in edits:
+        kind = "unheld" if e.get("unheld") else e["op"]
+        kinds[kind] = kinds.get(kind, 0) + 1
+    cdb = engine.cdb
+    tiers = {"tall": sum(k in cdb.tall_names for k in touched),
+             "hot": sum(k in cdb.host_fallback and k not in cdb.tall_names
+                        for k in touched)}
+    affected = sorted(a for a, pkgs in arts.items()
+                      if any((p[0], p[1]) in touched for p in pkgs))
+    sizes = sorted(len(p) for p in arts.values())
+    print(f"phase14 setup artifacts={len(arts)} sizes_min_median_max="
+          f"{sizes[0]},{sizes[len(sizes) // 2]},{sizes[-1]} "
+          f"edits={json.dumps(kinds)} touched_held_keys={len(touched)} "
+          f"touched_tiers={json.dumps(tiers)} affected={len(affected)}")
+    del engine, cdb
+    gc.collect()
+    out = os.path.join(tmp, "mon_a")
+    os.makedirs(out)
+    with open(os.path.join(out, "plan.json"), "w") as f:
+        json.dump({"arts": arts, "edits": edits,
+                   "affected": affected}, f)
+    watch_root = os.path.join(tmp, "mon_watch_db")
+    srv_root = os.path.join(tmp, "mon_srv_db")
+    for root in (watch_root, srv_root):
+        link_generation(p7["db_root"], root, GEN_A, promote=True)
+    with open(os.path.join(out, "runner.log"), "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", RUNNER_CODE, watch_root, out, str(dev)],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "out": out, "t0": time.perf_counter(),
+            "edits": edits, "watch_root": watch_root,
+            "srv_root": srv_root}
+
+
+def monitor_runner(root: str, out: str, device: str) -> None:
+    """(a), in its own process beside phases 8-11: gen A loaded from
+    `root` and its engine built on `device` (phase 7's compiled entry,
+    hard-linked: a hit); N_MONITOR_ARTIFACTS recorded through
+    capture_scan around the tapped engine's detect, stamped with gen
+    A's digest; gen B (gen A + the delta) saved beside A and promoted;
+    `watch --once --verify`, then a second `watch --once`, each a
+    subprocess of its own (WATCH_CODE); then gen B's engine (the
+    watch's compiled entry, a hit) re-matches all the artifacts
+    (detect_many) and the host oracle checks the artifacts with events
+    plus N_ORACLE_OTHERS others. Its numbers and checks go to
+    <out>/runner.json."""
+    from trivy_tpu_torch.db import generations
+    from trivy_tpu_torch.db.store import AdvisoryDB
+    from trivy_tpu_torch.detector.engine import (
+        MatchEngine,
+        PkgQuery,
+        finding_keys,
+    )
+    from trivy_tpu_torch.monitor import capture_scan, tap
+    from trivy_tpu_torch.monitor.index import MonitorIndex
+
+    t_all = time.perf_counter()
+    res: dict = {"start_rss_mb": peak_rss_mb()}
+    with open(os.path.join(out, "plan.json")) as f:
+        plan = json.load(f)
+    arts = {a: [tuple(p) for p in pkgs] for a, pkgs in plan["arts"].items()}
+    t0 = time.perf_counter()
+    dba = AdvisoryDB.load(os.path.join(generations.generations_root(root),
+                                       GEN_A))
+    res["load_a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = MatchEngine(dba, device=device, db_path=root)
+    res["build_a_s"] = time.perf_counter() - t0
+    res["build_a"] = eng.build_stats.get("compile_cache")
+    before = tier_launches(eng)
+    t0 = time.perf_counter()
+    baselines = {}
+    idx = MonitorIndex.open(os.path.join(out, "index.jsonl"))
+    try:
+        for aid, pkgs in arts.items():
+            with capture_scan() as c:
+                tap(eng).detect([PkgQuery(*p) for p in pkgs])
+            idx.update(aid, c.packages, c.findings, db_digest=GEN_A)
+            baselines[aid] = set(c.findings)
+    finally:
+        idx.close()
+    res["record_s"] = time.perf_counter() - t0
+    res["record_launches"] = {k: v - before[k]
+                              for k, v in tier_launches(eng).items()}
+    del eng
+    gc.collect()
+    t0 = time.perf_counter()
+    genb = apply_delta(dba, plan["edits"])
+    gen = os.path.join(generations.generations_root(root), GEN_B)
+    genb.save(gen)
+    generations.promote(root, gen)
+    res["save_b_s"] = time.perf_counter() - t0
+    del dba
+    for name in ("watch1", "watch2"):
+        counts = os.path.join(out, name + ".counts.json")
+        with open(os.path.join(out, name + ".out"), "wb") as so, \
+                open(os.path.join(out, name + ".log"), "wb") as se:
+            t0 = time.perf_counter()
+            rc = subprocess.run(
+                [sys.executable, "-c", WATCH_CODE, counts, "watch",
+                 "--db-path", root, "--index",
+                 os.path.join(out, "index.jsonl"), "--once", "--verify",
+                 "--quiet", "--device", device, "--cache-dir",
+                 os.path.join(out, "cache")],
+                stdout=so, stderr=se).returncode
+        res[name] = {"rc": rc, "proc_wall_s": time.perf_counter() - t0}
+        if rc != 0:
+            break
+        with open(counts) as f:
+            res[name].update(json.load(f))
+    if all(res.get(n, {}).get("rc") == 0 for n in ("watch1", "watch2")):
+        lines = read_lines(os.path.join(out, "watch1.out"))
+        events = [ln for ln in lines if ln["event"] != "rescore"]
+        summary = [ln for ln in lines if ln["event"] == "rescore"]
+        t0 = time.perf_counter()
+        engb = MatchEngine(genb, device=device, db_path=root)
+        res["build_b_s"] = time.perf_counter() - t0
+        res["build_b"] = engb.build_stats.get("compile_cache")
+        aids = sorted(arts)
+        t0 = time.perf_counter()
+        flat = [PkgQuery(*p) for a in aids for p in arts[a]]
+        hits = engb.detect_many(flat)
+        now, i = {}, 0
+        for a in aids:
+            now[a] = finding_keys(engb.cdb.advisories,
+                                  hits[i: i + len(arts[a])])
+            i += len(arts[a])
+        res["full_rematch_s"] = time.perf_counter() - t0
+        with_events = sorted({e["artifact"] for e in events})
+        rng = random.Random(MONITOR_SEED + 2)
+        rest = [a for a in aids if a not in with_events]
+        checked = with_events + sorted(
+            rng.sample(rest, min(N_ORACLE_OTHERS, len(rest))))
+        t0 = time.perf_counter()
+        uniq = sorted({p for a in checked for p in arts[a]})
+        oracle = dict(zip(uniq, engb.oracle_detect(
+            [PkgQuery(*p) for p in uniq])))
+        res["oracle_diff"] = sum(
+            finding_keys(engb.cdb.advisories, [oracle[p] for p in arts[a]])
+            != now[a] for a in checked)
+        res["oracle_s"] = time.perf_counter() - t0
+        s = summary[0] if len(summary) == 1 else {}
+        report = (res["watch1"].get("reports") or [{}])[0]
+        res["check"] = {
+            "events": len(events),
+            "events_equal": event_tuples(events) == expected_events(
+                aids, baselines, now),
+            "digest_ok": all(e["db_digest"] == GEN_B for e in events),
+            "full": s.get("full"), "reason": s.get("reason"),
+            "verified": report.get("verified"),
+            "rematched": s.get("rematched"), "indexed": s.get("indexed"),
+            "affected": len(plan["affected"]),
+            "introduced": s.get("introduced"),
+            "resolved": s.get("resolved"), "rescore_s": s.get("duration_s"),
+            "with_events": len(with_events), "oracle_checked": len(checked),
+            "second_watch_lines": len(read_lines(
+                os.path.join(out, "watch2.out")))}
+    res["max_rss_mb"] = peak_rss_mb()
+    res["wall_s"] = time.perf_counter() - t_all
+    with open(os.path.join(out, "runner.json"), "w") as f:
+        json.dump(res, f)
+
+
+def monitor_path(dev, p7: dict, mon: dict, tmp: str) -> dict:
+    """Phase 14: continuous monitoring on the card at phase 7's width.
+    (b) in process: a Server with a monitor index on a root at gen A
+    (gen A's entries hard-linked from phase 7's), on the engine phase 12
+    holds; N_MONITOR_SCANS seeded scans recorded through the scheduler;
+    gen B promoted and `maybe_reload_db()` (gen B's compiled entry from
+    (a) a hit; the reload's DB load answers with gen B made in memory
+    from the served gen A and the delta, as phases 8-9 share phase 7's
+    parsed DB); `/monitor/events` read by a `watch --server --once`
+    subprocess equal to a full re-match of those scans on the reloaded
+    engine. (a) the runner's checks: its `watch --once --verify`
+    incremental (`full` false, exactly the artifacts that hold a
+    touched name rematched) and verified, its events equal to a full
+    re-match of all N_MONITOR_ARTIFACTS on gen B against the gen A
+    baselines, the artifacts with events plus N_ORACLE_OTHERS others
+    equal to the host oracle, and a second `watch --once` silent."""
+    from trivy_tpu_torch.cache.cache import MemoryCache
+    from trivy_tpu_torch.db import generations
+    from trivy_tpu_torch.db import store
+    from trivy_tpu_torch.detector.engine import PkgQuery, finding_keys
+    from trivy_tpu_torch.rpc.server import Server
+
+    card = card_line()
+    engine = mon.pop("engine")
+    if engine._cache_ctx[0] != p7["db_root"] or engine.mesh is not None:
+        raise AssertionError("phase 12's engine is not on phase 7's DB")
+    proc, out = mon["proc"], mon["out"]
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=max(MONITOR_TIMEOUT_S
+                              - (time.perf_counter() - mon["t0"]), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise AssertionError("(a)'s runner did not finish: "
+                             + tail(os.path.join(out, "runner.log")))
+    waited_s = time.perf_counter() - t0
+    try:
+        with open(os.path.join(out, "runner.json")) as f:
+            drv = json.load(f)
+    except OSError:
+        raise AssertionError("(a)'s runner failed: "
+                             + tail(os.path.join(out, "runner.log")))
+    w1, w2 = drv.get("watch1", {}), drv.get("watch2", {})
+    if w1.get("rc") != 0 or w2.get("rc") != 0 or "check" not in drv:
+        raise AssertionError("(a) watch failed: " + json.dumps(drv)
+                             + tail(os.path.join(out, "runner.log"))
+                             + tail(os.path.join(out, "watch1.log"))
+                             + tail(os.path.join(out, "watch2.log")))
+    print(f"phase14 (a) runner card={card!r} waited_s={waited_s:.3f} "
+          + json.dumps({k: v for k, v in drv.items()
+                        if k not in ("watch1", "watch2", "check")}))
+    for name, w in (("watch1", w1), ("watch2", w2)):
+        st = w.get("stats", {})
+        print(f"phase14 (a) {name} proc_wall_s={w['proc_wall_s']:.3f} "
+              f"main_wall_s={w['wall_s']:.3f} "
+              f"db_load_s={st.get('db_load_s')} "
+              f"compile_cache={st.get('compile_cache')} "
+              f"compile_s={st.get('compile_s')} "
+              f"keymap_s={st.get('keymap_s')} "
+              f"upload_s={st.get('upload_s')} diff_s={w['diff_s']:.3f} "
+              f"verify_s={w['verify_s']} rescore_launches="
+              f"{json.dumps(w['rescore_per_tier'])} verify_launches="
+              f"{json.dumps(w['verify_per_tier'])} "
+              f"start_rss_mb={w['start_rss_mb']:.1f} "
+              f"max_rss_mb={w['max_rss_mb']:.1f}")
+    a = drv["check"]
+    print(f"phase14 (a) watch card={card!r} {json.dumps(a)}")
+    if not (a["events_equal"] and a["digest_ok"] and a["events"]
+            and a["full"] is False and a["verified"] is True
+            and a["rematched"] == a["affected"]
+            and a["rematched"] < N_MONITOR_ARTIFACTS
+            and a["indexed"] == N_MONITOR_ARTIFACTS
+            and not drv["oracle_diff"] and not a["second_watch_lines"]
+            and drv["build_a"] == drv["build_b"] == "hit"
+            and all(w1["rescore_per_tier"].values())):
+        raise AssertionError(f"(a) watch: {a} {drv}")
+
+    blobs = burst_blobs(p7["sbom"], random.Random(MONITOR_SEED + 1),
+                        n=N_MONITOR_SCANS)
+    cache = MemoryCache()
+    keys = []
+    for i, blob in enumerate(blobs):
+        key = f"sha256:monitor{i:02d}"
+        cache.put_blob(key, blob)
+        keys.append(key)
+    srv_root = mon["srv_root"]
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    srv = Server(engine, cache, host="127.0.0.1", port=0, db_path=srv_root,
+                 monitor_index=os.path.join(out, "server_index.jsonl"))
+    srv.start()
+    b: dict = {}
+    try:
+        svc = srv.service
+        if svc.monitor is None or svc._db_digest != GEN_A:
+            raise AssertionError(f"(b) monitor off or digest "
+                                 f"{svc._db_digest}")
+        before = tier_launches(engine)
+        t1 = time.perf_counter()
+        burst_run(srv.address, keys, profiled=False)
+        b["scans_s"] = time.perf_counter() - t1
+        b["scan_launches"] = {k: v - before[k]
+                              for k, v in tier_launches(engine).items()}
+        index = svc.monitor.index
+        if index.artifacts() != sorted(keys):
+            raise AssertionError(f"(b) recorded {index.artifacts()}")
+        base_b = {k: index.findings_of(k) for k in keys}
+        pkgs_b = {k: index.packages_of(k) for k in keys}
+        # gen B beside gen A: the watch's files and compiled entries
+        link_generation(mon["watch_root"], srv_root, GEN_B, promote=False)
+        t1 = time.perf_counter()
+        genb = apply_delta(engine.db, mon["edits"])
+        b["genb_in_memory_s"] = time.perf_counter() - t1
+        gen_dir = os.path.join(generations.generations_root(srv_root),
+                               GEN_B)
+        with open(os.path.join(gen_dir, "metadata.json")) as f:
+            if json.load(f) != genb.meta.to_json():
+                raise AssertionError("gen B's metadata differs from (a)'s")
+        generations.promote(srv_root, gen_dir)
+        load = store.AdvisoryDB.load
+        store.AdvisoryDB.load = classmethod(lambda cls, path: genb)
+        try:
+            t1 = time.perf_counter()
+            swapped = svc.maybe_reload_db()
+            b["reload_s"] = time.perf_counter() - t1
+        finally:
+            store.AdvisoryDB.load = load
+        neng = svc.engine
+        b["reload_build"] = {k: v for k, v in neng.build_stats.items()
+                             if not isinstance(v, dict)}
+        t1 = time.perf_counter()
+        deadline = t1 + 300.0
+        while svc.monitor._running and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        b["rescore_wait_s"] = time.perf_counter() - t1
+        b["rescore_launches"] = tier_launches(neng)
+        if not swapped or svc.monitor._running or svc.monitor.last_error \
+                or neng.build_stats.get("compile_cache") != "hit" \
+                or svc.monitor.index.db_digest != GEN_B:
+            raise AssertionError(f"(b) reload / re-score: swapped={swapped} "
+                                 f"{svc.monitor.last_error!r} {b}")
+        counts = os.path.join(out, "watch_server.counts.json")
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", WATCH_CODE, counts, "watch", "--server",
+             srv.address, "--once", "--quiet"], cwd=REPO,
+            capture_output=True, text=True, timeout=300)
+        b["watch_server_wall_s"] = time.perf_counter() - t1
+        if r.returncode != 0:
+            raise AssertionError(f"(b) watch --server: {r.stderr[-2000:]}")
+        with open(counts) as f:
+            w = json.load(f)
+        b["watch_server_rss_mb"] = [w["start_rss_mb"], w["max_rss_mb"]]
+        served = [json.loads(ln) for ln in r.stdout.splitlines()
+                  if ln.strip()]
+        t1 = time.perf_counter()
+        now_b = {k: finding_keys(neng.cdb.advisories, neng.detect(
+            [PkgQuery(*p) for p in pkgs_b[k]])) for k in keys}
+        b["check_s"] = time.perf_counter() - t1
+        b["events"] = len(served)
+        b["events_equal"] = \
+            event_tuples(served) == expected_events(keys, base_b, now_b)
+        b["digest_ok"] = all(e["db_digest"] == GEN_B for e in served)
+    finally:
+        srv.shutdown()
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+    print(f"phase14 (b) server card={card!r} {json.dumps(b)}")
+    if not (b["events_equal"] and b["digest_ok"] and b["events"]
+            and b["events"] < EVENT_RING
+            and all(b["scan_launches"].values())
+            and all(b["rescore_launches"].values())):
+        raise AssertionError(f"(b) server events: {b}")
+    del neng, genb
+    gc.collect()
+    return {"a": a, "b": b, "runner": drv,
+            "launches": {"watch_rescore": w1["rescore_per_tier"],
+                         "watch_verify": w1["verify_per_tier"],
+                         "server_rescore": b["rescore_launches"]}}
+
+
 def main() -> int:
     import torch
 
@@ -4304,34 +5047,56 @@ def main() -> int:
     p2 = check_kernel_cases(dev)
     print(f"phase2 seconds={time.perf_counter() - t0:.3f}")
 
-    t0 = time.perf_counter()
-    p3 = main_path(dev)
-    print(f"phase3 seconds={time.perf_counter() - t0:.3f}")
-
-    t0 = time.perf_counter()
-    p4 = check_secret_kernel_cases(dev)
-    print(f"phase4 seconds={time.perf_counter() - t0:.3f}")
-
-    t0 = time.perf_counter()
-    p5 = secret_main_path(dev)
-    print(f"phase5 seconds={time.perf_counter() - t0:.3f}")
-
-    t0 = time.perf_counter()
-    p6 = prefilter_path(dev, p5["corpus"])
-    print(f"phase6 seconds={time.perf_counter() - t0:.3f}")
-
-    t0 = time.perf_counter()
-    st = time_secret_kernels(dev, p5, p6)
-    print(f"timings seconds={time.perf_counter() - t0:.3f}")
-
     import tempfile
 
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.tensorize.synth import synth_trivy_db
+
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    srv = None
+    srv = mon = None
     try:
+        # phase 7 runs first on the synthetic DB: its cold run compiles
+        # the 2 M DB once, and phase 3's engine loads that entry
         t0 = time.perf_counter()
-        p7 = sbom_cli_path(p3.pop("db"), work)
+        db = synth_trivy_db(n_advisories=N_ADVISORIES)
+        t_synth = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p7 = sbom_cli_path(db, work)
         print(f"phase7 seconds={time.perf_counter() - t0:.3f}")
+        # the CLI set this process's compiled-NFA cache root to phase 7's
+        # --cache-dir: phases 4-6 scan without one, as they did before
+        # phase 7 ran first, so phase 8's first fs run still misses
+        from trivy_tpu_torch.secret import scanner as secret_scanner
+
+        secret_scanner.set_cache_dir(None)
+
+        t0 = time.perf_counter()
+        p3 = main_path(dev, db, p7["db_root"], t_synth)
+        del db
+        print(f"phase3 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p4 = check_secret_kernel_cases(dev)
+        print(f"phase4 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p5 = secret_main_path(dev)
+        print(f"phase5 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p6 = prefilter_path(dev, p5["corpus"])
+        print(f"phase6 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        st = time_secret_kernels(dev, p5, p6)
+        print(f"timings seconds={time.perf_counter() - t0:.3f}")
+
+        # phase 14's index and delta on phase 7's engine (held since
+        # phase 7); its watch runner runs beside phases 8-11, after the
+        # kernel timings
+        t0 = time.perf_counter()
+        mon = monitor_setup(p7, dev, work)
+        print(f"phase14 setup seconds={time.perf_counter() - t0:.3f}")
 
         t0 = time.perf_counter()
         p8 = fs_cli_path(p5, p7, work)
@@ -4354,6 +5119,10 @@ def main() -> int:
         t0 = time.perf_counter()
         p12 = server_path(dev, srv, p7, p8, p9, work)
         print(f"phase12 seconds={time.perf_counter() - t0:.3f}")
+        # phase 14 (b) serves phase 12's engine (phase 13's CLI runs
+        # clear the CLI's engine cache)
+        mon["engine"] = next(e for e in run._ENGINE_CACHE.values()
+                             if e.use_device)
 
         # no cyclic garbage collection inside phase 13: a full pass over
         # the 2 M DB's objects stalled a mesh build for 9 s (PERF.md §7)
@@ -4364,10 +5133,17 @@ def main() -> int:
         finally:
             gc.enable()
         print(f"phase13 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p14 = monitor_path(dev, p7, mon, work)
+        print(f"phase14 seconds={time.perf_counter() - t0:.3f}")
     finally:
         if srv is not None and srv["proc"].poll() is None:
             srv["proc"].kill()
             srv["proc"].wait(timeout=30)
+        if mon is not None and mon["proc"].poll() is None:
+            mon["proc"].kill()
+            mon["proc"].wait(timeout=30)
         shutil.rmtree(work, ignore_errors=True)
     fs_launches = {name: r["launches"] for name, r in p8["runs"].items()}
     image_launches = {name: r["launches"]
@@ -4414,6 +5190,7 @@ def main() -> int:
                for k, r in p13["ladder"].items() if "launches" in r},
             "server": p13["server"]["launches"],
             "sbom_cli_mesh_1x1": p13["cli"]["mesh_1x1"]["launches"]},
+        "launches_monitor": p14["launches"],
         "tiers": p3["timings"],
     }]
     for name, source, replaces, launches in (

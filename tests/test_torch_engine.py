@@ -254,10 +254,11 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax_in_a_fresh_process():
     """Importing the port, running a CPU detect, a CPU secret scan on
     every path, the keyword prefilter, a CPU sbom scan through the
-    port's CLI (DB save and load, compiled-DB cache, native collect) and
-    a client scan against an in-process port server (the scheduler, the
-    JSON and columnar wires, Twirp) loads no jax module and nothing of
-    the JAX package."""
+    port's CLI (DB save and load, compiled-DB cache, native collect),
+    a `--monitor-index` scan and a `watch --once` after a DB update,
+    and a client scan against an in-process port server (the scheduler,
+    the JSON and columnar wires, Twirp) loads no jax module and nothing
+    of the JAX package."""
     code = """
 import sys
 before = set(sys.modules)
@@ -292,6 +293,18 @@ for _ in range(2):
     assert main(["sbom", tmp + "/bom.json", "--db-path", tmp + "/db",
                  "--cache-dir", tmp + "/c", "--device", "cpu", "--quiet",
                  "--format", "json", "--output", tmp + "/r.json"]) == 0
+assert main(["sbom", tmp + "/bom.json", "--db-path", tmp + "/db",
+             "--cache-dir", tmp + "/c", "--device", "cpu", "--quiet",
+             "--monitor-index", tmp + "/mon.jsonl"]) == 0
+db2 = synth_trivy_db(n_advisories=3100, seed=1)
+db2.save(tmp + "/db")
+import contextlib, io
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert main(["watch", "--db-path", tmp + "/db", "--index",
+                 tmp + "/mon.jsonl", "--once", "--device", "cpu",
+                 "--quiet", "--cache-dir", tmp + "/c"]) == 0
+assert json.loads(buf.getvalue().splitlines()[-1])["event"] == "rescore"
 from trivy_tpu_torch.cache.cache import MemoryCache
 from trivy_tpu_torch.rpc import twirp
 from trivy_tpu_torch.rpc.client import RemoteCache, RemoteDriver, close_pool
@@ -323,7 +336,10 @@ print("\\n".join(sorted(set(sys.modules) - before)))
     assert "trivy_tpu_torch.ops.mesh" in loaded
     for module in ("rpc.server", "rpc.client", "rpc.wire", "rpc.columnar",
                    "rpc.twirp", "sched.scheduler", "resilience.faults",
-                   "resilience.retry", "obs.usage"):
+                   "resilience.retry", "obs.usage", "monitor.watch",
+                   "monitor.rematch", "monitor.delta", "monitor.index",
+                   "monitor.capture", "durability.appendlog",
+                   "durability.journal"):
         assert f"trivy_tpu_torch.{module}" in loaded, module
     assert "trivy_tpu_torch.native.collect" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -338,8 +354,8 @@ PORT_SOURCES = sorted(
 def test_static_scan_covers_every_slice():
     """The static scan below walks every port source, those of the image
     and db slice, of the report, VEX and attestation slice, of the
-    repository and vm slice, of the server and scheduler slice and of
-    the serving mesh included."""
+    repository and vm slice, of the server and scheduler slice, of the
+    serving mesh and of continuous monitoring included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -355,7 +371,11 @@ def test_static_scan_covers_every_slice():
                    "resilience/retry.py", "resilience/faults.py",
                    "obs/usage.py", "sched/scheduler.py", "rpc/wire.py",
                    "rpc/columnar.py", "rpc/twirp.py", "rpc/server.py",
-                   "rpc/client.py", "ops/mesh.py", "device.py"):
+                   "rpc/client.py", "ops/mesh.py", "device.py",
+                   "durability/appendlog.py", "durability/journal.py",
+                   "monitor/__init__.py", "monitor/capture.py",
+                   "monitor/delta.py", "monitor/index.py",
+                   "monitor/rematch.py", "monitor/watch.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

@@ -286,12 +286,24 @@ def test_readyz_not_ready_while_draining_equals_reference(servers):
 
 @pytest.mark.parametrize("method,path", [
     ("GET", "/metrics"), ("GET", "/debug/profile"),
-    ("GET", "/monitor/events"), ("POST", "/fleet/reload")])
+    ("POST", "/fleet/rescore"), ("POST", "/fleet/reload")])
 def test_unported_routes_answer_404(servers, method, path):
     status, _h, body = _raw(servers["port"].address, method, path,
                             body=b"{}" if method == "POST" else None)
     assert status == 404
     assert json.loads(body) == {"error": "not found"}
+
+
+def test_monitor_events_without_a_monitor_index_answer_like_the_reference(
+        servers):
+    """/monitor/events exists; a server started without --monitor-index
+    answers the reference's 404 body."""
+    got, want = (_raw(servers[k].address, "GET", "/monitor/events?since=0")
+                 for k in ("port", "ref"))
+    assert got[0] == want[0] == 404
+    assert got[2] == want[2]
+    assert json.loads(got[2]) == {
+        "error": "monitor not enabled (--monitor-index)"}
 
 
 # ------------------------------------------------------ client <-> server
@@ -981,8 +993,8 @@ def test_replica_set_url_is_refused(golden_dbs, tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["sbom", "bom.json", "--server", "http://h:1", "--fallback"],
     ["sbom", "bom.json", "--redis-tls"],
-    ["server", "--monitor-index", "idx"]], ids=["fallback", "redis-tls",
-                                                "monitor-index"])
+    ["sbom", "bom.json", "--journal", "scan.jsonl"]],
+    ids=["fallback", "redis-tls", "journal"])
 def test_unported_flags_are_refused_on_argv(argv):
     with pytest.raises(SystemExit) as exc, \
             contextlib.redirect_stderr(io.StringIO()):
@@ -990,8 +1002,7 @@ def test_unported_flags_are_refused_on_argv(argv):
     assert exc.value.code == 2
 
 
-@pytest.mark.parametrize("dest,value", [("mesh", "2x1x4"),
-                                        ("monitor_index", "idx")])
+@pytest.mark.parametrize("dest,value", [("mesh", "2x1x4")])
 def test_unported_server_options_from_env_are_refused(monkeypatch, capsys,
                                                       dest, value):
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
@@ -1004,7 +1015,7 @@ def test_unported_server_options_from_env_are_refused(monkeypatch, capsys,
 
 
 @pytest.mark.parametrize("spec", ["engine.host:device-lost@1",
-                                  "monitor.index:error",
+                                  "db.save:torn-write",
                                   "analysis.fetch:delay=1",
                                   "db.download:bitflip",
                                   "sched.submit:kill",

@@ -5,9 +5,10 @@ viper binding; here as argparse post-processing).
 Copy of trivy_tpu/cli/config.py without --generate-default-config. The
 environment layer reads the same TRIVY_TPU_* names as the reference's.
 An option that the reference's scan subcommands have and the port's
-lack (`UNPORTED`), given a value through the environment or the config
-file that the reference would act on, is refused with one error line:
-the port must not write a different report without a word.
+lack (`UNPORTED`; the port's `server` and `watch` lack none), given a
+value through the environment or the config file that the reference
+would act on, is refused with one error line: the port must not write
+a different report without a word.
 """
 
 from __future__ import annotations
@@ -36,17 +37,13 @@ UNPORTED = {
     "helm_values": ([],), "ignore_policy": (None, ""),
     "include_deprecated_checks": (False,), "journal": (None, ""),
     "license_full": (False,), "log_format": ("text",),
-    "module_dir": (None,), "monitor_index": (None, ""),
+    "module_dir": (None,),
     "redis_ca": ("",), "redis_cert": ("",), "redis_insecure": (False,),
     "redis_key": ("",), "redis_tls": (False,), "report": ("summary",),
     "resume": (None, ""), "skip_check_update": (False,),
     "targets": (None, ""), "trace": (False,),
     "trace_export": (None, ""),
 }
-
-# the same for the reference's `server` subcommand: the monitor index
-# is not ported yet
-UNPORTED_SERVER = {"monitor_index": (None, "")}
 
 
 def _load_config_file(path: str | None) -> dict:
@@ -122,9 +119,10 @@ def apply_layers(args, parser, argv: list[str]) -> None:
     uncoercible env/config values (caught by main's error rendering)."""
     cfg = _load_config_file(getattr(args, "config", None))
     command = getattr(args, "command", None)
-    if command == "server":
-        _refuse_unported(cfg, UNPORTED_SERVER)
-    elif command not in (None, "version", "db", "convert"):
+    # the port's `server` and `watch` parsers have every option of the
+    # reference's
+    if command not in (None, "version", "db", "convert", "server",
+                       "watch"):
         _refuse_unported(cfg, UNPORTED)
     explicit = _explicit_dests(parser, argv)
     defaults = _all_defaults(parser)

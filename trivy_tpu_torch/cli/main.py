@@ -1,7 +1,7 @@
 """trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
-`rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db`, `server`
-and `version` subcommands of trivy_tpu/cli/main.py, with the match
-kernel and the secret screens on a CUDA card.
+`rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db`, `server`,
+`watch` and `version` subcommands of trivy_tpu/cli/main.py, with the
+match kernel and the secret screens on a CUDA card.
 
     python -m trivy_tpu_torch image --input image.tar --format sarif
     python -m trivy_tpu_torch sbom bom.json --format json --vex vex.json
@@ -12,6 +12,9 @@ kernel and the secret screens on a CUDA card.
     python -m trivy_tpu_torch db import advisories.json --db-path DB
     python -m trivy_tpu_torch server --listen 0.0.0.0:4954 --db-path DB
     python -m trivy_tpu_torch image --input image.tar --server http://host:4954
+    python -m trivy_tpu_torch sbom bom.json --monitor-index mon.jsonl
+    python -m trivy_tpu_torch watch --db-path DB --index mon.jsonl --once
+    python -m trivy_tpu_torch watch --server http://host:4954
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -122,6 +125,11 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                         "here, detection on the server (one URL; a "
                         "replica set is not ported yet)")
     p.add_argument("--token", default=None, help="server auth token")
+    p.add_argument("--monitor-index", default=None, metavar="PATH",
+                   help="record each scanned artifact's package "
+                        "inventory + finding baseline into the durable "
+                        "monitor index at PATH, enabling `watch` "
+                        "advisory-delta re-scoring")
     p.add_argument("--cache-backend", default="fs",
                    help="cache backend: fs or memory")
     p.add_argument("--skip-files", action="append", default=[])
@@ -246,6 +254,52 @@ def _add_server_parser(sub) -> None:
                         "package-query rows; larger requests are "
                         "chunk-interleaved across batches so small "
                         "scans are never starved")
+    p.add_argument("--monitor-index", default=None, metavar="PATH",
+                   help="continuous monitoring: record completed scans "
+                        "in the durable monitor index at PATH and "
+                        "re-score the fleet incrementally after every "
+                        "advisory-DB hot swap, emitting introduced/"
+                        "resolved finding events at /monitor/events")
+
+
+def _add_watch_parser(sub) -> None:
+    p = sub.add_parser(
+        "watch", help="continuous monitoring: re-score indexed "
+        "artifacts when the advisory DB changes, emitting introduced/"
+        "resolved findings as JSON lines", allow_abbrev=False)
+    _add_global_flags(p)
+    p.add_argument("--db-path", default=None,
+                   help="advisory DB directory to watch "
+                        "(default <cache>/db)")
+    p.add_argument("--index", default=None, metavar="PATH",
+                   help="monitor index path (default "
+                        "<cache>/monitor-index.jsonl; create it by "
+                        "scanning with --monitor-index)")
+    p.add_argument("--journal", default=None, metavar="PATH",
+                   help="fleet scan journal to rebuild the index from "
+                        "when it is missing or corrupt")
+    p.add_argument("--interval", default="60s",
+                   help="poll interval between DB generation checks "
+                        "(go-style duration)")
+    p.add_argument("--once", action="store_true",
+                   help="process at most one pending DB change, then "
+                        "exit (scripting/CI)")
+    p.add_argument("--server", default=None,
+                   help="tail a running server's /monitor/events ring "
+                        "instead of watching a local DB root")
+    p.add_argument("--token", default=None, help="server auth token")
+    p.add_argument("--output", "-o", default=None,
+                   help="write events here instead of stdout")
+    p.add_argument("--verify", action="store_true",
+                   help="cross-check every re-score against a "
+                        "from-scratch full re-match (double work)")
+    p.add_argument("--no-tpu", action="store_true",
+                   help="run re-matching on the host instead of the "
+                        "match kernel (needs no card)")
+    p.add_argument("--device", default=None,
+                   help="torch device of the match kernel (default "
+                        "cuda:0; 'cpu' runs its plain version)")
+    _add_mesh_flag(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -282,6 +336,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("report")
     _add_db_parser(sub)
     _add_server_parser(sub)
+    _add_watch_parser(sub)
     sub.add_parser("version", help="print version", allow_abbrev=False)
     return parser
 
@@ -318,6 +373,8 @@ def main(argv: list[str] | None = None) -> int:
             return run.run_convert(args)
         if args.command == "server":
             return run.run_server(args)
+        if args.command == "watch":
+            return run.run_watch(args)
         return run.run_scan(args)
     except run.FatalError as e:
         log.logger().error(str(e))

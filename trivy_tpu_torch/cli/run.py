@@ -2,14 +2,15 @@
 report -> exit code (reference pkg/commands/artifact/run.go Runner).
 
 Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
-`filesystem` / `fs`, `rootfs`, `repository` / `repo` and `vm` scans,
-their client mode (`--server`: analysis here, detection on one scan
-server; no `--fallback`), and the `convert`, `db` and `server`
-subcommands: no fleet mode (`--targets`, `--journal`), monitor index,
-compliance, modules, ignore policies or tracing yet. The match
-engine and the secret analyzer's screen run on the device `--device`
-names (``cuda:0`` by default), the engine's main tier on the serving
-mesh `--mesh` names; `--no-tpu` takes the host paths of both.
+`filesystem` / `fs`, `rootfs`, `repository` / `repo` and `vm` scans
+(each with `--monitor-index`), their client mode (`--server`: analysis
+here, detection on one scan server; no `--fallback`), and the
+`convert`, `db`, `server` and `watch` subcommands: no fleet mode
+(`--targets`, `--journal`), compliance, modules, ignore policies or
+tracing yet. The match engine and the secret analyzer's screen run on
+the device `--device` names (``cuda:0`` by default), the engine's main
+tier on the serving mesh `--mesh` names; `--no-tpu` takes the host
+paths of both.
 
 `STATS` keeps the wall seconds of the last scan's phases, split by this
 module's own code: DB load, engine build (compile or compiled-cache
@@ -282,20 +283,27 @@ def _scan_with_timeout(scanner, options, timeout_s: float,
     the scope is entered inside the worker because it is thread-local."""
     import threading
 
+    from trivy_tpu_torch.monitor import capture as mon_capture
+
     box: dict = {}
+    # the monitor's scan capture (a contextvar) must follow the scan
+    # onto the worker thread, which starts from an empty context, or a
+    # --monitor-index scan records an empty inventory
+    mon_ctx = mon_capture.current()
 
     def work():
         try:
-            if budget_s:
-                from trivy_tpu_torch.resilience.retry import (
-                    Deadline,
-                    deadline_scope,
-                )
+            with mon_capture.adopt(mon_ctx):
+                if budget_s:
+                    from trivy_tpu_torch.resilience.retry import (
+                        Deadline,
+                        deadline_scope,
+                    )
 
-                with deadline_scope(Deadline.after(budget_s)):
+                    with deadline_scope(Deadline.after(budget_s)):
+                        box["report"] = scanner.scan_artifact(options)
+                else:
                     box["report"] = scanner.scan_artifact(options)
-            else:
-                box["report"] = scanner.scan_artifact(options)
         except BaseException as exc:  # re-raised on the main thread
             box["error"] = exc
 
@@ -309,6 +317,26 @@ def _scan_with_timeout(scanner, options, timeout_s: float,
     if "error" in box:
         raise box["error"]
     return box["report"]
+
+
+def open_monitor_index(args):
+    """The durable monitor index for a --monitor-index scan, or None
+    (no flag, monitor disabled, or client mode — a remote scan's detect
+    phase runs server-side, so the server owns the index there)."""
+    path = getattr(args, "monitor_index", None)
+    if not path:
+        return None
+    from trivy_tpu_torch import monitor as monitor_mod
+
+    if not monitor_mod.enabled():
+        return None
+    if getattr(args, "server", None):
+        _log.warn("--monitor-index is ignored in client mode; run the "
+                  "server with --monitor-index instead")
+        return None
+    from trivy_tpu_torch.monitor.index import MonitorIndex
+
+    return MonitorIndex.open_or_reset(path)
 
 
 def _build_cache(args):
@@ -351,7 +379,22 @@ def _run_scan_core(args) -> int:
     from trivy_tpu_torch.report.writer import write_report
 
     cache = _build_cache(args)
-    report = _scan_target(args, cache)
+    mon_index = open_monitor_index(args)
+    if mon_index is None:
+        report = _scan_target(args, cache)
+    else:
+        from trivy_tpu_torch.monitor.capture import capture_scan
+        from trivy_tpu_torch.tensorize import cache as compile_cache
+
+        try:
+            with capture_scan() as cap:
+                report = _scan_target(args, cache)
+            mon_index.update(
+                getattr(args, "input", None) or args.target,
+                cap.packages, cap.findings,
+                db_digest=compile_cache.db_digest(_db_path(args)))
+        finally:
+            mon_index.close()
     severities = _postprocess_report(args, report)
     t0 = time.perf_counter()
     write_report(report, fmt=args.format, output=args.output,
@@ -551,8 +594,59 @@ def run_server(args) -> int:
           drain_timeout=_parse_duration(
               getattr(args, "drain_timeout", None) or "30s"),
           sched_window_ms=getattr(args, "sched_window_ms", None),
-          sched_max_rows=getattr(args, "sched_max_rows", None))
+          sched_max_rows=getattr(args, "sched_max_rows", None),
+          monitor_index=getattr(args, "monitor_index", None))
     return 0
+
+
+def run_watch(args) -> int:
+    """`watch`: poll for advisory-DB generation changes and re-score the
+    indexed fleet incrementally on the card (`--device`; `--no-tpu`
+    matches on the host), emitting introduced/resolved finding events
+    as JSON lines — or tail a running server's /monitor/events ring
+    with --server (no device needed)."""
+    import sys
+
+    from trivy_tpu_torch.monitor import watch as watch_mod
+
+    _validate_fault_spec()
+    interval = _parse_duration(getattr(args, "interval", None) or "60s")
+    if not getattr(args, "server", None):
+        # a missing card fails before any index or DB work
+        _device(args)
+        _mesh_spec(args)
+    out = sys.stdout
+    if getattr(args, "output", None):
+        # the user's event stream: append-only JSONL they tail
+        out = open(args.output, "a", encoding="utf-8")
+    try:
+        if getattr(args, "server", None):
+            return watch_mod.watch_remote(
+                args.server, out, token=getattr(args, "token", None),
+                interval_s=min(interval, 10.0),
+                once=getattr(args, "once", False))
+        from trivy_tpu_torch import monitor as monitor_mod
+
+        if not monitor_mod.enabled():
+            raise FatalError(
+                "TRIVY_TPU_MONITOR=0 disables the monitor subsystem")
+        db_path = _db_path(args)
+        index_path = getattr(args, "index", None) or os.path.join(
+            args.cache_dir, "monitor-index.jsonl")
+        index = watch_mod.open_index(
+            index_path, journal_path=getattr(args, "journal", None))
+        try:
+            return watch_mod.watch_local(
+                db_path, index, lambda: new_engine(args), out,
+                interval_s=interval, once=getattr(args, "once", False),
+                verify=True if getattr(args, "verify", False) else None)
+        finally:
+            index.close()
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        if out is not sys.stdout:
+            out.close()
 
 
 def run_convert(args) -> int:

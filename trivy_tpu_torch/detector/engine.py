@@ -171,6 +171,16 @@ class MatchEngine:
         if self.cdb is None:
             self.cdb = compile_db(db, window=window)
         self.build_stats["compile_s"] = time.perf_counter() - t0
+        if digest is not None:
+            # advisory-key fingerprints ride along with the tensor entry
+            # (content-addressed by digest, saved once): the OLD
+            # generation's table is what makes a promote-time delta diff
+            # cheap (trivy_tpu_torch/monitor). The save re-reads the
+            # root's digest first, so on a flat root every build hashes
+            # the DB file once more, warm ones included.
+            t0 = time.perf_counter()
+            compile_cache.save_keymap(db_path, db, digest=digest)
+            self.build_stats["keymap_s"] = time.perf_counter() - t0
         # routes the mesh's shard slices through the compiled-DB cache
         self._cache_ctx = (db_path, digest, db_meta, window) \
             if db_path else None

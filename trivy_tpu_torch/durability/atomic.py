@@ -6,9 +6,13 @@ durability contract lives in one place:
 
 - a reader never observes a half-written file (tmp + fsync + rename);
 - silent corruption is detectable (sha256 footer on framed payloads);
+- crash points are deterministically testable (resilience.faults
+  ``kill`` / ``torn-write`` / ``bitflip`` rules keyed by write site).
 
-Copy of trivy_tpu/durability/atomic.py without the fault injector: the
-port has no resilience.faults yet, so `fault_site` only names the write.
+Copy of trivy_tpu/durability/atomic.py. The fault injector fires only
+at the write sites the port's fault grammar names (`faults.SITES`:
+the monitor index's `monitor.index`); every other site only names the
+write.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import errno
 import hashlib
 import os
 import uuid
+
+from trivy_tpu_torch.resilience import faults
 
 # footer marker for checksummed payloads: <body> "\n#sha256:" <hex>
 CHECKSUM_MARK = b"\n#sha256:"
@@ -45,8 +51,16 @@ def atomic_write(path: str, data: bytes, fault_site: str = "") -> None:
     """Write `data` to `path` atomically: unique tmp sibling, fsync,
     rename over the destination, fsync the directory.
 
-    `fault_site` names the write (the reference's fault-injection site;
-    kept so call sites read alike)."""
+    `fault_site` names the write for the fault injector: torn-write /
+    bitflip rules mangle the payload (simulating rot the reader must
+    catch), and a ``kill`` rule at ``<site>.commit`` dies after the tmp
+    file is durable but before the rename, proving a crash there leaves
+    the previous version intact and only a stale tmp behind. A site the
+    port's grammar does not name fires nothing."""
+    if fault_site and faults.site_actions(fault_site) is None:
+        fault_site = ""
+    if fault_site:
+        data = faults.mangle_write(fault_site, data)
     d = os.path.dirname(path) or "."
     tmp = os.path.join(d, f".{os.path.basename(path)}.tmp-{uuid.uuid4().hex}")
     fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o644)
@@ -54,6 +68,8 @@ def atomic_write(path: str, data: bytes, fault_site: str = "") -> None:
         f.write(data)
         f.flush()
         os.fsync(f.fileno())
+    if fault_site:
+        faults.check_kill(fault_site + ".commit")
     os.replace(tmp, path)
     fsync_dir(d)
 

@@ -12,10 +12,11 @@ Spec grammar (rules joined by ";" or ","):
     rule     := site ":" action [ "=" param ] [ "@" selector ]
     site     := "rpc" | "rpc.scan" | "rpc.cache" | "rpc.cache.PutBlob"
                 | "rpc.wire" | "sched.submit" | "engine" | "engine.device"
-                | "engine.shard" | "secret.device"
+                | "engine.shard" | "secret.device" | "journal.append"
+                | "monitor.index" | "monitor.rematch"
                 | ...  (dotted, prefix-matched)
     action   := "drop" | "timeout" | "delay" | "error" | "corrupt"
-                | "device-lost"
+                | "device-lost" | "kill" | "torn-write" | "bitflip"
     selector := N        fire on the Nth matching call only (1-based)
               | N "+"    fire on the Nth and every later call
               | N "-" M  fire on calls N..M inclusive
@@ -32,20 +33,38 @@ Examples:
     TRIVY_TPU_FAULTS="seed=7;rpc:drop@p0.3"      # 30% drop, deterministic
     TRIVY_TPU_FAULTS="sched.submit:error@1"      # first submission sheds
     TRIVY_TPU_FAULTS="engine:device-lost@1"      # the card dies on batch 1
+    TRIVY_TPU_FAULTS="monitor.index:kill@5"      # SIGKILL on the 5th append
 
 Each rule keeps its own call counter, so selectors are deterministic per
 rule regardless of how many rules share a site.
 
+Durability fault kinds:
+
+- ``kill``       the process dies (SIGKILL) when the rule fires: crash-
+                 point testing for the append-log and atomic-write
+                 paths. Tests may flip to raise-mode
+                 (`set_kill_mode("raise")`) so the "death" is an
+                 in-process `InjectedKill` that unwinds without running
+                 recovery code.
+- ``torn-write`` the payload handed to `mangle_write` is truncated
+                 (param = fraction kept, default 0.5): a torn disk write.
+- ``bitflip``    one bit of the payload is flipped (param = byte index,
+                 default middle): silent corruption a checksum must
+                 catch.
+
 Copy of trivy_tpu/resilience/faults.py trimmed to the sites the port
 fires: the RPC client's (`rpc`, `rpc.scan`, `rpc.cache.*`, `rpc.wire`),
 the match scheduler's (`sched.submit`), the match engine's device-loss
-ladders (`engine`, `engine.device`, `engine.shard`) and the secret
-scanner's (`secret.device`). A rule naming any other site of the
-reference (`engine.host`, `analysis.*`, `db.*`, ...), or an action its
-site does not handle, is refused with a FaultSpecError when the plan
-compiles: a rule is never accepted and then left to do nothing. No fault-fire metrics, no durability fault
-kinds (`kill`, `torn-write`, `bitflip`), no round trip of a plan back
-to a spec (the chaos campaign's shrinker is not ported).
+ladders (`engine`, `engine.device`, `engine.shard`), the secret
+scanner's (`secret.device`), and the monitor's durable paths
+(`journal.append`, `monitor.index`, `monitor.rematch`; an atomic rewrite
+of the index also probes `monitor.index.commit` for a kill). A rule
+naming any other site of the reference (`engine.host`, `analysis.*`,
+`db.*`, `cache.write`, `fleet.*`, ...), or an action its site does not
+handle, is refused with a FaultSpecError when the plan compiles: a rule
+is never accepted and then left to do nothing. No fault-fire metrics,
+no round trip of a plan back to a spec (the chaos campaign's shrinker
+is not ported).
 """
 
 from __future__ import annotations
@@ -72,6 +91,9 @@ SITES: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("engine.shard", ("drop", "delay", "error", "device-lost")),
     ("sched.submit", ("drop", "delay", "error")),
     ("secret.device", ("drop", "delay", "error", "device-lost")),
+    ("journal.append", ("kill", "torn-write", "bitflip")),
+    ("monitor.index", ("drop", "error", "kill", "torn-write", "bitflip")),
+    ("monitor.rematch", ("drop", "delay", "error", "kill")),
 )
 
 ACTIONS = {a for _site, acts in SITES for a in acts}
@@ -106,6 +128,14 @@ class FaultError(Exception):
 
 class DeviceLost(FaultError):
     """Injected accelerator loss (site ``engine``)."""
+
+
+class InjectedKill(BaseException):
+    """Raise-mode stand-in for SIGKILL (site-level ``kill`` fault).
+
+    Deliberately a BaseException: a crash does not run `except
+    Exception` cleanup handlers, and neither should its simulation:
+    state on disk must be exactly what a real kill would leave."""
 
 
 class InjectedHTTPError(FaultError):
@@ -249,6 +279,7 @@ class FaultPlan:
 
 _installed: FaultPlan | None = None
 _env_cache: tuple[str, FaultPlan] | None = None
+_kill_mode = "sigkill"  # "sigkill" (real death) | "raise" (InjectedKill)
 
 
 def install(plan: FaultPlan) -> FaultPlan:
@@ -263,9 +294,21 @@ def install_spec(spec: str) -> FaultPlan:
 
 
 def reset() -> None:
-    global _installed, _env_cache
+    global _installed, _env_cache, _kill_mode
     _installed = None
     _env_cache = None
+    _kill_mode = "sigkill"
+
+
+def set_kill_mode(mode: str) -> None:
+    """"sigkill" (default): a firing ``kill`` rule really SIGKILLs the
+    process, for subprocess crash tests. "raise": it raises InjectedKill
+    instead, so in-process tests can crash a write path at an exact
+    point and then assert on the surviving on-disk state."""
+    if mode not in ("sigkill", "raise"):
+        raise ValueError(f"unknown kill mode {mode!r}")
+    global _kill_mode
+    _kill_mode = mode
 
 
 def active() -> FaultPlan | None:
@@ -317,3 +360,35 @@ def check_device(site: str = "engine") -> None:
 def corrupt_bytes(raw: bytes) -> bytes:
     """Deterministically mangle a response body so decoding fails."""
     return b"\xff\x00corrupted\x00" + raw[: len(raw) // 2]
+
+
+def check_kill(site: str, rules: list[Rule] | None = None) -> None:
+    """Die (or raise InjectedKill in raise-mode) when a ``kill`` rule
+    fires for `site`: the crash-point hook of the durability layer.
+    Pass pre-fired `rules` to share one probe (one ordinal increment)
+    with a mangle_write at the same site."""
+    for r in (fire(site) if rules is None else rules):
+        if r.action != "kill":
+            continue
+        if _kill_mode == "raise":
+            raise InjectedKill(f"injected kill at {site}")
+        import signal
+
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def mangle_write(site: str, data: bytes,
+                 rules: list[Rule] | None = None) -> bytes:
+    """Apply firing ``torn-write`` / ``bitflip`` rules to a payload
+    about to hit disk. Deterministic: torn-write keeps the first `param`
+    fraction (default 0.5); bitflip flips bit 0 of the byte at `param`
+    (default the middle byte)."""
+    for r in (fire(site) if rules is None else rules):
+        if r.action == "torn-write":
+            keep = 0.5 if r.param is None else min(max(r.param, 0.0), 1.0)
+            data = data[: int(len(data) * keep)]
+        elif r.action == "bitflip" and data:
+            idx = (len(data) // 2 if r.param is None
+                   else int(r.param) % len(data))
+            data = data[:idx] + bytes([data[idx] ^ 0x01]) + data[idx + 1:]
+    return data

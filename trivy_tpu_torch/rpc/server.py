@@ -7,6 +7,8 @@ Endpoints:
   POST /twirp/trivy.cache.v1.Cache/MissingBlobs
   POST /twirp/trivy.cache.v1.Cache/DeleteBlobs
   GET  /healthz, GET /readyz, GET /version
+  GET  /monitor/events?since=N                 continuous-monitoring
+                                               events (--monitor-index)
 
 Token auth via the Trivy-Token header (reference listen.go:96-108).
 A background worker watches the advisory-DB directory and hot-swaps the
@@ -18,10 +20,14 @@ Copy of trivy_tpu/rpc/server.py. The hot reload builds the port's
 MatchEngine on the device the served engine is on, and keeps its
 serving mesh (a spec-built mesh resolves again against the new DB, a
 prebuilt grid carries over); /readyz reports the mesh's shard health.
-Left out, and answering 404: `/metrics` and `/debug/*` (the metrics
-registry and the bottleneck attribution are not ported yet),
-`/monitor/events` (continuous monitoring) and `/fleet/*` (the fleet
-control surface, so `ScanService.reresolve_mesh` has no endpoint); the
+With `monitor_index` the service records each completed scan in the
+monitor index and, after every hot swap, re-scores the affected
+artifacts on a background thread (trivy_tpu_torch/monitor) through the
+match scheduler; the events are served at /monitor/events. Left out,
+and answering 404: `/metrics` and `/debug/*` (the metrics registry and
+the bottleneck attribution are not ported yet) and `/fleet/*` (the
+fleet control surface, so `ScanService.reresolve_mesh` has no
+endpoint, and no reload parks its re-score for a fleet rollout); the
 redis layer gate is not ported either. `Metrics`
 keeps the integer counters behind the reference's legacy properties.
 The listen backlog is 128 connections (the reference's is
@@ -191,7 +197,8 @@ class ScanService:
 
     def __init__(self, engine, cache, db_path: str | None = None,
                  sched_window_ms: float | None = None,
-                 sched_max_rows: int | None = None):
+                 sched_max_rows: int | None = None,
+                 monitor_index: str | None = None):
         self.lock = _RWLock()
         self.engine = engine
         self.cache = cache
@@ -250,10 +257,34 @@ class ScanService:
         # serializes the check-load-swap of maybe_reload_db: the poller
         # and a direct caller must not build two engines at once
         self._reload_lock = threading.Lock()
+        # continuous monitoring (--monitor-index): completed scans
+        # record inventory + finding baselines into the durable
+        # package→artifact index; every DB hot swap triggers an
+        # advisory-delta re-score emitting introduced/resolved events at
+        # /monitor/events. The served generation's digest is tracked so
+        # the promote hook knows the delta's old side.
+        self.monitor = None
+        self._db_digest: str | None = None
+        if monitor_index and db_path:
+            from trivy_tpu_torch import monitor as monitor_mod
+
+            if monitor_mod.enabled():
+                from trivy_tpu_torch.monitor.watch import MonitorService
+                from trivy_tpu_torch.tensorize import cache as compile_cache
+
+                # the digest is only read by the monitor's promote hook
+                # and scan stamps: a monitor-less server never hashes
+                self._db_digest = compile_cache.db_digest(db_path)
+                self.monitor = MonitorService(
+                    monitor_index, lambda: self.engine, db_path,
+                    scheduler=self.scheduler)
 
     def close(self) -> None:
-        """Stop the scheduler thread (after the drain budget: it
-        finishes whatever queued-and-admitted work remains)."""
+        """Join the monitor's re-score and close its index, then stop
+        the scheduler thread (after the drain budget: it finishes
+        whatever queued-and-admitted work remains)."""
+        if self.monitor is not None:
+            self.monitor.close()
         if self.scheduler is not None:
             self.scheduler.close()
 
@@ -353,8 +384,7 @@ class ScanService:
         """Machine-parseable readiness (the ``Accept:
         application/json`` variant of /readyz): everything the text
         body says, as structured fields, plus the serving generation.
-        The keys are the reference's (``monitor`` is always False: the
-        port has no monitor index yet)."""
+        The keys are the reference's."""
         ok, why = self.ready()
         doc = {
             "ready": ok,
@@ -363,7 +393,7 @@ class ScanService:
             "inflight": self._inflight,
             "serving_last_good": self.db_degraded,
             "generation": self.generation_name(),
-            "monitor": False,
+            "monitor": self.monitor is not None,
         }
         health_fn = getattr(self.engine, "shard_health", None)
         health = health_fn() if callable(health_fn) else None
@@ -488,8 +518,24 @@ class ScanService:
              deadline: Deadline | None = None):
         self.begin_scan()
         try:
-            return self._scan_admitted(target, artifact_key, blob_keys,
-                                       options, deadline)
+            if self.monitor is None:
+                return self._scan_admitted(target, artifact_key,
+                                           blob_keys, options, deadline)
+            from trivy_tpu_torch.monitor.capture import capture_scan
+
+            # the generation stamp is read BEFORE the scan runs: a hot
+            # swap completing mid-scan must not stamp the NEW digest
+            # onto findings the OLD engine matched (a stale-looking
+            # stamp only re-baselines conservatively; a too-new stamp
+            # would make an incremental re-score trust stale findings)
+            db_digest = self._db_digest
+            with capture_scan() as cap:
+                out = self._scan_admitted(target, artifact_key,
+                                          blob_keys, options, deadline)
+            # only a COMPLETED scan updates the artifact's index record
+            # (a shed/failed scan must not regress the stored baseline)
+            self.monitor.record_scan(target, cap, db_digest=db_digest)
+            return out
         finally:
             self.end_scan()
 
@@ -553,7 +599,8 @@ class ScanService:
 
         The new engine is the port's MatchEngine with the served
         engine's `use_device` and `device`: a server on ``cuda:1``
-        reloads onto ``cuda:1``."""
+        reloads onto ``cuda:1``. With a monitor, the swap triggers its
+        delta re-score in the background."""
         with self._reload_lock:
             return self._maybe_reload_db_locked()
 
@@ -610,6 +657,12 @@ class ScanService:
                 self._rejected_db_state = ()
                 self._db_state = self._db_identity()
             return False
+        old_digest = new_digest = None
+        if self.monitor is not None:
+            from trivy_tpu_torch.tensorize import cache as compile_cache
+
+            old_digest = self._db_digest
+            new_digest = compile_cache.db_digest(self.db_path)
         self.lock.acquire_write()  # quiesce in-flight scans
         try:
             self.engine = new_engine
@@ -617,10 +670,17 @@ class ScanService:
             self._active_db_dir = resolved
             self._rejected_db_state = ()
             self.db_degraded = ""
+            self._db_digest = new_digest
         finally:
             self.lock.release_write()
         self.metrics.db_reloads.inc()
         _log.info("advisory DB hot-swapped", **db.stats())
+        if self.monitor is not None:
+            # continuous monitoring: the promote triggers an
+            # advisory-delta re-score in the background — affected
+            # indexed artifacts re-match and the introduced/resolved
+            # finding events land on /monitor/events
+            self.monitor.on_promote(old_digest, db, new_digest)
         return True
 
 
@@ -730,6 +790,28 @@ def _make_handler(service: ScanService, token: str | None,
             return self.headers.get("Trivy-Token") == token
 
         def do_GET(self):
+            if self.path.startswith("/monitor/events"):
+                if not self._authed():
+                    # events name scan targets + CVEs: token-gated like
+                    # the scan/cache POST surface
+                    self._error(401, "invalid token")
+                    return
+                if service.monitor is None:
+                    self._error(404, "monitor not enabled "
+                                     "(--monitor-index)")
+                    return
+                from urllib.parse import parse_qs, urlsplit
+
+                q = parse_qs(urlsplit(self.path).query)
+                try:
+                    since = int((q.get("since") or ["0"])[0])
+                except ValueError:
+                    self._error(400, "bad since cursor")
+                    return
+                nxt, events = service.monitor.events_since(since)
+                self._reply(200, json.dumps(
+                    {"next": nxt, "events": events}).encode())
+                return
             if self.path == "/healthz":
                 self._reply(200, b"ok", "text/plain")
             elif self.path == "/readyz":
@@ -756,7 +838,7 @@ def _make_handler(service: ScanService, token: str | None,
                 self._reply(200, json.dumps(
                     {"Version": trivy_tpu_torch.__version__}).encode())
             else:
-                # /metrics, /debug/*, /monitor/events: not ported yet
+                # /metrics, /debug/*: not ported yet
                 self._error(404, "not found")
 
         def do_POST(self):
@@ -938,12 +1020,14 @@ class Server:
                  db_reload_interval: float = 3600.0,
                  path_prefix: str = "",
                  sched_window_ms: float | None = None,
-                 sched_max_rows: int | None = None):
+                 sched_max_rows: int | None = None,
+                 monitor_index: str | None = None):
         if path_prefix and not path_prefix.startswith("/"):
             path_prefix = "/" + path_prefix
         self.service = ScanService(engine, cache, db_path=db_path,
                                    sched_window_ms=sched_window_ms,
-                                   sched_max_rows=sched_max_rows)
+                                   sched_max_rows=sched_max_rows,
+                                   monitor_index=monitor_index)
         try:
             self.httpd = _HTTPServer(
                 (host, port),
@@ -1004,7 +1088,8 @@ class Server:
         if drain_timeout is not None:
             self.drain(drain_timeout)  # idempotent if already draining
         self._stop.set()
-        # after the drain budget: the scheduler finishes whatever
+        # after the drain budget: the monitor's re-score is joined and
+        # its index closed; the scheduler finishes whatever
         # queued-and-admitted work remains, then stops admitting
         self.service.close()
         self.httpd.shutdown()
@@ -1015,7 +1100,7 @@ class Server:
 
 def serve(engine, host="localhost", port=4954, token=None, cache=None,
           db_path=None, db_reload_interval=3600.0, drain_timeout=30.0,
-          sched_window_ms=None, sched_max_rows=None):
+          sched_window_ms=None, sched_max_rows=None, monitor_index=None):
     """Blocking entry point for `trivy-tpu-torch server`.
 
     SIGTERM triggers a graceful drain: /readyz goes 503 at once,
@@ -1030,7 +1115,8 @@ def serve(engine, host="localhost", port=4954, token=None, cache=None,
     srv = Server(engine, cache, host=host, port=port, token=token,
                  db_path=db_path, db_reload_interval=db_reload_interval,
                  sched_window_ms=sched_window_ms,
-                 sched_max_rows=sched_max_rows)
+                 sched_max_rows=sched_max_rows,
+                 monitor_index=monitor_index)
     srv.start()
     stop = threading.Event()
 

@@ -2,12 +2,13 @@
 applier squash -> per-class scans -> metadata fill -> post-scan hooks.
 The vulnerability matching inside runs on the card via MatchEngine.
 
-Copy of trivy_tpu/scanner/local.py without the monitor capture,
-licenses and misconfigurations (not ported yet). In server mode the
-detect phase goes through the cross-request match scheduler, and the
-ambient deadline budget is checked between phases. `stats` keeps the
-seconds of the last scan's phases (the rekor SBOM discovery of
-`--sbom-sources rekor` counts with the apply phase).
+Copy of trivy_tpu/scanner/local.py without licenses and
+misconfigurations (not ported yet). In server mode the detect phase
+goes through the cross-request match scheduler; under a monitor capture
+scope the engine handle records the scan's queries and finding keys for
+the monitor index; the ambient deadline budget is checked between
+phases. `stats` keeps the seconds of the last scan's phases (the rekor
+SBOM discovery of `--sbom-sources rekor` counts with the apply phase).
 """
 
 from __future__ import annotations
@@ -41,12 +42,17 @@ class LocalDriver:
         """Engine handle for the detect phase: with a scheduler
         attached, detect() routes through its coalesced micro-batches —
         byte-identical results, one saturated dispatch lane. Everything
-        else (db, cdb, advisories) reads through to the real engine."""
+        else (db, cdb, advisories) reads through to the real engine.
+        Under an active monitor capture scope the handle additionally
+        records query inventory + finding keys for the package→artifact
+        index (trivy_tpu_torch/monitor; no-op wrapper otherwise)."""
+        from trivy_tpu_torch.monitor.capture import tap
+
         if self.scheduler is None:
-            return self.engine
+            return tap(self.engine)
         from trivy_tpu_torch.sched.scheduler import SchedEngine
 
-        return SchedEngine(self.engine, self.scheduler)
+        return tap(SchedEngine(self.engine, self.scheduler))
 
     def scan(self, target, artifact_key, blob_keys, options: ScanOptions):
         from trivy_tpu_torch.resilience.retry import checkpoint

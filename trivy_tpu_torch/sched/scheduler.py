@@ -65,9 +65,9 @@ the tracing spans (the port keeps the ``stats`` dict the reference
 keeps beside them) and without the usage meters (queue-wait seconds,
 admitted rows): the scheduler reads the submitting request's tenant
 only. ``_mesh_fill`` reads the port's ``ops.match._bucket`` and tops
-batches up at a data axis above 1 (ops/mesh.py). No bulk entry point
-(``submit_lists``, ``SchedEngine.submit``): its one caller, the
-monitor's delta re-scoring, is not ported.
+batches up at a data axis above 1 (ops/mesh.py). The bulk entry point
+(``submit_lists``, ``SchedEngine.submit``) carries the monitor's delta
+re-scoring on a server (trivy_tpu_torch/monitor).
 """
 
 from __future__ import annotations
@@ -307,6 +307,24 @@ class MatchScheduler:
         if p.error is not None:
             raise p.error
         return p.results
+
+    def submit_lists(self, query_lists: list[list]) -> list[list]:
+        """Batched ``engine.submit`` equivalent THROUGH the scheduler:
+        the flattened union joins the shared micro-batch stream, so a
+        bulk submitter (the monitor's delta re-scoring after a DB
+        promote) interleaves chunk-wise with live scan requests under
+        the same fairness/deadline rules instead of monopolizing the
+        device, then results demux back per input list."""
+        flat: list = []
+        for qs in query_lists:
+            flat.extend(qs)
+        res = self.submit(flat)
+        out: list[list] = []
+        i = 0
+        for qs in query_lists:
+            out.append(res[i: i + len(qs)])
+            i += len(qs)
+        return out
 
     def _count_shed(self) -> None:
         self.stats["sheds"] += 1
@@ -685,6 +703,12 @@ class SchedEngine:
 
     def detect(self, queries: list) -> list:
         return self._scheduler.submit(queries)
+
+    def submit(self, query_lists: list[list]) -> list[list]:
+        """Batched entry point, routed through the scheduler so bulk
+        submissions (monitor re-scoring) share micro-batches with live
+        scans — byte-identical to ``MatchEngine.submit``."""
+        return self._scheduler.submit_lists(query_lists)
 
     def __getattr__(self, name: str):
         return getattr(self._engine, name)

@@ -10,6 +10,8 @@ Layout, riding the durability primitives:
     <db_root>/compiled-torch/
       <digest>.<params>.npz             one checksummed tensor set
       <digest>.<params>.mesh<D>.npz     a serving mesh's D shard slices
+      <digest>.keys1.json.gz            the advisory-key fingerprints
+                                        (the monitor's delta diff)
       <digest>.<params>.npz.quarantine  an entry that failed its
                                         checksum or decode (never
                                         silently reused)
@@ -31,7 +33,8 @@ port's entries live under their own directory (`compiled-torch`, the
 reference's are under `compiled`), so the two packages never load each
 other's entries. The compiled secret-NFA programs of
 `secret/scanner.py` live in the same directory (`nfa-<digest>...`).
-The keymap and host-slice entries are not ported yet.
+A keymap entry's bytes are the reference's for the same root and
+digest. The host-slice entries are not ported yet.
 """
 
 from __future__ import annotations
@@ -162,6 +165,12 @@ def _prune_superseded(root: str, keep_digest: str,
         return 0
     for name in names:
         if name.startswith(keep_digest + ".") or ".tmp-" in name:
+            continue
+        if ".keys" in name:
+            # advisory-key fingerprint entries (save_keymap) are the
+            # OLD side of the monitor's promote-time delta diff: the
+            # previous generation's keymap must survive the promote.
+            # They age out on their own (KEYMAP_KEEP_S in save_keymap).
             continue
         p = os.path.join(root, name)
         try:
@@ -532,3 +541,173 @@ def load_nfa(cache_dir: str, digest: str):
     NFA_COUNTS["hits"] += 1
     _log.debug("compiled secret-NFA cache hit", path=path)
     return arrays, meta
+
+
+# ------------------------------------------------- advisory-key fingerprints
+
+# bump on any change to the fingerprint computation: old/new entries
+# with different formats never diff against each other (the monitor
+# falls back to a full rescan instead)
+KEYMAP_VERSION = 1
+# fingerprint entries for superseded digests are kept this long (they
+# are the OLD side of promote-time delta diffs, so the _prune_superseded
+# sweep exempts them), then aged out by save_keymap
+KEYMAP_KEEP_S = 7 * 24 * 3600.0
+
+
+def keymap_path(db_root: str, digest: str) -> str:
+    return os.path.join(cache_root(db_root),
+                        f"{digest}.keys{KEYMAP_VERSION}.json.gz")
+
+
+def advisory_fingerprints(db) -> dict[tuple[str, str], str]:
+    """Per-(space, name) content digest of a loaded AdvisoryDB.
+
+    The key space matches the match engine's query space exactly
+    (`tensorize.compile.space_of_bucket`): all language buckets of one
+    ecosystem collapse onto the "eco::" prefix space, OS buckets are
+    their own space, and buckets with no resolvable scheme are skipped —
+    they are invisible to matching, so their churn cannot change any
+    finding.  Two DB generations agreeing on a key's digest therefore
+    match identically for every query on that key, which is the load-
+    bearing invariant of the monitor's delta re-scoring
+    (trivy_tpu_torch/monitor)."""
+    from trivy_tpu_torch.tensorize.compile import space_of_bucket
+
+    acc: dict[tuple[str, str], list[str]] = {}
+    space_by_bucket: dict[str, str | None] = {}
+    for bucket, pkgs in db.buckets.items():
+        space = space_by_bucket.get(bucket, "?")
+        if space == "?":
+            resolved = space_of_bucket(bucket)
+            space = resolved[0] if resolved else None
+            space_by_bucket[bucket] = space
+        if space is None:
+            continue
+        for name, advs in pkgs.items():
+            entries = acc.setdefault((space, name), [])
+            for a in advs:
+                entries.append(bucket + "\x1f" + json.dumps(
+                    a.to_json(), sort_keys=True, separators=(",", ":")))
+    out: dict[tuple[str, str], str] = {}
+    for key, entries in acc.items():
+        h = hashlib.sha256()
+        for e in sorted(entries):
+            h.update(e.encode())
+            h.update(b"\x00")
+        out[key] = h.hexdigest()[:32]
+    return out
+
+
+def save_keymap(db_path: str, db, digest: str | None = None) -> str | None:
+    """Persist the advisory-key fingerprint table for `digest` next to
+    the compiled entries (skipped when it already exists — fingerprints
+    are content-addressed by the digest).  Same framing / atomic-write /
+    never-raise contract as the tensor entries.
+
+    Guarded against the load-then-promote race the tensor entries guard
+    with their db_meta cross-check: if the on-disk root no longer
+    resolves to `digest`, or its metadata document disagrees with the
+    in-memory DB's, the save is SKIPPED — writing another generation's
+    fingerprints under this digest would poison every later delta diff
+    that trusts the content-addressed entry."""
+    import gzip
+
+    if not enabled():
+        return None
+    try:
+        digest = digest or db_digest(db_path)
+        if digest is None:
+            return None
+        if db_digest(db_path) != digest:
+            _log.warn("advisory-key fingerprint save skipped: DB root "
+                      "moved to another generation", digest=digest)
+            return None
+        from trivy_tpu_torch.db import generations
+
+        meta_path = os.path.join(
+            os.path.realpath(generations.resolve(db_path)),
+            "metadata.json")
+        try:
+            with open(meta_path, encoding="utf-8") as f:
+                on_disk_meta = json.load(f)
+        except (OSError, ValueError):
+            on_disk_meta = None
+        if on_disk_meta is not None \
+                and on_disk_meta != db.meta.to_json():
+            _log.warn("advisory-key fingerprint save skipped: loaded "
+                      "DB's metadata disagrees with the on-disk root",
+                      digest=digest)
+            return None
+        path = keymap_path(db_path, digest)
+        if os.path.exists(path):
+            return path
+        root = cache_root(db_path)
+        os.makedirs(root, exist_ok=True)
+        # age out fingerprint entries for long-gone generations (they
+        # survive _prune_superseded by design; see KEYMAP_KEEP_S)
+        keep_cutoff = time.time() - KEYMAP_KEEP_S
+        for name in os.listdir(root):
+            if ".keys" not in name or name.startswith(digest + "."):
+                continue
+            p = os.path.join(root, name)
+            try:
+                if os.stat(p).st_mtime < keep_cutoff:
+                    os.unlink(p)
+            except OSError:
+                continue
+        t0 = time.perf_counter()
+        keys = advisory_fingerprints(db)
+        doc = {
+            "format": KEYMAP_VERSION,
+            "digest": digest,
+            "schema": db.meta.version,
+            "keys": [[s, n, d] for (s, n), d in sorted(keys.items())],
+        }
+        payload = gzip.compress(
+            json.dumps(doc, separators=(",", ":")).encode(), mtime=0)
+        atomic.atomic_write(path, atomic.frame(payload),
+                            fault_site="compile_cache.save")
+        _log.info("advisory-key fingerprint entry saved", path=path,
+                  keys=len(keys),
+                  save_s=round(time.perf_counter() - t0, 2))
+        return path
+    except Exception as exc:  # pragma: no cover - best-effort
+        _log.warn("advisory-key fingerprint save failed", err=str(exc))
+        return None
+
+
+def load_keymap(db_path: str, digest: str | None):
+    """-> {"schema": int, "keys": {(space, name): digest}} for a cached
+    fingerprint entry, or None on a miss.  Corrupt entries quarantine
+    (the monitor then recomputes or falls back to a full rescan — never
+    a wrong delta)."""
+    import gzip
+
+    if not enabled() or not digest:
+        return None
+    path = keymap_path(db_path, digest)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path, "rb") as f:
+            raw = f.read()
+    except OSError as exc:
+        _log.warn("advisory-key fingerprint entry unreadable (io)",
+                  path=path, err=str(exc))
+        return None
+    try:
+        body = atomic.unframe(raw)
+        if body is raw:
+            raise atomic.CorruptEntry("missing checksum footer")
+        doc = json.loads(gzip.decompress(body))
+        if doc.get("format") != KEYMAP_VERSION \
+                or doc.get("digest") != digest:
+            raise atomic.CorruptEntry("metadata/key mismatch")
+        keys = {(s, n): d for s, n, d in doc["keys"]}
+    except Exception as exc:
+        _quarantine(path)
+        _log.warn("advisory-key fingerprint entry corrupt; quarantined",
+                  path=path, err=str(exc))
+        return None
+    return {"schema": doc.get("schema"), "keys": keys}
