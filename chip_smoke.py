@@ -106,7 +106,7 @@ kernel's time before its latest redesign; then
      (@contrib/junit.tpl) and table --dependency-tree, each on the card
      and with --no-tpu, byte for byte, every device run launching the
      match kernel 3 / 1 / 3 times per tier; (b) `convert` of phase 9
-     (a)'s json report into the six formats but the table; (c) phase
+     (a)'s json report into spdx-json, github and cosign-vuln; (c) phase
      7's SBOM in a cosign DSSE envelope through `sbom`, bare (its
      results those of phase 7's warm report) and with --vex (an OpenVEX
      document marking not_affected a seeded 200 of its (vulnerability,
@@ -199,8 +199,34 @@ kernel's time before its latest redesign; then
      re-score through the scheduler, and /monitor/events read by a
      `watch --server --once` subprocess equal to a full re-match of
      those 8 (`launches_monitor`).
+ 15. drive cross-host serving on the card, in process with its workers
+     as subprocesses (`dcn_path`, with cyclic garbage collection off), on
+     phase 12's engine's DB (phase 7's 2,000,000 advisories), each
+     process's cells on the one card, every drive held to the
+     single-device engine on phase 3's sample and phase 13's crawl:
+     (a) `MatchEngine(mesh_spec="2x1x1")` with TRIVY_TPU_DCN=spawn
+     built cold (the host-slice cache misses and the coordinator saves
+     both hosts' entries) and warm (both hit), each driving detect,
+     submit and detect_many, the coordinator's and the worker's cells
+     launching the kernel (the worker reports its device and launches),
+     with each build's split (spawn, hello, cut, save or load, push);
+     (b) a standalone worker started here (`python -m
+     trivy_tpu_torch.ops.dcn --worker --device cuda:0`) under a 2x2x2
+     engine whose coordinator cells are all on the card, then a
+     successor session on that worker (its slice pushed) while the
+     predecessor keeps serving; (c) the engine.host ladder: error once
+     (healed), drop and delay, error twice (degraded, then a later
+     sample) on the warm engine, device-lost on (b)'s predecessor, a
+     killed worker on the cold engine and its re-resolve over the
+     survivors, each step's wall and degraded hosts printed; (d) on
+     phase 12 (d)'s root a ScanService on a 2x1x1 engine (/readyz and
+     its JSON before and after a host lost under a scan), the hot
+     reload keeping the topology and ending the old worker, `sbom
+     --mesh 2x1x1` equal to the run without --mesh byte for byte with
+     no worker left once the CLI's engine cache is cleared, and rc 1
+     with one error line without TRIVY_TPU_DCN.
 The phases run in the order 1, 2, 7, 3, 4, 5, 6, the kernel timings,
-14's set-up, 8-13, 14. Phase 3 runs with the native collector
+14's set-up, 8-13, 15, 14. Phase 3 runs with the native collector
 (native/collect.cpp) too.
 Phase 9 runs the hybrid probe alone twice, dispatched directly and
 through the secret lane (as it ran before it bypassed the lane), and
@@ -209,9 +235,10 @@ The `kernels` line's launch counts of the CLI paths are per run
 (`launches_fs_cli` ... `launches_vm_cli`), the server's per burst
 (`launches_server`), its clients' per client
 (`launches_server_clients`), the mesh's per cell and tier
-(`launches_mesh`) and the monitor's per tier, during the watch's
+(`launches_mesh`), the monitor's per tier, during the watch's
 re-score, its verify pass and the server's re-score
-(`launches_monitor`). Prints a `kernels` JSON line, the card line, and
+(`launches_monitor`), and cross-host serving's per build and rung, the
+coordinator's cells and each worker's (`launches_dcn`). Prints a `kernels` JSON line, the card line, and
 last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
@@ -2677,6 +2704,12 @@ REPORT_FORMATS = (("sarif", ()), ("cyclonedx", ()), ("spdx-json", ()),
                   ("github", ()), ("cosign-vuln", ()),
                   ("template", ("--template", "@contrib/junit.tpl")),
                   ("table", ("--dependency-tree",)))
+# (b)'s `convert` targets: the convert path (the json report read back
+# into a Report) is one for every format, and (a) runs every writer, so
+# (b) keeps the three cheapest of them (it took six before phase 15
+# joined: 17.3 s of phase 10 on an H100 host, the three cut 14.0 of it;
+# PERF.md §5)
+CONVERT_FORMATS = (("spdx-json", ()), ("github", ()), ("cosign-vuln", ()))
 N_VEX_PAIRS = 50
 VEX_SEED = 20261018
 
@@ -2778,7 +2811,7 @@ def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
     on the card on phase 9 (a)'s cache and with --no-tpu on (b)'s
     (every layer a dedupe hit): each pair byte for byte, every device
     run launching all three match tiers; (b) `convert` of phase 9 (a)'s
-    json report into the six formats but the table; (c) phase 7's SBOM
+    json report into CONVERT_FORMATS; (c) phase 7's SBOM
     in a cosign DSSE envelope, scanned on the card and with --no-tpu:
     bare, its results those of phase 7's warm report, and with `--vex`
     (an OpenVEX doc marking not_affected a seeded 200 of its
@@ -2819,7 +2852,7 @@ def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
             raise AssertionError("a device report differs from --no-tpu")
 
         # (b) convert the saved json report
-        for fmt, extra in REPORT_FORMATS[:-1]:
+        for fmt, extra in CONVERT_FORMATS:
             go(f"b_convert_{fmt}", ["convert", p9["report"], "--format",
                                     fmt, *extra, "--quiet"], fmt)
 
@@ -5018,6 +5051,441 @@ def monitor_path(dev, p7: dict, mon: dict, tmp: str) -> dict:
                          "server_rescore": b["rescore_launches"]}}
 
 
+# -------------------------------------------------------------- phase 15
+
+DCN_SPEC = "2x1x1"  # (a), (c), (d): the coordinator and one spawned worker
+# (b): every coordinator cell on the card, the endpoint worker's too
+DCN_ENDPOINT = (2, 2, 2)
+# (c)'s rungs on the warm engine: (spec, degraded hosts after it). A
+# host's degradation is one way, so the rung that degrades comes last
+# there; the worker's death runs on the cold engine, the device loss on
+# (b)'s predecessor engine
+HOST_RUNGS = (("engine.host:error@1", []),
+              ("engine.host:drop@1;engine.host:delay=0.001@1", []),
+              ("engine.host:error@1-2", [1]))
+
+
+def dcn_worker_launches(e) -> list:
+    """Per remote host of a HostMeshDB engine: its worker's device, the
+    devices and match-kernel launches of this engine's session's cells
+    (None for a host that is gone)."""
+    from trivy_tpu_torch.ops import dcn
+
+    out = []
+    for h in e._mdb.hosts:
+        try:
+            st = dcn.worker_stats(h.endpoint)
+        except OSError:
+            out.append(None)
+            continue
+        mine = st["sessions"].get(e._mdb._session) or {}
+        out.append({"device": st["device"], "pid": st["pid"],
+                    "boot": st["boot"],
+                    "cells": mine.get("cells"),
+                    "launches": mine.get("launches"),
+                    "jax": st["jax"], "trivy_tpu": st["trivy_tpu"]})
+    return out
+
+
+def dcn_drive(e, sample, crawl, want: dict) -> dict:
+    """(a)'s and (b)'s drive of one HostMeshDB engine: mesh_drive (the
+    sample through detect twice and submit, the crawl through
+    detect_many, against the single-device engine) with the workers'
+    launches beside the coordinator's."""
+    from trivy_tpu_torch.ops import dcn
+
+    for h in e._mdb.hosts:
+        dcn.worker_stats(h.endpoint, reset=True)
+    r = mesh_drive(e, sample, crawl, want)
+    r["workers"] = dcn_worker_launches(e)
+    return r
+
+
+def dcn_launched(r: dict) -> bool:
+    """Every coordinator cell, both other tiers and every worker cell
+    launched the match kernel at least once, each worker on the card."""
+    lw = r["launches"]
+    return (all(c >= 1 for row in lw["cells"] for c in row)
+            and lw["hot"] >= 1 and lw["tall"] >= 1
+            and all(w is not None and w["device"].startswith("cuda")
+                    and not w["jax"] and not w["trivy_tpu"]
+                    and all(d.startswith("cuda") for row in w["cells"]
+                            for d in row)
+                    and all(c >= 1 for row in w["launches"] for c in row)
+                    for w in r["workers"]))
+
+
+def dcn_build(db, dev, root: str, spec: str, **kw):
+    """MatchEngine over `spec` -> (engine, its build split)."""
+    from trivy_tpu_torch.detector.engine import MatchEngine
+    from trivy_tpu_torch.tensorize import cache as compile_cache
+
+    counts0 = dict(compile_cache.COUNTS)
+    t0 = time.perf_counter()
+    e = MatchEngine(db, device=dev, db_path=root, mesh_spec=spec, **kw)
+    split = {"build_s": time.perf_counter() - t0,
+             **{k: v for k, v in e.build_stats.items()},
+             "cache_counts": {k: compile_cache.COUNTS[k] - counts0[k]
+                              for k in counts0},
+             "health": e.shard_health()}
+    return e, split
+
+
+def dcn_rung(e, spec: str | None, sample, want: dict) -> dict:
+    """One ladder step on the sample: its wall, diff, degraded hosts and
+    the host ladder's counters."""
+    from trivy_tpu_torch.ops import dcn
+    from trivy_tpu_torch.resilience import faults
+
+    zero_mesh_launches(e)
+    for h in e._mdb.hosts:
+        try:
+            dcn.worker_stats(h.endpoint, reset=True)
+        except OSError:
+            pass  # a killed worker
+    retries0 = dict(e._mdb.host_retry_count)
+    deg0 = dict(e._mdb.degradations)
+    if spec:
+        faults.install_spec(spec)
+    t0 = time.perf_counter()
+    try:
+        got = hits_of(e.detect(sample))
+        fired = [rule.fired for rule in faults.active().rules] \
+            if spec else []
+    finally:
+        faults.reset()
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall,
+            "diff": sum(a != b for a, b in zip(got, want["sample"])),
+            "degraded_hosts": e.shard_health()["degraded_hosts"],
+            "shape": e.shard_health()["shape"], "fired": fired,
+            "retries": {h: n - retries0.get(h, 0)
+                        for h, n in e._mdb.host_retry_count.items()},
+            "degradations": {h: n - deg0.get(h, 0)
+                             for h, n in e._mdb.degradations.items()},
+            "coordinator_launches": mesh_launches(e),
+            "workers": dcn_worker_launches(e)}
+
+
+def start_endpoint_worker(device: str):
+    """(b)'s standalone worker, started as an operator starts one on a
+    peer host; phase 15 starts it first, so its start overlaps (a) ->
+    the process (`endpoint_of` waits for its readiness line)."""
+    env = dict(os.environ)
+    env.pop("TRIVY_TPU_MESH", None)
+    env.pop("TRIVY_TPU_DCN", None)
+    return subprocess.Popen(
+        [sys.executable, "-m", "trivy_tpu_torch.ops.dcn", "--worker",
+         "--port", "0", "--device", device],
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def endpoint_of(proc) -> str:
+    """The endpoint a worker's readiness line names."""
+    line = proc.stdout.readline()
+    if not line.startswith("DCN_WORKER_READY port="):
+        proc.kill()
+        raise AssertionError("the endpoint worker did not come up: "
+                             + proc.stderr.read()[-2000:])
+    return f"127.0.0.1:{int(line.split('port=')[1])}"
+
+
+def dcn_surfaces(dev, d13: dict, tmp: str) -> dict:
+    """(d) on phase 12 (d)'s generation root (phase 13 (e) left it
+    serving 20,000 advisories): a ScanService on a 2x1x1 engine, its
+    /readyz before and after a host lost under a scan; the hot reload
+    keeping the topology and ending the old engine's worker; `sbom
+    --mesh 2x1x1` with TRIVY_TPU_DCN=spawn equal to the run without
+    --mesh byte for byte, its worker gone once the CLI's engine cache is
+    cleared; and without TRIVY_TPU_DCN, rc 1 and one error line."""
+    import dataclasses
+    import io
+
+    from trivy_tpu_torch import log
+    from trivy_tpu_torch.cache.cache import MemoryCache
+    from trivy_tpu_torch.cli import main as cli_main
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.db import AdvisoryDB
+    from trivy_tpu_torch.detector.engine import MatchEngine
+    from trivy_tpu_torch.resilience import faults
+    from trivy_tpu_torch.rpc import wire
+    from trivy_tpu_torch.rpc.server import ScanService
+    from trivy_tpu_torch.sbom.decode import decode_sbom_file
+    from trivy_tpu_torch.types.scan import ScanOptions
+
+    root, bom = d13["root"], d13["bom"]
+    out: dict = {}
+    blob, _meta = decode_sbom_file(bom)
+    cache = MemoryCache()
+    cache.put_blob("sha256:dcn", dataclasses.asdict(blob))
+
+    def scan(service) -> bytes:
+        return wire.scan_response(*service.scan(
+            "dcn", "", ["sha256:dcn"], ScanOptions()))
+
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    os.environ["TRIVY_TPU_DCN"] = "spawn"
+    svc = fresh_svc = None
+    try:
+        t0 = time.perf_counter()
+        engine = MatchEngine(AdvisoryDB.load(root), device=dev,
+                             db_path=root, mesh_spec=DCN_SPEC)
+        out["build_s"] = time.perf_counter() - t0
+        svc = ScanService(engine, cache, db_path=root)
+        ready0, doc0 = svc.ready(), svc.ready_doc()["mesh"]
+        first = scan(svc)
+        faults.install_spec("engine.host:device-lost@1")
+        try:
+            lost = scan(svc)
+        finally:
+            faults.reset()
+        ready1, doc1 = svc.ready(), svc.ready_doc()["mesh"]
+        old_proc = engine._mdb.hosts[0].proc
+        db0 = d13["db0"]
+        db0.meta.updated_at = "2024-05-05T00:00:00Z"
+        reload_gen(root, "sha256-eee", db0)
+        t0 = time.perf_counter()
+        swapped = svc.maybe_reload_db()
+        out["reload_swap_s"] = time.perf_counter() - t0
+        new = svc.engine
+        old_proc.wait(timeout=30)
+        got = scan(svc)
+        fresh_svc = ScanService(
+            MatchEngine(AdvisoryDB.load(root), device=dev), cache)
+        want = scan(fresh_svc)
+        out["server"] = {
+            "ready": ready0[1], "doc": doc0, "ready_lost": ready1[1],
+            "doc_lost": doc1, "response_mb": len(first) / 1e6,
+            "diff_lost": int(lost != first), "swapped": swapped,
+            "new_health": new.shard_health(),
+            "old_worker_exit": old_proc.poll(),
+            "new_worker_alive": new._mdb.hosts[0].proc.poll() is None,
+            "rescan_equals_fresh": got == want}
+        out["server"]["ok"] = (
+            ready0[0] and "mesh 2x1x1" in ready0[1]
+            and "degraded" not in ready0[1]
+            and doc0 == {"shape": "2x1x1", "degraded": [], "hosts": 2,
+                         "degraded_hosts": []}
+            and ready1[0] and "host(s) 1 degraded to host-mask" in ready1[1]
+            and doc1["degraded_hosts"] == [1] and lost == first
+            and swapped and new is not engine
+            and new.shard_health()["shape"] == DCN_SPEC
+            and new.shard_health()["hosts"] == 2
+            and old_proc.poll() is not None
+            and out["server"]["new_worker_alive"] and got == want)
+    finally:
+        if svc is not None:
+            svc.close()
+            svc.engine.close()
+        if fresh_svc is not None:
+            fresh_svc.close()
+        os.environ.pop("TRIVY_TPU_DCN", None)
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+
+    base = ["sbom", bom, "--format", "json", "--db-path", root,
+            "--cache-dir", os.path.join(tmp, "dcn_cache")]
+    reports = {}
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    try:
+        for name, extra, dcn_env in (("plain", [], None),
+                                     ("mesh_2x1x1", ["--mesh", DCN_SPEC],
+                                      "spawn")):
+            if dcn_env:
+                os.environ["TRIVY_TPU_DCN"] = dcn_env
+            try:
+                reports[name] = os.path.join(tmp, f"dcn_{name}.json")
+                r = cli_run(base + ["--quiet"] + extra, reports[name],
+                            False)
+            finally:
+                os.environ.pop("TRIVY_TPU_DCN", None)
+            out[name] = {k: r[k] for k in ("wall_s", "report_bytes",
+                                           "vulnerabilities", "launches")}
+        (engine,) = run._ENGINE_CACHE.values()
+        procs = [h.proc for h in engine._mdb.hosts]
+        out["mesh_2x1x1"]["workers"] = dcn_worker_launches(engine)
+        run._ENGINE_CACHE.clear()
+        out["workers_left"] = sum(p.poll() is None for p in procs)
+        with open(reports["plain"], "rb") as f:
+            plain = f.read()
+        with open(reports["mesh_2x1x1"], "rb") as f:
+            out["diff_2x1x1"] = int(f.read() != plain)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main.main(base + ["--mesh", DCN_SPEC])
+        log.init()
+        errors = [ln for ln in err.getvalue().splitlines() if "ERROR" in ln]
+        out["no_dcn"] = {"rc": rc, "errors": errors}
+    finally:
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+    w = out["mesh_2x1x1"]["workers"]
+    out["ok"] = (out["server"]["ok"] and out["diff_2x1x1"] == 0
+                 and out["workers_left"] == 0
+                 and out["mesh_2x1x1"]["launches"] > 0
+                 and w and w[0]["launches"][0][0] >= 1
+                 and rc == 1 and len(errors) == 1
+                 and "spans 2 hosts but TRIVY_TPU_DCN is unset"
+                 in errors[0])
+    return out
+
+
+def dcn_path(dev, p3: dict, p7: dict, p12: dict, engine,
+             tmp: str) -> dict:
+    """Phase 15: cross-host serving on the card, on phase 12's engine's
+    DB (phase 7's 2,000,000 advisories and its generation root), held
+    to the single-device engine on phase 3's sample and the MESH_CRAWL
+    crawl; the coordinator and every worker share the one card.
+    (a) `MatchEngine(mesh_spec="2x1x1")` with TRIVY_TPU_DCN=spawn built
+    cold (the host-slice cache misses and the coordinator saves both
+    entries) and warm (both hit); (b) a 2x2x2 HostMeshDB against a
+    standalone worker started here (`--device cuda:0`), every
+    coordinator cell on the card, and a successor session on the same
+    worker (its entry removed first, so its slice is pushed) while the
+    predecessor keeps serving; (c) the engine.host ladder, a worker's
+    death and the re-resolve over the survivors; (d) the server and CLI
+    surfaces (dcn_surfaces)."""
+    from trivy_tpu_torch.ops import dcn
+    from trivy_tpu_torch.ops.mesh import build_mesh
+    from trivy_tpu_torch.tensorize import cache as compile_cache
+
+    card = card_line()
+    sample, crawl = p3["sample"], p3["crawl"]
+    root = p7["db_root"]
+    want = {"sample": hits_of(engine.detect(sample)),
+            "crawl": hits_of(engine.detect_many(crawl, BATCH))}
+    out: dict = {"builds": {}, "ladder": {}, "launches": {}}
+    engines: dict = {}
+    endpoint_proc = start_endpoint_worker("cuda:0")
+    try:
+        # (a) spawn mode, cold then warm
+        os.environ["TRIVY_TPU_DCN"] = "spawn"
+        try:
+            for name in ("cold", "warm"):
+                e, split = dcn_build(engine.db, dev, root, DCN_SPEC)
+                engines[name] = e
+                r = dcn_drive(e, sample, crawl, want)
+                r.update(split)
+                out["builds"][name] = r
+                out["launches"][f"spawn_{name}"] = {
+                    "coordinator": r["launches"],
+                    "workers": [w and w["launches"] for w in r["workers"]]}
+                print(f"phase15 (a) {name} card={card!r} {json.dumps(r)}")
+        finally:
+            os.environ.pop("TRIVY_TPU_DCN", None)
+        cold, warm = out["builds"]["cold"], out["builds"]["warm"]
+        if any(r["diff"] or not dcn_launched(r) for r in (cold, warm)):
+            raise AssertionError("spawn mode: hits differ from the single-"
+                                 "device engine, or a cell never launched")
+        if cold["mesh_host_cache"] != "miss" \
+                or warm["mesh_host_cache"] != "hit" \
+                or warm["mesh_sources"] != ["cache"]:
+            raise AssertionError("the host-slice cache: cold must miss, "
+                                 "warm hit on both hosts")
+
+        # (b) endpoint mode, 2x2x2 on the one card
+        endpoint = endpoint_of(endpoint_proc)
+        n_hosts, dp, db_local = DCN_ENDPOINT
+        spec = f"{n_hosts}x{dp}x{db_local}"
+        grid = build_mesh(dp, db_local, devices=[dev] * (dp * db_local))
+        os.environ["TRIVY_TPU_DCN"] = endpoint
+        try:
+            e1, split1 = dcn_build(engine.db, dev, root, spec, mesh=grid)
+            r1 = dcn_drive(e1, sample, crawl, want)
+            r1.update(split1)
+            # the worker's entry goes: the successor's slice is pushed
+            digest = compile_cache.db_digest(root)
+            os.remove(compile_cache.host_slice_entry_path(
+                root, digest, None, n_hosts, 1, n_hosts * db_local))
+            e2, split2 = dcn_build(engine.db, dev, root, spec, mesh=grid)
+        finally:
+            os.environ.pop("TRIVY_TPU_DCN", None)
+        engines["endpoint"], engines["successor"] = e1, e2
+        r2 = dcn_drive(e2, sample, crawl, want)
+        r2.update(split2)
+        # the predecessor's session still serves on the same worker
+        r1b = dcn_rung(e1, None, sample, want)
+        out["endpoint"] = {"predecessor": r1, "successor": r2,
+                           "predecessor_after": r1b}
+        out["launches"]["endpoint"] = {
+            "coordinator": r1["launches"],
+            "workers": [w and w["launches"] for w in r1["workers"]]}
+        out["launches"]["successor"] = {
+            "coordinator": r2["launches"],
+            "workers": [w and w["launches"] for w in r2["workers"]]}
+        print(f"phase15 (b) endpoint card={card!r} {json.dumps(out['endpoint'])}")
+        if r1["diff"] or r2["diff"] or r1b["diff"] \
+                or not dcn_launched(r1) or not dcn_launched(r2) \
+                or r1b["degraded_hosts"] or r2["mesh_sources"] != ["push"]:
+            raise AssertionError("endpoint mode: hits differ, a cell never "
+                                 "launched, the predecessor lost its "
+                                 "session, or the successor was not pushed")
+
+        # (c) the ladder
+        ladder = out["ladder"]
+        for rung, degraded in HOST_RUNGS:
+            r = dcn_rung(engines["warm"], rung, sample, want)
+            ladder[rung] = r
+            print(f"phase15 (c) rung={rung} {json.dumps(r)}")
+            if r["diff"] or r["degraded_hosts"] != degraded \
+                    or not all(r["fired"]):
+                raise AssertionError(f"rung {rung}: {r}")
+        r = dcn_rung(engines["warm"], None, sample, want)
+        ladder["after engine.host:error@1-2"] = r
+        print(f"phase15 (c) later sample {json.dumps(r)}")
+        if r["diff"] or r["degraded_hosts"] != [1]:
+            raise AssertionError(f"a later sample: {r}")
+        r = dcn_rung(e1, "engine.host:device-lost@1", sample, want)
+        ladder["engine.host:device-lost@1 (endpoint)"] = r
+        print(f"phase15 (c) rung=engine.host:device-lost@1 on=endpoint "
+              f"{json.dumps(r)}")
+        if r["diff"] or r["degraded_hosts"] != [1]:
+            raise AssertionError(f"device-lost rung: {r}")
+        proc = engines["cold"]._mdb.hosts[0].proc
+        proc.kill()
+        proc.wait(timeout=30)
+        r = dcn_rung(engines["cold"], None, sample, want)
+        ladder["worker killed (cold)"] = r
+        print(f"phase15 (c) worker killed {json.dumps(r)}")
+        if r["diff"] or r["degraded_hosts"] != [1]:
+            raise AssertionError(f"the killed worker: {r}")
+        t0 = time.perf_counter()
+        changed = engines["cold"].reresolve_mesh()
+        rr_s = time.perf_counter() - t0
+        r = dcn_rung(engines["cold"], None, sample, want)
+        r.update(reresolved=changed, reresolve_s=rr_s,
+                 launches=mesh_launches(engines["cold"]))
+        ladder["reresolve (cold)"] = r
+        print(f"phase15 (c) reresolve {json.dumps(r)}")
+        if r["diff"] or not changed or r["shape"] != "1x1x1" \
+                or not all(c >= 1 for row in r["launches"]["cells"]
+                           for c in row):
+            raise AssertionError(f"the re-resolve: {r}")
+    finally:
+        for e in engines.values():
+            e.close()
+        if endpoint_proc is not None:
+            endpoint_proc.kill()
+            endpoint_proc.wait(timeout=30)
+    out["workers_left"] = sum(
+        h.proc.poll() is None for e in engines.values()
+        for h in e._mdb.hosts if h.proc is not None)
+    if out["workers_left"]:
+        raise AssertionError("a spawned worker outlived its engine")
+
+    # (d) the server and CLI surfaces
+    t0 = time.perf_counter()
+    d = dcn_surfaces(dev, p12["reload_root"], tmp)
+    print(f"phase15 (d) surfaces {json.dumps(d)} "
+          f"seconds={time.perf_counter() - t0:.3f}")
+    if not d["ok"]:
+        raise AssertionError(f"DCN server / CLI: {d}")
+    out["surfaces"] = d
+    out["launches"]["sbom_cli_mesh_2x1x1"] = {
+        "coordinator": d["mesh_2x1x1"]["launches"],
+        "workers": [w and w["launches"] for w in d["mesh_2x1x1"]["workers"]]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5130,9 +5598,14 @@ def main() -> int:
         gc.disable()
         try:
             p13 = mesh_path(dev, p3, p5, p7, p12, work)
+            print(f"phase13 seconds={time.perf_counter() - t0:.3f}")
+            # phase 15 on phase 12's engine's DB, also without cyclic
+            # collection: it builds four engines on the 2 M DB
+            t0 = time.perf_counter()
+            p15 = dcn_path(dev, p3, p7, p12, mon["engine"], work)
+            print(f"phase15 seconds={time.perf_counter() - t0:.3f}")
         finally:
             gc.enable()
-        print(f"phase13 seconds={time.perf_counter() - t0:.3f}")
 
         t0 = time.perf_counter()
         p14 = monitor_path(dev, p7, mon, work)
@@ -5191,6 +5664,12 @@ def main() -> int:
             "server": p13["server"]["launches"],
             "sbom_cli_mesh_1x1": p13["cli"]["mesh_1x1"]["launches"]},
         "launches_monitor": p14["launches"],
+        "launches_dcn": {
+            **p15["launches"],
+            **{f"rung {k}": {"coordinator": r["coordinator_launches"],
+                             "workers": [w and w["launches"]
+                                         for w in r["workers"]]}
+               for k, r in p15["ladder"].items()}},
         "tiers": p3["timings"],
     }]
     for name, source, replaces, launches in (

@@ -130,10 +130,9 @@ def test_parse_spec():
             mesh_ops.parse_spec(bad)
         with pytest.raises(ValueError, match=msg):
             jax_mesh.parse_spec(bad)
-    # the cross-host form is the reference's distributed MeshDB
-    assert jax_mesh.parse_spec("2x1x4") == (2, 1, 4)
-    with pytest.raises(ValueError, match="not ported yet"):
-        mesh_ops.parse_spec("2x1x4")
+    # the cross-host form is the distributed MeshDB (ops/dcn.py)
+    assert mesh_ops.parse_spec("2x1x4") == jax_mesh.parse_spec("2x1x4") \
+        == (2, 1, 4)
 
 
 def test_choose_topology(monkeypatch):
@@ -768,14 +767,17 @@ def test_cli_mesh_report_equals_single_device(cli_env, capsys, monkeypatch):
 @pytest.mark.parametrize("spec,message", [
     ("2x4", "--mesh/TRIVY_TPU_MESH: mesh 2x4 needs 8 devices, have 1"),
     ("banana", "--mesh/TRIVY_TPU_MESH: bad mesh spec 'banana'"),
-    ("2x1x4", "the cross-host MeshDB is not ported yet")])
+    ("2x1x4", "--mesh/TRIVY_TPU_MESH: mesh spec '2x1x4' spans 2 hosts "
+              "but TRIVY_TPU_DCN is unset")])
 def test_cli_mesh_errors_are_one_line(cli_env, capsys, monkeypatch, spec,
                                       message):
     """On one card a 2x4 mesh fails as the reference fails on one chip:
-    rc 1 and one error line; so does a malformed spec, for a scan and
-    for the server."""
+    rc 1 and one error line; so do a malformed spec and a cross-host
+    spec without TRIVY_TPU_DCN workers, for a scan and for the
+    server."""
     import jax
 
+    monkeypatch.delenv("TRIVY_TPU_DCN", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     # the reference's wording on one device

@@ -1003,18 +1003,29 @@ def test_unported_flags_are_refused_on_argv(argv):
 
 
 @pytest.mark.parametrize("dest,value", [("mesh", "2x1x4")])
-def test_unported_server_options_from_env_are_refused(monkeypatch, capsys,
-                                                      dest, value):
+def test_cross_host_server_spec_without_workers_is_one_line(
+        golden_dbs, tmp_path, monkeypatch, capsys, dest, value):
+    """A cross-host spec from the environment without TRIVY_TPU_DCN
+    workers fails the server with rc 1 and the reference's one line."""
+    from trivy_tpu.cli.main import main as jax_main
+
+    monkeypatch.delenv("TRIVY_TPU_DCN", raising=False)
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
-    rc = main(["server", "--device", "cpu", "--listen", "127.0.0.1:0"])
-    captured = capsys.readouterr()
-    lines = captured.err.strip().splitlines()
+    argv = ["server", "--db-path", golden_dbs["db"], "--listen",
+            "127.0.0.1:0", "--cache-dir", str(tmp_path / "c")]
+    rc = main(argv + ["--device", "cpu"])
+    lines = _error_lines(capsys.readouterr().err)
     assert rc == 1 and len(lines) == 1
-    assert "not ported yet" in lines[0]
-    assert dest.replace("_", "-") in lines[0]
+    assert jax_main(argv) == 1
+    want = _error_lines(capsys.readouterr().err)
+    assert len(want) == 1
+    message = want[0].split("\t")[-1]
+    assert message.startswith("--mesh/TRIVY_TPU_MESH: mesh spec '2x1x4' "
+                              "spans 2 hosts but TRIVY_TPU_DCN is unset")
+    assert lines[0].endswith(message)
 
 
-@pytest.mark.parametrize("spec", ["engine.host:device-lost@1",
+@pytest.mark.parametrize("spec", ["fleet.endpoint:timeout",
                                   "db.save:torn-write",
                                   "analysis.fetch:delay=1",
                                   "db.download:bitflip",
@@ -1033,7 +1044,7 @@ def test_unported_fault_spec_is_refused(spec):
 def test_unported_fault_site_in_env_fails_the_command(golden_dbs, tmp_path,
                                                       monkeypatch, capsys,
                                                       command):
-    monkeypatch.setenv("TRIVY_TPU_FAULTS", "engine.host:device-lost@1")
+    monkeypatch.setenv("TRIVY_TPU_FAULTS", "fleet.endpoint:drop@1")
     if command == "sbom":
         argv = ["sbom", golden_dbs["sbom"], "--db-path", golden_dbs["db"]]
     else:
@@ -1043,7 +1054,7 @@ def test_unported_fault_site_in_env_fails_the_command(golden_dbs, tmp_path,
                       str(tmp_path / "c")])
     errors = _error_lines(capsys.readouterr().err)
     assert rc == 1 and len(errors) == 1
-    assert "TRIVY_TPU_FAULTS" in errors[0] and "engine" in errors[0]
+    assert "TRIVY_TPU_FAULTS" in errors[0] and "fleet.endpoint" in errors[0]
 
 
 def test_server_without_a_card_refuses(golden_dbs, tmp_path, monkeypatch,

@@ -211,10 +211,12 @@ def _add_mesh_flag(p: argparse.ArgumentParser) -> None:
                         "'DPxDB' (e.g. 2x4: 2 data-parallel groups x 4 "
                         "advisory shards over the first 8 CUDA devices; "
                         "every cell on the CPU with --device cpu), "
-                        "'auto' (topology from the DB size and the "
-                        "device count), or 'off' (default; env "
-                        "TRIVY_TPU_MESH). The cross-host HOSTSxDPxDB "
-                        "form is not ported yet")
+                        "'HOSTSxDPxDB' (e.g. 2x1x4: cross-host "
+                        "distributed MeshDB over TRIVY_TPU_DCN workers, "
+                        "dp x db per host), 'auto' (topology from the DB "
+                        "size, the device count and the per-host memory "
+                        "budget), or 'off' (default; env "
+                        "TRIVY_TPU_MESH)")
 
 
 def _add_server_parser(sub) -> None:

@@ -99,7 +99,36 @@ def _load_db(args):
         return AdvisoryDB()
 
 
-_ENGINE_CACHE: dict = {}
+class _EngineCache(dict):
+    """Engines by (db path, --no-tpu, device, mesh spec). An engine that
+    leaves the cache (cleared, deleted or replaced) is closed, so a
+    distributed MeshDB's spawned workers exit with it."""
+
+    @staticmethod
+    def _close(engine) -> None:
+        close = getattr(engine, "close", None)
+        if close is not None:
+            close()
+
+    def __setitem__(self, key, engine) -> None:
+        old = self.get(key)
+        super().__setitem__(key, engine)
+        if old is not None and old is not engine:
+            self._close(old)
+
+    def __delitem__(self, key) -> None:
+        engine = self[key]
+        super().__delitem__(key)
+        self._close(engine)
+
+    def clear(self) -> None:
+        engines = list(self.values())
+        super().clear()
+        for engine in engines:
+            self._close(engine)
+
+
+_ENGINE_CACHE: dict = _EngineCache()
 
 
 def _mesh_spec(args) -> str:
@@ -121,7 +150,8 @@ def new_engine(args):
     warm start with an unchanged DB loads the persistent compiled-tensor
     cache instead of recompiling (tensorize.cache). `--mesh` /
     TRIVY_TPU_MESH serves matching from a sharded device mesh
-    (ops/mesh.py); a spec the devices cannot place fails here."""
+    (ops/mesh.py), or across hosts (ops/dcn.py, with TRIVY_TPU_DCN); a
+    spec the devices or the workers cannot serve fails here."""
     from trivy_tpu_torch.detector.engine import MatchEngine
     from trivy_tpu_torch.ops import mesh as mesh_ops
 
@@ -140,7 +170,8 @@ def new_engine(args):
             engine = MatchEngine(db, mesh_spec=mesh_spec, **kw)
         except ValueError as exc:
             # the spec parsed, so this is a topology the devices cannot
-            # place (too few of them)
+            # place (too few of them), or a cross-host one without its
+            # TRIVY_TPU_DCN workers
             raise FatalError(f"--mesh/TRIVY_TPU_MESH: {exc}")
     STATS.update(db_load_s=t1 - t0,
                  engine_build_s=time.perf_counter() - t1,

@@ -9,6 +9,8 @@ Port of trivy_tpu/detector/engine.py. Pipeline per batch:
 With a serving mesh (`mesh` / `mesh_spec`, ops/mesh.py) the main tier's
 kernel runs once per (data group, db shard) cell and the host merges
 the shards' masks; the hot and tall tiers stay on the engine's device.
+With a spec spanning hosts (ops/dcn.py HostMeshDB) the cells of the
+other hosts run in their worker processes, and `close()` ends them.
 
 Device-loss ladders: the fault site ``engine`` (a DeviceLost flips the
 engine to the host oracle for good, logged once and counted in
@@ -140,7 +142,10 @@ class MatchEngine:
         "auto", "off": --mesh / TRIVY_TPU_MESH), resolved against the
         compiled DB's row count on the CUDA devices (every cell on the
         CPU for ``device="cpu"``); an invalid spec, or one the devices
-        cannot place, raises ValueError here."""
+        cannot place, raises ValueError here. A spec spanning hosts
+        ("HOSTSxDPxDB", or "auto" with TRIVY_TPU_DCN workers) serves the
+        main tier from the distributed MeshDB (ops/dcn.py); a `mesh`
+        given with it places the coordinator's own DP x DB cells."""
         self.db = db
         # where the build's time went: compile or cache load, and the
         # upload of the three tiers to the card
@@ -186,12 +191,24 @@ class MatchEngine:
             if db_path else None
         self.use_device = use_device
         self.device = resolve_device(device) if use_device else None
-        if use_device and mesh is None and mesh_spec:
+        dcn_plan = None
+        if use_device and mesh_spec:
+            from trivy_tpu_torch.ops import dcn as dcn_ops
             from trivy_tpu_torch.ops import mesh as mesh_ops
 
-            mesh = mesh_ops.build_from_spec(
-                mesh_spec, n_rows=self.cdb.n_rows, device=self.device)
+            parsed = mesh_ops.parse_spec(mesh_spec)
+            if mesh is None or (isinstance(parsed, tuple)
+                                and len(parsed) == 3):
+                # a spec spanning hosts serves from the distributed
+                # MeshDB instead of a local mesh
+                dcn_plan = dcn_ops.plan_from_spec(
+                    mesh_spec, n_rows=self.cdb.n_rows, device=self.device)
+            if dcn_plan is None and mesh is None:
+                mesh = mesh_ops.build_from_spec(
+                    mesh_spec, n_rows=self.cdb.n_rows, device=self.device)
         self.mesh = mesh
+        # (hosts, dp, db per host) of the distributed MeshDB, else None
+        self.dcn_plan = dcn_plan
         # the requested spec, kept so an engine rebuild (the server's
         # hot DB reload) resolves the topology against the NEW DB
         # instead of dropping the mesh
@@ -251,7 +268,23 @@ class MatchEngine:
             self._ensure_tokens()
             self.cdb.name_tokens = self._name_tokens
             self.cdb.version_tokens = self._version_tokens
-            if mesh is not None:
+            if dcn_plan is not None:
+                from trivy_tpu_torch.ops import dcn as dcn_ops
+
+                # cross-host: this process serves only its slice on its
+                # own grid, the peers theirs behind the worker protocol,
+                # merged by the same shard decoder (HostMeshDB has
+                # MeshDB's surface)
+                n_hosts, dp, db_local = dcn_plan
+                self._mdb = dcn_ops.HostMeshDB.from_compiled(
+                    self.cdb, n_hosts, dp, db_local,
+                    cache_ctx=self._cache_ctx, device=self.device,
+                    devices=None if mesh is None else
+                    [d for row in mesh.devices for d in row])
+                self.build_stats.update(
+                    {f"mesh_{k}": v
+                     for k, v in self._mdb.build_stats.items()})
+            elif mesh is not None:
                 from trivy_tpu_torch.ops import mesh as mesh_ops
 
                 self._mdb = mesh_ops.MeshDB.from_compiled(
@@ -296,16 +329,29 @@ class MatchEngine:
 
     def shard_health(self) -> dict | None:
         """Mesh shard health for /readyz: the topology and which db
-        shards are degraded to the host mask. None on the single-device
+        shards are degraded to the host mask (and, on the distributed
+        MeshDB, which peer hosts are). None on the single-device
         path."""
         return self._mdb.health() if self._mdb is not None else None
 
     def reresolve_mesh(self) -> bool:
-        """Upload degraded shards' slices to their devices again.
-        Callers quiesce in-flight scans first (the server takes its
-        write lock). True when a shard was restored; a single-device
-        engine or a healthy mesh is a no-op."""
+        """Upload degraded shards' slices to their devices again; the
+        distributed MeshDB re-partitions over its surviving hosts
+        (ops/dcn.py). Callers quiesce in-flight scans first (the server
+        takes its write lock). True when the topology or a shard's
+        residency changed; a single-device engine or a healthy mesh is a
+        no-op."""
         return self._mdb.reresolve() if self._mdb is not None else False
+
+    def close(self) -> None:
+        """Release what the engine owns outside this process: the
+        distributed MeshDB's worker processes and connections (every
+        other engine has nothing to release). The server calls it on the
+        old engine after a hot swap, once the write lock has quiesced
+        its scans, and on shutdown."""
+        close = getattr(self._mdb, "close", None)
+        if close is not None:
+            close()
 
     @staticmethod
     def dedupe_queries(queries: list[PkgQuery]):

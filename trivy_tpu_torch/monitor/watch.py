@@ -20,7 +20,9 @@ thread re-matches on the served engine's card; a failure there is
 logged, kept in `MonitorService.last_error` and leaves the index's
 state where it was (the next promote re-plans from it), and a device
 error is also re-raised on that thread: it is never turned into a host
-re-match.
+re-match. `watch_local` closes each engine it built once its re-score
+is done (a distributed MeshDB's workers exit then, not at process
+exit).
 """
 
 from __future__ import annotations
@@ -225,8 +227,9 @@ def watch_local(db_path: str, index: MonitorIndex, engine_factory,
 
     `engine_factory` is a zero-arg callable returning a freshly built
     MatchEngine over the CURRENT on-disk DB (cli/run.new_engine under
-    the parsed args: the match kernel on the card unless --no-tpu).
-    Returns 0 (loop ended / --once complete)."""
+    the parsed args: the match kernel on the card unless --no-tpu),
+    closed after its re-score. Returns 0 (loop ended / --once
+    complete)."""
     from trivy_tpu_torch.tensorize import cache as compile_cache
 
     while True:
@@ -234,13 +237,17 @@ def watch_local(db_path: str, index: MonitorIndex, engine_factory,
         if digest is not None and digest != index.db_digest:
             scan_id = uuid_util.new()
             engine = engine_factory()
-            plan = compute_delta(db_path, index.db_digest, engine.db,
-                                 new_digest=digest)
-            report = rematch_mod.rescore(
-                engine, index, plan, budget_s=budget_s(),
-                verify=verify,
-                on_event=lambda ev: emit_line(out_fh, ev),
-                scan_id=scan_id)
+            try:
+                plan = compute_delta(db_path, index.db_digest, engine.db,
+                                     new_digest=digest)
+                report = rematch_mod.rescore(
+                    engine, index, plan, budget_s=budget_s(),
+                    verify=verify,
+                    on_event=lambda ev: emit_line(out_fh, ev),
+                    scan_id=scan_id)
+            finally:
+                # a distributed MeshDB's workers end with the re-score
+                engine.close()
             emit_line(out_fh, {
                 "event": "rescore", "db_digest": digest,
                 "full": report.full, "reason": report.reason,

@@ -39,8 +39,10 @@ error of a cell (a kernel that cannot launch, a CUDA error) raises.
 Degradations are counted per shard in `MeshDB.degradations`, shown in
 `health()` and in the server's /readyz.
 
-Not ported: the cross-host spec ``HOSTSxDPxDB`` (ops/dcn.py) is refused,
-and the metric gauges are plain counters on the MeshDB.
+The cross-host spec ``HOSTSxDPxDB`` is the distributed MeshDB
+(ops/dcn.py): host 0's slice of its global shard partition is a MeshDB
+here whose `n_global` names that partition. The metric gauges are plain
+counters on the MeshDB.
 """
 
 from __future__ import annotations
@@ -118,10 +120,11 @@ def _hbm_budget_bytes() -> float:
 
 def parse_spec(spec: str):
     """"" / "0" / "off" / "none" -> None (single device), "auto" ->
-    "auto", "DPxDB" -> (dp, db), "1xDPxDB" -> (dp, db). A cross-host
-    "HOSTSxDPxDB" with hosts >= 2 is refused: the distributed MeshDB is
-    not ported yet. Raises ValueError on anything else so an operator
-    typo fails at startup, not mid-crawl."""
+    "auto", "DPxDB" -> (dp, db), "HOSTSxDPxDB" with hosts >= 2 ->
+    (hosts, dp, db): the cross-host distributed MeshDB (ops/dcn.py; dp x
+    db is each host's own grid). A "1xDPxDB" spec collapses to the local
+    (dp, db). Raises ValueError on anything else so an operator typo
+    fails at startup, not mid-crawl."""
     s = (spec or "").strip().lower()
     if s in ("", "0", "off", "none"):
         return None
@@ -136,11 +139,9 @@ def parse_spec(spec: str):
     dp, db = int(mt.group(2)), int(mt.group(3))
     if hosts < 1 or dp < 1 or db < 1:
         raise ValueError(f"mesh axes must be >= 1, got {spec!r}")
-    if hosts > 1:
-        raise ValueError(
-            f"mesh spec {spec!r} spans hosts: the cross-host MeshDB "
-            "is not ported yet")
-    return dp, db
+    if hosts == 1:
+        return dp, db
+    return hosts, dp, db
 
 
 def choose_topology(n_devices: int, n_rows: int) -> tuple[int, int]:
@@ -179,6 +180,12 @@ def build_from_spec(spec: str, n_rows: int,
     parsed = parse_spec(spec)
     if parsed is None:
         return None
+    if parsed != "auto" and len(parsed) == 3:
+        # the engine routes a cross-host spec to the distributed MeshDB
+        # (ops/dcn.py) before this point: a caller skipped that
+        raise ValueError(
+            f"mesh spec {spec!r} spans hosts; cross-host serving is "
+            "the distributed MeshDB (ops/dcn.py), not a local mesh")
     if parsed == "auto":
         n_local = local_device_count(device)
         if n_local <= 1:
@@ -231,6 +238,10 @@ class MeshDB:
     window: int
     shard_len: int
     shard_base: int
+    # the shard count of the partition the slices come from: n_db on one
+    # host (the default, 0), HOSTS * DB for the distributed MeshDB's
+    # coordinator, whose shards are that partition's first n_db
+    n_global: int = 0
     retries: int = field(default_factory=shard_retries)
     degraded: set = field(default_factory=set)
     # per shard: degradations, retries and re-resolves (the reference's
@@ -245,6 +256,9 @@ class MeshDB:
     # version of the match kernel (ops/match.py match_words_ref) reads
     host_dbs: dict = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock)
+
+    def __post_init__(self):
+        self.n_global = self.n_global or self.n_db
 
     # -------------------------------------------------------- construction
 
@@ -329,11 +343,14 @@ class MeshDB:
     def _host_mask(self, d: int, sub) -> np.ndarray:
         """Shard d's mask on the host: the match kernel's plain version
         over the shard's own slice (pad rows and search index as on
-        its device), so the bits equal the kernel's."""
+        its device), so the bits equal the kernel's. `d` indexes the
+        whole partition, so the distributed MeshDB asks here for a lost
+        host's shards too."""
         with self._lock:
             ddb = self.host_dbs.get(d)
         if ddb is None:
-            h1s, tables, _len, _base = m.host_shards(self.cdb, self.n_db)
+            h1s, tables, _len, _base = m.host_shards(self.cdb,
+                                                     self.n_global)
             ddb = m.shard_device_db(h1s[d], tables[d], self.window,
                                     torch.device("cpu"))
             with self._lock:
@@ -411,7 +428,7 @@ class MeshDB:
             degraded = sorted(self.degraded)
         if not degraded:
             return False
-        h1s, tables, _len, _base = m.host_shards(self.cdb, self.n_db)
+        h1s, tables, _len, _base = m.host_shards(self.cdb, self.n_global)
         for d in degraded:
             for g in range(self.n_data):
                 self.grid[g][d] = m.shard_device_db(

@@ -12,7 +12,8 @@ Spec grammar (rules joined by ";" or ","):
     rule     := site ":" action [ "=" param ] [ "@" selector ]
     site     := "rpc" | "rpc.scan" | "rpc.cache" | "rpc.cache.PutBlob"
                 | "rpc.wire" | "sched.submit" | "engine" | "engine.device"
-                | "engine.shard" | "secret.device" | "journal.append"
+                | "engine.shard" | "engine.host" | "secret.device"
+                | "journal.append"
                 | "monitor.index" | "monitor.rematch"
                 | ...  (dotted, prefix-matched)
     action   := "drop" | "timeout" | "delay" | "error" | "corrupt"
@@ -55,12 +56,13 @@ Durability fault kinds:
 Copy of trivy_tpu/resilience/faults.py trimmed to the sites the port
 fires: the RPC client's (`rpc`, `rpc.scan`, `rpc.cache.*`, `rpc.wire`),
 the match scheduler's (`sched.submit`), the match engine's device-loss
-ladders (`engine`, `engine.device`, `engine.shard`), the secret
-scanner's (`secret.device`), and the monitor's durable paths
-(`journal.append`, `monitor.index`, `monitor.rematch`; an atomic rewrite
-of the index also probes `monitor.index.commit` for a kill). A rule
-naming any other site of the reference (`engine.host`, `analysis.*`,
-`db.*`, `cache.write`, `fleet.*`, ...), or an action its site does not
+ladders (`engine`, `engine.device`, `engine.shard`, and the distributed
+MeshDB's per-host `engine.host`), the secret scanner's
+(`secret.device`), and the monitor's durable paths (`journal.append`,
+`monitor.index`, `monitor.rematch`; an atomic rewrite of the index also
+probes `monitor.index.commit` for a kill). A rule naming any other site
+of the reference (`analysis.*`, `db.*`, `cache.write`, `fleet.*`,
+...), or an action its site does not
 handle, is refused with a FaultSpecError when the plan compiles: a rule
 is never accepted and then left to do nothing. No fault-fire metrics,
 no round trip of a plan back to a spec (the chaos campaign's shrinker
@@ -89,6 +91,7 @@ SITES: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("engine", ("device-lost",)),
     ("engine.device", ("drop", "delay", "device-lost")),
     ("engine.shard", ("drop", "delay", "error", "device-lost")),
+    ("engine.host", ("drop", "delay", "error", "device-lost")),
     ("sched.submit", ("drop", "delay", "error")),
     ("secret.device", ("drop", "delay", "error", "device-lost")),
     ("journal.append", ("kill", "torn-write", "bitflip")),
@@ -108,8 +111,8 @@ def site_actions(site: str) -> set[str] | None:
     site it names, or of the most specific ported RPC site it extends
     (``rpc.cache.PutBlob`` extends ``rpc.cache``), or of every ported
     site it prefixes (``sched`` prefixes ``sched.submit``, ``engine``
-    also ``engine.device`` and ``engine.shard``). None when it reaches
-    no site the port fires (``engine.host``)."""
+    also ``engine.device``, ``engine.shard`` and ``engine.host``). None
+    when it reaches no site the port fires (``analysis.fetch``)."""
     acts = dict(SITES)
     under = [name for name in acts
              if site == name or (site.startswith(name + ".")

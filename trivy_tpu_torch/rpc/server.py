@@ -18,8 +18,11 @@ lock so the card holds at most the old and the new DB during it).
 
 Copy of trivy_tpu/rpc/server.py. The hot reload builds the port's
 MatchEngine on the device the served engine is on, and keeps its
-serving mesh (a spec-built mesh resolves again against the new DB, a
-prebuilt grid carries over); /readyz reports the mesh's shard health.
+serving mesh (a spec-built mesh or host topology resolves again
+against the new DB, a prebuilt grid carries over) and closes the old
+engine once the swap is done (a distributed MeshDB's workers exit);
+/readyz reports the mesh's shard health and, on the distributed
+MeshDB, its hosts.
 With `monitor_index` the service records each completed scan in the
 monitor index and, after every hot swap, re-scores the affected
 artifacts on a background thread (trivy_tpu_torch/monitor) through the
@@ -357,6 +360,14 @@ class ScanService:
         health = health_fn() if callable(health_fn) else None
         if health:
             note = f"; mesh {health['shape']}"
+            if health.get("degraded_hosts"):
+                # distributed MeshDB: a lost peer host serves its whole
+                # slice from the coordinator's host mask: ready, but
+                # the fleet should know
+                note += (" host(s) "
+                         + ",".join(str(h)
+                                    for h in health["degraded_hosts"])
+                         + " degraded to host-mask")
             if health["degraded"]:
                 note += (" shard(s) "
                          + ",".join(str(d) for d in health["degraded"])
@@ -400,6 +411,11 @@ class ScanService:
         if health:
             doc["mesh"] = {"shape": health["shape"],
                            "degraded": list(health["degraded"])}
+            if "hosts" in health:
+                # the distributed MeshDB's host topology
+                doc["mesh"]["hosts"] = health["hosts"]
+                doc["mesh"]["degraded_hosts"] = list(
+                    health.get("degraded_hosts") or ())
         from trivy_tpu_torch.secret.scanner import hybrid_probe_state
 
         probe = hybrid_probe_state()
@@ -625,15 +641,18 @@ class ScanService:
                 # compiled-DB cache: a generation already compiled by a
                 # sibling process (or a rollback to last-good) swaps in
                 # without paying the full tensorize cost again
-                # the swap keeps the serving mesh: a spec-built mesh
-                # resolves again against the new DB's row count, a
-                # prebuilt grid carries over as it is
+                # the swap keeps the serving mesh: a spec-built mesh or
+                # host topology resolves again against the new DB's row
+                # count, a prebuilt grid carries over as it is (on the
+                # distributed MeshDB it places the coordinator's cells)
                 mesh_spec = getattr(self.engine, "mesh_spec", None)
+                keep_grid = not mesh_spec or getattr(
+                    self.engine, "dcn_plan", None) is not None
                 new_engine = MatchEngine(
                     db, use_device=self.engine.use_device,
                     device=self.engine.device, db_path=self.db_path,
-                    mesh=None if mesh_spec else getattr(
-                        self.engine, "mesh", None),
+                    mesh=getattr(self.engine, "mesh", None)
+                    if keep_grid else None,
                     mesh_spec=mesh_spec)
         except Exception as exc:
             problem = f"unloadable: {exc}"
@@ -663,6 +682,7 @@ class ScanService:
 
             old_digest = self._db_digest
             new_digest = compile_cache.db_digest(self.db_path)
+        old_engine = self.engine
         self.lock.acquire_write()  # quiesce in-flight scans
         try:
             self.engine = new_engine
@@ -673,6 +693,16 @@ class ScanService:
             self._db_digest = new_digest
         finally:
             self.lock.release_write()
+        # the write lock quiesced every scan on the old engine: release
+        # what it owns (a distributed MeshDB's workers and connections),
+        # so a hot swap leaks no worker fleet
+        close = getattr(old_engine, "close", None)
+        if close is not None and old_engine is not new_engine:
+            try:
+                close()
+            except Exception as exc:
+                _log.warn("old engine close failed after hot swap",
+                          err=str(exc))
         self.metrics.db_reloads.inc()
         _log.info("advisory DB hot-swapped", **db.stats())
         if self.monitor is not None:
@@ -1092,6 +1122,14 @@ class Server:
         # its index closed; the scheduler finishes whatever
         # queued-and-admitted work remains, then stops admitting
         self.service.close()
+        # a distributed MeshDB's engine owns worker processes and
+        # connections; every other engine has nothing to release
+        close = getattr(self.service.engine, "close", None)
+        try:
+            if close is not None:
+                close()
+        except Exception as exc:
+            _log.warn("engine close failed on shutdown", err=str(exc))
         self.httpd.shutdown()
         self.httpd.server_close()
         for t in self._threads:

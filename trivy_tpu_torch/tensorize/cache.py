@@ -10,6 +10,9 @@ Layout, riding the durability primitives:
     <db_root>/compiled-torch/
       <digest>.<params>.npz             one checksummed tensor set
       <digest>.<params>.mesh<D>.npz     a serving mesh's D shard slices
+      <digest>.<params>.dcn<H>h<h>.mesh<D>.npz
+                                        host h's run of the distributed
+                                        MeshDB's D global shards
       <digest>.keys1.json.gz            the advisory-key fingerprints
                                         (the monitor's delta diff)
       <digest>.<params>.npz.quarantine  an entry that failed its
@@ -34,7 +37,8 @@ reference's are under `compiled`), so the two packages never load each
 other's entries. The compiled secret-NFA programs of
 `secret/scanner.py` live in the same directory (`nfa-<digest>...`).
 A keymap entry's bytes are the reference's for the same root and
-digest. The host-slice entries are not ported yet.
+digest. The host-slice entries (the distributed MeshDB's, ops/dcn.py)
+count in `COUNTS` beside the others.
 """
 
 from __future__ import annotations
@@ -454,6 +458,149 @@ def load_shards(db_path: str, cdb, n_db: int,
     _log.info("mesh shard-slice cache hit", path=path, n_db=n_db,
               load_s=round(time.perf_counter() - t0, 3))
     return h1s, tables, shard_len, shard_base
+
+
+# -------------------------------------------------- cross-host slice entries
+
+
+def host_slice_entry_path(db_root: str, digest: str,
+                          window: int | None, n_hosts: int,
+                          host_index: int, n_db: int) -> str:
+    """Key of ONE host's slice of the distributed MeshDB's global shard
+    partition (ops/dcn.py): the base params plus the host topology and
+    the GLOBAL shard count. Each host warm-loads only its own entry,
+    never the whole table."""
+    return os.path.join(
+        cache_root(db_root),
+        f"{digest}.{params_key(window)}"
+        f".dcn{int(n_hosts)}h{int(host_index)}.mesh{int(n_db)}.npz")
+
+
+def save_host_slice(db_path: str, *, digest: str, window: int | None,
+                    db_meta: dict | None, n_hosts: int, host_index: int,
+                    n_db: int, n_rows: int, resolved_window: int,
+                    shard_len: int, shard_base: int,
+                    h1s, tables) -> str | None:
+    """Serialize one host's slice (its run of global shards, `h1s`
+    [db_local, S] / `tables` [db_local, S, L]) under the digest + params
+    + host-topology key. The same framing, quarantine and never-raise
+    contract as the other entries. The coordinator writes every host's
+    entry when it slices the whole table; a worker writes its own when
+    its slice was pushed."""
+    if not enabled():
+        return None
+    try:
+        if digest is None:
+            return None
+        root = cache_root(db_path)
+        os.makedirs(root, exist_ok=True)
+        t0 = time.perf_counter()
+        meta = {
+            "format": FORMAT_VERSION,
+            "digest": digest,
+            "params": params_key(window),
+            "db_meta": db_meta or {},
+            "n_hosts": int(n_hosts),
+            "host_index": int(host_index),
+            "n_db": int(n_db),
+            "n_rows": int(n_rows),
+            "window": int(resolved_window),
+            "shard_len": int(shard_len),
+            "shard_base": int(shard_base),
+        }
+        buf = io.BytesIO()
+        np.savez(buf, h1s=np.asarray(h1s), tables=np.asarray(tables),
+                 meta_json=np.frombuffer(json.dumps(meta).encode(),
+                                         dtype=np.uint8).copy())
+        path = host_slice_entry_path(db_path, digest, window, n_hosts,
+                                     host_index, n_db)
+        atomic.atomic_write(path, atomic.frame(buf.getvalue()),
+                            fault_site="compile_cache.save")
+        _log.info("host-slice cache entry saved", path=path,
+                  host=host_index, n_hosts=n_hosts,
+                  mb=round(buf.tell() / 1e6, 1),
+                  save_s=round(time.perf_counter() - t0, 2))
+        return path
+    except Exception as exc:  # pragma: no cover - best-effort
+        _log.warn("host-slice cache save failed", err=str(exc))
+        return None
+
+
+def load_host_slice(db_path: str, *, digest: str | None,
+                    window: int | None, db_meta: dict | None,
+                    n_hosts: int, host_index: int, n_db: int,
+                    n_rows: int | None = None,
+                    resolved_window: int | None = None):
+    """-> {"h1s", "tables", "shard_len", "shard_base", "n_rows",
+    "window"} of one host's cached slice, or None on a miss. The key and
+    the row / window cross-checks make the slice exactly what
+    ops/match.host_shards cuts from the same DB. A `db_meta` mismatch
+    (the generation moved) is a plain miss; a corrupt entry is
+    quarantined and the host's slice is pushed instead."""
+    if not enabled() or not digest:
+        return None
+    path = host_slice_entry_path(db_path, digest, window, n_hosts,
+                                 host_index, n_db)
+    if not os.path.exists(path):
+        COUNTS["misses"] += 1
+        return None
+    t0 = time.perf_counter()
+    try:
+        with open(path, "rb") as f:
+            raw = f.read()
+    except OSError as exc:
+        COUNTS["misses"] += 1
+        _log.warn("host-slice cache entry unreadable (io)",
+                  path=path, err=str(exc))
+        return None
+    try:
+        body = atomic.unframe(raw)
+        if body is raw:
+            raise atomic.CorruptEntry("missing checksum footer")
+        z = np.load(io.BytesIO(body), allow_pickle=False)
+        meta = json.loads(z["meta_json"].tobytes())
+        if meta.get("format") != FORMAT_VERSION \
+                or meta.get("digest") != digest \
+                or meta.get("params") != params_key(window) \
+                or meta.get("n_hosts") != int(n_hosts) \
+                or meta.get("host_index") != int(host_index) \
+                or meta.get("n_db") != int(n_db):
+            raise atomic.CorruptEntry("metadata/key mismatch")
+        if db_meta is not None and meta.get("db_meta") != db_meta:
+            COUNTS["misses"] += 1
+            _log.warn("host-slice cache entry is for a different DB "
+                      "generation; falling back", path=path)
+            return None
+        if (n_rows is not None and meta.get("n_rows") != int(n_rows)) \
+                or (resolved_window is not None
+                    and meta.get("window") != int(resolved_window)):
+            raise atomic.CorruptEntry(
+                f"slice/DB mismatch (entry rows={meta.get('n_rows')} "
+                f"window={meta.get('window')}, want rows={n_rows} "
+                f"window={resolved_window})")
+        h1s, tables = z["h1s"], z["tables"]
+        db_local = int(n_db) // int(n_hosts)
+        shard_len = int(meta["shard_len"])
+        if h1s.shape != (db_local, shard_len) or h1s.dtype != np.uint32 \
+                or tables.shape != (db_local, shard_len, 8) \
+                or tables.dtype != np.int32:
+            raise atomic.CorruptEntry("slice array shape mismatch")
+    except Exception as exc:
+        _quarantine(path)
+        COUNTS["misses"] += 1
+        _log.warn("host-slice cache entry unreadable; falling back",
+                  path=path, err=str(exc))
+        return None
+    COUNTS["hits"] += 1
+    _log.info("host-slice cache hit", path=path, host=host_index,
+              load_s=round(time.perf_counter() - t0, 3))
+    return {
+        "h1s": h1s, "tables": tables,
+        "shard_len": shard_len,
+        "shard_base": int(meta["shard_base"]),
+        "n_rows": int(meta["n_rows"]),
+        "window": int(meta["window"]),
+    }
 
 
 # ---------------------------------------------- compiled secret-NFA programs
