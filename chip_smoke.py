@@ -55,7 +55,10 @@ kernel's time before its latest redesign; then
   7. drive the `sbom` CLI on the card: (a) `python -m trivy_tpu_torch
      sbom` as a subprocess on tests/test_sbom_e2e.py's fixture (read
      from its source), its JSON equal to tests/golden/sbom_cdx.json.golden
-     byte for byte, its table totalling 2; (b) phase 3's synthetic DB
+     byte for byte, its table totalling 2, the JSON one run as a user
+     profiles a scan, with TRIVY_TPU_JAX_TRACE_DIR set: its
+     torch.profiler Chrome trace names the match kernel once per launch
+     the process counted; (b) phase 3's synthetic DB
      (made before phase 7 runs) saved with
      AdvisoryDB.save as generation A of a generation-managed root (its
      digest the generation's name) and a seeded 3,000-component image
@@ -65,7 +68,11 @@ kernel's time before its latest redesign; then
      trivy_tpu_torch.cli.main.main cold (compile, save the compiled
      entry), warm (load it) and with --no-tpu, each as a user runs it
      (its own DB load): the three reports byte for byte, the warm run a
-     compiled-cache hit recording its scan with --monitor-index, the
+     compiled-cache hit recording its scan with --monitor-index and
+     traced (`--trace-export`, `--log-format json`: the exported tree
+     nests scan > scan_artifact > driver.scan > detect > engine.dispatch
+     under one trace id, every JSON log line of the run names a trace
+     id of the export, the report equals the cold run's), the
      cold run saving the advisory-key fingerprints (keymap), the match kernel
      launched on all three tiers in both device runs, the native
      collector used; each run's wall split as the CLI's run module keeps
@@ -103,9 +110,10 @@ kernel's time before its latest redesign; then
  10. drive the report side on the card, in process, on phase 7's DB and
      phase 9's blob caches: (a) `image --input` of phase 9's archive in
      sarif, cyclonedx, spdx-json, github, cosign-vuln, template
-     (@contrib/junit.tpl) and table --dependency-tree, each on the card
-     and with --no-tpu, byte for byte, every device run launching the
-     match kernel 3 / 1 / 3 times per tier; (b) `convert` of phase 9
+     (@contrib/junit.tpl) and table --dependency-tree, each on the card,
+     sarif and table also with --no-tpu, byte for byte (the two paths
+     meet at one Report, which phase 9 holds equal), every device run
+     launching the match kernel 3 / 1 / 3 times per tier; (b) `convert` of phase 9
      (a)'s json report into spdx-json, github and cosign-vuln; (c) phase
      7's SBOM in a cosign DSSE envelope through `sbom`, bare (its
      results those of phase 7's warm report) and with --vex (an OpenVEX
@@ -117,9 +125,9 @@ kernel's time before its latest redesign; then
  11. drive the `vm` and `repository` CLIs on the card, in process, on
      phase 7's DB with the probe off (`repo_vm_cli_path`): (c) phase 8's
      fs tree as a raw ext4 image (mkfs.ext4 -d), on the card (traced:
-     the device idle share) and with --no-tpu (equal bytes, every file
-     walked, the plants' findings, all three match tiers and the anchor
-     screen launched); (d) phase
+     the device idle share; every file walked, the plants' findings, all
+     three match tiers and the anchor screen launched; its host twin is
+     phase 8's `fs --no-tpu` of the same tree); (d) phase
      8's rootfs tree as one ext4 filesystem raw, in an MBR partition,
      a GPT partition and a sparse VMDK written here (equal results; raw
      equal to --no-tpu), then raw with phase 8's custom rules (the conv
@@ -150,8 +158,13 @@ kernel's time before its latest redesign; then
      a burst through a TRIVY_TPU_SCHED=0 server, and 4 seeded ones to
      the same scan alone afterwards (the match launches per tier of
      both bursts, the scheduler's stats: more than one request
-     coalesced, no shed); (e) SIGTERM: (a) drains and exits 0 within
-     its budget.
+     coalesced, no shed); after the scheduled burst, the burst
+     server's /metrics (the batch-rows histogram counts the scheduler's
+     batches, the detect phase's counts the scans served), its
+     /debug/profile (device_dispatch busy, the critical seconds summing
+     to the wall), /debug/flight (a Chrome document), /debug/usage (the
+     clients' tenant) and the `profile` and `usage` commands on it;
+     (e) SIGTERM: (a) drains and exits 0 within its budget.
  13. drive the serving mesh and the device-loss ladders on the card, in
      process (`mesh_path`, with cyclic garbage collection off), on the
      engine phase 12 holds (phase 7's 2,000,000 advisories), every cell
@@ -1872,10 +1885,51 @@ def golden_fixture():
     return doc, ns["_fixture_db"]()
 
 
-def cli_golden(tmp: str) -> None:
+# one CLI scan in a fresh process, printing its launch count last
+PROFILE_RUN_CODE = """
+import json, sys
+from trivy_tpu_torch.cli.main import main
+from trivy_tpu_torch.ops import match
+rc = main(sys.argv[1:])
+print(json.dumps({"rc": rc, "launches": match.match_words.launches}))
+"""
+
+
+def profile_check(trace_dir: str, launches: int) -> dict:
+    """The capture a profiled CLI scan wrote into `trace_dir`: one
+    Chrome trace, naming the match kernel once per launch its process
+    counted (`launches`)."""
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "match_kernel" in e.get("name", "")]
+    # each kernel's start after its launch call, matched by CUPTI's
+    # correlation id: the device-to-host time mapping's error shows here
+    launch_ts = {e["args"].get("correlation"): e["ts"] for e in events
+                 if "LaunchKernel" in e.get("name", "")
+                 and "args" in e}
+    gaps = [e["ts"] - launch_ts[c] for e in kernels
+            if (c := e.get("args", {}).get("correlation")) in launch_ts]
+    out = {"traces": len(files), "events": len(events),
+           "match_kernel_events": len(kernels), "launches": launches,
+           "kernel_minus_launch_us": [min(gaps), max(gaps)] if gaps
+           else None}
+    out["ok"] = (len(files) == 1 and bool(launches)
+                 and len(kernels) == launches)
+    return out
+
+
+def cli_golden(tmp: str) -> dict:
     """(a) the real entry point as a subprocess, on the card it picks by
     itself: its JSON equals the golden report, its table totals 2 (the
-    two processes run at once)."""
+    two processes run at once). The JSON one runs as a user profiles a
+    scan, with TRIVY_TPU_JAX_TRACE_DIR set (the port's torch.profiler
+    capture of the scan's driver call, the process's only profiler
+    session: on an H100 a process's later sessions lose kernel events,
+    profile_window.py) -> the capture's check (`profile_check`)."""
+    import tempfile
+
     doc, db = golden_fixture()
     db.save(os.path.join(tmp, "gdb"))
     bom = os.path.join(tmp, "golden_bom.json")
@@ -1884,13 +1938,24 @@ def cli_golden(tmp: str) -> None:
     env = {**os.environ, "TRIVY_TPU_FAKE_TIME": FAKE_TIME}
     with open(GOLDEN) as f:
         golden = f.read()
+    trace_dir = tempfile.mkdtemp(dir=tmp, prefix="device_profile")
+    report = os.path.join(tmp, "golden_profiled.json")
+    args = ["sbom", bom, "--db-path", os.path.join(tmp, "gdb"), "--quiet"]
+    cmds = {
+        "json": ([sys.executable, "-c", PROFILE_RUN_CODE, *args,
+                  "--format", "json", "--output", report, "--cache-dir",
+                  os.path.join(tmp, "gcache_json")],
+                 {**env, "TRIVY_TPU_JAX_TRACE_DIR": trace_dir,
+                  "PYTHONPATH": REPO}),
+        "table": ([sys.executable, "-m", "trivy_tpu_torch", *args,
+                   "--format", "table", "--cache-dir",
+                   os.path.join(tmp, "gcache_table")], env)}
     t0 = time.perf_counter()
     procs = {fmt: subprocess.Popen(
-        [sys.executable, "-m", "trivy_tpu_torch", "sbom", bom,
-         "--format", fmt, "--db-path", os.path.join(tmp, "gdb"),
-         "--cache-dir", os.path.join(tmp, f"gcache_{fmt}"), "--quiet"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for fmt in ("json", "table")}
+        cmd, cwd=REPO, env=penv, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for fmt, (cmd, penv) in cmds.items()}
+    launches = None
     for fmt, proc in procs.items():
         try:
             stdout, stderr = proc.communicate(timeout=300)
@@ -1900,6 +1965,11 @@ def cli_golden(tmp: str) -> None:
                 p.communicate()
             raise
         wall = time.perf_counter() - t0
+        if fmt == "json" and proc.returncode == 0:
+            launches = json.loads(stdout.strip().splitlines()[-1])[
+                "launches"]
+            with open(report) as f:
+                stdout = f.read()
         ok = proc.returncode == 0 and (
             stdout == golden if fmt == "json" else "Total: 2" in stdout)
         print(f"phase7 golden format={fmt} rc={proc.returncode} "
@@ -1911,6 +1981,7 @@ def cli_golden(tmp: str) -> None:
                     p.communicate()
             raise AssertionError(f"sbom CLI ({fmt}) on cuda:0: "
                                  f"{stderr[-2000:]}")
+    return profile_check(trace_dir, launches)
 
 
 def cli_run(argv: list[str], report: str, tiers: bool) -> dict:
@@ -1989,6 +2060,50 @@ def host_db():
     return contextlib.nullcontext() if host is None else shared_db(host)
 
 
+# the exported tree of a traced scan: each span the parent of the next
+TRACE_CHAIN = ("scan", "scan_artifact", "driver.scan", "detect",
+               "engine.dispatch")
+# phase 7's warm run before the tracing spine was wired in, untraced
+# (NVIDIA H100 80GB HBM3, 700 W): the traced run's wall prints beside it
+UNTRACED_WARM_WALL_S = 27.804
+
+
+def traced_run_checks(export: str, log_text: str, report: str,
+                      want_report: str) -> dict:
+    """A traced CLI run's export and JSON log lines: one trace id, the
+    TRACE_CHAIN nested, every line logged inside the run naming a trace
+    id and a span id of the export (the last line, "trace exported", is
+    logged after the root span closed), and its report equal to
+    `want_report` byte for byte."""
+    with open(export) as f:
+        events = json.load(f)["traceEvents"]
+    by_id = {e["args"]["span_id"]: e for e in events}
+    trace_ids = {e["args"]["trace_id"] for e in events}
+
+    def chain_of(e) -> tuple:
+        names = []
+        while e is not None:
+            names.append(e["name"])
+            e = by_id.get(e["args"].get("parent_id"))
+        return tuple(reversed(names))
+
+    chained = any(chain_of(e) == TRACE_CHAIN for e in events
+                  if e["name"] == TRACE_CHAIN[-1])
+    lines = [json.loads(ln) for ln in log_text.splitlines() if ln.strip()]
+    inside = [d for d in lines if d.get("msg") != "trace exported"]
+    joined = all(d.get("trace_id") in trace_ids
+                 and d.get("span_id") in by_id for d in inside)
+    with open(report, "rb") as f, open(want_report, "rb") as g:
+        same = f.read() == g.read()
+    out = {"spans": len(events), "trace_ids": len(trace_ids),
+           "chained": chained, "log_lines": len(lines),
+           "lines_joined": joined, "report_equals_cold": same}
+    if not (len(trace_ids) == 1 and chained and inside and joined
+            and same and lines[-1].get("msg") == "trace exported"):
+        raise AssertionError(f"traced run: {out}")
+    return out
+
+
 def sbom_cli_path(db, tmp: str) -> dict:
     """Phase 7: the sbom CLI on the card. (a) the golden fixture through
     the real entry point; (b) phase 3's 2,000,000-advisory DB saved with
@@ -1999,6 +2114,9 @@ def sbom_cli_path(db, tmp: str) -> dict:
     reports byte for byte, each from a DB load of its own. The two device runs run under the profiler for their device
     idle share (a rerun of each for the profile alone would cost about
     125 s of the script's time limit)."""
+    import io
+
+    from trivy_tpu_torch import log
     from trivy_tpu_torch.cli import run
     from trivy_tpu_torch.db import generations
     from trivy_tpu_torch.native import collect as ncollect
@@ -2009,7 +2127,11 @@ def sbom_cli_path(db, tmp: str) -> dict:
         if not ncollect.available():
             print("phase7 native collector did not build (g++)")
             raise AssertionError("native collector unavailable")
-        cli_golden(tmp)
+        dprof = cli_golden(tmp)
+        print(f"phase7 device_profile card={card_line()!r} "
+              f"{json.dumps(dprof)}")
+        if not dprof["ok"]:
+            raise AssertionError(f"torch.profiler capture: {dprof}")
 
         os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
         # a generation-managed root: gen A's digest is its directory
@@ -2038,15 +2160,26 @@ def sbom_cli_path(db, tmp: str) -> dict:
         reports = {}
         prof = {}
         # the warm run records its scan in a monitor index (phase 14)
+        # and runs traced, its log lines JSON on a captured stderr
         mon7 = os.path.join(tmp, "monitor7.jsonl")
+        export7 = os.path.join(tmp, "warm_trace.json")
+        warm_log = io.StringIO()
         warm_engine = None
         for name, extra in (("cold", []),
-                            ("warm", ["--monitor-index", mon7]),
+                            ("warm", ["--monitor-index", mon7,
+                                      "--trace-export", export7,
+                                      "--log-format", "json"]),
                             ("no_tpu", ["--no-tpu"])):
             reports[name] = os.path.join(tmp, f"{name}.json")
             if name == "no_tpu":
                 runs[name] = cli_run(argv + extra, reports[name],
                                      tiers=False)
+            elif name == "warm":
+                with contextlib.redirect_stderr(warm_log):
+                    runs[name], prof[name] = cli_profiled(
+                        [a for a in argv if a != "--quiet"] + extra,
+                        reports[name])
+                log.init(quiet=True)
             else:
                 runs[name], prof[name] = cli_profiled(argv + extra,
                                                       reports[name])
@@ -2078,6 +2211,14 @@ def sbom_cli_path(db, tmp: str) -> dict:
         print(f"phase7 reports_diff_vs_no_tpu={diff}")
         if diff:
             raise AssertionError("device reports differ from --no-tpu")
+        traced = traced_run_checks(export7, warm_log.getvalue(),
+                                   reports["warm"], reports["cold"])
+        print(f"phase7 traced card={card_line()!r} spans={traced['spans']} "
+              f"log_lines={traced['log_lines']} "
+              f"chain={'>'.join(TRACE_CHAIN)} "
+              f"report_equals_cold={traced['report_equals_cold']} "
+              f"wall_s={runs['warm']['wall_s']:.3f} "
+              f"untraced_warm_wall_s_before={UNTRACED_WARM_WALL_S}")
         if runs["cold"]["compile_cache"] != "miss" or \
                 runs["warm"]["compile_cache"] != "hit":
             raise AssertionError("the warm run did not hit the compiled "
@@ -2710,6 +2851,13 @@ REPORT_FORMATS = (("sarif", ()), ("cyclonedx", ()), ("spdx-json", ()),
 # joined: 17.3 s of phase 10 on an H100 host, the three cut 14.0 of it;
 # PERF.md §5)
 CONVERT_FORMATS = (("spdx-json", ()), ("github", ()), ("cosign-vuln", ()))
+# (a)'s formats that also run with --no-tpu: the card's and the host's
+# paths meet at one Report (phase 9 holds their json reports equal, (c)
+# the attestation's), and every writer is host code reading it either
+# way; a structured writer and the text one keep the cross-path check
+# (all seven ran twice before the observability checks joined: 37 s of
+# phase 10 on an H100 host, the five cut 25 s of it; PERF.md §5)
+HOST_TWIN_FORMATS = ("sarif", "table")
 N_VEX_PAIRS = 50
 VEX_SEED = 20261018
 
@@ -2807,10 +2955,10 @@ def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
     SBOM and VEX on the card, in process through
     trivy_tpu_torch.cli.main.main, on phase 7's saved DB (its device and
     host engines already loaded) and phase 9's blob caches. (a) `image
-    --input` of phase 9's docker-save archive in each of REPORT_FORMATS,
-    on the card on phase 9 (a)'s cache and with --no-tpu on (b)'s
-    (every layer a dedupe hit): each pair byte for byte, every device
-    run launching all three match tiers; (b) `convert` of phase 9 (a)'s
+    --input` of phase 9's docker-save archive in each of REPORT_FORMATS
+    on the card on phase 9 (a)'s cache, and those of HOST_TWIN_FORMATS
+    with --no-tpu on (b)'s (every layer a dedupe hit): each pair byte
+    for byte, every device run launching all three match tiers; (b) `convert` of phase 9 (a)'s
     json report into CONVERT_FORMATS; (c) phase 7's SBOM
     in a cosign DSSE envelope, scanned on the card and with --no-tpu:
     bare, its results those of phase 7's warm report, and with `--vex`
@@ -2841,6 +2989,8 @@ def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
             argv = base + ["--format", fmt, *extra]
             dev = go(f"a_{fmt}", argv + ["--cache-dir",
                                          p9["caches"]["device"]], fmt)
+            if fmt not in HOST_TWIN_FORMATS:
+                continue
             host = go(f"a_{fmt}_no_tpu",
                       argv + ["--cache-dir", p9["caches"]["host"],
                               "--no-tpu"], fmt)
@@ -3157,8 +3307,7 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
     through trivy_tpu_torch.cli.main.main, on phase 7's saved DB (its
     engines warm) with the probe off, so the device share always runs.
     (c) phase 8's fs tree as a raw ext4 image (mkfs.ext4 -d), scanned on
-    the card (traced: the device idle share) and with --no-tpu: equal
-    bytes, every tree file walked
+    the card (traced: the device idle share): every tree file walked
     (lost+found holds none), the findings the plants make, all three
     match tiers and the anchor screen launched. (d) phase 8's rootfs
     tree as one ext4 filesystem in four containers (raw, an MBR
@@ -3216,8 +3365,11 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
               f"{n_bytes} image_bytes={img['bytes']} "
               f"mkfs_s={img['mkfs_s']:.3f} "
               f"features={','.join(img['features'])}")
+        # no --no-tpu twin of the full tree: phase 8 holds its `fs` scan
+        # on the card to `fs --no-tpu`, and (d) holds the vm path's to
+        # --no-tpu on the rootfs disk (the twin cost 28 s of phase 11 on
+        # an H100 host; PERF.md §5)
         go("c_vm", ["vm", full], profiled=True)
-        go("c_vm_no_tpu", ["vm", full, "--no-tpu"])
 
         # (d) the rootfs tree in four containers
         disks = {k: os.path.join(tmp, f"rootfs.{k}") for k in (
@@ -3279,7 +3431,7 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
             "b_branch": planted_in(corpus, kinds, revs["release"])}
     found = {k: runs[k]["secret_findings"] for k in want}
     diffs = {name: int(body(name) != body(f"{name}_no_tpu")) for name in (
-        "c_vm", "d_raw", "d_custom", "b_tag", "b_commit", "b_branch")}
+        "d_raw", "d_custom", "b_tag", "b_commit", "b_branch")}
     diffs.update({f"{k}_results": int(results(k) != results("d_raw"))
                   for k in ("d_mbr", "d_gpt", "d_vmdk")})
     diffs["b_tag_vs_commit_results"] = int(
@@ -3336,6 +3488,9 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
 # limit, PERF.md §5)
 N_BURST = 16
 N_ALONE = 4  # of (c)'s scans, rescanned alone
+# (c)'s scheduled burst before the server held the attribution sink
+# (NVIDIA H100 80GB HBM3, 700 W): this run's wall prints beside it
+SCHED_BURST_WALL_S = 27.512
 BURST_SEED = 20261019
 BURST_PKGS = (50, 3_000)  # packages per burst blob, log-uniform
 RELOAD_SEED = 20261020
@@ -3657,6 +3812,85 @@ def burst_run(addr: str, keys: list[str], profiled: bool) -> dict:
     return out
 
 
+def metric_counts(text: bytes) -> dict:
+    """{(name, labels): value} of a /metrics (0.0.4) exposition."""
+    out = {}
+    for ln in text.decode().splitlines():
+        if ln and not ln.startswith("#"):
+            series, value = ln.rsplit(" ", 1)
+            name, _, labels = series.partition("{")
+            out[(name, labels.rstrip("}"))] = float(value)
+    return out
+
+
+def server_obs_checks(srv, before: dict, stats: dict, n_scans: int,
+                      tmp: str) -> dict:
+    """After the burst, on its server: /metrics moved by the burst
+    (the batch-rows histogram counts the scheduler's batches, the detect
+    phase's counts the scans served), /debug/profile (device_dispatch
+    busy, the critical seconds with `other` summing to the wall),
+    /debug/flight (a Chrome document), /debug/usage (the clients'
+    tenant and its scans), and the `profile` and `usage` commands on the
+    server, each rc 0."""
+    import io
+
+    from trivy_tpu_torch.cli import main as cli_main
+
+    addr = srv.address
+    status, body = http_get(addr + "/metrics")
+    after = metric_counts(body)
+
+    def moved(name: str, labels: str = "") -> float:
+        key = (name, labels)
+        return after.get(key, 0.0) - before.get(key, 0.0)
+
+    out = {"metrics_status": status,
+           "batch_rows_count": moved("trivy_tpu_sched_batch_rows_count"),
+           "detect_count": moved("trivy_tpu_scan_phase_seconds_count",
+                                 'phase="detect"'),
+           "scans_total": moved("trivy_tpu_scans_total")}
+    t0 = time.perf_counter()
+    prof = json.loads(http_get(addr + "/debug/profile")[1])
+    lanes = prof["lanes"]
+    crit = sum(row["crit_s"] for row in lanes.values())
+    out["profile"] = {
+        "scans": prof["scans"], "wall_s": prof["wall_s"],
+        "verdict": prof["verdict"],
+        "device_dispatch_busy_s": lanes["device_dispatch"]["busy_s"],
+        "crit_plus_other_s": crit + prof["other_s"]}
+    flight = json.loads(http_get(addr + "/debug/flight")[1])
+    out["flight_events"] = len(flight.get("traceEvents", []))
+    usage_doc = json.loads(http_get(addr + "/debug/usage")[1])
+    tenants = usage_doc["tenants"]
+    out["usage"] = {"tenants": sorted(tenants),
+                    "anonymous_scans": tenants.get("anonymous", {})
+                    .get("fields", {}).get("scans", 0.0),
+                    "conservation_ok": usage_doc["conservation"]["ok"]}
+    rcs = {}
+    for cmd in ("profile", "usage"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rcs[cmd] = cli_main.main(
+                [cmd, addr, "--quiet"]
+                + (["--flight", os.path.join(tmp, "flight.json")]
+                   if cmd == "profile" else []))
+        out[f"{cmd}_lines"] = len(buf.getvalue().splitlines())
+    out["commands_rc"] = rcs
+    out["debug_s"] = time.perf_counter() - t0
+    ok = (status == 200 and out["batch_rows_count"] == stats["batches"]
+          and out["detect_count"] == out["scans_total"] == n_scans
+          and out["profile"]["device_dispatch_busy_s"] > 0
+          and abs(out["profile"]["crit_plus_other_s"]
+                  - prof["wall_s"]) < 1e-3
+          and out["flight_events"] > 0
+          and out["usage"]["anonymous_scans"] >= n_scans
+          and out["usage"]["conservation_ok"]
+          and rcs == {"profile": 0, "usage": 0})
+    if not ok:
+        raise AssertionError(f"burst server observability: {out}")
+    return out
+
+
 def burst(engine, p7: dict, tmp: str) -> dict:
     """(c) a burst at full width, in process: a Server on the engine the
     process holds (phase 7's 2 M DB on the card), N_BURST seeded blobs
@@ -3685,6 +3919,7 @@ def burst(engine, p7: dict, tmp: str) -> dict:
         srv.start()
         try:
             sched = srv.service.scheduler
+            before = metric_counts(http_get(srv.address + "/metrics")[1])
             out["sched"] = r = burst_run(srv.address, keys, profiled=True)
             out["stats"] = dict(sched.stats)
             alone = {}
@@ -3699,6 +3934,8 @@ def burst(engine, p7: dict, tmp: str) -> dict:
             out["alone_diff"] = sum(alone[k] != r["responses"][k]
                                     for k in alone)
             out["sheds"] = srv.service.metrics.scans_shed_total
+            out["obs"] = server_obs_checks(srv, before, dict(sched.stats),
+                                           len(keys) + N_ALONE, tmp)
         finally:
             srv.shutdown()
         os.environ["TRIVY_TPU_SCHED"] = "0"
@@ -3891,6 +4128,9 @@ def server_path(dev, srv: dict, p7: dict, p8: dict, p9: dict,
                                  f"{c['stats']}")
         if not all(s["per_tier"].values()):
             raise AssertionError("burst: a match tier was never launched")
+        print(f"phase12 (c) burst obs card={card!r} "
+              f"{json.dumps(c['obs'])} sched_wall_s={s['wall_s']:.3f} "
+              f"sched_wall_s_before={SCHED_BURST_WALL_S}")
 
         b = collect_clients(procs)
         procs = {}

@@ -207,7 +207,7 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
     assert capsys.readouterr().out == GOLDEN.read_text()
 
 
-@pytest.mark.parametrize("flag", [["--trace"], ["--journal", "j.log"],
+@pytest.mark.parametrize("flag", [["--targets", "t.txt"], ["--journal", "j.log"],
                                   ["--fallback"],
                                   ["--ignore-policy", "p.yaml"],
                                   ["--compliance", "docker-cis-1.6.0"]])

@@ -257,9 +257,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
     either), a CPU secret scan on every path, the keyword prefilter, a CPU sbom scan through the
     port's CLI (DB save and load, compiled-DB cache, native collect),
     a `--monitor-index` scan and a `watch --once` after a DB update,
-    and a client scan against an in-process port server (the scheduler,
-    the JSON and columnar wires, Twirp) loads no jax module and nothing
-    of the JAX package."""
+    a traced scan (`--trace-export`, `--log-format json` and the
+    torch.profiler capture), and a client scan against an in-process
+    port server (the scheduler, the JSON and columnar wires, Twirp,
+    `/metrics` and `/debug/*`) loads no jax module and nothing of the
+    JAX package."""
     code = """
 import sys
 before = set(sys.modules)
@@ -305,6 +307,14 @@ for _ in range(2):
     assert main(["sbom", tmp + "/bom.json", "--db-path", tmp + "/db",
                  "--cache-dir", tmp + "/c", "--device", "cpu", "--quiet",
                  "--format", "json", "--output", tmp + "/r.json"]) == 0
+os.environ["TRIVY_TPU_JAX_TRACE_DIR"] = tmp + "/prof"
+assert main(["sbom", tmp + "/bom.json", "--db-path", tmp + "/db",
+             "--cache-dir", tmp + "/c", "--device", "cpu",
+             "--log-format", "json", "--trace-export", tmp + "/t.json",
+             "--format", "json", "--output", tmp + "/r.json"]) == 0
+del os.environ["TRIVY_TPU_JAX_TRACE_DIR"]
+assert len(os.listdir(tmp + "/prof")) == 1
+assert json.load(open(tmp + "/t.json"))["traceEvents"]
 assert main(["sbom", tmp + "/bom.json", "--db-path", tmp + "/db",
              "--cache-dir", tmp + "/c", "--device", "cpu", "--quiet",
              "--monitor-index", tmp + "/mon.jsonl"]) == 0
@@ -329,6 +339,11 @@ try:
     for _ in range(2):  # the JSON wire, then the columnar one
         RemoteDriver(srv.address).scan("t", "", ["sha256:b"], ScanOptions())
     assert srv.service.scheduler.stats["batches"] == 0  # no packages
+    import urllib.request
+    for path in ("/metrics", "/debug/profile", "/debug/flight",
+                 "/debug/usage"):
+        with urllib.request.urlopen(srv.address + path) as r:
+            assert r.status == 200
     assert twirp.encode_message("OS", {"family": "debian"})
 finally:
     close_pool()
@@ -352,7 +367,8 @@ print("\\n".join(sorted(set(sys.modules) - before)))
                    "resilience.retry", "obs.usage", "monitor.watch",
                    "monitor.rematch", "monitor.delta", "monitor.index",
                    "monitor.capture", "durability.appendlog",
-                   "durability.journal"):
+                   "durability.journal", "obs.metrics", "obs.tracing",
+                   "obs.attrib", "analysis.witness"):
         assert f"trivy_tpu_torch.{module}" in loaded, module
     assert "trivy_tpu_torch.native.collect" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -361,15 +377,15 @@ print("\\n".join(sorted(set(sys.modules) - before)))
 PORT_SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "trivy_tpu_torch").rglob("*.py"),
-              ROOT / "chip_smoke.py"])
+              ROOT / "chip_smoke.py", ROOT / "profile_window.py"])
 
 
 def test_static_scan_covers_every_slice():
     """The static scan below walks every port source, those of the image
     and db slice, of the report, VEX and attestation slice, of the
     repository and vm slice, of the server and scheduler slice, of the
-    serving mesh, of continuous monitoring and of cross-host serving
-    included."""
+    serving mesh, of continuous monitoring, of cross-host serving and
+    of observability included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -390,7 +406,9 @@ def test_static_scan_covers_every_slice():
                    "monitor/__init__.py", "monitor/capture.py",
                    "monitor/delta.py", "monitor/index.py",
                    "monitor/rematch.py", "monitor/watch.py",
-                   "ops/dcn.py", "ops/dcn_dryrun.py"):
+                   "ops/dcn.py", "ops/dcn_dryrun.py", "obs/__init__.py",
+                   "obs/metrics.py", "obs/tracing.py", "obs/attrib.py",
+                   "analysis/witness.py", "utils/trace.py", "log.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

@@ -391,7 +391,7 @@ def test_unported_list_is_reference_dests_minus_ports(cmd):
                                         ("license_full", "true"),
                                         ("journal", "j.log"),
                                         ("redis_tls", "1"),
-                                        ("trace", "1")])
+                                        ("resume", "1")])
 def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
                                              capsys, monkeypatch, cmd,
                                              dest, value):
@@ -429,7 +429,7 @@ def test_unported_option_from_config_file_is_refused(dbs, mk_rootfs,
 
 @pytest.mark.parametrize("cmd", ["fs", "rootfs"])
 @pytest.mark.parametrize("env,doc", [
-    ({"TRIVY_TPU_TRACE": "0"}, ""),
+    ({"TRIVY_TPU_RESUME": ""}, ""),
     ({"TRIVY_TPU_MESH": ""}, ""),
     ({"TRIVY_TPU_MESH": "off"}, ""),
     ({"TRIVY_TPU_VEX": "", "TRIVY_TPU_FLEET_PARALLEL": "1"}, ""),
@@ -438,7 +438,7 @@ def test_unported_option_from_config_file_is_refused(dbs, mk_rootfs,
     ({}, "vex: []\nserver: ''\nlog-format: text\n"),
     # the environment wins over the config file, as for every option
     ({"TRIVY_TPU_SHOW_SUPPRESSED": "0"}, "show-suppressed: true\n"),
-], ids=["trace-0", "mesh-empty", "mesh-off", "vex-empty", "false",
+], ids=["resume-empty", "mesh-empty", "mesh-off", "vex-empty", "false",
         "config-defaults", "env-over-config"])
 def test_unset_values_of_unported_options_are_accepted(
         dbs, mk_rootfs, tmp_path, capsys, monkeypatch, cmd, env, doc):
@@ -517,7 +517,8 @@ def test_ported_options_from_env_and_config_equal_reference(
 
 @pytest.mark.parametrize("flag", [["--ignore-policy", "p.yaml"],
                                   ["--fallback"],
-                                  ["--license-full"], ["--trace"]])
+                                  ["--license-full"],
+                                  ["--resume", "j.jsonl"]])
 def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):
     with pytest.raises(SystemExit) as exc, \
             contextlib.redirect_stderr(io.StringIO()):

@@ -285,7 +285,7 @@ def test_readyz_not_ready_while_draining_equals_reference(servers):
 
 
 @pytest.mark.parametrize("method,path", [
-    ("GET", "/metrics"), ("GET", "/debug/profile"),
+    ("POST", "/fleet/drain"), ("POST", "/fleet/reresolve"),
     ("POST", "/fleet/rescore"), ("POST", "/fleet/reload")])
 def test_unported_routes_answer_404(servers, method, path):
     status, _h, body = _raw(servers["port"].address, method, path,
@@ -1027,8 +1027,8 @@ def test_cross_host_server_spec_without_workers_is_one_line(
 
 @pytest.mark.parametrize("spec", ["fleet.endpoint:timeout",
                                   "db.save:torn-write",
-                                  "analysis.fetch:delay=1",
-                                  "db.download:bitflip",
+                                  "fleet.rollout:delay=1",
+                                  "report.write:bitflip",
                                   "sched.submit:kill",
                                   "rpc.wire:timeout"])
 def test_unported_fault_spec_is_refused(spec):

@@ -6,8 +6,8 @@ docker -> podman -> remote registry): here the tar-archive path
 (docker save / OCI layout) is first-class; daemon/registry clients plug in
 behind the same interface when available.
 
-Copy of trivy_tpu/artifact/image.py without the fleet journal, the
-metrics and the tracing spans. Two changes: the image config's secret
+Copy of trivy_tpu/artifact/image.py without the fleet journal. Two
+changes: the image config's secret
 scan builds its scanner for the device the CLI resolved
 (`secret_analyzer.DEVICE`), and `stats` keeps the seconds of the last
 inspect, summed over the walk lanes under a lock: the layer split with
@@ -38,6 +38,8 @@ from trivy_tpu_torch.fanal.analyzer import AnalysisResult, AnalyzerGroup
 from trivy_tpu_torch.fanal.handlers import system_file_filter
 from trivy_tpu_torch.fanal.walker import walk_layer_tar
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
 from trivy_tpu_torch.secret.scanner import hybrid_probe_state
 from trivy_tpu_torch.types.artifact import ArtifactInfo, Package, Secret
 
@@ -309,6 +311,7 @@ class ImageArtifact:
                 # cached at probe time (earlier scan) or a duplicate
                 # diffID inside this image: no analysis
                 stats["deduped"] += 1
+                obs_metrics.LAYER_DEDUPE_HITS.inc()
                 continue
             seen.add(blob_id)
             todo.append((last_occurrence[blob_id], diff_id, blob_id))
@@ -331,8 +334,9 @@ class ImageArtifact:
         def walk(item, layer):
             i, diff_id, blob_id = item
             walked = self._split_layer(img, i, layer)
-            return self._analyze_members(group_for(diff_id), img, i,
-                                         diff_id, blob_id, walked)
+            return pipeline.lane_with_retry(
+                lambda: self._analyze_members(group_for(diff_id), img, i,
+                                              diff_id, blob_id, walked))
 
         def apply(item, doc):
             _i, _diff_id, blob_id = item
@@ -377,20 +381,27 @@ class ImageArtifact:
         leader failure, contend to become the new leader and analyze."""
         for _ in range(8):  # each round either resolves or re-claims
             stats["inflight_waits"] += 1
-            # parked on another scan's in-flight analysis of this layer
-            slot.event.wait(pipeline._INPROC_WAIT_S)
+            obs_metrics.LAYER_DEDUPE_INFLIGHT_WAITS.inc()
+            # queue_wait attribution lane: parked on another scan's
+            # in-flight analysis of this same layer
+            with tracing.span("analysis.dedupe.wait"):
+                slot.event.wait(pipeline._INPROC_WAIT_S)
             if slot.ok:
                 if slot.doc is not None and slot.src_cache is not self.cache:
                     # the leader analyzed into a different cache handle
                     # (separate scans); replay the doc into ours
                     self.cache.put_blob(blob_id, slot.doc)
                 stats["deduped"] += 1
+                obs_metrics.LAYER_DEDUPE_HITS.inc()
                 return
             slot, leader = pipeline.SINGLEFLIGHT.claim(blob_id, self.cache)
             if leader:
+                # same one-refetch-on-error fetch as the pipeline path
+                # (fault-matrix parity)
                 self._lead_analyze(
                     group, img, i, diff_id, blob_id, slot, stats,
-                    layer=self._layer_source(img, i))
+                    layer=pipeline.fetch_with_retry(
+                        lambda: self._layer_source(img, i)))
                 return
         # pathological churn: analyze unconditionally (idempotent write)
         self._inspect_layer(group, img, i, diff_id, blob_id)
@@ -461,9 +472,10 @@ class ImageArtifact:
         return dataclasses.asdict(blob)
 
     def _apply_blob(self, blob_id: str, doc: dict) -> None:
-        """Apply half: the cache write — coordinator-only in the lanes
-        path, so writes land strictly in layer order."""
+        """Apply half: the cache write and counter — coordinator-only
+        in the lanes path, so writes land strictly in layer order."""
         self.cache.put_blob(blob_id, doc)
+        obs_metrics.LAYERS_ANALYZED.inc()
 
     def _inspect_layer(self, group, img, i: int, diff_id: str,
                        blob_id: str, layer=None) -> dict:

@@ -7,7 +7,7 @@ Backends: in-memory and filesystem JSON (the reference's BoltDB fs cache,
 pkg/cache/fs.go, re-expressed as one JSON file per key).
 
 Copy of trivy_tpu/cache/cache.py without the redis backend;
-corrupt-entry evictions are counted in `corrupt_evictions()`.
+corrupt-entry evictions are counted in trivy_tpu_cache_corrupt_total.
 """
 
 from __future__ import annotations
@@ -17,25 +17,26 @@ import hashlib
 import json
 import os
 import re
-import threading
 from dataclasses import asdict
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.durability import atomic
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.types.artifact import ArtifactInfo, BlobInfo
 
 _log = logger("cache")
 
-_corrupt = {"evictions": 0}
-
 
 def corrupt_evictions() -> int:
-    """Corrupt-entry evictions across every FSCache in the process."""
-    return _corrupt["evictions"]
+    """Corrupt-entry evictions across every FSCache in the process
+    (the trivy_tpu_cache_corrupt_total counter, kept as a function for
+    historical callers)."""
+    return int(obs_metrics.CACHE_CORRUPT.value())
 
 
 def _count_corrupt_eviction() -> None:
-    _corrupt["evictions"] += 1
+    obs_metrics.CACHE_CORRUPT.inc()
 
 
 def cache_key(
@@ -131,7 +132,7 @@ class FSCache(MemoryCache):
         from collections import OrderedDict
 
         self._stash: "OrderedDict[tuple[str, str], dict]" = OrderedDict()
-        self._stash_lock = threading.Lock()
+        self._stash_lock = make_lock("cache.cache._stash_lock")
 
     def _stash_put(self, bucket: str, key: str, doc: dict) -> None:
         with self._stash_lock:

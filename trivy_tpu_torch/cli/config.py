@@ -36,13 +36,12 @@ UNPORTED = {
     "generate_default_config": (False,), "helm_set": ([],),
     "helm_values": ([],), "ignore_policy": (None, ""),
     "include_deprecated_checks": (False,), "journal": (None, ""),
-    "license_full": (False,), "log_format": ("text",),
+    "license_full": (False,),
     "module_dir": (None,),
     "redis_ca": ("",), "redis_cert": ("",), "redis_insecure": (False,),
     "redis_key": ("",), "redis_tls": (False,), "report": ("summary",),
     "resume": (None, ""), "skip_check_update": (False,),
-    "targets": (None, ""), "trace": (False,),
-    "trace_export": (None, ""),
+    "targets": (None, ""),
 }
 
 

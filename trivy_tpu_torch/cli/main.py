@@ -1,7 +1,8 @@
 """trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
 `rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db`, `server`,
-`watch` and `version` subcommands of trivy_tpu/cli/main.py, with the
-match kernel and the secret screens on a CUDA card.
+`watch`, `profile`, `usage` and `version` subcommands of
+trivy_tpu/cli/main.py, with the match kernel and the secret screens on
+a CUDA card.
 
     python -m trivy_tpu_torch image --input image.tar --format sarif
     python -m trivy_tpu_torch sbom bom.json --format json --vex vex.json
@@ -15,6 +16,9 @@ match kernel and the secret screens on a CUDA card.
     python -m trivy_tpu_torch sbom bom.json --monitor-index mon.jsonl
     python -m trivy_tpu_torch watch --db-path DB --index mon.jsonl --once
     python -m trivy_tpu_torch watch --server http://host:4954
+    python -m trivy_tpu_torch sbom bom.json --trace-export t.json --log-format json
+    python -m trivy_tpu_torch profile http://host:4954 --flight f.json
+    python -m trivy_tpu_torch usage http://host:4954
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -38,6 +42,11 @@ from trivy_tpu_torch import log
 def _add_global_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--debug", action="store_true", help="debug logging")
     p.add_argument("--quiet", "-q", action="store_true", help="suppress logs")
+    p.add_argument("--log-format", default="text",
+                   choices=("text", "json"),
+                   help="log line format; json emits one object per "
+                        "line with trace_id/span_id/scan_id correlation "
+                        "fields (log pipelines)")
     p.add_argument("--config", "-c", default=None,
                    help="config file (default trivy-tpu.yaml if present)")
     p.add_argument(
@@ -107,6 +116,15 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                         "over 10 MiB (byte-identical to whole-file; "
                         "default 4; env "
                         "TRIVY_TPU_SECRET_STREAM_CHUNK_MB)")
+    p.add_argument("--trace", action="store_true",
+                   help="print a stage-timing trace after the scan "
+                        "(set TRIVY_TPU_JAX_TRACE_DIR for a "
+                        "torch.profiler capture of the device)")
+    p.add_argument("--trace-export", default=None, metavar="FILE",
+                   help="write the collected spans as Chrome "
+                        "trace-event JSON (open in Perfetto / "
+                        "chrome://tracing); implies span collection "
+                        "even without --trace")
     p.add_argument("--timeout", default="5m",
                    help="per-scan deadline (e.g. 300s, 5m, 1h; "
                         "reference --timeout default 5m)")
@@ -339,6 +357,46 @@ def build_parser() -> argparse.ArgumentParser:
     _add_db_parser(sub)
     _add_server_parser(sub)
     _add_watch_parser(sub)
+
+    p = sub.add_parser(
+        "profile", help="fetch a live server's bottleneck attribution "
+        "(/debug/profile): per-resource-lane occupancy, critical-path "
+        "shares, the roofline verdict, and the slow-scan flight "
+        "recorder (docs/observability.md)", allow_abbrev=False)
+    _add_global_flags(p)
+    p.add_argument("server", help="scan server URL (e.g. "
+                                  "http://localhost:4954)")
+    p.add_argument("--token", default=None,
+                   help="server auth token (or the dedicated "
+                        "TRIVY_TPU_PROFILE_TOKEN)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw /debug/profile document")
+    p.add_argument("--flight", default=None, metavar="FILE",
+                   help="also fetch /debug/flight (the N slowest scan "
+                        "traces) as Chrome trace-event JSON to FILE")
+
+    p = sub.add_parser(
+        "usage", help="fetch a live server's per-tenant usage metering "
+        "(/debug/usage): cost vectors per tenant hash, fleet totals, "
+        "and the lane-second conservation check (docs/observability.md "
+        "'Usage metering')", allow_abbrev=False)
+    _add_global_flags(p)
+    p.add_argument("server", nargs="?", default=None,
+                   help="scan server URL (e.g. http://localhost:4954); "
+                        "omit with --journal to read a usage journal "
+                        "file instead")
+    p.add_argument("--token", default=None,
+                   help="server auth token (or the dedicated "
+                        "TRIVY_TPU_PROFILE_TOKEN)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw usage document")
+    p.add_argument("--top", type=int, default=None, metavar="K",
+                   help="show only the K tenants with the most "
+                        "lane-seconds (default: all)")
+    p.add_argument("--journal", default=None, metavar="PATH",
+                   help="render the last durable snapshot from a usage "
+                        "journal (TRIVY_TPU_USAGE_JOURNAL) instead of "
+                        "querying a live server")
     sub.add_parser("version", help="print version", allow_abbrev=False)
     return parser
 
@@ -357,7 +415,8 @@ def main(argv: list[str] | None = None) -> int:
         print(str(e), file=sys.stderr)
         return 1
     log.init(debug=getattr(args, "debug", False),
-             quiet=getattr(args, "quiet", False))
+             quiet=getattr(args, "quiet", False),
+             fmt=getattr(args, "log_format", "text"))
 
     if args.command is None:
         parser.print_help()
@@ -377,6 +436,10 @@ def main(argv: list[str] | None = None) -> int:
             return run.run_server(args)
         if args.command == "watch":
             return run.run_watch(args)
+        if args.command == "profile":
+            return run.run_profile(args)
+        if args.command == "usage":
+            return run.run_usage(args)
         return run.run_scan(args)
     except run.FatalError as e:
         log.logger().error(str(e))

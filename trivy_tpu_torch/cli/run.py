@@ -5,12 +5,14 @@ Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
 `filesystem` / `fs`, `rootfs`, `repository` / `repo` and `vm` scans
 (each with `--monitor-index`), their client mode (`--server`: analysis
 here, detection on one scan server; no `--fallback`), and the
-`convert`, `db`, `server` and `watch` subcommands: no fleet mode
-(`--targets`, `--journal`), compliance, modules, ignore policies or
-tracing yet. The match engine and the secret analyzer's screen run on
-the device `--device` names (``cuda:0`` by default), the engine's main
-tier on the serving mesh `--mesh` names; `--no-tpu` takes the host
-paths of both.
+`convert`, `db`, `server`, `watch`, `profile` and `usage` subcommands:
+no fleet mode (`--targets`, `--journal`), compliance, modules or ignore
+policies yet. `--trace` / `--trace-export` collect the run's spans
+under one `scan` root and render or export them; `profile` and `usage`
+read one server (a comma-separated replica set is not ported yet). The
+match engine and the secret analyzer's screen run on the device
+`--device` names (``cuda:0`` by default), the engine's main tier on the
+serving mesh `--mesh` names; `--no-tpu` takes the host paths of both.
 
 `STATS` keeps the wall seconds of the last scan's phases, split by this
 module's own code: DB load, engine build (compile or compiled-cache
@@ -26,6 +28,7 @@ detect, report render. A `vm` scan keeps the image scan's split:
 from __future__ import annotations
 
 import os
+import sys
 import time
 
 from trivy_tpu_torch.log import logger
@@ -263,9 +266,33 @@ def run_scan(args) -> int:
     jdb_path = javadb.default_path(args.cache_dir)
     javadb.configure(jdb_path if os.path.exists(jdb_path) else None)
 
+    from trivy_tpu_torch.obs import tracing as trace
+
+    trace_export = getattr(args, "trace_export", None)
+    tracing_on = getattr(args, "trace", False) or bool(trace_export)
+    if tracing_on:
+        trace.enable(True)
+        trace.reset()
     try:
-        rc = _run_scan_core(args)
+        # one root span covers the whole command (scan + report), so a
+        # traced run exports a single tree under a single trace id
+        with trace.span("scan", command=args.command):
+            rc = _run_scan_core(args)
     finally:
+        if tracing_on:
+            try:
+                if getattr(args, "trace", False):
+                    trace.render(sys.stderr)
+                if trace_export:
+                    n = trace.export_chrome(trace_export)
+                    _log.info("trace exported", path=trace_export, spans=n)
+            except OSError as e:
+                # a bad export path must not eat the finished scan's
+                # exit status (and enable(False) below must still run)
+                _log.error("trace export failed", path=trace_export,
+                           err=str(e))
+            finally:
+                trace.enable(False)
         for k, v in inherited.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -315,16 +342,21 @@ def _scan_with_timeout(scanner, options, timeout_s: float,
     import threading
 
     from trivy_tpu_torch.monitor import capture as mon_capture
+    from trivy_tpu_torch.obs import tracing, usage
 
     box: dict = {}
-    # the monitor's scan capture (a contextvar) must follow the scan
-    # onto the worker thread, which starts from an empty context, or a
-    # --monitor-index scan records an empty inventory
+    # the worker thread starts from an empty contextvars context: the
+    # trace context (span, scan id), the usage scope and the monitor's
+    # scan capture must follow the scan onto it, or its spans orphan
+    # and a --monitor-index scan records an empty inventory
+    trace_ctx = tracing.capture()
+    usage_ctx = usage.capture()
     mon_ctx = mon_capture.current()
 
     def work():
         try:
-            with mon_capture.adopt(mon_ctx):
+            with tracing.adopt(trace_ctx), usage.adopt(usage_ctx), \
+                    mon_capture.adopt(mon_ctx):
                 if budget_s:
                     from trivy_tpu_torch.resilience.retry import (
                         Deadline,
@@ -427,10 +459,14 @@ def _run_scan_core(args) -> int:
         finally:
             mon_index.close()
     severities = _postprocess_report(args, report)
+    from trivy_tpu_torch import obs
+
     t0 = time.perf_counter()
-    write_report(report, fmt=args.format, output=args.output,
-                 template=args.template, severities=severities,
-                 dependency_tree=getattr(args, "dependency_tree", False))
+    with obs.phase("report"):
+        write_report(report, fmt=args.format, output=args.output,
+                     template=args.template, severities=severities,
+                     dependency_tree=getattr(args, "dependency_tree",
+                                             False))
     STATS["render_s"] = time.perf_counter() - t0
     return _exit_code(args, report)
 
@@ -628,6 +664,159 @@ def run_server(args) -> int:
           sched_max_rows=getattr(args, "sched_max_rows", None),
           monitor_index=getattr(args, "monitor_index", None))
     return 0
+
+
+def run_profile(args) -> int:
+    """`trivy-tpu profile URL`: render a live server's bottleneck
+    attribution (docs/observability.md "Attribution & profiling") —
+    per-lane busy/critical seconds, the roofline "bound by X" verdict,
+    recent per-scan records, and the slow-scan flight recorder.
+
+    One server: a comma-separated URL (a replica set, federated by the
+    reference) is refused with one line."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    from trivy_tpu_torch.rpc.client import single_url
+
+    base = single_url(args.server, "profile").rstrip("/")
+    if not base.startswith("http"):
+        base = "http://" + base
+
+    def get(path: str) -> dict:
+        req = urllib.request.Request(base + path)
+        if getattr(args, "token", None):
+            req.add_header("Trivy-Token", args.token)
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return _json.loads(r.read().decode())
+
+    try:
+        doc = get("/debug/profile")
+        if getattr(args, "flight", None):
+            fdoc = get("/debug/flight")
+            # a user-requested artifact, not program state: no atomic write
+            with open(args.flight, "w", encoding="utf-8") as f:
+                _json.dump(fdoc, f, indent=1)
+                f.write("\n")
+            print(f"flight ring written: {args.flight} "
+                  f"({len(fdoc.get('traceEvents', []))} events, "
+                  f"{fdoc.get('flightRecorder', {}).get('traces', 0)} "
+                  "traces)")
+    except urllib.error.URLError as e:
+        raise FatalError(f"profile fetch failed: {e}")
+    if getattr(args, "json", False):
+        print(_json.dumps(doc, indent=2, sort_keys=True))
+        return 0
+    if not doc.get("enabled", False) and not doc.get("roots"):
+        print("attribution disabled on this server "
+              "(TRIVY_TPU_ATTRIB=0) or no scans observed yet")
+        return 0
+    print(f"scans observed: {doc.get('scans', 0)}  "
+          f"(roots: {doc.get('roots', 0)}, "
+          f"wall {doc.get('wall_s', 0.0):.3f}s)")
+    print(f"{'lane':<16} {'busy s':>10} {'critical s':>11} {'share':>7}")
+    for lane, row in (doc.get("lanes") or {}).items():
+        print(f"{lane:<16} {row.get('busy_s', 0.0):>10.3f} "
+              f"{row.get('crit_s', 0.0):>11.3f} "
+              f"{row.get('crit_share', 0.0):>7.1%}")
+    print(f"{'other':<16} {'':>10} "
+          f"{doc.get('other_s', 0.0):>11.3f}")
+    print(f"verdict: {doc.get('verdict', '?')}")
+    flight = doc.get("flight") or {}
+    slowest = flight.get("slowest") or []
+    if slowest:
+        print(f"flight recorder (slowest {len(slowest)} of "
+              f"ring {flight.get('n')}):")
+        for r in slowest:
+            print(f"  {r.get('wall_s', 0.0):>9.3f}s  "
+                  f"{r.get('name', ''):<14} "
+                  f"dominant={r.get('dominant', '')} "
+                  f"trace={r.get('trace_id', '')}")
+    return 0
+
+
+def _render_usage_table(tenants: dict, top: int | None) -> None:
+    """Per-tenant cost-vector table, ordered by lane-seconds (the
+    field closest to 'who is spending the fleet')."""
+    rows = []
+    for tenant, rec in tenants.items():
+        f = rec.get("fields") or {}
+        lane_s = sum((rec.get("lanes") or {}).values())
+        rows.append((tenant, f, lane_s))
+    rows.sort(key=lambda r: (-r[2], r[0]))
+    if top is not None:
+        rows = rows[:max(top, 0)]
+    print(f"{'tenant':<20} {'scans':>7} {'sheds':>6} {'queries':>9} "
+          f"{'rows':>10} {'MB in':>8} {'MB out':>8} {'lane s':>9}")
+    for tenant, f, lane_s in rows:
+        print(f"{tenant:<20} {f.get('scans', 0.0):>7.0f} "
+              f"{f.get('sheds', 0.0):>6.0f} "
+              f"{f.get('queries', 0.0):>9.0f} "
+              f"{f.get('rows_matched', 0.0):>10.0f} "
+              f"{f.get('wire_bytes_in', 0.0) / 1e6:>8.3f} "
+              f"{f.get('wire_bytes_out', 0.0) / 1e6:>8.3f} "
+              f"{lane_s:>9.3f}")
+
+
+def run_usage(args) -> int:
+    """`trivy-tpu usage URL`: render per-tenant usage metering
+    (docs/observability.md "Usage metering") — one cost-vector row per
+    tenant hash, fleet totals, and the lane-second conservation check.
+    `--journal PATH` renders the last durable snapshot from a usage
+    journal instead. One server: a comma-separated URL (a replica set,
+    federated by the reference) is refused with one line."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    top = getattr(args, "top", None)
+    journal = getattr(args, "journal", None)
+    if journal:
+        from trivy_tpu_torch.obs import usage as usage_mod
+
+        doc = usage_mod.replay_journal(journal)
+        if getattr(args, "json", False):
+            print(_json.dumps(doc, indent=2, sort_keys=True))
+            return 0
+        print(f"usage journal: {journal}")
+        _render_usage_table(doc.get("tenants") or {}, top)
+        return 0
+    if not getattr(args, "server", None):
+        raise FatalError("usage: provide a server URL or --journal PATH")
+
+    from trivy_tpu_torch.rpc.client import single_url
+
+    base = single_url(args.server, "usage")
+    if not base.startswith("http"):
+        base = "http://" + base
+    base = base.rstrip("/")
+    token = getattr(args, "token", None) \
+        or os.environ.get("TRIVY_TPU_PROFILE_TOKEN")
+    req = urllib.request.Request(base + "/debug/usage")
+    if token:
+        req.add_header("Trivy-Token", token)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            doc = _json.loads(r.read().decode())
+    except urllib.error.URLError as e:
+        raise FatalError(f"usage fetch failed: {e}")
+    if getattr(args, "json", False):
+        print(_json.dumps(doc, indent=2, sort_keys=True))
+        return 0
+    if not doc.get("enabled", True) and not doc.get("tenants"):
+        print("usage metering disabled on this server "
+              "(TRIVY_TPU_USAGE=0) or no scans observed yet")
+        return 0
+    print(f"usage ({len(doc.get('tenants') or {})} tenants, "
+          f"top-N {doc.get('top_n', 0)})")
+    _render_usage_table(doc.get("tenants") or {}, top)
+    cons = doc.get("conservation") or {}
+    print(f"conservation: tenant lane-seconds "
+          f"{cons.get('tenant_lane_s', 0.0):.3f} vs attribution "
+          f"{cons.get('attrib_lane_s', 0.0):.3f} — "
+          f"{'OK' if cons.get('ok') else 'VIOLATION'}")
+    return 0 if cons.get("ok", True) else 1
 
 
 def run_watch(args) -> int:

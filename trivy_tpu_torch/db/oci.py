@@ -12,9 +12,8 @@ lifecycle: extraction into a staged `generations/<digest>` directory
 that is fsynced and atomically renamed, then promoted via the
 `last-good` symlink.
 
-Copy of trivy_tpu/db/oci.py without the fault injector's sites
-(`db.download`, `db.install.extract`, `db.install.promote`): the port
-has no fault injector yet.
+Copy of trivy_tpu/db/oci.py, with its fault sites `db.download`,
+`db.install.extract` and `db.install.promote`.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from trivy_tpu_torch.artifact.image_source import RegistryClient, SourceError, p
 from trivy_tpu_torch.db import generations
 from trivy_tpu_torch.durability import atomic
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.resilience import faults
 
 _log = logger("oci")
 
@@ -91,6 +91,9 @@ def _fetch_layer(ref: str, media_type: str | None, insecure: bool,
         data = client.blob(repo, layer["digest"])
     except SourceError as e:
         raise OCIError(f"artifact blob {ref}: {e}") from e
+    # fault site "db.download": torn-write / bitflip rules mangle the
+    # payload here, which the digest check below must catch
+    data = faults.mangle_write("db.download", data)
     verify_layer(layer, data, ref=ref)
     return data, layer["digest"]
 
@@ -178,6 +181,8 @@ def install_artifact(ref: str, db_root: str,
             raise OCIError(
                 f"artifact {ref} failed validation: {problem}")
         atomic.fsync_tree(staging)
+        # crash point: staging is durable but not yet a generation
+        faults.check_kill("db.install.extract")
         try:
             os.rename(staging, gen_dir)
         except OSError:
@@ -187,9 +192,10 @@ def install_artifact(ref: str, db_root: str,
             # same digest = same verified bytes, so just stand down
             shutil.rmtree(staging, ignore_errors=True)
         atomic.fsync_dir(gen_root)
-    # a crash here leaves the generation installed but last-good still
-    # at the previous one — next start serves the old DB, re-install is
-    # a cheap idempotent promote
+    # crash point: generation installed but last-good still points at
+    # the previous one — next start serves the old DB, re-install is a
+    # cheap idempotent promote
+    faults.check_kill("db.install.promote")
     generations.promote(db_root, gen_dir)
     _log.info("installed OCI artifact generation", ref=ref, digest=digest,
               path=gen_dir)

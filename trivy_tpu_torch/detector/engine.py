@@ -14,7 +14,7 @@ other hosts run in their worker processes, and `close()` ends them.
 
 Device-loss ladders: the fault site ``engine`` (a DeviceLost flips the
 engine to the host oracle for good, logged once and counted in
-`degraded`) and ``engine.device`` (the in-flight stage: delay, drop
+`degraded` and trivy_tpu_degraded_total) and ``engine.device`` (the in-flight stage: delay, drop
 with a second dispatch, device-lost). Any other device error raises.
 
 The oracle path runs the exact check over every advisory for each name via
@@ -26,7 +26,6 @@ oracle's answer for every input.
 from __future__ import annotations
 
 import os
-import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -34,11 +33,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.db.store import AdvisoryDB
 from trivy_tpu_torch.detector.exact import AdvisoryChecker
 from trivy_tpu_torch.device import resolve_device
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.native import collect as ncollect
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
+from trivy_tpu_torch.obs import usage
 from trivy_tpu_torch.ops import match as m
 from trivy_tpu_torch.resilience import faults
 from trivy_tpu_torch.tensorize.compile import (
@@ -109,6 +112,18 @@ def finding_keys(advisories, results) -> set[tuple]:
         (r.query.space, r.query.name, r.query.version,
          r.query.scheme_name, advisories[i][2].vulnerability_id)
         for r in results for i in r.adv_indices}
+
+
+def _meter_rows(results: list[MatchResult]) -> list[MatchResult]:
+    """Accrue matched device rows to the ambient usage scope (no-op for
+    the CLI's scope-less calls). Called only at detect()'s return sites
+    — submit()/match_keys funnel through detect(), and the DeviceLost
+    re-entry accrues in the inner call — so rows are never
+    double-counted."""
+    if usage.ambient() is not None:
+        usage.add("rows_matched",
+                  float(sum(len(r.adv_indices) for r in results)))
+    return results
 
 
 class MatchEngine:
@@ -241,7 +256,7 @@ class MatchEngine:
                            np.empty(0, dtype=bool))
         self._memo_over = (np.empty(0, dtype=np.int64),
                            np.empty(0, dtype=bool))
-        self._memo_lock = threading.Lock()
+        self._memo_lock = make_lock("detector.engine._memo_lock")
         # bumped whenever the version-token space resets: a batch
         # encoded under an older generation must not absorb its (stale
         # token-id) verdicts into the fresh memo
@@ -472,9 +487,10 @@ class MatchEngine:
         if not self.use_device:
             if len(uniq) < len(queries):
                 u = self.oracle_detect(uniq)
-                return [MatchResult(q, u[idx_map[j]].adv_indices)
-                        for j, q in enumerate(queries)]
-            return self.oracle_detect(queries)
+                return _meter_rows(
+                    [MatchResult(q, u[idx_map[j]].adv_indices)
+                     for j, q in enumerate(queries)])
+            return _meter_rows(self.oracle_detect(queries))
         try:
             faults.check_device("engine")
             if len(uniq) < len(queries):
@@ -490,7 +506,7 @@ class MatchEngine:
             # pass dedupes like every other detect call
             return self.detect(queries)
         self._enforce_memo_bounds()
-        return out
+        return _meter_rows(out)
 
     def submit(self, query_lists: list[list[PkgQuery]]
                ) -> list[list[MatchResult]]:
@@ -551,6 +567,7 @@ class MatchEngine:
                   "oracle", err=str(exc))
         with self._memo_lock:
             self.degraded += 1
+        obs_metrics.DEGRADED_TOTAL.inc(component="engine")
         self.use_device = False
         self.device_lost = True
 
@@ -685,18 +702,21 @@ class MatchEngine:
         wait only on each batch's event."""
         cache = self._crawl_cache
         busy = {"encode": 0.0, "crunch": 0.0, "finalize": 0.0}
-        busy_lock = threading.Lock()
+        busy_lock = make_lock("detector.engine.busy_lock")
+        trace_ctx = tracing.capture()
 
         def crunch_stage(ctx, qs):
-            t0 = time.perf_counter()
-            ctx = self._check_device_stage(ctx, qs)
-            ids_c, bounds = self._crunch(ctx)
-            # tolist here (single C calls) so the coordinator's
-            # finalize only pays the per-query slicing
-            crunched = (ids_c.tolist(), bounds.tolist())
-            with busy_lock:
-                busy["crunch"] += time.perf_counter() - t0
-            return crunched
+            with tracing.adopt(trace_ctx):
+                t0 = time.perf_counter()
+                ctx = self._check_device_stage(ctx, qs)
+                with tracing.span("pipeline.crunch", queries=len(qs)):
+                    ids_c, bounds = self._crunch(ctx)
+                    # tolist here (single C calls) so the coordinator's
+                    # finalize only pays the per-query slicing
+                    crunched = (ids_c.tolist(), bounds.tolist())
+                with busy_lock:
+                    busy["crunch"] += time.perf_counter() - t0
+                return crunched
 
         wall0 = time.perf_counter()
         crunch_ex = ThreadPoolExecutor(workers,
@@ -707,11 +727,12 @@ class MatchEngine:
             us, qs, cf = pend.popleft()
             crunched = cf.result()
             t0 = time.perf_counter()
-            hits = self._materialize(crunched, len(qs))
-            for u, h in zip(us, hits):
-                hits_by_u[u] = h
-            # one C-level bulk insert instead of a per-key loop
-            cache.update(zip((q.key for q in qs), hits))
+            with tracing.span("pipeline.finalize", queries=len(qs)):
+                hits = self._materialize(crunched, len(qs))
+                for u, h in zip(us, hits):
+                    hits_by_u[u] = h
+                # one C-level bulk insert instead of a per-key loop
+                cache.update(zip((q.key for q in qs), hits))
             busy["finalize"] += time.perf_counter() - t0
 
         try:
@@ -719,7 +740,8 @@ class MatchEngine:
                 qs = fresh[i: i + chunk]
                 t0 = time.perf_counter()
                 faults.check_device("engine")
-                ctx = self._dispatch_unique(qs)
+                with tracing.span("pipeline.encode", queries=len(qs)):
+                    ctx = self._dispatch_unique(qs)
                 busy["encode"] += time.perf_counter() - t0
                 pend.append((fresh_u[i: i + chunk], qs,
                              crunch_ex.submit(crunch_stage, ctx, qs)))
@@ -753,6 +775,8 @@ class MatchEngine:
             "occupancy": min(sum(busy.values()) / (lanes * wall), 1.0),
             "collector": self.collector,
         }
+        obs_metrics.PIPELINE_OCCUPANCY.set(
+            self.last_pipeline_stats["occupancy"])
 
     def _enforce_memo_bounds(self) -> None:
         """RSS bound for long-lived servers over every diversity-keyed
@@ -844,10 +868,14 @@ class MatchEngine:
         ctx = {"queries": queries, "batch": batch,
                "memo_gen": self._memo_gen,
                "main": None, "sharded": None, "hot": None, "tall": None}
-        if self._mdb is not None:
-            ctx["sharded"] = self._mdb.dispatch(batch)
-        else:
-            ctx["main"] = m.match_dispatch(self._ddb, batch)
+        # the device_dispatch attribution lane: kernel launches are
+        # asynchronous, so this span times the launch work, not the
+        # card's compute (that is the torch.profiler capture's)
+        with tracing.span("engine.dispatch", queries=len(queries)):
+            if self._mdb is not None:
+                ctx["sharded"] = self._mdb.dispatch(batch)
+            else:
+                ctx["main"] = m.match_dispatch(self._ddb, batch)
         # hot/tall tier routing comes gathered from the name intern
         # table (batch.route)
         hot_idx = np.nonzero(batch.route == 1)[0]
@@ -862,9 +890,11 @@ class MatchEngine:
             return (idx, m.match_dispatch(ddb, sub), sub)
 
         if len(hot_idx) and self._ddb_hot is not None:
-            ctx["hot"] = sub_dispatch(hot_idx, self._ddb_hot)
+            with tracing.span("engine.dispatch", queries=len(hot_idx)):
+                ctx["hot"] = sub_dispatch(hot_idx, self._ddb_hot)
         if len(tall_idx) and self._ddb_tall is not None:
-            ctx["tall"] = sub_dispatch(tall_idx, self._ddb_tall)
+            with tracing.span("engine.dispatch", queries=len(tall_idx)):
+                ctx["tall"] = sub_dispatch(tall_idx, self._ddb_tall)
         return ctx
 
     def _detect_unique(self, queries: list[PkgQuery]) -> list[list[int]]:

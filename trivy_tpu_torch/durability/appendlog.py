@@ -28,8 +28,8 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.durability import atomic
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.resilience import faults
@@ -53,7 +53,7 @@ class AppendLog:
         self.path = path
         self.header = header
         self.fault_site = fault_site
-        self._lock = threading.Lock()
+        self._lock = make_lock("durability.appendlog._lock")
         self._fh = None
         self.records_written = 0
 

@@ -37,8 +37,8 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import threading
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.resilience import faults
 
@@ -97,8 +97,8 @@ class ScanJournal:
     def __init__(self, path: str, header: dict):
         self.path = path
         self.header = header
-        self._lock = threading.Lock()
-        self._layer_lock = threading.Lock()
+        self._lock = make_lock("durability.journal._lock")
+        self._layer_lock = make_lock("durability.journal._layer_lock")
         self._fh = None
         self.done: dict[str, dict] = {}
         self.failed: dict[str, str] = {}

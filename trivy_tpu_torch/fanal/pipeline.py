@@ -40,13 +40,22 @@ verbatim behind the switch).
    byte-identical by construction at any lane count. ``workers<=1`` IS
    the two-stage pipeline, code path and all.
 
-Copy of trivy_tpu/fanal/pipeline.py without the fault sites
-``analysis.fetch`` and ``analysis.lane`` (their ``fetch_with_retry``
-and ``lane_with_retry`` answer injected faults: here the fetch and the
-walk are called directly), the tracing spans, the
-metrics and usage meters, the lock-order witness and the fleet journal
-hook: the port has none of those layers yet. Each run still returns its
-stage-busy stats.
+Copy of trivy_tpu/fanal/pipeline.py without the fleet journal hook
+(``JournalHook``, ``journal_scope``: the fleet mode is not ported).
+
+Fault site ``analysis.fetch`` (resilience/faults.py grammar): ``delay``
+sleeps in the fetch lane, ``drop`` discards the fetched stream and
+refetches (a lost prefetch is recomputed — results unchanged), ``error``
+fails the fetch once and the layer is refetched from scratch (two
+consecutive injected errors fail the scan), ``kill`` crashes for the
+SIGKILL-and-resume matrix.
+
+Fault site ``analysis.lane`` mirrors the ladder at the walk stage:
+``delay`` sleeps in the lane, ``drop`` discards the analyzed document
+and recomputes it from the already-split members (results unchanged),
+``error`` fails the lane analysis once and it is recomputed (two
+consecutive injected errors fail the scan), ``kill`` crashes mid-walk
+for the SIGKILL-and-resume matrix.
 """
 
 from __future__ import annotations
@@ -57,13 +66,22 @@ import queue
 import threading
 import time
 
+from trivy_tpu_torch.analysis.witness import make_lock
+
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
+from trivy_tpu_torch.obs import usage
+from trivy_tpu_torch.resilience import faults
 
 _log = logger("fanal.pipeline")
 
+FETCH_SITE = "analysis.fetch"
+LANE_SITE = "analysis.lane"
+
 #: reference parity: pkg/parallel/pipeline.go runs 5 workers by default
 DEFAULT_WORKERS = 5
-#: the hard lane cap
+#: per-lane occupancy gauge cardinality bound (and the hard lane cap)
 MAX_WORKERS = 32
 
 # a server-side MissingBlobs claim with no PutBlob after this long is
@@ -75,6 +93,16 @@ SERVER_WAIT_BUDGET_S = 10.0
 # in-process leaders always finish (try/finally), so this is a hang
 # guard, not a tuning knob
 _INPROC_WAIT_S = 600.0
+
+
+class AnalysisFetchError(Exception):
+    """A layer fetch failed (injected or real); the layer is refetched
+    once before the scan fails."""
+
+
+class AnalysisLaneError(Exception):
+    """A lane analysis failed (injected or real); the document is
+    recomputed once from the split members before the scan fails."""
 
 
 def enabled() -> bool:
@@ -96,7 +124,8 @@ def prefetch_depth() -> int:
 def analysis_workers(requested: int | None = None) -> int:
     """Walk-lane count: ``TRIVY_TPU_ANALYSIS_WORKERS`` overrides the
     caller's ``--parallel`` value; malformed values warn-and-default
-    like ``TRIVY_TPU_ANALYSIS_PREFETCH``. Clamped to [1, MAX_WORKERS]."""
+    like ``TRIVY_TPU_ANALYSIS_PREFETCH``. Clamped to [1, MAX_WORKERS]
+    (the per-lane gauge's cardinality bound)."""
     n = requested if requested is not None else DEFAULT_WORKERS
     raw = os.environ.get("TRIVY_TPU_ANALYSIS_WORKERS")
     if raw:
@@ -142,7 +171,7 @@ class LayerSingleflight:
     """
 
     def __init__(self, ttl_s: float | None = None):
-        self._lock = threading.Lock()
+        self._lock = make_lock("fanal.pipeline._lock")
         self._inflight: dict[str, _Slot] = {}
         self.ttl_s = ttl_s
 
@@ -226,9 +255,13 @@ class LayerSingleflight:
             return len(self._inflight)
 
 
-#: process-wide registry for in-process scans — content-addressed
-#: blob_ids make cross-scan sharing safe by construction
+#: process-wide registry for in-process scans (fleet lanes, concurrent
+#: library/server-embedded scans) — content-addressed blob_ids make
+#: cross-scan sharing safe by construction
 SINGLEFLIGHT = LayerSingleflight()
+
+
+# --------------------------------------------------------- fetch stage
 
 
 def _close_quietly(obj) -> None:
@@ -240,7 +273,80 @@ def _close_quietly(obj) -> None:
             close()
 
 
+def fetch_guarded(fetch):
+    """Run ``fetch()`` under the ``analysis.fetch`` fault site. ``drop``
+    discards the fetched stream and refetches; ``error`` raises
+    AnalysisFetchError (the pipeline retries the whole fetch once);
+    ``delay`` sleeps; ``kill`` dies (SIGKILL / raise-mode)."""
+    rules = faults.fire(FETCH_SITE)
+    faults.check_kill(FETCH_SITE, rules=rules)
+    drop = err = False
+    for r in rules:
+        if r.action == "delay":
+            time.sleep(r.param if r.param is not None else 0.05)
+        elif r.action == "drop":
+            drop = True
+        elif r.action == "error":
+            err = True
+    data = fetch()
+    if err:
+        _close_quietly(data)
+        raise AnalysisFetchError("injected analysis.fetch error")
+    if drop:
+        _close_quietly(data)
+        data = fetch()  # the prefetched stream was lost; fetch again
+    return data
+
+
+def fetch_with_retry(fetch):
+    try:
+        return fetch_guarded(fetch)
+    except AnalysisFetchError as e:
+        _log.warn("layer fetch failed; refetching once", err=str(e))
+        return fetch_guarded(fetch)
+
+
+# ---------------------------------------------------------- lane stage
+
+
+def lane_guarded(work):
+    """Run ``work()`` (the analyzer pass over already-split members)
+    under the ``analysis.lane`` fault site. ``work`` must be a pure
+    recomputation — it consumes no stream — so ``drop`` discards the
+    document and recomputes it, ``error`` raises AnalysisLaneError
+    (the lane retries the analysis once), ``delay`` sleeps in the
+    lane, ``kill`` dies (SIGKILL / raise-mode)."""
+    rules = faults.fire(LANE_SITE)
+    faults.check_kill(LANE_SITE, rules=rules)
+    drop = err = False
+    for r in rules:
+        if r.action == "delay":
+            time.sleep(r.param if r.param is not None else 0.05)
+        elif r.action == "drop":
+            drop = True
+        elif r.action == "error":
+            err = True
+    if err:
+        raise AnalysisLaneError("injected analysis.lane error")
+    doc = work()
+    if drop:
+        doc = work()  # the analyzed document was lost; recompute
+    return doc
+
+
+def lane_with_retry(work):
+    try:
+        return lane_guarded(work)
+    except AnalysisLaneError as e:
+        _log.warn("lane analysis failed; recomputing once", err=str(e))
+        return lane_guarded(work)
+
+
 # ------------------------------------------------------------ pipeline
+
+
+class _Stop(Exception):
+    pass
 
 
 def run_layer_pipeline(items: list, fetch, process,
@@ -250,7 +356,8 @@ def run_layer_pipeline(items: list, fetch, process,
 
     ``fetch`` must be the only code touching the image source while the
     pipeline runs (the lane serializes all fetches on one thread).
-    Returns stage-busy stats.
+    Returns stage-busy stats and publishes the
+    ``trivy_tpu_analysis_pipeline_occupancy`` gauge.
     """
     depth = depth or prefetch_depth()
     stats = {"layers": len(items), "fetch_busy_s": 0.0,
@@ -260,33 +367,42 @@ def run_layer_pipeline(items: list, fetch, process,
     wall0 = time.perf_counter()
 
     if len(items) == 1:
-        # nothing to overlap: fetch inline (no lane)
+        # nothing to overlap: fetch inline (same fault probes, no lane)
         t0 = time.perf_counter()
-        payload = fetch(items[0])
+        with tracing.span(FETCH_SITE, layers=1):
+            payload = fetch_with_retry(lambda: fetch(items[0]))
+        usage.add("layers_fetched")
         stats["fetch_busy_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        process(items[0], payload)
+        with tracing.span("analysis.walk", layers=1):
+            process(items[0], payload)
+        usage.add("layers_analyzed")
         stats["walk_busy_s"] = time.perf_counter() - t0
     else:
         out: queue.Queue = queue.Queue(maxsize=max(depth - 1, 1))
         stop = threading.Event()
+        trace_ctx = tracing.capture()
+        usage_ctx = usage.capture()
 
         def fetch_lane():
-            for item in items:
-                if stop.is_set():
-                    return
-                t0 = time.perf_counter()
-                try:
-                    payload = fetch(item)
-                except BaseException as exc:  # delivered to the analyzing thread in layer order
+            with tracing.adopt(trace_ctx), usage.adopt(usage_ctx):
+                for item in items:
+                    if stop.is_set():
+                        return
+                    t0 = time.perf_counter()
+                    try:
+                        with tracing.span(FETCH_SITE):
+                            payload = fetch_with_retry(lambda: fetch(item))
+                    except BaseException as exc:  # delivered to the analyzing thread in layer order
+                        stats["fetch_busy_s"] += time.perf_counter() - t0
+                        _put_interruptible(out, (item, exc, True), stop)
+                        return
+                    usage.add("layers_fetched")
                     stats["fetch_busy_s"] += time.perf_counter() - t0
-                    _put_interruptible(out, (item, exc, True), stop)
-                    return
-                stats["fetch_busy_s"] += time.perf_counter() - t0
-                if not _put_interruptible(out, (item, payload, False),
-                                          stop):
-                    _close_quietly(payload)  # coordinator aborted
-                    return
+                    if not _put_interruptible(out, (item, payload, False),
+                                              stop):
+                        _close_quietly(payload)  # coordinator aborted
+                        return
 
         lane = threading.Thread(target=fetch_lane, daemon=True,
                                 name="ttpu-layer-fetch")
@@ -307,11 +423,17 @@ def run_layer_pipeline(items: list, fetch, process,
 
         try:
             for _ in items:
-                item, payload, is_err = next_payload()
+                # queue_wait attribution lane: the analyzing thread
+                # starving on the fetch lane (fetch-bound crawls show
+                # up here, not in analysis.walk)
+                with tracing.span("analysis.await_fetch"):
+                    item, payload, is_err = next_payload()
                 if is_err:
                     raise payload
                 t0 = time.perf_counter()
-                process(item, payload)
+                with tracing.span("analysis.walk"):
+                    process(item, payload)
+                usage.add("layers_analyzed")
                 stats["walk_busy_s"] += time.perf_counter() - t0
         finally:
             stop.set()
@@ -340,6 +462,7 @@ def run_layer_pipeline(items: list, fetch, process,
     stats["wall_s"] = wall
     stats["occupancy"] = min(
         (stats["fetch_busy_s"] + stats["walk_busy_s"]) / (2 * wall), 1.0)
+    obs_metrics.ANALYSIS_PIPELINE_OCCUPANCY.set(stats["occupancy"])
     return stats
 
 
@@ -351,7 +474,7 @@ def run_layer_lanes(items: list, fetch, walk, apply,
     item order via ``apply(item, doc)``.
 
     Ordering invariant: ``apply`` — cache writes, singleflight
-    publishes, counters — runs only on the calling
+    publishes, journal records, counters — runs only on the calling
     thread and only for item k after items 0..k-1 were applied, so the
     externally visible effects are exactly the serial sequence and the
     output is byte-identical by construction at any lane count. Errors
@@ -359,7 +482,7 @@ def run_layer_lanes(items: list, fetch, walk, apply,
 
     ``workers<=1`` (or a single item) delegates to
     :func:`run_layer_pipeline` with ``walk``+``apply`` composed — the
-    two-stage pipeline, same code path.
+    two-stage pipeline, same code path, same spans.
     """
     workers = max(1, min(int(workers), MAX_WORKERS))
     if workers <= 1 or len(items) <= 1:
@@ -380,6 +503,8 @@ def run_layer_lanes(items: list, fetch, walk, apply,
 
     dispatch: queue.Queue = queue.Queue(maxsize=max(depth - 1, n_lanes))
     stop = threading.Event()
+    trace_ctx = tracing.capture()
+    usage_ctx = usage.capture()
 
     cond = threading.Condition()
     results: dict[int, tuple[object, bool]] = {}
@@ -391,45 +516,52 @@ def run_layer_lanes(items: list, fetch, walk, apply,
             cond.notify_all()
 
     def fetch_lane():
-        for seq, item in enumerate(items):
-            if stop.is_set():
-                return
-            t0 = time.perf_counter()
-            try:
-                payload = fetch(item)
-            except BaseException as exc:  # delivered to the coordinator at this layer's position
+        with tracing.adopt(trace_ctx), usage.adopt(usage_ctx):
+            for seq, item in enumerate(items):
+                if stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                try:
+                    with tracing.span(FETCH_SITE):
+                        payload = fetch_with_retry(lambda: fetch(item))
+                except BaseException as exc:  # delivered to the coordinator at this layer's position
+                    stats["fetch_busy_s"] += time.perf_counter() - t0
+                    deliver(seq, exc, True)
+                    return
+                usage.add("layers_fetched")
                 stats["fetch_busy_s"] += time.perf_counter() - t0
-                deliver(seq, exc, True)
-                return
-            stats["fetch_busy_s"] += time.perf_counter() - t0
-            if not _put_interruptible(dispatch, (seq, item, payload),
-                                      stop):
-                _close_quietly(payload)  # coordinator aborted
-                return
+                if not _put_interruptible(dispatch, (seq, item, payload),
+                                          stop):
+                    _close_quietly(payload)  # coordinator aborted
+                    return
 
     def walk_lane(lane_id: int):
-        while not stop.is_set():
-            try:
-                task = dispatch.get(timeout=1.0)
-            except queue.Empty:
-                continue
-            if task is None:
-                return
-            seq, item, payload = task
-            with cond:
-                active[0] += 1
-            t0 = time.perf_counter()
-            try:
-                doc = walk(item, payload)
-            except BaseException as exc:  # surfaces at this layer's position in apply order
-                deliver(seq, exc, True)
-            else:
-                deliver(seq, doc, False)
-            finally:
-                stats["lane_busy_s"][lane_id] += time.perf_counter() - t0
+        with tracing.adopt(trace_ctx), usage.adopt(usage_ctx):
+            while not stop.is_set():
+                try:
+                    task = dispatch.get(timeout=1.0)
+                except queue.Empty:
+                    continue
+                if task is None:
+                    return
+                seq, item, payload = task
                 with cond:
-                    active[0] -= 1
-                    cond.notify_all()
+                    active[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    with tracing.span(LANE_SITE, lane=lane_id):
+                        doc = walk(item, payload)
+                except BaseException as exc:  # surfaces at this layer's position in apply order
+                    deliver(seq, exc, True)
+                else:
+                    usage.add("layers_analyzed")
+                    deliver(seq, doc, False)
+                finally:
+                    stats["lane_busy_s"][lane_id] += \
+                        time.perf_counter() - t0
+                    with cond:
+                        active[0] -= 1
+                        cond.notify_all()
 
     fetcher = threading.Thread(target=fetch_lane, daemon=True,
                                name="ttpu-layer-fetch")
@@ -464,11 +596,15 @@ def run_layer_lanes(items: list, fetch, walk, apply,
 
     try:
         for seq, item in enumerate(items):
-            value, is_err = wait_result(seq)
+            # queue_wait attribution lane: the coordinator starving on
+            # the walk lanes (fetch- or walk-bound crawls show up here)
+            with tracing.span("analysis.await_lane"):
+                value, is_err = wait_result(seq)
             if is_err:
                 raise value
             t0 = time.perf_counter()
-            apply(item, value)
+            with tracing.span("analysis.apply"):
+                apply(item, value)
             stats["apply_busy_s"] += time.perf_counter() - t0
     finally:
         stop.set()
@@ -490,6 +626,10 @@ def run_layer_lanes(items: list, fetch, walk, apply,
     busy = (stats["fetch_busy_s"] + stats["walk_busy_s"]
             + stats["apply_busy_s"])
     stats["occupancy"] = min(busy / ((2 + n_lanes) * wall), 1.0)
+    obs_metrics.ANALYSIS_PIPELINE_OCCUPANCY.set(stats["occupancy"])
+    for k in range(n_lanes):
+        obs_metrics.ANALYSIS_LANE_BUSY.set(
+            min(stats["lane_busy_s"][k] / wall, 1.0), lane=str(k))
     return stats
 
 

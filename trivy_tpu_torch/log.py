@@ -1,9 +1,15 @@
-"""Structured logging with prefixes, colors, and an optional JSON line
-format for fleet runs.
+"""Structured logging with prefixes, colors, trace correlation, and an
+optional JSON line format for fleet runs.
 
-Copy of trivy_tpu/log.py without the trace-correlation fields: the
-port has no tracing spine yet, so records carry only the prefix and
-key/value pairs.
+Re-expression of the reference slog setup (pkg/log/logger.go:14-35,
+handler.go colored tty handler, context.go prefixes) on Python logging,
+plus the observability spine's correlation fields: every record carries
+the ambient trace_id / span_id / scan_id (obs.tracing contextvars) so a
+log line joins the span tree it was emitted under
+(docs/observability.md).
+
+Copy of trivy_tpu/log.py; its loggers live under the name
+``trivy_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,18 @@ _COLORS = {
 _RESET = "\x1b[0m"
 _PREFIX_COLOR = "\x1b[36m"  # cyan, like the reference's prefix rendering
 
+_tracing = None  # lazy module ref (obs.tracing lazily imports us back)
+
+
+def _trace_fields() -> dict | None:
+    global _tracing
+    if _tracing is None:
+        from trivy_tpu_torch.obs import tracing
+
+        _tracing = tracing
+    return _tracing.log_fields()
+
+
 class _Formatter(logging.Formatter):
     # timestamps render with a "Z" suffix, so they must BE UTC — the
     # default formatTime uses localtime
@@ -38,6 +56,7 @@ class _Formatter(logging.Formatter):
         prefix = getattr(record, "prefix", "")
         msg = record.getMessage()
         kvs = dict(getattr(record, "kvs", None) or {})
+        kvs.update(getattr(record, "trace", None) or {})
         kv_str = "".join(f"\t{k}={v}" for k, v in kvs.items())
         if self.color:
             c = _COLORS.get(record.levelno, "")
@@ -51,7 +70,8 @@ class _Formatter(logging.Formatter):
 
 class _JSONFormatter(logging.Formatter):
     """One JSON object per line (--log-format json): fleet runs feed
-    these into log pipelines."""
+    these into log pipelines, joined to traces via trace_id/span_id/
+    scan_id."""
 
     converter = time.gmtime  # "Z"-suffixed ts must be UTC
 
@@ -64,6 +84,7 @@ class _JSONFormatter(logging.Formatter):
         prefix = getattr(record, "prefix", "")
         if prefix:
             doc["logger"] = prefix
+        doc.update(getattr(record, "trace", None) or {})
         for k, v in (getattr(record, "kvs", None) or {}).items():
             doc.setdefault(k, v)
         return json.dumps(doc, default=str)
@@ -84,6 +105,7 @@ class Logger:
             return
         self._log.log(level, msg, extra={
             "prefix": self._prefix, "kvs": kwargs,
+            "trace": _trace_fields(),
         })
 
     def debug(self, msg: str, **kw) -> None:

@@ -10,8 +10,7 @@ parameters changed — the plan degrades to "everything touched", which
 re-matches every indexed artifact. Every fallback rung is *more* work,
 never a wrong answer.
 
-Copy of trivy_tpu/monitor/delta.py without the metric handles and the
-tracing span.
+Copy of trivy_tpu/monitor/delta.py.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ import time
 from dataclasses import dataclass, field
 
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
 
 _log = logger("monitor.delta")
 
@@ -66,13 +67,18 @@ def compute_delta(db_path: str, old_digest: str | None, new_db,
     from trivy_tpu_torch.tensorize import cache as compile_cache
 
     t0 = time.perf_counter()
-    plan = _compute(db_path, old_digest, new_db, new_digest,
-                    params_changed, compile_cache)
+    with tracing.span("delta.diff", old=old_digest or "",
+                      new=new_digest or ""):
+        plan = _compute(db_path, old_digest, new_db, new_digest,
+                        params_changed, compile_cache)
+    obs_metrics.DELTA_DIFF_SECONDS.observe(time.perf_counter() - t0)
     if plan.full:
+        obs_metrics.DELTA_FULL_RESCANS.inc(reason=plan.reason or "unknown")
         _log.warn("advisory delta fell back to a full re-score",
                   reason=plan.reason, old=plan.old_digest,
                   new=plan.new_digest)
     else:
+        obs_metrics.DELTA_TOUCHED_KEYS.set(len(plan.touched))
         _log.info("advisory delta computed", touched=len(plan.touched),
                   keys=plan.n_keys, old=plan.old_digest,
                   new=plan.new_digest,

@@ -56,8 +56,8 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import threading
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.durability.appendlog import AppendLog, AppendLogError
 from trivy_tpu_torch.log import logger
 
@@ -89,7 +89,7 @@ class MonitorIndex:
 
     def __init__(self, log: AppendLog):
         self._log = log
-        self._lock = threading.Lock()
+        self._lock = make_lock("monitor.index._lock")
         # id -> {"packages": [tuple4...], "findings": set[tuple5]|None}
         self._artifacts: dict[str, dict] = {}
         self._inverted: dict[tuple[str, str], set[str]] = {}

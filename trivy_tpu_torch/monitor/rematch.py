@@ -11,13 +11,11 @@ fault rung (``monitor.rematch`` drop/error, a degraded index) widens
 the re-match set up to "everything", never narrows it.
 
 Events are the observable product: one JSON-able dict per finding edge
-(introduced / resolved), deterministic order, correlated by the
-re-score's scan id.
+(introduced / resolved), deterministic order, trace-correlated via the
+ambient span and scan id.
 
-Copy of trivy_tpu/monitor/rematch.py without the metric handles and the
-spans. The reference stamps the ambient trace id (when it collects
-traces) and scan id; the port's caller passes the scan id it drew
-(`MonitorService.rescore_now`, `watch_local`). The re-match runs
+Copy of trivy_tpu/monitor/rematch.py; a caller may also pass the scan
+id the events carry. The re-match runs
 wherever `engine.submit` does: the match kernel on the engine's card,
 or the scheduler's shared micro-batches on a server. A device error
 raises out of the re-score, and the state is then not advanced.
@@ -30,6 +28,8 @@ import time
 from dataclasses import dataclass, field
 
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
 from trivy_tpu_torch.resilience import faults
 
 _log = logger("monitor.rematch")
@@ -128,8 +128,8 @@ def rescore(engine, index, plan, budget_s: float | None = None,
     left un-advanced (``shed=True``) and the state digest is NOT moved,
     so the next attempt re-plans from the same baseline.  `verify`
     (default TRIVY_TPU_DELTA_VERIFY) re-matches everything afterwards
-    and asserts the incremental state equals it. `scan_id` stamps every
-    event (the caller's correlation id; none when not given)."""
+    and asserts the incremental state equals it. Events carry the
+    ambient trace id and scan id; `scan_id` overrides the latter."""
     t0 = time.monotonic()
     full = plan.full
     reason = plan.reason
@@ -144,84 +144,100 @@ def rescore(engine, index, plan, budget_s: float | None = None,
             if not full:
                 full = True
                 reason = f"fault-{r.action}"
+                obs_metrics.DELTA_FULL_RESCANS.inc(reason=reason)
     if index.degraded and not full:
         # a durable append failed earlier: stored baselines may be
         # stale in unknown ways — re-baseline everything
         full = True
         reason = "index-degraded"
+        obs_metrics.DELTA_FULL_RESCANS.inc(reason=reason)
     report = RescoreReport(plan.new_digest, full, reason,
                            total_indexed=len(index.artifacts()))
     if verify is None:
         verify = verify_enabled()
+    # trace correlation: the ambient span's trace id when tracing is
+    # collecting, plus the scan id (which scan_scope assigns even with
+    # tracing off — the same ids the JSON log lines carry)
     ids: dict = {}
+    span = tracing.current()
+    if span is not None and span.trace_id:
+        ids["trace_id"] = span.trace_id
+    scan_id = scan_id or tracing.current_scan_id()
     if scan_id:
         ids["scan_id"] = scan_id
-    if full:
-        aids = index.artifacts()
-    else:
-        aids = index.affected(plan.touched)
-    advs = engine.cdb.advisories
-    deadline = None if budget_s is None else t0 + budget_s
-    completed = True
-    for batch in _batched(index, aids):
-        if deadline is not None and time.monotonic() > deadline:
-            completed = False
-            report.shed = True
-            _log.warn("re-score budget expired; state not advanced",
-                      done=report.rematched, remaining=len(aids)
-                      - report.rematched)
-            break
-        # snapshot-then-CAS: a live scan re-recording an artifact
-        # mid-sweep must win over this sweep's computation from the
-        # PRE-scan inventory (update_if refuses when the record
-        # moved, and no events fire for a refused write)
-        pkg_snap = {a: index.packages_of(a) for a in batch}
-        fnd_snap = {a: index.findings_of(a) for a in batch}
-        lists = [_queries_of(pkg_snap[a]) for a in batch]
-        res_lists = engine.submit(lists)
-        for aid, rl in zip(batch, res_lists):
-            new_keys = finding_keys(advs, rl)
-            old_keys = fnd_snap[aid]
-            # every processed artifact re-stamps onto the new
-            # generation (the replay staleness check keys on it),
-            # and a degraded log regains a trusted copy
-            if not index.update_if(aid, pkg_snap[aid], old_keys,
-                                   new_keys,
-                                   db_digest=plan.new_digest):
-                continue
-            report.rematched += 1
-            if old_keys is None or new_keys == old_keys:
-                # fresh/rebuilt record adopts its baseline silently
-                continue
-            for k in sorted(new_keys - old_keys):
-                ev = _event("introduced", aid, k,
-                            plan.new_digest, ids)
-                report.events.append(ev)
-                report.introduced += 1
-                if on_event is not None:
-                    on_event(ev)
-            for k in sorted(old_keys - new_keys):
-                ev = _event("resolved", aid, k,
-                            plan.new_digest, ids)
-                report.events.append(ev)
-                report.resolved += 1
-                if on_event is not None:
-                    on_event(ev)
-    if completed:
+    with tracing.span("delta.rematch", full=full,
+                      touched=len(plan.touched)):
         if full:
-            # every record was re-baselined above: the durable log
-            # holds a trusted copy again (a set_state append failure
-            # below re-flags degraded and the next re-score goes
-            # full once more)
-            index.degraded = ""
-        # the transition record: untouched artifacts keep their old
-        # stamps, and the replay chain proves their baselines carry
-        # to the new generation (index.py _baseline_carries)
-        index.set_state(plan.new_digest, window=index.window,
-                        prev=plan.old_digest,
-                        touched=None if full else plan.touched)
-        index.compact()
+            aids = index.artifacts()
+        else:
+            aids = index.affected(plan.touched)
+        advs = engine.cdb.advisories
+        deadline = None if budget_s is None else t0 + budget_s
+        completed = True
+        for batch in _batched(index, aids):
+            if deadline is not None and time.monotonic() > deadline:
+                completed = False
+                report.shed = True
+                obs_metrics.DELTA_SHEDS.inc()
+                _log.warn("re-score budget expired; state not advanced",
+                          done=report.rematched, remaining=len(aids)
+                          - report.rematched)
+                break
+            # snapshot-then-CAS: a live scan re-recording an artifact
+            # mid-sweep must win over this sweep's computation from the
+            # PRE-scan inventory (update_if refuses when the record
+            # moved, and no events fire for a refused write)
+            pkg_snap = {a: index.packages_of(a) for a in batch}
+            fnd_snap = {a: index.findings_of(a) for a in batch}
+            lists = [_queries_of(pkg_snap[a]) for a in batch]
+            res_lists = engine.submit(lists)
+            for aid, rl in zip(batch, res_lists):
+                new_keys = finding_keys(advs, rl)
+                old_keys = fnd_snap[aid]
+                # every processed artifact re-stamps onto the new
+                # generation (the replay staleness check keys on it),
+                # and a degraded log regains a trusted copy
+                if not index.update_if(aid, pkg_snap[aid], old_keys,
+                                       new_keys,
+                                       db_digest=plan.new_digest):
+                    continue
+                report.rematched += 1
+                if old_keys is None or new_keys == old_keys:
+                    # fresh/rebuilt record adopts its baseline silently
+                    continue
+                for k in sorted(new_keys - old_keys):
+                    ev = _event("introduced", aid, k,
+                                plan.new_digest, ids)
+                    report.events.append(ev)
+                    report.introduced += 1
+                    if on_event is not None:
+                        on_event(ev)
+                for k in sorted(old_keys - new_keys):
+                    ev = _event("resolved", aid, k,
+                                plan.new_digest, ids)
+                    report.events.append(ev)
+                    report.resolved += 1
+                    if on_event is not None:
+                        on_event(ev)
+        if completed:
+            if full:
+                # every record was re-baselined above: the durable log
+                # holds a trusted copy again (a set_state append failure
+                # below re-flags degraded and the next re-score goes
+                # full once more)
+                index.degraded = ""
+            # the transition record: untouched artifacts keep their old
+            # stamps, and the replay chain proves their baselines carry
+            # to the new generation (index.py _baseline_carries)
+            index.set_state(plan.new_digest, window=index.window,
+                            prev=plan.old_digest,
+                            touched=None if full else plan.touched)
+            index.compact()
+    obs_metrics.DELTA_REMATCHED.inc(report.rematched)
+    obs_metrics.DELTA_EVENTS.inc(report.introduced, kind="introduced")
+    obs_metrics.DELTA_EVENTS.inc(report.resolved, kind="resolved")
     report.duration_s = time.monotonic() - t0
+    obs_metrics.DELTA_REMATCH_SECONDS.observe(report.duration_s)
     if verify and completed:
         oracle = full_findings(engine, index)
         diff = sum(
@@ -231,6 +247,7 @@ def rescore(engine, index, plan, budget_s: float | None = None,
         if diff:
             _log.error("delta re-score diverged from full re-match; "
                        "re-baselining", artifacts=diff)
+            obs_metrics.DELTA_FULL_RESCANS.inc(reason="verify-mismatch")
             for aid, keys in oracle.items():
                 index.update(aid, index.packages_of(aid), keys,
                              db_digest=plan.new_digest)

@@ -13,10 +13,10 @@ Two consumers share the machinery:
   root + local index directly (emitting events as JSON lines on
   stdout) or tails a server's event ring.
 
-Copy of trivy_tpu/monitor/watch.py without the metric handles and the
-spans; each re-score draws its scan id from `utils.uuid` (the
-reference's scan scope does). A re-score on the server's background
-thread re-matches on the served engine's card; a failure there is
+Copy of trivy_tpu/monitor/watch.py; each re-score runs in a forced
+scan scope, whose id its events and log lines carry, and its span
+follows the promote onto the background thread. A re-score on the
+server's background thread re-matches on the served engine's card; a failure there is
 logged, kept in `MonitorService.last_error` and leaves the index's
 state where it was (the next promote re-plans from it), and a device
 error is also re-raised on that thread: it is never turned into a host
@@ -33,13 +33,15 @@ import os
 import threading
 import time
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.durability.appendlog import AppendLogError
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.monitor import rematch as rematch_mod
 from trivy_tpu_torch.monitor.delta import compute_delta
 from trivy_tpu_torch.monitor.index import MonitorIndex, MonitorIndexError
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
 from trivy_tpu_torch.sched.scheduler import Overloaded
-from trivy_tpu_torch.utils import uuid as uuid_util
 
 _log = logger("monitor.watch")
 
@@ -84,7 +86,7 @@ class MonitorService:
         self._engine_fn = engine_fn
         self._scheduler = scheduler
         self.db_path = db_path
-        self._lock = threading.Lock()
+        self._lock = make_lock("monitor.watch._lock")
         self._events: collections.deque = collections.deque(
             maxlen=EVENT_RING)
         self._seq = 0
@@ -119,13 +121,17 @@ class MonitorService:
             if self._running:
                 self._pending = (old_digest, db, new_digest,
                                  params_changed)
+                obs_metrics.DELTA_SHEDS.inc()
                 _log.info("re-score already running; promote queued",
                           new=new_digest)
                 return False
             self._running = True
+        ctx = tracing.capture()
 
         def _bg():
-            self._rescore_loop(old_digest, db, new_digest, params_changed)
+            with tracing.adopt(ctx):
+                self._rescore_loop(old_digest, db, new_digest,
+                                   params_changed)
 
         t = threading.Thread(target=_bg, name="ttpu-monitor", daemon=True)
         t.start()
@@ -171,22 +177,25 @@ class MonitorService:
     def rescore_now(self, old_digest, db, new_digest,
                     params_changed=None):
         """Synchronous re-score (the background loop and tests)."""
-        # the correlation id the emitted events share
-        scan_id = uuid_util.new()
-        plan = compute_delta(self.db_path, old_digest, db,
-                             new_digest=new_digest,
-                             params_changed=params_changed)
-        engine = self._engine_fn()
-        if self._scheduler is not None:
-            from trivy_tpu_torch.sched.scheduler import SchedEngine
+        # scan_scope assigns the correlation id the emitted events and
+        # this re-score's log lines share (works with tracing off)
+        with tracing.scan_scope(force=True), \
+                tracing.span("monitor.promote", db=new_digest or ""):
+            plan = compute_delta(self.db_path, old_digest, db,
+                                 new_digest=new_digest,
+                                 params_changed=params_changed)
+            engine = self._engine_fn()
+            if self._scheduler is not None:
+                from trivy_tpu_torch.sched.scheduler import SchedEngine
 
-            # the re-match sweep joins the shared micro-batch stream,
-            # interleaving with live scans under the scheduler's
-            # fairness rules instead of monopolizing the device
-            engine = SchedEngine(engine, self._scheduler)
-        return rematch_mod.rescore(engine, self.index, plan,
-                                   budget_s=budget_s(),
-                                   on_event=self._emit, scan_id=scan_id)
+                # the re-match sweep joins the shared micro-batch
+                # stream, interleaving with live scans under the
+                # scheduler's fairness rules instead of monopolizing
+                # the device
+                engine = SchedEngine(engine, self._scheduler)
+            return rematch_mod.rescore(engine, self.index, plan,
+                                       budget_s=budget_s(),
+                                       on_event=self._emit)
 
     # ----------------------------------------------------------- events
 
@@ -235,19 +244,20 @@ def watch_local(db_path: str, index: MonitorIndex, engine_factory,
     while True:
         digest = compile_cache.db_digest(db_path)
         if digest is not None and digest != index.db_digest:
-            scan_id = uuid_util.new()
-            engine = engine_factory()
-            try:
-                plan = compute_delta(db_path, index.db_digest, engine.db,
-                                     new_digest=digest)
-                report = rematch_mod.rescore(
-                    engine, index, plan, budget_s=budget_s(),
-                    verify=verify,
-                    on_event=lambda ev: emit_line(out_fh, ev),
-                    scan_id=scan_id)
-            finally:
-                # a distributed MeshDB's workers end with the re-score
-                engine.close()
+            with tracing.scan_scope(force=True), \
+                    tracing.span("watch.rescore", db=digest):
+                engine = engine_factory()
+                try:
+                    plan = compute_delta(db_path, index.db_digest,
+                                         engine.db, new_digest=digest)
+                    report = rematch_mod.rescore(
+                        engine, index, plan, budget_s=budget_s(),
+                        verify=verify,
+                        on_event=lambda ev: emit_line(out_fh, ev))
+                finally:
+                    # a distributed MeshDB's workers end with the
+                    # re-score
+                    engine.close()
             emit_line(out_fh, {
                 "event": "rescore", "db_digest": digest,
                 "full": report.full, "reason": report.reason,

@@ -15,8 +15,8 @@ import hashlib
 import os
 import subprocess
 import tempfile
-import threading
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.log import logger
 
 _log = logger("native")
@@ -74,7 +74,7 @@ class LazyLibrary:
         self._configure = configure
         self._link_flags = link_flags
         self._build_dir = build_dir
-        self._lock = threading.Lock()
+        self._lock = make_lock("native.build._lock")
         self._lib: ctypes.CDLL | None = None
         self._failed = False
 

@@ -60,8 +60,9 @@ worker's reply marks it (``device_error``, a header key a reference
 coordinator ignores) and it raises on the coordinator, as a mesh cell's
 does.
 
-Counters (the reference's DCN metrics, as plain attributes of the
-HostMeshDB): `degradations` and `host_retry_count` per host,
+The reference's DCN metrics (`trivy_tpu_dcn_*`, the mesh shape and
+re-resolves) are fed, and the HostMeshDB keeps plain counters beside
+them: `degradations` and `host_retry_count` per host,
 `dispatches` / `dispatch_s` per host, `merges` / `merge_s`,
 `reresolves`, and `build_stats` (where the build's time went).
 
@@ -86,7 +87,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
 from trivy_tpu_torch.resilience import faults
 
 _log = logger("dcn")
@@ -313,6 +317,8 @@ class _RemoteHost:
         # request/response correlation: every frame carries a rid the
         # worker echoes; owned by the I/O thread (the socket's one user)
         self._rid = 0
+        # the I/O pump emits no spans: the engine.host span and its
+        # parentage live on the collecting scan thread
         self._thread = threading.Thread(
             target=self._run, name=f"ttpu-dcn-io-{idx}", daemon=True)
         self._thread.start()
@@ -564,20 +570,24 @@ class HostPending:
         # [n_db, B, W] stack the engine's shard decoder reads (a
         # degraded host's slice is recomputed here as the host mask)
         t0 = time.perf_counter()
-        masks = np.zeros((h.n_db, self.b, w), dtype=bool)
-        masks[: h.db_local] = local_masks
-        for idx, _host, _fut in self.remote:
-            lo = idx * h.db_local
-            words = words_by_host[idx]
-            if words is None:
-                masks[lo: lo + h.db_local] = h._host_mask_block(
-                    idx, self.arrays)
-            else:
-                for j in range(h.db_local):
-                    masks[lo + j] = m._unpack_words(words[j], h.window)
+        with tracing.span("dcn.merge", hosts=h.n_hosts):
+            masks = np.zeros((h.n_db, self.b, w), dtype=bool)
+            masks[: h.db_local] = local_masks
+            for idx, _host, _fut in self.remote:
+                lo = idx * h.db_local
+                words = words_by_host[idx]
+                if words is None:
+                    masks[lo: lo + h.db_local] = h._host_mask_block(
+                        idx, self.arrays)
+                else:
+                    for j in range(h.db_local):
+                        masks[lo + j] = m._unpack_words(words[j],
+                                                        h.window)
+        merge_s = time.perf_counter() - t0
+        obs_metrics.DCN_MERGE_SECONDS.observe(merge_s)
         with h._lock:
             h.merges += 1
-            h.merge_s += time.perf_counter() - t0
+            h.merge_s += merge_s
         return masks
 
 
@@ -618,7 +628,7 @@ class HostMeshDB:
         # placement), and the wire session
         self.worker_device = "cuda"
         self._session = ""
-        self._lock = threading.Lock()
+        self._lock = make_lock("ops.dcn.HostMeshDB._lock")
         self._closed = False
         # spawned workers die with the coordinator even if the owning
         # engine is never closed
@@ -770,6 +780,9 @@ class HostMeshDB:
             raise
         self._session = session
         stats["sources"] = self.host_sources()
+        obs_metrics.MESH_SHAPE.set(n_hosts, axis="hosts")
+        obs_metrics.MESH_SHAPE.set(dp, axis="data")
+        obs_metrics.MESH_SHAPE.set(n_db, axis="db")
         _log.info("distributed mesh DB resident", hosts=n_hosts,
                   data=dp, db_local=db_local, shard_rows=shard_len,
                   total_rows=cdb.n_rows, sources=stats["sources"])
@@ -829,6 +842,7 @@ class HostMeshDB:
             if fresh:
                 self.degradations[idx] = self.degradations.get(idx, 0) + 1
         if fresh:
+            obs_metrics.DCN_HOST_DEGRADATIONS.inc(host=str(idx))
             _log.warn(
                 "DCN host degraded: its advisory slice now serves from "
                 "the coordinator's host mask (the other hosts keep "
@@ -843,14 +857,20 @@ class HostMeshDB:
         degraded: the caller recomputes its slice as the host mask. A
         worker's device error raises."""
         t0 = time.perf_counter()
-        try:
-            return self._collect_host_timed(host, fut, arrays, b)
-        finally:
-            with self._lock:
-                self.dispatches[host.idx] = \
-                    self.dispatches.get(host.idx, 0) + 1
-                self.dispatch_s[host.idx] = self.dispatch_s.get(
-                    host.idx, 0.0) + time.perf_counter() - t0
+        # the cross-host wait: where the coordinator blocks on a peer's
+        # card and the round trip
+        with tracing.span("engine.host", host=host.idx):
+            try:
+                return self._collect_host_timed(host, fut, arrays, b)
+            finally:
+                seconds = time.perf_counter() - t0
+                obs_metrics.DCN_HOST_DISPATCH_SECONDS.observe(
+                    seconds, host=str(host.idx))
+                with self._lock:
+                    self.dispatches[host.idx] = \
+                        self.dispatches.get(host.idx, 0) + 1
+                    self.dispatch_s[host.idx] = self.dispatch_s.get(
+                        host.idx, 0.0) + seconds
 
     def _collect_host_timed(self, host, fut, arrays, b):
         with self._lock:
@@ -978,6 +998,9 @@ class HostMeshDB:
             self.reresolves += 1
         for h in dead:
             h.close()
+        obs_metrics.MESH_SHAPE.set(n_hosts, axis="hosts")
+        obs_metrics.MESH_SHAPE.set(n_db, axis="db")
+        obs_metrics.MESH_RERESOLVES.inc(scope="host")
         _log.info("cross-host mesh re-resolved over the surviving hosts",
                   hosts=n_hosts, db=n_db, dropped=sorted(dead_idx),
                   shard_rows=shard_len)

@@ -41,23 +41,26 @@ Degradations are counted per shard in `MeshDB.degradations`, shown in
 
 The cross-host spec ``HOSTSxDPxDB`` is the distributed MeshDB
 (ops/dcn.py): host 0's slice of its global shard partition is a MeshDB
-here whose `n_global` names that partition. The metric gauges are plain
-counters on the MeshDB.
+here whose `n_global` names that partition. The reference's mesh
+metrics (`trivy_tpu_mesh_*`) are fed, and the MeshDB keeps its plain
+counters beside them.
 """
 
 from __future__ import annotations
 
 import os
 import re
-import threading
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.device import DeviceGrid, build_mesh
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
 from trivy_tpu_torch.ops import match as m
 from trivy_tpu_torch.resilience import faults
 
@@ -255,7 +258,8 @@ class MeshDB:
     # per degraded shard: its slice as a CPU DeviceDB, which the plain
     # version of the match kernel (ops/match.py match_words_ref) reads
     host_dbs: dict = field(default_factory=dict)
-    _lock: threading.Lock = field(default_factory=threading.Lock)
+    _lock: object = field(
+        default_factory=lambda: make_lock("ops.mesh.MeshDB._lock"))
 
     def __post_init__(self):
         self.n_global = self.n_global or self.n_db
@@ -299,6 +303,11 @@ class MeshDB:
                                    devices[g][d])
                  for d in range(n_db)] for g in range(n_data)]
         stats["upload_s"] = time.perf_counter() - t1
+        obs_metrics.MESH_SHAPE.set(n_data, axis="data")
+        obs_metrics.MESH_SHAPE.set(n_db, axis="db")
+        # a reload from a distributed topology back onto a local mesh
+        # must not leave a stale cross-host gauge behind
+        obs_metrics.MESH_SHAPE.set(1, axis="hosts")
         _log.info("mesh DB resident", data=n_data, db=n_db,
                   shard_rows=shard_len, total_rows=cdb.n_rows)
         return cls(cdb=cdb, grid=grid, devices=devices, n_data=n_data,
@@ -364,6 +373,7 @@ class MeshDB:
             if fresh:
                 self.degradations[d] = self.degradations.get(d, 0) + 1
         if fresh:
+            obs_metrics.MESH_SHARD_DEGRADATIONS.inc(shard=str(d))
             _log.warn(
                 "mesh shard degraded to the host mask (healthy shards "
                 "keep serving on their devices; zero finding diff)",
@@ -375,6 +385,17 @@ class MeshDB:
         then degrade, device-lost -> degrade now. Returns the kernel's
         mask either way: a degradation changes latency, never bits. An
         error that is not an injected fault raises."""
+        t0 = time.perf_counter()
+        # the device_wait attribution lane: this is where the match
+        # path blocks on the card (the launch is asynchronous)
+        with tracing.span("engine.shard", shard=d):
+            try:
+                return self._collect_cell_ladder(d, sub, cell)
+            finally:
+                obs_metrics.MESH_SHARD_DISPATCH_SECONDS.observe(
+                    time.perf_counter() - t0, shard=str(d))
+
+    def _collect_cell_ladder(self, d: int, sub, cell) -> np.ndarray:
         if cell is None or d in self.degraded:
             return self._host_mask(d, sub)
         g, pending = cell
@@ -410,6 +431,7 @@ class MeshDB:
                 with self._lock:
                     self.shard_retry_count[d] = \
                         self.shard_retry_count.get(d, 0) + 1
+                obs_metrics.MESH_SHARD_RETRIES.inc(shard=str(d))
                 _log.warn("mesh shard dispatch failed; retrying",
                           shard=d, attempt=attempt, err=str(exc))
                 pending = None  # dispatched again on the next pass
@@ -437,6 +459,7 @@ class MeshDB:
                 self.degraded.discard(d)
         with self._lock:
             self.reresolves += 1
+        obs_metrics.MESH_RERESOLVES.inc(scope="shard")
         _log.info("mesh shards re-resolved onto their devices",
                   shards=degraded)
         return True

@@ -18,7 +18,7 @@ parity absolute:
    overrides, V7 directory names) and the shared classification in
    walker.py produces the same (files, opaque_dirs, whiteouts) triple.
 
-Copy of trivy_tpu/ops/splitter.py without its tracing span. The library
+Copy of trivy_tpu/ops/splitter.py. The library
 builds with g++ into this package's git-ignored `ops/_build/`. One
 addition: `WALKS` counts which walk produced each layer's members,
 "native" or "tarfile" (`walker.walk_layer_tar` counts), so a run can
@@ -35,6 +35,7 @@ import threading
 
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.native.build import LazyLibrary
+from trivy_tpu_torch.obs import tracing
 
 _log = logger("ops.splitter")
 
@@ -217,16 +218,17 @@ def try_split(tar_src, max_member: int):
             opened.close()
         return None, tar_src
     try:
-        ok = True
-        while True:
-            chunk = reader(_CHUNK)
-            if not chunk:
-                ok = lib.tsp_finish(handle) == 0
-                break
-            if lib.tsp_feed(handle, bytes(chunk), len(chunk)) != 0:
-                ok = False
-                break
-        members = _members(lib, handle, max_member) if ok else None
+        with tracing.span("analysis.split"):
+            ok = True
+            while True:
+                chunk = reader(_CHUNK)
+                if not chunk:
+                    ok = lib.tsp_finish(handle) == 0
+                    break
+                if lib.tsp_feed(handle, bytes(chunk), len(chunk)) != 0:
+                    ok = False
+                    break
+            members = _members(lib, handle, max_member) if ok else None
         if members is None:
             err = lib.tsp_error(handle) or b""
             _log.debug("native split declined; using tarfile walk",

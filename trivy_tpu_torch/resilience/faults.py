@@ -58,15 +58,17 @@ fires: the RPC client's (`rpc`, `rpc.scan`, `rpc.cache.*`, `rpc.wire`),
 the match scheduler's (`sched.submit`), the match engine's device-loss
 ladders (`engine`, `engine.device`, `engine.shard`, and the distributed
 MeshDB's per-host `engine.host`), the secret scanner's
-(`secret.device`), and the monitor's durable paths (`journal.append`,
-`monitor.index`, `monitor.rematch`; an atomic rewrite of the index also
-probes `monitor.index.commit` for a kill). A rule naming any other site
-of the reference (`analysis.*`, `db.*`, `cache.write`, `fleet.*`,
-...), or an action its site does not
-handle, is refused with a FaultSpecError when the plan compiles: a rule
-is never accepted and then left to do nothing. No fault-fire metrics,
-no round trip of a plan back to a spec (the chaos campaign's shrinker
-is not ported).
+(`secret.device`), the layer pipeline's (`analysis.fetch`,
+`analysis.lane`), `db download`'s (`db.download`, `db.install.extract`,
+`db.install.promote`), and the monitor's durable paths
+(`journal.append`, `monitor.index`, `monitor.rematch`; an atomic
+rewrite of the index also probes `monitor.index.commit` for a kill). A
+rule naming any other site of the reference (`db.save`, `cache.write`,
+`fleet.*`, ...), or an action its site does not handle, is refused
+with a FaultSpecError when the plan compiles: a rule is never accepted
+and then left to do nothing. Every firing counts in
+`trivy_tpu_fault_injections_total`. No round trip of a plan back to a
+spec (the chaos campaign's shrinker is not ported).
 """
 
 from __future__ import annotations
@@ -74,8 +76,9 @@ from __future__ import annotations
 import os
 import random
 import re
-import threading
 from dataclasses import dataclass, field
+
+from trivy_tpu_torch.analysis.witness import make_lock
 
 ENV_VAR = "TRIVY_TPU_FAULTS"
 SEED_ENV_VAR = "TRIVY_TPU_FAULT_SEED"
@@ -93,10 +96,15 @@ SITES: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("engine.shard", ("drop", "delay", "error", "device-lost")),
     ("engine.host", ("drop", "delay", "error", "device-lost")),
     ("sched.submit", ("drop", "delay", "error")),
+    ("analysis.fetch", ("drop", "delay", "error", "kill")),
+    ("analysis.lane", ("drop", "delay", "error", "kill")),
     ("secret.device", ("drop", "delay", "error", "device-lost")),
     ("journal.append", ("kill", "torn-write", "bitflip")),
     ("monitor.index", ("drop", "error", "kill", "torn-write", "bitflip")),
     ("monitor.rematch", ("drop", "delay", "error", "kill")),
+    ("db.download", ("torn-write", "bitflip")),
+    ("db.install.extract", ("kill",)),
+    ("db.install.promote", ("kill",)),
 )
 
 ACTIONS = {a for _site, acts in SITES for a in acts}
@@ -112,7 +120,7 @@ def site_actions(site: str) -> set[str] | None:
     (``rpc.cache.PutBlob`` extends ``rpc.cache``), or of every ported
     site it prefixes (``sched`` prefixes ``sched.submit``, ``engine``
     also ``engine.device``, ``engine.shard`` and ``engine.host``). None
-    when it reaches no site the port fires (``analysis.fetch``)."""
+    when it reaches no site the port fires (``cache.write``)."""
     acts = dict(SITES)
     under = [name for name in acts
              if site == name or (site.startswith(name + ".")
@@ -214,7 +222,7 @@ class FaultPlan:
         self.rules = list(rules)
         self.seed = seed
         self._rng = random.Random(seed)
-        self._lock = threading.Lock()
+        self._lock = make_lock("resilience.faults._lock")
 
     @classmethod
     def from_spec(cls, spec: str) -> "FaultPlan":
@@ -266,7 +274,9 @@ class FaultPlan:
 
     def fire(self, site: str) -> list[Rule]:
         """Which rules apply to this call at `site`? Increments the call
-        counter of every matching rule, firing or not."""
+        counter of every matching rule, firing or not. Every firing is
+        counted in trivy_tpu_fault_injections_total{site,action} so a
+        fault-matrix run's metrics show exactly what was injected."""
         out: list[Rule] = []
         with self._lock:
             for r in self.rules:
@@ -275,6 +285,11 @@ class FaultPlan:
                     if r.fires(r.calls, self._rng):
                         r.fired += 1
                         out.append(r)
+        if out:
+            from trivy_tpu_torch.obs import metrics as obs_metrics
+
+            for r in out:
+                obs_metrics.FAULT_FIRES.inc(site=r.site, action=r.action)
         return out
 
 

@@ -20,8 +20,10 @@ deterministically.
 Copy of trivy_tpu/rpc/client.py for one server URL: the reference routes
 through the fleet's EndpointSet (replica sets, failover, hedging), which
 is not ported yet, so a comma-separated URL is refused. Default-
-configured clients share one pooled _Conn per (url, token). No tracing
-spans, metrics or usage meters.
+configured clients share one pooled _Conn per (url, token). Each call
+is one `rpc.<method>` span whose identity rides the X-Trivy-Trace
+header, its round trips are timed in trivy_tpu_rpc_client_seconds, and
+its bytes meter the ambient usage scope.
 """
 
 from __future__ import annotations
@@ -30,11 +32,16 @@ import http.client
 import json
 import random
 import threading
+import time
 import urllib.error
 import urllib.request
 from urllib.parse import urlsplit
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
+from trivy_tpu_torch.obs import usage
 from trivy_tpu_torch.resilience import faults
 from trivy_tpu_torch.resilience.retry import (
     DEADLINE_HEADER,
@@ -78,13 +85,14 @@ class RPCBackpressure(RPCUnavailable):
     shedding (503 + Retry-After from drain or overload)."""
 
 
-def single_url(url: str) -> str:
-    """The one server URL of `url`; raises ValueError (one line) for a
-    comma-separated replica set, which the port does not serve yet."""
+def single_url(url: str, what: str = "--server") -> str:
+    """The one server URL of `url`; raises ValueError (one line, naming
+    `what`) for a comma-separated replica set, which the port does not
+    serve yet."""
     urls = [u.strip() for u in (url or "").split(",") if u.strip()]
     if len(urls) != 1:
         raise ValueError(
-            f"--server {url!r}: a comma-separated replica set is not "
+            f"{what} {url!r}: a comma-separated replica set is not "
             "ported yet (give one server URL)")
     return urls[0]
 
@@ -109,7 +117,7 @@ class _Conn:
         # each lane amortizes its TCP connect across its whole run
         self._tls = threading.local()
         self._all_conns: set = set()
-        self._conns_lock = threading.Lock()
+        self._conns_lock = make_lock("rpc.client._conns_lock")
         # sticky capability learned from the first response's
         # X-Trivy-Gzip header: only then are REQUEST bodies gzipped
         # (an old server must never see a gzip request body)
@@ -266,9 +274,14 @@ class _Conn:
 
     def post(self, path: str, body: bytes, columnar=None,
              json_only: bool = False) -> bytes:
+        # one client span covers the whole retried call; the trace
+        # identity rides X-Trivy-Trace so the server's handler span
+        # becomes this span's child
         method = path.rsplit("/", 1)[-1]
-        return self._post_attempts(path, method, body, columnar=columnar,
-                                   json_only=json_only)
+        with tracing.span(f"rpc.{method}", url=self.base):
+            return self._post_attempts(path, method, body,
+                                       columnar=columnar,
+                                       json_only=json_only)
 
     def _post_attempts(self, path: str, method: str, body: bytes,
                        attempts: int | None = None, columnar=None,
@@ -281,6 +294,7 @@ class _Conn:
                    **self.custom_headers}
         if self.token:
             headers["Trivy-Token"] = self.token
+        tracing.inject_headers(headers)
         policy = self.retry
         attempts = policy.attempts if attempts is None else attempts
         deadline = current_deadline()
@@ -318,13 +332,22 @@ class _Conn:
                     col_bytes = columnar()
                 # frames carry their own per-frame deflate; whole-body
                 # gzip would defeat frame-at-a-time decode
-                send_body = col_bytes
+                payload = send_body = col_bytes
                 hdrs["Content-Type"] = colwire.CONTENT_TYPE
             else:
-                send_body = body
+                payload = send_body = body
                 if self._server_gzip and len(body) >= wire.GZIP_MIN_BYTES:
                     send_body = wire.gzip_bytes(body)
                     hdrs["Content-Encoding"] = "gzip"
+            # client-side cost vector (no-ops without an ambient usage
+            # scope): payload bytes pre-compression, wire bytes as
+            # actually sent, accrued per attempt — retries really do
+            # re-ship bytes
+            usage.add("bytes_out", float(len(payload)))
+            usage.add("wire_bytes_out", float(len(send_body)))
+            obs_metrics.WIRE_REQUESTS.inc(
+                format="columnar" if use_columnar else "json",
+                direction="out")
             retry_after: float | None = None
             corrupt = False
             try:
@@ -352,6 +375,7 @@ class _Conn:
                             # response re-advertises columnar
                             self._server_columnar = False
                             wire_extra = min(wire_extra + 1, 2)
+                            obs_metrics.WIRE_FALLBACKS.inc(reason="drop")
                             raise urllib.error.URLError(
                                 ConnectionResetError(
                                     "injected columnar drop"))
@@ -360,6 +384,9 @@ class _Conn:
                             # this call back to JSON for good
                             col_fails += 1
                             wire_extra = min(wire_extra + 1, 2)
+                            if col_fails >= 2:
+                                obs_metrics.WIRE_FALLBACKS.inc(
+                                    reason="error")
                             raise _WireError(
                                 "injected columnar wire error")
                         elif rule.action == "corrupt" and use_columnar:
@@ -375,15 +402,29 @@ class _Conn:
                     # blind socket timeout into that definite answer
                     timeout = max(0.001, min(
                         timeout, deadline.remaining() + 0.5))
-                status, rhdrs, raw = self._request_once(
-                    path, send_body, hdrs, timeout)
+                rt_start = time.perf_counter()
+                try:
+                    status, rhdrs, raw = self._request_once(
+                        path, send_body, hdrs, timeout)
+                finally:
+                    # per-attempt round-trip latency, errors included;
+                    # the ambient rpc.<method> span's trace id rides
+                    # along as an OpenMetrics exemplar so a tail bucket
+                    # names the exact trace that landed there
+                    cur = tracing.current()
+                    obs_metrics.RPC_CLIENT_SECONDS.observe(
+                        time.perf_counter() - rt_start, method=method,
+                        exemplar=cur.trace_id if cur is not None
+                        else None)
                 if rhdrs.get(wire.GZIP_CAPABLE_HEADER):
                     self._server_gzip = True
                 if rhdrs.get(colwire.CAPABLE_HEADER):
                     self._server_columnar = True
+                usage.add("wire_bytes_in", float(len(raw)))
                 if "gzip" in (rhdrs.get("Content-Encoding")
                               or "").lower():
                     raw = wire.gunzip_bytes(raw)
+                usage.add("bytes_in", float(len(raw)))
                 if status >= 300:
                     # non-2xx is an error, named by status: 3xx included
                     # (a redirecting ingress is a config problem this
@@ -412,6 +453,7 @@ class _Conn:
                         # (granted) retry resend JSON
                         self._server_columnar = False
                         wire_extra = min(wire_extra + 1, 2)
+                        obs_metrics.WIRE_FALLBACKS.inc(reason="unlearn")
                         shed = False
                         last_err = RPCError(
                             f"{status} to columnar request from a "
@@ -423,6 +465,7 @@ class _Conn:
                         # resend this call as JSON
                         col_fails = 2
                         wire_extra = min(wire_extra + 1, 2)
+                        obs_metrics.WIRE_FALLBACKS.inc(reason="corrupt")
                         shed = False
                         last_err = RPCError(
                             f"400 columnar frame reject: {detail}")
@@ -465,6 +508,7 @@ class _Conn:
                         f"{deadline.budget_s:.3f}s leaves no room to retry "
                         f"(last error: {last_err})",
                         budget_s=deadline.budget_s)
+                obs_metrics.RETRY_ATTEMPTS.inc(method=method)
                 policy.sleep(delay)
         if shed:
             raise RPCBackpressure(
@@ -481,7 +525,7 @@ class _Conn:
 # retry policies or headers opt out (tests and special callers keep
 # private connections).
 _CONN_POOL: dict[tuple, _Conn] = {}
-_CONN_POOL_LOCK = threading.Lock()
+_CONN_POOL_LOCK = make_lock("rpc.client._CONN_POOL_LOCK")
 
 
 def _pooled_conn(url: str, token: str | None,
@@ -529,6 +573,7 @@ class RemoteDriver:
             except colwire.WireFormatError as exc:
                 # a columnar response that fails its frame checksums
                 # (torn/corrupted in transit): refetch once as JSON
+                obs_metrics.WIRE_FALLBACKS.inc(reason="corrupt")
                 _log.warn("columnar scan response rejected; "
                           "refetching as JSON", err=str(exc))
                 raw = self.conn.post(SCAN_PATH, body, json_only=True)
@@ -568,6 +613,7 @@ class RemoteCache:
             try:
                 return colwire.decode_missing_response(raw)
             except colwire.WireFormatError as exc:
+                obs_metrics.WIRE_FALLBACKS.inc(reason="corrupt")
                 _log.warn("columnar MissingBlobs response rejected; "
                           "refetching as JSON", err=str(exc))
                 raw = self.conn.post(CACHE_PREFIX + "MissingBlobs",

@@ -39,8 +39,7 @@ builds (golden-tested in tests/test_wire.py — re-encoding a decoded
 columnar response through ``wire.scan_response`` yields the JSON
 wire's bytes).
 
-Copy of trivy_tpu/rpc/columnar.py without the wire-frame counters
-(metrics are not ported yet). ``decode_queries`` feeds the port's
+Copy of trivy_tpu/rpc/columnar.py. ``decode_queries`` feeds the port's
 ``detector/engine.queries_from_columns``.
 """
 
@@ -54,6 +53,7 @@ import zlib
 
 import numpy as np
 
+from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.rpc import wire
 from trivy_tpu_torch.types.artifact import OS, Layer, PkgIdentifier
 from trivy_tpu_torch.types.enums import Status
@@ -107,6 +107,7 @@ def _frame(kind: str, payload: bytes = b"", **meta) -> bytes:
               "crc": zlib.crc32(payload) & 0xFFFFFFFF, "z": z}
     header.update(meta)
     hb = json.dumps(header, ensure_ascii=False).encode()
+    obs_metrics.WIRE_FRAMES.inc(direction="out")
     return struct.pack("<I", len(hb)) + hb + payload
 
 
@@ -147,6 +148,7 @@ def frames(buf: bytes):
             except zlib.error as exc:
                 raise WireFormatError(
                     f"bad columnar frame deflate: {exc}") from exc
+        obs_metrics.WIRE_FRAMES.inc(direction="in")
         yield header, payload
         if header.get("k") == "end":
             return

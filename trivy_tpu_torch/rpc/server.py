@@ -6,7 +6,8 @@ Endpoints:
   POST /twirp/trivy.cache.v1.Cache/PutBlob
   POST /twirp/trivy.cache.v1.Cache/MissingBlobs
   POST /twirp/trivy.cache.v1.Cache/DeleteBlobs
-  GET  /healthz, GET /readyz, GET /version
+  GET  /healthz, GET /readyz, GET /version, GET /metrics
+  GET  /debug/profile, /debug/flight, /debug/usage
   GET  /monitor/events?since=N                 continuous-monitoring
                                                events (--monitor-index)
 
@@ -26,15 +27,16 @@ MeshDB, its hosts.
 With `monitor_index` the service records each completed scan in the
 monitor index and, after every hot swap, re-scores the affected
 artifacts on a background thread (trivy_tpu_torch/monitor) through the
-match scheduler; the events are served at /monitor/events. Left out,
-and answering 404: `/metrics` and `/debug/*` (the metrics registry and
-the bottleneck attribution are not ported yet) and `/fleet/*` (the
-fleet control surface, so `ScanService.reresolve_mesh` has no
-endpoint, and no reload parks its re-score for a fleet rollout); the
-redis layer gate is not ported either. `Metrics`
-keeps the integer counters behind the reference's legacy properties.
-The listen backlog is 128 connections (the reference's is
-socketserver's 5).
+match scheduler; the events are served at /monitor/events. `/metrics`
+serves the server's own registry and the process-wide one
+(obs/metrics.py); `/debug/profile`, `/debug/flight` and `/debug/usage`
+serve the bottleneck attribution the server holds for its lifetime
+(obs/attrib.py) and the usage registry (obs/usage.py), behind the scan
+token or TRIVY_TPU_PROFILE_TOKEN. Left out, and answering 404:
+`/fleet/*` (the fleet control surface, so `ScanService.reresolve_mesh`
+has no endpoint, and no reload parks its re-score for a fleet
+rollout); the redis layer gate is not ported either. The listen
+backlog is 128 connections (the reference's is socketserver's 5).
 """
 
 from __future__ import annotations
@@ -46,7 +48,10 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import trivy_tpu_torch
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
 from trivy_tpu_torch.obs import usage
 from trivy_tpu_torch.resilience.retry import (
     DEADLINE_HEADER,
@@ -62,16 +67,13 @@ _log = logger("server")
 
 SCAN_PATH = "/twirp/trivy.scanner.v1.Scanner/Scan"
 CACHE_PREFIX = "/twirp/trivy.cache.v1.Cache/"
-# the client's trace header: its id names the claimant of a layer-gate
-# claim, so a retried MissingBlobs re-leads its own claims
-TRACE_HEADER = "X-Trivy-Trace"
 
 
 class _RWLock:
     """Many readers (scans) / one writer (DB swap)."""
 
     def __init__(self):
-        self._cond = threading.Condition()
+        self._cond = make_lock("rpc.server._cond", threading.Condition())
         self._readers = 0
         self._writing = False
         self._writers_waiting = 0
@@ -118,39 +120,52 @@ class _RWLock:
             self._cond.notify_all()
 
 
-class _Counter:
-    """One monotonically increasing server counter."""
-
-    __slots__ = ("_value", "_lock")
-
-    def __init__(self, lock: threading.Lock):
-        self._value = 0.0
-        self._lock = lock
-
-    def inc(self, amount: float = 1.0) -> None:
-        with self._lock:
-            self._value += amount
-
-    def value(self) -> float:
-        with self._lock:
-            return self._value
-
-
 class Metrics:
-    """The scan server's counters (fresh Server => zeroed counters), read
-    through the reference's legacy integer properties. One lock guards
-    them all, so `record` updates its three counters together."""
+    """Scan-server metrics exposed at /metrics in Prometheus text format
+    (SURVEY §5: greenfield for the TPU sidecar).
+
+    Backed by an obs.metrics.Registry private to this server instance
+    (fresh Server => zeroed counters, as tests expect) — every
+    pre-existing trivy_tpu_* series name is byte-stable, enforced by a
+    golden test. render() appends the process-wide spine registry
+    (scan-phase / RPC histograms, breaker state, cache corruption,
+    fault fires), each rendered under one lock snapshot so concurrent
+    scans cannot produce torn counter reads.
+
+    The legacy integer attributes (scans_total, ...) remain readable as
+    properties; writers go through the typed metric handles."""
 
     def __init__(self):
-        self._lock = threading.RLock()
-        self.scans = _Counter(self._lock)
-        self.scan_errors = _Counter(self._lock)
-        self.scan_seconds = _Counter(self._lock)
-        self.findings = _Counter(self._lock)
-        self.db_reloads = _Counter(self._lock)
-        self.db_reload_failures = _Counter(self._lock)
-        self.scans_shed = _Counter(self._lock)
-        self.drained_scans = _Counter(self._lock)
+        self.registry = obs_metrics.Registry()
+        reg = self.registry
+        self.scans = reg.counter(
+            "trivy_tpu_scans_total", "Scan RPCs handled")
+        self.scan_errors = reg.counter(
+            "trivy_tpu_scan_errors_total", "Scan RPCs that errored")
+        self.scan_seconds = reg.counter(
+            "trivy_tpu_scan_seconds_sum",
+            "Total seconds spent in scan RPCs")
+        self.findings = reg.counter(
+            "trivy_tpu_findings_total", "Vulnerabilities reported")
+        self.db_reloads = reg.counter(
+            "trivy_tpu_db_reloads_total", "Advisory-DB hot swaps served")
+        self.db_reload_failures = reg.counter(
+            "trivy_tpu_db_reload_failures_total",
+            "Advisory-DB candidates rejected (serving last-good)")
+        self.scans_shed = reg.counter(
+            "trivy_tpu_scans_shed_total",
+            "Scans shed with 503 (drain, DB swap, deadline)")
+        self.drained_scans = reg.counter(
+            "trivy_tpu_drained_scans_total",
+            "In-flight scans carried to completion during drain")
+        self.db_reload_seconds = reg.histogram(
+            "trivy_tpu_db_reload_seconds",
+            "Advisory-DB reload attempt duration (load+validate+swap)")
+        self.db_generation_age = reg.gauge(
+            "trivy_tpu_db_generation_age_seconds",
+            "Seconds since the served DB generation was loaded")
+
+    # legacy integer views (tests and operators read these directly)
 
     @property
     def scans_total(self) -> int:
@@ -186,13 +201,23 @@ class Metrics:
 
     def record(self, seconds: float, findings: int = 0,
                error: bool = False) -> None:
-        with self._lock:  # one consistent update
+        with self.registry.locked():  # one snapshot-consistent update
             self.scans.inc()
             self.scan_seconds.inc(round(seconds, 6))
             if findings:
                 self.findings.inc(findings)
             if error:
                 self.scan_errors.inc()
+
+    def render(self) -> bytes:
+        return self.registry.render() + obs_metrics.REGISTRY.render()
+
+    def render_openmetrics(self) -> bytes:
+        """OpenMetrics exposition (exemplars + `# EOF`), served only
+        under `Accept: application/openmetrics-text` — the legacy
+        0.0.4 bytes from render() stay golden."""
+        return (self.registry.render_openmetrics(eof=False)
+                + obs_metrics.REGISTRY.render_openmetrics())
 
 
 class ScanService:
@@ -208,6 +233,12 @@ class ScanService:
         self.db_path = db_path
         self._db_state = self._db_identity()
         self.metrics = Metrics()
+        # generation age: seconds since the served DB was (re)loaded,
+        # evaluated at /metrics render time (monotonic: an NTP step
+        # must not age or rejuvenate the serving generation)
+        self._db_loaded_at = time.monotonic()
+        self.metrics.db_generation_age.set_function(
+            lambda: time.monotonic() - self._db_loaded_at)
         # durable-lifecycle state: the generation the live engine was
         # loaded from (rollback target), the identity of the last
         # candidate we rejected (avoid a reload/reject loop), and a
@@ -217,7 +248,8 @@ class ScanService:
         self.db_degraded: str = ""
         # drain state: SIGTERM flips draining; in-flight scans finish
         # under the drain budget, new scans shed with Retry-After
-        self._drain_cond = threading.Condition()
+        self._drain_cond = make_lock("rpc.server._drain_cond",
+                                     threading.Condition())
         self._inflight = 0
         self.draining = False
         # cross-CLIENT layer dedupe: analysis happens client-side, but
@@ -259,7 +291,7 @@ class ScanService:
                     self.engine, "mesh_row_floor", 0))
         # serializes the check-load-swap of maybe_reload_db: the poller
         # and a direct caller must not build two engines at once
-        self._reload_lock = threading.Lock()
+        self._reload_lock = make_lock("rpc.server._reload_lock")
         # continuous monitoring (--monitor-index): completed scans
         # record inventory + finding baselines into the durable
         # package→artifact index; every DB hot swap triggers an
@@ -505,7 +537,11 @@ class ScanService:
         for b, slot in waits:
             t0 = time.monotonic()
             if budget > 0:
-                done = slot.event.wait(budget)
+                obs_metrics.LAYER_DEDUPE_INFLIGHT_WAITS.inc()
+                # queue_wait attribution lane: this request parked on
+                # another client's in-flight analysis of a shared layer
+                with tracing.span("analysis.dedupe.wait"):
+                    done = slot.event.wait(budget)
             else:
                 done = slot.done
             budget = max(0.0, budget - (time.monotonic() - t0))
@@ -528,6 +564,9 @@ class ScanService:
                 if b in still_set:
                     self.layer_gate.reclaim(b, holder=holder)
                     out.add(b)
+                else:
+                    obs_metrics.LAYER_DEDUPE_HITS.inc()
+                    usage.add("layers_deduped")
         return [b for b in missing if b in out]
 
     def scan(self, target, artifact_key, blob_keys, options,
@@ -631,6 +670,7 @@ class ScanService:
 
         resolved = self._resolved_db_dir()
         _log.info("advisory DB changed; reloading", path=resolved)
+        reload_start = time.perf_counter()
         problem = None
         db = new_engine = None
         try:
@@ -660,6 +700,8 @@ class ScanService:
             self._rejected_db_state = state
             self.db_degraded = f"DB candidate rejected ({problem})"
             self.metrics.db_reload_failures.inc()
+            self.metrics.db_reload_seconds.observe(
+                time.perf_counter() - reload_start)
             _log.warn("advisory DB candidate rejected; serving last-good",
                       path=resolved, reason=problem)
             if self._is_generation(resolved) \
@@ -691,6 +733,7 @@ class ScanService:
             self._rejected_db_state = ()
             self.db_degraded = ""
             self._db_digest = new_digest
+            self._db_loaded_at = time.monotonic()
         finally:
             self.lock.release_write()
         # the write lock quiesced every scan on the old engine: release
@@ -704,6 +747,8 @@ class ScanService:
                 _log.warn("old engine close failed after hot swap",
                           err=str(exc))
         self.metrics.db_reloads.inc()
+        self.metrics.db_reload_seconds.observe(
+            time.perf_counter() - reload_start)
         _log.info("advisory DB hot-swapped", **db.stats())
         if self.monitor is not None:
             # continuous monitoring: the promote triggers an
@@ -751,12 +796,14 @@ def _make_handler(service: ScanService, token: str | None,
             # plain byte-identical wire)
             accept = (self.headers.get("Accept-Encoding") or "").lower()
             encoding = None
+            usage.add("bytes_out", float(len(body)))
             if "gzip" in accept and len(body) >= wire.GZIP_MIN_BYTES \
                     and ctype != colwire.CONTENT_TYPE:
                 # columnar bodies skip whole-body gzip: frames carry
                 # their own per-frame deflate
                 body = wire.gzip_bytes(body)
                 encoding = "gzip"
+            usage.add("wire_bytes_out", float(len(body)))
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
@@ -784,12 +831,18 @@ def _make_handler(service: ScanService, token: str | None,
             self.send_header(colwire.CAPABLE_HEADER, "1")
             self.send_header("Transfer-Encoding", "chunked")
             self.end_headers()
+            total = 0
             for frame in frames:
+                total += len(frame)
                 self.wfile.write(b"%x\r\n" % len(frame))
                 self.wfile.write(frame)
                 self.wfile.write(b"\r\n")
                 self.wfile.flush()
             self.wfile.write(b"0\r\n\r\n")
+            # columnar bodies have no whole-body compression layer, so
+            # payload bytes == wire bytes (conservation invariant)
+            usage.add("bytes_out", float(total))
+            usage.add("wire_bytes_out", float(total))
 
         def _accepts_columnar(self) -> bool:
             return (colwire.enabled() and colwire.CONTENT_TYPE in
@@ -807,6 +860,9 @@ def _make_handler(service: ScanService, token: str | None,
         def _shed(self, msg: str, retry_after: float):
             """503 + Retry-After: the reply a well-behaved client backs
             off on instead of hammering a busy server."""
+            # every shed REPLY meters the tenant exactly once — shed
+            # demand must stay visible per tenant even under overload
+            usage.add("sheds")
             self._reply(
                 503, json.dumps({"error": msg}).encode(),
                 extra_headers={"Retry-After": f"{max(retry_after, 0.0):g}"})
@@ -819,7 +875,42 @@ def _make_handler(service: ScanService, token: str | None,
                 return True
             return self.headers.get("Trivy-Token") == token
 
+        def _debug_authed(self) -> bool:
+            """/debug/* gate: the scan token works, and the dedicated
+            TRIVY_TPU_PROFILE_TOKEN (when set) grants profile access
+            without handing out the scan/cache surface."""
+            profile_token = os.environ.get("TRIVY_TPU_PROFILE_TOKEN", "")
+            if profile_token and \
+                    self.headers.get("Trivy-Token") == profile_token:
+                return True
+            return self._authed()
+
         def do_GET(self):
+            if self.path.startswith("/debug/"):
+                # live bottleneck attribution + slow-scan flight
+                # recorder + usage; token-gated like /monitor/events
+                # (profiles name scan targets and trace ids)
+                if not self._debug_authed():
+                    self._error(401, "invalid token")
+                    return
+                from trivy_tpu_torch.obs import attrib
+
+                if self.path.startswith("/debug/profile"):
+                    self._reply(200, json.dumps(
+                        attrib.AGG.snapshot()).encode())
+                elif self.path.startswith("/debug/flight"):
+                    self._reply(200, json.dumps(
+                        attrib.AGG.flight.chrome_doc()).encode())
+                elif self.path.startswith("/debug/usage"):
+                    # per-tenant cost vectors + the machine-checked
+                    # conservation totals (docs/observability.md
+                    # "Usage metering"); tenants are token hashes,
+                    # never raw tokens
+                    self._reply(200, json.dumps(
+                        usage.USAGE.snapshot()).encode())
+                else:
+                    self._error(404, "not found")
+                return
             if self.path.startswith("/monitor/events"):
                 if not self._authed():
                     # events name scan targets + CVEs: token-gated like
@@ -867,25 +958,43 @@ def _make_handler(service: ScanService, token: str | None,
             elif self.path == "/version":
                 self._reply(200, json.dumps(
                     {"Version": trivy_tpu_torch.__version__}).encode())
+            elif self.path == "/metrics":
+                # content negotiation: the OpenMetrics exposition (with
+                # trace-id exemplars) only on explicit Accept — every
+                # header-less legacy scraper keeps the byte-stable
+                # 0.0.4 text
+                accept = self.headers.get("Accept") or ""
+                if "application/openmetrics-text" in accept:
+                    self._reply(
+                        200, service.metrics.render_openmetrics(),
+                        "application/openmetrics-text; version=1.0.0; "
+                        "charset=utf-8")
+                else:
+                    self._reply(200, service.metrics.render(),
+                                "text/plain; version=0.0.4")
             else:
-                # /metrics, /debug/*: not ported yet
                 self._error(404, "not found")
 
         def do_POST(self):
             if not self._authed():
                 self._error(401, "invalid token")
                 return
-            # tenant scope: the whole admitted request runs under the
+            # usage metering scope: the whole admitted request — scan
+            # and cache POSTs alike — accrues its cost vector to the
             # tenant hashed from the auth token (never the raw token;
             # no token = the anonymous bucket), which the scheduler's
-            # QoS reads. TRIVY_TPU_USAGE=0 makes this a no-op.
+            # QoS reads too. The scope is ambient on this handler
+            # thread, follows worker threads via capture/adopt, and
+            # folds into the per-tenant registry on exit.
+            # TRIVY_TPU_USAGE=0 makes this a no-op.
             with usage.scope(usage.tenant_id(
                     self.headers.get("Trivy-Token"))):
-                self._post_scoped()
+                self._post_metered()
 
-        def _post_scoped(self):
+        def _post_metered(self):
             length = int(self.headers.get("Content-Length") or 0)
             body = self.rfile.read(length)
+            usage.add("wire_bytes_in", float(len(body)))
             if "gzip" in (self.headers.get("Content-Encoding")
                           or "").lower():
                 try:
@@ -894,6 +1003,7 @@ def _make_handler(service: ScanService, token: str | None,
                     # deterministic decode failure: never retried
                     self._error(400, f"bad request body: {exc}")
                     return
+            usage.add("bytes_in", float(len(body)))
             is_columnar_req = (
                 (self.headers.get("Content-Type") or "")
                 .startswith(colwire.CONTENT_TYPE)
@@ -953,22 +1063,43 @@ def _make_handler(service: ScanService, token: str | None,
             if self._columnar_body(body):
                 target, akey, blobs, options = \
                     colwire.decode_scan_request(body)
+                obs_metrics.WIRE_REQUESTS.inc(format="columnar",
+                                              direction="in")
             else:
                 target, akey, blobs, options = \
                     wire.decode_scan_request(body)
+                obs_metrics.WIRE_REQUESTS.inc(format="json",
+                                              direction="in")
             deadline = Deadline.from_header(
                 self.headers.get(DEADLINE_HEADER))
-            try:
-                results, os_found = service.scan(
-                    target, akey, blobs, options, deadline=deadline)
-            except Overloaded as exc:
-                _log.warn("scan shed", err=str(exc))
-                self._shed(str(exc), exc.retry_after)
-                return
-            except DeadlineExceeded as exc:
-                _log.warn("scan shed mid-flight", err=str(exc))
-                self._shed(str(exc), 1.0)
-                return
+            # adopt the caller's trace identity (X-Trivy-Trace) so the
+            # server-side phases nest under the client's RPC span — a
+            # remote scan renders as one stitched tree. A reference
+            # client's hedged or failed-over dispatch carries its
+            # attempt identity too, kept as the span's meta (the
+            # attribution counts a hedge's tree as a fragment)
+            trace_header = self.headers.get(tracing.TRACE_HEADER)
+            extra = {}
+            tag = tracing.parse_attempt_tag(trace_header)
+            if tag is not None:
+                key = ("failover_attempt" if tag[2] == "failover"
+                       else "attempt")
+                extra = {key: str(tag[0]), "endpoint": str(tag[1])}
+            with tracing.server_span(
+                    "server.scan", trace_header,
+                    target=target, **extra):
+                try:
+                    results, os_found = service.scan(
+                        target, akey, blobs, options, deadline=deadline)
+                except Overloaded as exc:
+                    _log.warn("scan shed", err=str(exc))
+                    self._shed(str(exc), exc.retry_after)
+                    return
+                except DeadlineExceeded as exc:
+                    _log.warn("scan shed mid-flight", err=str(exc))
+                    self._shed(str(exc), 1.0)
+                    return
+            usage.add("scans")
             if self._accepts_columnar():
                 self._reply_stream(
                     colwire.scan_response_frames(results, os_found))
@@ -977,6 +1108,8 @@ def _make_handler(service: ScanService, token: str | None,
 
         def _handle_cache(self, method: str, body: bytes):
             if self._columnar_body(body):
+                obs_metrics.WIRE_REQUESTS.inc(format="columnar",
+                                              direction="in")
                 if method == "PutBlob":
                     diff_id, blob_info = colwire.decode_put_blob(body)
                     doc = {"diff_id": diff_id, "blob_info": blob_info}
@@ -1006,6 +1139,9 @@ def _make_handler(service: ScanService, token: str | None,
                 missing_artifact, missing_blobs = cache.missing_blobs(
                     doc["artifact_id"], blob_ids
                 )
+                usage.add("cache_hits",
+                          float(len(blob_ids) - len(missing_blobs)))
+                usage.add("cache_misses", float(len(missing_blobs)))
                 if missing_blobs:
                     from trivy_tpu_torch.fanal import pipeline as _analysis
 
@@ -1017,7 +1153,7 @@ def _make_handler(service: ScanService, token: str | None,
                         # the trace id (stable across retry attempts of
                         # one scan) identifies the claimant, so a
                         # resent MissingBlobs re-leads its own claims
-                        trace = self.headers.get(TRACE_HEADER)
+                        trace = self.headers.get(tracing.TRACE_HEADER)
                         holder = trace.split("-", 1)[0] if trace else None
                         missing_blobs = service.filter_inflight_blobs(
                             missing_blobs,
@@ -1066,6 +1202,14 @@ class Server:
         except BaseException:
             self.service.close()
             raise
+        # live bottleneck attribution (obs/attrib.py): on by default
+        # for the server's lifetime — /debug/profile answers "which
+        # lane bounds this server" without a restart; TRIVY_TPU_ATTRIB=0
+        # is the kill switch. Refcounted so tests spinning several
+        # servers per process release the span sink on shutdown.
+        from trivy_tpu_torch.obs import attrib
+
+        self._attrib_held = attrib.acquire()
         self.db_reload_interval = db_reload_interval
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
@@ -1118,6 +1262,14 @@ class Server:
         if drain_timeout is not None:
             self.drain(drain_timeout)  # idempotent if already draining
         self._stop.set()
+        if self._attrib_held:
+            from trivy_tpu_torch.obs import attrib
+
+            self._attrib_held = False
+            attrib.release()
+        # flush a final usage-journal snapshot (no-op when
+        # TRIVY_TPU_USAGE_JOURNAL is unset)
+        usage.USAGE.journal_sync()
         # after the drain budget: the monitor's re-score is joined and
         # its index closed; the scheduler finishes whatever
         # queued-and-admitted work remains, then stops admitting

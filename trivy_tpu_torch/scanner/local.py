@@ -62,10 +62,18 @@ class LocalDriver:
         # budget (server header / --scan-timeout) a scan that cannot
         # finish sheds promptly between phases instead of burning device
         # time nobody will wait for
+        from trivy_tpu_torch import obs
+        from trivy_tpu_torch.obs import tracing as trace
+
         checkpoint("apply_layers")
         t0 = time.perf_counter()
-        detail = self._apply_layers(blob_keys)
-        self._merge_artifact_info(detail, artifact_key)
+        # blob reads + squash are the "cache" phase of the latency
+        # histogram; the span keeps its historical name
+        with obs.phase("apply_layers", phase="cache"):
+            detail = self._apply_layers(blob_keys)
+            self._merge_artifact_info(detail, artifact_key)
+            trace.add_meta(pkgs=len(detail.packages),
+                           apps=len(detail.applications))
         if not options.include_dev_deps:
             # development dependencies are excluded unless requested
             # (reference pkg/scanner/local/scan.go:438 excludeDevDeps)
@@ -77,16 +85,19 @@ class LocalDriver:
             from trivy_tpu_torch.fanal.unpackaged import discover_sboms
 
             checkpoint("rekor_sbom_discovery")
-            discover_sboms(detail, options.rekor_url)
+            with trace.span("rekor_sbom_discovery"):
+                discover_sboms(detail, options.rekor_url)
         checkpoint("detect")
         t1 = time.perf_counter()
-        results = self._scan_detail(target, detail, options)
+        with obs.phase("detect"):
+            results = self._scan_detail(target, detail, options)
         t2 = time.perf_counter()
         self.stats = {"apply_s": t1 - t0, "detect_s": t2 - t1}
         checkpoint("post_hooks")
-        # globally registered hooks (reference
-        # pkg/scanner/local/scan.go:152 -> post/post_scan.go:35)
-        results = post.scan(results, options)
+        with trace.span("post_hooks"):
+            # globally registered hooks (reference
+            # pkg/scanner/local/scan.go:152 -> post/post_scan.go:35)
+            results = post.scan(results, options)
         return results, detail.os
 
     def _merge_artifact_info(self, detail: ArtifactDetail,
@@ -128,7 +139,10 @@ class LocalDriver:
         if ScannerEnum.VULN in options.scanners:
             results.extend(self._scan_vulns(target, detail, options))
         if ScannerEnum.SECRET in options.scanners:
-            results.extend(self._secret_results(detail))
+            from trivy_tpu_torch import obs
+
+            with obs.phase("secret_results", phase="secret"):
+                results.extend(self._secret_results(detail))
         return results
 
     def _scan_vulns(

@@ -4,11 +4,12 @@ Scanner{driver, artifact}.scan_artifact() is the top of the scan spine;
 the Driver protocol (scan.go:141-144) is THE seam where local and remote
 execution are swapped — LocalDriver runs the match engine in-process.
 
-Copy of trivy_tpu/scanner/scan.py without the tracing spans and the
-device profile hook. Each scan still draws its scan id from
-`utils.uuid` (the reference's `obs.tracing.scan_scope` does), so the
-uuid stream, and with it a filesystem artifact's blob id, stays the
-reference's.
+Copy of trivy_tpu/scanner/scan.py. The driver call runs under
+`obs.tracing.torch_profile`, the reference's `jax_profile`: a
+torch.profiler capture when TRIVY_TPU_JAX_TRACE_DIR is set. The scan
+scope draws its scan id from `utils.uuid` before the inspect, as the
+reference's does, so a filesystem artifact's blob id takes the same
+place in the uuid stream.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from trivy_tpu_torch.types.artifact import OS
 from trivy_tpu_torch.types.report import Metadata, Report, Result
 from trivy_tpu_torch.types.scan import ScanOptions
 from trivy_tpu_torch.utils import clock
-from trivy_tpu_torch.utils import uuid as uuid_util
 
 REPORT_SCHEMA_VERSION = 2
 
@@ -43,16 +43,22 @@ class Scanner:
         self.artifact = artifact
 
     def scan_artifact(self, options: ScanOptions) -> Report:
-        # the reference's scan_scope draws a scan id here: drawn and
-        # dropped, so fs blob ids take the same place in the uuid stream
-        uuid_util.new()
-        ref = self.artifact.inspect()
-        try:
-            results, os_found = self.driver.scan(
-                ref.name, ref.id, ref.blob_ids, options
-            )
-        finally:
-            self.artifact.clean(ref)
+        from trivy_tpu_torch import obs
+        from trivy_tpu_torch.obs import tracing as trace
+
+        # every scan gets an ambient scan id (kept when an outer scope
+        # already set one) that log records carry next to trace ids
+        with trace.scan_scope(), trace.span("scan_artifact"):
+            with obs.phase("inspect"):
+                ref = self.artifact.inspect()
+                trace.add_meta(blobs=len(ref.blob_ids))
+            try:
+                with trace.span("driver.scan"), trace.torch_profile():
+                    results, os_found = self.driver.scan(
+                        ref.name, ref.id, ref.blob_ids, options
+                    )
+            finally:
+                self.artifact.clean(ref)
 
         metadata = Metadata(os=os_found if os_found.detected else None)
         if ref.image_metadata:

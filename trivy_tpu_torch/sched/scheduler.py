@@ -42,8 +42,13 @@ Guarantees:
   dropped. Rows already in flight are awaited (the batch is running).
 - **Admission control.** A bounded submission queue: past
   ``max_queue`` waiting requests new submissions shed immediately.
-- **Observability.** ``stats``: batches, rows, the largest number of
-  requests one batch coalesced, and sheds, since start.
+- **Observability.** ``trivy_tpu_sched_batch_rows`` /
+  ``_coalesced_requests`` / ``_queue_depth`` / ``_wait_seconds``
+  metrics, plus ``sched.enqueue`` (in the request's own trace) and
+  ``sched.batch`` spans (attached to the oldest coalesced request's
+  trace, so batch timing keeps request parentage across the scheduler
+  thread); ``stats``: batches, rows, the largest number of requests
+  one batch coalesced, and sheds, since start.
 - **Fault site.** ``sched.submit``: ``delay`` stalls the submission,
   ``drop`` bypasses the scheduler for that submission (direct
   per-request detect — degraded coalescing, identical bytes),
@@ -60,12 +65,13 @@ super-buffer dispatches. ``submit_async``/``collect`` split the
 blocking ``submit`` so dispatch-first callers (the hybrid secret split,
 streaming steps) can enqueue, do host work, then block.
 
-Copy of trivy_tpu/sched/scheduler.py without the metric handles and
-the tracing spans (the port keeps the ``stats`` dict the reference
-keeps beside them) and without the usage meters (queue-wait seconds,
-admitted rows): the scheduler reads the submitting request's tenant
-only. ``_mesh_fill`` reads the port's ``ops.match._bucket`` and tops
-batches up at a data axis above 1 (ops/mesh.py). The bulk entry point
+The secret lane reports under ``trivy_tpu_secret_sched_*`` instead of
+the match-lane histograms.
+
+Copy of trivy_tpu/sched/scheduler.py; the port keeps a ``stats`` dict
+beside the metric handles. ``_mesh_fill`` reads the port's
+``ops.match._bucket`` and tops batches up at a data axis above 1
+(ops/mesh.py). The bulk entry point
 (``submit_lists``, ``SchedEngine.submit``) carries the monitor's delta
 re-scoring on a server (trivy_tpu_torch/monitor).
 """
@@ -76,7 +82,10 @@ import os
 import threading
 import time
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
 from trivy_tpu_torch.obs import usage
 from trivy_tpu_torch.resilience import faults
 from trivy_tpu_torch.resilience.retry import current_deadline
@@ -156,8 +165,8 @@ class _Pending:
     """One submitted request: queries, chunk cursor, result slots."""
 
     __slots__ = ("queries", "results", "next_row", "inflight", "deadline",
-                 "arrival", "seq", "usage_ctx", "error", "done",
-                 "dispatched_at", "tenant")
+                 "arrival", "seq", "trace_ctx", "usage_ctx", "error",
+                 "done", "dispatched_at", "tenant")
 
     def __init__(self, queries: list, deadline, seq: int):
         self.queries = queries
@@ -167,8 +176,12 @@ class _Pending:
         self.deadline = deadline
         self.arrival = time.monotonic()
         self.seq = seq
-        # the batch dispatch re-adopts the lead request's tenant scope
-        # (obs/usage.py)
+        # captured so the batch span in the scheduler thread can attach
+        # to this request's trace instead of becoming an orphaned root
+        self.trace_ctx = tracing.capture()
+        # usage twin: queue-wait seconds accrue per pending request
+        # from the scheduler thread, and the batch dispatch re-adopts
+        # the lead request's tenant scope (obs/usage.py)
         self.usage_ctx = usage.capture()
         # QoS key: the submitting request's usage tenant (the hashed
         # token the server's handler scope carries); scope-less
@@ -211,6 +224,21 @@ class MatchScheduler:
         # "match" (rows: package queries) or "secret" (rows: 16 KiB
         # anchor-screen chunks); names the thread
         self.lane = lane
+        # metric handles per lane: the vuln-match lane keeps the
+        # historical trivy_tpu_sched_* series byte-stable; the secret
+        # anchor-screen lane (rows = 16 KiB device chunks, a different
+        # unit entirely) reports under trivy_tpu_secret_sched_* instead
+        # of skewing the match-lane row histograms
+        if lane == "secret":
+            self._m_rows = obs_metrics.SECRET_SCHED_BATCH_CHUNKS
+            self._m_coalesced = obs_metrics.SECRET_SCHED_COALESCED
+            self._m_depth = None
+            self._m_wait = None
+        else:
+            self._m_rows = obs_metrics.SCHED_BATCH_ROWS
+            self._m_coalesced = obs_metrics.SCHED_COALESCED
+            self._m_depth = obs_metrics.SCHED_QUEUE_DEPTH
+            self._m_wait = obs_metrics.SCHED_WAIT_SECONDS
         # optional zero-arg callable -> the engine's mesh data-parallel
         # width (1 = single-chip). When > 1, composed batches top up to
         # a multiple of the data axis' padded row granularity so every
@@ -241,7 +269,8 @@ class MatchScheduler:
         self.tenant_queue = _qos_tenant_queue(self.max_queue)
         self.weights = _qos_weights()
         self._deficit: dict[str, float] = {}
-        self._cond = threading.Condition()
+        self._cond = make_lock("sched.scheduler._cond",
+                               threading.Condition())
         self._waiting: list[_Pending] = []
         self._seq = 0
         self._stopping = False
@@ -276,8 +305,9 @@ class MatchScheduler:
             # back to the private per-request dispatch — no coalescing,
             # identical bytes
             return self._engine_fn().detect(list(queries))
-        p = self._enqueue(queries)
-        self._await(p)
+        with tracing.span("sched.enqueue", rows=len(queries)):
+            p = self._enqueue(queries)
+            self._await(p)
         if p.error is not None:
             raise p.error
         return p.results
@@ -295,7 +325,8 @@ class MatchScheduler:
             p = _Pending([], None, 0)
             p.done.set()
             return p
-        return self._enqueue(queries)
+        with tracing.span("sched.enqueue", rows=len(queries)):
+            return self._enqueue(queries)
 
     def collect(self, p: _Pending) -> list:
         """Block until a :meth:`submit_async` handle's micro-batches
@@ -303,7 +334,8 @@ class MatchScheduler:
         batch error, exactly like :meth:`submit`)."""
         if not p.queries:
             return []
-        self._await(p)
+        with tracing.span("sched.collect", rows=len(p.queries)):
+            self._await(p)
         if p.error is not None:
             raise p.error
         return p.results
@@ -325,6 +357,17 @@ class MatchScheduler:
             out.append(res[i: i + len(qs)])
             i += len(qs)
         return out
+
+    def _set_depth(self, n: int) -> None:
+        if self._m_depth is not None:
+            self._m_depth.set(n)
+
+    def _observe_wait(self, p: _Pending, seconds: float) -> None:
+        if self._m_wait is not None:
+            self._m_wait.observe(seconds)
+        # per-tenant queue-wait: accrued to the submitting request's
+        # captured scope (this runs on the scheduler thread)
+        usage.add_to(p.usage_ctx, "queue_wait_s", seconds)
 
     def _count_shed(self) -> None:
         self.stats["sheds"] += 1
@@ -353,6 +396,7 @@ class MatchScheduler:
                             if w.tenant == tenant)
                 if depth >= self.tenant_queue:
                     self._count_shed()
+                    obs_metrics.QOS_QUEUE_SHEDS.inc(tenant=tenant)
                     raise Overloaded(
                         f"tenant {tenant} over its queue-depth cap "
                         f"({depth} requests queued, cap "
@@ -361,7 +405,11 @@ class MatchScheduler:
             self._seq += 1
             p = _Pending(list(queries), deadline, self._seq)
             self._waiting.append(p)
+            self._set_depth(len(self._waiting))
             self._cond.notify_all()
+        # admitted rows count toward the submitting tenant (shed
+        # submissions surface in the sheds field instead)
+        usage.add("queries", float(len(p.queries)))
         return p
 
     def _await(self, p: _Pending) -> None:
@@ -374,6 +422,7 @@ class MatchScheduler:
                 with self._cond:
                     if p in self._waiting:
                         self._waiting.remove(p)
+                        self._set_depth(len(self._waiting))
                 if p.error is None:
                     p.error = RuntimeError("match scheduler thread died")
                 return
@@ -392,6 +441,7 @@ class MatchScheduler:
             with self._cond:
                 if not p.done.is_set() and p.queued_rows:
                     self._waiting.remove(p)
+                    self._set_depth(len(self._waiting))
                     p.error = Overloaded(
                         f"deadline budget of {d.budget_s:.3f}s expired "
                         "while queued in the match scheduler",
@@ -493,6 +543,7 @@ class MatchScheduler:
             # fully-dispatched requests leave the queue; they complete
             # from the dispatch path when their in-flight chunks land
             self._waiting = [p for p in self._waiting if p.queued_rows]
+            self._set_depth(len(self._waiting))
             return (parts, rows)
 
     def _cut_chunk(self, p: _Pending, parts: list, rows: int) -> int:
@@ -505,6 +556,7 @@ class MatchScheduler:
         p.inflight += 1
         if p.dispatched_at is None:
             p.dispatched_at = time.monotonic()
+            self._observe_wait(p, p.dispatched_at - p.arrival)
         parts.append((p, lo, hi))
         return hi - lo
 
@@ -527,6 +579,7 @@ class MatchScheduler:
         # drop stale deficits: tenants with nothing queued stop banking
         self._deficit = {t: d for t, d in self._deficit.items()
                          if t in groups}
+        obs_metrics.QOS_ACTIVE_TENANTS.set(len(groups))
         default_w = self.weights.get("*", 1.0)
         cursor = {t: 0 for t in torder}
         parts: list[tuple[_Pending, int, int]] = []
@@ -620,6 +673,7 @@ class MatchScheduler:
                 p.inflight += 1
                 if p.dispatched_at is None:
                     p.dispatched_at = time.monotonic()
+                    self._observe_wait(p, p.dispatched_at - p.arrival)
                 parts.append((p, lo, hi))
 
     def _dispatch(self, parts, rows: int) -> None:
@@ -632,10 +686,17 @@ class MatchScheduler:
         res_lists: list = [None] * len(parts)
         fatal = None
         try:
-            # the batch runs under the oldest coalesced request's tenant
-            # scope
-            with usage.adopt(lead.usage_ctx):
-                res_lists = self._engine_fn().submit(lists)
+            # the batch span adopts the oldest coalesced request's
+            # captured context: batch timing stays visible inside that
+            # request's trace instead of orphaning on this thread. The
+            # usage scope rides along, so batch-level costs (rows
+            # matched) attribute to the lead request's tenant — the
+            # same approximation the lane attribution already makes
+            with tracing.adopt(lead.trace_ctx), \
+                    usage.adopt(lead.usage_ctx):
+                with tracing.span("sched.batch", rows=rows,
+                                  requests=n_req):
+                    res_lists = self._engine_fn().submit(lists)
         except Exception as exc:
             # fault isolation: re-dispatch each coalesced slice
             # PRIVATELY so one request's poison queries fail only that
@@ -651,6 +712,8 @@ class MatchScheduler:
             err = RuntimeError(f"scheduler batch aborted: {exc!r}")
             part_errors = [err] * len(parts)
             fatal = exc
+        self._m_rows.observe(rows)
+        self._m_coalesced.observe(n_req)
         done_now: list[_Pending] = []
         with self._cond:
             self.stats["batches"] += 1
@@ -673,6 +736,7 @@ class MatchScheduler:
             if any(e is not None for e in part_errors):
                 self._waiting = [p for p in self._waiting
                                  if p.queued_rows]
+                self._set_depth(len(self._waiting))
         for p in done_now:
             p.done.set()
         if fatal is not None:

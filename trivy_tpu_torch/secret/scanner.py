@@ -18,9 +18,10 @@ explicit host path. The ``secret.device`` fault ladder is the
 reference's: a screen that is unavailable (``ScreenUnavailable``) or a
 card that is lost (``faults.DeviceLost``) degrades that scan to the
 host scanner with zero finding diff, counted in
-``device_stats["degraded"]``. Unlike the reference, which falls back on
-any exception, every other failure of the device screen (a kernel that
-does not build or launch, a CUDA error) raises.
+``device_stats["degraded"]`` and ``trivy_tpu_degraded_total``. Unlike
+the reference, which falls back on any exception, every other failure
+of the device screen (a kernel that does not build or launch, a CUDA
+error) raises.
 
 One scanner may serve several threads at once (an image scan's walk
 lanes share the analyzer's scanner): the lazy builds run once under a
@@ -46,8 +47,12 @@ from typing import Literal
 
 import numpy as np
 
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.device import resolve_device
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
+from trivy_tpu_torch.obs import tracing
+from trivy_tpu_torch.obs import usage
 from trivy_tpu_torch.ops import secret_nfa as nfa
 from trivy_tpu_torch.resilience import faults
 from trivy_tpu_torch.secret.rules import (
@@ -126,7 +131,7 @@ def set_cache_dir(path: str | None) -> None:
 # yet. The probe decides whether hybrid mode's device share is worth
 # dispatching at all on this process's card.
 _HYBRID_PROBE: dict | None = None
-_HYBRID_PROBE_LOCK = threading.Lock()
+_HYBRID_PROBE_LOCK = make_lock("secret.scanner._HYBRID_PROBE_LOCK")
 
 
 def reset_hybrid_probe() -> None:
@@ -204,7 +209,7 @@ class SecretScanner:
         self._matcher = None  # one AnchorMatcher per scanner (device
         # arrays upload once, not per scan_files call)
         self._sched = None  # lazy secret-lane MatchScheduler
-        self._sched_lock = threading.Lock()
+        self._sched_lock = make_lock("secret.scanner._sched_lock")
         self.program_source = None  # "cache" / "compiled" once tiered
         # where the device path's time goes, summed over its scans:
         # chunking, copy + launch, waiting for the words, host regex,
@@ -559,6 +564,12 @@ class SecretScanner:
             raise ValueError(
                 f"use_device={use_device!r}: expected True, False or "
                 "'hybrid'")
+        if usage.ambient() is not None:
+            # metered once at the batch entry point — the streaming and
+            # hybrid paths all funnel through here, so deeper accruals
+            # would double-count
+            usage.add("secret_mb",
+                      sum(len(c) for _p, c in batch) / 1e6)
         eligible = [
             (i, path, content) for i, (path, content) in enumerate(batch)
             if not self.skip_file(path) and not self.path_allowed(path)
@@ -593,6 +604,7 @@ class SecretScanner:
             # version on the CPU, slower than the native-AC host path),
             # or the one-shot probe measured the device screen slower
             # than its share repays: the host scans it all
+            obs_metrics.SECRET_DEVICE_SHARE.set(0.0)
             return self._scan_files_host(eligible)
         try:
             return self._scan_files_device(eligible)
@@ -605,6 +617,7 @@ class SecretScanner:
         host scanner: logged and counted in device_stats["degraded"]."""
         _log.warn(f"{what} unavailable; scanning on the host", err=str(exc))
         self._stat("degraded", 1)
+        obs_metrics.DEGRADED_TOTAL.inc(component="secret")
 
     # device share of a hybrid scan: this fraction of the bytes is
     # dispatched to the device up front; the host scans the rest while
@@ -768,6 +781,7 @@ class SecretScanner:
         except DEGRADE_ON as exc:
             _log.debug("secret hybrid probe: device screen unavailable; "
                        "hybrid keeps the host alone", err=str(exc))
+            obs_metrics.SECRET_PROBE_DEVICE.set(0)
             return {"device": False, "reason": f"unavailable: {exc}",
                     "device_s": None, "host_s": None,
                     "corpus_mb": corpus_mb}
@@ -783,6 +797,15 @@ class SecretScanner:
         # TIGHTENS the bar (borderline devices keep the host alone)
         device = dev_s * self._effective_device_share() \
             * self.HYBRID_PROBE_SLACK <= host_s
+        # the decision + both measured throughputs live on /metrics
+        # (and /readyz via hybrid_probe_state) — not just a debug log
+        obs_metrics.SECRET_PROBE_DEVICE.set(1 if device else 0)
+        if dev_s > 0:
+            obs_metrics.SECRET_PROBE_MBPS.set(corpus_mb / dev_s,
+                                              path="device")
+        if host_s > 0:
+            obs_metrics.SECRET_PROBE_MBPS.set(corpus_mb / host_s,
+                                              path="host")
         _log.debug(
             "secret hybrid probe",
             device_ms=round(dev_s * 1e3, 2), host_ms=round(host_s * 1e3, 2),
@@ -801,6 +824,7 @@ class SecretScanner:
         secret.device ladder reports unavailable leaves the device share
         to the host; any other device failure raises."""
         share = self._effective_device_share()
+        obs_metrics.SECRET_DEVICE_SHARE.set(share)
         total = sum(len(c) for (_i, _p, c) in eligible) or 1
         budget = total * share
         dev_part: list = []
@@ -816,6 +840,7 @@ class SecretScanner:
             pre = self._dispatch_device(dev_part)
         except DEGRADE_ON as exc:
             self._degrade("hybrid device dispatch", exc)
+            obs_metrics.SECRET_DEVICE_SHARE.set(0.0)
             pre = None
         host_res = self._scan_files_host(host_part)
         dev_res = None
@@ -824,6 +849,7 @@ class SecretScanner:
                 dev_res = self._scan_files_device(dev_part, prefetched=pre)
             except DEGRADE_ON as exc:
                 self._degrade("hybrid device collect", exc)
+                obs_metrics.SECRET_DEVICE_SHARE.set(0.0)
         if dev_res is None:
             # nothing to screen (no anchor rows, no device share), or
             # the screen was unavailable
@@ -1027,7 +1053,10 @@ class SecretScanner:
                 collect, segments = prefetched
             else:
                 collect, segments = self._dispatch_device(eligible)
-            hits = collect()
+            # device_wait attribution lane: the dispatch-first split
+            # blocks here, after the host share has been scanned
+            with tracing.span("secret.screen", files=nf):
+                hits = collect()
             t0 = time.perf_counter()
             # flatten segments once; keyword rows hit densely (common
             # words fire in nearly every chunk), so their per-file OR is

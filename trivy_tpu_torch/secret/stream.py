@@ -1,5 +1,6 @@
 """Streaming chunked secret scanning for files over the whole-file
-threshold. Port of trivy_tpu/secret/stream.py.
+threshold. Port of trivy_tpu/secret/stream.py; streamed files and bytes
+count in trivy_tpu_secret_stream_{files,bytes}_total.
 
 The reference warns at 10 MiB and scans anyway (secret.go:110); the
 pre-streaming device path additionally materialized every file into the
@@ -44,6 +45,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.types.artifact import Secret, SecretFinding
 
 # bytes of line-head / suffix margin retained for censored-text parity:
@@ -164,6 +166,7 @@ def _run(scanner, path: str, src: _Source, device: bool) -> Secret | None:
     line_head = b""
     owner_start = 0
     pending_screen = None
+    total = 0
 
     src.reset()
     cur = src.read(C)
@@ -192,6 +195,7 @@ def _run(scanner, path: str, src: _Source, device: bool) -> Secret | None:
         ret = prev + cur + nxt
         owner_end = owner_start + len(cur)
         avail_end = ret_base + len(ret)
+        total = max(total, avail_end)
 
         # refill the open-line head snapshot from the retained buffer
         if len(line_head) < SNIPPET:
@@ -283,6 +287,9 @@ def _run(scanner, path: str, src: _Source, device: bool) -> Secret | None:
         owner_start = owner_end
         cur = nxt
         nxt = src.read(C)
+
+    obs_metrics.SECRET_STREAM_FILES.inc()
+    obs_metrics.SECRET_STREAM_BYTES.inc(total)
 
     # EOF: whole-file keyword gate over the collected bounded findings
     findings = [f for cr, f in collected

@@ -29,7 +29,9 @@ Layout, riding the durability primitives:
   and the caller recompiles from the DB: scan results can never differ
   because of cache state, only warm-start latency can.
 
-Hits and misses (of both entry kinds) are counted in `COUNTS`.
+Hits and misses (of both entry kinds) are counted in `COUNTS` and in
+trivy_tpu_compile_cache_{hits,misses}_total (the NFA entries in
+`NFA_COUNTS` and trivy_tpu_secret_nfa_cache_{hits,misses}_total).
 
 Copy of the compiled-DB part of trivy_tpu/tensorize/cache.py. The
 port's entries live under their own directory (`compiled-torch`, the
@@ -53,6 +55,7 @@ import numpy as np
 
 from trivy_tpu_torch.durability import atomic
 from trivy_tpu_torch.log import logger
+from trivy_tpu_torch.obs import metrics as obs_metrics
 
 _log = logger("tensorize.cache")
 
@@ -275,6 +278,7 @@ def load_compiled(db_path: str, db, window: int | None,
     path = entry_path(db_path, digest, window) if digest else None
     if path is None or not os.path.exists(path):
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         return None
     t0 = time.perf_counter()
     try:
@@ -284,6 +288,7 @@ def load_compiled(db_path: str, db, window: int | None,
         # transient read failure (EMFILE, NFS blip): a miss, NOT a
         # quarantine — the entry on disk may be perfectly healthy
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         _log.warn("compiled-DB cache entry unreadable (io); recompiling",
                   path=path, err=str(exc))
         return None
@@ -305,6 +310,7 @@ def load_compiled(db_path: str, db, window: int | None,
             # from (digest moved under us): a healthy entry for a
             # DIFFERENT generation — miss, don't quarantine
             COUNTS["misses"] += 1
+            obs_metrics.COMPILE_CACHE_MISSES.inc()
             _log.warn("compiled-DB cache entry is for a different DB "
                       "generation; recompiling", path=path)
             return None
@@ -335,10 +341,12 @@ def load_compiled(db_path: str, db, window: int | None,
     except Exception as exc:
         _quarantine(path)
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         _log.warn("compiled-DB cache entry unreadable; recompiling",
                   path=path, err=str(exc))
         return None
     COUNTS["hits"] += 1
+    obs_metrics.COMPILE_CACHE_HITS.inc()
     _log.info("compiled-DB cache hit", path=path,
               load_s=round(time.perf_counter() - t0, 3),
               rows=cdb.n_rows)
@@ -409,6 +417,7 @@ def load_shards(db_path: str, cdb, n_db: int,
         if digest else None
     if path is None or not os.path.exists(path):
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         return None
     t0 = time.perf_counter()
     try:
@@ -416,6 +425,7 @@ def load_shards(db_path: str, cdb, n_db: int,
             raw = f.read()
     except OSError as exc:
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         _log.warn("mesh shard-slice cache entry unreadable (io); "
                   "slicing again", path=path, err=str(exc))
         return None
@@ -432,6 +442,7 @@ def load_shards(db_path: str, cdb, n_db: int,
             raise atomic.CorruptEntry("metadata/key mismatch")
         if db_meta is not None and meta.get("db_meta") != db_meta:
             COUNTS["misses"] += 1
+            obs_metrics.COMPILE_CACHE_MISSES.inc()
             _log.warn("mesh shard-slice cache entry is for a different "
                       "DB generation; slicing again", path=path)
             return None
@@ -451,10 +462,12 @@ def load_shards(db_path: str, cdb, n_db: int,
     except Exception as exc:
         _quarantine(path)
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         _log.warn("mesh shard-slice cache entry unreadable; slicing "
                   "again", path=path, err=str(exc))
         return None
     COUNTS["hits"] += 1
+    obs_metrics.COMPILE_CACHE_HITS.inc()
     _log.info("mesh shard-slice cache hit", path=path, n_db=n_db,
               load_s=round(time.perf_counter() - t0, 3))
     return h1s, tables, shard_len, shard_base
@@ -543,6 +556,7 @@ def load_host_slice(db_path: str, *, digest: str | None,
                                  host_index, n_db)
     if not os.path.exists(path):
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         return None
     t0 = time.perf_counter()
     try:
@@ -550,6 +564,7 @@ def load_host_slice(db_path: str, *, digest: str | None,
             raw = f.read()
     except OSError as exc:
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         _log.warn("host-slice cache entry unreadable (io)",
                   path=path, err=str(exc))
         return None
@@ -568,6 +583,7 @@ def load_host_slice(db_path: str, *, digest: str | None,
             raise atomic.CorruptEntry("metadata/key mismatch")
         if db_meta is not None and meta.get("db_meta") != db_meta:
             COUNTS["misses"] += 1
+            obs_metrics.COMPILE_CACHE_MISSES.inc()
             _log.warn("host-slice cache entry is for a different DB "
                       "generation; falling back", path=path)
             return None
@@ -588,10 +604,12 @@ def load_host_slice(db_path: str, *, digest: str | None,
     except Exception as exc:
         _quarantine(path)
         COUNTS["misses"] += 1
+        obs_metrics.COMPILE_CACHE_MISSES.inc()
         _log.warn("host-slice cache entry unreadable; falling back",
                   path=path, err=str(exc))
         return None
     COUNTS["hits"] += 1
+    obs_metrics.COMPILE_CACHE_HITS.inc()
     _log.info("host-slice cache hit", path=path, host=host_index,
               load_s=round(time.perf_counter() - t0, 3))
     return {
@@ -659,6 +677,7 @@ def load_nfa(cache_dir: str, digest: str):
     path = nfa_entry_path(cache_dir, digest)
     if not os.path.exists(path):
         NFA_COUNTS["misses"] += 1
+        obs_metrics.SECRET_NFA_CACHE_MISSES.inc()
         return None
     try:
         with open(path, "rb") as f:
@@ -666,6 +685,7 @@ def load_nfa(cache_dir: str, digest: str):
     except OSError as exc:
         # transient read failure: a miss, NOT a quarantine
         NFA_COUNTS["misses"] += 1
+        obs_metrics.SECRET_NFA_CACHE_MISSES.inc()
         _log.warn("compiled secret-NFA cache entry unreadable (io); "
                   "recompiling", path=path, err=str(exc))
         return None
@@ -682,10 +702,12 @@ def load_nfa(cache_dir: str, digest: str):
     except Exception as exc:
         _quarantine(path)
         NFA_COUNTS["misses"] += 1
+        obs_metrics.SECRET_NFA_CACHE_MISSES.inc()
         _log.warn("compiled secret-NFA cache entry unreadable; "
                   "recompiling", path=path, err=str(exc))
         return None
     NFA_COUNTS["hits"] += 1
+    obs_metrics.SECRET_NFA_CACHE_HITS.inc()
     _log.debug("compiled secret-NFA cache hit", path=path)
     return arrays, meta
 

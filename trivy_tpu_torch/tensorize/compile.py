@@ -24,12 +24,12 @@ Names with more than `window` rows are evicted to a host-side fallback map
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from trivy_tpu_torch import versioning
+from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.db.model import Advisory
 from trivy_tpu_torch.db.store import AdvisoryDB
 from trivy_tpu_torch.log import logger
@@ -212,8 +212,9 @@ class CompiledDB:
     # guards intern-table mutation: the RPC server runs CONCURRENT
     # scans on one shared engine (read-locked, not exclusive), so two
     # first-seen components must not race the dense-id assignment
-    _intern_lock: object = field(default_factory=threading.Lock,
-                                 repr=False)
+    _intern_lock: object = field(
+        default_factory=lambda: make_lock("tensorize.compile._intern_lock"),
+        repr=False)
 
     @property
     def n_rows(self) -> int:
