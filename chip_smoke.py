@@ -353,6 +353,25 @@ def device_busy_ms(prof, key: str | None = None) -> tuple[float, int]:
     return total_us / 1e3, count
 
 
+def events_kept(prof, launches: dict) -> dict:
+    """A profiler session's device events against its run's launch
+    counts: {kernel name: [events in the session, launches counted by
+    the kernel's wrapper]}. On an H100 a process's later torch.profiler
+    sessions lose some or all kernel events (PERF.md §6), and every
+    session here comes after phase 2's: where events fall short of
+    launches, the session's busy ms is a lower bound and its idle share
+    an upper bound."""
+    return {k: [device_busy_ms(prof, k)[1], n] for k, n in launches.items()}
+
+
+def kept_text(kept: dict) -> str:
+    """events_kept -> `kernel_events_of_launches={...} capture_complete=
+    True|False`, for a profiled run's line."""
+    full = all(e == n for e, n in kept.values())
+    return (f"kernel_events_of_launches={json.dumps(kept)} "
+            f"capture_complete={full}")
+
+
 def kernel_ms(fn, iters: int, key: str) -> float | None:
     """The kernel's own device time per launch, from torch.profiler's
     CUDA activity (None when the profiler reports no device time)."""
@@ -859,18 +878,21 @@ def main_path(dev, db, db_root: str, t_synth: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     engine._crawl_cache.clear()
+    n0 = m.match_words.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         again = engine.detect_many(queries, BATCH)
         wall2 = time.perf_counter() - t0
     busy_ms, _ = device_busy_ms(prof)
     kern_ms, kern_n = device_busy_ms(prof, "match_kernel")
+    kept = events_kept(prof, {"match_kernel": m.match_words.launches - n0})
     if [r.adv_indices for r in again] != [r.adv_indices for r in res]:
         raise AssertionError("profiled rerun disagrees with the main path")
     print(f"phase3 profiled_rerun wall_s={wall2:.3f} "
           f"device_busy_ms={busy_ms:.3f} match_kernel_ms={kern_ms:.3f} "
           f"match_kernel_launches={kern_n} "
           f"device_idle_share={1 - busy_ms / 1e3 / wall2:.6f} "
+          f"{kept_text(kept)} "
           f"pipeline={json.dumps(engine.last_pipeline_stats)}")
 
     collector_ab(engine, queries, [r.adv_indices for r in res])
@@ -1569,6 +1591,7 @@ def secret_main_path(dev) -> dict:
         raise AssertionError("the stream path disagrees with scan_file")
 
     # where the time goes: the device path again under torch.profiler
+    n0 = nfa.anchor_words.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         again = scanner.scan_files(corpus, use_device=True)
@@ -1576,12 +1599,14 @@ def secret_main_path(dev) -> dict:
         wall2 = time.perf_counter() - t0
     busy_ms, _ = device_busy_ms(prof)
     kern_ms, kern_n = device_busy_ms(prof, "anchor_kernel")
+    kept = events_kept(prof, {"anchor_kernel": nfa.anchor_words.launches - n0})
     if findings_diff(again, dev_res):
         raise AssertionError("profiled rerun disagrees with the main path")
     print(f"phase5 profiled_rerun wall_s={wall2:.3f} "
           f"device_busy_ms={busy_ms:.3f} anchor_kernel_ms={kern_ms:.3f} "
           f"anchor_kernel_launches={kern_n} "
-          f"device_idle_share={1 - busy_ms / 1e3 / wall2:.6f}")
+          f"device_idle_share={1 - busy_ms / 1e3 / wall2:.6f} "
+          f"{kept_text(kept)}")
 
     # hybrid: the probe decides whether the device share pays
     sc.reset_hybrid_probe()
@@ -1927,7 +1952,7 @@ def cli_golden(tmp: str) -> dict:
     scan, with TRIVY_TPU_JAX_TRACE_DIR set (the port's torch.profiler
     capture of the scan's driver call, the process's only profiler
     session: on an H100 a process's later sessions lose kernel events,
-    profile_window.py) -> the capture's check (`profile_check`)."""
+    PERF.md) -> the capture's check (`profile_check`)."""
     import tempfile
 
     doc, db = golden_fixture()
@@ -2020,17 +2045,21 @@ def cli_run(argv: list[str], report: str, tiers: bool) -> dict:
 
 def cli_profiled(argv: list[str], report: str) -> tuple[dict, dict]:
     """`cli_run` under torch.profiler's CUDA activity -> its numbers,
-    and the device's busy and idle share of its wall time."""
+    and the device's busy and idle share of its wall time, with the
+    session's match-kernel events against the run's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         r = cli_run(argv, report, tiers=True)
     busy_ms, _ = device_busy_ms(prof)
     kern_ms, kern_n = device_busy_ms(prof, "match_kernel")
+    kept = events_kept(prof, {"match_kernel": r["launches"]})
     return r, {"wall_s": r["wall_s"], "device_busy_ms": busy_ms,
                "match_kernel_ms": kern_ms,
                "match_kernel_launches": kern_n,
-               "device_idle_share": 1 - busy_ms / 1e3 / r["wall_s"]}
+               "device_idle_share": 1 - busy_ms / 1e3 / r["wall_s"],
+               "kernel_events_of_launches": kept,
+               "capture_complete": all(e == n for e, n in kept.values())}
 
 
 @contextlib.contextmanager
@@ -2397,6 +2426,9 @@ def fs_run(argv: list[str], report: str, profiled: bool = False) -> dict:
         out["device_idle_share"] = 1 - busy_ms / 1e3 / wall
         out["anchor_kernel_ms"] = device_busy_ms(prof, "anchor_kernel")[0]
         out["match_kernel_ms"] = device_busy_ms(prof, "match_kernel")[0]
+        out["kernel_events_of_launches"] = events_kept(prof, {
+            "match_kernel": m.match_words.launches,
+            "anchor_kernel": nfa.anchor_words.launches})
     return out
 
 
@@ -2519,7 +2551,8 @@ def fs_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
           f"device_busy_ms={p['device_busy_ms']:.3f} "
           f"anchor_kernel_ms={p['anchor_kernel_ms']:.3f} "
           f"match_kernel_ms={p['match_kernel_ms']:.3f} "
-          f"device_idle_share={p['device_idle_share']:.6f}")
+          f"device_idle_share={p['device_idle_share']:.6f} "
+          f"{kept_text(p['kernel_events_of_launches'])}")
     miss, hit = runs["fs"], runs["rootfs_fresh"]
     miss_s = miss["secret_device_stats"]["program_s"]
     hit_s = hit["secret_device_stats"]["program_s"]
@@ -2799,6 +2832,7 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
           f"anchor_kernel_ms={p['anchor_kernel_ms']:.3f} "
           f"match_kernel_ms={p['match_kernel_ms']:.3f} "
           f"device_idle_share={p['device_idle_share']:.6f} "
+          f"{kept_text(p['kernel_events_of_launches'])} "
           f"launches={json.dumps(p['launches'])}")
     if any(diffs.values()):
         raise AssertionError("image reports differ")
@@ -3448,7 +3482,8 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
           f"device_busy_ms={p['device_busy_ms']:.3f} "
           f"anchor_kernel_ms={p['anchor_kernel_ms']:.3f} "
           f"match_kernel_ms={p['match_kernel_ms']:.3f} "
-          f"device_idle_share={p['device_idle_share']:.6f}")
+          f"device_idle_share={p['device_idle_share']:.6f} "
+          f"{kept_text(p['kernel_events_of_launches'])}")
     print(f"phase11 reports_diff={json.dumps(diffs)} "
           f"findings={json.dumps(found)} want={json.dumps(want)} "
           f"user_checkout_unchanged={unchanged} temp_clones_left={left} "
@@ -3809,6 +3844,8 @@ def burst_run(addr: str, keys: list[str], profiled: bool) -> dict:
         out["device_busy_ms"] = busy_ms
         out["match_kernel_ms"] = device_busy_ms(prof, "match_kernel")[0]
         out["device_idle_share"] = 1 - busy_ms / 1e3 / wall
+        out["kernel_events_of_launches"] = events_kept(
+            prof, {"match_kernel": m.match_words.launches})
     return out
 
 
@@ -4111,7 +4148,8 @@ def server_path(dev, srv: dict, p7: dict, p8: dict, p9: dict,
               f"{json.dumps(s['per_tier'])} device_busy_ms="
               f"{s['device_busy_ms']:.3f} match_kernel_ms="
               f"{s['match_kernel_ms']:.3f} device_idle_share="
-              f"{s['device_idle_share']:.6f}")
+              f"{s['device_idle_share']:.6f} "
+              f"{kept_text(s['kernel_events_of_launches'])}")
         print(f"phase12 (c) burst unsched wall_s={u['wall_s']:.3f} "
               f"launches_per_tier={json.dumps(u['per_tier'])} "
               f"diff_vs_sched={c['unsched_diff']} alone_diff="

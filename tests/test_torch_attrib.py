@@ -213,10 +213,12 @@ _NUM = re.compile(r"\d+(\.\d+)?%?")
 
 def _mask(text: str) -> list[str]:
     """Command output with every number, trace id and timing-decided
-    lane name masked, lines sorted."""
+    lane name masked, and each run of spaces made one (a right-aligned
+    column's padding follows its number's width), lines sorted."""
     text = re.sub(r"[0-9a-f]{32}", "ID", text)
     text = re.sub(r"(verdict: |dominant=).*?(\s|$)", r"\1X\2", text)
-    return sorted(_NUM.sub("N", ln) for ln in text.splitlines())
+    return sorted(re.sub(r" +", " ", _NUM.sub("N", ln))
+                  for ln in text.splitlines())
 
 
 @pytest.mark.parametrize("extra", [[], ["--json"]])

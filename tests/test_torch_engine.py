@@ -377,7 +377,7 @@ print("\\n".join(sorted(set(sys.modules) - before)))
 PORT_SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "trivy_tpu_torch").rglob("*.py"),
-              ROOT / "chip_smoke.py", ROOT / "profile_window.py"])
+              ROOT / "chip_smoke.py"])
 
 
 def test_static_scan_covers_every_slice():

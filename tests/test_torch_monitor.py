@@ -66,6 +66,7 @@ from trivy_tpu_torch.db.store import AdvisoryDB
 from trivy_tpu_torch.detector.engine import MatchEngine, PkgQuery
 from trivy_tpu_torch.monitor import rematch as trematch
 from trivy_tpu_torch.monitor import watch as twatch
+from trivy_tpu_torch.obs import tracing as ttracing
 from trivy_tpu_torch.resilience import faults
 from trivy_tpu_torch.rpc.client import close_pool
 from trivy_tpu_torch.rpc.server import ScanService, Server
@@ -743,8 +744,9 @@ def test_rescore_event_shape_and_order(pair):
 
 def test_rescore_stamps_the_given_scan_id(pair):
     _jplan, tplan = pair.plans()
-    port = tmon.rescore(pair.teng, pair.tidx, tplan, scan_id="sid-1")
-    assert port.events and all(e["scan_id"] == "sid-1" for e in port.events)
+    with ttracing.scan_scope(force=True) as sid:
+        port = tmon.rescore(pair.teng, pair.tidx, tplan)
+    assert port.events and all(e["scan_id"] == sid for e in port.events)
 
 
 def test_rescore_through_match_keys_equals_submit(pair):

@@ -761,6 +761,30 @@ def test_torch_profile_writes_one_chrome_trace_per_call(tmp_path,
     assert doc["traceEvents"]
 
 
+def test_torch_profile_flags_every_capture_after_the_first(
+        tmp_path, monkeypatch, caplog):
+    """Captures after a process's first warn once each (a later
+    torch.profiler session may lose kernel events on a card), and every
+    trace records its session number."""
+    monkeypatch.setattr(port_tracing, "_profile_sessions", 0)
+    monkeypatch.setenv(port_tracing.PROFILE_DIR_ENV, str(tmp_path / "p"))
+    sessions, warned = [], []
+    for _ in range(3):
+        caplog.clear()
+        before = set(os.listdir(tmp_path / "p")) \
+            if os.path.exists(tmp_path / "p") else set()
+        with caplog.at_level("WARNING", logger="trivy_tpu_torch"):
+            with port_tracing.torch_profile():
+                torch.ones(4).sum()
+        (path,) = set(os.listdir(tmp_path / "p")) - before
+        doc = json.load(open(tmp_path / "p" / path))
+        sessions.append(doc["trivy_tpu_profile_session"])
+        warned.append([r.kvs for r in caplog.records
+                       if "may lose kernel events" in r.getMessage()])
+    assert sessions == ["1", "2", "3"]
+    assert warned == [[], [{"session": 2}], [{"session": 3}]]
+
+
 def test_torch_profile_refuses_to_nest(tmp_path, monkeypatch):
     monkeypatch.setenv(port_tracing.PROFILE_DIR_ENV, str(tmp_path / "p"))
     with torch.profiler.profile(
@@ -796,7 +820,7 @@ print(json.dumps({"launches": m.match_words.launches - before,
 def test_traced_detect_on_the_card_names_the_match_kernel(tmp_path):
     """On a card: a detect under the spine's spans and the profiler
     capture, in a fresh process (its only profiler session: on an H100
-    a process's later sessions lose kernel events, profile_window.py);
+    a process's later sessions lose kernel events, PERF.md);
     the Chrome trace names the match kernel once per launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")

@@ -14,8 +14,7 @@ Events are the observable product: one JSON-able dict per finding edge
 (introduced / resolved), deterministic order, trace-correlated via the
 ambient span and scan id.
 
-Copy of trivy_tpu/monitor/rematch.py; a caller may also pass the scan
-id the events carry. The re-match runs
+Copy of trivy_tpu/monitor/rematch.py. The re-match runs
 wherever `engine.submit` does: the match kernel on the engine's card,
 or the scheduler's shared micro-batches on a server. A device error
 raises out of the re-score, and the state is then not advanced.
@@ -116,8 +115,7 @@ def _event(kind: str, aid: str, key: tuple, db_digest,
 
 
 def rescore(engine, index, plan, budget_s: float | None = None,
-            verify: bool | None = None, on_event=None,
-            scan_id: str | None = None) -> RescoreReport:
+            verify: bool | None = None, on_event=None) -> RescoreReport:
     """Apply a DeltaPlan: re-match the affected artifacts through
     `engine.submit()` micro-batches, emit introduced/resolved events,
     advance the index's stored state to the new generation.
@@ -128,8 +126,7 @@ def rescore(engine, index, plan, budget_s: float | None = None,
     left un-advanced (``shed=True``) and the state digest is NOT moved,
     so the next attempt re-plans from the same baseline.  `verify`
     (default TRIVY_TPU_DELTA_VERIFY) re-matches everything afterwards
-    and asserts the incremental state equals it. Events carry the
-    ambient trace id and scan id; `scan_id` overrides the latter."""
+    and asserts the incremental state equals it."""
     t0 = time.monotonic()
     full = plan.full
     reason = plan.reason
@@ -162,7 +159,7 @@ def rescore(engine, index, plan, budget_s: float | None = None,
     span = tracing.current()
     if span is not None and span.trace_id:
         ids["trace_id"] = span.trace_id
-    scan_id = scan_id or tracing.current_scan_id()
+    scan_id = tracing.current_scan_id()
     if scan_id:
         ids["scan_id"] = scan_id
     with tracing.span("delta.rematch", full=full,

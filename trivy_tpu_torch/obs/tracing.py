@@ -591,6 +591,9 @@ class ProfilerActive(RuntimeError):
 
 #: the reference's knob name, kept so a user's setup carries over
 PROFILE_DIR_ENV = "TRIVY_TPU_JAX_TRACE_DIR"
+# device profiles captured in this process (torch_profile), the first 1
+_profile_sessions = 0
+_profile_lock = make_lock("obs.tracing._profile_lock")
 
 
 @contextlib.contextmanager
@@ -604,8 +607,11 @@ def torch_profile():
     `jax.profiler.start_trace` raises on a running trace: the capture
     never skips silently. On an H100 only a process's first profiler
     session is known to hold every kernel event: later ones lose some or
-    all of them (profile_window.py), so profile a CLI scan, one per
-    process, rather than a long-lived server's."""
+    all of them (PERF.md), so profile a CLI scan, one per process,
+    rather than a long-lived server's. Every capture after the process's
+    first logs a warning, and each trace records its session number
+    under the metadata key `trivy_tpu_profile_session`."""
+    global _profile_sessions
     trace_dir = os.environ.get(PROFILE_DIR_ENV, "")
     if not trace_dir:
         yield
@@ -620,7 +626,18 @@ def torch_profile():
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
+    with _profile_lock:
+        _profile_sessions += 1
+        session = _profile_sessions
+    if session > 1:
+        from trivy_tpu_torch.log import logger  # lazy: log.py imports us
+
+        logger("trace").warn(
+            "device profile after this process's first: a later "
+            "torch.profiler session may lose kernel events on a CUDA "
+            "card, so this trace may be incomplete", session=session)
     with torch.profiler.profile(activities=activities) as prof:
+        prof.add_metadata("trivy_tpu_profile_session", str(session))
         yield
     path = os.path.join(
         trace_dir, f"trivy-tpu-{os.getpid()}-{time.time_ns()}.pt.trace.json")
