@@ -64,9 +64,11 @@ kernel's time before its latest redesign; then
      digest the generation's name) and a seeded 3,000-component image
      SBOM (1,000
      debian OS packages with every hot name of the bucket, an npm
-     lockfile of 1,500, 500 pip packages) scanned in process through
+     lockfile of 1,500, 500 pip packages) scanned through
      trivy_tpu_torch.cli.main.main cold (compile, save the compiled
-     entry), warm (load it) and with --no-tpu, each as a user runs it
+     entry; in a process of its own, started before phase 2, beside
+     phases 2 and 4-6), then in process warm (load it) and with
+     --no-tpu, each as a user runs it
      (its own DB load): the three reports byte for byte, the warm run a
      compiled-cache hit recording its scan with --monitor-index and
      traced (`--trace-export`, `--log-format json`: the exported tree
@@ -114,13 +116,12 @@ kernel's time before its latest redesign; then
      sarif and table also with --no-tpu, byte for byte (the two paths
      meet at one Report, which phase 9 holds equal), every device run
      launching the match kernel 3 / 1 / 3 times per tier; (b) `convert` of phase 9
-     (a)'s json report into spdx-json, github and cosign-vuln; (c) phase
-     7's SBOM in a cosign DSSE envelope through `sbom`, bare (its
-     results those of phase 7's warm report) and with --vex (an OpenVEX
-     document marking not_affected a seeded 200 of its (vulnerability,
-     purl) pairs) and --show-suppressed, each on the card and with
-     --no-tpu: equal bytes, and the findings those pairs name move to
-     the suppressed list. Every run prints its wall, render seconds,
+     (a)'s json report into spdx-json; (c) phase 7's SBOM in a cosign
+     DSSE envelope through `sbom` on the card, bare (its results those
+     of phase 7's warm report) and with --vex (an OpenVEX document
+     marking not_affected a seeded 50 of its (vulnerability, purl)
+     pairs) and --show-suppressed: the findings those pairs name move
+     to the suppressed list. Every run prints its wall, render seconds,
      report bytes and launches.
  11. drive the `vm` and `repository` CLIs on the card, in process, on
      phase 7's DB with the probe off (`repo_vm_cli_path`): (c) phase 8's
@@ -232,14 +233,42 @@ kernel's time before its latest redesign; then
      sample) on the warm engine, device-lost on (b)'s predecessor, a
      killed worker on the cold engine and its re-resolve over the
      survivors, each step's wall and degraded hosts printed; (d) on
-     phase 12 (d)'s root a ScanService on a 2x1x1 engine (/readyz and
-     its JSON before and after a host lost under a scan), the hot
-     reload keeping the topology and ending the old worker, `sbom
-     --mesh 2x1x1` equal to the run without --mesh byte for byte with
-     no worker left once the CLI's engine cache is cleared, and rc 1
-     with one error line without TRIVY_TPU_DCN.
-The phases run in the order 1, 2, 7, 3, 4, 5, 6, the kernel timings,
-14's set-up, 8-13, 15, 14. Phase 3 runs with the native collector
+     phase 12 (d)'s root `sbom --mesh 2x1x1` equal to the run without
+     --mesh byte for byte with no worker left once the CLI's engine
+     cache is cleared, and rc 1 with one error line without
+     TRIVY_TPU_DCN (a server on a 2x1x1 engine runs in phase 16).
+ 16. drive the fleet control plane on the card (`fleet_start`,
+     `fleet_serve_path`, `fleet_rollout_path`): a generation root with
+     phase 7's gen A and two replicas on it, each `python -m
+     trivy_tpu_torch server` on cuda:0 in a process of its own (started
+     beside phase 12's server, so their DB loads overlap phases 11-12),
+     R1 with
+     --monitor-index, R2 --mesh 2x1x1 over a spawned TRIVY_TPU_DCN
+     worker on the card, each counting its own match launches:
+     (a) `fleet status R1,R2`; (b) `sbom --server R1,R2` on phase 7's
+     SBOM with both serving, with hedging forced (both replicas scan
+     it) and with R1 drained through /fleet/drain (failover), each
+     report phase 7's
+     warm report byte for byte, then R1 restarted on its index; (c)
+     `sbom --server <dead URL> --fallback`: Metadata.Degraded and phase
+     7's findings, the match kernel launched in this process; (d) on a
+     thread beside phases 13, 15 and 14 (R1's restart and the
+     replicas' reloads are theirs), `fleet rollout R1,R2` as a
+     subprocess to phase 14's gen B (its compiled entry a hit)
+     with 8 probes (phase 14 (b)'s blobs less the names the delta
+     touches): a canary, zero probe diffs, the roll, the parked
+     re-score fired on R1 alone and once, its events equal to a full
+     re-match of R1's indexed artifacts on gen B against gen A;
+     (e) R2's worker killed, a scan through R2 (its host degraded on
+     /readyz), `fleet control R1,R2 --min-replicas 2`: one
+     mesh_reresolve applied, no spawn, R2 then without a degraded host
+     and its scan equal to R1's.
+The phases run in the order 1, 2, 4, 5, 6 (phase 7 (a)'s two CLI
+processes and (b)'s cold run beside them), 7, 3, the kernel timings,
+14's set-up, 8-11 (12's
+server and 16's replicas start before 11), 12, 16 (a)-(c), 13, 15, 14
+(16 (d)'s rollout beside them), 16's checks and (e). Phase 3 runs with
+the native collector
 (native/collect.cpp) too.
 Phase 9 runs the hybrid probe alone twice, dispatched directly and
 through the secret lane (as it ran before it bypassed the lane), and
@@ -250,8 +279,11 @@ The `kernels` line's launch counts of the CLI paths are per run
 (`launches_server_clients`), the mesh's per cell and tier
 (`launches_mesh`), the monitor's per tier, during the watch's
 re-score, its verify pass and the server's re-score
-(`launches_monitor`), and cross-host serving's per build and rung, the
-coordinator's cells and each worker's (`launches_dcn`). Prints a `kernels` JSON line, the card line, and
+(`launches_monitor`), cross-host serving's per build and rung, the
+coordinator's cells and each worker's (`launches_dcn`), and the fleet's
+per replica-set step and replica, in the fallback's CLI process, in the
+rollout and after the re-resolve (`launches_fleet`). Prints a `kernels`
+JSON line, the card line, and
 last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
@@ -267,6 +299,7 @@ import random
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1920,6 +1953,17 @@ print(json.dumps({"rc": rc, "launches": match.match_words.launches}))
 """
 
 
+# phase 7 (b)'s cold run in a process of its own (`sbom_cold_start`):
+# `cli_profiled` on argv, its numbers written to the file named first
+COLD_RUN_CODE = """
+import json, sys
+import chip_smoke
+run, prof = chip_smoke.cli_profiled(sys.argv[2:-1], sys.argv[-1])
+with open(sys.argv[1], "w") as f:
+    json.dump({"run": run, "prof": prof}, f)
+"""
+
+
 def profile_check(trace_dir: str, launches: int) -> dict:
     """The capture a profiled CLI scan wrote into `trace_dir`: one
     Chrome trace, naming the match kernel once per launch its process
@@ -1953,6 +1997,12 @@ def cli_golden(tmp: str) -> dict:
     capture of the scan's driver call, the process's only profiler
     session: on an H100 a process's later sessions lose kernel events,
     PERF.md) -> the capture's check (`profile_check`)."""
+    return golden_finish(golden_start(tmp))
+
+
+def golden_start(tmp: str) -> dict:
+    """`cli_golden`'s two processes, started (main starts them before
+    phase 2, whose kernel checks they overlap)."""
     import tempfile
 
     doc, db = golden_fixture()
@@ -1980,6 +2030,13 @@ def cli_golden(tmp: str) -> dict:
         cmd, cwd=REPO, env=penv, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
         for fmt, (cmd, penv) in cmds.items()}
+    return {"procs": procs, "t0": t0, "report": report, "golden": golden,
+            "trace_dir": trace_dir}
+
+
+def golden_finish(g: dict) -> dict:
+    """`cli_golden`'s processes waited for and checked."""
+    procs, t0, report = g["procs"], g["t0"], g["report"]
     launches = None
     for fmt, proc in procs.items():
         try:
@@ -1996,9 +2053,11 @@ def cli_golden(tmp: str) -> dict:
             with open(report) as f:
                 stdout = f.read()
         ok = proc.returncode == 0 and (
-            stdout == golden if fmt == "json" else "Total: 2" in stdout)
+            stdout == g["golden"] if fmt == "json"
+            else "Total: 2" in stdout)
+        # since the processes started (they may have ended long before)
         print(f"phase7 golden format={fmt} rc={proc.returncode} "
-              f"wall_s={wall:.3f} bytes={len(stdout)} ok={ok}")
+              f"collected_after_s={wall:.3f} bytes={len(stdout)} ok={ok}")
         if not ok:
             for p in procs.values():
                 if p.poll() is None:
@@ -2006,7 +2065,7 @@ def cli_golden(tmp: str) -> dict:
                     p.communicate()
             raise AssertionError(f"sbom CLI ({fmt}) on cuda:0: "
                                  f"{stderr[-2000:]}")
-    return profile_check(trace_dir, launches)
+    return profile_check(g["trace_dir"], launches)
 
 
 def cli_run(argv: list[str], report: str, tiers: bool) -> dict:
@@ -2133,16 +2192,65 @@ def traced_run_checks(export: str, log_text: str, report: str,
     return out
 
 
-def sbom_cli_path(db, tmp: str) -> dict:
+def sbom_argv(tmp: str) -> list[str]:
+    """Phase 7 (b)'s `sbom` command line (the runs add their flags)."""
+    return ["sbom", os.path.join(tmp, "bom.json"), "--format", "json",
+            "--db-path", os.path.join(tmp, "db"), "--cache-dir",
+            os.path.join(tmp, "cache"), "--quiet", "--list-all-pkgs"]
+
+
+def sbom_cold_start(db, tmp: str) -> dict:
+    """Phase 7 (b)'s set-up and cold run, started before phase 2: phase
+    3's 2,000,000-advisory DB saved with the port's AdvisoryDB.save as
+    generation A of a root under `tmp` (kept there, with its compiled
+    entry, for the later phases), a seeded 3,000-component image SBOM,
+    and the cold `sbom` run (compile + save the compiled entry and the
+    keymap) in a process of its own, under the profiler (that process's
+    only session), so that its DB load and compile overlap phases 2 and
+    4-6 -> what `sbom_cli_path` waits for."""
+    from trivy_tpu_torch.db import generations
+    from trivy_tpu_torch.tensorize.synth import synth_sbom
+
+    # a generation-managed root: gen A's digest is its directory name,
+    # so phase 14's roots share its entries by hard link
+    root = os.path.join(tmp, "db")
+    gen_a = os.path.join(generations.generations_root(root), GEN_A)
+    t0 = time.perf_counter()
+    db.save(gen_a)
+    generations.promote(root, gen_a)
+    save_s = time.perf_counter() - t0
+    db_mb = os.path.getsize(os.path.join(gen_a, "trivy_tpu.db.json.gz"))
+    with open(os.path.join(tmp, "bom.json"), "w") as f:
+        json.dump(synth_sbom(db, SBOM_OS, SBOM_NPM, SBOM_PIP,
+                             seed=SBOM_SEED, os_bucket=SBOM_OS_BUCKET,
+                             os_version=SBOM_OS_VERSION), f)
+    print(f"phase7 db advisories={db.stats()['advisories']} "
+          f"save_s={save_s:.3f} gz_mb={db_mb / 1e6:.3f} "
+          f"sbom components={SBOM_OS + SBOM_NPM + SBOM_PIP} "
+          f"os={SBOM_OS_BUCKET!r} npm={SBOM_NPM} pip={SBOM_PIP}")
+    report = os.path.join(tmp, "cold.json")
+    out = os.path.join(tmp, "cold.counts.json")
+    log = os.path.join(tmp, "cold.log")
+    env = {**os.environ, "TRIVY_TPU_FAKE_TIME": FAKE_TIME}
+    with open(log, "wb") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", COLD_RUN_CODE, out, *sbom_argv(tmp),
+             report], cwd=REPO, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    return {"proc": proc, "out": out, "log": log, "report": report,
+            "t0": time.perf_counter()}
+
+
+def sbom_cli_path(db, tmp: str, golden: dict | None = None,
+                  cold: dict | None = None) -> dict:
     """Phase 7: the sbom CLI on the card. (a) the golden fixture through
-    the real entry point; (b) phase 3's 2,000,000-advisory DB saved with
-    the port's AdvisoryDB.save under `tmp` (kept there, with its
-    compiled entry, for phase 8) and a seeded 3,000-component image
-    SBOM, scanned cold (compile + save the compiled entry), warm (load
-    it) and on the host oracle (--no-tpu, its own DB load): the three
-    reports byte for byte, each from a DB load of its own. The two device runs run under the profiler for their device
-    idle share (a rerun of each for the profile alone would cost about
-    125 s of the script's time limit)."""
+    the real entry point; (b) on `sbom_cold_start`'s root and SBOM, the
+    cold run (compile + save the compiled entry, in its own process),
+    then warm (load it) and on the host oracle (--no-tpu, its own DB
+    load) in process: the three reports byte for byte, each from a DB
+    load of its own. The two device runs run under the profiler for
+    their device idle share (a rerun of each for the profile alone
+    would cost about 125 s of the script's time limit)."""
     import io
 
     from trivy_tpu_torch import log
@@ -2150,76 +2258,68 @@ def sbom_cli_path(db, tmp: str) -> dict:
     from trivy_tpu_torch.db import generations
     from trivy_tpu_torch.native import collect as ncollect
     from trivy_tpu_torch.tensorize import cache as ccache
-    from trivy_tpu_torch.tensorize.synth import synth_sbom
 
     try:
         if not ncollect.available():
             print("phase7 native collector did not build (g++)")
             raise AssertionError("native collector unavailable")
-        dprof = cli_golden(tmp)
+        dprof = (golden_finish(golden) if golden is not None
+                 else cli_golden(tmp))
         print(f"phase7 device_profile card={card_line()!r} "
               f"{json.dumps(dprof)}")
         if not dprof["ok"]:
             raise AssertionError(f"torch.profiler capture: {dprof}")
 
         os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
-        # a generation-managed root: gen A's digest is its directory
-        # name, so phase 14's roots share its entries by hard link
+        if cold is None:
+            cold = sbom_cold_start(db, tmp)
         root = os.path.join(tmp, "db")
         gen_a = os.path.join(generations.generations_root(root), GEN_A)
-        t0 = time.perf_counter()
-        db.save(gen_a)
-        generations.promote(root, gen_a)
-        save_s = time.perf_counter() - t0
-        db_mb = os.path.getsize(os.path.join(gen_a, "trivy_tpu.db.json.gz"))
         bom = os.path.join(tmp, "bom.json")
-        with open(bom, "w") as f:
-            json.dump(synth_sbom(db, SBOM_OS, SBOM_NPM, SBOM_PIP,
-                                 seed=SBOM_SEED, os_bucket=SBOM_OS_BUCKET,
-                                 os_version=SBOM_OS_VERSION), f)
         n_comp = SBOM_OS + SBOM_NPM + SBOM_PIP
-        print(f"phase7 db advisories={db.stats()['advisories']} "
-              f"save_s={save_s:.3f} gz_mb={db_mb / 1e6:.3f} "
-              f"sbom components={n_comp} os={SBOM_OS_BUCKET!r} "
-              f"npm={SBOM_NPM} pip={SBOM_PIP}")
-        argv = ["sbom", bom, "--format", "json", "--db-path", root,
-                "--cache-dir", os.path.join(tmp, "cache"), "--quiet",
-                "--list-all-pkgs"]
+        argv = sbom_argv(tmp)
         runs = {}
         reports = {}
         prof = {}
+        t0 = time.perf_counter()
+        try:
+            rc = cold["proc"].wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            cold["proc"].kill()
+            cold["proc"].wait(timeout=30)
+            raise AssertionError("the cold run did not finish: "
+                                 + tail(cold["log"]))
+        if rc != 0:
+            raise AssertionError(f"the cold run failed: {tail(cold['log'])}")
+        with open(cold["out"]) as f:
+            got = json.load(f)
+        reports["cold"] = cold["report"]
+        runs["cold"], prof["cold"] = got["run"], got["prof"]
+        runs["cold"]["waited_s"] = time.perf_counter() - t0
+        runs["cold"]["proc_wall_s"] = time.perf_counter() - cold["t0"]
+        entry = ccache.entry_path(root, ccache.db_digest(root), None)
+        runs["cold"]["entry_mb"] = os.path.getsize(entry) / 1e6
+        runs["cold"]["keymap_mb"] = os.path.getsize(
+            ccache.keymap_path(root, GEN_A)) / 1e6
+        print(f"phase7 run=cold {json.dumps(runs['cold'])}")
         # the warm run records its scan in a monitor index (phase 14)
         # and runs traced, its log lines JSON on a captured stderr
         mon7 = os.path.join(tmp, "monitor7.jsonl")
         export7 = os.path.join(tmp, "warm_trace.json")
         warm_log = io.StringIO()
-        warm_engine = None
-        for name, extra in (("cold", []),
-                            ("warm", ["--monitor-index", mon7,
-                                      "--trace-export", export7,
-                                      "--log-format", "json"]),
-                            ("no_tpu", ["--no-tpu"])):
-            reports[name] = os.path.join(tmp, f"{name}.json")
-            if name == "no_tpu":
-                runs[name] = cli_run(argv + extra, reports[name],
-                                     tiers=False)
-            elif name == "warm":
-                with contextlib.redirect_stderr(warm_log):
-                    runs[name], prof[name] = cli_profiled(
-                        [a for a in argv if a != "--quiet"] + extra,
-                        reports[name])
-                log.init(quiet=True)
-            else:
-                runs[name], prof[name] = cli_profiled(argv + extra,
-                                                      reports[name])
-            if name == "cold":
-                entry = ccache.entry_path(root, ccache.db_digest(root), None)
-                runs[name]["entry_mb"] = os.path.getsize(entry) / 1e6
-                runs[name]["keymap_mb"] = os.path.getsize(
-                    ccache.keymap_path(root, GEN_A)) / 1e6
-            if name == "warm":
-                warm_engine = next(iter(run._ENGINE_CACHE.values()))
-            print(f"phase7 run={name} {json.dumps(runs[name])}")
+        reports["warm"] = os.path.join(tmp, "warm.json")
+        with contextlib.redirect_stderr(warm_log):
+            runs["warm"], prof["warm"] = cli_profiled(
+                [a for a in argv if a != "--quiet"]
+                + ["--monitor-index", mon7, "--trace-export", export7,
+                   "--log-format", "json"], reports["warm"])
+        log.init(quiet=True)
+        warm_engine = next(iter(run._ENGINE_CACHE.values()))
+        print(f"phase7 run=warm {json.dumps(runs['warm'])}")
+        reports["no_tpu"] = os.path.join(tmp, "no_tpu.json")
+        runs["no_tpu"] = cli_run(argv + ["--no-tpu"], reports["no_tpu"],
+                                 tiers=False)
+        print(f"phase7 run=no_tpu {json.dumps(runs['no_tpu'])}")
         # what the keymap's digest re-read costs a warm build on a flat
         # root (this root names its generation, so it reads no bytes)
         flat = os.path.join(tmp, "db_flat")
@@ -2879,12 +2979,11 @@ REPORT_FORMATS = (("sarif", ()), ("cyclonedx", ()), ("spdx-json", ()),
                   ("github", ()), ("cosign-vuln", ()),
                   ("template", ("--template", "@contrib/junit.tpl")),
                   ("table", ("--dependency-tree",)))
-# (b)'s `convert` targets: the convert path (the json report read back
+# (b)'s `convert` target: the convert path (the json report read back
 # into a Report) is one for every format, and (a) runs every writer, so
-# (b) keeps the three cheapest of them (it took six before phase 15
-# joined: 17.3 s of phase 10 on an H100 host, the three cut 14.0 of it;
-# PERF.md §5)
-CONVERT_FORMATS = (("spdx-json", ()), ("github", ()), ("cosign-vuln", ()))
+# (b) keeps one (six before phase 15 joined, three before phase 16: the
+# two cut took 3.0 s of phase 10 on an H100 host; PERF.md §5)
+CONVERT_FORMATS = (("spdx-json", ()),)
 # (a)'s formats that also run with --no-tpu: the card's and the host's
 # paths meet at one Report (phase 9 holds their json reports equal, (c)
 # the attestation's), and every writer is host code reading it either
@@ -2994,11 +3093,11 @@ def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
     with --no-tpu on (b)'s (every layer a dedupe hit): each pair byte
     for byte, every device run launching all three match tiers; (b) `convert` of phase 9 (a)'s
     json report into CONVERT_FORMATS; (c) phase 7's SBOM
-    in a cosign DSSE envelope, scanned on the card and with --no-tpu:
-    bare, its results those of phase 7's warm report, and with `--vex`
-    (an OpenVEX doc marking not_affected a seeded 200 of its
-    (vulnerability, purl) pairs) and --show-suppressed: the findings
-    those pairs name move to the suppressed list."""
+    in a cosign DSSE envelope, scanned on the card: bare, its results
+    those of phase 7's warm report, and with `--vex` (an OpenVEX doc
+    marking not_affected a seeded N_VEX_PAIRS of its (vulnerability,
+    purl) pairs) and --show-suppressed: the findings those pairs name
+    move to the suppressed list."""
     os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
     os.environ["TRIVY_TPU_DETERMINISTIC_UUID"] = "1"
     runs: dict = {}
@@ -3046,12 +3145,14 @@ def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
         sbom = ["sbom", att, "--format", "json", "--db-path",
                 p7["db_root"], "--cache-dir", os.path.join(tmp, "cache"),
                 "--quiet", "--list-all-pkgs"]
+        # no --no-tpu twins here: the bare run's results are phase 7's
+        # warm report's (held to --no-tpu there), and VEX is host code
+        # over that Report either way (the twins took 12.1 s of phase 10
+        # on an H100 host before phase 16 joined; PERF.md §5)
         bare = go("c_attestation", sbom, "json")
-        bare_host = go("c_attestation_no_tpu", sbom + ["--no-tpu"], "json")
         with open(p7["warm_report"], "rb") as f:
             warm = f.read()
         bare_diff = {
-            "vs_no_tpu": int(bare["body"] != bare_host["body"]),
             "results_vs_phase7_warm": int(
                 results_without_blob_id(bare["body"], att)
                 != results_without_blob_id(warm, p7["sbom"]))}
@@ -3071,19 +3172,15 @@ def report_cli_path(p7: dict, p9: dict, tmp: str) -> dict:
         named = sum(f in set(pairs) for f in pairs_all)
         vexed = go("c_vex", sbom + ["--vex", vex, "--show-suppressed"],
                    "json")
-        vexed_host = go("c_vex_no_tpu", sbom + ["--vex", vex,
-                                                "--show-suppressed",
-                                                "--no-tpu"], "json")
         doc = json.loads(vexed["body"])
         dropped = len(pairs_all) - len(findings(doc))
         modified = sum(len(r.get("ExperimentalModifiedFindings", []))
                        for r in doc["Results"])
-        vex_diff = int(vexed["body"] != vexed_host["body"])
         print(f"phase10 attestation diff={json.dumps(bare_diff)} "
               f"vulnerabilities={len(pairs_all)} vex_pairs={N_VEX_PAIRS} "
               f"named_findings={named} dropped={dropped} "
-              f"modified_findings={modified} vex_diff_vs_no_tpu={vex_diff}")
-        if any(bare_diff.values()) or vex_diff:
+              f"modified_findings={modified}")
+        if any(bare_diff.values()):
             raise AssertionError("attestation / VEX reports differ")
         if not dropped == modified == named:
             raise AssertionError("VEX suppressed other than the doc names")
@@ -3621,10 +3718,10 @@ def listening_after_s(srv: dict) -> float | None:
     return None
 
 
-def wait_ready(srv: dict) -> float:
-    """Poll (a)'s /readyz until it answers 200 ok (bounded) -> seconds
-    since the process started (an upper bound of its start time when
-    the first poll finds it ready)."""
+def wait_ready(srv: dict, limit_s: float = SERVER_READY_S) -> float:
+    """Poll (a)'s /readyz until it answers 200 ok (within `limit_s` of
+    its start) -> seconds since the process started (an upper bound of
+    its start time when the first poll finds it ready)."""
     import urllib.error
 
     while True:
@@ -3637,9 +3734,9 @@ def wait_ready(srv: dict) -> float:
                 return time.perf_counter() - srv["t0"]
         except (urllib.error.URLError, OSError):
             pass
-        if time.perf_counter() - srv["t0"] > SERVER_READY_S:
-            raise AssertionError("server not ready within "
-                                 f"{SERVER_READY_S:g} s: " + tail(srv["log"]))
+        if time.perf_counter() - srv["t0"] > limit_s:
+            raise AssertionError(f"server not ready within {limit_s:g} s: "
+                                 + tail(srv["log"]))
         time.sleep(0.25)
 
 
@@ -5321,9 +5418,9 @@ def monitor_path(dev, p7: dict, mon: dict, tmp: str) -> dict:
             and all(b["scan_launches"].values())
             and all(b["rescore_launches"].values())):
         raise AssertionError(f"(b) server events: {b}")
-    del neng, genb
-    gc.collect()
+    # gen A's and gen B's engines stay for phase 16's re-score check
     return {"a": a, "b": b, "runner": drv,
+            "engine_a": engine, "engine_b": neng,
             "launches": {"watch_rescore": w1["rescore_per_tier"],
                          "watch_verify": w1["verify_per_tier"],
                          "server_rescore": b["rescore_launches"]}}
@@ -5471,95 +5568,21 @@ def endpoint_of(proc) -> str:
 
 def dcn_surfaces(dev, d13: dict, tmp: str) -> dict:
     """(d) on phase 12 (d)'s generation root (phase 13 (e) left it
-    serving 20,000 advisories): a ScanService on a 2x1x1 engine, its
-    /readyz before and after a host lost under a scan; the hot reload
-    keeping the topology and ending the old engine's worker; `sbom
-    --mesh 2x1x1` with TRIVY_TPU_DCN=spawn equal to the run without
-    --mesh byte for byte, its worker gone once the CLI's engine cache is
-    cleared; and without TRIVY_TPU_DCN, rc 1 and one error line."""
-    import dataclasses
+    serving 20,000 advisories): `sbom --mesh 2x1x1` with
+    TRIVY_TPU_DCN=spawn equal to the run without --mesh byte for byte,
+    its worker gone once the CLI's engine cache is cleared; and without
+    TRIVY_TPU_DCN, rc 1 and one error line. The server on a 2x1x1
+    engine (its /readyz before and after a host lost, the hot reload
+    keeping the topology and ending the old worker) runs in phase 16 as
+    a replica process on the 2,000,000-advisory DB."""
     import io
 
     from trivy_tpu_torch import log
-    from trivy_tpu_torch.cache.cache import MemoryCache
     from trivy_tpu_torch.cli import main as cli_main
     from trivy_tpu_torch.cli import run
-    from trivy_tpu_torch.db import AdvisoryDB
-    from trivy_tpu_torch.detector.engine import MatchEngine
-    from trivy_tpu_torch.resilience import faults
-    from trivy_tpu_torch.rpc import wire
-    from trivy_tpu_torch.rpc.server import ScanService
-    from trivy_tpu_torch.sbom.decode import decode_sbom_file
-    from trivy_tpu_torch.types.scan import ScanOptions
 
     root, bom = d13["root"], d13["bom"]
     out: dict = {}
-    blob, _meta = decode_sbom_file(bom)
-    cache = MemoryCache()
-    cache.put_blob("sha256:dcn", dataclasses.asdict(blob))
-
-    def scan(service) -> bytes:
-        return wire.scan_response(*service.scan(
-            "dcn", "", ["sha256:dcn"], ScanOptions()))
-
-    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
-    os.environ["TRIVY_TPU_DCN"] = "spawn"
-    svc = fresh_svc = None
-    try:
-        t0 = time.perf_counter()
-        engine = MatchEngine(AdvisoryDB.load(root), device=dev,
-                             db_path=root, mesh_spec=DCN_SPEC)
-        out["build_s"] = time.perf_counter() - t0
-        svc = ScanService(engine, cache, db_path=root)
-        ready0, doc0 = svc.ready(), svc.ready_doc()["mesh"]
-        first = scan(svc)
-        faults.install_spec("engine.host:device-lost@1")
-        try:
-            lost = scan(svc)
-        finally:
-            faults.reset()
-        ready1, doc1 = svc.ready(), svc.ready_doc()["mesh"]
-        old_proc = engine._mdb.hosts[0].proc
-        db0 = d13["db0"]
-        db0.meta.updated_at = "2024-05-05T00:00:00Z"
-        reload_gen(root, "sha256-eee", db0)
-        t0 = time.perf_counter()
-        swapped = svc.maybe_reload_db()
-        out["reload_swap_s"] = time.perf_counter() - t0
-        new = svc.engine
-        old_proc.wait(timeout=30)
-        got = scan(svc)
-        fresh_svc = ScanService(
-            MatchEngine(AdvisoryDB.load(root), device=dev), cache)
-        want = scan(fresh_svc)
-        out["server"] = {
-            "ready": ready0[1], "doc": doc0, "ready_lost": ready1[1],
-            "doc_lost": doc1, "response_mb": len(first) / 1e6,
-            "diff_lost": int(lost != first), "swapped": swapped,
-            "new_health": new.shard_health(),
-            "old_worker_exit": old_proc.poll(),
-            "new_worker_alive": new._mdb.hosts[0].proc.poll() is None,
-            "rescan_equals_fresh": got == want}
-        out["server"]["ok"] = (
-            ready0[0] and "mesh 2x1x1" in ready0[1]
-            and "degraded" not in ready0[1]
-            and doc0 == {"shape": "2x1x1", "degraded": [], "hosts": 2,
-                         "degraded_hosts": []}
-            and ready1[0] and "host(s) 1 degraded to host-mask" in ready1[1]
-            and doc1["degraded_hosts"] == [1] and lost == first
-            and swapped and new is not engine
-            and new.shard_health()["shape"] == DCN_SPEC
-            and new.shard_health()["hosts"] == 2
-            and old_proc.poll() is not None
-            and out["server"]["new_worker_alive"] and got == want)
-    finally:
-        if svc is not None:
-            svc.close()
-            svc.engine.close()
-        if fresh_svc is not None:
-            fresh_svc.close()
-        os.environ.pop("TRIVY_TPU_DCN", None)
-        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
 
     base = ["sbom", bom, "--format", "json", "--db-path", root,
             "--cache-dir", os.path.join(tmp, "dcn_cache")]
@@ -5597,7 +5620,7 @@ def dcn_surfaces(dev, d13: dict, tmp: str) -> dict:
     finally:
         os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
     w = out["mesh_2x1x1"]["workers"]
-    out["ok"] = (out["server"]["ok"] and out["diff_2x1x1"] == 0
+    out["ok"] = (out["diff_2x1x1"] == 0
                  and out["workers_left"] == 0
                  and out["mesh_2x1x1"]["launches"] > 0
                  and w and w[0]["launches"][0][0] >= 1
@@ -5764,6 +5787,661 @@ def dcn_path(dev, p3: dict, p7: dict, p12: dict, engine,
     return out
 
 
+# -------------------------------------------------------------- phase 16
+
+FLEET_PROBES = 8  # phase 14 (b)'s blobs less the names its delta touches
+FLEET_HEDGE_DELAY_S = 0.5  # (b)'s forced hedge: replica 0 dispatches late
+FLEET_CONTROL_TICKS = 4  # (e): 3 ticks of sustained degradation, then 1
+FLEET_READY_S = 600.0  # a replica's bounded start, from its process start
+
+# a replica: `trivy_tpu_torch.cli.main.main` on argv (what `python -m
+# trivy_tpu_torch server` calls); on SIGUSR1, and once more at its exit,
+# it writes its own match-kernel launches (the wrapper's count), its
+# pid, and for a distributed MeshDB each worker's pid, device and
+# launches of the served session, to the file named first; once its
+# drain and shutdown are done it exits without tearing the interpreter
+# (and the 2 M DB's objects) down
+FLEET_SERVER_CODE = """
+import json, os, signal, sys
+from trivy_tpu_torch.cli.main import main
+from trivy_tpu_torch.ops import dcn, match
+from trivy_tpu_torch.rpc import server
+services = []
+init = server.Server.__init__
+def keep(self, *a, **kw):
+    init(self, *a, **kw)
+    services.append(self.service)
+server.Server.__init__ = keep
+seq = [0]
+def dump(*_):
+    seq[0] += 1
+    doc = {"seq": seq[0], "pid": os.getpid(),
+           "match": match.match_words.launches, "workers": []}
+    mdb = getattr(services[-1].engine, "_mdb", None) if services else None
+    for h in getattr(mdb, "hosts", None) or []:
+        try:
+            st = dcn.worker_stats(h.endpoint)
+        except OSError:
+            doc["workers"].append(None)
+            continue
+        mine = st["sessions"].get(mdb._session) or {}
+        doc["workers"].append({"pid": st["pid"], "device": st["device"],
+                               "launches": mine.get("launches")})
+    with open(sys.argv[1] + ".tmp", "w") as f:
+        json.dump(doc, f)
+    os.replace(sys.argv[1] + ".tmp", sys.argv[1])
+signal.signal(signal.SIGUSR1, dump)
+rc = main(sys.argv[2:])
+dump()
+sys.stdout.flush()
+sys.stderr.flush()
+# the drain and shutdown are done: no interpreter teardown of the DB
+os._exit(rc)
+"""
+
+
+def start_replica(name: str, root: str, tmp: str, extra: list,
+                  env_extra: dict) -> dict:
+    """One replica of the set: `server` on `root` as a subprocess on
+    the card (FLEET_SERVER_CODE), every replica on one shared blob
+    cache directory (a client's PutBlob may land on one replica and its
+    scan on another)."""
+    port = free_port()
+    log = os.path.join(tmp, f"fleet_{name}.log")
+    # none of the knobs other phases set in this process's environment
+    # while a replica starts (a mesh spec, DCN workers, faults, ...)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TRIVY_TPU_") or k == "TRIVY_TPU_DEVICE"}
+    env.update(TRIVY_TPU_FAKE_TIME=FAKE_TIME, **env_extra)
+    with open(log, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", FLEET_SERVER_CODE,
+             os.path.join(tmp, f"fleet_{name}.stats.json"), "server",
+             "--listen", f"127.0.0.1:{port}", "--db-path", root,
+             "--cache-dir", os.path.join(tmp, "fleet_cache"),
+             "--drain-timeout", f"{DRAIN_TIMEOUT_S:g}s", *extra],
+            cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return {"name": name, "proc": proc, "addr": f"http://127.0.0.1:{port}",
+            "log": log, "stats": os.path.join(tmp,
+                                              f"fleet_{name}.stats.json"),
+            "t0": time.perf_counter()}
+
+
+def fleet_start(p7: dict, tmp: str) -> dict:
+    """Phase 16's set-up, started beside phase 12's server before phase
+    11 so that the replicas' DB loads overlap phases 11-12: a generation
+    root with gen A (phase 7's files and compiled entries, hard-linked)
+    promoted, and two replicas on it, R1 with --monitor-index and R2
+    --mesh 2x1x1 over a spawned TRIVY_TPU_DCN worker (its worker on the
+    card too)."""
+    root = os.path.join(tmp, "fleet_db")
+    link_generation(p7["db_root"], root, GEN_A, promote=True)
+    index = os.path.join(tmp, "fleet_r1_index.jsonl")
+    r1 = start_replica("r1", root, tmp, ["--monitor-index", index], {})
+    r2 = start_replica("r2", root, tmp, ["--mesh", DCN_SPEC],
+                       {"TRIVY_TPU_DCN": "spawn"})
+    return {"root": root, "index": index, "r1": r1, "r2": r2}
+
+
+def replica_stats(*srvs) -> list[dict]:
+    """Each replica's own launch counts (SIGUSR1: FLEET_SERVER_CODE
+    writes them on its main thread within about a second)."""
+    import signal
+
+    before = []
+    for s in srvs:
+        try:
+            with open(s["stats"]) as f:
+                before.append(json.load(f)["seq"])
+        except (OSError, ValueError):
+            before.append(0)
+        s["proc"].send_signal(signal.SIGUSR1)
+    out = []
+    for s, seq in zip(srvs, before):
+        deadline = time.perf_counter() + 15.0
+        while True:
+            try:
+                with open(s["stats"]) as f:
+                    doc = json.load(f)
+                if doc["seq"] > seq:
+                    out.append(doc)
+                    break
+            except (OSError, ValueError):
+                pass
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"replica {s['name']} wrote no stats")
+            time.sleep(0.05)
+    return out
+
+
+def launch_delta(after: dict, before: dict) -> dict:
+    """A replica's launches between two stats: its own and, per worker
+    of its session (a new session's from zero), the worker's."""
+    out = {"coordinator": after["match"] - before["match"]}
+    if after["workers"]:
+        prev = {w["pid"]: w for w in before["workers"] if w}
+        out["workers"] = []
+        for w in after["workers"]:
+            if w is None:
+                out["workers"].append(None)
+                continue
+            now = sum(sum(row) for row in w["launches"] or [])
+            was = prev.get(w["pid"])
+            then = sum(sum(row) for row in (was["launches"] or [])) \
+                if was else 0
+            out["workers"].append(now - then)
+    return out
+
+
+def fresh_clients() -> None:
+    """Close and forget the CLI's pooled endpoint sets, so that the next
+    client builds its set under the environment it runs in."""
+    from trivy_tpu_torch.rpc import client
+
+    client.close_pool()
+    with client._CONN_POOL_LOCK:
+        client._CONN_POOL.clear()
+
+
+def fleet_sbom(p7: dict, urls: str, report: str, tmp: str,
+               scan_turn: int = 0) -> dict:
+    """`sbom` of phase 7's SBOM through `urls`, in process, as phase
+    12's client ran it -> its wall, this process's match launches (0 in
+    client mode) and the report's bytes. The client's set starts fresh;
+    `scan_turn` empty MissingBlobs calls go first, each moving the set's
+    round robin one replica on (a warm scan makes two calls, its
+    MissingBlobs and its Scan, so with two replicas and no such call
+    the Scan's first try is the second replica's)."""
+    from trivy_tpu_torch.cli import main as cli_main
+    from trivy_tpu_torch.ops import match as m
+    from trivy_tpu_torch.rpc.client import RemoteCache
+
+    fresh_clients()
+    for _ in range(scan_turn):
+        RemoteCache(urls).missing_blobs("", [])
+    m.match_words.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main.main(["sbom", p7["sbom"], "--server", urls, "--format",
+                        "json", "--quiet", "--list-all-pkgs",
+                        "--cache-dir", os.path.join(tmp, "fleet_client"),
+                        "--output", report])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"sbom --server {urls} returned {rc}")
+    with open(report, "rb") as f:
+        body = f.read()
+    return {"wall_s": wall, "client_launches": m.match_words.launches,
+            "body": body}
+
+
+def cli_out(argv: list[str]) -> tuple[int, str, str]:
+    """One in-process CLI command -> (rc, stdout, stderr)."""
+    import io
+
+    from trivy_tpu_torch import log
+    from trivy_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main.main(argv)
+    log.init(quiet=True)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def process_gone(pid: int) -> bool:
+    """The process has exited (reaped, or a zombie its parent has not
+    waited for yet)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def fleet_serve_path(p7: dict, fl: dict, engine, tmp: str) -> dict:
+    """Phase 16 (a)-(c), before phase 14 (R1's restart overlaps it).
+    (a) both replicas ready, `fleet status R1,R2`: ready, on gen A, R1
+    monitoring, R2 a 2x1x1 mesh with no degraded host. (b) `sbom
+    --server R1,R2` on phase 7's SBOM with both serving, with hedging
+    forced (TRIVY_TPU_FLEET_HEDGE_MS=1: the scan is dispatched to both
+    replicas, so R1's index records it; R1, its first try, dispatches
+    FLEET_HEDGE_DELAY_S late, so the hedge to R2 wins), and with R1
+    drained through /fleet/drain (its first try sheds with a 503 and
+    the set fails over to R2): every report equal to phase 7's warm
+    report byte for byte, the client launching nothing, each replica's
+    launches printed. R1 is then told to stop (SIGTERM); it starts
+    again on the same index in `fleet_rollout`'s thread, as an operator
+    returns a drained replica. (c) `sbom
+    --server <dead URL> --fallback` on this process's card (its engine
+    phase 12's, from the CLI's engine cache): Metadata.Degraded set,
+    the rest equal to phase 7's warm report, the match kernel launched
+    in this process."""
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.cli.config import apply_layers
+    from trivy_tpu_torch.cli.main import build_parser
+    from trivy_tpu_torch.fleet.rollout import post_json
+    from trivy_tpu_torch.obs import metrics as obs_metrics
+    from trivy_tpu_torch.ops import match as m
+    from trivy_tpu_torch.resilience import faults
+
+    card = card_line()
+    r1, r2 = fl["r1"], fl["r2"]
+    out: dict = {"steps": {}}
+    t0 = time.perf_counter()
+    out["ready_s"] = {s["name"]: wait_ready(s, FLEET_READY_S)
+                      for s in (r1, r2)}
+    out["waited_s"] = time.perf_counter() - t0
+    with open(p7["warm_report"], "rb") as f:
+        want = f.read()
+    urls = f"{r1['addr']},{r2['addr']}"
+
+    # (a)
+    t0 = time.perf_counter()
+    rc, text, err = cli_out(["--quiet", "fleet", "status", urls])
+    status = json.loads(text) if rc == 0 else []
+    out["status_s"] = time.perf_counter() - t0
+    out["status"] = [{k: s.get(k) for k in ("ready", "generation",
+                                            "monitor", "mesh")}
+                     for s in status]
+    ok_a = (rc == 0 and len(status) == 2
+            and all(s["ready"] and s["generation"] == GEN_A
+                    for s in status)
+            and status[0]["monitor"] and not status[1]["monitor"]
+            and status[1]["mesh"] == {"shape": DCN_SPEC, "degraded": [],
+                                      "hosts": 2, "degraded_hosts": []})
+    print(f"phase16 (a) card={card!r} ready_s={json.dumps(out['ready_s'])} "
+          f"waited_s={out['waited_s']:.3f} status_s={out['status_s']:.3f} "
+          f"status={json.dumps(out['status'])}")
+    if not ok_a:
+        raise AssertionError(f"(a) fleet status: {rc} {text} {err[-2000:]}")
+
+    # (b)
+    steps = out["steps"]
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    before = replica_stats(r1, r2)
+    try:
+        for name in ("both", "hedged", "r1_drained"):
+            hedges0 = {k: obs_metrics.FLEET_HEDGES.value(outcome=k)
+                       for k in ("won", "lost")}
+            fo0 = obs_metrics.FLEET_FAILOVERS.value()
+            if name == "hedged":
+                os.environ["TRIVY_TPU_FLEET_HEDGE_MS"] = "1"
+                os.environ["TRIVY_TPU_FLEET_HEDGE_BUDGET"] = "1"
+                faults.install_spec(
+                    f"fleet.endpoint.0:delay={FLEET_HEDGE_DELAY_S:g}")
+            if name == "r1_drained":
+                st, doc = post_json(r1["addr"] + "/fleet/drain",
+                                    body={"timeout_s": DRAIN_TIMEOUT_S})
+                if st != 200 or doc != {"draining": True, "inflight": 0}:
+                    raise AssertionError(f"(b) /fleet/drain: {st} {doc}")
+            try:
+                # hedged and drained: the Scan's first try goes to R1,
+                # which dispatches late (the hedge to R2 wins) or sheds
+                # it with a 503 (the set fails over to R2)
+                r = fleet_sbom(p7, urls,
+                               os.path.join(tmp, f"fleet_{name}.json"), tmp,
+                               scan_turn=int(name != "both"))
+            finally:
+                faults.reset()
+                os.environ.pop("TRIVY_TPU_FLEET_HEDGE_MS", None)
+                os.environ.pop("TRIVY_TPU_FLEET_HEDGE_BUDGET", None)
+            after = replica_stats(r1, r2)
+            body = r.pop("body")
+            r.update(equal=body == want, report_bytes=len(body),
+                     hedges={k: obs_metrics.FLEET_HEDGES.value(outcome=k)
+                             - v for k, v in hedges0.items()},
+                     failovers=obs_metrics.FLEET_FAILOVERS.value() - fo0,
+                     r1=launch_delta(after[0], before[0]),
+                     r2=launch_delta(after[1], before[1]))
+            steps[name] = r
+            print(f"phase16 (b) {name} card={card!r} {json.dumps(r)}")
+            before = after
+    finally:
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+    b = steps
+    ok_b = (all(r["equal"] and r["client_launches"] == 0
+                for r in b.values())
+            and b["hedged"]["hedges"]["won"] >= 1
+            and b["hedged"]["r1"]["coordinator"] > 0
+            and b["hedged"]["r2"]["coordinator"] > 0
+            and b["r1_drained"]["r1"]["coordinator"] == 0
+            and b["r1_drained"]["failovers"] >= 1
+            and b["r1_drained"]["r2"]["coordinator"] > 0
+            and all(w and w > 0 for w in b["r1_drained"]["r2"]["workers"]))
+    if not ok_b:
+        raise AssertionError(f"(b) replica-set scans: {b}")
+
+    # R1 returns: it stops (its drain is done) and starts again on the
+    # same root and monitor index in the rollout's thread
+    import signal
+
+    r1["proc"].send_signal(signal.SIGTERM)
+    r1["sigterm_t"] = time.perf_counter()
+
+    # (c)
+    dead = f"http://127.0.0.1:{free_port()}"
+    report = os.path.join(tmp, "fleet_fallback.json")
+    argv = ["sbom", p7["sbom"], "--server", dead, "--fallback",
+            "--format", "json", "--quiet", "--list-all-pkgs", "--db-path",
+            p7["db_root"], "--cache-dir", os.path.join(tmp, "fleet_fb")]
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    apply_layers(args, parser, argv)
+    key = (run._db_path(args), False, str(run._device(args)),
+           run._mesh_spec(args))
+    # the CLI's engine cache holds only phase 12's engine for the run,
+    # and its entries as they were afterwards (no engine is closed)
+    held = dict(run._ENGINE_CACHE)
+    dict.clear(run._ENGINE_CACHE)
+    dict.__setitem__(run._ENGINE_CACHE, key, engine)
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    try:
+        fresh_clients()
+        m.match_words.launches = 0
+        t0 = time.perf_counter()
+        rc, _o, err = cli_out(argv + ["--output", report])
+        c = {"rc": rc, "wall_s": time.perf_counter() - t0,
+             "launches": m.match_words.launches,
+             "engine_reused": run._ENGINE_CACHE.get(key) is engine}
+    finally:
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+        dict.clear(run._ENGINE_CACHE)
+        dict.update(run._ENGINE_CACHE, held)
+    doc = json.loads(open(report, "rb").read()) if rc == 0 else {}
+    meta = dict(doc.get("Metadata") or {})
+    c["degraded"] = meta.pop("Degraded", "")
+    rest = {k: v for k, v in doc.items() if k != "Metadata"}
+    if meta:
+        rest["Metadata"] = meta
+    c["equal_less_degraded"] = rest == json.loads(want)
+    out["fallback"] = c
+    print(f"phase16 (c) fallback card={card!r} {json.dumps(c)}")
+    if not (rc == 0 and c["degraded"] and c["equal_less_degraded"]
+            and c["launches"] > 0 and c["engine_reused"]):
+        raise AssertionError(f"(c) --fallback: {c} {err[-2000:]}")
+    return out
+
+
+def fleet_rollout(p7: dict, fl: dict, mon: dict, tmp: str,
+                  box: dict) -> None:
+    """Phase 16 (d) up to the re-score's events, on a thread of its own
+    beside phases 13, 15 and 14 (this process only waits on the
+    replicas there): R1 exits (its drain was done) and starts again on
+    its root and index; once it is ready and phase 14's runner has made
+    gen B, gen B (its files and compiled entries, hard-linked) is
+    promoted in the replicas' root; FLEET_PROBES probes (phase 14 (b)'s
+    seeded blobs less the names its delta touches) go into the
+    replicas' cache; `fleet rollout R1,R2 --db-path <root> --probes
+    --journal` runs as a subprocess, and R1's /monitor/events is read
+    until the re-score's events stop growing. What it finds goes into
+    `box` (an exception too) for `fleet_rollout_path`."""
+    try:
+        _fleet_rollout(p7, fl, mon, tmp, box)
+    except BaseException as exc:  # re-raised by fleet_rollout_path
+        box["error"] = exc
+
+
+def _fleet_rollout(p7: dict, fl: dict, mon: dict, tmp: str,
+                   box: dict) -> None:
+    from trivy_tpu_torch.fleet import slo
+    from trivy_tpu_torch.fleet.endpoints import readyz_doc
+    from trivy_tpu_torch.fleet.rollout import post_json
+    from trivy_tpu_torch.rpc.client import RemoteCache
+
+    r1, r2 = fl["r1"], fl["r2"]
+    d: dict = {}
+    rc = r1["proc"].wait(timeout=DRAIN_TIMEOUT_S + 60)
+    d["r1_stop"] = {"rc": rc,
+                    "stop_s": time.perf_counter() - r1["sigterm_t"]}
+    with open(r1["stats"]) as f:
+        d["r1_stop"]["launches"] = json.load(f)["match"]
+    if rc != 0:
+        raise AssertionError(f"R1 did not exit 0: {d['r1_stop']}")
+    r1 = start_replica("r1b", fl["root"], tmp,
+                       ["--monitor-index", fl["index"]], {})
+    fl.setdefault("stopped", []).append(fl["r1"])
+    fl["r1"] = r1
+    d["r1_ready_s"] = wait_ready(r1, FLEET_READY_S)
+    t0 = time.perf_counter()
+    mon["proc"].wait(timeout=MONITOR_TIMEOUT_S)
+    d["genb_wait_s"] = time.perf_counter() - t0
+    urls = f"{r1['addr']},{r2['addr']}"
+    link_generation(mon["watch_root"], fl["root"], GEN_B, promote=True)
+    touched = {e["name"] for e in mon["edits"] if not e.get("unheld")}
+    blobs = burst_blobs(p7["sbom"], random.Random(MONITOR_SEED + 1),
+                        n=FLEET_PROBES)
+    probes = []
+    fresh_clients()
+    cache = RemoteCache(r1["addr"])
+    for i, blob in enumerate(blobs):
+        for key in ("package_infos", "applications"):
+            blob[key] = [{**h, "packages": [p for p in h["packages"]
+                                            if p["name"] not in touched]}
+                         for h in blob[key]]
+        key = f"sha256:fleetprobe{i:02d}"
+        cache.put_blob(key, blob)
+        probes.append({"target": key, "artifact_id": "",
+                       "blob_ids": [key], "options": {}})
+    fresh_clients()
+    box["probe_keys"] = [pr["target"] for pr in probes]
+    box["probe_blobs"] = blobs
+    probe_file = os.path.join(tmp, "fleet_probes.json")
+    with open(probe_file, "w") as f:
+        json.dump(probes, f)
+    journal = os.path.join(tmp, "fleet_ops.jsonl")
+    rollout_file = os.path.join(tmp, "fleet_rollout.json")
+    log = os.path.join(tmp, "fleet_rollout.log")
+    before = replica_stats(r1, r2)
+    old_worker = before[1]["workers"][0]["pid"]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TRIVY_TPU_")}
+    t0 = time.perf_counter()
+    with open(log, "wb") as out:
+        rc = subprocess.run(
+            [sys.executable, "-m", "trivy_tpu_torch", "--quiet", "fleet",
+             "rollout", urls, "--db-path", fl["root"], "--probes",
+             probe_file, "--journal", journal, "--output", rollout_file],
+            cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT,
+            timeout=900).returncode
+    d.update(rc=rc, wall_s=time.perf_counter() - t0)
+    rep = json.loads(open(rollout_file).read()) if rc == 0 else {}
+    d.update({k: rep.get(k) for k in ("outcome", "target", "previous",
+                                      "probes", "probe_diffs")})
+    d["canary_r1"] = rep.get("canary") == r1["addr"]
+    d["rescored_on_r1_only"] = rep.get("rescored_on") == [r1["addr"]]
+    d["stages"] = {st["stage"]: [st["ok"], st["seconds"]]
+                   for st in rep.get("stages", [])}
+    # the re-score runs in R1's background: its events, once they stop
+    # growing
+    t1 = time.perf_counter()
+    events, last, still = [], -1, 0
+    while time.perf_counter() - t1 < 120.0 and still < 20:
+        _st, body = http_get(r1["addr"] + "/monitor/events?since=0")
+        events = json.loads(body)["events"]
+        still = still + 1 if len(events) == last and events else 0
+        last = len(events)
+        time.sleep(0.1)
+    d["events_wait_s"] = time.perf_counter() - t1
+    d["events"] = len(events)
+    d["second_rescore"] = post_json(r1["addr"] + "/fleet/rescore")
+    after = replica_stats(r1, r2)
+    d["r1"] = launch_delta(after[0], before[0])
+    d["r2"] = launch_delta(after[1], before[1])
+    d["r2_old_worker_exited"] = process_gone(old_worker)
+    r2_doc = readyz_doc(r2["addr"], timeout=10.0) or {}
+    d["r2_after"] = {k: r2_doc.get(k) for k in ("ready", "generation",
+                                                "mesh")}
+    d["ops_events"] = [
+        [e["kind"], (e.get("stage") or e.get("endpoint") or "").replace(
+            r1["addr"], "R1").replace(r2["addr"], "R2")]
+        for e in slo.OpsEventLog.read(journal)]
+    box.update(rollout=d, events=events, after=after, log=log)
+
+
+def fleet_rollout_path(p7: dict, fl: dict, p14: dict, thread, box: dict,
+                       tmp: str) -> dict:
+    """Phase 16 (d)-(e), after phase 14: `fleet_rollout`'s thread joined
+    and its rollout checked: a canary, zero probe diffs, the roll (R2's
+    reload keeps 2x1x1 and its old worker exits), the parked re-score
+    fired on R1 alone, once (a second /fleet/rescore finds nothing
+    parked). (e) R2's worker killed; a Scan of the largest probe through
+    R2 (its host degrades to the host mask: /readyz names it); `fleet
+    control R1,R2 --ticks FLEET_CONTROL_TICKS --min-replicas 2`: exactly
+    one mesh_reresolve applied, nothing spawned; R2's /readyz then lists
+    no degraded host, and R2's Scan equals one device's (a ScanService
+    on phase 14's gen B engine, in this process). Then both replicas
+    stop, and the re-score's events equal a full re-match on gen B of
+    every artifact R1's index holds against its gen A findings (phase
+    14's engines)."""
+    from trivy_tpu_torch.cache.cache import MemoryCache
+    from trivy_tpu_torch.detector.engine import PkgQuery, finding_keys
+    from trivy_tpu_torch.fleet.endpoints import readyz_doc
+    from trivy_tpu_torch.monitor.index import MonitorIndex
+    from trivy_tpu_torch.rpc import wire
+    from trivy_tpu_torch.rpc.server import ScanService
+    from trivy_tpu_torch.types.scan import ScanOptions
+
+    card = card_line()
+    out: dict = {}
+    t0 = time.perf_counter()
+    thread.join(timeout=1200.0)
+    out["joined_after_s"] = time.perf_counter() - t0
+    if thread.is_alive():
+        raise AssertionError("(d) the rollout's thread did not finish")
+    if "error" in box:
+        raise box["error"]
+    r1, r2 = fl["r1"], fl["r2"]
+    urls = f"{r1['addr']},{r2['addr']}"
+    d = box["rollout"]
+    out["rollout"] = d
+    print(f"phase16 (d) rollout card={card!r} "
+          f"joined_after_s={out['joined_after_s']:.3f} {json.dumps(d)}")
+    ok_d = (d["rc"] == 0 and d["outcome"] == "completed"
+            and d["target"] == GEN_B and d["previous"] == GEN_A
+            and d["probes"] == FLEET_PROBES and d["probe_diffs"] == 0
+            and d["canary_r1"] and d["rescored_on_r1_only"]
+            and all(ok for ok, _s in d["stages"].values())
+            and d["events"] > 0
+            and d["second_rescore"] == (200, {"rescored": False,
+                                              "reason": "no pending swap"})
+            and d["r1"]["coordinator"] > 0 and d["r2"]["coordinator"] > 0
+            and d["r2_old_worker_exited"]
+            and d["r2_after"]["generation"] == GEN_B
+            and d["r2_after"]["mesh"]["hosts"] == 2)
+    if not ok_d:
+        raise AssertionError(f"(d) rollout: {d} {tail(box['log'])}")
+
+    # (e) R2's worker killed; the controller re-resolves R2's mesh
+    e: dict = {}
+    sizes = [sum(len(h["packages"]) for k in ("package_infos",
+                                               "applications")
+                 for h in blob[k]) for blob in box["probe_blobs"]]
+    key = box["probe_keys"][sizes.index(max(sizes))]
+    e["scan_packages"] = max(sizes)
+    os.kill(box["after"][1]["workers"][0]["pid"], 9)
+    t0 = time.perf_counter()
+    lost = raw_scan(r2["addr"], key, {})
+    e["lost_scan_s"] = time.perf_counter() - t0
+    doc = readyz_doc(r2["addr"], timeout=10.0) or {}
+    e["degraded_hosts"] = (doc.get("mesh") or {}).get("degraded_hosts")
+    _st, text = http_get(r2["addr"] + "/readyz")
+    e["readyz_text"] = text.decode()
+    actions = os.path.join(tmp, "fleet_actions.jsonl")
+    t0 = time.perf_counter()
+    rc, ctl_out, err = cli_out(["--quiet", "fleet", "control", urls,
+                                "--ticks", str(FLEET_CONTROL_TICKS),
+                                "--interval", "200ms", "--actions",
+                                actions, "--min-replicas", "2"])
+    e["control_rc"] = rc
+    e["control_s"] = time.perf_counter() - t0
+    with open(actions) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()][1:]
+    e["intents"] = [r["action"] for r in recs if r.get("phase") == "intent"]
+    e["applied"] = [r.get("outcome") for r in recs
+                    if r.get("phase") == "applied"]
+    doc = readyz_doc(r2["addr"], timeout=10.0) or {}
+    e["r2_mesh_after"] = doc.get("mesh")
+    stats0 = replica_stats(r2)[0]
+    t0 = time.perf_counter()
+    healed = raw_scan(r2["addr"], key, {})
+    e["healed_scan_s"] = time.perf_counter() - t0
+    e["r2_launches"] = launch_delta(replica_stats(r2)[0], stats0)
+    # the blob as the replicas hold it: through the wire's JSON
+    cache = MemoryCache()
+    cache.put_blob(key, json.loads(wire.encode(
+        box["probe_blobs"][sizes.index(max(sizes))])))
+    one = ScanService(p14["engine_b"], cache)
+    # the replicas' clock (an OS's end of life depends on it)
+    os.environ["TRIVY_TPU_FAKE_TIME"] = FAKE_TIME
+    try:
+        want = wire.scan_response(*one.scan(key, "", [key],
+                                            ScanOptions()))
+    finally:
+        os.environ.pop("TRIVY_TPU_FAKE_TIME", None)
+        one.close()
+    e["lost_equals_one_device"] = lost == want
+    e["healed_equals_one_device"] = healed == want
+    if healed != want:
+        at = next((i for i, (x, y) in enumerate(zip(healed, want))
+                   if x != y), min(len(healed), len(want)))
+        e["first_diff"] = [at, healed[max(at - 200, 0):at + 200].decode(
+            errors="replace"), want[max(at - 200, 0):at + 200].decode(
+            errors="replace")]
+    e["response_bytes"] = len(want)
+    out["control"] = e
+    print(f"phase16 (e) control card={card!r} {json.dumps(e)}")
+    ok_e = (e["degraded_hosts"] == [1] and rc == 0
+            and "host(s) 1 degraded to host-mask" in e["readyz_text"]
+            and e["intents"].count("mesh_reresolve") == 1
+            and "scale_up" not in e["intents"]
+            and "drain_replace" not in e["intents"]
+            and len(e["applied"]) == len(e["intents"])
+            and e["applied"][e["intents"].index("mesh_reresolve")]
+            == "applied"
+            and e["r2_mesh_after"]["degraded_hosts"] == []
+            and e["r2_mesh_after"]["hosts"] == 1
+            and e["r2_launches"]["coordinator"] > 0
+            and e["lost_equals_one_device"]
+            and e["healed_equals_one_device"])
+    if not ok_e:
+        raise AssertionError(f"(e) control: {e} {ctl_out} {err[-3000:]}")
+
+    # both replicas stop at once; R1's index against a full re-match
+    import signal
+
+    fresh_clients()
+    t0 = time.perf_counter()
+    for srv in (r1, r2):
+        srv["proc"].send_signal(signal.SIGTERM)
+    final = {srv["name"]: srv["proc"].wait(timeout=DRAIN_TIMEOUT_S + 60)
+             for srv in (r1, r2)}
+    stop_s = time.perf_counter() - t0
+    idx = MonitorIndex.open(fl["index"])
+    try:
+        aids = idx.artifacts()
+        pkgs = {a: idx.packages_of(a) for a in aids}
+    finally:
+        idx.close()
+    gen_a, gen_b = p14["engine_a"], p14["engine_b"]
+    t0 = time.perf_counter()
+    base = {a: finding_keys(gen_a.cdb.advisories, gen_a.detect(
+        [PkgQuery(*q) for q in pkgs[a]])) for a in aids}
+    now = {a: finding_keys(gen_b.cdb.advisories, gen_b.detect(
+        [PkgQuery(*q) for q in pkgs[a]])) for a in aids}
+    events = box["events"]
+    check = {"indexed": len(aids), "check_s": time.perf_counter() - t0,
+             "events_equal": event_tuples(events)
+             == expected_events(aids, base, now),
+             "digest_ok": all(ev["db_digest"] == GEN_B for ev in events),
+             "stop_rcs": final, "stop_s": stop_s}
+    out["rescore_check"] = check
+    print(f"phase16 (d) rescore check {json.dumps(check)}")
+    if not (check["events_equal"] and check["digest_ok"]
+            and all(rc == 0 for rc in final.values())):
+        raise AssertionError(f"(d) re-score events: {check}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5789,37 +6467,29 @@ def main() -> int:
     for name in sources:
         kernels.load(name)
 
-    t0 = time.perf_counter()
-    p2 = check_kernel_cases(dev)
-    print(f"phase2 seconds={time.perf_counter() - t0:.3f}")
-
     import tempfile
 
     from trivy_tpu_torch.cli import run
     from trivy_tpu_torch.tensorize.synth import synth_trivy_db
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    srv = mon = None
+    srv = mon = fl = golden = cold = None
     try:
-        # phase 7 runs first on the synthetic DB: its cold run compiles
-        # the 2 M DB once, and phase 3's engine loads that entry
+        # phase 7 (a)'s two CLI processes and (b)'s cold run (its DB
+        # load, compile and keymap) run beside phases 2 and 4-6; the
+        # cold run compiles the 2 M DB once, and phase 3's engine loads
+        # that entry
+        golden = golden_start(work)
         t0 = time.perf_counter()
         db = synth_trivy_db(n_advisories=N_ADVISORIES)
         t_synth = time.perf_counter() - t0
         t0 = time.perf_counter()
-        p7 = sbom_cli_path(db, work)
-        print(f"phase7 seconds={time.perf_counter() - t0:.3f}")
-        # the CLI set this process's compiled-NFA cache root to phase 7's
-        # --cache-dir: phases 4-6 scan without one, as they did before
-        # phase 7 ran first, so phase 8's first fs run still misses
-        from trivy_tpu_torch.secret import scanner as secret_scanner
-
-        secret_scanner.set_cache_dir(None)
+        cold = sbom_cold_start(db, work)
+        t7 = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        p3 = main_path(dev, db, p7["db_root"], t_synth)
-        del db
-        print(f"phase3 seconds={time.perf_counter() - t0:.3f}")
+        p2 = check_kernel_cases(dev)
+        print(f"phase2 seconds={time.perf_counter() - t0:.3f}")
 
         t0 = time.perf_counter()
         p4 = check_secret_kernel_cases(dev)
@@ -5832,6 +6502,20 @@ def main() -> int:
         t0 = time.perf_counter()
         p6 = prefilter_path(dev, p5["corpus"])
         print(f"phase6 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p7 = sbom_cli_path(db, work, golden, cold)
+        print(f"phase7 seconds={t7 + time.perf_counter() - t0:.3f}")
+        # phase 8's first fs run must miss the compiled-NFA cache: the
+        # CLI set this process's cache root to phase 7's --cache-dir
+        from trivy_tpu_torch.secret import scanner as secret_scanner
+
+        secret_scanner.set_cache_dir(None)
+
+        t0 = time.perf_counter()
+        p3 = main_path(dev, db, p7["db_root"], t_synth)
+        del db
+        print(f"phase3 seconds={time.perf_counter() - t0:.3f}")
 
         t0 = time.perf_counter()
         st = time_secret_kernels(dev, p5, p6)
@@ -5856,8 +6540,10 @@ def main() -> int:
         p10 = report_cli_path(p7, p9, work)
         print(f"phase10 seconds={time.perf_counter() - t0:.3f}")
 
-        # phase 12's server loads phase 7's DB while phase 11 runs
+        # phase 12's server and phase 16's replicas load phase 7's DB
+        # while phases 11 and 12 run
         srv = start_server(p7["db_root"], work)
+        fl = fleet_start(p7, work)
         t0 = time.perf_counter()
         p11 = repo_vm_cli_path(p5, p7, p8, work)
         print(f"phase11 seconds={time.perf_counter() - t0:.3f}")
@@ -5869,6 +6555,19 @@ def main() -> int:
         # clear the CLI's engine cache)
         mon["engine"] = next(e for e in run._ENGINE_CACHE.values()
                              if e.use_device)
+
+        # phase 16 (a)-(c) on gen A, then (d)'s rollout on a thread of
+        # its own: R1's restart and the replicas' reloads overlap phases
+        # 13, 15 and 14
+        t0 = time.perf_counter()
+        p16 = {"serve": fleet_serve_path(p7, fl, mon["engine"], work)}
+        box16: dict = {}
+        roll16 = threading.Thread(target=fleet_rollout,
+                                  args=(p7, fl, mon, work, box16),
+                                  name="phase16-rollout", daemon=True)
+        roll16.start()
+        t16 = time.perf_counter() - t0
+        print(f"phase16 (a)-(c) seconds={t16:.3f}")
 
         # no cyclic garbage collection inside phase 13: a full pass over
         # the 2 M DB's objects stalled a mesh build for 9 s (PERF.md §7)
@@ -5888,7 +6587,25 @@ def main() -> int:
         t0 = time.perf_counter()
         p14 = monitor_path(dev, p7, mon, work)
         print(f"phase14 seconds={time.perf_counter() - t0:.3f}")
+
+        # phase 16 (d)-(e): the rollout to phase 14's gen B joined, then
+        # the controller
+        t0 = time.perf_counter()
+        p16.update(fleet_rollout_path(p7, fl, p14, roll16, box16, work))
+        t16 += time.perf_counter() - t0
+        print(f"phase16 (d)-(e) seconds={time.perf_counter() - t0:.3f}")
+        print(f"phase16 seconds={t16:.3f}")
     finally:
+        for p in [*(golden or {}).get("procs", {}).values(),
+                  *([cold["proc"]] if cold else [])]:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for s in ([fl["r1"], fl["r2"], *fl.get("stopped", [])]
+                  if fl else []):
+            if s["proc"].poll() is None:
+                s["proc"].kill()
+                s["proc"].wait(timeout=30)
         if srv is not None and srv["proc"].poll() is None:
             srv["proc"].kill()
             srv["proc"].wait(timeout=30)
@@ -5942,6 +6659,13 @@ def main() -> int:
             "server": p13["server"]["launches"],
             "sbom_cli_mesh_1x1": p13["cli"]["mesh_1x1"]["launches"]},
         "launches_monitor": p14["launches"],
+        "launches_fleet": {
+            "replica_set": {k: {"r1": r["r1"], "r2": r["r2"]}
+                            for k, r in p16["serve"]["steps"].items()},
+            "fallback_cli": p16["serve"]["fallback"]["launches"],
+            "rollout": {"r1": p16["rollout"]["r1"],
+                        "r2": p16["rollout"]["r2"]},
+            "r2_after_reresolve": p16["control"]["r2_launches"]},
         "launches_dcn": {
             **p15["launches"],
             **{f"rung {k}": {"coordinator": r["coordinator_launches"],

@@ -243,10 +243,18 @@ def test_profile_command_equals_the_reference(servers, capsys, tmp_path,
 
 
 def test_profile_refuses_a_replica_set(capsys):
-    rc = main(["profile", "http://127.0.0.1:9,http://127.0.0.1:10"])
+    """A replica set none of whose replicas answers fails with one
+    line, as the reference's federation does."""
+    from trivy_tpu.cli.main import main as jax_main
+
+    argv = ["profile", "http://127.0.0.1:9,http://127.0.0.1:10"]
+    rc = main(argv)
     err = capsys.readouterr().err.strip().splitlines()
     assert rc == 1 and len(err) == 1
-    assert "comma-separated replica set is not ported yet" in err[0]
+    assert "profile fetch failed" in err[0]
+    assert jax_main(argv) == 1
+    want = capsys.readouterr().err.strip().splitlines()
+    assert err[0].split("\t")[-1] == want[0].split("\t")[-1]
 
 
 def test_profile_of_an_unreachable_server_is_one_line(capsys):

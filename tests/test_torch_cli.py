@@ -208,7 +208,7 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--targets", "t.txt"], ["--journal", "j.log"],
-                                  ["--fallback"],
+                                  ["--resume", "j.log"],
                                   ["--ignore-policy", "p.yaml"],
                                   ["--compliance", "docker-cis-1.6.0"]])
 def test_unported_flags_are_refused(golden_env, flag):

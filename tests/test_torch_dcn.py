@@ -15,9 +15,9 @@ ways (a port coordinator with a reference worker, a reference
 coordinator with a port worker), a worker's device error raising on the
 coordinator, the spawned worker's device, a CUDA spawn without a card,
 the re-resolve over the surviving hosts, `sbom` and `watch --once` with
-`--mesh 2x1x1`, and the port's dry run. The skew detector of the
-reference's fleet (test_skew_detector_emits_on_host_degradation) waits
-for the fleet's port.
+`--mesh 2x1x1`, and the port's dry run. The skew detector's shape
+(test_skew_detector_emits_on_host_degradation) is in
+tests/test_torch_fleetobs.py with the rest of the fleet.
 
 Workers: two port workers (`--device cpu`) and two reference workers
 (8 virtual CPU devices) shared by the module in endpoint mode; tests

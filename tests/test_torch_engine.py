@@ -384,8 +384,8 @@ def test_static_scan_covers_every_slice():
     """The static scan below walks every port source, those of the image
     and db slice, of the report, VEX and attestation slice, of the
     repository and vm slice, of the server and scheduler slice, of the
-    serving mesh, of continuous monitoring, of cross-host serving and
-    of observability included."""
+    serving mesh, of continuous monitoring, of cross-host serving, of
+    observability and of the fleet control plane included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -408,7 +408,11 @@ def test_static_scan_covers_every_slice():
                    "monitor/rematch.py", "monitor/watch.py",
                    "ops/dcn.py", "ops/dcn_dryrun.py", "obs/__init__.py",
                    "obs/metrics.py", "obs/tracing.py", "obs/attrib.py",
-                   "analysis/witness.py", "utils/trace.py", "log.py"):
+                   "analysis/witness.py", "utils/trace.py", "log.py",
+                   "resilience/breaker.py", "resilience/fallback.py",
+                   "fleet/__init__.py", "fleet/endpoints.py",
+                   "fleet/slo.py", "fleet/telemetry.py",
+                   "fleet/rollout.py", "fleet/controller.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

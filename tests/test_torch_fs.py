@@ -410,7 +410,7 @@ def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
 @pytest.mark.parametrize("cmd", ["sbom", "fs", "rootfs"])
 @pytest.mark.parametrize("doc", ["compliance: docker-cis-1.6.0\n",
                                  "scan:\n  license-full: true\n",
-                                 "fallback: true\n"])
+                                 "resume: j.jsonl\n"])
 def test_unported_option_from_config_file_is_refused(dbs, mk_rootfs,
                                                      tmp_path, capsys, cmd,
                                                      doc):
@@ -516,7 +516,7 @@ def test_ported_options_from_env_and_config_equal_reference(
 
 
 @pytest.mark.parametrize("flag", [["--ignore-policy", "p.yaml"],
-                                  ["--fallback"],
+                                  ["--fleet-parallel", "4"],
                                   ["--license-full"],
                                   ["--resume", "j.jsonl"]])
 def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):

@@ -253,8 +253,8 @@ def _meta_lines(text: bytes) -> list[str]:
 
 def test_catalog_help_and_type_lines_equal_the_reference():
     """Every metric the reference registers at import, the fleet ones
-    whose emitters are not ported included, is registered by the port
-    with the same name, HELP text and type, in the same order."""
+    included, is registered by the port with the same name, HELP text
+    and type, in the same order."""
     want = _meta_lines(jax_metrics.REGISTRY.render())
     got = _meta_lines(port_metrics.REGISTRY.render())
     assert got == want
@@ -1056,16 +1056,15 @@ def _emitted(pkg_dir: Path) -> tuple[set, set]:
     return names, prefixes
 
 
-# classified names whose emitters (the fleet layer: cli/fleet.py,
-# fleet/endpoints.py, rollout.py, controller.py) are not ported
-FLEET_ONLY = {"fleet", "fleet.artifact", "fleet.hedge", "fleet.probe",
-              "fleet.attempt", "fleet.rollout", "fleet.control"}
+# classified names whose emitter (the fleet scan mode, cli/fleet.py) is
+# not ported
+FLEET_ONLY = {"fleet", "fleet.artifact"}
 
 
 def test_span_taxonomy_holds_over_the_port():
     """Every span name the port emits is classified by obs/attrib.py,
-    and every classified name is emitted by the port but the fleet
-    layer's; the taxonomy is the reference's byte for byte."""
+    and every classified name is emitted by the port but the fleet scan
+    mode's; the taxonomy is the reference's byte for byte."""
     assert port_attrib.SPAN_LANES == jax_attrib.SPAN_LANES
     assert port_attrib.SPAN_STRUCTURAL == jax_attrib.SPAN_STRUCTURAL
     assert port_attrib.SPAN_PREFIX_LANES == jax_attrib.SPAN_PREFIX_LANES

@@ -12,8 +12,9 @@ the rpc.wire fault ladder, sheds, cross-compatibility (each package's
 client against the other's server), the CLI clients (`sbom --server`
 and `fs --server` equal to the standalone scan and to the reference's
 `--server` report), the MissingBlobs layer gate, and the refusals
-(a replica-set URL, `--fallback`, `--mesh`, unported fault sites,
-`server` without a card).
+(`--redis-tls`, `--journal`, `--resume`, `--mesh`, unported fault
+sites and routes, `server` without a card), and a replica set or a
+server that cannot be reached failing with one line.
 
 The tolerance is exact equality of bytes. Every server is shut down and
 every client connection closed in a finalizer; live servers listen on
@@ -285,13 +286,16 @@ def test_readyz_not_ready_while_draining_equals_reference(servers):
 
 
 @pytest.mark.parametrize("method,path", [
-    ("POST", "/fleet/drain"), ("POST", "/fleet/reresolve"),
-    ("POST", "/fleet/rescore"), ("POST", "/fleet/reload")])
+    ("POST", "/fleet/scale"), ("POST", "/fleet/"),
+    ("POST", "/dedupe/claim"), ("GET", "/fleet/reload")])
 def test_unported_routes_answer_404(servers, method, path):
-    status, _h, body = _raw(servers["port"].address, method, path,
-                            body=b"{}" if method == "POST" else None)
-    assert status == 404
-    assert json.loads(body) == {"error": "not found"}
+    """Routes neither package serves (the fleet surface knows reload,
+    rescore, drain and reresolve only) answer the reference's 404."""
+    got, want = (_raw(servers[k].address, method, path,
+                      body=b"{}" if method == "POST" else None)
+                 for k in ("port", "ref"))
+    assert got[0] == want[0] == 404
+    assert json.loads(got[2]) == json.loads(want[2])
 
 
 def test_monitor_events_without_a_monitor_index_answer_like_the_reference(
@@ -980,21 +984,33 @@ def _error_lines(err: str) -> list[str]:
     return [ln for ln in err.splitlines() if "ERROR" in ln]
 
 
-def test_replica_set_url_is_refused(golden_dbs, tmp_path, capsys):
-    rc = main(["sbom", golden_dbs["sbom"], "--server",
-               "http://127.0.0.1:9,http://127.0.0.1:10", "--device", "cpu",
-               "--cache-dir", str(tmp_path / "c")])
+def test_replica_set_url_is_refused(golden_dbs, tmp_path, capsys,
+                                    monkeypatch):
+    """A replica set none of whose replicas answers fails the scan with
+    one error line, the reference's, after failing over across both."""
+    from trivy_tpu.cli.main import main as jax_main
+
+    monkeypatch.setenv("TRIVY_TPU_FLEET_HEDGE_MS", "0")
+    argv = ["sbom", golden_dbs["sbom"], "--server",
+            "http://127.0.0.1:9,http://127.0.0.1:10",
+            "--scan-timeout", "3s", "--cache-dir", str(tmp_path / "c")]
+    rc = main(argv + ["--device", "cpu"])
     captured = capsys.readouterr()
     errors = _error_lines(captured.err)
     assert rc == 1 and captured.out == ""
-    assert len(errors) == 1 and "not ported yet" in errors[0]
+    assert len(errors) == 1
+    assert jax_main(argv) == 1
+    want = _error_lines(capsys.readouterr().err)
+    assert len(want) == 1
+    assert errors[0].split("\t")[-1].split(":")[0] == \
+        want[0].split("\t")[-1].split(":")[0]
 
 
 @pytest.mark.parametrize("argv", [
-    ["sbom", "bom.json", "--server", "http://h:1", "--fallback"],
+    ["sbom", "bom.json", "--server", "http://h:1", "--resume", "j.jsonl"],
     ["sbom", "bom.json", "--redis-tls"],
     ["sbom", "bom.json", "--journal", "scan.jsonl"]],
-    ids=["fallback", "redis-tls", "journal"])
+    ids=["resume", "redis-tls", "journal"])
 def test_unported_flags_are_refused_on_argv(argv):
     with pytest.raises(SystemExit) as exc, \
             contextlib.redirect_stderr(io.StringIO()):
@@ -1025,9 +1041,9 @@ def test_cross_host_server_spec_without_workers_is_one_line(
     assert lines[0].endswith(message)
 
 
-@pytest.mark.parametrize("spec", ["fleet.endpoint:timeout",
+@pytest.mark.parametrize("spec", ["fleet.scan:kill",
                                   "db.save:torn-write",
-                                  "fleet.rollout:delay=1",
+                                  "cache.write:kill",
                                   "report.write:bitflip",
                                   "sched.submit:kill",
                                   "rpc.wire:timeout"])
@@ -1044,7 +1060,7 @@ def test_unported_fault_spec_is_refused(spec):
 def test_unported_fault_site_in_env_fails_the_command(golden_dbs, tmp_path,
                                                       monkeypatch, capsys,
                                                       command):
-    monkeypatch.setenv("TRIVY_TPU_FAULTS", "fleet.endpoint:drop@1")
+    monkeypatch.setenv("TRIVY_TPU_FAULTS", "fleet.scan:kill@1")
     if command == "sbom":
         argv = ["sbom", golden_dbs["sbom"], "--db-path", golden_dbs["db"]]
     else:
@@ -1054,7 +1070,7 @@ def test_unported_fault_site_in_env_fails_the_command(golden_dbs, tmp_path,
                       str(tmp_path / "c")])
     errors = _error_lines(capsys.readouterr().err)
     assert rc == 1 and len(errors) == 1
-    assert "TRIVY_TPU_FAULTS" in errors[0] and "fleet.endpoint" in errors[0]
+    assert "TRIVY_TPU_FAULTS" in errors[0] and "fleet.scan" in errors[0]
 
 
 def test_server_without_a_card_refuses(golden_dbs, tmp_path, monkeypatch,

@@ -638,7 +638,7 @@ def test_vm_errors_equal_reference(tmp_path, capsys, monkeypatch, case):
 
 @pytest.mark.parametrize("dest,value", [("helm_set", "a=b"),
                                         ("compliance", "docker-cis-1.6.0"),
-                                        ("fallback", "true")])
+                                        ("redis_tls", "true")])
 def test_unported_option_from_env_is_refused(tmp_path, capsys, monkeypatch,
                                              dest, value):
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)

@@ -32,7 +32,7 @@ ENV_PREFIX = "TRIVY_TPU_"
 UNPORTED = {
     "check_namespaces": ([],), "checks_bundle_repository": ("",),
     "compliance": (None, ""), "config_check": ([],), "config_data": ([],),
-    "fallback": (False,), "fleet_parallel": (1,),
+    "fleet_parallel": (1,),
     "generate_default_config": (False,), "helm_set": ([],),
     "helm_values": ([],), "ignore_policy": (None, ""),
     "include_deprecated_checks": (False,), "journal": (None, ""),

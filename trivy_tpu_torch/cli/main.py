@@ -1,6 +1,6 @@
 """trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
 `rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db`, `server`,
-`watch`, `profile`, `usage` and `version` subcommands of
+`watch`, `fleet`, `profile`, `usage` and `version` subcommands of
 trivy_tpu/cli/main.py, with the match kernel and the secret screens on
 a CUDA card.
 
@@ -19,6 +19,10 @@ a CUDA card.
     python -m trivy_tpu_torch sbom bom.json --trace-export t.json --log-format json
     python -m trivy_tpu_torch profile http://host:4954 --flight f.json
     python -m trivy_tpu_torch usage http://host:4954
+    python -m trivy_tpu_torch sbom bom.json --server http://a:4954,http://b:4954
+    python -m trivy_tpu_torch sbom bom.json --server http://host:4954 --fallback
+    python -m trivy_tpu_torch fleet status http://a:4954,http://b:4954
+    python -m trivy_tpu_torch fleet rollout http://a:4954,http://b:4954 --db-path DB
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -134,14 +138,21 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                         "X-Trivy-Deadline header; the server sheds work "
                         "it cannot finish in time (503 + Retry-After). "
                         "Go-style duration; unset = no budget")
+    p.add_argument("--fallback", action="store_true",
+                   help="with --server: degrade to a local scan on this "
+                        "process's device when the remote is unavailable "
+                        "(circuit breaker) or the deadline budget runs "
+                        "out; degraded reports carry Metadata.Degraded")
     p.add_argument("--parallel", type=int, default=5,
                    help="number of parallel analysis workers (an "
                         "image's layer walk lanes; the directory walk "
                         "is serial in both packages)")
     p.add_argument("--server", default=None,
                    help="scan server URL (client mode): analysis runs "
-                        "here, detection on the server (one URL; a "
-                        "replica set is not ported yet)")
+                        "here, detection on the server; a comma-"
+                        "separated list names a replica set served "
+                        "through the fleet smart client (client-side "
+                        "load balancing, failover, hedged requests)")
     p.add_argument("--token", default=None, help="server auth token")
     p.add_argument("--monitor-index", default=None, metavar="PATH",
                    help="record each scanned artifact's package "
@@ -359,13 +370,171 @@ def build_parser() -> argparse.ArgumentParser:
     _add_watch_parser(sub)
 
     p = sub.add_parser(
+        "fleet", help="fleet administration: replica status and the "
+        "coordinated advisory-DB rollout (canary, zero-diff probe "
+        "set, staged roll, automatic rollback — docs/fleet.md)",
+        allow_abbrev=False)
+    _add_global_flags(p)
+    flsub = p.add_subparsers(dest="fleet_command")
+    pfs = flsub.add_parser(
+        "status", help="JSON /readyz of every replica (ready state, "
+        "serving generation, mesh/secret-probe notes)",
+        allow_abbrev=False)
+    _add_global_flags(pfs)
+    pfs.add_argument("endpoints",
+                     help="comma-separated replica URLs")
+    pfs.add_argument("--token", default=None, help="server auth token")
+    pfr = flsub.add_parser(
+        "rollout", help="staged fleet-wide advisory-DB hot swap: "
+        "canary first, probe set replayed for zero diff, then roll, "
+        "rollback on regression; the delta re-score triggers on "
+        "exactly one replica", allow_abbrev=False)
+    _add_global_flags(pfr)
+    pfr.add_argument("endpoints",
+                     help="comma-separated replica URLs")
+    pfr.add_argument("--db-path", required=True,
+                     help="shared advisory-DB root (the staged+promoted "
+                          "generation under it is the rollout target)")
+    pfr.add_argument("--token", default=None, help="server auth token")
+    pfr.add_argument("--probes", default=None, metavar="FILE",
+                     help="probe set: JSON (array or lines) of "
+                          "captured scan requests replayed against the "
+                          "canary vs the serving fleet; any byte diff "
+                          "rolls back")
+    pfr.add_argument("--canary", default=None, metavar="URL",
+                     help="replica to roll first (default: the first "
+                          "endpoint still behind)")
+    pfr.add_argument("--no-rescore", action="store_true",
+                     help="skip triggering the advisory-delta "
+                          "re-score after the roll")
+    pfr.add_argument("--output", "-o", default=None,
+                     help="write the rollout report JSON here")
+    pfr.add_argument("--journal", default=None, metavar="PATH",
+                     help="durable fleet ops event journal: rollout "
+                          "stages and DB swaps append (fsynced) here "
+                          "(docs/fleet.md 'Event catalog')")
+    pfm = flsub.add_parser(
+        "metrics", help="federated fleet exposition: scrape every "
+        "replica's /metrics (OpenMetrics, exemplars preserved) and "
+        "merge — counters summed, histogram buckets merged, every "
+        "series re-emitted with a replica label (docs/fleet.md)",
+        allow_abbrev=False)
+    _add_global_flags(pfm)
+    pfm.add_argument("endpoints", help="comma-separated replica URLs")
+    pfm.add_argument("--token", default=None, help="server auth token")
+    pfm.add_argument("--output", "-o", default=None,
+                     help="write the federated exposition here "
+                          "instead of stdout")
+    pfp = flsub.add_parser(
+        "profile", help="federated bottleneck attribution: every "
+        "replica's /debug/profile merged into one fleet roofline "
+        "verdict with per-replica sections (docs/observability.md "
+        "'Fleet observability')", allow_abbrev=False)
+    _add_global_flags(pfp)
+    pfp.add_argument("endpoints", help="comma-separated replica URLs")
+    pfp.add_argument("--token", default=None, help="server auth token")
+    pfp.add_argument("--json", action="store_true",
+                     help="print the raw federated document")
+    pfp.add_argument("--flight", default=None, metavar="FILE",
+                     help="also stitch every replica's flight "
+                          "recorder into ONE Chrome trace at FILE "
+                          "(per-replica process rows; hedge losers "
+                          "marked cancelled)")
+    pfe = flsub.add_parser(
+        "events", help="fleet ops event log: read (or follow) the "
+        "durable event journal — breaker trips, failovers, hedge "
+        "outcomes, rollout stages, DB swaps, replica skew, SLO burn "
+        "alerts (docs/fleet.md 'Event catalog')", allow_abbrev=False)
+    _add_global_flags(pfe)
+    pfe.add_argument("--journal", required=True, metavar="PATH",
+                     help="event journal path (torn-tail-tolerant "
+                          "replay)")
+    pfe.add_argument("--follow", action="store_true",
+                     help="keep tailing the journal for new events")
+    pfe.add_argument("--since", type=int, default=0, metavar="SEQ",
+                     help="only events with a sequence number > SEQ")
+    pfe.add_argument("--output", "-o", default=None,
+                     help="write events here instead of stdout")
+    pfv = flsub.add_parser(
+        "serve", help="run the fleet observability control plane: a "
+        "token-gated federation endpoint (/metrics /profile /flight "
+        "/events) plus the monitor loop — health probes, replica-skew "
+        "detection, SLO burn-rate alerts journaled durably "
+        "(docs/fleet.md)", allow_abbrev=False)
+    _add_global_flags(pfv)
+    pfv.add_argument("endpoints", help="comma-separated replica URLs")
+    pfv.add_argument("--listen", default="localhost:4955",
+                     help="host:port for the federation endpoint")
+    pfv.add_argument("--token", default=None,
+                     help="token gating the federation endpoint "
+                          "(also used upstream unless --upstream-token)")
+    pfv.add_argument("--upstream-token", default=None,
+                     help="auth token for scraping the replicas")
+    pfv.add_argument("--journal", default=None, metavar="PATH",
+                     help="durable ops event journal path")
+    pfv.add_argument("--interval", default="5s",
+                     help="monitor tick period (go-style duration)")
+    pfc = flsub.add_parser(
+        "control", help="run the self-driving fleet controller: an "
+        "SLO-driven remediation/autoscaling loop — scale against "
+        "offered load under a cost floor, drain-and-replace unhealthy "
+        "replicas, re-resolve degraded mesh topology, tune the hedge "
+        "budget; every decision journaled and replayed idempotently "
+        "(docs/fleet.md 'Self-driving fleet')", allow_abbrev=False)
+    _add_global_flags(pfc)
+    pfc.add_argument("endpoints", help="comma-separated replica URLs")
+    pfc.add_argument("--token", default=None, help="server auth token")
+    pfc.add_argument("--actions", default=None, metavar="PATH",
+                     help="controller action journal (intent/applied "
+                          "records; replayed idempotently across "
+                          "controller crashes). Default: observe-only "
+                          "decisions are still emitted but not "
+                          "durably journaled")
+    pfc.add_argument("--journal", default=None, metavar="PATH",
+                     help="durable fleet ops event journal every "
+                          "controller_action event appends to")
+    pfc.add_argument("--interval", default="5s",
+                     help="control-loop tick period (go-style "
+                          "duration)")
+    pfc.add_argument("--ticks", type=int, default=None, metavar="N",
+                     help="stop after N control passes (default: run "
+                          "until interrupted)")
+    pfc.add_argument("--dry-run", action="store_true",
+                     help="journal and emit every decision without "
+                          "acting on the fleet (the rehearsal "
+                          "contract: nothing changes but the journal)")
+    pfc.add_argument("--spawn-cmd", default=None, metavar="CMD",
+                     help="shell command that starts one replica and "
+                          "prints its URL on the last stdout line "
+                          "(how scale_up/drain_replace reach your "
+                          "process supervisor); without it the "
+                          "controller cannot add replicas")
+    pfc.add_argument("--load-cmd", default=None, metavar="CMD",
+                     help="shell command printing the fleet's offered "
+                          "load (a number) on its last stdout line; "
+                          "default: sum of the in-flight scan counts "
+                          "replicas report on /readyz. With neither "
+                          "signal the controller never scales on "
+                          "load")
+    pfc.add_argument("--min-replicas", type=int, default=None,
+                     help="autoscaler cost floor (default "
+                          "TRIVY_TPU_CONTROLLER_MIN_REPLICAS or 1)")
+    pfc.add_argument("--max-replicas", type=int, default=None,
+                     help="autoscaler ceiling (default "
+                          "TRIVY_TPU_CONTROLLER_MAX_REPLICAS or 4)")
+
+    p = sub.add_parser(
         "profile", help="fetch a live server's bottleneck attribution "
         "(/debug/profile): per-resource-lane occupancy, critical-path "
         "shares, the roofline verdict, and the slow-scan flight "
-        "recorder (docs/observability.md)", allow_abbrev=False)
+        "recorder; a comma-separated URL federates a replica set "
+        "(docs/observability.md)", allow_abbrev=False)
     _add_global_flags(p)
     p.add_argument("server", help="scan server URL (e.g. "
-                                  "http://localhost:4954)")
+                                  "http://localhost:4954); a comma-"
+                                  "separated list federates the whole "
+                                  "replica set (per-replica sections + "
+                                  "the fleet merge)")
     p.add_argument("--token", default=None,
                    help="server auth token (or the dedicated "
                         "TRIVY_TPU_PROFILE_TOKEN)")
@@ -373,18 +542,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the raw /debug/profile document")
     p.add_argument("--flight", default=None, metavar="FILE",
                    help="also fetch /debug/flight (the N slowest scan "
-                        "traces) as Chrome trace-event JSON to FILE")
+                        "traces) as Chrome trace-event JSON to FILE; "
+                        "with a replica set, every recorder is pulled "
+                        "and stitched into ONE trace (per-replica "
+                        "process rows, hedge losers marked cancelled)")
 
     p = sub.add_parser(
         "usage", help="fetch a live server's per-tenant usage metering "
         "(/debug/usage): cost vectors per tenant hash, fleet totals, "
-        "and the lane-second conservation check (docs/observability.md "
-        "'Usage metering')", allow_abbrev=False)
+        "and the lane-second conservation check; a comma-separated URL "
+        "federates a replica set (docs/observability.md 'Usage "
+        "metering')", allow_abbrev=False)
     _add_global_flags(p)
     p.add_argument("server", nargs="?", default=None,
                    help="scan server URL (e.g. http://localhost:4954); "
-                        "omit with --journal to read a usage journal "
-                        "file instead")
+                        "a comma-separated list federates the whole "
+                        "replica set; omit with --journal to read a "
+                        "usage journal file instead")
     p.add_argument("--token", default=None,
                    help="server auth token (or the dedicated "
                         "TRIVY_TPU_PROFILE_TOKEN)")
@@ -440,6 +614,8 @@ def main(argv: list[str] | None = None) -> int:
             return run.run_profile(args)
         if args.command == "usage":
             return run.run_usage(args)
+        if args.command == "fleet":
+            return run.run_fleet_admin(args)
         return run.run_scan(args)
     except run.FatalError as e:
         log.logger().error(str(e))

@@ -4,15 +4,16 @@ report -> exit code (reference pkg/commands/artifact/run.go Runner).
 Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
 `filesystem` / `fs`, `rootfs`, `repository` / `repo` and `vm` scans
 (each with `--monitor-index`), their client mode (`--server`: analysis
-here, detection on one scan server; no `--fallback`), and the
-`convert`, `db`, `server`, `watch`, `profile` and `usage` subcommands:
-no fleet mode (`--targets`, `--journal`), compliance, modules or ignore
-policies yet. `--trace` / `--trace-export` collect the run's spans
-under one `scan` root and render or export them; `profile` and `usage`
-read one server (a comma-separated replica set is not ported yet). The
-match engine and the secret analyzer's screen run on the device
-`--device` names (``cuda:0`` by default), the engine's main tier on the
-serving mesh `--mesh` names; `--no-tpu` takes the host paths of both.
+here, detection on a scan server or a comma-separated replica set;
+`--fallback` degrades to a local scan on this process's device), and
+the `convert`, `db`, `server`, `watch`, `fleet`, `profile` and `usage`
+subcommands: no fleet scan mode (`--targets`, `--journal`), compliance,
+modules or ignore policies yet. `--trace` / `--trace-export` collect
+the run's spans under one `scan` root and render or export them;
+`profile` and `usage` federate a comma-separated replica set. The match
+engine and the secret analyzer's screen run on the device `--device`
+names (``cuda:0`` by default), the engine's main tier on the serving
+mesh `--mesh` names; `--no-tpu` takes the host paths of both.
 
 `STATS` keeps the wall seconds of the last scan's phases, split by this
 module's own code: DB load, engine build (compile or compiled-cache
@@ -432,7 +433,8 @@ def _scan_target(args, cache):
                                     timeout_s, budget_s=budget_s)
     except DeadlineExceeded as e:
         raise FatalError(
-            f"scan deadline exceeded: {e} (increase --scan-timeout)")
+            f"scan deadline exceeded: {e} (increase --scan-timeout, or "
+            "add --fallback in client mode to degrade to a local scan)")
     # a client-mode scan's apply and detect phases run on the server
     STATS.update(**driver.stats, **getattr(artifact, "stats", {}))
     return report
@@ -557,6 +559,30 @@ def _select_scanner(args, cache):
         # analysis runs client-side but blobs land in the SERVER's cache
         # (reference pkg/commands/artifact/scanner.go remote scanners)
         cache = RemoteCache(args.server, token=args.token)
+        if getattr(args, "fallback", False):
+            # --fallback: blobs mirror into a local cache and the scan
+            # degrades to a locally built engine when the breaker opens
+            # or the deadline budget runs out. The local engine runs on
+            # this process's device (--device, cuda:0 by default): the
+            # scan degrades from the server to here, never to the CPU
+            from trivy_tpu_torch.cache.cache import MemoryCache
+            from trivy_tpu_torch.resilience.breaker import CircuitBreaker
+            from trivy_tpu_torch.resilience.fallback import (
+                FallbackCache,
+                FallbackDriver,
+            )
+
+            breaker = CircuitBreaker(failure_threshold=3, recovery_s=30.0,
+                                     name="rpc")
+            cache = FallbackCache(cache, MemoryCache(), breaker=breaker)
+            local_cache = cache
+
+            def _local_driver():
+                from trivy_tpu_torch.scanner.local import LocalDriver
+
+                return LocalDriver(build_engine(args), local_cache)
+
+            driver = FallbackDriver(driver, _local_driver, breaker=breaker)
     else:
         from trivy_tpu_torch.scanner.local import LocalDriver
 
@@ -666,21 +692,290 @@ def run_server(args) -> int:
     return 0
 
 
+def run_fleet_admin(args) -> int:
+    """`trivy-tpu fleet status|rollout|metrics|profile|events|serve`
+    (docs/fleet.md): replica-set health, the coordinated advisory-DB
+    rollout controller, and the fleet observability control plane
+    (metrics/attribution federation, stitched traces, the durable ops
+    event log)."""
+    import json as _json
+    import sys
+
+    from trivy_tpu_torch.fleet import rollout as rollout_mod
+    from trivy_tpu_torch.fleet.endpoints import split_urls
+
+    _validate_fault_spec()
+    cmd = getattr(args, "fleet_command", None)
+    if cmd is None:
+        raise FatalError("fleet: choose a subcommand (status, rollout, "
+                         "metrics, profile, events, serve, control)")
+    token = getattr(args, "token", None)
+    if cmd == "events":
+        return _run_fleet_events(args)
+    endpoints = split_urls(getattr(args, "endpoints", "") or "")
+    if not endpoints:
+        raise FatalError("fleet: no endpoints given")
+    if cmd == "status":
+        status = rollout_mod.fleet_status(endpoints, token=token)
+        print(_json.dumps(status, indent=2, sort_keys=True))
+        return 0 if all(s.get("ready") for s in status) else 1
+    if cmd == "metrics":
+        from trivy_tpu_torch.fleet import telemetry
+
+        fed = telemetry.federate_endpoints(endpoints, token=token)
+        body = fed.render().decode()
+        if getattr(args, "output", None):
+            with open(args.output, "w", encoding="utf-8") as f:
+                f.write(body)
+        else:
+            print(body, end="")
+        errors = getattr(fed, "errors", {})
+        for idx, err in sorted(errors.items()):
+            print(f"# scrape failed: replica {idx}: {err}",
+                  file=sys.stderr)
+        return 0 if not errors else 1
+    if cmd == "profile":
+        return _render_fleet_profile(endpoints, token,
+                                     as_json=getattr(args, "json", False),
+                                     flight=getattr(args, "flight", None))
+    if cmd == "serve":
+        return _run_fleet_serve(args, endpoints, token)
+    if cmd == "control":
+        return _run_fleet_control(args, endpoints, token)
+    if cmd != "rollout":
+        raise FatalError(f"fleet: unknown subcommand {cmd!r}")
+    if getattr(args, "journal", None):
+        from trivy_tpu_torch.fleet import slo as slo_mod
+
+        slo_mod.install_journal(args.journal)
+    probes = None
+    if getattr(args, "probes", None):
+        probes = rollout_mod.load_probes(args.probes)
+    try:
+        report = rollout_mod.run_rollout(
+            _db_path(args), endpoints, token=token, probes=probes,
+            rescore=not getattr(args, "no_rescore", False),
+            canary=getattr(args, "canary", None),
+            on_event=lambda ev: print(
+                _json.dumps(ev, sort_keys=True), file=sys.stderr))
+    except rollout_mod.RolloutError as e:
+        raise FatalError(f"fleet rollout: {e}")
+    doc = report.doc()
+    out = _json.dumps(doc, indent=2, sort_keys=True)
+    if getattr(args, "output", None):
+        with open(args.output, "w", encoding="utf-8") as f:
+            f.write(out + "\n")
+    print(out)
+    return 0 if report.outcome in ("completed", "noop") else 1
+
+
+def _run_fleet_events(args) -> int:
+    """`trivy-tpu fleet events --journal PATH [--follow]`: replay the
+    durable ops event journal (torn tail tolerated) as JSON lines;
+    --follow tails the file incrementally and survives compaction /
+    rotation (the tail reopens on inode change or truncation and
+    resumes from the sealed replay point — the seq cursor)."""
+    import json as _json
+    import time as _time
+
+    from trivy_tpu_torch.durability.appendlog import AppendLogError
+    from trivy_tpu_torch.fleet.slo import JournalTail, OpsEventLog
+
+    follow = getattr(args, "follow", False)
+    since = getattr(args, "since", 0) or 0
+    if not follow:
+        # One-shot replay: the line-bounded journal reader already
+        # tolerates torn tails and corrupt records.
+        try:
+            events = OpsEventLog.read(args.journal)
+        except (AppendLogError, OSError) as e:
+            raise FatalError(f"fleet events: {e}")
+        out = sys.stdout
+        if getattr(args, "output", None):
+            out = open(args.output, "a", encoding="utf-8")
+        try:
+            for ev in events:
+                if int(ev.get("seq", 0)) > since:
+                    out.write(_json.dumps(ev, sort_keys=True) + "\n")
+            out.flush()
+            return 0
+        finally:
+            if out is not sys.stdout:
+                out.close()
+    out = sys.stdout
+    if getattr(args, "output", None):
+        out = open(args.output, "a", encoding="utf-8")
+    tail = JournalTail(args.journal, since=since)
+    try:
+        while True:
+            for ev in tail.poll():
+                out.write(_json.dumps(ev, sort_keys=True) + "\n")
+            out.flush()
+            _time.sleep(1.0)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        tail.close()
+        if out is not sys.stdout:
+            out.close()
+
+
+def _run_fleet_control(args, endpoints: list, token: str | None) -> int:
+    """`trivy-tpu fleet control`: the blocking self-driving loop —
+    observe the fleet, decide against policy, journal, act
+    (docs/fleet.md "Self-driving fleet")."""
+    from trivy_tpu_torch.fleet import controller as ctrl_mod
+    from trivy_tpu_torch.fleet import slo as slo_mod
+
+    if getattr(args, "journal", None):
+        past = slo_mod.install_journal(args.journal)
+        _log.info("ops event journal installed", path=args.journal,
+                  replayed=len(past))
+    interval = _parse_duration(getattr(args, "interval", None) or "5s")
+    policy = ctrl_mod.ControllerPolicy(
+        min_replicas=getattr(args, "min_replicas", None),
+        max_replicas=getattr(args, "max_replicas", None))
+    actuator = ctrl_mod.HttpFleetActuator(
+        endpoints, token=token,
+        spawn_cmd=getattr(args, "spawn_cmd", None),
+        load_cmd=getattr(args, "load_cmd", None))
+    ctl = ctrl_mod.FleetController(
+        actuator, policy=policy,
+        journal_path=getattr(args, "actions", None),
+        dry_run=getattr(args, "dry_run", False))
+    try:
+        ctl.run(interval_s=interval,
+                max_ticks=getattr(args, "ticks", None),
+                on_tick=lambda report: print(
+                    ctrl_mod.render_report(report), flush=True))
+        return 0
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        ctl.close()
+        if getattr(args, "journal", None):
+            slo_mod.uninstall_journal()
+
+
+def _run_fleet_serve(args, endpoints: list, token: str | None) -> int:
+    """`trivy-tpu fleet serve`: the blocking control-plane process —
+    federation endpoint + monitor loop (docs/fleet.md)."""
+    import time
+
+    from trivy_tpu_torch.fleet import slo as slo_mod
+    from trivy_tpu_torch.fleet import telemetry
+
+    if getattr(args, "journal", None):
+        past = slo_mod.install_journal(args.journal)
+        _log.info("ops event journal installed", path=args.journal,
+                  replayed=len(past))
+    host, _sep, port = (getattr(args, "listen", None)
+                        or "localhost:4955").rpartition(":")
+    try:
+        port_n = int(port)
+    except ValueError:
+        raise FatalError(f"fleet serve: bad --listen {args.listen!r}")
+    interval = _parse_duration(getattr(args, "interval", None) or "5s")
+    monitor = telemetry.FleetMonitor(endpoints, token=token)
+    srv = telemetry.FederationServer(
+        endpoints, host=host or "localhost", port=port_n,
+        token=getattr(args, "token", None),
+        upstream_token=getattr(args, "upstream_token", None) or token,
+        monitor=monitor, monitor_interval_s=interval)
+    srv.start()
+    print(f"federation endpoint: {srv.address} "
+          f"({len(endpoints)} replica(s))")
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        srv.shutdown()
+        if getattr(args, "journal", None):
+            slo_mod.uninstall_journal()
+
+
+def _render_fleet_profile(endpoints: list, token: str | None,
+                          as_json: bool, flight: str | None) -> int:
+    """Shared by `trivy-tpu fleet profile` and the multi-endpoint form
+    of `trivy-tpu profile`: per-replica attribution sections plus the
+    federated fleet verdict; --flight stitches every replica's flight
+    recorder into ONE Chrome trace."""
+    import json as _json
+
+    from trivy_tpu_torch.fleet import telemetry
+
+    profiles = []
+    errors = []
+    for ep in endpoints:
+        try:
+            profiles.append((ep.rstrip("/"),
+                             telemetry.fetch_profile(ep, token=token)))
+        except telemetry.FederationError as e:
+            errors.append(str(e))
+    if not profiles:
+        raise FatalError("profile fetch failed: "
+                         + "; ".join(errors or ["no endpoints"]))
+    doc = telemetry.federate_profiles(profiles)
+    if flight:
+        fdoc = telemetry.stitch_endpoints(endpoints, token=token)
+        with open(flight, "w", encoding="utf-8") as f:
+            _json.dump(fdoc, f, indent=1)
+            f.write("\n")
+        st = fdoc.get("stitch", {})
+        print(f"stitched flight trace written: {flight} "
+              f"({st.get('replicas', 0)} replica(s), "
+              f"{st.get('traces', 0)} trace(s), "
+              f"{st.get('fragments', 0)} fragment(s), "
+              f"{st.get('cancelled_spans', 0)} cancelled span(s), "
+              f"{st.get('orphan_roots', 0)} orphan root(s))")
+    if as_json:
+        print(_json.dumps(doc, indent=2, sort_keys=True))
+        return 0 if not errors else 1
+    for label, rep in doc["replicas"].items():
+        print(f"-- replica {label} "
+              f"(scans {rep.get('scans', 0)}, "
+              f"verdict: {rep.get('verdict', '?')})")
+    fleet = doc["fleet"]
+    print(f"-- fleet ({len(doc['replicas'])} replica(s), "
+          f"scans {fleet['scans']}, wall {fleet['wall_s']:.3f}s)")
+    print(f"{'lane':<16} {'busy s':>10} {'critical s':>11} {'share':>7}")
+    for lane, row in fleet["lanes"].items():
+        print(f"{lane:<16} {row['busy_s']:>10.3f} "
+              f"{row['crit_s']:>11.3f} {row['crit_share']:>7.1%}")
+    print(f"{'other':<16} {'':>10} {fleet['other_s']:>11.3f}")
+    print(f"fleet verdict: {fleet['verdict']}")
+    for err in errors:
+        print(f"scrape failed: {err}", file=sys.stderr)
+    return 0 if not errors else 1
+
+
 def run_profile(args) -> int:
     """`trivy-tpu profile URL`: render a live server's bottleneck
     attribution (docs/observability.md "Attribution & profiling") —
     per-lane busy/critical seconds, the roofline "bound by X" verdict,
     recent per-scan records, and the slow-scan flight recorder.
 
-    One server: a comma-separated URL (a replica set, federated by the
-    reference) is refused with one line."""
+    A comma-separated URL names a replica set: every replica's profile
+    renders as its own section plus the federated fleet merge, and
+    --flight stitches every replica's flight recorder into ONE Chrome
+    trace (docs/observability.md "Fleet observability")."""
     import json as _json
     import urllib.error
     import urllib.request
 
-    from trivy_tpu_torch.rpc.client import single_url
+    from trivy_tpu_torch.fleet.endpoints import split_urls
 
-    base = single_url(args.server, "profile").rstrip("/")
+    endpoints = [u if u.startswith("http") else "http://" + u
+                 for u in split_urls(args.server)]
+    if len(endpoints) > 1:
+        return _render_fleet_profile(
+            endpoints, getattr(args, "token", None),
+            as_json=getattr(args, "json", False),
+            flight=getattr(args, "flight", None))
+
+    base = args.server.rstrip("/")
     if not base.startswith("http"):
         base = "http://" + base
 
@@ -695,7 +990,6 @@ def run_profile(args) -> int:
         doc = get("/debug/profile")
         if getattr(args, "flight", None):
             fdoc = get("/debug/flight")
-            # a user-requested artifact, not program state: no atomic write
             with open(args.flight, "w", encoding="utf-8") as f:
                 _json.dump(fdoc, f, indent=1)
                 f.write("\n")
@@ -760,12 +1054,12 @@ def _render_usage_table(tenants: dict, top: int | None) -> None:
 
 
 def run_usage(args) -> int:
-    """`trivy-tpu usage URL`: render per-tenant usage metering
+    """`trivy-tpu usage URL[,URL2]`: render per-tenant usage metering
     (docs/observability.md "Usage metering") — one cost-vector row per
     tenant hash, fleet totals, and the lane-second conservation check.
-    `--journal PATH` renders the last durable snapshot from a usage
-    journal instead. One server: a comma-separated URL (a replica set,
-    federated by the reference) is refused with one line."""
+    A comma-separated URL federates the replica set (tenant vectors
+    summed — hashes are replica-independent); `--journal PATH` renders
+    the last durable snapshot from a usage journal instead."""
     import json as _json
     import urllib.error
     import urllib.request
@@ -785,14 +1079,33 @@ def run_usage(args) -> int:
     if not getattr(args, "server", None):
         raise FatalError("usage: provide a server URL or --journal PATH")
 
-    from trivy_tpu_torch.rpc.client import single_url
+    from trivy_tpu_torch.fleet.endpoints import split_urls
 
-    base = single_url(args.server, "usage")
-    if not base.startswith("http"):
-        base = "http://" + base
-    base = base.rstrip("/")
+    endpoints = [u if u.startswith("http") else "http://" + u
+                 for u in split_urls(args.server)]
     token = getattr(args, "token", None) \
         or os.environ.get("TRIVY_TPU_PROFILE_TOKEN")
+    if len(endpoints) > 1:
+        from trivy_tpu_torch.fleet import telemetry as _telemetry
+
+        doc = _telemetry.federate_usage_endpoints(endpoints, token=token)
+        if getattr(args, "json", False):
+            print(_json.dumps(doc, indent=2, sort_keys=True))
+            return 0 if not doc.get("errors") else 1
+        fleet = doc.get("fleet") or {}
+        print(f"fleet usage ({len(endpoints)} replicas, "
+              f"{len(fleet.get('tenants') or {})} tenants)")
+        _render_usage_table(fleet.get("tenants") or {}, top)
+        cons = fleet.get("conservation") or {}
+        print(f"conservation: tenant lane-seconds "
+              f"{cons.get('tenant_lane_s', 0.0):.3f} vs attribution "
+              f"{cons.get('attrib_lane_s', 0.0):.3f} — "
+              f"{'OK' if cons.get('ok') else 'VIOLATION'}")
+        for ep, err in (doc.get("errors") or {}).items():
+            print(f"usage fetch failed: {ep}: {err}", file=sys.stderr)
+        return 0 if not doc.get("errors") and cons.get("ok", True) else 1
+
+    base = endpoints[0].rstrip("/")
     req = urllib.request.Request(base + "/debug/usage")
     if token:
         req.add_header("Trivy-Token", token)

@@ -22,8 +22,9 @@ Invariants:
 
 Copy of trivy_tpu/db/generations.py with the reader side, what `db
 download` (`db/oci.py` `install_artifact`) needs to install and promote
-a generation, and the server's quarantine of a rejected one; the
-generation listing is not ported yet.
+a generation, the server's quarantine of a rejected one, and the
+fleet rollout's `current_generation`; the generation listing is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -62,6 +63,15 @@ def resolve(db_root: str) -> str:
     if os.path.isdir(lg):  # follows the symlink
         return lg
     return db_root
+
+
+def current_generation(db_root: str) -> str | None:
+    """Real path of the generation last-good points at, or None."""
+    lg = last_good_path(db_root)
+    if not os.path.islink(lg):
+        return None
+    target = os.path.realpath(lg)
+    return target if os.path.isdir(target) else None
 
 
 def promote(db_root: str, gen_dir: str) -> None:

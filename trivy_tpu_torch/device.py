@@ -9,6 +9,13 @@ from __future__ import annotations
 import torch
 
 
+class DeviceError(RuntimeError):
+    """A device could not do its work: a CUDA error, a kernel that
+    cannot build or launch, an upload onto a card that failed. Raised to
+    the caller and never degraded (only an injected or real device
+    *loss* degrades a path)."""
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """-> the torch device to place tensors on.
 

@@ -25,8 +25,9 @@ an instrumented call site under ``trivy_tpu/`` and vice versa, so the
 shared vocabulary cannot silently rot.
 
 Copy of trivy_tpu/obs/attrib.py. The taxonomy is the reference's byte
-for byte, so profiles of either package read alike; its ``fleet*``
-names have no emitter in the port yet (the fleet layer is not ported).
+for byte, so profiles of either package read alike; of its ``fleet*``
+names only the fleet scan mode's (``fleet``, ``fleet.artifact``) have
+no emitter in the port yet.
 ``tests/test_torch_obs.py`` runs the lint rule over the port.
 
 Wiring: :func:`acquire` installs a completed-root sink into

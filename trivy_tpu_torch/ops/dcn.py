@@ -55,7 +55,8 @@ Transport loss (a worker's death or EOF, a socket or reply timeout
 after ``TRIVY_TPU_DCN_TIMEOUT_S``, a ``rid`` mismatch, a closed
 connection) and protocol states (``stale-slice``, a mask of the wrong
 shape) ride the same ladder. A worker's device error (a kernel that
-cannot build or launch, a CUDA error) is not a transport loss: the
+cannot build or launch, a CUDA error, a slice upload that fails) is not
+a transport loss: the
 worker's reply marks it (``device_error``, a header key a reference
 coordinator ignores) and it raises on the coordinator, as a mesh cell's
 does.
@@ -88,6 +89,7 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch.analysis.witness import make_lock
+from trivy_tpu_torch.device import DeviceError
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import tracing
@@ -114,9 +116,10 @@ class HostLost(HostFault):
     its slice degrades without a retry."""
 
 
-class WorkerDeviceError(RuntimeError):
-    """A worker's device failed its match (a kernel that cannot build or
-    launch, a CUDA error): raised to the caller, never degraded."""
+class WorkerDeviceError(DeviceError):
+    """A worker's device failed its match or its slice's upload (a
+    kernel that cannot build or launch, a CUDA error): raised to the
+    caller, never degraded."""
 
 
 # ------------------------------------------------------------- spec helpers
@@ -956,8 +959,13 @@ class HostMeshDB:
         session = uuid.uuid4().hex
         h1s, tables, shard_len, shard_base = m.host_shards(self.cdb, n_db)
         cells = self._local.devices
-        grid = _build_grid(cells, h1s[:db_local], tables[:db_local],
-                           self.window)
+        try:
+            grid = _build_grid(cells, h1s[:db_local], tables[:db_local],
+                               self.window)
+        except Exception as exc:
+            raise DeviceError(
+                "the coordinator's slice upload failed: "
+                f"{type(exc).__name__}: {exc}") from exc
         local = mesh_ops.MeshDB(
             cdb=self.cdb, grid=grid, devices=cells, n_data=dp,
             n_db=db_local, window=self.window, shard_len=shard_len,
@@ -1134,7 +1142,11 @@ def _worker_hello(state: _WorkerState, h: dict) -> dict:
             # the follow-up load binds to this hello
             state.pending[h["session"]] = dict(h, source="push")
         return {"ok": 1, "need_slice": 1}
-    grid = _worker_build_grid(state, h, entry["h1s"], entry["tables"])
+    try:
+        grid = _worker_build_grid(state, h, entry["h1s"], entry["tables"])
+    except Exception as exc:
+        return {"ok": 0, "device_error": 1,
+                "error": f"{type(exc).__name__}: {exc}"}
     with state.lock:
         state.insert(h["session"], grid, dict(h, source="cache"))
     return {"ok": 1, "source": "cache"}
@@ -1147,8 +1159,14 @@ def _worker_load(state: _WorkerState, h: dict, arrays: dict) -> dict:
         meta = state.pending.pop(h.get("session"), None)
     if meta is None:
         return {"ok": 0, "error": "load without a matching hello"}
-    # the upload outside the lock (see _worker_hello)
-    grid = _worker_build_grid(state, meta, arrays["h1s"], arrays["tables"])
+    # the upload outside the lock (see _worker_hello); a failed upload
+    # is the device's, marked for the coordinator to raise
+    try:
+        grid = _worker_build_grid(state, meta, arrays["h1s"],
+                                  arrays["tables"])
+    except Exception as exc:
+        return {"ok": 0, "device_error": 1,
+                "error": f"{type(exc).__name__}: {exc}"}
     with state.lock:
         state.insert(meta["session"], grid, meta)
     # save the pushed slice so this worker's NEXT start loads it from

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from trivy_tpu_torch.analysis.witness import make_lock
-from trivy_tpu_torch.device import DeviceGrid, build_mesh
+from trivy_tpu_torch.device import DeviceError, DeviceGrid, build_mesh
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import tracing
@@ -444,8 +444,8 @@ class MeshDB:
         way while serving, so a flapping device cannot switch bits on
         and off the card; recovery is an explicit decision). Returns
         True when a shard was restored; a healthy mesh is a no-op. An
-        upload that fails (a CUDA error included) raises to the caller
-        and leaves its shard degraded."""
+        upload that fails (a CUDA error included) raises DeviceError to
+        the caller and leaves its shard degraded."""
         with self._lock:
             degraded = sorted(self.degraded)
         if not degraded:
@@ -453,8 +453,14 @@ class MeshDB:
         h1s, tables, _len, _base = m.host_shards(self.cdb, self.n_global)
         for d in degraded:
             for g in range(self.n_data):
-                self.grid[g][d] = m.shard_device_db(
-                    h1s[d], tables[d], self.window, self.devices[g][d])
+                dev = self.devices[g][d]
+                try:
+                    self.grid[g][d] = m.shard_device_db(
+                        h1s[d], tables[d], self.window, dev)
+                except Exception as exc:
+                    raise DeviceError(
+                        f"shard {d} upload onto {dev} failed: "
+                        f"{type(exc).__name__}: {exc}") from exc
             with self._lock:
                 self.degraded.discard(d)
         with self._lock:

@@ -15,6 +15,7 @@ Spec grammar (rules joined by ";" or ","):
                 | "engine.shard" | "engine.host" | "secret.device"
                 | "journal.append"
                 | "monitor.index" | "monitor.rematch"
+                | "fleet.endpoint.N" | "fleet.rollout" | "fleet.controller"
                 | ...  (dotted, prefix-matched)
     action   := "drop" | "timeout" | "delay" | "error" | "corrupt"
                 | "device-lost" | "kill" | "torn-write" | "bitflip"
@@ -35,6 +36,7 @@ Examples:
     TRIVY_TPU_FAULTS="sched.submit:error@1"      # first submission sheds
     TRIVY_TPU_FAULTS="engine:device-lost@1"      # the card dies on batch 1
     TRIVY_TPU_FAULTS="monitor.index:kill@5"      # SIGKILL on the 5th append
+    TRIVY_TPU_FAULTS="fleet.endpoint.0:drop"     # replica 0 never answers
 
 Each rule keeps its own call counter, so selectors are deterministic per
 rule regardless of how many rules share a site.
@@ -62,9 +64,11 @@ MeshDB's per-host `engine.host`), the secret scanner's
 `analysis.lane`), `db download`'s (`db.download`, `db.install.extract`,
 `db.install.promote`), and the monitor's durable paths
 (`journal.append`, `monitor.index`, `monitor.rematch`; an atomic
-rewrite of the index also probes `monitor.index.commit` for a kill). A
+rewrite of the index also probes `monitor.index.commit` for a kill),
+and the fleet control plane's (`fleet.endpoint.<index>` for each
+replica of an endpoint set, `fleet.rollout`, `fleet.controller`). A
 rule naming any other site of the reference (`db.save`, `cache.write`,
-`fleet.*`, ...), or an action its site does not handle, is refused
+`fleet.scan`, ...), or an action its site does not handle, is refused
 with a FaultSpecError when the plan compiles: a rule is never accepted
 and then left to do nothing. Every firing counts in
 `trivy_tpu_fault_injections_total`. No round trip of a plan back to a
@@ -105,13 +109,17 @@ SITES: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("db.download", ("torn-write", "bitflip")),
     ("db.install.extract", ("kill",)),
     ("db.install.promote", ("kill",)),
+    ("fleet.endpoint", ("drop", "timeout", "delay", "error")),
+    ("fleet.rollout", ("delay", "error", "kill")),
+    ("fleet.controller", ("drop", "delay", "error", "kill")),
 )
 
 ACTIONS = {a for _site, acts in SITES for a in acts}
 
-# the one family whose call sites fire children of their own: rpc_site
-# names each RPC's path (rpc.cache.PutBlob, rpc.Version)
-OPEN_SITE = "rpc"
+# the families whose call sites fire children of their own: rpc_site
+# names each RPC's path (rpc.cache.PutBlob, rpc.Version), the fleet's
+# endpoint set each replica's index (fleet.endpoint.0)
+OPEN_SITES = ("rpc", "fleet.endpoint")
 
 
 def site_actions(site: str) -> set[str] | None:
@@ -124,7 +132,7 @@ def site_actions(site: str) -> set[str] | None:
     acts = dict(SITES)
     under = [name for name in acts
              if site == name or (site.startswith(name + ".")
-                                 and name.split(".")[0] == OPEN_SITE)]
+                                 and name.startswith(OPEN_SITES))]
     if under:
         return set(acts[max(under, key=len)])
     above = [a for name, a in SITES if name.startswith(site + ".")]

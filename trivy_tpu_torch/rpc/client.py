@@ -4,26 +4,28 @@
 RemoteDriver implements the scanner Driver seam over HTTP; RemoteCache
 implements the ArtifactCache write interface so analysis results land in
 the server's cache. Transport is a persistent keep-alive
-http.client.HTTPConnection per thread (image walk lanes each hold their
-own socket), so a run pays TCP connect + handshake once per lane instead
-of once per request; a stale keep-alive socket (server closed it idle)
-is rebuilt transparently. Transient failures retry under a RetryPolicy
-with decorrelated jitter; 503 responses honor Retry-After; the ambient
-per-scan deadline budget (resilience.retry.deadline_scope) rides the
-X-Trivy-Deadline header and bounds both the per-request socket timeout
-and the total retry loop. Large bodies gzip under the wire.py
-negotiation, and the columnar wire (rpc/columnar.py) is used once the
-server advertises it. Fault-injection rules (resilience.faults) are
-consulted before every request so degraded-network behavior is testable
-deterministically.
+http.client.HTTPConnection per thread (fleet lanes each hold their own
+socket), so a fleet run pays TCP connect + handshake once per lane
+instead of once per scan; a stale keep-alive socket (server closed it
+idle) is rebuilt transparently. Both clients accept a comma-separated
+URL naming a replica SET: routing then goes through
+trivy_tpu_torch/fleet/endpoints.py EndpointSet (client-side load
+balancing, per-replica circuit breakers, failover, hedged requests);
+a single URL keeps the exact single-server path. Transient failures
+retry under a RetryPolicy with decorrelated jitter; 503 responses honor
+Retry-After; the ambient per-scan deadline budget
+(resilience.retry.deadline_scope) rides the X-Trivy-Deadline header and
+bounds both the per-request socket timeout and the total retry loop.
+Large bodies gzip under the wire.py negotiation. Fault-injection rules
+(resilience.faults) are consulted before every request so
+degraded-network behavior is testable deterministically.
 
-Copy of trivy_tpu/rpc/client.py for one server URL: the reference routes
-through the fleet's EndpointSet (replica sets, failover, hedging), which
-is not ported yet, so a comma-separated URL is refused. Default-
-configured clients share one pooled _Conn per (url, token). Each call
-is one `rpc.<method>` span whose identity rides the X-Trivy-Trace
-header, its round trips are timed in trivy_tpu_rpc_client_seconds, and
-its bytes meter the ambient usage scope.
+Copy of trivy_tpu/rpc/client.py. Default-configured clients share one
+pooled EndpointSet per (urls, token); `close_pool` closes their idle
+sockets. Each call is one `rpc.<method>` span whose identity rides the
+X-Trivy-Trace header, its round trips are timed in
+trivy_tpu_rpc_client_seconds, and its bytes meter the ambient usage
+scope.
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ import http.client
 import json
 import random
 import threading
+
+from trivy_tpu_torch.analysis.witness import make_lock
 import time
 import urllib.error
 import urllib.request
 from urllib.parse import urlsplit
 
-from trivy_tpu_torch.analysis.witness import make_lock
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.obs import metrics as obs_metrics
 from trivy_tpu_torch.obs import tracing
@@ -58,10 +61,10 @@ _log = logger("rpc.client")
 
 DEFAULT_RETRY = RetryPolicy(attempts=3, base_s=0.5, cap_s=10.0)
 
-# fault-injection site for the columnar wire negotiation itself: drop
-# renegotiates to JSON, error costs the columnar attempt (one retry,
-# then JSON), corrupt flips bytes in the outgoing frame so the server's
-# checksum reject drives the resend
+# fault-injection site for the columnar wire negotiation itself
+# (docs/resilience.md): drop renegotiates to JSON, error costs the
+# columnar attempt (one retry, then JSON), corrupt flips bytes in the
+# outgoing frame so the server's checksum reject drives the resend
 WIRE_SITE = "rpc.wire"
 
 
@@ -77,24 +80,17 @@ class _WireError(RPCError):
 class RPCUnavailable(RPCError):
     """Transport-level / retries-exhausted failure: the endpoint did
     not produce a definite answer. Distinct from a deterministic 4xx
-    RPCError."""
+    RPCError so the fleet EndpointSet knows a failover to another
+    replica may still succeed (docs/fleet.md)."""
 
 
 class RPCBackpressure(RPCUnavailable):
-    """Retries exhausted against a server that was deliberately
-    shedding (503 + Retry-After from drain or overload)."""
-
-
-def single_url(url: str, what: str = "--server") -> str:
-    """The one server URL of `url`; raises ValueError (one line, naming
-    `what`) for a comma-separated replica set, which the port does not
-    serve yet."""
-    urls = [u.strip() for u in (url or "").split(",") if u.strip()]
-    if len(urls) != 1:
-        raise ValueError(
-            f"{what} {url!r}: a comma-separated replica set is not "
-            "ported yet (give one server URL)")
-    return urls[0]
+    """Retries exhausted against a replica that was deliberately
+    shedding (503 + Retry-After from drain or overload). Still an
+    RPCUnavailable — failover to another replica is the right move —
+    but the EndpointSet must NOT count it against the breaker: the
+    replica answered coherently, so an overloaded-but-healthy fleet
+    never cascades into open breakers (docs/fleet.md)."""
 
 
 class _Conn:
@@ -112,7 +108,7 @@ class _Conn:
         self.timeout = timeout
         self.retry = retry or DEFAULT_RETRY
         self._rng = random.Random(self.retry.seed)
-        # one persistent keep-alive connection PER THREAD: walk lanes
+        # one persistent keep-alive connection PER THREAD: fleet lanes
         # never share a socket (http.client is not thread-safe), and
         # each lane amortizes its TCP connect across its whole run
         self._tls = threading.local()
@@ -130,6 +126,10 @@ class _Conn:
         # (which implements proxy routing); keep-alive sockets are for
         # direct connections only
         self._via_proxy = self._proxy_configured()
+        # a retired conn belongs to an endpoint REMOVED from its fleet
+        # set: it refuses new requests so a stale thread-local cannot
+        # resurrect the replica (docs/fleet.md)
+        self._retired = False
 
     def _proxy_configured(self) -> bool:
         proxies = urllib.request.getproxies()
@@ -190,9 +190,10 @@ class _Conn:
         Pooled _Conns are shared across threads (one socket per
         thread), so a conn currently INSIDE a request on another
         thread must not be torn down under it — closing it there races
-        http.client's response read. Busy conns are marked
-        close-deferred instead; the owning thread finishes its round
-        trip and closes on its next handout."""
+        http.client's response read (fp=None mid-read, observed as an
+        AttributeError under the capstone bench's fleet). Busy conns
+        are marked close-deferred instead; the owning thread finishes
+        its round trip and closes on its next handout."""
         with self._conns_lock:
             conns, self._all_conns = list(self._all_conns), set()
         for c in conns:
@@ -205,6 +206,16 @@ class _Conn:
                 pass
         self._tls.conn = None
 
+    def retire(self) -> None:
+        """Endpoint-aware teardown: this conn's endpoint left the
+        fleet set. Every thread's keep-alive socket is closed (busy
+        ones right after their in-flight round trip via the deferred
+        path), and any LATER request on this conn — e.g. from a thread
+        still holding it in a thread-local — fails instead of quietly
+        reopening a socket to the removed replica."""
+        self._retired = True
+        self.close()
+
     def _request_once(self, path: str, body: bytes, headers: dict,
                       timeout: float):
         """One HTTP round trip on this thread's keep-alive connection.
@@ -213,6 +224,10 @@ class _Conn:
         and resent ONCE transparently, so the retry policy only ever
         sees real failures; timeouts are never transparently resent
         (the deadline budget owns those)."""
+        if self._retired:
+            raise RPCUnavailable(
+                f"endpoint {self.base} retired (removed from its "
+                "endpoint set)")
         if self._via_proxy:
             return self._request_via_urllib(path, body, headers, timeout)
         reused = getattr(self._tls, "conn", None) is not None \
@@ -235,6 +250,10 @@ class _Conn:
             except (http.client.HTTPException, ConnectionError, OSError):
                 self._drop_connection()
                 raise
+        if resp.will_close:
+            # the server asked for Connection: close; the next request
+            # auto-reopens (http.client auto_open), nothing to do
+            pass
         return resp.status, resp.headers, data
 
     def _roundtrip(self, conn, url_path: str, body: bytes,
@@ -272,14 +291,40 @@ class _Conn:
 
     # ------------------------------------------------------------ post
 
+    @staticmethod
+    def _span_meta(base: str) -> dict:
+        # a fleet dispatch (hedged / failover retry) carries its
+        # attempt identity on the client span too, so the stitched
+        # cross-replica trace shows which attempt each round trip
+        # belonged to (fleet/telemetry.py)
+        meta = {"url": base}
+        tag = tracing.current_attempt_tag()
+        if tag is not None:
+            meta["attempt"] = str(tag[0])
+            meta["endpoint"] = str(tag[1])
+        return meta
+
     def post(self, path: str, body: bytes, columnar=None,
              json_only: bool = False) -> bytes:
         # one client span covers the whole retried call; the trace
         # identity rides X-Trivy-Trace so the server's handler span
-        # becomes this span's child
+        # becomes this span's child (docs/observability.md)
         method = path.rsplit("/", 1)[-1]
-        with tracing.span(f"rpc.{method}", url=self.base):
+        with tracing.span(f"rpc.{method}", **self._span_meta(self.base)):
             return self._post_attempts(path, method, body,
+                                       columnar=columnar,
+                                       json_only=json_only)
+
+    def post_once(self, path: str, body: bytes, columnar=None,
+                  json_only: bool = False) -> bytes:
+        """Single-attempt post: the fleet EndpointSet drives its own
+        failover loop ACROSS endpoints, so the per-endpoint retry loop
+        collapses to one attempt (the stale-keep-alive rebuild inside
+        _request_once still applies — it is transport plumbing, not a
+        retry)."""
+        method = path.rsplit("/", 1)[-1]
+        with tracing.span(f"rpc.{method}", **self._span_meta(self.base)):
+            return self._post_attempts(path, method, body, attempts=1,
                                        columnar=columnar,
                                        json_only=json_only)
 
@@ -303,7 +348,7 @@ class _Conn:
         # columnar offer: ``columnar`` is a zero-arg thunk producing the
         # columnar request bytes, evaluated lazily at most once — and
         # only after this conn has learned the server speaks columnar
-        # (the X-Trivy-Columnar capability ladder)
+        # (the X-Trivy-Columnar capability ladder, docs/performance.md)
         offer_columnar = (columnar is not None and colwire.enabled()
                           and not json_only)
         col_bytes: bytes | None = None
@@ -474,7 +519,7 @@ class _Conn:
                     else:
                         last_err = RPCError(f"{status}: {detail}")
                         # 503 WITH Retry-After is the shed handshake
-                        # (drain / overload): the server is alive and
+                        # (drain / overload): the replica is alive and
                         # telling us to come back later
                         shed = (status == 503
                                 and rhdrs.get("Retry-After") is not None)
@@ -519,31 +564,40 @@ class _Conn:
             f"attempts: {last_err}")
 
 
-# process-wide connection pool keyed by (url, token) for default-
+# process-wide EndpointSet pool keyed by (urls, token) for default-
 # configured clients: the CLI builds a fresh RemoteDriver + RemoteCache
-# per scan, and without sharing each would open its own sockets. Custom
-# retry policies or headers opt out (tests and special callers keep
-# private connections).
-_CONN_POOL: dict[tuple, _Conn] = {}
+# per artifact (fleet runs: per lane-slot), and without sharing, each
+# would open its own sockets — the pool makes "TCP connect once per
+# lane, not once per scan" actually hold. A single-URL set routes
+# through its one _Conn byte-identically to the pre-fleet client; a
+# comma-separated URL becomes a replica set with client-side LB,
+# failover, and hedging (trivy_tpu_torch/fleet/endpoints.py). Custom retry
+# policies or headers opt out (tests and special callers keep private
+# connections).
+_CONN_POOL: dict[tuple, object] = {}
 _CONN_POOL_LOCK = make_lock("rpc.client._CONN_POOL_LOCK")
 
 
-def _pooled_conn(url: str, token: str | None,
-                 custom_headers: dict | None,
-                 retry: RetryPolicy | None) -> _Conn:
-    url = single_url(url).rstrip("/")
+def _pooled_set(url: str, token: str | None,
+                custom_headers: dict | None,
+                retry: RetryPolicy | None):
+    from trivy_tpu_torch.fleet.endpoints import EndpointSet, split_urls
+
+    urls = tuple(u.rstrip("/") for u in split_urls(url))
     if retry is not None or custom_headers:
-        return _Conn(url, token, custom_headers, retry=retry)
-    key = (url, token)
+        return EndpointSet(list(urls), token, custom_headers,
+                           retry=retry)
+    key = (urls, token)
     with _CONN_POOL_LOCK:
         c = _CONN_POOL.get(key)
         if c is None:
-            c = _CONN_POOL[key] = _Conn(url, token)
+            c = _CONN_POOL[key] = EndpointSet(list(urls), token)
         return c
 
 
 def close_pool() -> None:
-    """Close every pooled connection's idle sockets (tests, embedding)."""
+    """Close every pooled endpoint set's idle sockets, its health
+    prober and its hedge pool (tests, embedding)."""
     with _CONN_POOL_LOCK:
         conns = list(_CONN_POOL.values())
     for c in conns:
@@ -552,12 +606,14 @@ def close_pool() -> None:
 
 class RemoteDriver:
     """Driver implementation that ships the scan to a server
-    (reference pkg/rpc/client/client.go:48-73)."""
+    (reference pkg/rpc/client/client.go:48-73). `url` may name a whole
+    replica set (comma-separated) — requests then load-balance with
+    failover and hedged tail-latency dispatch (docs/fleet.md)."""
 
     def __init__(self, url: str, token: str | None = None,
                  custom_headers: dict | None = None,
                  retry: RetryPolicy | None = None):
-        self.conn = _pooled_conn(url, token, custom_headers, retry)
+        self.conn = _pooled_set(url, token, custom_headers, retry)
         # the scan's phases run on the server
         self.stats: dict = {}
 
@@ -590,7 +646,7 @@ class RemoteCache:
     def __init__(self, url: str, token: str | None = None,
                  custom_headers: dict | None = None,
                  retry: RetryPolicy | None = None):
-        self.conn = _pooled_conn(url, token, custom_headers, retry)
+        self.conn = _pooled_set(url, token, custom_headers, retry)
 
     def put_artifact(self, artifact_id: str, info) -> None:
         self.conn.post(CACHE_PREFIX + "PutArtifact", wire.encode(

@@ -10,6 +10,7 @@ Endpoints:
   GET  /debug/profile, /debug/flight, /debug/usage
   GET  /monitor/events?since=N                 continuous-monitoring
                                                events (--monitor-index)
+  POST /fleet/reload|rescore|drain|reresolve   fleet control surface
 
 Token auth via the Trivy-Token header (reference listen.go:96-108).
 A background worker watches the advisory-DB directory and hot-swaps the
@@ -32,11 +33,17 @@ serves the server's own registry and the process-wide one
 (obs/metrics.py); `/debug/profile`, `/debug/flight` and `/debug/usage`
 serve the bottleneck attribution the server holds for its lifetime
 (obs/attrib.py) and the usage registry (obs/usage.py), behind the scan
-token or TRIVY_TPU_PROFILE_TOKEN. Left out, and answering 404:
-`/fleet/*` (the fleet control surface, so `ScanService.reresolve_mesh`
-has no endpoint, and no reload parks its re-score for a fleet
-rollout); the redis layer gate is not ported either. The listen
-backlog is 128 connections (the reference's is socketserver's 5).
+token or TRIVY_TPU_PROFILE_TOKEN. `/fleet/*` is the fleet control
+surface (reload, with `rescore=false` parking the monitor's re-score,
+rescore, drain, reresolve), token-gated like the scan POSTs. One
+departure from the reference on purpose: a device error during
+`/fleet/reresolve` (a device.DeviceError: a CUDA error, a kernel that
+cannot launch, a failed upload, a DCN worker's device error) answers 500
+naming it, where the reference answers 200 `{"reresolved": false,
+"error": ...}`, which a fleet controller reads as "try again later";
+any other failure keeps the reference's reply. The redis layer gate is
+not ported. The listen backlog is 128 connections (the reference's is
+socketserver's 5).
 """
 
 from __future__ import annotations
@@ -289,8 +296,15 @@ class ScanService:
                     self.engine, "mesh_data_axis", 1),
                 row_floor_fn=lambda: getattr(
                     self.engine, "mesh_row_floor", 0))
-        # serializes the check-load-swap of maybe_reload_db: the poller
-        # and a direct caller must not build two engines at once
+        # coordinated fleet rollout: a hot swap driven with
+        # rescore=False parks its delta re-score here; the rollout
+        # controller consumes it via POST /fleet/rescore after the whole
+        # fleet has rolled. The reload mutex serializes the
+        # check-load-swap of maybe_reload_db: it is reachable from
+        # /fleet/reload handler threads and the hourly poller, and two
+        # racing reloads would build two engines and clobber the
+        # parked re-score.
+        self._pending_rescore: tuple | None = None
         self._reload_lock = make_lock("rpc.server._reload_lock")
         # continuous monitoring (--monitor-index): completed scans
         # record inventory + finding baselines into the durable
@@ -455,12 +469,36 @@ class ScanService:
             doc["secret_probe"] = "device" if probe["device"] else "host"
         return doc
 
+    def trigger_pending_rescore(self) -> dict:
+        """Consume the re-score a rescore=False hot swap parked: after
+        the whole fleet has rolled, the rollout controller calls this
+        on each monitor-enabled replica, so every replica re-scores its
+        own indexed slice exactly once, instead of N uncoordinated
+        mid-rollout sweeps against mixed generations."""
+        with self._reload_lock:
+            pending, self._pending_rescore = self._pending_rescore, None
+        if self.monitor is None:
+            return {"rescored": False,
+                    "reason": "monitor not enabled (--monitor-index)"}
+        if pending is None:
+            return {"rescored": False, "reason": "no pending swap"}
+        old_digest, db, new_digest = pending
+        self.monitor.on_promote(old_digest, db, new_digest)
+        return {"rescored": True}
+
     def reresolve_mesh(self) -> dict:
-        """Upload the serving mesh's degraded shards to their devices
-        again (MatchEngine.reresolve_mesh) with in-flight scans quiesced
-        under the write lock; serialized against hot swaps by the reload
-        lock. A failed upload raises to the caller; its shard stays
-        degraded on the host mask."""
+        """Re-resolve the serving mesh after sustained degradation (the
+        fleet controller's ``mesh_reresolve`` action through POST
+        /fleet/reresolve): quiesce in-flight scans under the write lock,
+        then let the engine upload degraded shards to their devices
+        again or re-partition over the surviving DCN hosts
+        (MatchEngine.reresolve_mesh). Serialized against hot swaps by
+        the reload lock. A failed re-resolve keeps the degraded but
+        exact topology serving and reports the error, as the
+        reference's does; a device error (device.DeviceError) raises
+        instead."""
+        from trivy_tpu_torch.device import DeviceError
+
         with self._reload_lock:
             engine = self.engine
             fn = getattr(engine, "reresolve_mesh", None)
@@ -470,6 +508,13 @@ class ScanService:
             self.lock.acquire_write()  # quiesce in-flight scans
             try:
                 changed = bool(fn())
+            except DeviceError:
+                raise
+            except Exception as exc:
+                _log.warn("mesh re-resolve failed; serving topology "
+                          "unchanged", err=str(exc))
+                return {"reresolved": False, "error": str(exc),
+                        "mesh": engine.shard_health()}
             finally:
                 self.lock.release_write()
             return {"reresolved": changed, "mesh": engine.shard_health()}
@@ -641,7 +686,7 @@ class ScanService:
         finally:
             self.lock.release_read()
 
-    def maybe_reload_db(self) -> bool:
+    def maybe_reload_db(self, rescore: bool = True) -> bool:
         """Hot-swap the engine when the DB *metadata* changed (a new
         UpdatedAt/Version), not merely a file timestamp.
 
@@ -655,11 +700,13 @@ class ScanService:
         The new engine is the port's MatchEngine with the served
         engine's `use_device` and `device`: a server on ``cuda:1``
         reloads onto ``cuda:1``. With a monitor, the swap triggers its
-        delta re-score in the background."""
+        delta re-score in the background; ``rescore=False`` (the fleet
+        rollout's reload) parks it instead, for /fleet/rescore to
+        trigger after the roll."""
         with self._reload_lock:
-            return self._maybe_reload_db_locked()
+            return self._maybe_reload_db_locked(rescore)
 
-    def _maybe_reload_db_locked(self) -> bool:
+    def _maybe_reload_db_locked(self, rescore: bool) -> bool:
         state = self._db_identity()
         if not self.db_path or not state or state == self._db_state \
                 or state == self._rejected_db_state:
@@ -751,11 +798,16 @@ class ScanService:
             time.perf_counter() - reload_start)
         _log.info("advisory DB hot-swapped", **db.stats())
         if self.monitor is not None:
-            # continuous monitoring: the promote triggers an
-            # advisory-delta re-score in the background — affected
-            # indexed artifacts re-match and the introduced/resolved
-            # finding events land on /monitor/events
-            self.monitor.on_promote(old_digest, db, new_digest)
+            if rescore:
+                # continuous monitoring: the promote triggers an
+                # advisory-delta re-score in the background — affected
+                # indexed artifacts re-match and the introduced/resolved
+                # finding events land on /monitor/events
+                self.monitor.on_promote(old_digest, db, new_digest)
+            else:
+                # fleet rollout: the controller decides which replica
+                # re-scores, once, after the whole fleet has rolled
+                self._pending_rescore = (old_digest, db, new_digest)
         return True
 
 
@@ -1044,8 +1096,9 @@ def _make_handler(service: ScanService, token: str | None,
                     self._handle_scan(body)
                 elif self.path.startswith(CACHE_PREFIX):
                     self._handle_cache(self.path[len(CACHE_PREFIX):], body)
+                elif self.path.startswith("/fleet/"):
+                    self._handle_fleet(self.path[len("/fleet/"):], body)
                 else:
-                    # /fleet/*: not ported yet
                     self._error(404, "not found")
             except (json.JSONDecodeError, KeyError, TypeError,
                     colwire.WireFormatError) as exc:
@@ -1105,6 +1158,64 @@ def _make_handler(service: ScanService, token: str | None,
                     colwire.scan_response_frames(results, os_found))
             else:
                 self._reply(200, wire.scan_response(results, os_found))
+
+        def _handle_fleet(self, method: str, body: bytes):
+            """Fleet-rollout control surface, token-gated like the
+            scan/cache POSTs:
+
+            - ``reload``: run one maybe_reload_db pass now (the
+              controller's staged hot swap; the hourly poller stays as
+              the standalone path). Body: {"rescore": bool}; False
+              parks the monitor's delta re-score for /fleet/rescore.
+            - ``rescore``: trigger the parked delta re-score (the
+              controller calls this per monitor-enabled replica, once
+              the whole fleet serves the new generation).
+            - ``drain``: stop admitting scans and wait for in-flight
+              ones (the controller's drain-and-replace and scale-down
+              path; the SIGTERM drain's semantics). Body:
+              {"timeout_s": float}; replies with how many scans were
+              still running at the deadline.
+            - ``reresolve``: re-resolve the serving mesh over surviving
+              shards or hosts after sustained degradation
+              (ScanService.reresolve_mesh). A device error answers 500
+              naming it, never the reference's "try again" 200.
+            """
+            from trivy_tpu_torch.device import DeviceError
+
+            if method == "reload":
+                doc = json.loads(body) if body else {}
+                changed = service.maybe_reload_db(
+                    rescore=bool(doc.get("rescore", True)))
+                self._reply(200, json.dumps({
+                    "reloaded": changed,
+                    "serving": service.generation_name(),
+                    "degraded": service.db_degraded,
+                }).encode())
+            elif method == "rescore":
+                self._reply(200,
+                            json.dumps(
+                                service.trigger_pending_rescore()
+                            ).encode())
+            elif method == "drain":
+                doc = json.loads(body) if body else {}
+                timeout_s = float(doc.get("timeout_s", 30.0))
+                service.start_drain()
+                left = service.await_drained(timeout_s)
+                self._reply(200, json.dumps({
+                    "draining": True, "inflight": left,
+                }).encode())
+            elif method == "reresolve":
+                try:
+                    doc = service.reresolve_mesh()
+                except DeviceError as exc:
+                    _log.error("mesh re-resolve hit a device error",
+                               err=str(exc))
+                    self._error(500, "device error during mesh "
+                                f"re-resolve: {exc}")
+                    return
+                self._reply(200, json.dumps(doc).encode())
+            else:
+                self._error(404, f"unknown fleet method {method}")
 
         def _handle_cache(self, method: str, body: bytes):
             if self._columnar_body(body):

@@ -60,7 +60,12 @@ class Scanner:
             finally:
                 self.artifact.clean(ref)
 
-        metadata = Metadata(os=os_found if os_found.detected else None)
+        metadata = Metadata(
+            os=os_found if os_found.detected else None,
+            # a degrading driver (resilience.fallback.FallbackDriver)
+            # records why it fell back; primary scans leave this empty
+            degraded=getattr(self.driver, "degraded_reason", "") or "",
+        )
         if ref.image_metadata:
             metadata.image_id = ref.image_metadata.get("ImageID", "")
             metadata.diff_ids = ref.image_metadata.get("DiffIDs", [])
