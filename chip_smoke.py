@@ -263,12 +263,44 @@ kernel's time before its latest redesign; then
      /readyz), `fleet control R1,R2 --min-replicas 2`: one
      mesh_reresolve applied, no spawn, R2 then without a degraded host
      and its scan equal to R1's.
+ 17. drive the fleet scan mode on the card, in a process of its own
+     beside phases 10-16 (`fleetscan_start`, `fleetscan_runner`,
+     `fleetscan_finish`), on phase 7's saved DB (its compiled entry a
+     hit): a fleet of 8 image archives, phase 9's docker-save and OCI
+     archives and six seeded variants (seed 20261021) with phase 9's
+     three layers as their base and one small top layer each (an npm
+     lockfile of 50-300 of phase 7's SBOM npm packages, one planted
+     secret), under TRIVY_TPU_FAKE_TIME and
+     TRIVY_TPU_DETERMINISTIC_UUID=1, --list-all-pkgs, the secret screen
+     on the card: (a) `image --targets --journal j1 --fleet-parallel 4`
+     on an empty blob cache, each embedded report equal to a
+     single-target scan of its archive (phase 9's reports without the
+     packages they did not list; the last variant scanned alone here),
+     the shared base analyzed once and deduplicated for the other
+     lanes; (b) the fleet with --fleet-parallel 1 --journal j2 under
+     TRIVY_TPU_FAULTS=fleet.scan:kill@5 in a subprocess, ended by
+     SIGKILL with 4 artifacts done; (c) `--resume j2 --monitor-index`:
+     its merged report equal to (a)'s byte for byte, the index holding
+     all 8 artifacts (4 backfilled from the journal, 4 scanned), the
+     match launches those of the 4 artifacts left, one at a time, the
+     last equal to its single-target scan's; (d) `watch --journal j2
+     --once` on an unusable index: the rebuilt index holds the same
+     packages, and its re-score launches the match kernel.
+ 18. drive the chaos campaign on the card, in a process of its own
+     beside phases 8-10 (`chaos_start`, `chaos_finish`): (a) `chaos run
+     --seed 0 --json` (every scenario's device paths on cuda:0): 0
+     failing episodes, coverage 1.000, no excluded scenario, the match
+     kernel launched in the sched, mesh and dcn scenarios and the
+     anchor kernel in secret, each built for cuda:0; (b) `chaos replay`
+     of one frozen repro of tests/golden/chaos_repros.json for each
+     scenario with a non-slow entry, each holding its invariants with
+     its rules fired.
 The phases run in the order 1, 2, 4, 5, 6 (phase 7 (a)'s two CLI
 processes and (b)'s cold run beside them), 7, 3, the kernel timings,
-14's set-up, 8-11 (12's
-server and 16's replicas start before 11), 12, 16 (a)-(c), 13, 15, 14
-(16 (d)'s rollout beside them), 16's checks and (e). Phase 3 runs with
-the native collector
+14's set-up, 8-11 (18's campaign beside 8-10, 17's runner from 10 on;
+12's server and 16's replicas start before 11), 12, 16 (a)-(c), 13,
+15, 14 (16 (d)'s rollout beside them), 16's checks and (e), 17's
+checks. Phase 3 runs with the native collector
 (native/collect.cpp) too.
 Phase 9 runs the hybrid probe alone twice, dispatched directly and
 through the secret lane (as it ran before it bypassed the lane), and
@@ -282,7 +314,10 @@ re-score, its verify pass and the server's re-score
 (`launches_monitor`), cross-host serving's per build and rung, the
 coordinator's cells and each worker's (`launches_dcn`), and the fleet's
 per replica-set step and replica, in the fallback's CLI process, in the
-rollout and after the re-resolve (`launches_fleet`). Prints a `kernels`
+rollout and after the re-resolve (`launches_fleet`), the fleet scan's
+per run and per artifact of the resume, for the match kernel per tier
+and for the anchor kernel (`launches_fleetscan`), and the chaos
+campaign's per scenario (`launches_chaos`). Prints a `kernels`
 JSON line, the card line, and
 last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
@@ -2964,7 +2999,9 @@ def image_cli_path(p5: dict, p7: dict, tmp: str) -> dict:
                                                    "conv", "prefilter")):
             raise AssertionError(f"{name} launched a kernel")
     return {"runs": runs, "verdict": verdict, "tar": tars["docker"],
-            "report": reports["a_parsed"], "custom_tar": tars["custom"],
+            "report": reports["a_parsed"], "oci_tar": tars["oci"],
+            "oci_report": reports["e_oci"], "layers": layers,
+            "history": history, "custom_tar": tars["custom"],
             "custom_report": reports["g_custom"], "config": cfg,
             "caches": {"device": os.path.join(tmp, "cache_a"),
                        "host": os.path.join(tmp, "cache_b")}}
@@ -6442,6 +6479,533 @@ def fleet_rollout_path(p7: dict, fl: dict, p14: dict, thread, box: dict,
     return out
 
 
+# -------------------------------------------------------------- phase 17
+
+FLEET_SEED = 20261021
+N_FLEET_VARIANTS = 6
+FLEET_NPM = (50, 300)  # a variant's own lockfile: npm packages of phase 7
+FLEET_LANES = 4  # (a)'s --fleet-parallel
+FLEET_KILL_AT = 5  # (b): fleet.scan:kill@5, a SIGKILL before artifact 5
+FLEETSCAN_TIMEOUT_S = 900.0  # the runner, bounded
+# one builtin-rule finding each (no slack bot token: two rules match it;
+# no password assignment: its rule reads *.env files only)
+FLEET_SECRET_KINDS = ("github-pat", "gitlab-pat", "aws-access-key-id",
+                      "npm-access-token", "stripe-secret-token",
+                      "gcp-api-key")
+
+# the runner: a subprocess started right after phase 9, whose work
+# overlaps phases 10-16 (`fleetscan_runner`)
+FLEETSCAN_CODE = """
+import sys
+import chip_smoke
+chip_smoke.fleetscan_runner(*sys.argv[1:])
+"""
+
+
+def fleet_variants(p7: dict, p9: dict, tmp: str) -> list[str]:
+    """Phase 17's six seeded variants of phase 9's image (a registry
+    crawl over images that share a base): phase 9's three layers, then
+    one small top layer of the variant's own, an npm lockfile of 50-300
+    of phase 7's SBOM npm packages and one planted secret. -> the
+    docker-save archives."""
+    rng = random.Random(FLEET_SEED)
+    with open(p7["sbom"]) as f:
+        doc = json.load(f)
+    npm = sorted((c["name"], c["version"]) for c in doc["components"]
+                 if c.get("purl", "").startswith("pkg:npm/"))
+    out = []
+    for k in range(N_FLEET_VARIANTS):
+        pkgs = sorted(rng.sample(npm, rng.randint(*FLEET_NPM)))
+        lock = {"name": f"variant{k}", "lockfileVersion": 3, "packages": {
+            "": {"name": f"variant{k}", "version": "1.0.0"},
+            **{f"node_modules/{n}": {"version": v} for n, v in pkgs}}}
+        secret = secret_maker(FLEET_SECRET_KINDS[k], rng)
+        top = layer_tar([(f"srv/v{k}/package-lock.json",
+                          json.dumps(lock, indent=1)),
+                         (f"srv/v{k}/deploy.txt", secret + b"\n")])
+        path = os.path.join(tmp, f"fleet_v{k}.tar")
+        write_image(path, [*p9["layers"], top],
+                    [*p9["history"], {"created_by": f"COPY v{k} /srv"}],
+                    "docker")
+        out.append(path)
+    return out
+
+
+def fleetscan_start(p7: dict, p9: dict, dev, tmp: str) -> dict:
+    """Phase 17's set-up, right after phase 9: the six variants written,
+    the fleet (phase 9's docker-save and OCI archives, then the
+    variants) and its inputs written for the runner, which then starts
+    so that its work overlaps phases 10-16."""
+    t0 = time.perf_counter()
+    variants = fleet_variants(p7, p9, tmp)
+    out = os.path.join(tmp, "fleetscan")
+    os.makedirs(out)
+    spec = {"db_root": p7["db_root"],
+            "tars": [p9["tar"], p9["oci_tar"], *variants],
+            "phase9_reports": {p9["tar"]: p9["report"],
+                               p9["oci_tar"]: p9["oci_report"]},
+            "phase9_secrets": p9["runs"]["a_parsed"]["secret_findings"]}
+    with open(os.path.join(out, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    built_s = time.perf_counter() - t0
+    log = open(os.path.join(out, "runner.log"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", FLEETSCAN_CODE,
+         os.path.join(out, "spec.json"), out, str(dev)],
+        cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    print(f"phase17 setup built_s={built_s:.3f} artifacts="
+          f"{len(spec['tars'])} variants_mb="
+          f"{[round(os.path.getsize(v) / 1e6, 3) for v in variants]}")
+    return {"proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def fleet_reports(path: str) -> list[dict]:
+    with open(path, "rb") as f:
+        return json.loads(f.read())["Reports"]
+
+
+def without_packages(doc: dict) -> dict:
+    """A report as it renders without --list-all-pkgs."""
+    return {**doc, "Results": [{k: v for k, v in r.items()
+                                if k != "Packages"}
+                               for r in doc.get("Results") or []]}
+
+
+def fleetscan_runner(spec_path: str, out: str, device: str) -> None:
+    """Phase 17 in its own process on `device`: phase 7's DB's engine
+    built first (its compiled entry a hit), then the fleet through the
+    `image` CLI as a user runs it, under TRIVY_TPU_FAKE_TIME and
+    TRIVY_TPU_DETERMINISTIC_UUID=1, with --list-all-pkgs (the resume's
+    backfill reads the packages of the journaled reports) and the secret
+    screen always on the card (TRIVY_TPU_SECRET_PROBE=0): (a) an
+    uninterrupted `--fleet-parallel 4 --journal j1` on an empty blob
+    cache, then one variant alone (`--input`, (a)'s cache); (b) the
+    fleet with `--fleet-parallel 1 --journal j2` in a subprocess of its
+    own under TRIVY_TPU_FAULTS=fleet.scan:kill@5 (a SIGKILL); (c)
+    `--resume j2 --monitor-index idx`; (d) `watch --journal j2 --once`
+    on an unusable index. Its numbers go to out/result.json."""
+    from trivy_tpu_torch.cli import fleet as fleet_mod
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.cli.main import build_parser, main
+    from trivy_tpu_torch.monitor.index import MonitorIndex
+    from trivy_tpu_torch.obs import metrics as om
+    from trivy_tpu_torch.ops import match as m
+    from trivy_tpu_torch.ops import secret_nfa as nfa
+
+    t_runner = time.perf_counter()
+    res: dict = {}
+    try:
+        with open(spec_path) as f:
+            spec = json.load(f)
+        os.environ.update(TRIVY_TPU_FAKE_TIME=FAKE_TIME,
+                          TRIVY_TPU_DETERMINISTIC_UUID="1",
+                          TRIVY_TPU_SECRET_PROBE="0")
+        tars = spec["tars"]
+        targets = os.path.join(out, "fleet.txt")
+        with open(targets, "w") as f:
+            f.write("".join(f"{t}\n" for t in tars))
+        cache = os.path.join(out, "cache")
+        flags = ["--format", "json", "--db-path", spec["db_root"],
+                 "--cache-dir", cache, "--quiet", "--list-all-pkgs",
+                 "--device", device]
+        fleet = ["image", tars[0], "--targets", targets, *flags]
+        paths = {k: os.path.join(out, k) for k in (
+            "j1.jsonl", "j2.jsonl", "m1.json", "m2.json", "single.json",
+            "idx.jsonl", "idx_watch.jsonl", "events.jsonl")}
+
+        t0 = time.perf_counter()
+        run.build_engine(build_parser().parse_args(fleet))
+        res["engine_build_s"] = time.perf_counter() - t0
+
+        def counts() -> dict:
+            return {"tiers": device_tier_launches(),
+                    "match": m.match_words.launches,
+                    "anchor": nfa.anchor_words.launches,
+                    "layers": (om.LAYERS_ANALYZED.value(),
+                               om.LAYER_DEDUPE_HITS.value(),
+                               om.LAYER_DEDUPE_INFLIGHT_WAITS.value())}
+
+        def since(c0: dict) -> dict:
+            c1 = counts()
+            return {"match_per_tier": {k: c1["tiers"][k] - c0["tiers"][k]
+                                       for k in c1["tiers"]},
+                    "match": c1["match"] - c0["match"],
+                    "anchor": c1["anchor"] - c0["anchor"],
+                    "layers_analyzed": int(c1["layers"][0]
+                                           - c0["layers"][0]),
+                    "layers_deduped": int(c1["layers"][1]
+                                          - c0["layers"][1]),
+                    "inflight_waits": int(c1["layers"][2]
+                                          - c0["layers"][2])}
+
+        def cli(argv: list[str]) -> dict:
+            c0 = counts()
+            t0 = time.perf_counter()
+            rc = main(argv)
+            return {"rc": rc, "wall_s": time.perf_counter() - t0,
+                    **since(c0)}
+
+        # (a)
+        res["a"] = cli([*fleet, "--fleet-parallel", str(FLEET_LANES),
+                        "--journal", paths["j1.jsonl"], "--output",
+                        paths["m1.json"]])
+        res["a"]["bytes"] = os.path.getsize(paths["m1.json"])
+        # the last variant alone: (c) scans it again, one at a time
+        res["single"] = cli(["image", "--input", tars[-1], *flags,
+                             "--output", paths["single.json"]])
+        m1 = fleet_reports(paths["m1.json"])
+        with open(paths["single.json"], "rb") as f:
+            single = json.loads(f.read())
+        diffs = {"variant_single": int(m1[-1] != single)}
+        for i, tar in enumerate(tars[:2]):
+            with open(spec["phase9_reports"][tar], "rb") as f:
+                diffs[f"phase9_{i}"] = int(without_packages(m1[i])
+                                           != json.loads(f.read()))
+        res["diffs"] = diffs
+        res["secrets"] = [sum(len(r.get("Secrets") or [])
+                              for r in d.get("Results") or [])
+                          for d in m1]
+        del m1, single
+
+        # (b)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("TRIVY_TPU_FAULTS")}
+        env["TRIVY_TPU_FAULTS"] = f"fleet.scan:kill@{FLEET_KILL_AT}"
+        t0 = time.perf_counter()
+        with open(os.path.join(out, "killed.log"), "wb") as log:
+            proc = subprocess.run(
+                [sys.executable, "-m", "trivy_tpu_torch", *fleet,
+                 "--fleet-parallel", "1", "--journal", paths["j2.jsonl"],
+                 "--output", paths["m2.json"]],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+                timeout=FLEETSCAN_TIMEOUT_S)
+        kinds = [json.loads(ln)["kind"] for ln in
+                 open(paths["j2.jsonl"], encoding="utf-8")]
+        res["b"] = {"rc": proc.returncode,
+                    "wall_s": time.perf_counter() - t0,
+                    "done": kinds.count("done"),
+                    "running": kinds.count("running"),
+                    "output_written": os.path.exists(paths["m2.json"])}
+
+        # (c), each artifact's launches: the resume scans one at a time
+        per_target: dict = {}
+        scan_target = fleet_mod._scan_target
+
+        def counted(a, c):
+            c0 = counts()
+            try:
+                return scan_target(a, c)
+            finally:
+                per_target[a.target] = since(c0)
+
+        fleet_mod._scan_target = counted
+        try:
+            res["c"] = cli([*fleet, "--resume", paths["j2.jsonl"],
+                            "--monitor-index", paths["idx.jsonl"],
+                            "--output", paths["m2.json"]])
+        finally:
+            fleet_mod._scan_target = scan_target
+        res["c"]["per_artifact"] = {
+            str(tars.index(t)): {"match_per_tier": d["match_per_tier"],
+                                 "anchor": d["anchor"]}
+            for t, d in per_target.items()}
+        with open(paths["m1.json"], "rb") as f1, \
+                open(paths["m2.json"], "rb") as f2:
+            res["c"]["m2_equals_m1"] = f1.read() == f2.read()
+        idx = MonitorIndex.open(paths["idx.jsonl"])
+        try:
+            arts = sorted(idx.artifacts())
+            res["c"]["index"] = {
+                "artifacts": len(arts),
+                "backfilled": sum(idx.findings_of(a) is None
+                                  for a in arts),
+                "scanned": sum(idx.findings_of(a) is not None
+                               for a in arts),
+                "all_targets": arts == sorted(tars)}
+            pkgs = {a: idx.packages_of(a) for a in arts}
+        finally:
+            idx.close()
+
+        # (d): an unusable index, rebuilt from the resumed journal
+        with open(paths["idx_watch.jsonl"], "w") as f:
+            f.write("garbage\n")
+        res["d"] = cli(["watch", "--db-path", spec["db_root"], "--index",
+                        paths["idx_watch.jsonl"], "--journal",
+                        paths["j2.jsonl"], "--once", "--device", device,
+                        "--cache-dir", cache, "--quiet", "--output",
+                        paths["events.jsonl"]])
+        idx = MonitorIndex.open(paths["idx_watch.jsonl"])
+        try:
+            rebuilt = {a: idx.packages_of(a) for a in idx.artifacts()}
+        finally:
+            idx.close()
+        res["d"]["artifacts"] = len(rebuilt)
+        res["d"]["same_packages"] = rebuilt == pkgs
+        res["d"]["packages"] = sum(len(p) for p in rebuilt.values())
+        res["engine_device"] = str(next(
+            e for e in run._ENGINE_CACHE.values() if e.use_device).device)
+        res["runner_wall_s"] = time.perf_counter() - t_runner
+    except BaseException as e:  # the parent reads it and fails the phase
+        import traceback
+
+        res["error"] = f"{type(e).__name__}: {e}"
+        res["traceback"] = traceback.format_exc()
+    with open(os.path.join(out, "result.json"), "w") as f:
+        json.dump(res, f)
+
+
+def fleetscan_finish(fs: dict) -> dict:
+    """Phase 17's checks, once the runner has ended: (a) every report
+    equal to a single-target scan of its archive (phase 9's reports for
+    its two, without the packages they did not list; one variant's scan
+    here), the shared base analyzed once; (b) killed by SIGKILL with 4
+    artifacts done; (c) m2 equal to m1 byte for byte, the index's 8
+    artifacts (4 backfilled, 4 scanned), the match launches those of
+    the 4 artifacts left; (d) the rebuilt index with the same packages."""
+    try:
+        fs["proc"].wait(timeout=max(
+            1.0, FLEETSCAN_TIMEOUT_S - (time.perf_counter() - fs["t0"])))
+    except subprocess.TimeoutExpired:
+        fs["proc"].kill()
+        fs["proc"].wait(timeout=30)
+        raise AssertionError("phase 17's runner did not end in time: "
+                             + tail(os.path.join(fs["out"], "runner.log")))
+    waited = time.perf_counter() - fs["t0"]
+    path = os.path.join(fs["out"], "result.json")
+    if not os.path.exists(path):
+        raise AssertionError("phase 17's runner wrote no result: "
+                             + tail(os.path.join(fs["out"], "runner.log")))
+    with open(path) as f:
+        r = json.load(f)
+    if "error" in r:
+        print(r.get("traceback", ""))
+        raise AssertionError(f"phase 17's runner failed: {r['error']}")
+    a, b, c, d, one = r["a"], r["b"], r["c"], r["d"], r["single"]
+    n = N_FLEET_VARIANTS + 2
+    unique = 3 + N_FLEET_VARIANTS  # phase 9's three layers, one top each
+    print(f"phase17 runner_s={r['runner_wall_s']:.3f} "
+          f"checked_after_s={waited:.3f} "
+          f"engine_build_s={r['engine_build_s']:.3f} "
+          f"device={r['engine_device']}")
+    for name, x in (("a", a), ("single", one), ("c", c), ("d", d)):
+        print(f"phase17 {name} rc={x['rc']} wall_s={x['wall_s']:.3f} "
+              f"layers_analyzed={x['layers_analyzed']} "
+              f"layers_deduped={x['layers_deduped']} "
+              f"inflight_waits={x['inflight_waits']} "
+              f"match={x['match']} "
+              f"match_per_tier={json.dumps(x['match_per_tier'])} "
+              f"anchor={x['anchor']}")
+    print(f"phase17 a report_mb={a['bytes'] / 1e6:.3f} "
+          f"diffs={json.dumps(r['diffs'])} secrets={r['secrets']}")
+    print(f"phase17 b rc={b['rc']} wall_s={b['wall_s']:.3f} "
+          f"done={b['done']} running={b['running']} "
+          f"output_written={b['output_written']}")
+    print(f"phase17 c m2_equals_m1={c['m2_equals_m1']} "
+          f"index={json.dumps(c['index'])} "
+          f"per_artifact={json.dumps(c['per_artifact'])}")
+    print(f"phase17 d artifacts={d['artifacts']} "
+          f"same_packages={d['same_packages']} packages={d['packages']}")
+    fails = []
+    if any(x["rc"] for x in (a, one, c, d)):
+        fails.append("a CLI run returned non-zero")
+    if any(r["diffs"].values()):
+        fails.append(f"a fleet report differs from its single-target "
+                     f"scan: {r['diffs']}")
+    base_secrets = r["secrets"][0]
+    if r["secrets"][1] != base_secrets or \
+            r["secrets"][2:] != [base_secrets + 1] * N_FLEET_VARIANTS:
+        fails.append(f"secret findings {r['secrets']}")
+    if a["layers_analyzed"] != unique or \
+            a["layers_deduped"] != 2 * 3 + 4 * N_FLEET_VARIANTS - unique:
+        fails.append("the shared base was not analyzed once and deduped "
+                     "for the other lanes")
+    if not all(a["match_per_tier"].values()) or not a["anchor"]:
+        fails.append("(a) launched the match kernel on no tier or the "
+                     "anchor kernel not at all")
+    if b["rc"] != -9 or b["done"] != FLEET_KILL_AT - 1 or \
+            b["output_written"]:
+        fails.append("(b) did not end by SIGKILL after "
+                     f"{FLEET_KILL_AT - 1} artifacts")
+    if not c["m2_equals_m1"]:
+        fails.append("the resumed fleet's report differs from (a)'s")
+    left = n - (FLEET_KILL_AT - 1)
+    if c["index"] != {"artifacts": n, "backfilled": FLEET_KILL_AT - 1,
+                      "scanned": left, "all_targets": True}:
+        fails.append(f"(c)'s index: {c['index']}")
+    per = c["per_artifact"]
+    if sorted(per) != [str(i) for i in range(FLEET_KILL_AT - 1, n)] or \
+            per[str(n - 1)]["match_per_tier"] != one["match_per_tier"] or \
+            c["match_per_tier"] != {
+                k: sum(v["match_per_tier"][k] for v in per.values())
+                for k in c["match_per_tier"]} or \
+            not all(v["match_per_tier"]["main"] for v in per.values()):
+        fails.append("(c)'s match launches are not those of the "
+                     f"{left} artifacts left")
+    if d["artifacts"] != n or not d["same_packages"] or not d["match"]:
+        fails.append("watch --journal rebuilt another index")
+    if r["engine_device"] != "cuda:0":
+        fails.append(f"the fleet's engine is on {r['engine_device']}")
+    if fails:
+        raise AssertionError("phase 17: " + "; ".join(fails))
+    return {"runner_s": r["runner_wall_s"], "launches": {
+        "match": {"a": a["match_per_tier"], "single": one["match_per_tier"],
+                  "c": c["match_per_tier"],
+                  "c_per_artifact": {k: v["match_per_tier"] for k, v in
+                                     c["per_artifact"].items()},
+                  "watch_rescore": d["match"]},
+        "anchor": {"a": a["anchor"], "single": one["anchor"],
+                   "c": c["anchor"],
+                   "c_per_artifact": {k: v["anchor"] for k, v in
+                                      c["per_artifact"].items()}}}}
+
+
+# -------------------------------------------------------------- phase 18
+
+CHAOS_SEED = 0
+CHAOS_TIMEOUT_S = 600.0  # the campaign's process, bounded
+
+# the campaign and the replays in a process of their own (no fault plan
+# leaks into another phase): trivy_tpu_torch.cli.main.main on `chaos
+# run` (what `python -m trivy_tpu_torch` calls), then on `chaos replay`
+# of each frozen repro; the match and anchor launches of each scenario's
+# episodes and oracle runs, and the device each scenario was built for,
+# written to the file named first
+CHAOS_CODE = """
+import time
+T0 = time.perf_counter()
+import contextlib, io, json, sys
+from trivy_tpu_torch.chaos import campaign
+from trivy_tpu_torch.cli.main import main
+from trivy_tpu_torch.ops import match, secret_nfa
+per = {}
+def counted(fn):
+    def wrapper(obj, *a, **kw):
+        m0 = match.match_words.launches
+        a0 = secret_nfa.anchor_words.launches
+        try:
+            return fn(obj, *a, **kw)
+        finally:
+            d = per.setdefault(obj.name, {"match": 0, "anchor": 0,
+                                          "device": str(obj.device)})
+            d["match"] += match.match_words.launches - m0
+            d["anchor"] += secret_nfa.anchor_words.launches - a0
+    return wrapper
+campaign.run_episode = counted(campaign.run_episode)
+campaign.compute_oracle = counted(campaign.compute_oracle)
+out = sys.argv[1]
+t0 = time.perf_counter()
+rc = main(["chaos", "run", "--seed", sys.argv[2], "--json",
+           out + "/chaos.json", "--quiet"])
+wall = time.perf_counter() - t0
+campaign_launches = {k: dict(v) for k, v in per.items()}
+replays = []
+for spec, scenario in json.loads(sys.argv[3]):
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rrc = main(["chaos", "replay", spec, "--scenario", scenario,
+                    "--quiet"])
+    replays.append({"spec": spec, "scenario": scenario, "rc": rrc,
+                    "wall_s": time.perf_counter() - t0,
+                    "result": json.loads(buf.getvalue())})
+with open(out + "/result.json", "w") as f:
+    json.dump({"rc": rc, "wall_s": wall, "launches": campaign_launches,
+               "replays": replays,
+               "process_wall_s": time.perf_counter() - T0}, f)
+sys.exit(rc)
+"""
+
+
+def chaos_start(tmp: str) -> dict:
+    """Phase 18 started in a process of its own beside phases 8-10: the
+    campaign (`chaos run --seed 0`, every scenario's device paths on
+    cuda:0) and then one frozen repro of tests/golden/chaos_repros.json
+    replayed for each scenario with a non-slow entry."""
+    with open(os.path.join(REPO, "tests", "golden",
+                           "chaos_repros.json")) as f:
+        repros = json.load(f)["repros"]
+    picked: dict = {}
+    for e in repros:
+        if not e.get("slow"):
+            picked.setdefault(e["scenario"], e["spec"])
+    out = os.path.join(tmp, "chaos")
+    os.makedirs(out)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TRIVY_TPU_")}
+    log = open(os.path.join(out, "chaos.log"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CHAOS_CODE, out, str(CHAOS_SEED),
+         json.dumps([[s, n] for n, s in sorted(picked.items())])],
+        cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return {"proc": proc, "out": out, "t0": time.perf_counter(),
+            "picked": picked}
+
+
+def chaos_finish(ch: dict) -> dict:
+    """Phase 18's checks: (a) the campaign's report with 0 failing
+    episodes, coverage 1.000 and no excluded scenario, the match kernel
+    launched in the sched, mesh and dcn scenarios and the anchor kernel
+    in secret, each built for cuda:0; (b) every replay holding its
+    invariants with its rules fired."""
+    try:
+        ch["proc"].wait(timeout=max(
+            1.0, CHAOS_TIMEOUT_S - (time.perf_counter() - ch["t0"])))
+    except subprocess.TimeoutExpired:
+        ch["proc"].kill()
+        ch["proc"].wait(timeout=30)
+        raise AssertionError("phase 18's campaign did not end in time: "
+                             + tail(os.path.join(ch["out"], "chaos.log")))
+    waited = time.perf_counter() - ch["t0"]
+    path = os.path.join(ch["out"], "result.json")
+    if not os.path.exists(path):
+        raise AssertionError("phase 18 wrote no result: "
+                             + tail(os.path.join(ch["out"], "chaos.log")))
+    with open(path) as f:
+        r = json.load(f)
+    with open(os.path.join(ch["out"], "chaos.json")) as f:
+        rep = json.load(f)
+    durations = sorted(x["duration_s"] for x in rep["results"])
+    print(f"phase18 a rc={r['rc']} wall_s={r['wall_s']:.3f} "
+          f"process_s={r['process_wall_s']:.3f} "
+          f"checked_after_s={waited:.3f} episodes={rep['episodes']} "
+          f"failed={rep['failed_episodes']} "
+          f"coverage={rep['coverage']:.3f} "
+          f"excluded={json.dumps(rep['excluded_scenarios'])} "
+          f"longest_episode_s={durations[-1]:.3f} "
+          f"median_episode_s={durations[len(durations) // 2]:.3f}")
+    print(f"phase18 launches_chaos={json.dumps(r['launches'])}")
+    for x in r["replays"]:
+        res = x["result"]
+        print(f"phase18 b scenario={x['scenario']} spec={x['spec']} "
+              f"rc={x['rc']} ok={res['ok']} fired={res['fired']} "
+              f"degraded={res['degraded']} wall_s={x['wall_s']:.3f}")
+    fails = []
+    if r["rc"] or rep["failed_episodes"] or rep["coverage"] != 1.0 or \
+            rep["excluded_scenarios"] or not rep["ok"]:
+        fails.append("the campaign failed: "
+                     + json.dumps([x for x in rep["results"]
+                                   if not x["ok"]])[:2000])
+    ln = r["launches"]
+    for scenario, kernel in (("sched", "match"), ("mesh", "match"),
+                             ("dcn", "match"), ("secret", "anchor")):
+        got = ln.get(scenario, {})
+        if not got.get(kernel) or got.get("device") != "cuda:0":
+            fails.append(f"{scenario} launched no {kernel} kernel on "
+                         f"cuda:0: {got}")
+    if sorted(x["scenario"] for x in r["replays"]) != sorted(ch["picked"]):
+        fails.append("a scenario's repro was not replayed")
+    for x in r["replays"]:
+        if x["rc"] or not x["result"]["ok"] or not x["result"]["fired"]:
+            fails.append(f"replay {x['spec']} on {x['scenario']} failed")
+    if fails:
+        raise AssertionError("phase 18: " + "; ".join(fails))
+    return {"process_s": r["process_wall_s"], "launches": ln,
+            "replays": {x["scenario"]: x["result"]["fired"]
+                        for x in r["replays"]}}
+
+
 def main() -> int:
     import torch
 
@@ -6473,7 +7037,7 @@ def main() -> int:
     from trivy_tpu_torch.tensorize.synth import synth_trivy_db
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    srv = mon = fl = golden = cold = None
+    srv = mon = fl = golden = cold = ch = fs = None
     try:
         # phase 7 (a)'s two CLI processes and (b)'s cold run (its DB
         # load, compile and keymap) run beside phases 2 and 4-6; the
@@ -6528,6 +7092,9 @@ def main() -> int:
         mon = monitor_setup(p7, dev, work)
         print(f"phase14 setup seconds={time.perf_counter() - t0:.3f}")
 
+        # phase 18's campaign in a process of its own beside phases 8-10
+        ch = chaos_start(work)
+
         t0 = time.perf_counter()
         p8 = fs_cli_path(p5, p7, work)
         print(f"phase8 seconds={time.perf_counter() - t0:.3f}")
@@ -6536,9 +7103,18 @@ def main() -> int:
         p9 = image_cli_path(p5, p7, work)
         print(f"phase9 seconds={time.perf_counter() - t0:.3f}")
 
+        # phase 17's fleet in a process of its own beside phases 10-16
+        fs = fleetscan_start(p7, p9, dev, work)
+        del p9["layers"]
+
         t0 = time.perf_counter()
         p10 = report_cli_path(p7, p9, work)
         print(f"phase10 seconds={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p18 = chaos_finish(ch)
+        print(f"phase18 seconds={p18['process_s']:.3f} "
+              f"waited_s={time.perf_counter() - t0:.3f}")
 
         # phase 12's server and phase 16's replicas load phase 7's DB
         # while phases 11 and 12 run
@@ -6595,9 +7171,16 @@ def main() -> int:
         t16 += time.perf_counter() - t0
         print(f"phase16 (d)-(e) seconds={time.perf_counter() - t0:.3f}")
         print(f"phase16 seconds={t16:.3f}")
+
+        t0 = time.perf_counter()
+        p17 = fleetscan_finish(fs)
+        print(f"phase17 seconds={p17['runner_s']:.3f} "
+              f"waited_s={time.perf_counter() - t0:.3f}")
     finally:
         for p in [*(golden or {}).get("procs", {}).values(),
-                  *([cold["proc"]] if cold else [])]:
+                  *([cold["proc"]] if cold else []),
+                  *([ch["proc"]] if ch else []),
+                  *([fs["proc"]] if fs else [])]:
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
@@ -6666,6 +7249,9 @@ def main() -> int:
             "rollout": {"r1": p16["rollout"]["r1"],
                         "r2": p16["rollout"]["r2"]},
             "r2_after_reresolve": p16["control"]["r2_launches"]},
+        "launches_fleetscan": p17["launches"]["match"],
+        "launches_chaos": {k: v["match"] for k, v in
+                           sorted(p18["launches"].items())},
         "launches_dcn": {
             **p15["launches"],
             **{f"rung {k}": {"coordinator": r["coordinator_launches"],
@@ -6696,6 +7282,10 @@ def main() -> int:
             "launches_vm_cli": {k: v[name] for k, v in vm_launches.items()},
             "launches_server_clients": {
                 k: r.get(name, 0) for k, r in p12["clients"].items()},
+            **({"launches_fleetscan": p17["launches"]["anchor"],
+                "launches_chaos": {k: v["anchor"] for k, v in
+                                   sorted(p18["launches"].items())}}
+               if name == "anchor" else {}),
             "ms": t["ms"], "kernel_device_ms": t["kernel_device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

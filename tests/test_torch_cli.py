@@ -207,8 +207,9 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
     assert capsys.readouterr().out == GOLDEN.read_text()
 
 
-@pytest.mark.parametrize("flag", [["--targets", "t.txt"], ["--journal", "j.log"],
-                                  ["--resume", "j.log"],
+@pytest.mark.parametrize("flag", [["--license-full"],
+                                  ["--module-dir", "modules"],
+                                  ["--redis-tls"],
                                   ["--ignore-policy", "p.yaml"],
                                   ["--compliance", "docker-cis-1.6.0"]])
 def test_unported_flags_are_refused(golden_env, flag):

@@ -376,15 +376,16 @@ def test_atomic_write_mangles_at_a_ported_site(tmp_path, action):
 
 
 def test_atomic_write_fires_nothing_at_an_unported_site(tmp_path):
-    """`compile_cache.save` is not in the port's grammar: no rule can
-    name it, and a rule on a ported site does not reach it."""
-    faults.install_spec("monitor:kill")
+    """A write site no call site of the package names (here
+    `compile_cache.load`) is not in the grammar: no rule can name it,
+    and a rule on another site does not reach it."""
+    faults.install_spec("monitor:kill;compile_cache.save:kill")
     faults.set_kill_mode("raise")
     atomic.atomic_write(str(tmp_path / "e"), b"x",
-                        fault_site="compile_cache.save")
+                        fault_site="compile_cache.load")
     assert (tmp_path / "e").read_bytes() == b"x"
-    with pytest.raises(faults.FaultSpecError, match="not ported yet"):
-        faults.FaultPlan.from_spec("compile_cache.save:kill")
+    with pytest.raises(faults.FaultSpecError, match="fired nowhere"):
+        faults.FaultPlan.from_spec("compile_cache.load:kill")
 
 
 @pytest.mark.parametrize("spec", [
@@ -407,9 +408,9 @@ def test_monitor_fault_specs_compile_like_the_reference(spec):
 @pytest.mark.parametrize("spec", ["monitor.index:delay",
                                   "monitor.rematch:torn-write",
                                   "journal.append:drop",
-                                  "db.save:torn-write",
-                                  "cache.write:bitflip",
-                                  "fleet.scan:kill"])
+                                  "db.save:drop",
+                                  "cache.write:delay",
+                                  "fleet.scan:torn-write"])
 def test_other_durability_specs_are_refused(spec):
     with pytest.raises(faults.FaultSpecError):
         faults.FaultPlan.from_spec(spec)
@@ -434,3 +435,137 @@ def test_kill_mode_is_validated_and_reset():
     faults.set_kill_mode("raise")
     faults.reset()
     assert faults._kill_mode == "sigkill"
+
+
+# ------------------------------------------- the durable write sites
+
+
+def _saved_db_files(pkg: str, root: Path) -> dict:
+    """The fixture DB of tests/test_durability.py saved uncompressed
+    by `pkg`'s AdvisoryDB (no gzip mtime) -> its files' bytes, or the
+    exception type the save raised."""
+    if pkg == "port":
+        from trivy_tpu_torch.db import Advisory, AdvisoryDB
+        from trivy_tpu_torch.db.model import VulnerabilityMeta
+    else:
+        from trivy_tpu.db import Advisory, AdvisoryDB
+        from trivy_tpu.db.model import VulnerabilityMeta
+    db = AdvisoryDB()
+    db.put_advisory("npm::ghsa", "lodash", Advisory(
+        vulnerability_id="CVE-2019-10744",
+        vulnerable_versions=["<4.17.12"]))
+    db.put_meta(VulnerabilityMeta.from_json("CVE-2019-10744", {
+        "Title": "prototype pollution", "Severity": "CRITICAL"}))
+    db.meta.updated_at = "2024-01-01T00:00:00Z"
+    try:
+        db.save(str(root), compress=False)
+    except faults.InjectedKill:
+        return {"raised": "InjectedKill"}
+    except jfaults.InjectedKill:
+        return {"raised": "InjectedKill"}
+    out = {n: (root / n).read_bytes() for n in sorted(os.listdir(root))
+           if ".tmp-" not in n}
+    try:
+        AdvisoryDB.load(str(root))
+        out["load"] = "ok"
+    except Exception as e:  # the reader's verdict on what landed
+        out["load"] = type(e).__name__
+    return out
+
+
+@pytest.mark.fault
+@pytest.mark.parametrize("site", ["db.save", "db.save.metadata"])
+@pytest.mark.parametrize("action", ["kill", "torn-write", "bitflip"])
+def test_db_save_sites_fire_like_the_reference(tmp_path, site, action):
+    """`AdvisoryDB.save` under a rule at its data file's site or its
+    metadata's: the same bytes land on disk in both packages (a kill
+    between the tmp write and the rename leaves the file out), and the
+    reader gives the same verdict."""
+    got = {}
+    for pkg, f in (("port", faults), ("ref", jfaults)):
+        f.install_spec(f"{site}:{action}")
+        f.set_kill_mode("raise")
+        try:
+            got[pkg] = _saved_db_files(pkg, tmp_path / pkg)
+            assert any(r.fired for r in f.active().rules)
+        finally:
+            f.reset()
+    assert got["port"] == got["ref"]
+    if action == "kill":
+        assert got["port"] == {"raised": "InjectedKill"}
+
+
+@pytest.mark.fault
+@pytest.mark.parametrize("action", ["kill", "torn-write", "bitflip"])
+def test_cache_write_site_fires_like_the_reference(tmp_path, action):
+    """`FSCache.put_blob` under cache.write: a torn or flipped entry is
+    the same bytes in both packages and reads as a miss (evicted); a
+    kill keeps the previous entry."""
+    from trivy_tpu.cache.cache import FSCache as JaxFSCache
+    from trivy_tpu_torch.cache.cache import FSCache
+
+    blob = {"schema_version": 2, "applications": []}
+    got = {}
+    for pkg, f, cls in (("port", faults, FSCache),
+                        ("ref", jfaults, JaxFSCache)):
+        c = cls(str(tmp_path / pkg))
+        c.put_blob("sha256:b", {"v": 1})
+        f.install_spec(f"cache.write:{action}")
+        f.set_kill_mode("raise")
+        try:
+            if action == "kill":
+                with pytest.raises(f.InjectedKill):
+                    c.put_blob("sha256:b", blob)
+            else:
+                c.put_blob("sha256:b", blob)
+            assert any(r.fired for r in f.active().rules)
+        finally:
+            f.reset()
+        with open(c._path("blob", "sha256:b"), "rb") as fh:
+            raw = fh.read()
+        got[pkg] = (raw, c.get_blob("sha256:b"))
+    assert got["port"] == got["ref"]
+    if action == "kill":
+        assert got["port"][1] == {"v": 1}
+    else:
+        assert got["port"][1] == {}  # detected, evicted: a miss
+
+
+@pytest.mark.fault
+@pytest.mark.parametrize("action", ["kill", "torn-write", "bitflip"])
+def test_compile_cache_save_site_fires(tmp_path, action):
+    """The compiled-DB cache's save under compile_cache.save: a kill
+    ends the build before the entry lands, a torn or flipped entry is
+    quarantined by the next build (a miss and a recompile), and the
+    engine's answers stay the oracle's."""
+    from trivy_tpu_torch.db import Advisory, AdvisoryDB
+    from trivy_tpu_torch.detector.engine import MatchEngine, PkgQuery
+
+    db = AdvisoryDB()
+    for i in range(12):
+        db.put_advisory("npm::ghsa", f"pkg{i}", Advisory(
+            vulnerability_id=f"CVE-2024-{1000 + i}",
+            vulnerable_versions=[f"<{(i % 4) + 1}.0.0"]))
+    root = str(tmp_path / "db")
+    db.save(root)
+    faults.install_spec(f"compile_cache.save:{action}")
+    faults.set_kill_mode("raise")
+    try:
+        if action == "kill":
+            with pytest.raises(faults.InjectedKill):
+                MatchEngine(AdvisoryDB.load(root), window=16,
+                            device="cpu", db_path=root)
+        else:
+            MatchEngine(AdvisoryDB.load(root), window=16, device="cpu",
+                        db_path=root)
+        assert any(r.fired for r in faults.active().rules)
+    finally:
+        faults.reset()
+    e = MatchEngine(AdvisoryDB.load(root), window=16, device="cpu",
+                    db_path=root)
+    assert e.build_stats["compile_cache"] == "miss"
+    qs = [PkgQuery("npm::", f"pkg{i % 12}", f"{i % 5}.1.0", "npm")
+          for i in range(40)]
+    assert [sorted(int(x) for x in r.adv_indices) for r in e.detect(qs)] \
+        == [sorted(int(x) for x in r.adv_indices)
+            for r in e.oracle_detect(qs)]

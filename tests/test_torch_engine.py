@@ -385,7 +385,8 @@ def test_static_scan_covers_every_slice():
     and db slice, of the report, VEX and attestation slice, of the
     repository and vm slice, of the server and scheduler slice, of the
     serving mesh, of continuous monitoring, of cross-host serving, of
-    observability and of the fleet control plane included."""
+    observability, of the fleet control plane, of the fleet scan mode
+    and of the chaos campaign included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -412,7 +413,10 @@ def test_static_scan_covers_every_slice():
                    "resilience/breaker.py", "resilience/fallback.py",
                    "fleet/__init__.py", "fleet/endpoints.py",
                    "fleet/slo.py", "fleet/telemetry.py",
-                   "fleet/rollout.py", "fleet/controller.py"):
+                   "fleet/rollout.py", "fleet/controller.py",
+                   "cli/fleet.py", "utils/pipeline.py",
+                   "chaos/__init__.py", "chaos/campaign.py",
+                   "chaos/scenarios.py", "chaos/schedule.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

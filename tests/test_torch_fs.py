@@ -389,9 +389,9 @@ def test_unported_list_is_reference_dests_minus_ports(cmd):
 @pytest.mark.parametrize("dest,value", [("compliance", "docker-cis-1.6.0"),
                                         ("ignore_policy", "p.yaml"),
                                         ("license_full", "true"),
-                                        ("journal", "j.log"),
+                                        ("module_dir", "modules"),
                                         ("redis_tls", "1"),
-                                        ("resume", "1")])
+                                        ("report", "all")])
 def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
                                              capsys, monkeypatch, cmd,
                                              dest, value):
@@ -410,7 +410,7 @@ def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
 @pytest.mark.parametrize("cmd", ["sbom", "fs", "rootfs"])
 @pytest.mark.parametrize("doc", ["compliance: docker-cis-1.6.0\n",
                                  "scan:\n  license-full: true\n",
-                                 "resume: j.jsonl\n"])
+                                 "report: all\n"])
 def test_unported_option_from_config_file_is_refused(dbs, mk_rootfs,
                                                      tmp_path, capsys, cmd,
                                                      doc):
@@ -516,9 +516,9 @@ def test_ported_options_from_env_and_config_equal_reference(
 
 
 @pytest.mark.parametrize("flag", [["--ignore-policy", "p.yaml"],
-                                  ["--fleet-parallel", "4"],
+                                  ["--redis-tls"],
                                   ["--license-full"],
-                                  ["--resume", "j.jsonl"]])
+                                  ["--module-dir", "modules"]])
 def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):
     with pytest.raises(SystemExit) as exc, \
             contextlib.redirect_stderr(io.StringIO()):

@@ -967,47 +967,69 @@ def test_image_parser_is_the_reference_minus_unported():
         assert port[dest] == ref[dest], dest
 
 
+def fleet_option_parity(argv: list[str], tmp_path, capsys) -> tuple:
+    """The fleet options are ported: each package acts on them alike.
+    -> (rc, stdout, error messages) of each, the reference's first; a
+    missing targets file or journal fails both in one line, a journal
+    without targets leaves a single-target scan as it is."""
+    out = []
+    for entry, extra, cache in ((jax_main.main, [], "jcache"),
+                                (main, ["--device", "cpu"], "pcache")):
+        rc = entry(argv + extra + ["--cache-dir", str(tmp_path / cache)])
+        captured = capsys.readouterr()
+        out.append((rc, captured.out,
+                    [ln.split("\t")[-1] for ln in captured.err.splitlines()
+                     if "ERROR" in ln]))
+    return tuple(out)
+
+
 @pytest.mark.parametrize("dest,value", [("targets", "targets.txt"),
                                         ("journal", "scan.jsonl"),
                                         ("resume", "j.jsonl")])
 def test_fleet_options_from_env_are_refused(seeded, tmp_path, capsys,
                                             monkeypatch, dest, value):
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
-    rc = main(["image", "--input", seeded["tar"], "--db-path",
-               seeded["fixture_db"], "--device", "cpu", "--cache-dir",
-               str(tmp_path / "c")])
-    assert rc == 1
-    captured = capsys.readouterr()
-    lines = captured.err.strip().splitlines()
-    assert captured.out == "" and len(lines) == 1
-    assert "not ported yet" in lines[0] and dest in lines[0]
+    want, got = fleet_option_parity(
+        ["image", "--input", seeded["tar"], "--db-path",
+         seeded["fixture_db"], "--format", "json"],
+        tmp_path, capsys)
+    assert got == want
+    if dest == "journal":
+        assert got[0] == 0 and json.loads(got[1])["Results"]
+    else:
+        assert got[0] == 1 and got[1] == "" and len(got[2]) == 1
+        assert value in got[2][0]
 
 
 @pytest.mark.parametrize("doc", ["targets: t.txt\n", "journal: j.jsonl\n",
                                  "scan:\n  journal: j.jsonl\n"])
 def test_fleet_options_from_config_are_refused(seeded, tmp_path, capsys,
-                                               doc):
+                                               monkeypatch, doc):
+    monkeypatch.chdir(tmp_path)
     cfg = tmp_path / "trivy-tpu.yaml"
     cfg.write_text(doc)
-    rc = main(["image", "--input", seeded["tar"], "--config", str(cfg),
-               "--db-path", seeded["fixture_db"], "--device", "cpu",
-               "--cache-dir", str(tmp_path / "c")])
-    assert rc == 1
-    captured = capsys.readouterr()
-    lines = captured.err.strip().splitlines()
-    assert captured.out == "" and len(lines) == 1
-    assert "not ported yet" in lines[0]
+    want, got = fleet_option_parity(
+        ["image", "--input", seeded["tar"], "--config", str(cfg),
+         "--db-path", seeded["fixture_db"], "--format", "json",
+         "--quiet"], tmp_path, capsys)
+    assert got == want
+    assert got[0] == (1 if doc.startswith("targets") else 0)
 
 
 @pytest.mark.parametrize("flag", [["--targets", "t.txt"],
                                   ["--journal", "j.jsonl"],
                                   ["--resume", "j.jsonl"],
                                   ["--fleet-parallel", "4"]])
-def test_fleet_flags_are_refused_on_argv(seeded, flag):
-    with pytest.raises(SystemExit) as exc, \
-            contextlib.redirect_stderr(io.StringIO()):
-        main(["image", "--input", seeded["tar"], "--device", "cpu", *flag])
-    assert exc.value.code == 2
+def test_fleet_flags_are_refused_on_argv(seeded, tmp_path, capsys,
+                                         monkeypatch, flag):
+    monkeypatch.chdir(tmp_path)
+    want, got = fleet_option_parity(
+        ["image", "--input", seeded["tar"], "--db-path",
+         seeded["fixture_db"], "--format", "json", "--quiet", *flag],
+        tmp_path, capsys)
+    assert got == want
+    assert got[0] == (1 if flag[0] in ("--targets", "--resume") else 0)
 
 
 def test_image_options_from_env_and_config_equal_reference(

@@ -1056,15 +1056,14 @@ def _emitted(pkg_dir: Path) -> tuple[set, set]:
     return names, prefixes
 
 
-# classified names whose emitter (the fleet scan mode, cli/fleet.py) is
-# not ported
+# classified names only the fleet scan mode (cli/fleet.py) emits
 FLEET_ONLY = {"fleet", "fleet.artifact"}
 
 
 def test_span_taxonomy_holds_over_the_port():
     """Every span name the port emits is classified by obs/attrib.py,
-    and every classified name is emitted by the port but the fleet scan
-    mode's; the taxonomy is the reference's byte for byte."""
+    and every classified name is emitted by the port, the fleet scan
+    mode's too; the taxonomy is the reference's byte for byte."""
     assert port_attrib.SPAN_LANES == jax_attrib.SPAN_LANES
     assert port_attrib.SPAN_STRUCTURAL == jax_attrib.SPAN_STRUCTURAL
     assert port_attrib.SPAN_PREFIX_LANES == jax_attrib.SPAN_PREFIX_LANES
@@ -1076,6 +1075,7 @@ def test_span_taxonomy_holds_over_the_port():
     assert [n for n in names if n not in declared
             and not n.startswith(known)] == []
     assert all(p.startswith(known) for p in prefixes), prefixes
-    assert declared - names == FLEET_ONLY
+    assert declared - names == set()
+    assert FLEET_ONLY <= names
     ref_names, _ = _emitted(ROOT / "trivy_tpu")
     assert FLEET_ONLY <= ref_names

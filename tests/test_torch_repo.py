@@ -353,7 +353,7 @@ def test_revision_flags_only_on_repository_parsers():
 @pytest.mark.parametrize("cmd", ["repository", "repo"])
 @pytest.mark.parametrize("dest,value", [("helm_set", "a=b"),
                                         ("license_full", "true"),
-                                        ("resume", "1")])
+                                        ("report", "all")])
 def test_unported_option_from_env_is_refused(seeded_repo, tmp_path, capsys,
                                              monkeypatch, cmd, dest, value):
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)

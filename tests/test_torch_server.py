@@ -1007,10 +1007,10 @@ def test_replica_set_url_is_refused(golden_dbs, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv", [
-    ["sbom", "bom.json", "--server", "http://h:1", "--resume", "j.jsonl"],
+    ["sbom", "bom.json", "--server", "http://h:1", "--license-full"],
     ["sbom", "bom.json", "--redis-tls"],
-    ["sbom", "bom.json", "--journal", "scan.jsonl"]],
-    ids=["resume", "redis-tls", "journal"])
+    ["sbom", "bom.json", "--module-dir", "modules"]],
+    ids=["license-full", "redis-tls", "module-dir"])
 def test_unported_flags_are_refused_on_argv(argv):
     with pytest.raises(SystemExit) as exc, \
             contextlib.redirect_stderr(io.StringIO()):
@@ -1041,16 +1041,19 @@ def test_cross_host_server_spec_without_workers_is_one_line(
     assert lines[0].endswith(message)
 
 
-@pytest.mark.parametrize("spec", ["fleet.scan:kill",
-                                  "db.save:torn-write",
-                                  "cache.write:kill",
-                                  "report.write:bitflip",
+@pytest.mark.parametrize("spec", ["fleet.scan:error",
+                                  "db.save:drop",
+                                  "cache.read:kill",
+                                  "report.write:delay",
                                   "sched.submit:kill",
                                   "rpc.wire:timeout"])
 def test_unported_fault_spec_is_refused(spec):
+    """A site no call site fires, or an action its call site does not
+    handle, is refused where the reference accepts it and then leaves
+    it to do nothing."""
     with pytest.raises(faults.FaultSpecError) as exc:
         faults.FaultPlan.from_spec(spec)
-    assert "not ported yet" in str(exc.value) or \
+    assert "fired nowhere" in str(exc.value) or \
         "not handled" in str(exc.value)
     # the reference accepts each of them
     jax_faults.FaultPlan.from_spec(spec)
@@ -1060,7 +1063,7 @@ def test_unported_fault_spec_is_refused(spec):
 def test_unported_fault_site_in_env_fails_the_command(golden_dbs, tmp_path,
                                                       monkeypatch, capsys,
                                                       command):
-    monkeypatch.setenv("TRIVY_TPU_FAULTS", "fleet.scan:kill@1")
+    monkeypatch.setenv("TRIVY_TPU_FAULTS", "fleet.scan:error@1")
     if command == "sbom":
         argv = ["sbom", golden_dbs["sbom"], "--db-path", golden_dbs["db"]]
     else:

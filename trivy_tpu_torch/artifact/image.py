@@ -6,8 +6,8 @@ docker -> podman -> remote registry): here the tar-archive path
 (docker save / OCI layout) is first-class; daemon/registry clients plug in
 behind the same interface when available.
 
-Copy of trivy_tpu/artifact/image.py without the fleet journal. Two
-changes: the image config's secret
+Copy of trivy_tpu/artifact/image.py, with the fleet journal hook of
+`fanal/pipeline.py`. Two changes: the image config's secret
 scan builds its scanner for the device the CLI resolved
 (`secret_analyzer.DEVICE`), and `stats` keeps the seconds of the last
 inspect, summed over the walk lanes under a lock: the layer split with
@@ -162,7 +162,7 @@ class ImageArtifact:
         self.username = username
         self.password = password
         # populated by the pipelined path: layers/analyzed/deduped/
-        # inflight_waits/workers/occupancy for this scan
+        # inflight_waits/journal_replayed/workers/occupancy for this scan
         self.last_analysis_stats: dict = {}
         self.stats: dict = {}
         self._stats_lock = threading.Lock()
@@ -296,8 +296,10 @@ class ImageArtifact:
         results are byte-identical to the serial path at any lane
         count. The process-wide singleflight registry still ensures a
         blob shared by concurrent scans is analyzed exactly once."""
+        hook = pipeline.journal_hook()
         stats = {"layers": len(blob_ids), "analyzed": 0, "deduped": 0,
-                 "inflight_waits": 0, "occupancy": 0.0}
+                 "inflight_waits": 0, "journal_replayed": 0,
+                 "occupancy": 0.0}
         # serial analyzes every occurrence of a duplicated diffID and
         # the LAST write wins (created_by = history[last index]); the
         # deduped path analyzes once, so it must use that same last
@@ -308,10 +310,12 @@ class ImageArtifact:
         seen: set[str] = set()
         for i, (diff_id, blob_id) in enumerate(zip(diff_ids, blob_ids)):
             if blob_id not in missing_set or blob_id in seen:
-                # cached at probe time (earlier scan) or a duplicate
-                # diffID inside this image: no analysis
+                # cached at probe time (earlier scan, resumed crawl) or
+                # a duplicate diffID inside this image: no analysis
                 stats["deduped"] += 1
                 obs_metrics.LAYER_DEDUPE_HITS.inc()
+                if hook is not None and blob_id in hook.precompleted:
+                    stats["journal_replayed"] += 1
                 continue
             seen.add(blob_id)
             todo.append((last_occurrence[blob_id], diff_id, blob_id))
@@ -343,6 +347,8 @@ class ImageArtifact:
             self._apply_blob(blob_id, doc)
             pipeline.SINGLEFLIGHT.finish(blob_id, slots[blob_id],
                                          doc=doc, ok=True)
+            if hook is not None:
+                hook.layer_done(blob_id)
             stats["analyzed"] += 1
 
         workers = pipeline.analysis_workers(self.parallel)
@@ -359,13 +365,14 @@ class ImageArtifact:
 
         for i, diff_id, blob_id, slot in waits:
             self._await_layer(img, group_for(diff_id), i, diff_id,
-                              blob_id, slot, stats)
+                              blob_id, slot, hook, stats)
         self.last_analysis_stats = stats
 
     def _lead_analyze(self, group, img, i: int, diff_id: str,
-                      blob_id: str, slot, stats, layer=None) -> None:
+                      blob_id: str, slot, hook, stats,
+                      layer=None) -> None:
         """The one leader sequence (pipeline path and follower-promoted
-        takeover alike): analyze, publish to waiters, count."""
+        takeover alike): analyze, publish to waiters, journal, count."""
         try:
             doc = self._inspect_layer(group, img, i, diff_id, blob_id,
                                       layer=layer)
@@ -373,10 +380,12 @@ class ImageArtifact:
             pipeline.SINGLEFLIGHT.finish(blob_id, slot, ok=False)
             raise
         pipeline.SINGLEFLIGHT.finish(blob_id, slot, doc=doc, ok=True)
+        if hook is not None:
+            hook.layer_done(blob_id)
         stats["analyzed"] += 1
 
     def _await_layer(self, img, group, i: int, diff_id: str, blob_id: str,
-                     slot, stats) -> None:
+                     slot, hook, stats) -> None:
         """Follower path: wait for the concurrent leader's BlobInfo; on
         leader failure, contend to become the new leader and analyze."""
         for _ in range(8):  # each round either resolves or re-claims
@@ -399,7 +408,7 @@ class ImageArtifact:
                 # same one-refetch-on-error fetch as the pipeline path
                 # (fault-matrix parity)
                 self._lead_analyze(
-                    group, img, i, diff_id, blob_id, slot, stats,
+                    group, img, i, diff_id, blob_id, slot, hook, stats,
                     layer=pipeline.fetch_with_retry(
                         lambda: self._layer_source(img, i)))
                 return

@@ -5,7 +5,7 @@ viper binding; here as argparse post-processing).
 Copy of trivy_tpu/cli/config.py without --generate-default-config. The
 environment layer reads the same TRIVY_TPU_* names as the reference's.
 An option that the reference's scan subcommands have and the port's
-lack (`UNPORTED`; the port's `server` and `watch` lack none), given a
+lack (`UNPORTED`; the port's `server`, `watch` and `chaos` lack none), given a
 value through the environment or the config file that the reference
 would act on, is refused with one error line: the port must not write
 a different report without a word.
@@ -32,16 +32,14 @@ ENV_PREFIX = "TRIVY_TPU_"
 UNPORTED = {
     "check_namespaces": ([],), "checks_bundle_repository": ("",),
     "compliance": (None, ""), "config_check": ([],), "config_data": ([],),
-    "fleet_parallel": (1,),
     "generate_default_config": (False,), "helm_set": ([],),
     "helm_values": ([],), "ignore_policy": (None, ""),
-    "include_deprecated_checks": (False,), "journal": (None, ""),
+    "include_deprecated_checks": (False,),
     "license_full": (False,),
     "module_dir": (None,),
     "redis_ca": ("",), "redis_cert": ("",), "redis_insecure": (False,),
     "redis_key": ("",), "redis_tls": (False,), "report": ("summary",),
-    "resume": (None, ""), "skip_check_update": (False,),
-    "targets": (None, ""),
+    "skip_check_update": (False,),
 }
 
 
@@ -118,10 +116,10 @@ def apply_layers(args, parser, argv: list[str]) -> None:
     uncoercible env/config values (caught by main's error rendering)."""
     cfg = _load_config_file(getattr(args, "config", None))
     command = getattr(args, "command", None)
-    # the port's `server` and `watch` parsers have every option of the
-    # reference's
+    # the port's `server`, `watch` and `chaos` parsers have every option
+    # of the reference's
     if command not in (None, "version", "db", "convert", "server",
-                       "watch"):
+                       "watch", "chaos"):
         _refuse_unported(cfg, UNPORTED)
     explicit = _explicit_dests(parser, argv)
     defaults = _all_defaults(parser)

@@ -1,6 +1,6 @@
 """trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
 `rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db`, `server`,
-`watch`, `fleet`, `profile`, `usage` and `version` subcommands of
+`watch`, `fleet`, `profile`, `usage`, `chaos` and `version` subcommands of
 trivy_tpu/cli/main.py, with the match kernel and the secret screens on
 a CUDA card.
 
@@ -23,6 +23,9 @@ a CUDA card.
     python -m trivy_tpu_torch sbom bom.json --server http://host:4954 --fallback
     python -m trivy_tpu_torch fleet status http://a:4954,http://b:4954
     python -m trivy_tpu_torch fleet rollout http://a:4954,http://b:4954 --db-path DB
+    python -m trivy_tpu_torch image --targets t.txt --journal j.jsonl -f json
+    python -m trivy_tpu_torch image --targets t.txt --resume j.jsonl -f json
+    python -m trivy_tpu_torch chaos run --seed 0 --json chaos.json
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -147,6 +150,22 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="number of parallel analysis workers (an "
                         "image's layer walk lanes; the directory walk "
                         "is serial in both packages)")
+    p.add_argument("--targets", default=None, metavar="FILE",
+                   help="fleet mode: file of extra targets (one per "
+                        "line, # comments) scanned alongside the "
+                        "positional target; emits one merged JSON "
+                        "report")
+    p.add_argument("--journal", default=None, metavar="PATH",
+                   help="fleet mode: write an append-only scan journal "
+                        "(fsynced per-artifact checkpoints) enabling "
+                        "--resume after a crash")
+    p.add_argument("--resume", default=None, metavar="JOURNAL",
+                   help="resume an interrupted fleet scan from its "
+                        "journal: completed artifacts are skipped, "
+                        "in-flight ones re-run; the merged report is "
+                        "byte-identical to an uninterrupted run")
+    p.add_argument("--fleet-parallel", type=int, default=1,
+                   help="fleet mode: artifacts scanned concurrently")
     p.add_argument("--server", default=None,
                    help="scan server URL (client mode): analysis runs "
                         "here, detection on the server; a comma-"
@@ -331,6 +350,54 @@ def _add_watch_parser(sub) -> None:
                    help="torch device of the match kernel (default "
                         "cuda:0; 'cpu' runs its plain version)")
     _add_mesh_flag(p)
+
+
+def _add_chaos_parser(sub) -> None:
+    """`chaos run|replay`: the reference's flags, and the port's
+    `--device` for the scenarios that take the device path."""
+    p = sub.add_parser(
+        "chaos", help="deterministic chaos campaigns over the fault "
+        "matrix", allow_abbrev=False)
+    _add_global_flags(p)
+    chsub = p.add_subparsers(dest="chaos_command")
+    pcr = chsub.add_parser(
+        "run", help="run a seeded multi-fault campaign with invariant "
+        "oracles and 100% (site, action) coverage", allow_abbrev=False)
+    _add_global_flags(pcr)
+    pcr.add_argument("--seed", type=int, default=None,
+                     help="campaign seed (default TRIVY_TPU_CHAOS_SEED)")
+    pcr.add_argument("--episodes", type=int, default=None,
+                     help="seeded episodes before the coverage sweep "
+                     "(default TRIVY_TPU_CHAOS_EPISODES)")
+    pcr.add_argument("--scenarios", default=None,
+                     help="comma-separated scenario names (default: all)")
+    pcr.add_argument("--budget", type=float, default=None,
+                     help="per-episode watchdog budget in seconds "
+                     "(default TRIVY_TPU_CHAOS_BUDGET_S)")
+    pcr.add_argument("--strict", action="store_true",
+                     help="degraded stamps do not excuse output "
+                     "divergence")
+    pcr.add_argument("--json", dest="report_json", default=None,
+                     metavar="PATH",
+                     help="write the campaign report as JSON")
+    pcp = chsub.add_parser(
+        "replay", help="replay one TRIVY_TPU_FAULTS spec (a shrunk "
+        "repro) against a scenario", allow_abbrev=False)
+    _add_global_flags(pcp)
+    pcp.add_argument("spec", help="TRIVY_TPU_FAULTS spec string")
+    pcp.add_argument("--scenario", required=True,
+                     help="scenario name (chaos.SCENARIOS)")
+    pcp.add_argument("--budget", type=float, default=None,
+                     help="watchdog budget in seconds")
+    pcp.add_argument("--strict", action="store_true",
+                     help="degraded stamps do not excuse output "
+                     "divergence")
+    for q in (pcr, pcp):
+        q.add_argument("--device", default=None,
+                       help="torch device of the scenarios' match "
+                            "engines and secret scanner (default "
+                            "cuda:0; 'cpu' runs the kernels' plain "
+                            "versions)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -571,6 +638,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render the last durable snapshot from a usage "
                         "journal (TRIVY_TPU_USAGE_JOURNAL) instead of "
                         "querying a live server")
+    _add_chaos_parser(sub)
     sub.add_parser("version", help="print version", allow_abbrev=False)
     return parser
 
@@ -616,6 +684,8 @@ def main(argv: list[str] | None = None) -> int:
             return run.run_usage(args)
         if args.command == "fleet":
             return run.run_fleet_admin(args)
+        if args.command == "chaos":
+            return run.run_chaos(args)
         return run.run_scan(args)
     except run.FatalError as e:
         log.logger().error(str(e))

@@ -6,10 +6,12 @@ Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
 (each with `--monitor-index`), their client mode (`--server`: analysis
 here, detection on a scan server or a comma-separated replica set;
 `--fallback` degrades to a local scan on this process's device), and
-the `convert`, `db`, `server`, `watch`, `fleet`, `profile` and `usage`
-subcommands: no fleet scan mode (`--targets`, `--journal`), compliance,
-modules or ignore policies yet. `--trace` / `--trace-export` collect
-the run's spans under one `scan` root and render or export them;
+the fleet scan mode (`--targets`, `--journal`, `--resume`,
+`--fleet-parallel`: `cli/fleet.py`), and the `convert`, `db`, `server`,
+`watch`, `fleet`, `profile`, `usage` and `chaos` subcommands: no
+compliance, modules or ignore policies yet. `--trace` /
+`--trace-export` collect the run's spans under one `scan` root and
+render or export them;
 `profile` and `usage` federate a comma-separated replica set. The match
 engine and the secret analyzer's screen run on the device `--device`
 names (``cuda:0`` by default), the engine's main tier on the serving
@@ -442,6 +444,12 @@ def _scan_target(args, cache):
 
 def _run_scan_core(args) -> int:
     from trivy_tpu_torch.report.writer import write_report
+
+    if getattr(args, "resume", None) or getattr(args, "targets", None):
+        # fleet mode: many artifacts, one journal, one merged report
+        from trivy_tpu_torch.cli.fleet import run_fleet
+
+        return run_fleet(args)
 
     cache = _build_cache(args)
     mon_index = open_monitor_index(args)
@@ -1408,3 +1416,84 @@ def _import_json(path: str):
     for vid, m in blob.get("vulnerability", {}).items():
         db.put_meta(VulnerabilityMeta.from_json(vid, m))
     return db
+
+
+def run_chaos(args) -> int:
+    """`chaos run|replay`: seeded multi-fault schedules against live
+    mini-system scenarios, five invariant oracles per episode,
+    machine-checked (site, action) coverage, auto-shrinking repros. The
+    scenarios' device paths run on `--device` (``cuda:0`` by default;
+    without a card and without `--device cpu` the command fails here)."""
+    import json as _json
+
+    from trivy_tpu_torch.chaos import campaign
+    from trivy_tpu_torch.device import resolve_device
+
+    try:
+        device = resolve_device(getattr(args, "device", None))
+    except (RuntimeError, ValueError) as exc:
+        raise FatalError(f"--device: {exc}")
+
+    cmd = getattr(args, "chaos_command", None)
+    budget = getattr(args, "budget", None)
+    budget_s = budget if budget is not None else \
+        campaign.default_budget_s()
+    strict = bool(getattr(args, "strict", False))
+
+    if cmd == "replay":
+        try:
+            res = campaign.replay(args.spec, args.scenario,
+                                  budget_s=budget_s, strict=strict,
+                                  device=device)
+        except campaign.ChaosError as e:
+            raise FatalError(f"chaos replay: {e}")
+        print(_json.dumps(res.to_dict(), indent=2, sort_keys=True))
+        if res.ok:
+            _log.info("replay held all invariants", spec=args.spec,
+                      scenario=args.scenario)
+            return 0
+        _log.error("replay reproduced the failure", spec=args.spec,
+                   failures=res.failures)
+        return 1
+
+    if cmd == "run":
+        seed = getattr(args, "seed", None)
+        seed = seed if seed is not None else campaign.default_seed()
+        episodes = getattr(args, "episodes", None)
+        episodes = episodes if episodes is not None else \
+            campaign.default_episodes()
+        names = None
+        if getattr(args, "scenarios", None):
+            names = [s.strip() for s in args.scenarios.split(",")
+                     if s.strip()]
+            unknown = [n for n in names
+                       if n not in campaign.SCENARIOS]
+            if unknown:
+                raise FatalError(
+                    f"chaos: unknown scenario(s) {unknown!r}; "
+                    f"known: {sorted(campaign.SCENARIOS)}")
+        try:
+            rep = campaign.run_campaign(
+                seed=seed, n_episodes=episodes, scenario_names=names,
+                budget_s=budget_s, strict=strict,
+                log=lambda m: _log.info(m), device=device)
+        except campaign.ChaosError as e:
+            raise FatalError(f"chaos run: {e}")
+        out = getattr(args, "report_json", None)
+        if out:
+            from trivy_tpu_torch.durability.atomic import atomic_write
+
+            body = _json.dumps(rep.to_dict(), indent=2,
+                               sort_keys=True).encode()
+            atomic_write(out, body, fault_site="report.write")
+        for repro in rep.repros:
+            print(f"repro [{repro.scenario}] {repro.env_line()}",
+                  file=sys.stderr)
+        print(f"chaos: {len(rep.results)} episodes, "
+              f"{len(rep.failures)} failing, "
+              f"coverage {rep.coverage:.3f}"
+              + (f", excluded {sorted(rep.excluded)}"
+                 if rep.excluded else ""))
+        return 0 if rep.ok else 1
+
+    raise FatalError("usage: chaos {run|replay}")

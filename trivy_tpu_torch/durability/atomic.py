@@ -9,10 +9,7 @@ durability contract lives in one place:
 - crash points are deterministically testable (resilience.faults
   ``kill`` / ``torn-write`` / ``bitflip`` rules keyed by write site).
 
-Copy of trivy_tpu/durability/atomic.py. The fault injector fires only
-at the write sites the port's fault grammar names (`faults.SITES`:
-the monitor index's `monitor.index`); every other site only names the
-write.
+Copy of trivy_tpu/durability/atomic.py.
 """
 
 from __future__ import annotations
@@ -55,10 +52,7 @@ def atomic_write(path: str, data: bytes, fault_site: str = "") -> None:
     bitflip rules mangle the payload (simulating rot the reader must
     catch), and a ``kill`` rule at ``<site>.commit`` dies after the tmp
     file is durable but before the rename, proving a crash there leaves
-    the previous version intact and only a stale tmp behind. A site the
-    port's grammar does not name fires nothing."""
-    if fault_site and faults.site_actions(fault_site) is None:
-        fault_site = ""
+    the previous version intact and only a stale tmp behind."""
     if fault_site:
         data = faults.mangle_write(fault_site, data)
     d = os.path.dirname(path) or "."

@@ -35,13 +35,17 @@ verbatim behind the switch).
    lanes split+analyze distinct layers concurrently — mostly inside
    GIL-dropping native/numpy code (ops/splitter.py, the vectorized
    analyzers) — while the coordinator applies every BlobInfo document
-   strictly in layer order: cache writes and singleflight publishes
-   happen exactly as the serial path would emit them, so the output is
-   byte-identical by construction at any lane count. ``workers<=1`` IS
-   the two-stage pipeline, code path and all.
+   strictly in layer order: cache writes, singleflight publishes and
+   journal records happen exactly as the serial path would emit them,
+   so the output is byte-identical by construction at any lane count.
+   ``workers<=1`` IS the two-stage pipeline, code path and all.
 
-Copy of trivy_tpu/fanal/pipeline.py without the fleet journal hook
-(``JournalHook``, ``journal_scope``: the fleet mode is not ported).
+4. **Fleet journal hook** — ``journal_scope`` installs one
+   ``JournalHook`` for a fleet scan (cli/fleet.py): every analyzed layer
+   is recorded in the fleet journal, and a resumed fleet's journaled
+   layers are counted as replayed instead of re-analyzed.
+
+Copy of trivy_tpu/fanal/pipeline.py.
 
 Fault site ``analysis.fetch`` (resilience/faults.py grammar): ``delay``
 sleeps in the fetch lane, ``drop`` discards the fetched stream and
@@ -259,6 +263,48 @@ class LayerSingleflight:
 #: library/server-embedded scans) — content-addressed blob_ids make
 #: cross-scan sharing safe by construction
 SINGLEFLIGHT = LayerSingleflight()
+
+
+# ------------------------------------------------------- journal hook
+
+
+class JournalHook:
+    """Per-layer journal wiring a fleet lane installs around its scan:
+    ``on_layer(blob_id)`` records a completed layer analysis in the
+    fleet journal; ``precompleted`` is the blob_id set replayed from a
+    resumed journal (those layers sit in the cache already and are
+    skipped — and counted — instead of re-analyzed)."""
+
+    def __init__(self, on_layer=None, precompleted: set[str] | None = None):
+        self.on_layer = on_layer
+        self.precompleted = precompleted or set()
+
+    def layer_done(self, blob_id: str) -> None:
+        if self.on_layer is not None:
+            self.on_layer(blob_id)
+
+
+# module-global, not a contextvar: the hook must reach the scan worker
+# threads _scan_with_timeout spawns (fresh contexts), and a fleet has
+# exactly one journal shared by every lane anyway
+_JOURNAL_HOOK: JournalHook | None = None
+
+
+@contextlib.contextmanager
+def journal_scope(on_layer=None, precompleted: set[str] | None = None):
+    """Install the fleet-wide layer journal for the duration of a fleet
+    run (cli/fleet.py wraps run_pipeline in this)."""
+    global _JOURNAL_HOOK
+    prev = _JOURNAL_HOOK
+    _JOURNAL_HOOK = JournalHook(on_layer, precompleted)
+    try:
+        yield
+    finally:
+        _JOURNAL_HOOK = prev
+
+
+def journal_hook() -> JournalHook | None:
+    return _JOURNAL_HOOK
 
 
 # --------------------------------------------------------- fetch stage

@@ -13,7 +13,8 @@ Spec grammar (rules joined by ";" or ","):
     site     := "rpc" | "rpc.scan" | "rpc.cache" | "rpc.cache.PutBlob"
                 | "rpc.wire" | "sched.submit" | "engine" | "engine.device"
                 | "engine.shard" | "engine.host" | "secret.device"
-                | "journal.append"
+                | "journal.append" | "cache.write" | "db.save"
+                | "compile_cache.save" | "report.write" | "fleet.scan"
                 | "monitor.index" | "monitor.rematch"
                 | "fleet.endpoint.N" | "fleet.rollout" | "fleet.controller"
                 | ...  (dotted, prefix-matched)
@@ -37,6 +38,8 @@ Examples:
     TRIVY_TPU_FAULTS="engine:device-lost@1"      # the card dies on batch 1
     TRIVY_TPU_FAULTS="monitor.index:kill@5"      # SIGKILL on the 5th append
     TRIVY_TPU_FAULTS="fleet.endpoint.0:drop"     # replica 0 never answers
+    TRIVY_TPU_FAULTS="fleet.scan:kill@2"         # SIGKILL on 2nd artifact
+    TRIVY_TPU_FAULTS="cache.write:bitflip"       # every cache entry rots
 
 Each rule keeps its own call counter, so selectors are deterministic per
 rule regardless of how many rules share a site.
@@ -55,24 +58,27 @@ Durability fault kinds:
                  default middle): silent corruption a checksum must
                  catch.
 
-Copy of trivy_tpu/resilience/faults.py trimmed to the sites the port
-fires: the RPC client's (`rpc`, `rpc.scan`, `rpc.cache.*`, `rpc.wire`),
+Copy of trivy_tpu/resilience/faults.py with the reference's every
+site: the RPC client's (`rpc`, `rpc.scan`, `rpc.cache.*`, `rpc.wire`),
 the match scheduler's (`sched.submit`), the match engine's device-loss
 ladders (`engine`, `engine.device`, `engine.shard`, and the distributed
 MeshDB's per-host `engine.host`), the secret scanner's
 (`secret.device`), the layer pipeline's (`analysis.fetch`,
-`analysis.lane`), `db download`'s (`db.download`, `db.install.extract`,
-`db.install.promote`), and the monitor's durable paths
-(`journal.append`, `monitor.index`, `monitor.rematch`; an atomic
-rewrite of the index also probes `monitor.index.commit` for a kill),
-and the fleet control plane's (`fleet.endpoint.<index>` for each
-replica of an endpoint set, `fleet.rollout`, `fleet.controller`). A
-rule naming any other site of the reference (`db.save`, `cache.write`,
-`fleet.scan`, ...), or an action its site does not handle, is refused
-with a FaultSpecError when the plan compiles: a rule is never accepted
-and then left to do nothing. Every firing counts in
-`trivy_tpu_fault_injections_total`. No round trip of a plan back to a
-spec (the chaos campaign's shrinker is not ported).
+`analysis.lane`), the fleet scan's (`fleet.scan`, between artifacts),
+`db download`'s (`db.download`, `db.install.extract`,
+`db.install.promote`), the durable writes (`journal.append`,
+`monitor.index`, `monitor.rematch`, `db.save`, `db.save.metadata`,
+`cache.write`, `compile_cache.save`, `report.write`; an atomic write
+also probes `<site>.commit` for a kill between the tmp write and the
+rename), and the fleet control plane's (`fleet.endpoint.<index>` for
+each replica of an endpoint set, `fleet.rollout`, `fleet.controller`).
+One departure: a rule naming a site the reference does not fire, or an
+action its site does not handle (`db.save:drop`, `fleet.scan:error`),
+is refused with a FaultSpecError when the plan compiles, where the
+reference accepts it and then leaves it to do nothing. Every firing
+counts in `trivy_tpu_fault_injections_total`. `Rule.token` and
+`FaultPlan.to_spec` turn a compiled plan back into its spec, which the
+chaos campaign's shrinker (`chaos/schedule.py`) relies on.
 """
 
 from __future__ import annotations
@@ -89,7 +95,9 @@ SEED_ENV_VAR = "TRIVY_TPU_FAULT_SEED"
 
 # the site grammar as structured data: each entry is (site, the actions
 # its call site handles). Sites are prefix-matched at fire() time, so
-# "rpc" covers every rpc.* child.
+# "rpc" covers every rpc.* child; the atomic-write sites (cache.write,
+# db.save, ...) also fire a ``kill`` probe at "<site>.commit" between
+# the tmp write and the rename.
 SITES: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("rpc", ("drop", "timeout", "delay", "error", "corrupt")),
     ("rpc.scan", ("drop", "timeout", "delay", "error", "corrupt")),
@@ -112,6 +120,12 @@ SITES: tuple[tuple[str, tuple[str, ...]], ...] = (
     ("fleet.endpoint", ("drop", "timeout", "delay", "error")),
     ("fleet.rollout", ("delay", "error", "kill")),
     ("fleet.controller", ("drop", "delay", "error", "kill")),
+    ("fleet.scan", ("kill",)),
+    ("db.save", ("kill", "torn-write", "bitflip")),
+    ("db.save.metadata", ("kill", "torn-write", "bitflip")),
+    ("cache.write", ("kill", "torn-write", "bitflip")),
+    ("compile_cache.save", ("kill", "torn-write", "bitflip")),
+    ("report.write", ("kill", "torn-write", "bitflip")),
 )
 
 ACTIONS = {a for _site, acts in SITES for a in acts}
@@ -123,18 +137,22 @@ OPEN_SITES = ("rpc", "fleet.endpoint")
 
 
 def site_actions(site: str) -> set[str] | None:
-    """The actions a rule naming `site` may use: those of the ported
-    site it names, or of the most specific ported RPC site it extends
-    (``rpc.cache.PutBlob`` extends ``rpc.cache``), or of every ported
-    site it prefixes (``sched`` prefixes ``sched.submit``, ``engine``
-    also ``engine.device``, ``engine.shard`` and ``engine.host``). None
-    when it reaches no site the port fires (``cache.write``)."""
+    """The actions a rule naming `site` may use: those of the site it
+    names, or of the most specific RPC site it extends
+    (``rpc.cache.PutBlob`` extends ``rpc.cache``), or of every site it
+    prefixes (``sched`` prefixes ``sched.submit``, ``engine`` also
+    ``engine.device``, ``engine.shard`` and ``engine.host``); ``kill``
+    alone at an atomic write's ``<site>.commit`` probe. None when it
+    reaches no site the package fires (``cache.read``)."""
     acts = dict(SITES)
     under = [name for name in acts
              if site == name or (site.startswith(name + ".")
                                  and name.startswith(OPEN_SITES))]
     if under:
         return set(acts[max(under, key=len)])
+    parent, _, leaf = site.rpartition(".")
+    if leaf == "commit" and "torn-write" in acts.get(parent, ()):
+        return {"kill"}
     above = [a for name, a in SITES if name.startswith(site + ".")]
     if above:
         return set().union(*above)
@@ -196,6 +214,24 @@ class Rule:
 
     def matches(self, site: str) -> bool:
         return site == self.site or site.startswith(self.site + ".")
+
+    def token(self) -> str:
+        """The rule back as a spec token: `from_spec(token())` rebuilds
+        an equal rule, so shrunk schedules paste straight into
+        TRIVY_TPU_FAULTS."""
+        out = f"{self.site}:{self.action}"
+        if self.param is not None:
+            p = self.param
+            out += f"={int(p)}" if p == int(p) else f"={p}"
+        if self.prob is not None:
+            out += f"@p{self.prob}"
+        elif self.start == self.stop:
+            out += f"@{self.start}"
+        elif self.stop is not None:
+            out += f"@{self.start}-{self.stop}"
+        elif self.start != 1:
+            out += f"@{self.start}+"
+        return out
 
 
 def _parse_selector(sel: str | None) -> tuple[int, int | None, float | None]:
@@ -262,8 +298,8 @@ class FaultPlan:
             acts = site_actions(site)
             if acts is None:
                 raise FaultSpecError(
-                    f"fault site {site!r} in {tok!r} is not ported yet "
-                    f"(ported: {', '.join(n for n, _a in SITES)})")
+                    f"fault site {site!r} in {tok!r} is fired nowhere "
+                    f"(sites: {', '.join(n for n, _a in SITES)})")
             if action not in acts:
                 raise FaultSpecError(
                     f"fault action {action!r} is not handled at site "
@@ -279,6 +315,13 @@ class FaultPlan:
                 start=start, stop=stop, prob=prob,
             ))
         return cls(rules, seed=seed)
+
+    def to_spec(self) -> str:
+        """Round-trip back to a TRIVY_TPU_FAULTS string (seed token first
+        so a pasted repro replays the same `@pF` draws)."""
+        toks = [f"seed={self.seed}"] if self.seed else []
+        toks += [r.token() for r in self.rules]
+        return ";".join(toks)
 
     def fire(self, site: str) -> list[Rule]:
         """Which rules apply to this call at `site`? Increments the call

@@ -1,9 +1,9 @@
 """UUID source, switchable to deterministic for tests
 (reference pkg/uuid).
 
-Copy of trivy_tpu/utils/uuid.py without the fleet scan's `set_lane`.
-The counter is the port's own: tests that compare reports with the
-reference's under TRIVY_TPU_DETERMINISTIC_UUID=1 reset both.
+Copy of trivy_tpu/utils/uuid.py. The counter is the port's own: tests
+that compare reports with the reference's under
+TRIVY_TPU_DETERMINISTIC_UUID=1 reset both.
 """
 
 from __future__ import annotations
@@ -25,3 +25,14 @@ def new() -> str:
 def reset() -> None:
     global _counter
     _counter = 0
+
+
+def set_lane(lane: int) -> None:
+    """Jump the deterministic counter to a per-slot lane (no-op effect
+    outside TRIVY_TPU_DETERMINISTIC_UUID=1, where uuids are random
+    anyway). Fleet scans pin each artifact to lane = its fleet index,
+    so a resumed run hands every artifact the same uuid stream as an
+    uninterrupted one — a prerequisite for byte-identical reports when
+    blob ids are uuid-keyed (fs artifacts)."""
+    global _counter
+    _counter = lane * 1_000_000
