@@ -295,12 +295,36 @@ kernel's time before its latest redesign; then
      of one frozen repro of tests/golden/chaos_repros.json for each
      scenario with a non-slow entry, each holding its invariants with
      its rules fired.
+ 19. drive the `kubernetes` command on the card, in a process of its
+     own beside phases 10-16 (`k8s_start`, `k8s_runner`, `k8s_finish`),
+     on phase 7's saved DB (its compiled entry a hit), under
+     TRIVY_TPU_FAKE_TIME with the secret screen on the card: a seeded
+     cluster (seed 20261022) of 50 namespaces, each with 20
+     Deployments (some privileged, some without limits), 20 Services,
+     a Role and a RoleBinding, cluster-wide ClusterRoles and bindings
+     (a wildcard role, cluster-admin bound to system:authenticated),
+     three control-plane static Pods with insecure flags and three
+     NodeInfo documents, 2,112 resources; 8 workload images resolve
+     through --image-tar-dir to phase 17's 8 archives, 3 to no tar.
+     (a) `kubernetes DIR --scanners vuln,misconfig,rbac,infra
+     --format json --parallel 2` on the card: its JSON report equal to
+     the same scan's with --no-tpu byte for byte, and the `summary` and
+     `all` tables of both runs equal, the 8 images scanned, the match
+     kernel launched on every tier and the anchor kernel, the wall
+     split (parse, misconfig, RBAC/infra, image scans, render); (b)
+     `kubernetes cluster --scanners misconfig,rbac,infra` against a
+     stdlib fake API server (`KubeAPIFake`, KUBECONFIG pointing at it,
+     a bearer token) serving (a)'s resources and three Nodes and
+     answering the node-collector Jobs with (a)'s NodeInfo documents:
+     its resources, RBAC and infra findings equal to (a)'s but the
+     cluster name, the node findings present, every Job deleted; with
+     --disable-node-collector the node findings dropped.
 The phases run in the order 1, 2, 4, 5, 6 (phase 7 (a)'s two CLI
 processes and (b)'s cold run beside them), 7, 3, the kernel timings,
-14's set-up, 8-11 (18's campaign beside 8-10, 17's runner from 10 on;
-12's server and 16's replicas start before 11), 12, 16 (a)-(c), 13,
-15, 14 (16 (d)'s rollout beside them), 16's checks and (e), 17's
-checks. Phase 3 runs with the native collector
+14's set-up, 8-11 (18's campaign beside 8-10, 17's and 19's runners
+from 10 on; 12's server and 16's replicas start before 11), 12,
+16 (a)-(c), 13, 15, 14 (16 (d)'s rollout beside them), 16's checks and
+(e), 17's checks, 19's checks. Phase 3 runs with the native collector
 (native/collect.cpp) too.
 Phase 9 runs the hybrid probe alone twice, dispatched directly and
 through the secret lane (as it ran before it bypassed the lane), and
@@ -316,8 +340,10 @@ coordinator's cells and each worker's (`launches_dcn`), and the fleet's
 per replica-set step and replica, in the fallback's CLI process, in the
 rollout and after the re-resolve (`launches_fleet`), the fleet scan's
 per run and per artifact of the resume, for the match kernel per tier
-and for the anchor kernel (`launches_fleetscan`), and the chaos
-campaign's per scenario (`launches_chaos`). Prints a `kernels`
+and for the anchor kernel (`launches_fleetscan`), the chaos
+campaign's per scenario (`launches_chaos`), and the kubernetes scan's
+per run (`launches_k8s`: the match kernel per tier and the anchor
+kernel, on the card and with --no-tpu). Prints a `kernels`
 JSON line, the card line, and
 last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
@@ -3251,6 +3277,15 @@ VMDK_GTES = 512  # grain-table entries: one table maps 2 MiB
 SMALL_REPO_FILES = 24
 
 
+# phase 11 (a)'s repository: the tree committed as it stands, with loose
+# objects without zlib (the object ids, and so the checks, are the same;
+# it halves the add of 294 MB)
+GIT_SETUP = ("set -e; git init -q -b main \"$1\"; cd \"$1\"; "
+             "git -c core.compression=0 -c core.looseCompression=0 add -A; "
+             "git -c core.compression=0 -c core.looseCompression=0 "
+             "commit -q -m svc")
+
+
 def git(repo: str, *args: str) -> str:
     """git in `repo` with a pinned identity and dates and no system or
     global configuration -> its standard output."""
@@ -3488,8 +3523,9 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
     (b) a small repository at a tag, a commit and a branch through a
     file:// URL, each on the card and with --no-tpu: equal bytes, the
     tag's and the commit's results equal, the user's HEAD and working
-    tree unchanged, no temp clone left. (c) and (d) run first: the
-    images hold the tree without its .git."""
+    tree unchanged, no temp clone left. (c)'s image is made first: it
+    holds the tree without its .git; (a)'s repository is made beside
+    (c)'s scan and (d), in a process of its own."""
     corpus, kinds = p5["corpus"], p5["planted_per_file"]
     _os_files, lockfiles, _n = image_root_files(p7["sbom"])
     trees = p8["trees"]
@@ -3524,6 +3560,7 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
                       TRIVY_TPU_DETERMINISTIC_UUID="1",
                       TRIVY_TPU_SECRET_PROBE="0")
     clones = repo_clones()
+    git_proc = None
     try:
         # (c) the full tree as a raw ext4 image
         n_files, n_bytes = tree_stats(trees["fs"])
@@ -3533,6 +3570,11 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
               f"{n_bytes} image_bytes={img['bytes']} "
               f"mkfs_s={img['mkfs_s']:.3f} "
               f"features={','.join(img['features'])}")
+        t_git = time.perf_counter()
+        git_proc = subprocess.Popen(
+            ["sh", "-c", GIT_SETUP, "git-setup", trees["fs"]],
+            env={**os.environ, **GIT_ENV}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
         # no --no-tpu twin of the full tree: phase 8 holds its `fs` scan
         # on the card to `fs --no-tpu`, and (d) holds the vm path's to
         # --no-tpu on the rootfs disk (the twin cost 28 s of phase 11 on
@@ -3561,15 +3603,12 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
 
         # (a) the full tree as a git repository
         t0 = time.perf_counter()
-        subprocess.run(["git", "init", "-q", "-b", "main", trees["fs"]],
-                       check=True, capture_output=True,
-                       env={**os.environ, **GIT_ENV})
-        # set-up only: loose objects without zlib (the object ids, and
-        # so the checks, are the same) halve the add of 294 MB
-        nozip = ("-c", "core.compression=0", "-c", "core.looseCompression=0")
-        git(trees["fs"], *nozip, "add", "-A")
-        git(trees["fs"], *nozip, "commit", "-q", "-m", "svc")
-        print(f"phase11 (a) git init_add_commit_s="
+        out, _ = git_proc.communicate(timeout=600)
+        if git_proc.returncode:
+            raise AssertionError(f"phase 11 (a)'s git set-up failed: "
+                                 f"{out.decode(errors='replace')[-2000:]}")
+        print(f"phase11 (a) git init_add_commit_s<="
+              f"{time.perf_counter() - t_git:.3f} waited_s="
               f"{time.perf_counter() - t0:.3f} files={n_files} "
               f"head={git(trees['fs'], 'rev-parse', 'HEAD')}")
         go("a_repo", ["repo", trees["fs"]])
@@ -3586,6 +3625,9 @@ def repo_vm_cli_path(p5: dict, p7: dict, p8: dict, tmp: str) -> dict:
             go(f"b_{name}_no_tpu", ["repo", url, *flag, "--no-tpu"])
         after = worktree_state(small)
     finally:
+        if git_proc is not None and git_proc.poll() is None:
+            git_proc.kill()
+            git_proc.wait(timeout=30)
         for knob in ("TRIVY_TPU_SECRET_PROBE", "TRIVY_TPU_FAKE_TIME",
                      "TRIVY_TPU_DETERMINISTIC_UUID"):
             os.environ.pop(knob, None)
@@ -6557,7 +6599,8 @@ def fleetscan_start(p7: dict, p9: dict, dev, tmp: str) -> dict:
     print(f"phase17 setup built_s={built_s:.3f} artifacts="
           f"{len(spec['tars'])} variants_mb="
           f"{[round(os.path.getsize(v) / 1e6, 3) for v in variants]}")
-    return {"proc": proc, "out": out, "t0": time.perf_counter()}
+    return {"proc": proc, "out": out, "t0": time.perf_counter(),
+            "tars": spec["tars"]}
 
 
 def fleet_reports(path: str) -> list[dict]:
@@ -7006,6 +7049,712 @@ def chaos_finish(ch: dict) -> dict:
                         for x in r["replays"]}}
 
 
+# -------------------------------------------------------------- phase 19
+
+K8S_SEED = 20261022
+K8S_NAMESPACES = 50
+K8S_WORKLOADS = 20  # Deployments per namespace, and as many Services
+K8S_NODES = 3
+K8S_TOKEN = "phase19-bearer-token"
+K8S_TIMEOUT_S = 900.0  # the runner, bounded
+# --parallel of the runner's scans: 2 images at once on 2 layer lanes each
+# (the default 5 x 5 took the host's cores from phases 10-12 beside it)
+K8S_PARALLEL = 2
+# workload images of the seeded cluster that name no tar (`_find_tar`'s
+# exact and tag-less lookups both miss), and the generic ones the other
+# workloads name, none of them a tar either
+K8S_UNRESOLVED = ("registry.example.com/payments/ledger:4.1",
+                  "registry.example.com/search/indexer",
+                  "ghcr.io/acme/worker:latest")
+K8S_GENERIC = ("nginx:1.25", "redis:7.2", "postgres:16.1",
+               "registry.example.com/web/frontend:2.3",
+               "registry.example.com/web/api:latest", "busybox")
+
+# the runner: a subprocess started right after phase 17's, whose work
+# overlaps phases 10-16 (`k8s_runner`)
+K8S_CODE = """
+import sys
+import chip_smoke
+chip_smoke.k8s_runner(*sys.argv[1:])
+"""
+
+
+def k8s_image_refs(tars: list[str]) -> dict[str, str]:
+    """Workload image reference -> the tar name `_find_tar` resolves it
+    to, one for each of phase 17's archives: pinned tags (exact
+    `<name>_<tag>.tar`), one `:latest` and one without a tag (the
+    tag-less `<name>.tar` lookup)."""
+    out = {}
+    for k, _tar in enumerate(tars):
+        if k == 1:
+            ref, name = "registry.example.com/fleet/app1:latest", \
+                "app1_latest.tar"
+        elif k == 2:
+            ref, name = "registry.example.com/fleet/app2", "app2.tar"
+        else:
+            ref, name = f"registry.example.com/fleet/app{k}:1.{k}", \
+                f"app{k}_1.{k}.tar"
+        out[ref] = name
+    return out
+
+
+def k8s_workload(rng, ns: str, k: int, image: str) -> dict:
+    """One seeded Deployment: some privileged, some without limits or
+    requests, some on the host network or a hostPath, hardened or not."""
+    sc: dict = {}
+    if rng.random() < 0.1:
+        sc["privileged"] = True
+    if rng.random() < 0.5:
+        sc["allowPrivilegeEscalation"] = False
+    if rng.random() < 0.4:
+        sc["readOnlyRootFilesystem"] = True
+    if rng.random() < 0.3:
+        sc["capabilities"] = {"drop": ["ALL"]}
+    elif rng.random() < 0.2:
+        sc["capabilities"] = {"add": ["NET_ADMIN"]}
+    if rng.random() < 0.2:
+        sc["runAsUser"] = int(rng.choice([0, 1000, 20000]))
+    container: dict = {"name": "app", "image": image,
+                       "ports": [{"containerPort": int(rng.choice(
+                           [80, 8080, 8443]))}]}
+    if rng.random() >= 0.3:
+        container["resources"] = {
+            "limits": {"cpu": "500m", "memory": "256Mi"},
+            "requests": {"cpu": "100m", "memory": "128Mi"}}
+    elif rng.random() < 0.5:
+        container["resources"] = {"requests": {"cpu": "100m"}}
+    if sc:
+        container["securityContext"] = sc
+    pod: dict = {"containers": [container]}
+    if rng.random() < 0.4:
+        pod["securityContext"] = {
+            "runAsNonRoot": True, "runAsUser": 20000, "runAsGroup": 20000,
+            "seccompProfile": {"type": "RuntimeDefault"}}
+    if rng.random() < 0.05:
+        pod["hostNetwork"] = True
+    if rng.random() < 0.05:
+        pod["volumes"] = [{"name": "host", "hostPath": {"path": "/var/log"}}]
+        container["volumeMounts"] = [{"name": "host",
+                                      "mountPath": "/host"}]
+    if rng.random() < 0.3:
+        pod["automountServiceAccountToken"] = False
+    name = f"svc-{k:02d}"
+    return {"apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": name, "namespace": ns,
+                         "labels": {"app": name}},
+            "spec": {"replicas": int(rng.integers(1, 4)),
+                     "selector": {"matchLabels": {"app": name}},
+                     "template": {"metadata": {"labels": {"app": name}},
+                                  "spec": pod}}}
+
+
+def k8s_node_info(rng, node: str) -> dict:
+    """A node collector's NodeInfo document with seeded settings, some
+    failing the KCV node checks."""
+    def pick(*values):
+        return {"values": [values[int(rng.integers(len(values)))]]}
+
+    return {"apiVersion": "v1", "kind": "NodeInfo", "nodeName": node,
+            "type": "worker", "info": {
+                "kubeletConfFilePermissions": pick("600", "644", "666"),
+                "kubeletConfFileOwnership": pick("root:root", "kube:kube"),
+                "kubeletConfigYamlConfigurationFilePermission":
+                    pick("644", "777"),
+                "kubeletServiceFilePermissions": pick("644", "755"),
+                "certificateAuthoritiesFilePermissions": pick("600", "664"),
+                "kubeletAnonymousAuthArgumentSet": pick("false", "true"),
+                "kubeletAuthorizationModeArgumentSet":
+                    pick("Webhook", "AlwaysAllow"),
+                "kubeletClientCaFileArgumentSet":
+                    pick("/etc/kubernetes/pki/ca.crt", ""),
+                "kubeletReadOnlyPortArgumentSet": pick("0", "10255"),
+                "kubeletStreamingConnectionIdleTimeoutArgumentSet":
+                    pick("4h0m0s", "0"),
+                "kubeletProtectKernelDefaultsArgumentSet":
+                    pick("true", "false"),
+                "kubeletRotateCertificatesArgumentSet":
+                    pick("true", "false")}}
+
+
+def k8s_cluster(rng, n_namespaces: int, n_workloads: int,
+                images: list[str], unresolved=K8S_UNRESOLVED,
+                n_nodes: int = K8S_NODES) -> list[dict]:
+    """A seeded cluster's resources: in each namespace `n_workloads`
+    Deployments and as many Services, a Role and a RoleBinding; a
+    wildcard ClusterRole, a secrets reader, a pod reaper, an RBAC
+    manager, cluster-admin bound to system:authenticated and to a
+    default ServiceAccount; three control-plane static Pods with
+    insecure flags; a NodeInfo document for each node. Workload `k` of
+    namespace `n` names `images[n]` when k is 0 (each image once),
+    `unresolved[n]` when k is 1, else a generic image."""
+    docs: list[dict] = []
+    role_rules = (
+        [{"apiGroups": [""], "resources": ["pods"],
+          "verbs": ["get", "list"]}],
+        [{"apiGroups": [""], "resources": ["secrets"],
+          "verbs": ["get", "list", "watch"]}],
+        [{"apiGroups": [""], "resources": ["configmaps"],
+          "verbs": ["update", "patch"]}],
+        [{"apiGroups": [""], "resources": ["pods/exec"],
+          "verbs": ["create"]}],
+        [{"apiGroups": [""], "resources": ["pods/log"],
+          "verbs": ["get", "delete"]}])
+    for n in range(n_namespaces):
+        ns = f"team-{n:02d}"
+        for k in range(n_workloads):
+            if k == 0 and n < len(images):
+                image = images[n]
+            elif k == 1 and n < len(unresolved):
+                image = unresolved[n]
+            else:
+                image = K8S_GENERIC[int(rng.integers(len(K8S_GENERIC)))]
+            docs.append(k8s_workload(rng, ns, k, image))
+        for k in range(n_workloads):
+            docs.append({"apiVersion": "v1", "kind": "Service",
+                         "metadata": {"name": f"svc-{k:02d}",
+                                      "namespace": ns},
+                         "spec": {"selector": {"app": f"svc-{k:02d}"},
+                                  "ports": [{"port": 80,
+                                             "targetPort": 8080}]}})
+        docs.append({"apiVersion": "rbac.authorization.k8s.io/v1",
+                     "kind": "Role",
+                     "metadata": {"name": "team-role", "namespace": ns},
+                     "rules": role_rules[int(rng.integers(
+                         len(role_rules)))]})
+        subject = ({"kind": "ServiceAccount", "name": "default",
+                    "namespace": ns} if rng.random() < 0.5 else
+                   {"kind": "User", "name": f"dev-{n}"})
+        docs.append({"apiVersion": "rbac.authorization.k8s.io/v1",
+                     "kind": "RoleBinding",
+                     "metadata": {"name": "team-binding", "namespace": ns},
+                     "roleRef": {"apiGroup": "rbac.authorization.k8s.io",
+                                 "kind": "Role", "name": "team-role"},
+                     "subjects": [subject]})
+    rbac = "rbac.authorization.k8s.io/v1"
+    for name, rules in (
+            ("wildcard-admin", [{"apiGroups": ["*"], "resources": ["*"],
+                                 "verbs": ["*"]}]),
+            ("secret-reader", [{"apiGroups": [""],
+                                "resources": ["secrets"],
+                                "verbs": ["get", "list"]}]),
+            ("pod-reaper", [{"apiGroups": [""], "resources": ["pods"],
+                             "verbs": ["delete", "list"]}]),
+            ("rbac-manager", [{"apiGroups": [rbac.split("/")[0]],
+                               "resources": ["rolebindings", "roles"],
+                               "verbs": ["create", "escalate"]}])):
+        docs.append({"apiVersion": rbac, "kind": "ClusterRole",
+                     "metadata": {"name": name}, "rules": rules})
+    for name, subject in (
+            ("everyone-admin", {"kind": "Group",
+                                "name": "system:authenticated"}),
+            ("default-sa-admin", {"kind": "ServiceAccount",
+                                  "name": "default",
+                                  "namespace": "kube-system"})):
+        docs.append({"apiVersion": rbac, "kind": "ClusterRoleBinding",
+                     "metadata": {"name": name},
+                     "roleRef": {"apiGroup": rbac.split("/")[0],
+                                 "kind": "ClusterRole",
+                                 "name": "cluster-admin"},
+                     "subjects": [subject]})
+    for comp, image, args in (
+            ("kube-apiserver", "registry.k8s.io/kube-apiserver:v1.29.0",
+             ["kube-apiserver", "--anonymous-auth=true",
+              "--authorization-mode=Node,AlwaysAllow", "--profiling=true",
+              "--insecure-port=8080"]),
+            ("etcd", "registry.k8s.io/etcd:3.5.10-0",
+             ["etcd", "--auto-tls=true", "--client-cert-auth=false"]),
+            ("kube-controller-manager",
+             "registry.k8s.io/kube-controller-manager:v1.29.0",
+             ["kube-controller-manager", "--profiling=true"])):
+        docs.append({"apiVersion": "v1", "kind": "Pod",
+                     "metadata": {"name": f"{comp}-node-0",
+                                  "namespace": "kube-system",
+                                  "labels": {"component": comp,
+                                             "tier": "control-plane"}},
+                     "spec": {"hostNetwork": True, "containers": [{
+                         "name": comp, "image": image, "command": args}]}})
+    docs.extend(k8s_node_info(rng, f"node-{i}") for i in range(n_nodes))
+    return docs
+
+
+def write_k8s_manifests(docs: list[dict], root: str) -> None:
+    """The manifests as a user keeps them: a multi-document YAML file per
+    namespace and one for the cluster-wide RBAC, the control plane as a
+    JSON v1 List, each NodeInfo as a JSON file of its own."""
+    import yaml
+
+    files: dict[str, list] = {}
+    for d in docs:
+        kind, ns = d["kind"], d["metadata"].get("namespace", "") \
+            if "metadata" in d else ""
+        if kind == "NodeInfo":
+            name = f"nodeinfo-{d['nodeName']}.json"
+        elif ns == "kube-system":
+            name = "control-plane.json"
+        elif ns:
+            name = f"{ns}.yaml"
+        else:
+            name = "cluster-rbac.yaml"
+        files.setdefault(name, []).append(d)
+    os.makedirs(root, exist_ok=True)
+    for name, group in files.items():
+        with open(os.path.join(root, name), "w") as f:
+            if name.startswith("nodeinfo-"):
+                json.dump(group[0], f, indent=1)
+            elif name.endswith(".json"):
+                json.dump({"apiVersion": "v1", "kind": "List",
+                           "items": group}, f, indent=1)
+            else:
+                yaml.safe_dump_all(group, f, sort_keys=False)
+
+
+class KubeAPIFake:
+    """A stdlib kube API server over plain HTTP with bearer-token auth,
+    for a live-cluster scan without a cluster: it lists `docs` by kind
+    (cluster-wide or in one namespace), lists a Node for each NodeInfo
+    document, and runs the node collector's flow (the scratch namespace,
+    the Job, its pod Succeeded at once, the pod's log the node's NodeInfo
+    document, the Job's deletion). `requests` counts (method, kind of
+    request)."""
+
+    def __init__(self, docs: list[dict], token: str = K8S_TOKEN):
+        from trivy_tpu_torch.k8s.client import API_PATHS
+
+        self.token = token
+        self.node_infos = {d["nodeName"]: d for d in docs
+                           if d["kind"] == "NodeInfo"}
+        self.lists: dict[str, list] = {}
+        for kind, (prefix, plural) in API_PATHS.items():
+            self.lists[f"{prefix}/{plural}"] = [
+                d for d in docs if d["kind"] == kind]
+        self.lists["/api/v1/nodes"] = [
+            {"apiVersion": "v1", "kind": "Node",
+             "metadata": {"name": n}} for n in self.node_infos]
+        self.jobs: dict[str, dict] = {}
+        self.requests: dict[str, int] = {}
+        self.lock = threading.Lock()
+        self.httpd = None
+
+    def _count(self, what: str) -> None:
+        with self.lock:
+            self.requests[what] = self.requests.get(what, 0) + 1
+
+    def _get(self, path: str, query: str):
+        if path in self.lists:
+            self._count("list")
+            return 200, {"items": self.lists[path]}
+        parts = path.strip("/").split("/")
+        # /api/v1/namespaces/NS/pods/POD/log: a collector pod's log
+        if len(parts) == 7 and parts[2] == "namespaces" and \
+                parts[4] == "pods" and parts[6] == "log":
+            self._count("log")
+            job = self.jobs.get(parts[5].rsplit("-", 1)[0])
+            if job is None:
+                return 404, {"message": "no such pod"}
+            node = job["spec"]["template"]["spec"]["nodeName"]
+            return 200, json.dumps(self.node_infos[node]).encode()
+        # /api/v1/namespaces/NS/pods?labelSelector=...: the Job's pods
+        if len(parts) == 5 and parts[2] == "namespaces" and \
+                parts[4] == "pods" and "labelSelector" in query:
+            self._count("pods")
+            from urllib.parse import parse_qs
+
+            want = dict(kv.split("=", 1) for kv in parse_qs(query).get(
+                "labelSelector", [""])[0].split(",") if "=" in kv)
+            with self.lock:
+                jobs = list(self.jobs.items())
+            return 200, {"items": [
+                {"metadata": {"name": f"{name}-pod", "namespace": parts[3]},
+                 "status": {"phase": "Succeeded"}}
+                for name, job in jobs
+                if want.items() <= job["metadata"]["labels"].items()]}
+        # PREFIX/namespaces/NS/PLURAL: one namespace's objects
+        for i in range(len(parts) - 2):
+            if parts[i] == "namespaces":
+                key = "/" + "/".join(parts[:i] + parts[i + 2:])
+                if key in self.lists:
+                    self._count("list")
+                    return 200, {"items": [
+                        d for d in self.lists[key]
+                        if d["metadata"].get("namespace") == parts[i + 1]]}
+        return 404, {"message": "not found"}
+
+    def start(self) -> str:
+        import http.server
+
+        fake = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, code: int, doc) -> None:
+                body = doc if isinstance(doc, bytes) else \
+                    json.dumps(doc).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _authed(self) -> bool:
+                if self.headers.get("Authorization") == \
+                        f"Bearer {fake.token}":
+                    return True
+                fake._count("unauthorized")
+                self._send(401, {"message": "Unauthorized"})
+                return False
+
+            def do_GET(self):
+                if self._authed():
+                    path, _, query = self.path.partition("?")
+                    self._send(*fake._get(path, query))
+
+            def do_POST(self):
+                if not self._authed():
+                    return
+                n = int(self.headers.get("Content-Length", "0"))
+                doc = json.loads(self.rfile.read(n) or b"{}")
+                if self.path.endswith("/jobs"):
+                    fake._count("job_create")
+                    with fake.lock:
+                        fake.jobs[doc["metadata"]["name"]] = doc
+                else:
+                    fake._count("namespace_create")
+                self._send(201, doc)
+
+            def do_DELETE(self):
+                if not self._authed():
+                    return
+                fake._count("job_delete")
+                name = self.path.partition("?")[0].rsplit("/", 1)[-1]
+                with fake.lock:
+                    fake.jobs.pop(name, None)
+                self._send(200, {"status": "Success"})
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        threading.Thread(target=self.httpd.serve_forever,
+                         name="kube-api-fake", daemon=True).start()
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def kubeconfig(self, url: str, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump({"apiVersion": "v1", "kind": "Config",
+                       "current-context": "fake",
+                       "contexts": [{"name": "fake", "context": {
+                           "cluster": "fake", "user": "scanner"}}],
+                       "clusters": [{"name": "fake",
+                                     "cluster": {"server": url}}],
+                       "users": [{"name": "scanner",
+                                  "user": {"token": self.token}}]}, f)
+        return path
+
+    def stop(self) -> None:
+        if self.httpd is not None:
+            self.httpd.shutdown()
+            self.httpd.server_close()
+
+
+def k8s_start(p7: dict, tars: list[str], dev, tmp: str) -> dict:
+    """Phase 19's set-up: the seeded cluster's manifests, the image-tar
+    directory (phase 17's 8 archives linked under the names the
+    workloads' images resolve to), then the runner, which starts so
+    that its work overlaps phases 10-16."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "k8s")
+    tar_dir = os.path.join(out, "tars")
+    os.makedirs(tar_dir)
+    refs = k8s_image_refs(tars)
+    for tar, name in zip(tars, refs.values()):
+        os.symlink(tar, os.path.join(tar_dir, name))
+    docs = k8s_cluster(np.random.default_rng(K8S_SEED), K8S_NAMESPACES,
+                       K8S_WORKLOADS, list(refs))
+    manifests = os.path.join(out, "manifests")
+    write_k8s_manifests(docs, manifests)
+    spec = {"db_root": p7["db_root"], "manifests": manifests,
+            "tar_dir": tar_dir, "images": list(refs),
+            "resources": len(docs)}
+    with open(os.path.join(out, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    built_s = time.perf_counter() - t0
+    log = open(os.path.join(out, "runner.log"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", K8S_CODE, os.path.join(out, "spec.json"),
+         out, str(dev)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    print(f"phase19 setup built_s={built_s:.3f} resources={len(docs)} "
+          f"manifest_files={len(os.listdir(manifests))} "
+          f"images_with_tars={len(refs)}")
+    return {"proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def k8s_rows(doc: dict) -> list:
+    """A cluster report's resource rows without their image reports,
+    sorted, with the RBAC and infra findings sorted."""
+    return [sorted((json.dumps({k: v for k, v in r.items()
+                                if k != "Vulnerabilities"}, sort_keys=True)
+                    for r in doc["Resources"])),
+            sorted(json.dumps(f, sort_keys=True)
+                   for f in doc["RBACAssessment"]),
+            sorted(json.dumps(f, sort_keys=True)
+                   for f in doc["InfraAssessment"])]
+
+
+def k8s_runner(spec_path: str, out: str, device: str) -> None:
+    """Phase 19 in its own process on `device`, every scan through
+    `trivy_tpu_torch.cli.main.main` as a user runs it, under
+    TRIVY_TPU_FAKE_TIME with the secret screen always on the card
+    (TRIVY_TPU_SECRET_PROBE=0): phase 7's DB's engine built first (its
+    compiled entry a hit); (a) `kubernetes DIR --scanners
+    vuln,misconfig,rbac,infra --image-tar-dir T --format json
+    --parallel 2` on the
+    card, then the same with --no-tpu on a host engine over the same DB
+    objects: the JSON reports byte for byte, and the `summary` and
+    `all` tables rendered here from each run's ClusterReport, as kept by
+    a wrapper of `write_cluster_report` (the CLI's own table output is
+    not produced on the card: two more image-scan runs each would not
+    fit the time limit); (b) a live-cluster scan, `kubernetes cluster
+    --scanners misconfig,rbac,infra`, against `KubeAPIFake` serving (a)'s
+    resources with KUBECONFIG pointing at it, then `--scanners infra
+    --disable-node-collector`. Its numbers go to out/result.json."""
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.cli.main import build_parser, main
+    from trivy_tpu_torch.k8s import report as k8s_report
+    from trivy_tpu_torch.k8s import scanner as k8s_scanner
+    from trivy_tpu_torch.ops import secret_nfa as nfa
+
+    t_runner = time.perf_counter()
+    res: dict = {}
+    fake = None
+    try:
+        with open(spec_path) as f:
+            spec = json.load(f)
+        os.environ.update(TRIVY_TPU_FAKE_TIME=FAKE_TIME,
+                          TRIVY_TPU_SECRET_PROBE="0")
+        cache = os.path.join(out, "cache")
+        flags = ["--db-path", spec["db_root"], "--cache-dir", cache,
+                 "--quiet", "--image-tar-dir", spec["tar_dir"],
+                 "--scanners", "vuln,misconfig,rbac,infra",
+                 "--format", "json", "--parallel", str(K8S_PARALLEL)]
+        argv = ["kubernetes", spec["manifests"], *flags]
+        t0 = time.perf_counter()
+        engine = run.build_engine(build_parser().parse_args(
+            [*argv, "--device", device]))
+        res["engine_build_s"] = time.perf_counter() - t0
+
+        reports: list = []
+        render: dict = {}
+        write = k8s_report.write_cluster_report
+
+        def keep(report, *a, **kw):
+            reports.append(report)
+            t0 = time.perf_counter()
+            try:
+                return write(report, *a, **kw)
+            finally:
+                render["s"] = time.perf_counter() - t0
+
+        k8s_report.write_cluster_report = keep
+
+        def counts() -> dict:
+            return {"tiers": device_tier_launches(),
+                    "anchor": nfa.anchor_words.launches}
+
+        def cli(name: str, args: list[str]) -> dict:
+            c0 = counts()
+            t0 = time.perf_counter()
+            rc = main([*args, "--output", os.path.join(out, name)])
+            c1 = counts()
+            return {"rc": rc, "wall_s": time.perf_counter() - t0,
+                    "split": {**k8s_scanner.STATS,
+                              "render_s": render.pop("s", None)},
+                    "match_per_tier": {k: c1["tiers"][k] - c0["tiers"][k]
+                                       for k in c1["tiers"]},
+                    "anchor": c1["anchor"] - c0["anchor"]}
+
+        def tables(report) -> dict:
+            return {"summary": k8s_report.render_summary(report),
+                    "all": k8s_report.render_all(report)}
+
+        # (a)
+        res["a"] = cli("a.json", [*argv, "--device", device])
+        a_report = reports[-1]
+        with shared_db(engine):
+            res["a_no_tpu"] = cli("a_no_tpu.json", [*argv, "--no-tpu"])
+        with open(os.path.join(out, "a.json"), "rb") as f1, \
+                open(os.path.join(out, "a_no_tpu.json"), "rb") as f2:
+            a_bytes = f1.read()
+            res["a"]["json_equal"] = a_bytes == f2.read()
+        res["a"]["report_mb"] = len(a_bytes) / 1e6
+        del a_bytes
+        ta, tb = tables(a_report), tables(reports[-1])
+        res["a"]["tables_equal"] = {k: ta[k] == tb[k] for k in ta}
+        res["a"]["table_bytes"] = {k: len(v) for k, v in ta.items()}
+        scanned = {}
+        for rr in a_report.resources:
+            for img, rep in rr.image_reports:
+                scanned[img] = {
+                    "vulnerabilities": sum(len(r.vulnerabilities)
+                                           for r in rep.results),
+                    "secrets": sum(len(r.secrets) for r in rep.results)}
+        res["a"]["images"] = {img: scanned.get(img)
+                              for img in spec["images"]}
+        res["a"]["resources"] = len(a_report.resources)
+        res["a"]["with_image_reports"] = sum(
+            bool(rr.image_reports) for rr in a_report.resources)
+        res["a"]["rbac"] = len(a_report.rbac)
+        res["a"]["infra"] = len(a_report.infra)
+        res["a"]["misconfigurations"] = sum(
+            len(rr.misconfigurations) for rr in a_report.resources)
+        del reports[:], a_report, ta, tb
+        with open(os.path.join(out, "a.json"), "rb") as f:
+            a_doc = json.loads(f.read())
+        a_rows = k8s_rows({**a_doc, "Resources": [
+            r for r in a_doc["Resources"] if r["Kind"] != "NodeInfo"]})
+        a_nodes = sorted(json.dumps(f, sort_keys=True)
+                         for f in a_doc["InfraAssessment"]
+                         if f["Resource"].startswith("Node/"))
+        del a_doc
+
+        # (b)
+        import yaml
+
+        docs = []
+        for name in sorted(os.listdir(spec["manifests"])):
+            with open(os.path.join(spec["manifests"], name)) as f:
+                loaded = list(yaml.safe_load_all(f))
+            for d in loaded:
+                docs.extend(d["items"] if d.get("kind") == "List" else [d])
+        fake = KubeAPIFake(docs)
+        url = fake.start()
+        os.environ["KUBECONFIG"] = fake.kubeconfig(
+            url, os.path.join(out, "kubeconfig"))
+        live = ["kubernetes", "cluster", "--cache-dir", cache, "--quiet",
+                "--format", "json", "--parallel", str(K8S_PARALLEL)]
+        res["b"] = cli("b.json", [*live, "--scanners",
+                                  "misconfig,rbac,infra"])
+        res["b_no_collector"] = cli("b_nc.json", [
+            *live, "--scanners", "infra", "--disable-node-collector"])
+        with open(os.path.join(out, "b.json"), "rb") as f:
+            b_doc = json.loads(f.read())
+        with open(os.path.join(out, "b_nc.json"), "rb") as f:
+            nc_doc = json.loads(f.read())
+        b_nodes = [f for f in b_doc["InfraAssessment"]
+                   if f["Resource"].startswith("Node/")]
+        res["b"]["equal_to_a"] = k8s_rows(b_doc) == a_rows
+        res["b"]["cluster_name"] = b_doc["ClusterName"]
+        res["b"]["node_findings"] = len(b_nodes)
+        res["b"]["node_findings_equal_to_a"] = sorted(
+            json.dumps(f, sort_keys=True) for f in b_nodes) == a_nodes
+        res["b"]["requests"] = dict(fake.requests)
+        res["b"]["jobs_left"] = len(fake.jobs)
+        res["b_no_collector"]["node_findings"] = sum(
+            f["Resource"].startswith("Node/")
+            for f in nc_doc["InfraAssessment"])
+        res["b_no_collector"]["infra_equal_to_b_less_nodes"] = sorted(
+            json.dumps(f, sort_keys=True)
+            for f in nc_doc["InfraAssessment"]) == sorted(
+            json.dumps(f, sort_keys=True) for f in b_doc["InfraAssessment"]
+            if not f["Resource"].startswith("Node/"))
+        res["engine_device"] = str(engine.device)
+        res["runner_wall_s"] = time.perf_counter() - t_runner
+    except BaseException as e:  # the parent reads it and fails the phase
+        import traceback
+
+        res["error"] = f"{type(e).__name__}: {e}"
+        res["traceback"] = traceback.format_exc()
+    finally:
+        if fake is not None:
+            fake.stop()
+    with open(os.path.join(out, "result.json"), "w") as f:
+        json.dump(res, f)
+
+
+def k8s_finish(k8: dict) -> dict:
+    """Phase 19's checks, once the runner has ended: (a) every run rc 0,
+    the device JSON report and both tables equal to --no-tpu's, the 8
+    images with tars scanned (vulnerabilities and secrets in each) and
+    no other, the match kernel launched on every tier and the anchor
+    kernel by the device run and neither by --no-tpu; (b) the live
+    scan's resources, RBAC and infra findings equal to (a)'s (less the
+    NodeInfo rows), the node findings present and equal to (a)'s, every
+    collector Job deleted; --disable-node-collector drops them."""
+    try:
+        k8["proc"].wait(timeout=max(
+            1.0, K8S_TIMEOUT_S - (time.perf_counter() - k8["t0"])))
+    except subprocess.TimeoutExpired:
+        k8["proc"].kill()
+        k8["proc"].wait(timeout=30)
+        raise AssertionError("phase 19's runner did not end in time: "
+                             + tail(os.path.join(k8["out"], "runner.log")))
+    waited = time.perf_counter() - k8["t0"]
+    path = os.path.join(k8["out"], "result.json")
+    if not os.path.exists(path):
+        raise AssertionError("phase 19's runner wrote no result: "
+                             + tail(os.path.join(k8["out"], "runner.log")))
+    with open(path) as f:
+        r = json.load(f)
+    if "error" in r:
+        print(r.get("traceback", ""))
+        raise AssertionError(f"phase 19's runner failed: {r['error']}")
+    a, an, b, nc = r["a"], r["a_no_tpu"], r["b"], r["b_no_collector"]
+    print(f"phase19 runner_s={r['runner_wall_s']:.3f} "
+          f"checked_after_s={waited:.3f} "
+          f"engine_build_s={r['engine_build_s']:.3f} "
+          f"device={r['engine_device']}")
+    for name, x in (("a", a), ("a_no_tpu", an), ("b", b),
+                    ("b_no_collector", nc)):
+        print(f"phase19 {name} rc={x['rc']} wall_s={x['wall_s']:.3f} "
+              f"split={json.dumps(x['split'])} "
+              f"match_per_tier={json.dumps(x['match_per_tier'])} "
+              f"anchor={x['anchor']}")
+    print(f"phase19 a resources={a['resources']} "
+          f"misconfigurations={a['misconfigurations']} rbac={a['rbac']} "
+          f"infra={a['infra']} with_image_reports="
+          f"{a['with_image_reports']} report_mb={a['report_mb']:.3f} "
+          f"json_equal={a['json_equal']} "
+          f"tables_equal={json.dumps(a['tables_equal'])} "
+          f"table_bytes={json.dumps(a['table_bytes'])}")
+    print(f"phase19 a images={json.dumps(a['images'])}")
+    print(f"phase19 b equal_to_a={b['equal_to_a']} "
+          f"cluster_name={b['cluster_name']} "
+          f"node_findings={b['node_findings']} "
+          f"node_findings_equal_to_a={b['node_findings_equal_to_a']} "
+          f"jobs_left={b['jobs_left']} requests={json.dumps(b['requests'])}"
+          f" no_collector_node_findings={nc['node_findings']} "
+          f"no_collector_infra_equal={nc['infra_equal_to_b_less_nodes']}")
+    fails = []
+    if any(x["rc"] for x in (a, an, b, nc)):
+        fails.append("a kubernetes run returned non-zero")
+    if not a["json_equal"] or not all(a["tables_equal"].values()):
+        fails.append("the device report differs from --no-tpu's: json "
+                     f"{a['json_equal']}, tables {a['tables_equal']}")
+    if any(v is None or not v["vulnerabilities"] or not v["secrets"]
+           for v in a["images"].values()) or \
+            a["with_image_reports"] != len(a["images"]):
+        fails.append(f"an image with a tar was not scanned: {a['images']}")
+    if not all(a["match_per_tier"].values()) or not a["anchor"]:
+        fails.append("(a) launched the match kernel on no tier or the "
+                     "anchor kernel not at all")
+    if any(an["match_per_tier"].values()) or an["anchor"]:
+        fails.append("--no-tpu launched a kernel")
+    if not b["equal_to_a"] or not b["node_findings"] or \
+            not b["node_findings_equal_to_a"] or b["jobs_left"]:
+        fails.append("the live-cluster scan differs from the manifests "
+                     "scan, or its node findings are missing")
+    if nc["node_findings"] or not nc["infra_equal_to_b_less_nodes"]:
+        fails.append("--disable-node-collector kept node findings")
+    if r["engine_device"] != "cuda:0":
+        fails.append(f"the engine is on {r['engine_device']}")
+    if fails:
+        raise AssertionError("phase 19: " + "; ".join(fails))
+    return {"runner_s": r["runner_wall_s"], "launches": {
+        "match": {"a": a["match_per_tier"],
+                  "a_no_tpu": an["match_per_tier"]},
+        "anchor": {"a": a["anchor"], "a_no_tpu": an["anchor"]}}}
+
+
 def main() -> int:
     import torch
 
@@ -7037,7 +7786,7 @@ def main() -> int:
     from trivy_tpu_torch.tensorize.synth import synth_trivy_db
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    srv = mon = fl = golden = cold = ch = fs = None
+    srv = mon = fl = golden = cold = ch = fs = k8 = None
     try:
         # phase 7 (a)'s two CLI processes and (b)'s cold run (its DB
         # load, compile and keymap) run beside phases 2 and 4-6; the
@@ -7106,6 +7855,9 @@ def main() -> int:
         # phase 17's fleet in a process of its own beside phases 10-16
         fs = fleetscan_start(p7, p9, dev, work)
         del p9["layers"]
+        # phase 19's cluster scans in a process of their own beside
+        # phases 10-16, on phase 17's archives
+        k8 = k8s_start(p7, fs["tars"], dev, work)
 
         t0 = time.perf_counter()
         p10 = report_cli_path(p7, p9, work)
@@ -7176,11 +7928,17 @@ def main() -> int:
         p17 = fleetscan_finish(fs)
         print(f"phase17 seconds={p17['runner_s']:.3f} "
               f"waited_s={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p19 = k8s_finish(k8)
+        print(f"phase19 seconds={p19['runner_s']:.3f} "
+              f"waited_s={time.perf_counter() - t0:.3f}")
     finally:
         for p in [*(golden or {}).get("procs", {}).values(),
                   *([cold["proc"]] if cold else []),
                   *([ch["proc"]] if ch else []),
-                  *([fs["proc"]] if fs else [])]:
+                  *([fs["proc"]] if fs else []),
+                  *([k8["proc"]] if k8 else [])]:
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
@@ -7250,6 +8008,7 @@ def main() -> int:
                         "r2": p16["rollout"]["r2"]},
             "r2_after_reresolve": p16["control"]["r2_launches"]},
         "launches_fleetscan": p17["launches"]["match"],
+        "launches_k8s": p19["launches"]["match"],
         "launches_chaos": {k: v["match"] for k, v in
                            sorted(p18["launches"].items())},
         "launches_dcn": {
@@ -7283,6 +8042,7 @@ def main() -> int:
             "launches_server_clients": {
                 k: r.get(name, 0) for k, r in p12["clients"].items()},
             **({"launches_fleetscan": p17["launches"]["anchor"],
+                "launches_k8s": p19["launches"]["anchor"],
                 "launches_chaos": {k: v["anchor"] for k, v in
                                    sorted(p18["launches"].items())}}
                if name == "anchor" else {}),

@@ -385,8 +385,8 @@ def test_static_scan_covers_every_slice():
     and db slice, of the report, VEX and attestation slice, of the
     repository and vm slice, of the server and scheduler slice, of the
     serving mesh, of continuous monitoring, of cross-host serving, of
-    observability, of the fleet control plane, of the fleet scan mode
-    and of the chaos campaign included."""
+    observability, of the fleet control plane, of the fleet scan mode,
+    of the chaos campaign and of the kubernetes command included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -416,7 +416,15 @@ def test_static_scan_covers_every_slice():
                    "fleet/rollout.py", "fleet/controller.py",
                    "cli/fleet.py", "utils/pipeline.py",
                    "chaos/__init__.py", "chaos/campaign.py",
-                   "chaos/scenarios.py", "chaos/schedule.py"):
+                   "chaos/scenarios.py", "chaos/schedule.py",
+                   "k8s/__init__.py", "k8s/artifacts.py", "k8s/client.py",
+                   "k8s/infra.py", "k8s/node_collector.py", "k8s/rbac.py",
+                   "k8s/report.py", "k8s/scanner.py", "iac/__init__.py",
+                   "iac/check.py", "iac/detection.py", "iac/engine.py",
+                   "iac/ignore.py", "iac/parsers/__init__.py",
+                   "iac/parsers/yamlconf.py", "iac/checks/__init__.py",
+                   "iac/checks/kubernetes.py", "misconf/__init__.py",
+                   "misconf/scanner.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

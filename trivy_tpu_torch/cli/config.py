@@ -5,10 +5,10 @@ viper binding; here as argparse post-processing).
 Copy of trivy_tpu/cli/config.py without --generate-default-config. The
 environment layer reads the same TRIVY_TPU_* names as the reference's.
 An option that the reference's scan subcommands have and the port's
-lack (`UNPORTED`; the port's `server`, `watch` and `chaos` lack none), given a
-value through the environment or the config file that the reference
-would act on, is refused with one error line: the port must not write
-a different report without a word.
+lack (`UNPORTED`; `K8S_UNPORTED` for `kubernetes`; the port's `server`,
+`watch` and `chaos` lack none), given a value through the environment or
+the config file that the reference would act on, is refused with one
+error line: the port must not write a different report without a word.
 """
 
 from __future__ import annotations
@@ -41,6 +41,10 @@ UNPORTED = {
     "redis_key": ("",), "redis_tls": (False,), "report": ("summary",),
     "skip_check_update": (False,),
 }
+
+# the same for the reference's `kubernetes` parser, whose only option
+# the port's lacks is --compliance (its --report is the port's too)
+K8S_UNPORTED = {"compliance": (None, "")}
 
 
 def _load_config_file(path: str | None) -> dict:
@@ -118,8 +122,10 @@ def apply_layers(args, parser, argv: list[str]) -> None:
     command = getattr(args, "command", None)
     # the port's `server`, `watch` and `chaos` parsers have every option
     # of the reference's
-    if command not in (None, "version", "db", "convert", "server",
-                       "watch", "chaos"):
+    if command in ("kubernetes", "k8s"):
+        _refuse_unported(cfg, K8S_UNPORTED)
+    elif command not in (None, "version", "db", "convert", "server",
+                         "watch", "chaos"):
         _refuse_unported(cfg, UNPORTED)
     explicit = _explicit_dests(parser, argv)
     defaults = _all_defaults(parser)

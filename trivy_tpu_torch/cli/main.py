@@ -1,8 +1,8 @@
 """trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
-`rootfs`, `repository` (alias `repo`), `vm`, `convert`, `db`, `server`,
-`watch`, `fleet`, `profile`, `usage`, `chaos` and `version` subcommands of
-trivy_tpu/cli/main.py, with the match kernel and the secret screens on
-a CUDA card.
+`rootfs`, `repository` (alias `repo`), `vm`, `kubernetes` (alias `k8s`),
+`convert`, `db`, `server`, `watch`, `fleet`, `profile`, `usage`, `chaos`
+and `version` subcommands of trivy_tpu/cli/main.py, with the match
+kernel and the secret screens on a CUDA card.
 
     python -m trivy_tpu_torch image --input image.tar --format sarif
     python -m trivy_tpu_torch sbom bom.json --format json --vex vex.json
@@ -26,6 +26,8 @@ a CUDA card.
     python -m trivy_tpu_torch image --targets t.txt --journal j.jsonl -f json
     python -m trivy_tpu_torch image --targets t.txt --resume j.jsonl -f json
     python -m trivy_tpu_torch chaos run --seed 0 --json chaos.json
+    python -m trivy_tpu_torch k8s ./manifests --report all
+    python -m trivy_tpu_torch k8s cluster --scanners vuln,misconfig,rbac,infra --image-tar-dir tars
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -400,16 +402,74 @@ def _add_chaos_parser(sub) -> None:
                             "versions)")
 
 
+def _add_k8s_parser(sub) -> None:
+    """`kubernetes` (alias `k8s`): the reference's flags but
+    `--compliance`, and the port's `--device` for the vuln scanner's
+    image scans."""
+    p = sub.add_parser("kubernetes", help="scan a kubernetes cluster or "
+                       "manifests directory", allow_abbrev=False,
+                       aliases=["k8s"])
+    _add_global_flags(p)
+    p.add_argument("--report", default="summary",
+                   choices=["summary", "all"],
+                   help="report detail level")
+    p.add_argument("--format", "-f", default="table",
+                   choices=["table", "json"],
+                   help="output format")
+    p.add_argument("--output", "-o", default=None)
+    p.add_argument("--scanners", default="misconfig,rbac,infra",
+                   help="comma-separated (vuln,misconfig,rbac,infra)")
+    p.add_argument("--context", default="", help="kubeconfig context")
+    p.add_argument("--namespace", "-n", default="",
+                   help="restrict to one namespace")
+    p.add_argument("--image-tar-dir", default=None,
+                   help="directory of image tars for offline vuln scans")
+    p.add_argument("--db-path", default=None)
+    p.add_argument("--no-tpu", action="store_true",
+                   help="run the image scans' matching and secret "
+                        "screens on the host (needs no card)")
+    p.add_argument("--device", default=None,
+                   help="torch device of the image scans' match kernel "
+                        "and secret screens (default cuda:0; 'cpu' runs "
+                        "their plain versions)")
+    p.add_argument("--parallel", type=int, default=5)
+    p.add_argument("--disable-node-collector", action="store_true",
+                   help="skip the per-node collector Job on live "
+                        "cluster scans")
+    p.add_argument("--node-collector-namespace", default=None,
+                   help="namespace for node-collector Jobs "
+                        "(default trivy-temp)")
+    p.add_argument("--node-collector-imageref", default=None,
+                   help="node-collector image to run")
+    p.add_argument("target", nargs="?", default="cluster",
+                   help="'cluster' (live) or a manifests dir/file")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         allow_abbrev=False,
         prog="trivy-tpu-torch",
         description="security scanner on a CUDA card (image, "
         "filesystem, rootfs, repository, VM image or SBOM -> "
-        "vulnerabilities, secrets)",
+        "vulnerabilities, secrets; a kubernetes cluster -> "
+        "misconfigurations, RBAC and infra findings, its images' "
+        "vulnerabilities and secrets)",
     )
     _add_global_flags(parser)
     sub = parser.add_subparsers(dest="command")
+    # `convert`, then `kubernetes`, then the scan commands: the config
+    # layer reads each option's default from the last parser that has
+    # it (cli/config.py `_all_defaults`), and this order gives every
+    # option the default it has in the reference's parser ("vuln,secret"
+    # for --scanners, "summary" for --report)
+    p = sub.add_parser("convert", help="convert a saved JSON report", allow_abbrev=False)
+    _add_global_flags(p)
+    p.add_argument("--format", "-f", default="table")
+    p.add_argument("--output", "-o", default=None)
+    p.add_argument("--template", "-t", default=None)
+    p.add_argument("--severity", "-s", default=None)
+    p.add_argument("report")
+    _add_k8s_parser(sub)
     for name, help_text in SCAN_COMMANDS:
         p = sub.add_parser(name, help=help_text, allow_abbrev=False)
         _add_global_flags(p)
@@ -425,13 +485,6 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("target", nargs="?", default=None)
         else:
             p.add_argument("target")
-    p = sub.add_parser("convert", help="convert a saved JSON report", allow_abbrev=False)
-    _add_global_flags(p)
-    p.add_argument("--format", "-f", default="table")
-    p.add_argument("--output", "-o", default=None)
-    p.add_argument("--template", "-t", default=None)
-    p.add_argument("--severity", "-s", default=None)
-    p.add_argument("report")
     _add_db_parser(sub)
     _add_server_parser(sub)
     _add_watch_parser(sub)
@@ -686,6 +739,8 @@ def main(argv: list[str] | None = None) -> int:
             return run.run_fleet_admin(args)
         if args.command == "chaos":
             return run.run_chaos(args)
+        if args.command in ("kubernetes", "k8s"):
+            return run.run_k8s(args)
         return run.run_scan(args)
     except run.FatalError as e:
         log.logger().error(str(e))

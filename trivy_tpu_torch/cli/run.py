@@ -7,9 +7,9 @@ Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
 here, detection on a scan server or a comma-separated replica set;
 `--fallback` degrades to a local scan on this process's device), and
 the fleet scan mode (`--targets`, `--journal`, `--resume`,
-`--fleet-parallel`: `cli/fleet.py`), and the `convert`, `db`, `server`,
-`watch`, `fleet`, `profile`, `usage` and `chaos` subcommands: no
-compliance, modules or ignore policies yet. `--trace` /
+`--fleet-parallel`: `cli/fleet.py`), and the `kubernetes`, `convert`,
+`db`, `server`, `watch`, `fleet`, `profile`, `usage` and `chaos`
+subcommands: no compliance, modules or ignore policies yet. `--trace` /
 `--trace-export` collect the run's spans under one `scan` root and
 render or export them;
 `profile` and `usage` federate a comma-separated replica set. The match
@@ -303,6 +303,54 @@ def run_scan(args) -> int:
                 os.environ[k] = v
     STATS["wall_s"] = time.perf_counter() - t0
     return rc
+
+
+K8S_SCANNERS = {"vuln", "misconfig", "rbac", "infra"}
+
+
+def run_k8s(args) -> int:
+    """`kubernetes` subcommand (reference pkg/k8s/commands/run.go:26),
+    without --compliance. With `vuln` among the scanners, the device is
+    resolved first and the image scans run the match kernel and the
+    secret screens on it (the host paths of both under --no-tpu);
+    misconfig, rbac and infra are host work and need no card. A device
+    error ends the run with one line and rc 1. The scanner's step
+    seconds are in `k8s/scanner.py` `STATS`."""
+    from trivy_tpu_torch.fanal.analyzers import secret_analyzer
+    from trivy_tpu_torch.k8s import scanner as k8s_scanner
+    from trivy_tpu_torch.k8s.report import write_cluster_report
+
+    scanners = {s.strip() for s in (args.scanners or "").split(",")
+                if s.strip()}
+    if unknown := scanners - K8S_SCANNERS:
+        raise FatalError(
+            f"unknown k8s scanners: {', '.join(sorted(unknown))} "
+            f"(valid: {', '.join(sorted(K8S_SCANNERS))})")
+
+    engine = None
+    if "vuln" in scanners:
+        # set per invocation, as run_scan does: the image scans' secret
+        # screens run where the match kernel does
+        secret_analyzer.USE_DEVICE = (
+            False if getattr(args, "no_tpu", False) else "hybrid")
+        secret_analyzer.DEVICE = _device(args)
+        engine = build_engine(args)
+    scanner = k8s_scanner.ClusterScanner(
+        scanners=scanners, workers=args.parallel,
+        image_tar_dir=args.image_tar_dir, engine=engine,
+        disable_node_collector=args.disable_node_collector,
+        node_collector_namespace=args.node_collector_namespace,
+        node_collector_image=args.node_collector_imageref,
+    )
+    try:
+        report = scanner.scan(args.target, context=args.context,
+                              namespace=args.namespace)
+    except RuntimeError as e:  # a device error among them
+        print(" ".join(str(e).splitlines()), file=sys.stderr)
+        return 1
+    fmt = "json" if args.format == "json" else args.report
+    write_cluster_report(report, fmt=fmt, output=args.output)
+    return 0
 
 
 def _parse_duration(spec: str | None) -> float:

@@ -16,6 +16,14 @@ class DeviceError(RuntimeError):
     *loss* degrades a path)."""
 
 
+def is_device_error(exc: BaseException) -> bool:
+    """Whether `exc` is the device's failure: a DeviceError, or a CUDA
+    error torch raised (out of memory, an accelerator error)."""
+    # torch.AcceleratorError is new in torch 2.8
+    accel = getattr(torch, "AcceleratorError", DeviceError)
+    return isinstance(exc, (DeviceError, torch.cuda.OutOfMemoryError, accel))
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """-> the torch device to place tensors on.
 

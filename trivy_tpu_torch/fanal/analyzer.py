@@ -14,7 +14,12 @@ not the host.
 
 Copy of trivy_tpu/fanal/analyzer.py without the module system's
 `unregister` and the config analyzer's IaC-type and helm-override
-wiring (misconfiguration scanning is not ported yet).
+wiring (misconfiguration scanning is not ported yet). Where the
+reference logs a failed analyzer and goes on, the port does so only for
+a failure that is not the device's: a device error
+(`device.is_device_error`, e.g. a secret screen that cannot build or
+launch) passes up and ends the scan, so no blob is kept, cached or
+reported without the findings of the analyzer that failed.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Callable
 
+from trivy_tpu_torch.device import is_device_error
 from trivy_tpu_torch.log import logger
 from trivy_tpu_torch.types.artifact import (
     Application,
@@ -235,6 +241,8 @@ class AnalyzerGroup:
                     continue
                 result.merge(a.analyze(inp))
             except Exception as e:  # analyzer bugs must not kill the scan
+                if is_device_error(e):
+                    raise
                 _log.debug("analyzer failed", analyzer=a.type,
                            path=inp.path, err=str(e))
         for pa in self.post_analyzers:
@@ -254,6 +262,8 @@ class AnalyzerGroup:
             try:
                 result.merge(pa.post_analyze(files))
             except Exception as e:
+                if is_device_error(e):
+                    raise
                 _log.warn("post-analyzer failed", analyzer=pa.type, err=str(e))
 
 

@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from trivy_tpu_torch.device import DeviceError
+
 _CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,7 +58,7 @@ def _nvcc() -> str:
     path = os.path.join(home, "bin", "nvcc")
     if os.path.exists(path):
         return path
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise DeviceError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def so_path(name: str) -> Path:
@@ -95,7 +97,7 @@ def _build_locked(names: list[str]) -> dict[str, tuple[Path, float]]:
         else:
             os.replace(tmp, so)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise DeviceError("\n".join(failed))
     return built
 
 
@@ -158,7 +160,7 @@ def _launch(name: str, what: str, device: torch.device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        raise DeviceError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def screen_words_cuda(name: str, chunks: torch.Tensor,
