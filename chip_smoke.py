@@ -319,12 +319,40 @@ kernel's time before its latest redesign; then
      its resources, RBAC and infra findings equal to (a)'s but the
      cluster name, the node findings present, every Job deleted; with
      --disable-node-collector the node findings dropped.
+ 20. drive misconfiguration scanning on the card, in a process of its
+     own beside phases 10-16 (`iac_start`, `iac_runner`, `iac_finish`),
+     on phase 7's saved DB (its compiled entry a hit), under
+     TRIVY_TPU_FAKE_TIME and TRIVY_TPU_DETERMINISTIC_UUID=1 with the
+     secret screen on the card: a seeded infrastructure monorepo (seed
+     20261023, `iac_monorepo`) of 64 services, each with a multi-stage
+     Dockerfile, a Helm chart (every fourth packaged as a .tgz),
+     kubernetes manifests, an AWS Terraform root module per environment
+     over local modules (variables, count, for_each), an Azure and a GCP
+     stack, CloudFormation in YAML and JSON (intrinsics) and an ARM
+     template (a copy loop, a nested deployment); two `terraform show
+     -json` plans; phase 7's npm and pip packages as the app's
+     lockfiles; secrets planted in .tf, .yaml and .env files; and for
+     each of the 253 built-in checks a file that fails it and one that
+     passes it (the breadth fixtures of tests/test_iac_breadth.py, read
+     from its source, then IAC_EXTRA_CASES). (a) `fs --scanners
+     vuln,secret,misconfig --helm-set --helm-values` on the card: its
+     JSON equal to --no-tpu's byte for byte, every built-in check
+     failing at least once, the overrides in the rendered charts, every
+     planted secret found, the match kernel launched on every tier the
+     encoder gave rows and the anchor kernel launched, the split (walk,
+     config analyzer, secret, detect, render); (b) `config` on the same
+     tree: its misconfigurations equal to (a)'s target by target, no
+     kernel launched, its table and SARIF written through the CLI's own
+     `write_report` call; (c) `image --scanners vuln,secret,misconfig`
+     on phase 9's docker-save layers with one more holding a
+     Dockerfile, a Terraform module and a Helm chart: its JSON equal to
+     --no-tpu's, the match and anchor kernels launched.
 The phases run in the order 1, 2, 4, 5, 6 (phase 7 (a)'s two CLI
 processes and (b)'s cold run beside them), 7, 3, the kernel timings,
-14's set-up, 8-11 (18's campaign beside 8-10, 17's and 19's runners
-from 10 on; 12's server and 16's replicas start before 11), 12,
-16 (a)-(c), 13, 15, 14 (16 (d)'s rollout beside them), 16's checks and
-(e), 17's checks, 19's checks. Phase 3 runs with the native collector
+14's set-up, 8-11 (18's campaign beside 8-10, 17's, 19's and 20's
+runners from 10 on; 12's server and 16's replicas start before 11),
+12, 16 (a)-(c), 13, 15, 14 (16 (d)'s rollout beside them), 16's checks
+and (e), 17's checks, 19's checks, 20's checks. Phase 3 runs with the native collector
 (native/collect.cpp) too.
 Phase 9 runs the hybrid probe alone twice, dispatched directly and
 through the secret lane (as it ran before it bypassed the lane), and
@@ -341,9 +369,11 @@ per replica-set step and replica, in the fallback's CLI process, in the
 rollout and after the re-resolve (`launches_fleet`), the fleet scan's
 per run and per artifact of the resume, for the match kernel per tier
 and for the anchor kernel (`launches_fleetscan`), the chaos
-campaign's per scenario (`launches_chaos`), and the kubernetes scan's
+campaign's per scenario (`launches_chaos`), the kubernetes scan's
 per run (`launches_k8s`: the match kernel per tier and the anchor
-kernel, on the card and with --no-tpu). Prints a `kernels`
+kernel, on the card and with --no-tpu), and the misconfiguration
+phase's per run (`launches_iac`: the same two, for (a), (b), (c) and
+their --no-tpu twins). Prints a `kernels`
 JSON line, the card line, and
 last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
@@ -7755,6 +7785,1212 @@ def k8s_finish(k8: dict) -> dict:
         "anchor": {"a": a["anchor"], "a_no_tpu": an["anchor"]}}}
 
 
+# -------------------------------------------------------------- phase 20
+
+
+IAC_SEED = 20261023
+# the monorepo's services: each a Dockerfile, a Helm chart, kubernetes
+# manifests, a Terraform stack per environment, a CloudFormation and
+# an ARM template
+IAC_SERVICES = 64
+IAC_ENVS = ("dev", "staging", "prod")
+IAC_TIMEOUT_S = 900.0  # the runner, bounded
+# the breadth-wave fixtures of the reference's tests: for each check one
+# input that fails it and one that passes it, read from the source (the
+# test module imports the JAX package, so it is parsed, not imported)
+IAC_BREADTH = os.path.join(REPO, "tests", "test_iac_breadth.py")
+IAC_BREADTH_LISTS = {"AWS_TF_CASES": "terraform",
+                     "AZURE_TF_CASES": "terraform",
+                     "GCP_TF_CASES": "terraform",
+                     "AWS_CFN_CASES": "cloudformation",
+                     "DOCKER_CASES": "dockerfile",
+                     "K8S_CASES": "kubernetes"}
+# --helm-set / --helm-values of phase 20 (a): each turns on a finding the
+# chart's own values leave off (KSV017 privileged, KSV009 hostNetwork)
+IAC_HELM_SET = "securityContext.privileged=true,replicas=3"
+IAC_HELM_VALUES = "hostNetwork: true\nimage:\n  tag: '1.27'\n"
+
+
+def _res(kind: str, name: str, body: str = "") -> str:
+    return f'resource "{kind}" "{name}" {{\n{body}}}\n'
+
+
+# checks the breadth fixtures leave out: (id, type, failing, passing)
+IAC_EXTRA_CASES = [
+    ("AVD-AWS-0012", "terraform",
+     _res("aws_cloudfront_distribution", "cdn",
+          "  default_cache_behavior {\n"
+          '    viewer_protocol_policy = "allow-all"\n  }\n'),
+     _res("aws_cloudfront_distribution", "cdn",
+          "  default_cache_behavior {\n"
+          '    viewer_protocol_policy = "redirect-to-https"\n  }\n')),
+    ("AVD-AWS-0054", "terraform",
+     _res("aws_lb_listener", "l", '  port = 80\n  protocol = "HTTP"\n'),
+     _res("aws_lb_listener", "l", '  port = 443\n  protocol = "HTTPS"\n')),
+    ("AVD-AWS-0095", "terraform", _res("aws_sns_topic", "t"),
+     _res("aws_sns_topic", "t", '  kms_master_key_id = "alias/sns"\n')),
+    ("AVD-AWS-0096", "terraform", _res("aws_sqs_queue", "q"),
+     _res("aws_sqs_queue", "q", '  kms_master_key_id = "alias/sqs"\n')),
+    ("AVD-AWS-0104", "terraform",
+     _res("aws_security_group", "sg",
+          '  egress {\n    cidr_blocks = ["0.0.0.0/0"]\n  }\n'),
+     _res("aws_security_group", "sg",
+          '  egress {\n    cidr_blocks = ["10.0.0.0/16"]\n  }\n')),
+    ("AVD-GCP-0001", "terraform",
+     _res("google_storage_bucket_iam_member", "m",
+          '  bucket = "b"\n  role = "roles/storage.objectViewer"\n'
+          '  member = "allUsers"\n'),
+     _res("google_storage_bucket_iam_member", "m",
+          '  bucket = "b"\n  role = "roles/storage.objectViewer"\n'
+          '  member = "user:ops@example.com"\n')),
+    ("AVD-GCP-0002", "terraform",
+     _res("google_storage_bucket", "b",
+          '  name = "b"\n  uniform_bucket_level_access = false\n'),
+     _res("google_storage_bucket", "b",
+          '  name = "b"\n  uniform_bucket_level_access = true\n')),
+    ("AVD-GCP-0027", "terraform",
+     _res("google_compute_firewall", "fw",
+          '  name = "fw"\n  source_ranges = ["0.0.0.0/0"]\n'),
+     _res("google_compute_firewall", "fw",
+          '  name = "fw"\n  source_ranges = ["10.0.0.0/8"]\n')),
+    ("AVD-GCP-0064", "terraform",
+     _res("google_container_cluster", "gke",
+          '  name = "gke"\n  enable_legacy_abac = true\n'),
+     _res("google_container_cluster", "gke",
+          '  name = "gke"\n  enable_legacy_abac = false\n')),
+    ("AVD-AZU-0022", "azure-arm",
+     {"type": "Microsoft.Sql/servers", "name": "sql",
+      "properties": {"publicNetworkAccess": "Enabled"}},
+     {"type": "Microsoft.Sql/servers", "name": "sql",
+      "properties": {"publicNetworkAccess": "Disabled"}}),
+    ("AVD-AZU-0039", "azure-arm",
+     {"type": "Microsoft.Compute/virtualMachines", "name": "vm",
+      "properties": {"osProfile": {"linuxConfiguration": {
+          "disablePasswordAuthentication": False}}}},
+     {"type": "Microsoft.Compute/virtualMachines", "name": "vm",
+      "properties": {"osProfile": {"linuxConfiguration": {
+          "disablePasswordAuthentication": True}}}}),
+    ("AVD-AZU-0047", "azure-arm",
+     {"type": "Microsoft.Network/networkSecurityGroups", "name": "nsg",
+      "properties": {"securityRules": [{"name": "ssh", "properties": {
+          "direction": "Inbound", "access": "Allow",
+          "sourceAddressPrefix": "*", "destinationPortRange": "22"}}]}},
+     {"type": "Microsoft.Network/networkSecurityGroups", "name": "nsg",
+      "properties": {"securityRules": [{"name": "ssh", "properties": {
+          "direction": "Inbound", "access": "Allow",
+          "sourceAddressPrefix": "10.0.0.0/8",
+          "destinationPortRange": "22"}}]}}),
+    ("AVD-CLDSTK-0001", "terraform",
+     _res("cloudstack_instance", "vm",
+          '  user_data = "export DB_PASSWORD=hunter2"\n'),
+     _res("cloudstack_instance", "vm",
+          '  user_data = "apt-get install -y nginx"\n')),
+    ("AVD-DIG-0001", "terraform",
+     _res("digitalocean_firewall", "fw",
+          '  inbound_rule {\n    protocol = "tcp"\n'
+          '    source_addresses = ["0.0.0.0/0"]\n  }\n'),
+     _res("digitalocean_firewall", "fw",
+          '  inbound_rule {\n    protocol = "tcp"\n'
+          '    source_addresses = ["192.168.1.0/24"]\n  }\n')),
+    ("AVD-DIG-0002", "terraform",
+     _res("digitalocean_firewall", "fw",
+          '  outbound_rule {\n    protocol = "tcp"\n'
+          '    destination_addresses = ["0.0.0.0/0"]\n  }\n'),
+     _res("digitalocean_firewall", "fw",
+          '  outbound_rule {\n    protocol = "tcp"\n'
+          '    destination_addresses = ["192.168.1.0/24"]\n  }\n')),
+    ("AVD-DIG-0003", "terraform",
+     _res("digitalocean_loadbalancer", "lb",
+          '  forwarding_rule {\n    entry_protocol = "http"\n  }\n'),
+     _res("digitalocean_loadbalancer", "lb",
+          '  forwarding_rule {\n    entry_protocol = "https"\n  }\n')),
+    ("AVD-DIG-0004", "terraform",
+     _res("digitalocean_droplet", "d", '  image = "ubuntu-22-04-x64"\n'),
+     _res("digitalocean_droplet", "d",
+          '  image = "ubuntu-22-04-x64"\n  ssh_keys = [1234]\n')),
+    ("AVD-DIG-0005", "terraform",
+     _res("digitalocean_kubernetes_cluster", "k", '  name = "k"\n'),
+     _res("digitalocean_kubernetes_cluster", "k",
+          '  name = "k"\n  auto_upgrade = true\n  surge_upgrade = true\n')),
+    ("AVD-DIG-0006", "terraform",
+     _res("digitalocean_spaces_bucket", "s", '  acl = "public-read"\n'),
+     _res("digitalocean_spaces_bucket", "s",
+          '  acl = "private"\n  versioning {\n    enabled = true\n  }\n')),
+    ("AVD-DIG-0007", "terraform",
+     _res("digitalocean_spaces_bucket", "s", '  acl = "private"\n'),
+     _res("digitalocean_spaces_bucket", "s",
+          '  acl = "private"\n  versioning {\n    enabled = true\n  }\n')),
+    ("AVD-DIG-0008", "terraform",
+     _res("digitalocean_kubernetes_cluster", "k",
+          '  name = "k"\n  auto_upgrade = true\n'),
+     _res("digitalocean_kubernetes_cluster", "k",
+          '  name = "k"\n  auto_upgrade = true\n  surge_upgrade = true\n')),
+    ("AVD-GIT-0001", "terraform",
+     _res("github_repository", "r",
+          '  name = "r"\n  vulnerability_alerts = true\n'),
+     _res("github_repository", "r",
+          '  name = "r"\n  visibility = "private"\n'
+          '  vulnerability_alerts = true\n')),
+    ("AVD-GIT-0002", "terraform",
+     _res("github_actions_environment_secret", "s",
+          '  secret_name = "TOKEN"\n  plaintext_value = "s3cr3t"\n'),
+     _res("github_actions_environment_secret", "s",
+          '  secret_name = "TOKEN"\n  encrypted_value = "c2VjcmV0"\n')),
+    ("AVD-GIT-0003", "terraform",
+     _res("github_repository", "r",
+          '  name = "r"\n  visibility = "private"\n'),
+     _res("github_repository", "r",
+          '  name = "r"\n  visibility = "private"\n'
+          '  vulnerability_alerts = true\n')),
+    ("AVD-GIT-0004", "terraform",
+     _res("github_branch_protection", "p", '  pattern = "main"\n'),
+     _res("github_branch_protection", "p",
+          '  pattern = "main"\n  require_signed_commits = true\n')),
+    ("AVD-NIF-0001", "terraform",
+     _res("nifcloud_security_group_rule", "r",
+          '  type = "IN"\n  cidr_ip = "0.0.0.0/0"\n'),
+     _res("nifcloud_security_group_rule", "r",
+          '  type = "IN"\n  cidr_ip = "10.0.0.0/16"\n')),
+    ("AVD-NIF-0002", "terraform",
+     _res("nifcloud_load_balancer", "lb",
+          '  load_balancer_protocol = "HTTP"\n'),
+     _res("nifcloud_load_balancer", "lb",
+          '  load_balancer_protocol = "HTTPS"\n')),
+    ("AVD-OCI-0001", "terraform",
+     _res("opc_compute_ip_address_reservation", "ip",
+          '  pool = "public-ippool"\n'),
+     _res("opc_compute_ip_address_reservation", "ip",
+          '  pool = "cloud-ippool"\n')),
+    ("AVD-OPNSTK-0001", "terraform",
+     _res("openstack_compute_instance_v2", "vm",
+          '  name = "vm"\n  admin_pass = "N0tS0Secret"\n'),
+     _res("openstack_compute_instance_v2", "vm",
+          '  name = "vm"\n  key_pair = "ops"\n')),
+    ("AVD-OPNSTK-0002", "terraform",
+     _res("openstack_networking_secgroup_rule_v2", "r",
+          '  direction = "ingress"\n  remote_ip_prefix = "0.0.0.0/0"\n'),
+     _res("openstack_networking_secgroup_rule_v2", "r",
+          '  direction = "ingress"\n  remote_ip_prefix = "10.0.0.0/8"\n')),
+    ("AVD-AWS-0014", "terraform",
+     _res("aws_cloudtrail", "t",
+          '  name = "t"\n  is_multi_region_trail = false\n'),
+     _res("aws_cloudtrail", "t",
+          '  name = "t"\n  is_multi_region_trail = true\n'
+          '  enable_log_file_validation = true\n'
+          '  kms_key_id = "arn:aws:kms:eu-west-1:123456789012:key/k"\n')),
+    ("AVD-AWS-0015", "terraform",
+     _res("aws_cloudtrail", "t",
+          '  name = "t"\n  is_multi_region_trail = true\n'),
+     _res("aws_cloudtrail", "t",
+          '  name = "t"\n  is_multi_region_trail = true\n'
+          '  enable_log_file_validation = true\n'
+          '  kms_key_id = "arn:aws:kms:eu-west-1:123456789012:key/k"\n')),
+    ("AVD-AWS-0016", "terraform",
+     _res("aws_cloudtrail", "t",
+          '  name = "t"\n  enable_log_file_validation = false\n'),
+     _res("aws_cloudtrail", "t",
+          '  name = "t"\n  is_multi_region_trail = true\n'
+          '  enable_log_file_validation = true\n'
+          '  kms_key_id = "arn:aws:kms:eu-west-1:123456789012:key/k"\n')),
+    ("AVD-AWS-0037", "terraform",
+     _res("aws_efs_file_system", "fs", "  encrypted = false\n"),
+     _res("aws_efs_file_system", "fs", "  encrypted = true\n")),
+    ("AVD-AWS-0057", "terraform",
+     _res("aws_iam_policy", "p",
+          '  name = "p"\n  policy = jsonencode({\n'
+          '    Version = "2012-10-17"\n    Statement = [{\n'
+          '      Effect = "Allow"\n      Action = "*"\n'
+          '      Resource = "*"\n    }]\n  })\n'),
+     _res("aws_iam_policy", "p",
+          '  name = "p"\n  policy = jsonencode({\n'
+          '    Version = "2012-10-17"\n    Statement = [{\n'
+          '      Effect = "Allow"\n      Action = "s3:GetObject"\n'
+          '      Resource = "arn:aws:s3:::b/*"\n    }]\n  })\n')),
+    ("AVD-GCP-0032", "terraform",
+     _res("google_compute_instance", "vm",
+          '  name = "vm"\n  metadata = {\n'
+          '    serial-port-enable = true\n  }\n'),
+     _res("google_compute_instance", "vm",
+          '  name = "vm"\n  metadata = {\n'
+          '    serial-port-enable = false\n  }\n')),
+    ("KSV037", "kubernetes",
+     "apiVersion: v1\nkind: Pod\nmetadata:\n  name: agent\n"
+     "  namespace: kube-system\nspec:\n  containers:\n"
+     "    - name: agent\n      image: agent:1.0\n",
+     "apiVersion: v1\nkind: Pod\nmetadata:\n  name: agent\n"
+     "  namespace: monitoring\nspec:\n  containers:\n"
+     "    - name: agent\n      image: agent:1.0\n"),
+    ("KSV103", "kubernetes",
+     "apiVersion: v1\nkind: Pod\nmetadata:\n  name: win\nspec:\n"
+     "  securityContext:\n    windowsOptions:\n"
+     "      hostProcess: true\n  containers:\n"
+     "    - name: win\n      image: win:1.0\n",
+     "apiVersion: v1\nkind: Pod\nmetadata:\n  name: win\nspec:\n"
+     "  containers:\n    - name: win\n      image: win:1.0\n"),
+    ("DS001", "dockerfile", "FROM debian:latest\nUSER app\n",
+     "FROM debian:12.5\nUSER app\n"),
+    ("DS002", "dockerfile", "FROM debian:12.5\nUSER root\n",
+     "FROM debian:12.5\nUSER app\n"),
+    ("DS004", "dockerfile", "FROM debian:12.5\nEXPOSE 22\n",
+     "FROM debian:12.5\nEXPOSE 8080\n"),
+    ("DS005", "dockerfile", "FROM debian:12.5\nADD app.sh /app/\n",
+     "FROM debian:12.5\nCOPY app.sh /app/\n"),
+    ("DS010", "dockerfile", "FROM debian:12.5\nRUN sudo make install\n",
+     "FROM debian:12.5\nRUN make install\n"),
+    ("DS012", "dockerfile",
+     "FROM debian:12.5 AS build\nFROM alpine:3.19 AS build\n",
+     "FROM debian:12.5 AS build\nFROM alpine:3.19 AS run\n"),
+    ("DS013", "dockerfile", "FROM debian:12.5\nRUN cd /src && make\n",
+     "FROM debian:12.5\nWORKDIR /src\nRUN make\n"),
+    ("DS016", "dockerfile",
+     'FROM debian:12.5\nCMD ["a"]\nCMD ["b"]\n',
+     'FROM debian:12.5\nCMD ["b"]\n'),
+    ("DS017", "dockerfile",
+     "FROM debian:12.5\nRUN apt-get update\n"
+     "RUN apt-get install -y --no-install-recommends curl\n",
+     "FROM debian:12.5\nRUN apt-get update && apt-get install -y "
+     "--no-install-recommends curl\n"),
+    ("DS021", "dockerfile",
+     "FROM debian:12.5\nRUN apt-get install --no-install-recommends curl\n",
+     "FROM debian:12.5\n"
+     "RUN apt-get install -y --no-install-recommends curl\n"),
+    ("DS024", "dockerfile",
+     "FROM debian:12.5\nRUN apt-get -y dist-upgrade\n",
+     "FROM debian:12.5\nRUN apt-get -y upgrade\n"),
+    ("DS025", "dockerfile", "FROM alpine:3.19\nRUN apk add curl\n",
+     "FROM alpine:3.19\nRUN apk add --no-cache curl\n"),
+    ("DS026", "dockerfile", "FROM alpine:3.19\nUSER app\n",
+     "FROM alpine:3.19\nUSER app\nHEALTHCHECK CMD /bin/true\n"),
+    ("DS029", "dockerfile",
+     "FROM debian:12.5\nRUN apt-get install -y curl\n",
+     "FROM debian:12.5\n"
+     "RUN apt-get install -y --no-install-recommends curl\n"),
+]
+
+# a pod spec that gets everything wrong the workload checks look at, and
+# one that gets it all right (KSV001-KSV117 on one resource each)
+IAC_BAD_POD = """apiVersion: v1
+kind: Pod
+metadata:
+  name: {name}
+  namespace: default
+  annotations:
+    container.apparmor.security.beta.kubernetes.io/app: unconfined
+spec:
+  hostPID: true
+  hostIPC: true
+  hostNetwork: true
+  automountServiceAccountToken: true
+  securityContext:
+    runAsUser: 0
+    runAsGroup: 0
+    seLinuxOptions:
+      type: spc_t
+    seccompProfile:
+      type: Unconfined
+    sysctls:
+      - name: kernel.shm_rmid_forced
+        value: '0'
+  volumes:
+    - name: docker
+      hostPath:
+        path: /var/run/docker.sock
+  containers:
+    - name: app
+      image: nginx
+      ports:
+        - containerPort: 80
+          hostPort: 8080
+      securityContext:
+        privileged: true
+        allowPrivilegeEscalation: true
+        readOnlyRootFilesystem: false
+        runAsNonRoot: false
+        runAsUser: 0
+        runAsGroup: 0
+        capabilities:
+          add: [SYS_ADMIN, NET_RAW]
+        procMount: Unmasked
+        seLinuxOptions:
+          user: system_u
+        seccompProfile:
+          type: Unconfined
+      volumeMounts:
+        - name: docker
+          mountPath: /var/run/docker.sock
+"""
+IAC_GOOD_POD = """apiVersion: v1
+kind: Pod
+metadata:
+  name: {name}
+  namespace: apps
+spec:
+  automountServiceAccountToken: false
+  securityContext:
+    runAsNonRoot: true
+    runAsUser: 10001
+    runAsGroup: 10001
+    seccompProfile:
+      type: RuntimeDefault
+  containers:
+    - name: app
+      image: registry.example/app@sha256:{digest}
+      imagePullPolicy: Always
+      securityContext:
+        privileged: false
+        allowPrivilegeEscalation: false
+        readOnlyRootFilesystem: true
+        runAsNonRoot: true
+        runAsUser: 10001
+        runAsGroup: 10001
+        capabilities:
+          drop: [ALL]
+        seccompProfile:
+          type: RuntimeDefault
+      resources:
+        requests:
+          cpu: 100m
+          memory: 128Mi
+        limits:
+          cpu: 500m
+          memory: 256Mi
+"""
+
+
+def breadth_cases(path: str = IAC_BREADTH) -> list:
+    """The reference tests' breadth fixtures -> [(id, type, failing,
+    passing)], read from the test module's source: the literal lists as
+    they stand, K8S_CASES through its `pod` helper."""
+    import ast
+
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    consts = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0],
+                                                       ast.Name):
+            consts[node.targets[0].id] = node.value
+    pod_tpl = ast.literal_eval(consts["_POD"])
+
+    def pod(spec_extra="", container_extra=""):
+        return pod_tpl % (spec_extra, container_extra)
+
+    out = []
+    for name, ftype in IAC_BREADTH_LISTS.items():
+        expr = ast.Expression(consts[name])
+        cases = eval(compile(expr, path, "eval"),  # noqa: S307
+                     {"__builtins__": {}, "pod": pod})
+        out.extend((cid, ftype, bad, good) for cid, bad, good in cases)
+    return out
+
+
+def _tf_stack(rng, svc: str, env: str, secret: bytes | None) -> list:
+    """One service's Terraform root module for one environment: local
+    module calls with variables, `count` and `for_each`."""
+    n_web = int(rng.integers(1, 4))
+    private = env == "prod"
+    provider = ('provider "aws" {\n  region = "eu-west-1"\n'
+                + (f'  access_key = "{secret.decode()}"\n' if secret
+                   else "") + "}\n")
+    main = f"""{provider}
+variable "env" {{
+  type    = string
+  default = "{env}"
+}}
+
+variable "web_count" {{
+  default = {n_web}
+}}
+
+locals {{
+  buckets = {{
+    logs   = {str(private).lower()}
+    assets = false
+  }}
+  tags = {{ service = "{svc}", env = var.env }}
+}}
+
+module "bucket" {{
+  source     = "../../../modules/aws-bucket"
+  for_each   = local.buckets
+  name       = "${{var.env}}-{svc}-${{each.key}}"
+  versioning = each.value
+  tags       = local.tags
+}}
+
+module "network" {{
+  source  = "../../../modules/aws-network"
+  name    = "{svc}-${{var.env}}"
+  open_ssh = {str(not private).lower()}
+}}
+
+resource "aws_instance" "web" {{
+  count         = var.web_count
+  ami           = "ami-0abcdef1234567890"
+  instance_type = "t3.micro"
+  metadata_options {{
+    http_tokens = "{'required' if private else 'optional'}"
+  }}
+  root_block_device {{
+    encrypted = {str(private).lower()}
+  }}
+  tags = merge(local.tags, {{ Name = "web-${{count.index}}" }})
+}}
+
+resource "aws_db_instance" "db" {{
+  identifier          = "{svc}-${{var.env}}"
+  engine              = "postgres"
+  instance_class      = "db.t3.micro"
+  storage_encrypted   = {str(private).lower()}
+  publicly_accessible = {str(not private).lower()}
+  backup_retention_period = {7 if private else 0}
+}}
+"""
+    tfvars = f'web_count = {n_web}\n'
+    return [(f"infra/terraform/live/aws/{svc}/{env}/main.tf", main),
+            (f"infra/terraform/live/aws/{svc}/{env}/terraform.tfvars",
+             tfvars)]
+
+
+IAC_TF_MODULES = [
+    ("infra/terraform/modules/aws-bucket/main.tf", """variable "name" {
+  type = string
+}
+
+variable "versioning" {
+  default = false
+}
+
+variable "tags" {
+  default = {}
+}
+
+resource "aws_s3_bucket" "this" {
+  bucket = var.name
+  tags   = var.tags
+}
+
+resource "aws_s3_bucket_versioning" "this" {
+  bucket = aws_s3_bucket.this.id
+  versioning_configuration {
+    status = var.versioning ? "Enabled" : "Suspended"
+  }
+}
+
+resource "aws_s3_bucket_public_access_block" "this" {
+  count                   = var.versioning ? 1 : 0
+  bucket                  = aws_s3_bucket.this.id
+  block_public_acls       = true
+  block_public_policy     = true
+  ignore_public_acls      = true
+  restrict_public_buckets = true
+}
+
+output "id" {
+  value = aws_s3_bucket.this.id
+}
+"""),
+    ("infra/terraform/modules/aws-network/main.tf", """variable "name" {
+  type = string
+}
+
+variable "open_ssh" {
+  default = false
+}
+
+resource "aws_vpc" "this" {
+  cidr_block = "10.0.0.0/16"
+  tags       = { Name = var.name }
+}
+
+resource "aws_security_group" "web" {
+  name        = "${var.name}-web"
+  description = "web tier"
+  vpc_id      = aws_vpc.this.id
+
+  ingress {
+    description = "https"
+    from_port   = 443
+    to_port     = 443
+    protocol    = "tcp"
+    cidr_blocks = ["10.0.0.0/16"]
+  }
+
+  dynamic "ingress" {
+    for_each = var.open_ssh ? [22] : []
+    content {
+      description = "ssh"
+      from_port   = ingress.value
+      to_port     = ingress.value
+      protocol    = "tcp"
+      cidr_blocks = ["0.0.0.0/0"]
+    }
+  }
+}
+"""),
+]
+
+
+def _azure_stack(svc: str) -> str:
+    return f"""resource "azurerm_storage_account" "sa" {{
+  name                     = "{svc.replace('-', '')}sa"
+  resource_group_name      = "rg-{svc}"
+  location                 = "westeurope"
+  account_tier             = "Standard"
+  account_replication_type = "GRS"
+  min_tls_version          = "TLS1_0"
+}}
+
+resource "azurerm_key_vault" "kv" {{
+  name                = "{svc}-kv"
+  location            = "westeurope"
+  resource_group_name = "rg-{svc}"
+  tenant_id           = "00000000-0000-0000-0000-000000000000"
+  sku_name            = "standard"
+}}
+"""
+
+
+def _gcp_stack(svc: str) -> str:
+    return f"""variable "zones" {{
+  default = ["europe-west1-b", "europe-west1-c"]
+}}
+
+resource "google_compute_instance" "vm" {{
+  for_each     = toset(var.zones)
+  name         = "{svc}-${{each.value}}"
+  machine_type = "e2-small"
+  zone         = each.value
+  can_ip_forward = true
+}}
+
+resource "google_storage_bucket" "data" {{
+  name     = "{svc}-data"
+  location = "EU"
+}}
+"""
+
+
+def _plan(svc: str, env: str) -> dict:
+    """A `terraform show -json` plan of one stack."""
+    enc = env == "prod"
+    resources = [
+        {"address": f"aws_s3_bucket.{svc}", "mode": "managed",
+         "type": "aws_s3_bucket", "name": svc,
+         "values": {"bucket": f"{env}-{svc}", "acl": "private" if enc
+                    else "public-read"}},
+        {"address": "aws_security_group.web", "mode": "managed",
+         "type": "aws_security_group", "name": "web",
+         "values": {"description": "web", "ingress": [
+             {"cidr_blocks": ["0.0.0.0/0"], "from_port": 22,
+              "to_port": 22}], "egress": []}},
+        {"address": "aws_ebs_volume.data", "mode": "managed",
+         "type": "aws_ebs_volume", "name": "data",
+         "values": {"encrypted": enc, "size": 100}},
+        {"address": "aws_db_instance.db", "mode": "managed",
+         "type": "aws_db_instance", "name": "db",
+         "values": {"storage_encrypted": enc,
+                    "publicly_accessible": not enc}},
+    ]
+    return {"format_version": "1.2", "terraform_version": "1.7.5",
+            "planned_values": {"root_module": {"resources": resources}},
+            "resource_changes": [
+                {"address": r["address"], "type": r["type"],
+                 "change": {"actions": ["create"], "after": r["values"],
+                            "after_unknown": {"id": True}}}
+                for r in resources]}
+
+
+def _cfn_yaml(svc: str, secret: bytes | None) -> str:
+    pw = secret.decode() if secret else "ChangeMe"
+    return f"""AWSTemplateFormatVersion: '2010-09-09'
+Description: {svc} data tier
+Parameters:
+  Env:
+    Type: String
+    Default: prod
+    AllowedValues: [dev, prod]
+Conditions:
+  IsProd: !Equals [!Ref Env, prod]
+Resources:
+  DataBucket:
+    Type: AWS::S3::Bucket
+    Properties:
+      BucketName: !Sub '${{Env}}-{svc}-data'
+      AccessControl: PublicRead
+      VersioningConfiguration:
+        Status: !If [IsProd, Enabled, Suspended]
+  Queue:
+    Type: AWS::SQS::Queue
+    Properties:
+      QueueName: !Join ['-', [!Ref Env, {svc}]]
+  Topic:
+    Type: AWS::SNS::Topic
+    Properties:
+      KmsMasterKeyId: !GetAtt Key.Arn
+  Key:
+    Type: AWS::KMS::Key
+    Properties:
+      EnableKeyRotation: false
+  Db:
+    Type: AWS::RDS::DBInstance
+    Properties:
+      Engine: postgres
+      MasterUserPassword: '{pw}'
+      StorageEncrypted: !If [IsProd, true, false]
+      PubliclyAccessible: true
+"""
+
+
+def _cfn_json(svc: str) -> dict:
+    return {
+        "AWSTemplateFormatVersion": "2010-09-09",
+        "Parameters": {"Cidr": {"Type": "String",
+                                "Default": "0.0.0.0/0"}},
+        "Resources": {
+            "Sg": {"Type": "AWS::EC2::SecurityGroup", "Properties": {
+                "GroupDescription": {"Fn::Sub": f"{svc} web"},
+                "SecurityGroupIngress": [{
+                    "IpProtocol": "tcp", "FromPort": 22, "ToPort": 22,
+                    "CidrIp": {"Ref": "Cidr"}}]}},
+            "Volume": {"Type": "AWS::EC2::Volume", "Properties": {
+                "Size": 50, "Encrypted": False,
+                "AvailabilityZone": {"Fn::Select": [
+                    0, {"Fn::GetAZs": ""}]}}},
+            "Repo": {"Type": "AWS::ECR::Repository", "Properties": {
+                "RepositoryName": {"Fn::Join": ["/", ["platform", svc]]}}},
+        }}
+
+
+def _arm(svc: str) -> dict:
+    """An ARM template with a copy loop and a nested deployment."""
+    inner = {
+        "parameters": {"httpsOnly": {"type": "bool"}},
+        "resources": [{
+            "type": "Microsoft.Storage/storageAccounts",
+            "name": f"{svc.replace('-', '')}inner",
+            "properties": {
+                "supportsHttpsTrafficOnly": "[parameters('httpsOnly')]",
+                "minimumTlsVersion": "TLS1_0"}}]}
+    return {
+        "$schema": "https://schema.management.azure.com/schemas/"
+                   "2019-04-01/deploymentTemplate.json#",
+        "contentVersion": "1.0.0.0",
+        "parameters": {
+            "count": {"type": "int", "defaultValue": 3},
+            "secure": {"type": "bool", "defaultValue": False}},
+        "variables": {"prefix": f"[concat('{svc}', '-')]"},
+        "resources": [
+            {"type": "Microsoft.Storage/storageAccounts",
+             "name": "[concat(variables('prefix'), copyIndex())]",
+             "copy": {"name": "saLoop", "count": "[parameters('count')]"},
+             "properties": {
+                 "supportsHttpsTrafficOnly": "[parameters('secure')]",
+                 "allowBlobPublicAccess": True}},
+            {"type": "Microsoft.KeyVault/vaults",
+             "name": "[concat(variables('prefix'), 'kv')]",
+             "properties": {"enablePurgeProtection": False}},
+            {"type": "Microsoft.Resources/deployments",
+             "name": "nested",
+             "properties": {
+                 "mode": "Incremental", "template": inner,
+                 "parameters": {
+                     "httpsOnly": {"value": "[parameters('secure')]"}}}},
+        ]}
+
+
+def _dockerfile(rng, svc: str) -> str:
+    lang = ["golang:1.22", "node:20", "python:3.12"][int(rng.integers(3))]
+    final = ["debian:12.5", "alpine:3.19", "gcr.io/distroless/base"][
+        int(rng.integers(3))]
+    user = "root" if rng.random() < 0.5 else "app"
+    health = rng.random() < 0.5
+    return (f"FROM {lang} AS build\nWORKDIR /src\nCOPY . .\n"
+            f"RUN make build\n\n"
+            f"FROM {final}\n"
+            "LABEL org.opencontainers.image.source=platform\n"
+            f"COPY --from=build /src/bin/{svc} /usr/local/bin/{svc}\n"
+            "EXPOSE 8080\n"
+            f"USER {user}\n"
+            + ("HEALTHCHECK CMD [\"/usr/local/bin/healthz\"]\n"
+               if health else "")
+            + f'ENTRYPOINT ["/usr/local/bin/{svc}"]\n')
+
+
+def _chart(svc: str, secret: bytes | None) -> list:
+    """A Helm chart: values, helpers and two templates."""
+    token = secret.decode() if secret else "none"
+    return [
+        ("Chart.yaml", f"apiVersion: v2\nname: {svc}\nversion: 0.3.1\n"
+                       "appVersion: '1.4.0'\n"),
+        ("values.yaml", "replicas: 2\nimage:\n  repo: registry.example/"
+                        f"{svc}\n  tag: '1.4.0'\nhostNetwork: false\n"
+                        "securityContext:\n  privileged: false\n"
+                        "  runAsNonRoot: true\n"
+                        f"apiToken: {token}\n"),
+        ("templates/_helpers.tpl",
+         '{{- define "app.fullname" -}}\n'
+         "{{ .Release.Name }}-{{ .Chart.Name }}\n{{- end -}}\n"),
+        ("templates/deployment.yaml", """apiVersion: apps/v1
+kind: Deployment
+metadata:
+  name: {{ include "app.fullname" . }}
+  labels:
+    app: {{ .Chart.Name }}
+spec:
+  replicas: {{ .Values.replicas }}
+  template:
+    spec:
+      hostNetwork: {{ .Values.hostNetwork }}
+      containers:
+        - name: {{ .Chart.Name }}
+          image: "{{ .Values.image.repo }}:{{ .Values.image.tag }}"
+          securityContext:
+            privileged: {{ .Values.securityContext.privileged }}
+{{- if .Values.securityContext.runAsNonRoot }}
+            runAsNonRoot: true
+{{- end }}
+"""),
+        ("templates/service.yaml", """apiVersion: v1
+kind: Service
+metadata:
+  name: {{ include "app.fullname" . }}
+spec:
+  type: LoadBalancer
+  ports:
+    - port: 80
+"""),
+    ]
+
+
+def _tgz(prefix: str, files: list) -> bytes:
+    import io
+    import tarfile
+
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+        for path, body in files:
+            data = body.encode()
+            info = tarfile.TarInfo(f"{prefix}/{path}")
+            info.size = len(data)
+            info.mtime = 1700000000
+            tar.addfile(info, io.BytesIO(data))
+    return buf.getvalue()
+
+
+def iac_monorepo(root: str, n_services: int, lockfiles: list,
+                 seed: int = IAC_SEED, conformance: bool = True) -> dict:
+    """A platform team's infrastructure monorepo, seeded: per service a
+    multi-stage Dockerfile, a Helm chart (every fourth packaged as a
+    .tgz), kubernetes manifests, an AWS Terraform root module per
+    environment over shared local modules (variables, count, for_each,
+    a dynamic block), an Azure and a GCP stack, a CloudFormation
+    template in YAML and one in JSON (intrinsics), and an ARM template
+    (a copy loop, a nested deployment); two `terraform show -json`
+    plans; `lockfiles` ((path, body) pairs: phase 7's npm and pip
+    packages as `app/package-lock.json` and `app/requirements.txt`);
+    secrets planted in .tf,
+    .yaml and .env files; and, with `conformance`, `conformance/`: for
+    each built-in check a file that fails it and, where the check can
+    pass, one that passes it (the breadth fixtures of the reference's
+    tests, then IAC_EXTRA_CASES and the two pods). The `dev` stacks sit in
+    directories named `dev`, which the walkers of both packages skip at
+    any depth, so no secret is planted there. -> counts and the planted
+    findings."""
+    rng = np.random.default_rng(seed)
+    srng = random.Random(seed)
+    files: list = list(IAC_TF_MODULES)
+    planted = 0
+
+    def secret(kind: str) -> bytes:
+        nonlocal planted
+        planted += 1
+        return secret_maker(kind, srng)
+
+    for i in range(n_services):
+        svc = f"svc-{i:03d}"
+        base = f"services/{svc}"
+        files.append((f"{base}/Dockerfile", _dockerfile(rng, svc)))
+        packaged = i % 4 == 1  # the secret screen does not open a .tgz
+        chart = _chart(svc, secret("github-pat")
+                       if i % 3 == 0 and not packaged else None)
+        if packaged:
+            files.append((f"{base}/deploy/{svc}-0.3.1.tgz",
+                          _tgz(svc, chart)))
+        else:
+            files.extend((f"{base}/deploy/chart/{p}", b)
+                         for p, b in chart)
+        files.append((f"{base}/k8s/pod.yaml",
+                      (IAC_BAD_POD if i % 2 else IAC_GOOD_POD).format(
+                          name=svc, digest="ab" * 32)))
+        files.append((f"{base}/.env", "LOG_LEVEL=info\nAPI_KEY="
+                      + secret("gitlab-pat").decode() + "\n"))
+        for env in IAC_ENVS:
+            files.extend(_tf_stack(rng, svc, env, secret(
+                "aws-access-key-id") if env == "staging" and i % 2 == 0
+                else None))
+        files.append((f"infra/terraform/live/azure/{svc}/main.tf",
+                      _azure_stack(svc)))
+        files.append((f"infra/terraform/live/gcp/{svc}/main.tf",
+                      _gcp_stack(svc)))
+        files.append((f"infra/cloudformation/{svc}.yaml", _cfn_yaml(
+            svc, secret("stripe-secret-token") if i % 5 == 0 else None)))
+        files.append((f"infra/cloudformation/{svc}-net.json",
+                      json.dumps(_cfn_json(svc), indent=2)))
+        files.append((f"infra/arm/{svc}/azuredeploy.json",
+                      json.dumps(_arm(svc), indent=2)))
+    for env in ("staging", "prod"):
+        files.append((f"infra/plans/{env}.tfplan.json",
+                      json.dumps(_plan("platform", env), indent=1)))
+    files.extend(lockfiles)
+
+    cases = breadth_cases() + IAC_EXTRA_CASES if conformance else []
+    for k, (cid, ftype, bad, good) in enumerate(cases):
+        d = f"conformance/{cid}-{k:03d}"
+        for kind, body in (("fail", bad), ("pass", good)):
+            if body is None:
+                continue
+            if ftype == "terraform":
+                path, data = f"{d}/{kind}/main.tf", body
+            elif ftype == "dockerfile":
+                path, data = f"{d}/{kind}/Dockerfile", body
+            elif ftype == "kubernetes":
+                path, data = f"{d}/{kind}.yaml", body
+            elif ftype == "cloudformation":
+                path, data = f"{d}/{kind}.json", json.dumps(body)
+            else:  # azure-arm: one resource
+                path, data = f"{d}/{kind}.json", json.dumps({
+                    "$schema": "https://schema.management.azure.com/"
+                               "schemas/2019-04-01/deploymentTemplate."
+                               "json#",
+                    "contentVersion": "1.0.0.0", "resources": [body]})
+            files.append((path, data))
+    for kind, tpl in (("fail", IAC_BAD_POD), ("pass", IAC_GOOD_POD)):
+        if conformance:
+            files.append((f"conformance/KSV-pod/{kind}.yaml",
+                          tpl.format(name=f"pod-{kind}", digest="cd" * 32)))
+    write_files(root, files)
+    return {"files": len(files),
+            "bytes": sum(len(b) for _p, b in files),
+            "cases": len(cases), "planted": planted}
+
+
+# phase 20's runner: a process of its own (`iac_start`), its work
+# overlaps phases 10-16 (`iac_runner`)
+IAC_CODE = """
+import sys
+import chip_smoke
+chip_smoke.iac_runner(*sys.argv[1:])
+"""
+
+
+def iac_image_layer() -> list:
+    """Phase 20 (c)'s extra layer: a service's Dockerfile, a Terraform
+    module and a Helm chart, as a platform image ships its deploy
+    bundle."""
+    rng = np.random.default_rng(IAC_SEED + 1)
+    files = [("srv/deploy/Dockerfile", _dockerfile(rng, "edge")),
+             ("srv/deploy/terraform/main.tf",
+              _tf_stack(rng, "edge", "dev", None)[0][1]
+              .replace("../../../modules/", "./modules/")),
+             *((f"srv/deploy/terraform/modules/{p.split('/')[-2]}/main.tf",
+                b) for p, b in IAC_TF_MODULES),
+             *((f"srv/deploy/chart/{p}", b) for p, b in _chart("edge",
+                                                              None))]
+    return files
+
+
+def iac_start(p7: dict, p9: dict, dev, tmp: str) -> dict:
+    """Phase 20's set-up, right after phase 9: the monorepo (phase 7's
+    npm and pip packages as its app's lockfiles), the --helm-values
+    file, (c)'s archive (phase 9's docker-save layers and one more),
+    then the runner, which starts so that its work overlaps phases
+    10-16."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "iac")
+    tree = os.path.join(out, "monorepo")
+    _os_files, lockfiles, n_pkgs = image_root_files(p7["sbom"])
+    info = iac_monorepo(tree, IAC_SERVICES, lockfiles)
+    values = os.path.join(out, "helm-values.yaml")
+    with open(values, "w") as f:
+        f.write(IAC_HELM_VALUES)
+    tar = os.path.join(out, "image-deploy.tar")
+    write_image(tar, [*p9["layers"], layer_tar(iac_image_layer())],
+                [*p9["history"], {"created_by": "COPY deploy /srv"}],
+                "docker")
+    spec = {"db_root": p7["db_root"], "tree": tree, "values": values,
+            "tar": tar, **info}
+    with open(os.path.join(out, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    built_s = time.perf_counter() - t0
+    log = open(os.path.join(out, "runner.log"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", IAC_CODE, os.path.join(out, "spec.json"),
+         out, str(dev)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    print(f"phase20 setup built_s={built_s:.3f} files={info['files']} "
+          f"mb={info['bytes'] / 1e6:.3f} check_cases={info['cases']} "
+          f"planted={info['planted']} packages={json.dumps(n_pkgs)} "
+          f"image_mb={os.path.getsize(tar) / 1e6:.3f}")
+    return {"proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def config_results(doc: dict) -> dict:
+    """A report's config results, target -> (type, misconfigurations)."""
+    return {r["Target"]: (r.get("Type"), r.get("Misconfigurations"))
+            for r in doc.get("Results") or [] if r.get("Class") == "config"}
+
+
+def iac_runner(spec_path: str, out: str, device: str) -> None:
+    """Phase 20 in its own process on `device`, every scan through
+    `trivy_tpu_torch.cli.main.main` as a user runs it, under
+    TRIVY_TPU_FAKE_TIME and TRIVY_TPU_DETERMINISTIC_UUID=1 with the
+    secret screen always on the card (TRIVY_TPU_SECRET_PROBE=0): phase
+    7's DB's engine built first (its compiled entry a hit); (a) `fs
+    --scanners vuln,secret,misconfig --helm-set --helm-values` on the
+    monorepo on the card, then with --no-tpu on a host engine over the
+    same DB objects; (b) `config` on the tree, its json written by the
+    CLI and, through the same `write_report` call, its table and SARIF;
+    (c) `image --scanners vuln,secret,misconfig` on the archive with the
+    deploy layer, on the card and with --no-tpu, each on a cache of its
+    own. Its numbers go to out/result.json."""
+    from trivy_tpu_torch.cli import run
+    from trivy_tpu_torch.cli.main import build_parser
+    from trivy_tpu_torch.iac import check
+    from trivy_tpu_torch.report import writer
+
+    t_runner = time.perf_counter()
+    res: dict = {}
+    try:
+        with open(spec_path) as f:
+            spec = json.load(f)
+        os.environ.update(TRIVY_TPU_FAKE_TIME=FAKE_TIME,
+                          TRIVY_TPU_DETERMINISTIC_UUID="1",
+                          TRIVY_TPU_SECRET_PROBE="0")
+        base = ["--db-path", spec["db_root"], "--format", "json",
+                "--quiet"]
+        helm = ["--helm-set", IAC_HELM_SET, "--helm-values",
+                spec["values"]]
+        scanners = ["--scanners", "vuln,secret,misconfig"]
+        t0 = time.perf_counter()
+        engine = run.build_engine(build_parser().parse_args(
+            ["fs", spec["tree"], *base, "--device", device]))
+        res["engine_build_s"] = time.perf_counter() - t0
+        # the rows each tier is given: the encoder's routing, beside the
+        # launches the tiers count
+        rows = {"main": 0, "hot": 0, "tall": 0}
+        encode = engine.cdb.encode_packages
+
+        def counted(queries):
+            batch = encode(queries)
+            rows["main"] += len(batch.route)
+            rows["hot"] += int((batch.route == 1).sum())
+            rows["tall"] += int((batch.route == 2).sum())
+            return batch
+
+        engine.cdb.encode_packages = counted
+        reports: dict = {}
+
+        def go(name, argv, cache):
+            reports[name] = os.path.join(out, f"{name}.json")
+            before = dict(rows)
+            r = fs_run([*argv, "--cache-dir", os.path.join(out, cache)],
+                       reports[name])
+            r["rows_per_tier"] = {k: rows[k] - before[k] for k in rows}
+            res[name] = {k: v for k, v in r.items()
+                         if k not in ("secret_device_stats",)}
+            return r
+
+        def body(name):
+            with open(reports[name], "rb") as f:
+                return f.read()
+
+        # (a)
+        go("a", ["fs", spec["tree"], *base, *scanners, *helm,
+                 "--device", device], "cache-a")
+        with shared_db(engine):
+            go("a_no_tpu", ["fs", spec["tree"], *base, *scanners, *helm,
+                            "--no-tpu"], "cache-a-host")
+        a_bytes = body("a")
+        res["a"]["json_equal"] = a_bytes == body("a_no_tpu")
+        a_doc = json.loads(a_bytes)
+        del a_bytes
+        a_conf = config_results(a_doc)
+        failed = {m["ID"] for _t, ms in a_conf.values() for m in ms or []
+                  if m["Status"] == "FAIL"}
+        ids = {c.id for c in check.all_checks()}
+        res["a"]["checks"] = len(ids)
+        res["a"]["checks_never_failed"] = sorted(ids - failed)
+        res["a"]["config_targets"] = len(a_conf)
+        res["a"]["types"] = {}
+        for ftype, _ms in a_conf.values():
+            res["a"]["types"][ftype] = res["a"]["types"].get(ftype, 0) + 1
+        res["a"]["failures"] = sum(
+            m["Status"] == "FAIL" for _t, ms in a_conf.values()
+            for m in ms or [])
+        res["a"]["failing_targets"] = sum(
+            any(m["Status"] == "FAIL" for m in ms or [])
+            for _t, ms in a_conf.values())
+        # the overrides reach the rendered chart: privileged from
+        # --helm-set, hostNetwork from --helm-values
+        helm_ids = {m["ID"] for ftype, ms in a_conf.values()
+                    if ftype == "helm" for m in ms or []
+                    if m["Status"] == "FAIL"}
+        res["a"]["helm_overrides_seen"] = {"KSV017", "KSV009"} <= helm_ids
+
+        # (b): one config scan, its report written by the CLI in json
+        # and, through the CLI's own writer call, as a table and SARIF
+        write = writer.write_report
+
+        def also(report, fmt, output=None, **kw):
+            write(report, fmt=fmt, output=output, **kw)
+            for extra in ("table", "sarif"):
+                write(report, fmt=extra,
+                      output=os.path.join(out, f"b.{extra}"), **kw)
+
+        writer.write_report = also
+        try:
+            go("b", ["config", spec["tree"], *base, *helm,
+                     "--device", device], "cache-b")
+        finally:
+            writer.write_report = write
+        b_conf = config_results(json.loads(body("b")))
+        res["b"]["equal_to_a"] = b_conf == a_conf
+        res["b"]["targets"] = len(b_conf)
+        with open(os.path.join(out, "b.sarif")) as f:
+            sarif = json.load(f)
+        res["b"]["sarif_results"] = sum(len(r.get("results") or [])
+                                        for r in sarif["runs"])
+        res["b"]["fails"] = res["a"]["failures"]
+        res["b"]["failing_targets"] = res["a"]["failing_targets"]
+        with open(os.path.join(out, "b.table")) as f:
+            table = f.read()
+        res["b"]["table_bytes"] = len(table)
+        res["b"]["table_config_results"] = table.count("Tests: ")
+        del a_doc, a_conf, b_conf, sarif, table
+
+        # (c)
+        go("c", ["image", "--input", spec["tar"], *base, *scanners,
+                 "--device", device], "cache-c")
+        with shared_db(engine):
+            go("c_no_tpu", ["image", "--input", spec["tar"], *base,
+                            *scanners, "--no-tpu"], "cache-c-host")
+        c_bytes = body("c")
+        res["c"]["json_equal"] = c_bytes == body("c_no_tpu")
+        res["c"]["config_types"] = sorted({
+            t for t, _ms in config_results(json.loads(c_bytes)).values()})
+        res["engine_device"] = str(engine.device)
+        res["runner_wall_s"] = time.perf_counter() - t_runner
+    except BaseException as e:  # the parent reads it and fails the phase
+        import traceback
+
+        res["error"] = f"{type(e).__name__}: {e}"
+        res["traceback"] = traceback.format_exc()
+    with open(os.path.join(out, "result.json"), "w") as f:
+        json.dump(res, f)
+
+
+IAC_SPLIT = ("wall_s", "walk_s", "config_s", "secret_s", "detect_s",
+             "render_s")
+
+
+def iac_finish(ia: dict) -> dict:
+    """Phase 20's checks, once the runner has ended: every run rc 0;
+    (a) its JSON equal to --no-tpu's byte for byte, every built-in check
+    failing at least once, the helm overrides in the rendered chart,
+    the planted secrets found, the match kernel launched on every tier
+    given rows and the anchor kernel launched; (b) its misconfigurations
+    equal to (a)'s target by target, no kernel launched, the SARIF
+    holding one result per failure and the table one section per
+    config target with a failure; (c) its JSON equal to --no-tpu's, the deploy layer's
+    Dockerfile, Terraform and Helm results in it, the match and anchor
+    kernels launched; no --no-tpu run launching a kernel."""
+    try:
+        ia["proc"].wait(timeout=max(
+            1.0, IAC_TIMEOUT_S - (time.perf_counter() - ia["t0"])))
+    except subprocess.TimeoutExpired:
+        ia["proc"].kill()
+        ia["proc"].wait(timeout=30)
+        raise AssertionError("phase 20's runner did not end in time: "
+                             + tail(os.path.join(ia["out"], "runner.log")))
+    waited = time.perf_counter() - ia["t0"]
+    path = os.path.join(ia["out"], "result.json")
+    if not os.path.exists(path):
+        raise AssertionError("phase 20's runner wrote no result: "
+                             + tail(os.path.join(ia["out"], "runner.log")))
+    with open(path) as f:
+        r = json.load(f)
+    if "error" in r:
+        print(r.get("traceback", ""))
+        raise AssertionError(f"phase 20's runner failed: {r['error']}")
+    with open(os.path.join(ia["out"], "spec.json")) as f:
+        planted = json.load(f)["planted"]
+    runs = ("a", "a_no_tpu", "b", "c", "c_no_tpu")
+    print(f"phase20 runner_s={r['runner_wall_s']:.3f} "
+          f"checked_after_s={waited:.3f} "
+          f"engine_build_s={r['engine_build_s']:.3f} "
+          f"device={r['engine_device']}")
+    for name in runs:
+        x = r[name]
+        split = " ".join(f"{k}={x[k]:.3f}" for k in IAC_SPLIT if k in x)
+        print(f"phase20 {name} {split} report_bytes={x['report_bytes']} "
+              f"secret_findings={x['secret_findings']} "
+              f"vulnerabilities={x['vulnerabilities']} "
+              f"match_per_tier={json.dumps(x['launches']['match_per_tier'])}"
+              f" rows_per_tier={json.dumps(x['rows_per_tier'])} "
+              f"anchor={x['launches']['anchor']}")
+    a, an, b, c, cn = (r[k] for k in runs)
+    print(f"phase20 a json_equal={a['json_equal']} checks={a['checks']} "
+          f"never_failed={json.dumps(a['checks_never_failed'])} "
+          f"config_targets={a['config_targets']} "
+          f"types={json.dumps(a['types'], sort_keys=True)} "
+          f"failures={a['failures']} "
+          f"helm_overrides_seen={a['helm_overrides_seen']} "
+          f"planted={planted}")
+    print(f"phase20 b equal_to_a={b['equal_to_a']} targets={b['targets']} "
+          f"sarif_results={b['sarif_results']} "
+          f"table_config_results={b['table_config_results']} "
+          f"table_bytes={b['table_bytes']}")
+    print(f"phase20 c json_equal={c['json_equal']} "
+          f"config_types={json.dumps(c['config_types'])}")
+    fails = []
+    if not a["json_equal"] or not c["json_equal"]:
+        fails.append(f"a device report differs from --no-tpu: (a) "
+                     f"{a['json_equal']}, (c) {c['json_equal']}")
+    if a["checks_never_failed"]:
+        fails.append(f"checks that never failed: "
+                     f"{a['checks_never_failed']}")
+    if not a["helm_overrides_seen"]:
+        fails.append("--helm-set / --helm-values did not reach the chart")
+    if a["secret_findings"] != planted:
+        fails.append(f"(a) found {a['secret_findings']} secrets of "
+                     f"{planted} planted")
+    for name, x in (("a", a), ("c", c)):
+        per = x["launches"]["match_per_tier"]
+        if not x["rows_per_tier"]["main"] or any(
+                bool(per[k]) != bool(x["rows_per_tier"][k]) for k in per):
+            fails.append(f"({name}) match launches {per} against rows "
+                         f"{x['rows_per_tier']}")
+        if not x["launches"]["anchor"]:
+            fails.append(f"({name}) launched no anchor kernel")
+    if not b["equal_to_a"] or b["sarif_results"] != b["fails"] or \
+            b["table_config_results"] != b["failing_targets"]:
+        fails.append("config's misconfigurations differ from (a)'s, or "
+                     "its SARIF or table does not hold them")
+    if not {"dockerfile", "terraform", "helm"} <= set(c["config_types"]):
+        fails.append(f"(c) config results {c['config_types']}")
+    for name, x in (("a_no_tpu", an), ("b", b), ("c_no_tpu", cn)):
+        if any(x["launches"][k] for k in ("match", "anchor", "conv",
+                                          "prefilter")):
+            fails.append(f"{name} launched a kernel")
+    if r["engine_device"] != "cuda:0":
+        fails.append(f"the engine is on {r['engine_device']}")
+    if fails:
+        raise AssertionError("phase 20: " + "; ".join(fails))
+    return {"runner_s": r["runner_wall_s"], "launches": {
+        "match": {k: r[k]["launches"]["match_per_tier"] for k in runs},
+        "anchor": {k: r[k]["launches"]["anchor"] for k in runs}}}
+
+
 def main() -> int:
     import torch
 
@@ -7786,7 +9022,7 @@ def main() -> int:
     from trivy_tpu_torch.tensorize.synth import synth_trivy_db
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    srv = mon = fl = golden = cold = ch = fs = k8 = None
+    srv = mon = fl = golden = cold = ch = fs = k8 = ia = None
     try:
         # phase 7 (a)'s two CLI processes and (b)'s cold run (its DB
         # load, compile and keymap) run beside phases 2 and 4-6; the
@@ -7854,6 +9090,9 @@ def main() -> int:
 
         # phase 17's fleet in a process of its own beside phases 10-16
         fs = fleetscan_start(p7, p9, dev, work)
+        # phase 20's monorepo and image scans in a process of their own
+        # beside phases 10-16, its image on phase 9's layers
+        ia = iac_start(p7, p9, dev, work)
         del p9["layers"]
         # phase 19's cluster scans in a process of their own beside
         # phases 10-16, on phase 17's archives
@@ -7933,12 +9172,18 @@ def main() -> int:
         p19 = k8s_finish(k8)
         print(f"phase19 seconds={p19['runner_s']:.3f} "
               f"waited_s={time.perf_counter() - t0:.3f}")
+
+        t0 = time.perf_counter()
+        p20 = iac_finish(ia)
+        print(f"phase20 seconds={p20['runner_s']:.3f} "
+              f"waited_s={time.perf_counter() - t0:.3f}")
     finally:
         for p in [*(golden or {}).get("procs", {}).values(),
                   *([cold["proc"]] if cold else []),
                   *([ch["proc"]] if ch else []),
                   *([fs["proc"]] if fs else []),
-                  *([k8["proc"]] if k8 else [])]:
+                  *([k8["proc"]] if k8 else []),
+                  *([ia["proc"]] if ia else [])]:
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
@@ -8009,6 +9254,7 @@ def main() -> int:
             "r2_after_reresolve": p16["control"]["r2_launches"]},
         "launches_fleetscan": p17["launches"]["match"],
         "launches_k8s": p19["launches"]["match"],
+        "launches_iac": p20["launches"]["match"],
         "launches_chaos": {k: v["match"] for k, v in
                            sorted(p18["launches"].items())},
         "launches_dcn": {
@@ -8043,6 +9289,7 @@ def main() -> int:
                 k: r.get(name, 0) for k, r in p12["clients"].items()},
             **({"launches_fleetscan": p17["launches"]["anchor"],
                 "launches_k8s": p19["launches"]["anchor"],
+                "launches_iac": p20["launches"]["anchor"],
                 "launches_chaos": {k: v["anchor"] for k, v in
                                    sorted(p18["launches"].items())}}
                if name == "anchor" else {}),

@@ -219,7 +219,7 @@ def test_unported_flags_are_refused(golden_env, flag):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--scanners", "vuln,misconfig"], "not ported yet"),
+    (["--scanners", "vuln,misconfig,license"], "'license' is not ported yet"),
     (["--scanners", "vuln,license"], "not ported yet"),
     (["--cache-backend", "redis://localhost:6379"], "unknown cache backend"),
     (["--timeout", "5parsecs"], "invalid --timeout"),

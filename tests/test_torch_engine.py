@@ -386,7 +386,8 @@ def test_static_scan_covers_every_slice():
     repository and vm slice, of the server and scheduler slice, of the
     serving mesh, of continuous monitoring, of cross-host serving, of
     observability, of the fleet control plane, of the fleet scan mode,
-    of the chaos campaign and of the kubernetes command included."""
+    of the chaos campaign, of the kubernetes command and of
+    misconfiguration scanning included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -424,7 +425,15 @@ def test_static_scan_covers_every_slice():
                    "iac/ignore.py", "iac/parsers/__init__.py",
                    "iac/parsers/yamlconf.py", "iac/checks/__init__.py",
                    "iac/checks/kubernetes.py", "misconf/__init__.py",
-                   "misconf/scanner.py"):
+                   "misconf/scanner.py", "misconf/result.py",
+                   "iac/parsers/dockerfile.py", "iac/parsers/hcl.py",
+                   "iac/terraform.py", "iac/arm.py", "iac/helm.py",
+                   "iac/checks/spec.py", "iac/checks/cloud.py",
+                   "iac/checks/aws_ext.py", "iac/checks/azure.py",
+                   "iac/checks/azure_ext.py", "iac/checks/gcp.py",
+                   "iac/checks/gcp_ext.py", "iac/checks/providers_misc.py",
+                   "iac/checks/docker.py",
+                   "fanal/analyzers/config_analyzer.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

@@ -890,7 +890,7 @@ def test_analyzer_versions_equal_reference():
     port = analyzer.AnalyzerGroup.build().versions()
     ref = jax_analyzer.AnalyzerGroup.build().versions()
     assert port["secret"] == ref["secret"] == 1003
-    assert set(ref) - set(port) == {"config", "license-file"}
+    assert set(ref) - set(port) == {"license-file"}
     assert port == {t: v for t, v in ref.items() if t in port}
     assert analyzer.TYPE_LOCKFILES == jax_analyzer.TYPE_LOCKFILES
     assert analyzer.TYPE_OSES == jax_analyzer.TYPE_OSES

@@ -527,7 +527,7 @@ def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--scanners", "vuln,misconfig"], "not ported yet"),
+    (["--scanners", "vuln,misconfig,license"], "'license' is not ported yet"),
     (["--file-patterns", "pip"], "invalid file pattern"),
     (["--scanners", "vuln,license"], "not ported yet"),
 ])

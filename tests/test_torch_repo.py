@@ -351,7 +351,7 @@ def test_revision_flags_only_on_repository_parsers():
 
 
 @pytest.mark.parametrize("cmd", ["repository", "repo"])
-@pytest.mark.parametrize("dest,value", [("helm_set", "a=b"),
+@pytest.mark.parametrize("dest,value", [("config_check", "checks/"),
                                         ("license_full", "true"),
                                         ("report", "all")])
 def test_unported_option_from_env_is_refused(seeded_repo, tmp_path, capsys,

@@ -65,8 +65,8 @@ from trivy_tpu_torch.secret import scanner as sc
 from trivy_tpu_torch.utils import uuid as port_uuid
 
 FAKE_TIME = "2024-01-01T00:00:00+00:00"
-# the CLI's analyzer gating for --scanners vuln,secret: the reference
-# disables its config and license-file analyzers, which the port lacks
+# the CLI's analyzer gating for --scanners vuln,secret: both packages
+# disable the config analyzer, the reference its license-file one too
 GATED = {"config", "license-file"}
 
 # the reference tests' skip condition (tests/test_vm.py)
@@ -636,7 +636,7 @@ def test_vm_errors_equal_reference(tmp_path, capsys, monkeypatch, case):
     assert got[1][0].startswith("VMError: ")
 
 
-@pytest.mark.parametrize("dest,value", [("helm_set", "a=b"),
+@pytest.mark.parametrize("dest,value", [("config_check", "checks/"),
                                         ("compliance", "docker-cis-1.6.0"),
                                         ("redis_tls", "true")])
 def test_unported_option_from_env_is_refused(tmp_path, capsys, monkeypatch,
@@ -653,13 +653,13 @@ def test_unported_option_from_env_is_refused(tmp_path, capsys, monkeypatch,
 
 def test_unported_option_from_config_file_is_refused(tmp_path, capsys):
     cfg = tmp_path / "trivy-tpu.yaml"
-    cfg.write_text("scan:\n  helm-values: [v.yaml]\n")
+    cfg.write_text("scan:\n  config-check: [checks/]\n")
     rc = main(["vm", str(tmp_path / "disk.img"), "--config", str(cfg),
                "--device", "cpu", "--cache-dir", str(tmp_path / "c")])
     captured = capsys.readouterr()
     lines = captured.err.strip().splitlines()
     assert rc == 1 and captured.out == "" and len(lines) == 1
-    assert "not ported yet" in lines[0] and "helm-values" in lines[0]
+    assert "not ported yet" in lines[0] and "config-check" in lines[0]
 
 
 @needs_mkfs

@@ -149,6 +149,7 @@ class ImageArtifact:
         insecure: bool = False,
         username: str = "",
         password: str = "",
+        helm_overrides: dict | None = None,
     ):
         self.target = target
         self.cache = cache
@@ -157,6 +158,7 @@ class ImageArtifact:
         self.disabled = set(disabled_analyzers or set())
         self.secret_config = secret_config
         self.file_patterns = file_patterns or []
+        self.helm_overrides = helm_overrides
         self.image_sources = image_sources
         self.insecure = insecure
         self.username = username
@@ -169,7 +171,8 @@ class ImageArtifact:
 
     def _group(self) -> AnalyzerGroup:
         group = AnalyzerGroup.build(disabled_types=self.disabled,
-                                    file_patterns=self.file_patterns)
+                                    file_patterns=self.file_patterns,
+                                    helm_overrides=self.helm_overrides)
         for a in group.analyzers + group.post_analyzers:
             if a.type == "secret" and self.secret_config:
                 a.configure(self.secret_config)
@@ -238,7 +241,8 @@ class ImageArtifact:
         # built up front: lanes ask for it concurrently
         no_secret_group = AnalyzerGroup.build(
             disabled_types=self.disabled | {"secret"},
-            file_patterns=self.file_patterns) if base_diff_ids else None
+            file_patterns=self.file_patterns,
+            helm_overrides=self.helm_overrides) if base_diff_ids else None
         if any(a.type == "secret" for a in group.post_analyzers):
             self.stats.update(secret_s=0.0, secret_device_stats={})
 

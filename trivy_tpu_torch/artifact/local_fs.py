@@ -3,15 +3,15 @@ one walker pass, a single pseudo-blob, then the standard driver path.
 Lockfile analyzers are the point for `fs`; rootfs also enables the OS
 package analyzers (reference pkg/commands/artifact/run.go:179-185).
 
-Copy of trivy_tpu/artifact/local_fs.py without the config command's
-misconfig-only group and helm overrides (not ported yet), and without
-the `as_rootfs` and `parallel` arguments, which the reference stores
-and never reads (the per-command gating arrives as
-`disabled_analyzers`; the walk is serial). `stats`
-keeps the seconds of the last inspect: the walk with the per-file
-analyzers, and the post-analyzers; within those, the secret analyzer's
-scan seconds, what its scan added to the scanner's `device_stats`, and
-the hybrid probe's verdict (None until a probe ran).
+Copy of trivy_tpu/artifact/local_fs.py without the `as_rootfs` and
+`parallel` arguments, which the reference stores and never reads (the
+per-command gating arrives as `disabled_analyzers`; the walk is
+serial). `stats` keeps the seconds of the last inspect: the walk with
+the per-file analyzers, and the post-analyzers; within those, the
+config analyzer's seconds (`config_s`, when it ran), the secret
+analyzer's scan seconds, what its scan added to the scanner's
+`device_stats`, and the hybrid probe's verdict (None until a probe
+ran).
 """
 
 from __future__ import annotations
@@ -40,9 +40,11 @@ class FSArtifact:
         cache,
         skip_files=None,
         skip_dirs=None,
+        misconfig_only: bool = False,
         disabled_analyzers: set[str] | None = None,
         secret_config: str | None = None,
         file_patterns: list[str] | None = None,
+        helm_overrides: dict | None = None,
     ):
         self.path = path
         self.cache = cache
@@ -53,9 +55,11 @@ class FSArtifact:
         self.walker = FSWalker(
             self._rebase_skips(path, skip_files or []),
             self._rebase_skips(path, skip_dirs or []))
+        self.misconfig_only = misconfig_only
         self.disabled = set(disabled_analyzers or set())
         self.secret_config = secret_config
         self.file_patterns = file_patterns or []
+        self.helm_overrides = helm_overrides
         self.stats: dict = {}
 
     @staticmethod
@@ -71,9 +75,14 @@ class FSArtifact:
         return out
 
     def _group(self) -> AnalyzerGroup:
+        enabled = {"config"} if self.misconfig_only else None
         group = AnalyzerGroup.build(disabled_types=self.disabled,
-                                    file_patterns=self.file_patterns)
+                                    enabled_types=enabled,
+                                    file_patterns=self.file_patterns,
+                                    helm_overrides=self.helm_overrides)
         for a in group.analyzers + group.post_analyzers:
+            if a.type == "config":
+                a.reset_last_seconds()  # this scan's alone
             if a.type == "secret":
                 a.reset_last_scan()  # this scan's alone
                 if self.secret_config:
@@ -100,6 +109,8 @@ class FSArtifact:
         self.stats = {"walk_s": t1 - t0,
                       "post_analyze_s": time.perf_counter() - t1}
         for a in group.post_analyzers:
+            if a.type == "config":
+                self.stats["config_s"] = a.last_seconds()
             if a.type == "secret":
                 scan_s, added = a.last_scan()
                 self.stats.update(secret_s=scan_s,

@@ -2,8 +2,7 @@
 local paths walk directly; remote URLs are cloned with the system git
 (shallow) into a temp dir first.
 
-Copy of trivy_tpu/artifact/repo.py without the helm overrides (the
-config analyzer is not ported yet). `parallel` is accepted and not
+Copy of trivy_tpu/artifact/repo.py. `parallel` is accepted and not
 passed on: the port's `FSArtifact` walks serially, as the reference's
 does. `stats` is the walk's (`FSArtifact.stats`) of the last inspect.
 One addition: a walk that fails removes the temp clone too (the
@@ -28,7 +27,7 @@ class RepoArtifact:
     def __init__(self, target: str, cache, skip_files=None, skip_dirs=None,
                  parallel: int = 5, branch: str = "", tag: str = "",
                  commit: str = "", secret_config: str | None = None,
-                 disabled_analyzers=None):
+                 disabled_analyzers=None, helm_overrides: dict | None = None):
         self.target = target
         self.cache = cache
         self.skip_files = skip_files
@@ -37,6 +36,7 @@ class RepoArtifact:
         self.branch, self.tag, self.commit = branch, tag, commit
         self.secret_config = secret_config
         self.disabled_analyzers = disabled_analyzers
+        self.helm_overrides = helm_overrides
         self.stats: dict = {}
         self._tmp: str | None = None
 
@@ -89,6 +89,7 @@ class RepoArtifact:
             skip_dirs=self.skip_dirs,
             secret_config=self.secret_config,
             disabled_analyzers=self.disabled_analyzers,
+            helm_overrides=self.helm_overrides,
         )
         try:
             ref = fs.inspect()

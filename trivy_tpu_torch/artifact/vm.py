@@ -5,8 +5,7 @@ supported filesystems, walk their files through the analyzer pipeline
 as one pseudo-blob — same shape as the local-fs artifact but sourced
 from the guest filesystem.
 
-Copy of trivy_tpu/artifact/vm.py without the helm overrides (the
-config analyzer is not ported yet). `stats` keeps the seconds of the
+Copy of trivy_tpu/artifact/vm.py. `stats` keeps the seconds of the
 last inspect, as the image artifact's do: the whole inspect
 (`inspect_s`: the disk opened, the walks, the post-analyzers), the
 guest walks with the per-file analyzers (`walk_s`), the post-analyzers
@@ -57,6 +56,7 @@ class VMArtifact:
         secret_config: str | None = None,
         file_patterns: list[str] | None = None,
         aws_client_factory=None,
+        helm_overrides: dict | None = None,
     ):
         self.target = target
         self.cache = cache
@@ -64,13 +64,15 @@ class VMArtifact:
         self.disabled = set(disabled_analyzers or set())
         self.secret_config = secret_config
         self.file_patterns = file_patterns or []
+        self.helm_overrides = helm_overrides
         # injectable AWS client factory for ebs:/ami: targets (tests)
         self.aws_client_factory = aws_client_factory
         self.stats: dict = {}
 
     def _group(self) -> AnalyzerGroup:
         group = AnalyzerGroup.build(disabled_types=self.disabled,
-                                    file_patterns=self.file_patterns)
+                                    file_patterns=self.file_patterns,
+                                    helm_overrides=self.helm_overrides)
         for a in group.analyzers + group.post_analyzers:
             if a.type == "secret":
                 a.reset_last_scan()  # this scan's alone

@@ -23,7 +23,7 @@ CONFIG_NAMES = ("trivy-tpu.yaml", "trivy.yaml")
 ENV_PREFIX = "TRIVY_TPU_"
 
 # dests of the reference's scan-subcommand parsers (image, sbom,
-# filesystem, fs, rootfs, repository, repo, vm: the same flags, and
+# filesystem, fs, rootfs, repository, repo, vm, config: the same flags, and
 # image's and repository's own, which the port has) that the port's
 # parsers lack, each with
 # the values that leave the reference's scan as it is: its parser's
@@ -32,8 +32,7 @@ ENV_PREFIX = "TRIVY_TPU_"
 UNPORTED = {
     "check_namespaces": ([],), "checks_bundle_repository": ("",),
     "compliance": (None, ""), "config_check": ([],), "config_data": ([],),
-    "generate_default_config": (False,), "helm_set": ([],),
-    "helm_values": ([],), "ignore_policy": (None, ""),
+    "generate_default_config": (False,), "ignore_policy": (None, ""),
     "include_deprecated_checks": (False,),
     "license_full": (False,),
     "module_dir": (None,),

@@ -78,7 +78,7 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--severity", "-s", default=None,
                    help="comma-separated severities (UNKNOWN,LOW,MEDIUM,HIGH,CRITICAL)")
     p.add_argument("--scanners", default="vuln,secret",
-                   help="comma-separated scanners (vuln,secret)")
+                   help="comma-separated scanners (vuln,misconfig,secret)")
     p.add_argument("--secret-config", default="trivy-secret.yaml",
                    help="custom secret rule config path (reference "
                         "--secret-config)")
@@ -196,6 +196,14 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                         "repeatable")
     p.add_argument("--show-suppressed", action="store_true",
                    help="include VEX-suppressed findings in the report")
+    p.add_argument("--helm-set", action="append", default=[],
+                   dest="helm_set",
+                   help="helm value override path.to.key=value; "
+                        "repeatable")
+    p.add_argument("--helm-values", action="append", default=[],
+                   dest="helm_values",
+                   help="helm values file overriding chart defaults; "
+                        "repeatable")
 
 
 # the scan subcommands the port serves: every one of the reference's
@@ -208,6 +216,7 @@ SCAN_COMMANDS = (
     ("repo", "alias of repository"),
     ("sbom", "scan an SBOM file (CycloneDX/SPDX json)"),
     ("vm", "scan a VM image"),
+    ("config", "scan config files for misconfigurations"),
 )
 
 
@@ -451,7 +460,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="trivy-tpu-torch",
         description="security scanner on a CUDA card (image, "
         "filesystem, rootfs, repository, VM image or SBOM -> "
-        "vulnerabilities, secrets; a kubernetes cluster -> "
+        "vulnerabilities, misconfigurations, secrets; config files -> "
+        "misconfigurations; a kubernetes cluster -> "
         "misconfigurations, RBAC and infra findings, its images' "
         "vulnerabilities and secrets)",
     )

@@ -40,9 +40,9 @@ from trivy_tpu_torch.types.scan import ScanOptions
 
 _log = logger()
 
-# scanners whose results the port computes (license and misconfig scans
-# are not ported yet)
-SCANNERS = ("vuln", "secret")
+# scanners whose results the port computes (license scans are not
+# ported yet)
+SCANNERS = ("vuln", "misconfig", "secret")
 
 STATS: dict = {}
 
@@ -280,6 +280,9 @@ def run_scan(args) -> int:
         # one root span covers the whole command (scan + report), so a
         # traced run exports a single tree under a single trace id
         with trace.span("scan", command=args.command):
+            if "misconfig" in (args.scanners or "").split(",") \
+                    or args.command == "config":
+                _refuse_check_bundle(args)
             rc = _run_scan_core(args)
     finally:
         if tracing_on:
@@ -303,6 +306,69 @@ def run_scan(args) -> int:
                 os.environ[k] = v
     STATS["wall_s"] = time.perf_counter() - t0
     return rc
+
+
+def _coerce_helm_value(v: str):
+    low = v.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "~", ""):
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        pass
+    try:
+        return float(v)
+    except ValueError:
+        return v
+
+
+def _helm_overrides(args) -> dict:
+    """--helm-values files then --helm-set pairs -> one nested override
+    dict (later sources win, mirroring helm's precedence)."""
+    import yaml as _yaml
+
+    from trivy_tpu_torch.iac.helm import _deep_merge
+
+    out: dict = {}
+    for path in getattr(args, "helm_values", []) or []:
+        try:
+            with open(path, encoding="utf-8") as f:
+                out = _deep_merge(out, _yaml.safe_load(f) or {})
+        except (OSError, _yaml.YAMLError) as e:
+            raise FatalError(f"--helm-values {path}: {e}")
+    for flag in getattr(args, "helm_set", []) or []:
+        # helm accepts comma-joined pairs in one flag (a=1,b=2); commas
+        # inside values must be escaped as '\\,' exactly like helm
+        segments = [s.replace("\x00", ",") for s in
+                    flag.replace("\\,", "\x00").split(",")]
+        for pair in segments:
+            key, sep, val = pair.partition("=")
+            if not sep or not key:
+                raise FatalError(
+                    f"--helm-set needs key=value, got {pair!r}")
+            node = out
+            parts = key.split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+                if not isinstance(node, dict):
+                    raise FatalError(f"--helm-set {pair!r} conflicts "
+                                     "with a scalar override")
+            node[parts[-1]] = _coerce_helm_value(val)
+    return out
+
+
+def _refuse_check_bundle(args) -> None:
+    """The reference's check engine also loads a bundle cached under
+    `<cache>/policy/content` with no option set
+    (trivy_tpu/policy/bundle.py `bundle_check_paths`). The port runs the
+    built-in checks alone, so it refuses such a cache rather than write
+    a report without the bundle's checks."""
+    content = os.path.join(args.cache_dir, "policy", "content")
+    if os.path.isdir(content):
+        raise FatalError(f"a check bundle is cached at {content}; "
+                         "check bundles are not ported yet")
 
 
 K8S_SCANNERS = {"vuln", "misconfig", "rbac", "infra"}
@@ -602,11 +668,11 @@ def _postprocess_report(args, report):
 
 def _select_scanner(args, cache):
     """reference pkg/commands/artifact/scanner.go: artifact kind x
-    standalone/client -> (artifact, driver). Every scan kind of the
-    reference but the config scan is ported."""
+    standalone/client -> (artifact, driver), for every scan kind of the
+    reference."""
     cmd = args.command
     if cmd not in ("image", "sbom", "filesystem", "fs", "rootfs",
-                   "repository", "repo", "vm"):
+                   "repository", "repo", "vm", "config"):
         raise FatalError(f"unsupported scan command {cmd!r}")
     if getattr(args, "server", None):
         from trivy_tpu_torch.rpc.client import RemoteCache, RemoteDriver
@@ -650,10 +716,14 @@ def _select_scanner(args, cache):
 
     # analyzers whose scanner class was not requested are disabled
     # (reference pkg/commands/artifact/run.go disabledAnalyzers); the
-    # port registers no config or license-file analyzer
+    # port registers no license-file analyzer
+    scanners = set((args.scanners or "").split(","))
     disabled: set[str] = set()
-    if "secret" not in set((args.scanners or "").split(",")):
+    if "misconfig" not in scanners and cmd != "config":
+        disabled.add("config")
+    if "secret" not in scanners:
         disabled.add("secret")
+    helm_overrides = _helm_overrides(args)
 
     if cmd == "image":
         from trivy_tpu_torch.artifact.image import ImageArtifact
@@ -675,6 +745,7 @@ def _select_scanner(args, cache):
             insecure=getattr(args, "insecure", False),
             username=getattr(args, "username", ""),
             password=getattr(args, "password", ""),
+            helm_overrides=helm_overrides,
         ), driver
 
     # per-target analyzer gating (reference artifact/run.go:178-215):
@@ -705,6 +776,7 @@ def _select_scanner(args, cache):
             branch=getattr(args, "branch", ""),
             tag=getattr(args, "tag", ""),
             commit=getattr(args, "commit", ""),
+            helm_overrides=helm_overrides,
         ), driver
     if cmd == "vm":
         from trivy_tpu_torch.artifact.vm import VMArtifact
@@ -715,15 +787,18 @@ def _select_scanner(args, cache):
             disabled_analyzers=disabled,
             secret_config=getattr(args, "secret_config", None),
             file_patterns=getattr(args, "file_patterns", []),
+            helm_overrides=helm_overrides,
         ), driver
     from trivy_tpu_torch.artifact.local_fs import FSArtifact
 
     return FSArtifact(
         args.target, cache,
         skip_files=args.skip_files, skip_dirs=args.skip_dirs,
+        misconfig_only=(cmd == "config"),
         disabled_analyzers=disabled,
         secret_config=getattr(args, "secret_config", None),
         file_patterns=getattr(args, "file_patterns", []),
+        helm_overrides=helm_overrides,
     ), driver
 
 

@@ -13,12 +13,10 @@ dispatched by path — the heavy parallelism belongs to the device batches,
 not the host.
 
 Copy of trivy_tpu/fanal/analyzer.py without the module system's
-`unregister` and the config analyzer's IaC-type and helm-override
-wiring (misconfiguration scanning is not ported yet). Where the
-reference logs a failed analyzer and goes on, the port does so only for
-a failure that is not the device's: a device error
-(`device.is_device_error`, e.g. a secret screen that cannot build or
-launch) passes up and ends the scan, so no blob is kept, cached or
+`unregister`. Where the reference logs a failed analyzer and goes on,
+the port does so only for a failure that is not the device's: a device
+error (`device.is_device_error`, e.g. a secret screen that cannot build
+or launch) passes up and ends the scan, so no blob is kept, cached or
 reported without the findings of the analyzer that failed.
 """
 
@@ -196,7 +194,9 @@ class AnalyzerGroup:
     def build(
         cls,
         disabled_types: set[str] | None = None,
+        enabled_types: set[str] | None = None,
         file_patterns: list[str] | None = None,
+        helm_overrides: dict | None = None,
     ) -> "AnalyzerGroup":
         """file_patterns: `analyzer-type:regex` entries (reference
         analyzer.go:321-377 filePatterns) — a file whose path matches the
@@ -212,19 +212,45 @@ class AnalyzerGroup:
                     f"invalid file pattern {entry!r} (want type:regex)")
             patterns.setdefault(atype, []).append(_re.compile(pat))
 
+        def keep(a: Analyzer) -> bool:
+            if a.type in disabled:
+                return False
+            if enabled_types is not None and a.type not in enabled_types:
+                return False
+            return True
+
+        # --file-patterns may name an IaC FILE type (dockerfile:...,
+        # kubernetes:...); those route to the config analyzer with a
+        # detection override (reference: the dockerfile analyzer is its
+        # own type, here one config analyzer owns all IaC types)
+        iac_types = {"dockerfile", "kubernetes", "terraform",
+                     "cloudformation", "terraformplan", "helm",
+                     "azure-arm", "yaml", "json"}
+        iac_type_pats = [(rx, atype) for atype, rxs in patterns.items()
+                         if atype in iac_types for rx in rxs]
+
         def wrap(a):
-            pats = patterns.get(a.type)
-            if not pats:
+            pats = list(patterns.get(a.type) or [])
+            type_pats = iac_type_pats if a.type == "config" else []
+            if type_pats:
+                pats.extend(rx for rx, _t in type_pats)
+            overrides = helm_overrides if a.type == "config" else None
+            if not pats and not type_pats and not overrides:
                 return a
             import copy
 
             a2 = copy.copy(a)
-            a2.extra_patterns = list(pats)
+            if pats:
+                a2.extra_patterns = pats
+            if type_pats:
+                a2.iac_type_patterns = type_pats
+            if overrides:
+                a2.helm_overrides = overrides
             return a2
 
         return cls(
-            analyzers=[wrap(a) for a in _ANALYZERS if a.type not in disabled],
-            post_analyzers=[wrap(a) for a in _POST_ANALYZERS if a.type not in disabled],
+            analyzers=[wrap(a) for a in _ANALYZERS if keep(a)],
+            post_analyzers=[wrap(a) for a in _POST_ANALYZERS if keep(a)],
         )
 
     def versions(self) -> dict[str, int]:

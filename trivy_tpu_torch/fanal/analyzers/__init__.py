@@ -1,12 +1,12 @@
 """Built-in analyzers. Importing this package registers everything
 (reference pkg/fanal/analyzer/all).
 
-Copy of trivy_tpu/fanal/analyzers/__init__.py without the config and
-license-file analyzers (misconfiguration and license scans are not
-ported yet).
+Copy of trivy_tpu/fanal/analyzers/__init__.py without the license-file
+analyzer (license scans are not ported yet).
 """
 
 from trivy_tpu_torch.fanal.analyzers import (  # noqa: F401
+    config_analyzer,
     lang,
     misc,
     os_release,

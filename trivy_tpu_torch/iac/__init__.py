@@ -1,10 +1,12 @@
-"""IaC misconfiguration engine (reference pkg/iac, re-expressed as a
-Python check engine over per-format parsers).
+"""IaC misconfiguration engine (reference pkg/iac, 41k LoC of Go+Rego,
+re-expressed as a Python check engine over per-format parsers).
 
-Copy of trivy_tpu/iac/ trimmed to what a kubernetes resource reaches:
-the check model and registry (`check.py`), the 42 KSV checks
-(`checks/kubernetes.py`), the line-annotated YAML parser
-(`parsers/yamlconf.py`), `#trivy:ignore` comments (`ignore.py`), the
-file-type name (`detection.py`) and the default check set
-(`engine.py`). It runs entirely on the host.
+Pipeline (reference pkg/misconf/scanner.go): detect file type -> parse to
+a typed IR -> evaluate builtin checks -> Misconfiguration with cause
+line ranges and code snippets. Runs entirely host-side (the reference
+keeps misconfig scanning client-side even in client/server mode,
+docs/docs/references/modes/client-server.md:11-21).
+
+Copy of trivy_tpu/iac/, less the user-check half: `engine.py` holds the
+default check set alone (the builtins), and `rego.py` is not copied.
 """

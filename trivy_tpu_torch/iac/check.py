@@ -2,10 +2,8 @@
 registry, pkg/iac/scan.Rule — Rego policies re-expressed as Python
 predicates over the parsed IR).
 
-Copy of trivy_tpu/iac/check.py. The builtins are the kubernetes checks
-alone; the reference's other eight check modules (aws_ext, azure,
-azure_ext, cloud, docker, gcp, gcp_ext, providers_misc) come with the
-config command (ROADMAP queue 1 item 6)."""
+Copy of trivy_tpu/iac/check.py, whole.
+"""
 
 from __future__ import annotations
 
@@ -80,7 +78,17 @@ def _load_builtins():
     with _load_lock:  # parallel scan workers race the first load
         if _loaded:
             return
-        from trivy_tpu_torch.iac.checks import kubernetes  # noqa: F401
+        from trivy_tpu_torch.iac.checks import (  # noqa: F401
+            aws_ext,
+            azure,
+            azure_ext,
+            cloud,
+            docker,
+            gcp,
+            gcp_ext,
+            kubernetes,
+            providers_misc,
+        )
         _loaded = True
 
 

@@ -1,4 +1,5 @@
 """Builtin checks (reference trivy-checks bundle embedded at
-pkg/iac/rego/embed.go; IDs match the published KSV rules).
+pkg/iac/rego/embed.go; IDs match the published DS/KSV/AVD-AWS rules).
 
-Copy of trivy_tpu/iac/checks/ with its kubernetes module only."""
+Copy of trivy_tpu/iac/checks/, whole.
+"""

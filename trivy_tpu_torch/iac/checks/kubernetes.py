@@ -1,8 +1,8 @@
 """Kubernetes workload checks (reference trivy-checks
 checks/kubernetes/*.rego; IDs match the published KSV rules).
 
-Copy of trivy_tpu/iac/checks/kubernetes.py, whole: all 42 checks. `_K`
-still names helm, whose contexts come with the config command."""
+Copy of trivy_tpu/iac/checks/kubernetes.py, whole: all 42 checks.
+"""
 
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ the embedded builtin bundle, gated by namespaces).
 Copy of trivy_tpu/iac/engine.py trimmed to the default `CheckSet`: the
 builtins alone, with no user checks. Loading Python, YAML and Rego
 checks (`--config-check`, `--check-namespaces`, `--config-data`,
-`--include-deprecated-checks`, bundles) comes with the config command.
+`--include-deprecated-checks`, bundles) is not ported yet; the CLI
+refuses those options and a cached bundle.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
 """Per-format IaC parsers producing line-annotated IRs
 (reference pkg/iac/scanners/*/parser).
 
-Copy of trivy_tpu/iac/parsers/ with its YAML/JSON parser only."""
+Copy of trivy_tpu/iac/parsers/, whole.
+"""

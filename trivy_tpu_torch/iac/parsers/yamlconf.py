@@ -1,16 +1,18 @@
-"""Line-annotated YAML/JSON config parsing for kubernetes (reference
-pkg/iac/scanners/kubernetes/parser).
+"""Line-annotated YAML/JSON config parsing for kubernetes,
+cloudformation, and generic yaml/json (reference
+pkg/iac/scanners/{kubernetes,cloudformation,yaml,json}/parser).
 
-Mappings carry hidden __line__/__end_line__ keys.
+Mappings carry hidden __line__/__end_line__ keys; CloudFormation
+short-form intrinsics (!Ref, !Sub, !GetAtt, ...) are normalized to their
+Fn:: long forms so checks see one shape.
 
-Copy of trivy_tpu/iac/parsers/yamlconf.py trimmed to what the
-kubernetes path calls. The CloudFormation short-form intrinsics and
-`cfn_resources` / `cfn_scalar` come with the config command.
+Copy of trivy_tpu/iac/parsers/yamlconf.py, whole.
 """
 
 from __future__ import annotations
 
 import json
+import re
 
 import yaml
 
@@ -32,6 +34,45 @@ def _construct_mapping(loader, node, deep=False):
 _LineLoader.add_constructor(
     yaml.resolver.BaseResolver.DEFAULT_MAPPING_TAG, _construct_mapping
 )
+
+
+# CloudFormation short-form intrinsics -> long form
+_INTRINSICS = (
+    "Ref", "Sub", "GetAtt", "Join", "Select", "Split", "FindInMap",
+    "Base64", "Cidr", "ImportValue", "GetAZs", "If", "Equals", "Not",
+    "And", "Or", "Condition",
+)
+
+
+def _intrinsic(name):
+    key = "Ref" if name == "Ref" else f"Fn::{name}"
+
+    def construct(loader, node):
+        if isinstance(node, yaml.ScalarNode):
+            val = loader.construct_scalar(node)
+            if name == "GetAtt" and isinstance(val, str):
+                val = val.split(".", 1)
+            return {key: val}
+        if isinstance(node, yaml.SequenceNode):
+            return {key: loader.construct_sequence(node, deep=True)}
+        return {key: yaml.SafeLoader.construct_mapping(loader, node,
+                                                       deep=True)}
+
+    return construct
+
+
+for _n in _INTRINSICS:
+    _LineLoader.add_constructor(f"!{_n}", _intrinsic(_n))
+
+
+def strip_lines(obj):
+    """Deep-copy without the hidden line keys."""
+    if isinstance(obj, dict):
+        return {k: strip_lines(v) for k, v in obj.items()
+                if k not in (LINE_KEY, END_LINE_KEY)}
+    if isinstance(obj, list):
+        return [strip_lines(v) for v in obj]
+    return obj
 
 
 def get_line(obj, default: int = 0) -> int:
@@ -72,7 +113,7 @@ def _annotate_json(obj, line: int = 1):
 
 
 def parse_config(content: bytes, file_type_hint: str = "yaml") -> list[dict]:
-    """-> list of documents (k8s resources / raw config)."""
+    """-> list of documents (k8s resources / CFN template / raw config)."""
     text = content.decode("utf-8", "replace").lstrip()
     if text.startswith("{") or file_type_hint == "json":
         try:
@@ -128,3 +169,34 @@ def k8s_containers(resource: dict) -> list[dict]:
     for key in ("initContainers", "containers", "ephemeralContainers"):
         out.extend(c for c in spec.get(key) or [] if isinstance(c, dict))
     return out
+
+
+# ------------------------------------------------------------ cloudformation
+
+
+def cfn_resources(docs: list[dict]) -> dict[str, dict]:
+    """name -> resource mapping from a CloudFormation template."""
+    for doc in docs:
+        res = doc.get("Resources")
+        if isinstance(res, dict):
+            return {
+                k: v for k, v in res.items()
+                if isinstance(v, dict) and not k.startswith("__")
+            }
+    return {}
+
+
+_SUB_VAR = re.compile(r"\$\{[^}]+\}")
+
+
+def cfn_scalar(value, default=None):
+    """Resolve a possibly-intrinsic scalar to a comparable value; keeps
+    literal scalars, renders Fn::Sub templates with vars blanked."""
+    if isinstance(value, dict):
+        if "Fn::Sub" in value:
+            t = value["Fn::Sub"]
+            if isinstance(t, list):
+                t = t[0] if t else ""
+            return _SUB_VAR.sub("", str(t)) or default
+        return default  # Ref / GetAtt etc. → unknown
+    return value if value is not None else default

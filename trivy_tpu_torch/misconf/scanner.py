@@ -1,15 +1,14 @@
 """Misconfiguration scan façade (reference pkg/misconf/scanner.go):
-parse -> check evaluation -> Misconfiguration with PASS/FAIL entries,
-cause line ranges and code snippets.
+file-type detection -> per-type parse -> check evaluation ->
+Misconfiguration with PASS/FAIL entries, cause line ranges and code
+snippets.
 
-Copy of trivy_tpu/misconf/scanner.py trimmed to kubernetes resources
-(`K8sCtx` and the kubernetes branch of `_contexts`), `_run_checks` and
-`scan_config`. The other file types, their detection and
-`scan_terraform_modules` come with the config command.
+Copy of trivy_tpu/misconf/scanner.py, whole.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 from trivy_tpu_torch.iac import detection
@@ -22,6 +21,12 @@ from trivy_tpu_torch.types.report import (
     DetectedMisconfiguration,
     Line,
 )
+
+
+@dataclass
+class DockerfileCtx:
+    path: str = ""
+    dockerfile: object = None
 
 
 @dataclass
@@ -42,17 +47,90 @@ class K8sCtx:
         return k8s_containers(self.resource)
 
 
+@dataclass
+class CloudCtx:
+    path: str = ""
+    cloud_resources: list = field(default_factory=list)
+
+
 def _contexts(file_type: str, path: str, content: bytes) -> list:
-    if file_type == detection.KUBERNETES:
+    if file_type == detection.DOCKERFILE:
+        from trivy_tpu_torch.iac.parsers.dockerfile import parse_dockerfile
+
+        return [DockerfileCtx(path=path,
+                              dockerfile=parse_dockerfile(content))]
+    if file_type in (detection.KUBERNETES, detection.HELM):
         from trivy_tpu_torch.iac.parsers.yamlconf import (
             k8s_resources,
             parse_config,
         )
 
+        content = _strip_helm(content) if file_type == detection.HELM \
+            else content
         docs = parse_config(content)
         return [K8sCtx(path=path, resource=r)
                 for r in k8s_resources(docs)]
+    if file_type == detection.TERRAFORM:
+        # single-file entry: evaluate as a one-file module so expressions
+        # (locals, functions, interpolations) still resolve
+        from trivy_tpu_torch.iac.checks.cloud import adapt_terraform
+        from trivy_tpu_torch.iac.terraform import ModuleLoader, evaluate_module
+
+        dirname = os.path.dirname(path)
+        loader = ModuleLoader({path: content})
+        ev = evaluate_module({path: content}, dirname, loader)
+        return [CloudCtx(path=path,
+                         cloud_resources=adapt_terraform(ev.blocks))]
+    if file_type == detection.CLOUDFORMATION:
+        from trivy_tpu_torch.iac.checks.cloud import adapt_cloudformation
+        from trivy_tpu_torch.iac.parsers.yamlconf import (
+            cfn_resources,
+            parse_config,
+        )
+
+        docs = parse_config(content)
+        return [CloudCtx(path=path,
+                         cloud_resources=adapt_cloudformation(
+                             cfn_resources(docs)))]
+    if file_type == detection.TERRAFORM_PLAN:
+        import json as _json
+
+        from trivy_tpu_torch.iac.checks.cloud import adapt_terraform_plan
+
+        try:
+            doc = _json.loads(content)
+        except ValueError:
+            return []
+        return [CloudCtx(path=path,
+                         cloud_resources=adapt_terraform_plan(doc))]
+    if file_type == detection.AZURE_ARM:
+        import json as _json
+
+        from trivy_tpu_torch.iac.arm import evaluate_template
+        from trivy_tpu_torch.iac.checks.azure import adapt_arm
+
+        try:
+            doc = _json.loads(content)
+        except ValueError:
+            return []
+        # resolve [parameters()/variables()/...] expressions, expand
+        # copy loops, flatten nested deployments before adapting
+        # (reference pkg/iac/scanners/azure/arm + resolver)
+        return [CloudCtx(path=path,
+                         cloud_resources=adapt_arm(
+                             evaluate_template(doc)))]
     return []
+
+
+def _strip_helm(content: bytes) -> bytes:
+    """Best-effort: drop {{ ... }} actions so the YAML parses
+    (reference renders charts via helm engine; full render is out of
+    scope for template-only scans)."""
+    import re
+
+    text = content.decode("utf-8", "replace")
+    text = re.sub(r"\{\{.*?\}\}", "", text, flags=re.S)
+    return text.encode()
 
 
 def _snippet(content: bytes, start: int, end: int) -> Code:
@@ -95,17 +173,74 @@ def _to_detected(chk: Check, file_type: str, cause: Cause | None,
     )
 
 
+def scan_terraform_modules(
+        files: dict[str, bytes]) -> list[Misconfiguration]:
+    """Directory-aware terraform scan: evaluate each ROOT module (child
+    modules expand inline through their `source` dirs, reference
+    pkg/iac/scanners/terraform), then run the checks over the evaluated
+    resources, attributing findings to each resource's source file."""
+    from trivy_tpu_torch.iac.checks.cloud import adapt_terraform
+    from trivy_tpu_torch.iac.engine import active
+    from trivy_tpu_torch.iac.terraform import (
+        ModuleLoader,
+        evaluate_module,
+        module_dirs,
+    )
+
+    tf_files = {p: c for p, c in files.items()
+                if p.endswith((".tf", ".tf.json"))}
+    if not tf_files:
+        return []
+    loader = ModuleLoader(tf_files)
+    # adapter context is scoped to the ROOT module tree that produced
+    # each block (reference modules.GetResourcesByType spans one root +
+    # its children, not sibling roots — an account default in stack A
+    # must not suppress findings in unrelated stack B). A file shared
+    # by several roots gets one context PER instantiating root, each
+    # carrying only that root's blocks; _run_checks dedupes identical
+    # causes across them.
+    per_file_ctxs: dict[str, list] = {}
+    for d in module_dirs(tf_files, loader=loader):
+        ev = evaluate_module(loader.tf_files(d), d, loader)
+        by_file: dict[str, list] = {}
+        for blk in ev.blocks:
+            by_file.setdefault(blk.src_path, []).append(blk)
+        for path, blks in by_file.items():
+            per_file_ctxs.setdefault(path, []).append(CloudCtx(
+                path=path,
+                cloud_resources=adapt_terraform(
+                    blks, scan_blocks=ev.blocks)))
+    out: list[Misconfiguration] = []
+    for path in sorted(per_file_ctxs):
+        content = files.get(path, b"")
+        misconf = _run_checks(detection.TERRAFORM, path,
+                              per_file_ctxs[path], content)
+        if misconf.failures or misconf.successes:
+            out.append(misconf)
+    return out
+
+
 def _run_checks(ftype: str, path: str, ctxs: list,
                 content: bytes) -> Misconfiguration:
     """Run every active check for `ftype` over the contexts, apply
-    `#trivy:ignore` / `#tfsec:ignore` comments, and collect FAIL/PASS
-    findings. The reference binds above-block and parameterized ignores
-    to the cloud resource a cause sits in; a kubernetes context has
-    none, so that binding comes with the config command."""
+    `#trivy:ignore` / `#tfsec:ignore` comments (incl. parameterized and
+    above-block forms), and collect FAIL/PASS findings."""
     from trivy_tpu_torch.utils import clock
 
     ignores = parse_ignores(content)
     today = clock.now().date()
+    # line-range -> resolved attrs, so above-block and parameterized
+    # ignores can bind to the resource a cause sits in
+    spans = [(r.start_line, r.end_line, r.attrs)
+             for ctx in ctxs
+             for r in getattr(ctx, "cloud_resources", ())]
+
+    def _enclosing(c: Cause):
+        for s, e, attrs in spans:
+            if s and s <= c.start_line <= max(e, s):
+                return s, attrs
+        return 0, None
+
     misconf = Misconfiguration(file_type=ftype, file_path=path)
     from trivy_tpu_torch.iac.engine import active
 
@@ -125,8 +260,11 @@ def _run_checks(ftype: str, path: str, ctxs: list,
             if key in seen:
                 continue
             seen.add(key)
+            res_start, attrs = _enclosing(c)
             if not is_ignored(ignores, chk.id, chk.avd_id,
-                              c.start_line, c.end_line, today=today):
+                              c.start_line, c.end_line,
+                              resource_start=res_start, attrs=attrs,
+                              today=today):
                 kept.append(c)
         causes = kept
         if causes:
@@ -140,11 +278,13 @@ def _run_checks(ftype: str, path: str, ctxs: list,
 
 
 def scan_config(path: str, content: bytes,
-                file_type: str) -> Misconfiguration | None:
-    """-> Misconfiguration (successes + failures), or None when the
-    content holds no resource of `file_type` (a type other than
-    kubernetes holds none here)."""
-    ctxs = _contexts(file_type, path, content)
+                file_type: str | None = None) -> Misconfiguration | None:
+    """-> Misconfiguration (successes + failures) or None if the file is
+    not a recognized config type."""
+    ftype = file_type or detection.detect(path, content)
+    if ftype is None or ftype in (detection.YAML, detection.JSON):
+        return None  # plain data files: nothing to check (yet)
+    ctxs = _contexts(ftype, path, content)
     if not ctxs:
         return None
-    return _run_checks(file_type, path, ctxs, content)
+    return _run_checks(ftype, path, ctxs, content)

@@ -2,12 +2,11 @@
 applier squash -> per-class scans -> metadata fill -> post-scan hooks.
 The vulnerability matching inside runs on the card via MatchEngine.
 
-Copy of trivy_tpu/scanner/local.py without licenses and
-misconfigurations (not ported yet). In server mode the detect phase
-goes through the cross-request match scheduler; under a monitor capture
-scope the engine handle records the scan's queries and finding keys for
-the monitor index; the ambient deadline budget is checked between
-phases. `stats` keeps the seconds of the last scan's phases (the rekor
+Copy of trivy_tpu/scanner/local.py without licenses (not ported
+yet). In server mode the detect phase goes through the cross-request
+match scheduler; under a monitor capture scope the engine handle
+records the scan's queries and finding keys for the monitor index; the
+ambient deadline budget is checked between phases. `stats` keeps the seconds of the last scan's phases (the rekor
 SBOM discovery of `--sbom-sources rekor` counts with the apply phase).
 """
 
@@ -143,6 +142,7 @@ class LocalDriver:
 
             with obs.phase("secret_results", phase="secret"):
                 results.extend(self._secret_results(detail))
+        results.extend(self._misconfig_results(detail))
         return results
 
     def _scan_vulns(
@@ -211,4 +211,16 @@ class LocalDriver:
                     for f in secret.findings
                 ],
             ))
+        return results
+
+    def _misconfig_results(self, detail: ArtifactDetail) -> list[Result]:
+        from trivy_tpu_torch.misconf.result import to_result
+
+        results = []
+        for misconf in sorted(
+            detail.misconfigurations, key=lambda m: m.file_path
+        ):
+            res = to_result(misconf)
+            if res is not None:
+                results.append(res)
         return results
