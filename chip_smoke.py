@@ -3746,6 +3746,7 @@ CLIENT_TIMEOUT_S = 400.0
 # scheduler stats written to the file named first
 CLIENT_CODE = """
 import json, sys, time
+from trivy_tpu_torch.cli import run
 from trivy_tpu_torch.cli.main import main
 from trivy_tpu_torch.fanal import analyzer
 from trivy_tpu_torch.ops import match, secret_nfa
@@ -3762,7 +3763,7 @@ with open(sys.argv[1], "w") as f:
                "match": match.match_words.launches,
                "anchor": secret_nfa.anchor_words.launches,
                "conv": secret_nfa.conv_anchor_words.launches,
-               "lane": lane}, f)
+               "lane": lane, "analysis": run.STATS.get("analysis")}, f)
 sys.exit(rc)
 """
 
@@ -8674,6 +8675,323 @@ def iac_monorepo(root: str, n_services: int, lockfiles: list,
             "cases": len(cases), "planted": planted}
 
 
+# phase 21: a platform team's own misconfiguration checks, the data they
+# read, a check bundle cached beside the scan cache and an ignore policy
+# (every source written here; nothing is downloaded). The Rego checks
+# cover each source type, one imports a library module and one declares
+# itself through the legacy __rego_metadata__ / __rego_input__ rules.
+IAC_CUSTOM_CHECKS = [
+    ("lib/k8s.rego", """package lib.k8s
+
+containers[c] {
+    c := input.spec.containers[_]
+}
+
+containers[c] {
+    c := input.spec.template.spec.containers[_]
+}
+"""),
+    ("kubernetes/digest.rego", """# METADATA
+# title: Container images must be pinned by digest
+# description: A tag can move; a digest names one image.
+# custom:
+#   id: USR-K8S-001
+#   severity: MEDIUM
+#   recommended_actions: Reference each image as repo@sha256:...
+#   input:
+#     selector:
+#     - type: kubernetes
+package user.k8s.digest
+
+import data.lib.k8s
+
+deny[res] {
+    c := k8s.containers[_]
+    not contains(c.image, "@sha256:")
+    res := {"msg": sprintf("container %q uses image %s without a digest",
+                           [c.name, c.image]),
+            "startline": c.__line__, "endline": c.__end_line__}
+}
+"""),
+    ("helm/loadbalancer.rego", """# METADATA
+# title: Charts must not expose a LoadBalancer
+# description: Rendered charts are checked as kubernetes documents.
+# custom:
+#   id: USR-HELM-001
+#   severity: HIGH
+#   input:
+#     selector:
+#     - type: kubernetes
+package user.helm.lb
+
+deny[res] {
+    input.kind == "Service"
+    input.spec.type == "LoadBalancer"
+    res := {"msg": sprintf("service %s is of type %s with %d port(s)",
+                           [input.metadata.name, input.spec.type,
+                            count(input.spec.ports)]),
+            "startline": input.spec.__line__,
+            "endline": input.spec.__end_line__}
+}
+"""),
+    ("dockerfile/root.rego", """package user.dockerfile.root
+
+__rego_metadata__ := {
+    "id": "USR-DF-001",
+    "title": "The final stage must not run as root",
+    "severity": "HIGH",
+    "description": "Switch to an unprivileged user in the last stage.",
+}
+
+__rego_input__ := {"selector": [{"type": "dockerfile"}]}
+
+deny[res] {
+    last := count(input.Stages) - 1
+    stage := input.Stages[i]
+    i == last
+    cmd := stage.Commands[_]
+    cmd.Cmd == "user"
+    lower(cmd.Value[0]) == "root"
+    res := {"msg": sprintf("stage %d (%s) runs as %v",
+                           [i, stage.Name, cmd.Value]),
+            "startline": cmd.StartLine, "endline": cmd.EndLine}
+}
+"""),
+    ("terraform/versioning.rego", """# METADATA
+# title: S3 buckets must enable versioning
+# custom:
+#   id: USR-TF-001
+#   severity: LOW
+#   input:
+#     selector:
+#     - type: terraform
+package user.terraform.versioning
+
+deny[res] {
+    r := input.Resources[_]
+    r.Type == "s3_bucket"
+    not r.Values.versioning
+    res := {"msg": sprintf("bucket %s has versioning %v", [r.Name,
+                                                           r.Values.versioning]),
+            "startline": r.StartLine, "endline": r.EndLine}
+}
+"""),
+    ("cloud/kms.rego", """# METADATA
+# title: KMS keys must rotate
+# custom:
+#   id: USR-CLOUD-001
+#   severity: MEDIUM
+#   input:
+#     selector:
+#     - type: cloud
+package user.cloud.kms
+
+deny[res] {
+    r := input.Resources[_]
+    r.Type == "kms_key"
+    r.Values.rotation == false
+    res := {"msg": sprintf("key %s: %v", [r.Name, {"rotation": false,
+                                                  "usage": r.Values.usage}]),
+            "startline": r.StartLine, "endline": r.EndLine}
+}
+"""),
+    ("cloudformation/rds.rego", """# METADATA
+# title: Databases must not be publicly accessible
+# custom:
+#   id: USR-CFN-001
+#   severity: CRITICAL
+#   input:
+#     selector:
+#     - type: cloudformation
+package user.cloudformation.rds
+
+deny[res] {
+    r := input.Resources[_]
+    r.Type == "rds_instance"
+    r.Values.public == true
+    res := {"msg": sprintf("database %s is public", [r.Name]),
+            "startline": r.StartLine, "endline": r.EndLine}
+}
+"""),
+    ("arm/tls.rego", """# METADATA
+# title: Storage accounts must require TLS 1.2
+# custom:
+#   id: USR-ARM-001
+#   severity: HIGH
+#   input:
+#     selector:
+#     - type: azure-arm
+package user.arm.tls
+
+weak := {"TLS1_0", "TLS1_1"}
+
+deny[res] {
+    r := input.Resources[_]
+    r.Type == "storage_account"
+    weak[r.Values.min_tls]
+    res := {"msg": sprintf("account %s allows %s (weak: %v)",
+                           [r.Name, r.Values.min_tls, sort(weak)]),
+            "startline": r.StartLine, "endline": r.EndLine}
+}
+"""),
+    ("yaml/hostnetwork.yaml", """id: USR-YAML-001
+title: Workloads must not share the host network
+severity: HIGH
+selector: [kubernetes, helm]
+namespace: user.yaml
+deny:
+  - any:
+      - path: spec.hostNetwork
+        equals: true
+      - path: spec.template.spec.hostNetwork
+        equals: true
+    message: the workload shares the host network
+"""),
+    ("python/base_image.py", '''__check__ = {
+    "id": "USR-PY-001",
+    "title": "Base images must come from the approved list",
+    "severity": "MEDIUM",
+    "type": "dockerfile",
+    "namespace": "user.python",
+}
+
+
+def deny(input, data=None):
+    allowed = (data or {}).get("allowed_base_images", [])
+    out = []
+    for stage in input.get("Stages", []):
+        base = stage.get("Base", "")
+        if not any(base.startswith(a) for a in allowed):
+            out.append({"message": f"base image {base} is not approved",
+                        "start_line": stage.get("StartLine", 0),
+                        "end_line": stage.get("StartLine", 0)})
+    return out
+'''),
+    ("yaml/expose.yaml", """id: USR-DEP-001
+title: EXPOSE documents nothing the platform reads
+severity: LOW
+type: dockerfile
+deprecated: true
+deny:
+  - path: Stages[*].Commands[*].Cmd
+    equals: expose
+    message: EXPOSE is deprecated on this platform
+"""),
+]
+IAC_CUSTOM_DATA = ("allowed_base_images:\n  - 'debian:'\n"
+                   "  - gcr.io/distroless/\n  - 'golang:'\n")
+# a check bundle as `<cache>/policy/content` holds it: data only, so its
+# Python check is refused at load time
+IAC_BUNDLE = [
+    ("ecr.rego", """# METADATA
+# title: Registries must scan images on push
+# custom:
+#   id: USR-BUNDLE-001
+#   severity: MEDIUM
+#   input:
+#     selector:
+#     - type: cloud
+package user.bundle.ecr
+
+deny[res] {
+    r := input.Resources[_]
+    r.Type == "ecr_repository"
+    not r.Values.scan_on_push
+    res := {"msg": sprintf("repository %s does not scan on push", [r.Name]),
+            "startline": r.StartLine, "endline": r.EndLine}
+}
+"""),
+    ("volumes.yaml", """id: USR-BUNDLE-002
+title: Block volumes must be encrypted
+severity: HIGH
+type: cloud
+namespace: user.bundle.volumes
+deny:
+  - all:
+      - path: Resources[*].Type
+        equals: ebs_volume
+      - path: Resources[*].Values.encrypted
+        equals: false
+    message: an EBS volume is not encrypted
+"""),
+    ("refused.py", '''__check__ = {"id": "USR-BUNDLE-003", "title": "never loaded",
+             "type": "dockerfile", "namespace": "user.bundle"}
+
+
+def deny(input):
+    return ["a bundle may not run Python"]
+'''),
+]
+IAC_BUNDLE_REFUSED = "USR-BUNDLE-003"
+# every check above that loads (the refused one aside) fails on the
+# monorepo; USR-DEP-001 only with --include-deprecated-checks
+IAC_CUSTOM_IDS = ("USR-K8S-001", "USR-HELM-001", "USR-DF-001", "USR-TF-001",
+                  "USR-CLOUD-001", "USR-CFN-001", "USR-ARM-001",
+                  "USR-YAML-001", "USR-PY-001", "USR-DEP-001",
+                  "USR-BUNDLE-001", "USR-BUNDLE-002")
+IAC_IGNORE_POLICY = """package trivy
+
+import data.lib.trivy
+
+default ignore = false
+
+# a triaged batch of advisories (ids ending in 7) is an accepted risk
+ignore {
+    endswith(input.VulnerabilityID, "7")
+}
+
+# the platform probes health itself
+ignore {
+    input.AVDID == "AVD-DS-0026"
+}
+
+# GitLab tokens in .env files are rotated nightly
+ignore {
+    input.RuleID == "gitlab-pat"
+}
+"""
+
+
+def ignore_policy_drops(kind: str, finding: dict) -> bool:
+    """IAC_IGNORE_POLICY as plain Python, over a report's findings of
+    `kind` (Vulnerabilities, Misconfigurations or Secrets)."""
+    if kind == "Vulnerabilities":
+        return finding.get("VulnerabilityID", "").endswith("7")
+    if kind == "Misconfigurations":
+        return finding.get("AVDID") == "AVD-DS-0026"
+    return finding.get("RuleID") == "gitlab-pat"
+
+
+def write_custom_checks(root: str) -> dict:
+    """Phase 21's inputs under `root`: the checks directory, the data
+    file, the ignore policy, and a cache directory holding the bundle
+    under `policy/content`. -> their paths."""
+    checks = os.path.join(root, "checks")
+    write_files(checks, IAC_CUSTOM_CHECKS)
+    paths = {"checks": checks, "data": os.path.join(root, "data.yaml"),
+             "policy": os.path.join(root, "ignore.rego"),
+             "cache": os.path.join(root, "cache")}
+    write_files(root, [("data.yaml", IAC_CUSTOM_DATA),
+                       ("ignore.rego", IAC_IGNORE_POLICY)])
+    place_bundle(paths["cache"])
+    return paths
+
+
+def place_bundle(cache_dir: str) -> str:
+    """IAC_BUNDLE cached under `<cache_dir>/policy/content`."""
+    content = os.path.join(cache_dir, "policy", "content")
+    write_files(content, IAC_BUNDLE)
+    return content
+
+
+def custom_check_flags(paths: dict) -> list:
+    """The CLI flags that load phase 21's checks, data and policy."""
+    return ["--config-check", paths["checks"], "--config-data",
+            paths["data"], "--check-namespaces", "user",
+            "--include-deprecated-checks", "--skip-check-update",
+            "--ignore-policy", paths["policy"]]
+
+
 # phase 20's runner: a process of its own (`iac_start`), its work
 # overlaps phases 10-16 (`iac_runner`)
 IAC_CODE = """
@@ -8699,12 +9017,14 @@ def iac_image_layer() -> list:
     return files
 
 
-def iac_start(p7: dict, p9: dict, dev, tmp: str) -> dict:
+def iac_start(p7: dict, p9: dict, tars: list[str], dev, tmp: str) -> dict:
     """Phase 20's set-up, right after phase 9: the monorepo (phase 7's
     npm and pip packages as its app's lockfiles), the --helm-values
     file, (c)'s archive (phase 9's docker-save layers and one more),
     then the runner, which starts so that its work overlaps phases
-    10-16."""
+    10-16. Phase 21 runs in the same runner after phase 20, on phase
+    9's archive and report and on two of phase 17's variants (`tars`:
+    phase 17's archives, phase 9's two first)."""
     t0 = time.perf_counter()
     out = os.path.join(tmp, "iac")
     tree = os.path.join(out, "monorepo")
@@ -8718,7 +9038,8 @@ def iac_start(p7: dict, p9: dict, dev, tmp: str) -> dict:
                 [*p9["history"], {"created_by": "COPY deploy /srv"}],
                 "docker")
     spec = {"db_root": p7["db_root"], "tree": tree, "values": values,
-            "tar": tar, **info}
+            "tar": tar, "p9_tar": p9["tar"], "p9_report": p9["report"],
+            "fleet_variants": tars[2:4], **info}
     with open(os.path.join(out, "spec.json"), "w") as f:
         json.dump(spec, f)
     built_s = time.perf_counter() - t0
@@ -8752,7 +9073,8 @@ def iac_runner(spec_path: str, out: str, device: str) -> None:
     CLI and, through the same `write_report` call, its table and SARIF;
     (c) `image --scanners vuln,secret,misconfig` on the archive with the
     deploy layer, on the card and with --no-tpu, each on a cache of its
-    own. Its numbers go to out/result.json."""
+    own; then phase 21 (custom_runs). Its numbers go to
+    out/result.json."""
     from trivy_tpu_torch.cli import run
     from trivy_tpu_torch.cli.main import build_parser
     from trivy_tpu_torch.iac import check
@@ -8878,6 +9200,11 @@ def iac_runner(spec_path: str, out: str, device: str) -> None:
         res["c"]["json_equal"] = c_bytes == body("c_no_tpu")
         res["c"]["config_types"] = sorted({
             t for t, _ms in config_results(json.loads(c_bytes)).values()})
+        del c_bytes
+        res["phase20_s"] = time.perf_counter() - t_runner
+
+        # phase 21 on the same tree and engine
+        res["p21"] = custom_runs(spec, out, device, engine, go, body)
         res["engine_device"] = str(engine.device)
         res["runner_wall_s"] = time.perf_counter() - t_runner
     except BaseException as e:  # the parent reads it and fails the phase
@@ -8887,6 +9214,350 @@ def iac_runner(spec_path: str, out: str, device: str) -> None:
         res["traceback"] = traceback.format_exc()
     with open(os.path.join(out, "result.json"), "w") as f:
         json.dump(res, f)
+
+
+class RespServer:
+    """Phase 21's redis: a small RESP2 server on localhost, the script's
+    own. It answers SET (with NX and EX), GET, EXISTS, DEL and PING over
+    one dict; SET NX is atomic across connections, as the layer claims
+    need one winner. `counts` tallies commands by name and key kind
+    (`("GET", "blob")`)."""
+
+    def __init__(self):
+        import collections
+        import socketserver
+
+        self.store: dict = {}
+        self.expiry: dict = {}
+        self.lock = threading.Lock()
+        self.counts: collections.Counter = collections.Counter()
+        outer = self
+
+        class Handler(socketserver.StreamRequestHandler):
+            def handle(self):
+                outer.serve(self.rfile, self.wfile)
+
+        self._srv = socketserver.ThreadingTCPServer(("127.0.0.1", 0),
+                                                    Handler)
+        self._srv.daemon_threads = True
+        self.url = f"redis://127.0.0.1:{self._srv.server_address[1]}"
+        self._thread = threading.Thread(target=self._srv.serve_forever,
+                                        name="phase21-redis", daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self._srv.shutdown()
+        self._srv.server_close()
+        self._thread.join(timeout=10)
+
+    @staticmethod
+    def kind(key: bytes) -> str:
+        parts = key.split(b"::")
+        return parts[1].decode() if len(parts) > 2 else "other"
+
+    def live(self, key: bytes) -> bool:
+        """Whether `key` holds a value (an expired one is dropped);
+        the caller holds the lock."""
+        if key in self.expiry and self.expiry[key] <= time.time():
+            self.store.pop(key, None)
+            self.expiry.pop(key, None)
+        return key in self.store
+
+    def flush(self) -> int:
+        """Empty the store (FLUSHDB). -> the keys it held."""
+        with self.lock:
+            n = len(self.store)
+            self.store.clear()
+            self.expiry.clear()
+            return n
+
+    def claimed(self) -> bool:
+        """Whether a layer claim (`fanal::claim::...`) is held."""
+        with self.lock:
+            return any(k.startswith(b"fanal::claim::") and self.live(k)
+                       for k in list(self.store))
+
+    def serve(self, rfile, wfile) -> None:
+        while True:
+            line = rfile.readline()
+            if not line:
+                return
+            if not line.startswith(b"*"):
+                wfile.write(b"-ERR protocol\r\n")
+                return
+            args = []
+            for _ in range(int(line[1:])):
+                size = int(rfile.readline()[1:])
+                args.append(rfile.read(size))
+                rfile.read(2)
+            cmd = args[0].decode().upper()
+            with self.lock:
+                if len(args) > 1:
+                    self.counts[(cmd, self.kind(args[1]))] += 1
+                wfile.write(self.reply(cmd, args[1:]))
+
+    def reply(self, cmd: str, args: list) -> bytes:
+        if cmd == "PING":
+            return b"+PONG\r\n"
+        if cmd == "SET":
+            key, value = args[0], args[1]
+            opts = [a.decode().upper() for a in args[2:]]
+            if "NX" in opts and self.live(key):
+                return b"$-1\r\n"
+            self.store[key] = value
+            self.expiry.pop(key, None)
+            if "EX" in opts:
+                self.expiry[key] = time.time() + int(
+                    opts[opts.index("EX") + 1])
+            return b"+OK\r\n"
+        if cmd == "GET":
+            if not self.live(args[0]):
+                return b"$-1\r\n"
+            v = self.store[args[0]]
+            return b"$%d\r\n%s\r\n" % (len(v), v)
+        if cmd == "EXISTS":
+            return b":%d\r\n" % sum(self.live(k) for k in args)
+        if cmd == "DEL":
+            n = 0
+            for k in args:
+                n += self.live(k)
+                self.store.pop(k, None)
+                self.expiry.pop(k, None)
+            return b":%d\r\n" % n
+        return f"-ERR unknown command '{cmd}'\r\n".encode()
+
+
+P21_FETCH_DELAY_S = 20  # client A's first layer fetch: B parks on A
+P21_WAIT_BUDGET_S = 120.0  # a server's wait on another client's layer
+P21_TIMEOUT_S = 240.0  # one client, bounded
+
+
+def archive_diff_ids(path: str) -> list[str]:
+    """A docker-save archive's layer diff ids, from its config."""
+    import tarfile
+
+    with tarfile.open(path) as tf:
+        manifest = json.load(tf.extractfile("manifest.json"))
+        config = json.load(tf.extractfile(manifest[0]["Config"]))
+    return list(config["rootfs"]["diff_ids"])
+
+
+def without_created_at(body: bytes) -> dict:
+    doc = json.loads(body)
+    doc.pop("CreatedAt", None)
+    return doc
+
+
+def findings_by_target(doc: dict, kind: str, keep=None) -> dict:
+    """A report's findings of `kind` per target, those `keep` accepts."""
+    out: dict = {}
+    for r in doc.get("Results") or []:
+        got = [f for f in r.get(kind) or [] if keep is None or keep(f)]
+        if got:
+            out.setdefault(r["Target"], []).extend(got)
+    return out
+
+
+def custom_runs(spec: dict, out: str, device: str, engine, go, body) -> dict:
+    """Phase 21 in phase 20's runner, on its tree and engine: (a) `fs
+    --scanners vuln,secret,misconfig` with phase 20's helm flags, the
+    custom checks, their data, the deprecated check, a cached bundle
+    (`--skip-check-update`) and the ignore policy, on the card and with
+    --no-tpu; (b) `image --cache-backend redis://` on phase 9's archive,
+    cold and then warm, on a RespServer; (c) two in-process scan
+    servers, each a `Server` over a `ScanService` on a `RedisCache` of
+    that RespServer, sharing this runner's engine, with `image --server`
+    clients in processes of their own on two of phase 17's archives
+    that share phase 9's layers (client A's first layer fetch delayed,
+    client B started once A's claims are in redis), and each archive's
+    report without redis. -> the numbers iac_finish checks."""
+    from trivy_tpu_torch.obs import metrics as om
+
+    def run(name, argv, cache):
+        return {k: v for k, v in go(name, argv, cache).items()
+                if k != "secret_device_stats"}
+
+    res: dict = {}
+    base = ["--db-path", spec["db_root"], "--format", "json", "--quiet"]
+    helm = ["--helm-set", IAC_HELM_SET, "--helm-values", spec["values"]]
+    scanners = ["--scanners", "vuln,secret,misconfig"]
+    custom = write_custom_checks(os.path.join(out, "custom"))
+    place_bundle(os.path.join(out, "custom", "cache-host"))
+    flags = custom_check_flags(custom)
+
+    # (a)
+    fs = ["fs", spec["tree"], *base, *scanners, *helm, *flags]
+    res["a"] = run("p21_a", [*fs, "--device", device], "custom/cache")
+    with shared_db(engine):
+        res["a_no_tpu"] = run("p21_a_no_tpu", [*fs, "--no-tpu"],
+                              "custom/cache-host")
+    a_bytes = body("p21_a")
+    a = res["a"]
+    a["json_equal"] = a_bytes == body("p21_a_no_tpu")
+    a_doc, p20 = json.loads(a_bytes), json.loads(body("a"))
+    del a_bytes
+    failed = {m["ID"] for ms in findings_by_target(
+        a_doc, "Misconfigurations",
+        lambda m: m["Status"] == "FAIL").values() for m in ms}
+    a["custom_never_failed"] = sorted(set(IAC_CUSTOM_IDS) - failed)
+    a["refused_check_present"] = IAC_BUNDLE_REFUSED in failed
+    a["custom_failures"] = sum(i.startswith("USR-") for i in failed)
+    # phase 20 (a)'s report less what the policy names equals (a)'s
+    # vulnerabilities, secrets and built-in misconfigurations
+    a["policy"] = {}
+    for kind in ("Vulnerabilities", "Secrets", "Misconfigurations"):
+        builtin = (lambda f: not f["ID"].startswith("USR-")) \
+            if kind == "Misconfigurations" else (lambda f: True)
+        before = findings_by_target(p20, kind)
+        kept = findings_by_target(
+            p20, kind, lambda f: not ignore_policy_drops(kind, f))
+        a["policy"][kind] = {
+            "phase20": sum(map(len, before.values())),
+            "dropped": sum(map(len, before.values()))
+            - sum(map(len, kept.values())),
+            "equal": kept == findings_by_target(a_doc, kind, builtin)}
+    del a_doc, p20
+
+    redis = RespServer()
+    try:
+        # (b): cold, then warm on the same tier
+        image = ["image", "--input", spec["p9_tar"], *base,
+                 "--cache-backend", redis.url, "--device", device]
+        with open(spec["p9_report"], "rb") as f:
+            p9 = f.read()
+        for name in ("b_cold", "b_warm"):
+            counts = dict(redis.counts)
+            res[name] = run(f"p21_{name}", image, "p21-b")
+            res[name]["equal_to_phase9"] = body(f"p21_{name}") == p9
+            res[name]["redis"] = {
+                f"{c}_{k}": n - counts.get((c, k), 0)
+                for (c, k), n in redis.counts.items()
+                if n - counts.get((c, k), 0)}
+        res["b_keys"] = {"total": len(redis.store),
+                         "fanal": sum(k.startswith(b"fanal::")
+                                      for k in redis.store)}
+        # (c) on an empty tier: (b) cached phase 9's layers, which the
+        # variants share
+        redis.flush()
+        claims0 = {o: om.FLEET_DEDUPE_CLAIMS.value(outcome=o)
+                   for o in ("leader", "follower", "expired", "reclaim")}
+        res["c"] = serve_two(spec, out, device, engine, redis, run, body)
+        res["c"]["claims"] = {
+            o: om.FLEET_DEDUPE_CLAIMS.value(outcome=o) - n
+            for o, n in claims0.items()}
+    finally:
+        redis.close()
+    return res
+
+
+def serve_two(spec: dict, out: str, device: str, engine, redis, run,
+              body) -> dict:
+    """Phase 21 (c): see custom_runs."""
+    from trivy_tpu_torch.cache.redis import RedisCache
+    from trivy_tpu_torch.fanal import pipeline
+    from trivy_tpu_torch.obs import metrics as om
+    from trivy_tpu_torch.rpc.server import Server
+
+    tars = spec["fleet_variants"][:2]
+    res: dict = {"unique_layers": len({d for t in tars
+                                       for d in archive_diff_ids(t)})}
+    waits0 = om.LAYER_DEDUPE_INFLIGHT_WAITS.value()
+    hits0 = om.LAYER_DEDUPE_HITS.value()
+    budget = pipeline.SERVER_WAIT_BUDGET_S
+    # the follower's wait must outlast the leader's fetch delay and its
+    # analysis of phase 9's layers (the default, 10 s, does not)
+    pipeline.SERVER_WAIT_BUDGET_S = P21_WAIT_BUDGET_S
+    servers = [Server(engine, RedisCache(redis.url), host="127.0.0.1",
+                      port=0) for _ in range(2)]
+    # one server's Scan at a time, so each one's launches are its own
+    serial = threading.Lock()
+    launches = [dict.fromkeys(("main", "hot", "tall"), 0)
+                for _ in servers]
+
+    def counted(svc, k):
+        scan = svc.scan
+
+        def run_scan(*a, **kw):
+            with serial:
+                before = device_tier_launches()
+                try:
+                    return scan(*a, **kw)
+                finally:
+                    after = device_tier_launches()
+                    for t in after:
+                        launches[k][t] += after[t] - before[t]
+        return run_scan
+
+    procs = []
+    try:
+        for k, s in enumerate(servers):
+            s.service.scan = counted(s.service, k)
+            s.start()
+        t0 = time.perf_counter()
+        for k, (tar, srv) in enumerate(zip(tars, servers)):
+            env = {**os.environ}
+            if k == 0:
+                env["TRIVY_TPU_FAULTS"] = \
+                    f"analysis.fetch:delay={P21_FETCH_DELAY_S}@1"
+            report = os.path.join(out, f"p21_c{k}.json")
+            argv = ["image", "--input", tar, "--server", srv.address,
+                    "--format", "json", "--quiet", "--device", device,
+                    "--cache-dir", os.path.join(out, f"p21-c{k}"),
+                    "--output", report]
+            log = open(os.path.join(out, f"p21_c{k}.log"), "wb")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CLIENT_CODE,
+                 os.path.join(out, f"p21_c{k}_stats.json"), *argv],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+            if k == 0:
+                # B starts once A's claims are in redis: B then finds
+                # them and parks on A's analysis
+                deadline = time.monotonic() + P21_TIMEOUT_S
+                while not redis.claimed():
+                    if procs[0].poll() is not None or \
+                            time.monotonic() > deadline:
+                        raise AssertionError(
+                            "phase 21 (c): client A made no claim: "
+                            + tail(os.path.join(out, "p21_c0.log")))
+                    time.sleep(0.05)
+                res["b_started_after_s"] = time.perf_counter() - t0
+        for k, p in enumerate(procs):
+            try:
+                p.wait(timeout=P21_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"phase 21 (c): client {k} did not end in time: "
+                    + tail(os.path.join(out, f"p21_c{k}.log")))
+        res["wall_s"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for s in servers:
+            s.shutdown()
+        pipeline.SERVER_WAIT_BUDGET_S = budget
+    res["clients"] = []
+    for k, tar in enumerate(tars):
+        with open(os.path.join(out, f"p21_c{k}_stats.json")) as f:
+            st = json.load(f)
+        # the same archive without redis, on the card, in this process
+        plain = run(f"p21_c{k}_plain", [
+            "image", "--input", tar, "--db-path", spec["db_root"],
+            "--format", "json", "--quiet", "--device", device],
+            f"p21-c{k}-plain")
+        with open(os.path.join(out, f"p21_c{k}.json"), "rb") as f:
+            st["equal_without_redis"] = without_created_at(
+                body(f"p21_c{k}_plain")) == without_created_at(f.read())
+        st["plain_wall_s"] = plain["wall_s"]
+        st["server_match_per_tier"] = launches[k]
+        res["clients"].append(st)
+    res["layer_waits"] = om.LAYER_DEDUPE_INFLIGHT_WAITS.value() - waits0
+    res["layer_hits"] = om.LAYER_DEDUPE_HITS.value() - hits0
+    res["analyzed"] = sum((c["analysis"] or {}).get("analyzed", 0)
+                          for c in res["clients"])
+    return res
 
 
 IAC_SPLIT = ("wall_s", "walk_s", "config_s", "secret_s", "detect_s",
@@ -8986,9 +9657,116 @@ def iac_finish(ia: dict) -> dict:
         fails.append(f"the engine is on {r['engine_device']}")
     if fails:
         raise AssertionError("phase 20: " + "; ".join(fails))
-    return {"runner_s": r["runner_wall_s"], "launches": {
-        "match": {k: r[k]["launches"]["match_per_tier"] for k in runs},
-        "anchor": {k: r[k]["launches"]["anchor"] for k in runs}}}
+    return {"runner_s": r["runner_wall_s"], "phase20_s": r["phase20_s"],
+            "launches": {
+                "match": {k: r[k]["launches"]["match_per_tier"]
+                          for k in runs},
+                "anchor": {k: r[k]["launches"]["anchor"] for k in runs}},
+            "p21": custom_finish(r["p21"], r["runner_wall_s"]
+                                 - r["phase20_s"])}
+
+
+def custom_finish(r: dict, seconds: float) -> dict:
+    """Phase 21's checks: (a) its JSON equal to --no-tpu's byte for byte,
+    every custom check failing (the deprecated one included), the
+    bundle's Python check absent, phase 20 (a)'s findings less what the
+    policy names equal to (a)'s for each kind (some dropped, not all),
+    the match kernel launched on every tier given rows and the anchor
+    screen launched, no --no-tpu launch; (b) cold and warm JSON equal to
+    phase 9's, the cold run launching the anchor screen, the warm one
+    none and reading its blobs from redis, every key under `fanal::`;
+    (c) the layers analyzed over both clients equal to the unique
+    layers, claims made, each client's report equal to its archive's
+    without redis, each server launching the match kernel."""
+    a, an, bc, bw, c = (r[k] for k in ("a", "a_no_tpu", "b_cold",
+                                      "b_warm", "c"))
+    print(f"phase21 seconds={seconds:.3f}")
+    for name in ("a", "a_no_tpu", "b_cold", "b_warm"):
+        x = r[name]
+        split = " ".join(f"{k}={x[k]:.3f}" for k in IAC_SPLIT if k in x)
+        print(f"phase21 {name} {split} report_bytes={x['report_bytes']} "
+              f"secret_findings={x['secret_findings']} "
+              f"vulnerabilities={x['vulnerabilities']} "
+              f"match_per_tier={json.dumps(x['launches']['match_per_tier'])}"
+              f" rows_per_tier={json.dumps(x['rows_per_tier'])} "
+              f"anchor={x['launches']['anchor']}")
+    print(f"phase21 a json_equal={a['json_equal']} "
+          f"custom_never_failed={json.dumps(a['custom_never_failed'])} "
+          f"custom_failing_checks={a['custom_failures']} "
+          f"refused_check_present={a['refused_check_present']} "
+          f"policy={json.dumps(a['policy'], sort_keys=True)}")
+    for name, x in (("b_cold", bc), ("b_warm", bw)):
+        print(f"phase21 {name} equal_to_phase9={x['equal_to_phase9']} "
+              f"analysis={json.dumps(x.get('analysis'), sort_keys=True)} "
+              f"redis={json.dumps(x['redis'], sort_keys=True)}")
+    print(f"phase21 b keys={json.dumps(r['b_keys'])}")
+    print(f"phase21 c wall_s={c['wall_s']:.3f} "
+          f"b_started_after_s={c['b_started_after_s']:.3f} "
+          f"unique_layers={c['unique_layers']} analyzed={c['analyzed']} "
+          f"layer_waits={c['layer_waits']} layer_hits={c['layer_hits']} "
+          f"claims={json.dumps(c['claims'], sort_keys=True)}")
+    for k, x in enumerate(c["clients"]):
+        print(f"phase21 c client{k} rc={x['rc']} wall_s={x['wall_s']:.3f} "
+              f"plain_wall_s={x['plain_wall_s']:.3f} "
+              f"analysis={json.dumps(x['analysis'], sort_keys=True)} "
+              f"anchor={x['anchor']} client_match={x['match']} "
+              f"server_match_per_tier="
+              f"{json.dumps(x['server_match_per_tier'])} "
+              f"equal_without_redis={x['equal_without_redis']}")
+    fails = []
+    if not a["json_equal"]:
+        fails.append("(a) differs from --no-tpu")
+    if a["custom_never_failed"] or a["refused_check_present"]:
+        fails.append(f"(a) custom checks that never failed "
+                     f"{a['custom_never_failed']}, the bundle's Python "
+                     f"check present: {a['refused_check_present']}")
+    for kind, p in a["policy"].items():
+        if not p["equal"] or not 0 < p["dropped"] < p["phase20"]:
+            fails.append(f"(a) the ignore policy on {kind}: {p}")
+    per = a["launches"]["match_per_tier"]
+    if not a["rows_per_tier"]["main"] or any(
+            bool(per[k]) != bool(a["rows_per_tier"][k]) for k in per) \
+            or not a["launches"]["anchor"]:
+        fails.append(f"(a) launches {a['launches']} against rows "
+                     f"{a['rows_per_tier']}")
+    if any(an["launches"][k] for k in ("match", "anchor", "conv",
+                                       "prefilter")):
+        fails.append("(a) --no-tpu launched a kernel")
+    if not (bc["equal_to_phase9"] and bw["equal_to_phase9"]):
+        fails.append("(b) a report differs from phase 9's")
+    if not bc["launches"]["anchor"] or bw["launches"]["anchor"] or \
+            (bw.get("analysis") or {}).get("analyzed") or \
+            not bw["redis"].get("GET_blob"):
+        fails.append(f"(b) anchor launches cold {bc['launches']['anchor']}"
+                     f" warm {bw['launches']['anchor']}, warm analysis "
+                     f"{bw.get('analysis')}, warm redis {bw['redis']}")
+    if not r["b_keys"]["total"] or \
+            r["b_keys"]["fanal"] != r["b_keys"]["total"]:
+        fails.append(f"(b) keys {r['b_keys']}")
+    if c["analyzed"] != c["unique_layers"] or \
+            not sum(c["claims"].values()):
+        fails.append(f"(c) analyzed {c['analyzed']} layers of "
+                     f"{c['unique_layers']}, claims {c['claims']}")
+    for k, x in enumerate(c["clients"]):
+        if x["rc"] != 0 or not x["equal_without_redis"] or \
+                not sum(x["server_match_per_tier"].values()):
+            fails.append(f"(c) client {k}: rc {x['rc']}, equal "
+                         f"{x['equal_without_redis']}, server launches "
+                         f"{x['server_match_per_tier']}")
+    if fails:
+        raise AssertionError("phase 21: " + "; ".join(fails))
+    return {"launches": {
+        "match": {"a": per, "a_no_tpu": an["launches"]["match_per_tier"],
+                  "b_cold": bc["launches"]["match_per_tier"],
+                  "b_warm": bw["launches"]["match_per_tier"],
+                  **{f"c_server{k}": x["server_match_per_tier"]
+                     for k, x in enumerate(c["clients"])}},
+        "anchor": {"a": a["launches"]["anchor"],
+                   "a_no_tpu": an["launches"]["anchor"],
+                   "b_cold": bc["launches"]["anchor"],
+                   "b_warm": bw["launches"]["anchor"],
+                   **{f"c_client{k}": x["anchor"]
+                      for k, x in enumerate(c["clients"])}}}}
 
 
 def main() -> int:
@@ -9092,7 +9870,7 @@ def main() -> int:
         fs = fleetscan_start(p7, p9, dev, work)
         # phase 20's monorepo and image scans in a process of their own
         # beside phases 10-16, its image on phase 9's layers
-        ia = iac_start(p7, p9, dev, work)
+        ia = iac_start(p7, p9, fs["tars"], dev, work)
         del p9["layers"]
         # phase 19's cluster scans in a process of their own beside
         # phases 10-16, on phase 17's archives
@@ -9175,7 +9953,8 @@ def main() -> int:
 
         t0 = time.perf_counter()
         p20 = iac_finish(ia)
-        print(f"phase20 seconds={p20['runner_s']:.3f} "
+        print(f"phase20 seconds={p20['phase20_s']:.3f} "
+              f"runner_s={p20['runner_s']:.3f} "
               f"waited_s={time.perf_counter() - t0:.3f}")
     finally:
         for p in [*(golden or {}).get("procs", {}).values(),
@@ -9255,6 +10034,7 @@ def main() -> int:
         "launches_fleetscan": p17["launches"]["match"],
         "launches_k8s": p19["launches"]["match"],
         "launches_iac": p20["launches"]["match"],
+        "launches_custom_redis": p20["p21"]["launches"]["match"],
         "launches_chaos": {k: v["match"] for k, v in
                            sorted(p18["launches"].items())},
         "launches_dcn": {
@@ -9290,6 +10070,7 @@ def main() -> int:
             **({"launches_fleetscan": p17["launches"]["anchor"],
                 "launches_k8s": p19["launches"]["anchor"],
                 "launches_iac": p20["launches"]["anchor"],
+                "launches_custom_redis": p20["p21"]["launches"]["anchor"],
                 "launches_chaos": {k: v["anchor"] for k, v in
                                    sorted(p18["launches"].items())}}
                if name == "anchor" else {}),

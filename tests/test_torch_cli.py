@@ -207,10 +207,11 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
     assert capsys.readouterr().out == GOLDEN.read_text()
 
 
+# options still unported (cli/config.py UNPORTED)
 @pytest.mark.parametrize("flag", [["--license-full"],
                                   ["--module-dir", "modules"],
-                                  ["--redis-tls"],
-                                  ["--ignore-policy", "p.yaml"],
+                                  ["--generate-default-config"],
+                                  ["--report", "all"],
                                   ["--compliance", "docker-cis-1.6.0"]])
 def test_unported_flags_are_refused(golden_env, flag):
     with pytest.raises(SystemExit) as exc:
@@ -218,12 +219,36 @@ def test_unported_flags_are_refused(golden_env, flag):
     assert exc.value.code == 2
 
 
+@pytest.mark.parametrize("flag", [
+    ["--redis-tls"], ["--ignore-policy", "{policy}"],
+    ["--ignore-policy", "{policy}", "--cache-backend", "memory"]])
+def test_ported_flags_equal_reference(golden_env, tmp_path, capsys, flag):
+    """--redis-tls (read only with a redis:// backend) and
+    --ignore-policy on the golden SBOM: the reference's report."""
+    policy = tmp_path / "policy.yaml"
+    policy.write_text("ignore:\n  - path: VulnerabilityID\n"
+                      "    equals: CVE-2019-10744\n")
+    extra = [a.format(policy=policy) for a in flag]
+    assert main(port_argv(golden_env, "--format", "json", *extra)) == 0
+    got = capsys.readouterr().out
+    argv = port_argv(golden_env, "--format", "json", *extra)
+    i = argv.index("--device")
+    assert jax_main.main(argv[:i] + argv[i + 2:] + ["--no-tpu"]) == 0
+    assert got == capsys.readouterr().out
+    if "--ignore-policy" in flag:
+        assert "CVE-2019-10744" not in got and got != GOLDEN.read_text()
+    else:
+        assert got == GOLDEN.read_text()
+
+
 @pytest.mark.parametrize("extra,message", [
     (["--scanners", "vuln,misconfig,license"], "'license' is not ported yet"),
     (["--scanners", "vuln,license"], "not ported yet"),
-    (["--cache-backend", "redis://localhost:6379"], "unknown cache backend"),
+    (["--cache-backend", "memcached://localhost:11211"],
+     "unknown cache backend"),
     (["--timeout", "5parsecs"], "invalid --timeout"),
     (["--device", "meta"], "--device"),
+    (["--cache-backend", "redis://127.0.0.1:1"], "redis cache backend"),
 ])
 def test_errors_are_one_line_and_rc_1(golden_env, capsys, extra, message):
     argv = port_argv(golden_env, *extra)

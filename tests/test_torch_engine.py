@@ -386,8 +386,9 @@ def test_static_scan_covers_every_slice():
     repository and vm slice, of the server and scheduler slice, of the
     serving mesh, of continuous monitoring, of cross-host serving, of
     observability, of the fleet control plane, of the fleet scan mode,
-    of the chaos campaign, of the kubernetes command and of
-    misconfiguration scanning included."""
+    of the chaos campaign, of the kubernetes command, of
+    misconfiguration scanning and of its custom checks, check bundles,
+    ignore policy and redis cache tier included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -433,7 +434,10 @@ def test_static_scan_covers_every_slice():
                    "iac/checks/azure_ext.py", "iac/checks/gcp.py",
                    "iac/checks/gcp_ext.py", "iac/checks/providers_misc.py",
                    "iac/checks/docker.py",
-                   "fanal/analyzers/config_analyzer.py"):
+                   "fanal/analyzers/config_analyzer.py", "iac/rego.py",
+                   "policy/__init__.py", "policy/bundle.py",
+                   "result/policy.py", "result/filter.py",
+                   "cache/redis.py", "fleet/dedupe.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

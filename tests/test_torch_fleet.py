@@ -4,8 +4,8 @@ control surface of the scan server, the coordinated advisory-DB rollout
 and the `fleet status` / `fleet rollout` commands, against the JAX
 package's on the same seeded inputs.
 
-Every shape of tests/test_fleet.py but the redis layer gate's runs in
-both packages (the port's engines on device="cpu", so the match
+Every shape of tests/test_fleet.py but the redis layer gate's (those
+are tests/test_torch_redis.py's) runs in both packages (the port's engines on device="cpu", so the match
 kernel's plain version answers; the reference's on its host path), and
 what each run observes (scan response bytes, `/readyz` documents,
 rollout reports, `fleet status` JSON, monitor events, metric deltas)

@@ -395,8 +395,29 @@ def test_unported_list_is_reference_dests_minus_ports(cmd):
 def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
                                              capsys, monkeypatch, cmd,
                                              dest, value):
+    """An option still unported is refused from the environment with one
+    line. `ignore_policy` and `redis_tls` are ported now: from the
+    environment they give the reference's report (`p.yaml` an ignore
+    policy in the working directory; `redis_tls` read only with a
+    redis:// backend)."""
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
     target = mk_rootfs if cmd != "sbom" else str(tmp_path / "bom.json")
+    if dest not in config.UNPORTED:
+        monkeypatch.chdir(tmp_path)
+        (tmp_path / value).write_text(
+            "ignore:\n  - path: PkgName\n    equals: lodash\n")
+        if cmd == "sbom":
+            import test_sbom_e2e
+
+            (tmp_path / "bom.json").write_text(
+                json.dumps(test_sbom_e2e.CDX_DOC))
+        argv = [cmd, target, "--db-path", dbs["fixture"], "--format",
+                "json", "--quiet"]
+        want, got = both(argv, tmp_path, capsys)
+        assert got == want and got[0] == 0
+        if dest == "ignore_policy":
+            assert "lodash" not in got[1] or cmd == "rootfs"
+        return
     rc = main([cmd, target, "--db-path", dbs["fixture"], "--device", "cpu",
                "--cache-dir", str(tmp_path / "c")])
     assert rc == 1
@@ -515,8 +536,8 @@ def test_ported_options_from_env_and_config_equal_reference(
     assert any(r == "acme-deploy-token" for _t, r, _l in found)
 
 
-@pytest.mark.parametrize("flag", [["--ignore-policy", "p.yaml"],
-                                  ["--redis-tls"],
+@pytest.mark.parametrize("flag", [["--compliance", "docker-cis-1.6.0"],
+                                  ["--report", "all"],
                                   ["--license-full"],
                                   ["--module-dir", "modules"]])
 def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):

@@ -6,7 +6,9 @@ a small scale, `scan_config` and the Terraform module scan per file
 type, `#trivy:ignore` comments on cloud resources, the `fs`, `rootfs`,
 `repo`, `image`, `vm` and `config` CLIs byte for byte in four formats,
 Helm overrides and IaC file patterns, image blob keys, the report under
-two hash seeds, the refusals and the device-error rule.
+two hash seeds, the check-engine options and a cached check bundle
+(the custom checks themselves are tests/test_torch_policy.py's) and
+the device-error rule.
 
 The port scans with `--device cpu` (the match kernel's and the secret
 screens' plain versions) or `--no-tpu`; the reference runs its JAX
@@ -57,12 +59,15 @@ LOCKFILES = [("app/package-lock.json", json.dumps({
     ("app/requirements.txt", "django==2.2.0\n")]
 HELM_VALUES = chip_smoke.IAC_HELM_VALUES
 HELM_SET = chip_smoke.IAC_HELM_SET
-# options the reference's check engine reads that stay refused
+# the options of the reference's check engine and its ignore policy,
+# each with a value the scan acts on ({checks}, {data} and {policy} are
+# chip_smoke.py phase 21's; nothing listens on port 1 of localhost, so
+# a bundle update fails there and the scan goes on)
 CUSTOM_CHECK_OPTIONS = {
-    "config_check": "checks/", "config_data": "data.yaml",
+    "config_check": "{checks}", "config_data": "{data}",
     "check_namespaces": "user", "include_deprecated_checks": "true",
-    "ignore_policy": "policy.yaml",
-    "checks_bundle_repository": "registry.example/checks:1",
+    "ignore_policy": "{policy}",
+    "checks_bundle_repository": "127.0.0.1:1/checks:1",
     "skip_check_update": "true"}
 
 
@@ -479,26 +484,25 @@ def test_unported_list_of_config_is_reference_dests_minus_ports():
 
     ref, port = dests(jax_main.build_parser()), dests(build_parser())
     assert sorted(config.UNPORTED) == sorted(set(ref) - set(port))
-    assert set(CUSTOM_CHECK_OPTIONS) <= set(config.UNPORTED)
-    assert not {"helm_set", "helm_values"} & set(config.UNPORTED)
-    assert {d: ref[d] for d in ("helm_set", "helm_values")} == \
-        {d: port[d] for d in ("helm_set", "helm_values")}
+    ported = {*CUSTOM_CHECK_OPTIONS, "helm_set", "helm_values"}
+    assert not ported & set(config.UNPORTED)
+    assert {d: ref[d] for d in ported} == {d: port[d] for d in ported}
 
 
 @pytest.mark.parametrize("cmd", ["fs", "config"])
 @pytest.mark.parametrize("dest", sorted(CUSTOM_CHECK_OPTIONS))
 def test_custom_check_options_are_refused(corpus, tmp_path, capsys,
                                           monkeypatch, cmd, dest):
+    """Each check-engine option, taken from the environment, is no
+    longer refused: the scan writes the reference's report."""
+    paths = chip_smoke.write_custom_checks(str(tmp_path / "custom"))
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(),
-                       CUSTOM_CHECK_OPTIONS[dest])
-    rc = main([cmd, corpus["small"], "--scanners", "misconfig",
-               "--device", "cpu", "--cache-dir", str(tmp_path)])
-    assert rc == 1
-    captured = capsys.readouterr()
-    assert captured.out == ""
-    lines = captured.err.strip().splitlines()
-    assert len(lines) == 1 and "not ported yet" in lines[0]
-    assert dest.replace("_", "-") in lines[0]
+                       CUSTOM_CHECK_OPTIONS[dest].format(**paths))
+    argv = [cmd, corpus["small"], "--scanners", "misconfig", "--format",
+            "json", "--quiet", "--db-path", corpus["db"]]
+    want, got = both(argv, tmp_path, capsys)
+    assert got == want and want[0] == 0
+    assert chip_smoke.config_results(json.loads(got[1]))
 
 
 @pytest.mark.parametrize("cmd,scanners", [("fs", "misconfig"),
@@ -506,24 +510,26 @@ def test_custom_check_options_are_refused(corpus, tmp_path, capsys,
                                           ("image", "vuln,misconfig")])
 def test_a_cached_check_bundle_is_refused(corpus, tmp_path, capsys, cmd,
                                           scanners):
-    """The reference loads a bundle cached under <cache>/policy/content
-    with no option set; the port refuses the scan with one line rather
-    than report without the bundle's checks. Without misconfig the
+    """A bundle cached under <cache>/policy/content is loaded as the
+    reference loads it, with no option set but the namespace that
+    enables its checks: the reference's report, the bundle's Rego and
+    YAML checks in it, its Python check refused. Without misconfig the
     bundle is not read, and the scan runs."""
-    cache = tmp_path / "cache"
-    (cache / "policy" / "content").mkdir(parents=True)
-    argv = [*target_argv(corpus, cmd), "--scanners", scanners, "--device",
-            "cpu", "--db-path", corpus["db"], "--cache-dir", str(cache),
-            "--format", "json"]
-    assert main(argv) == 1
-    captured = capsys.readouterr()
-    errors = [ln for ln in captured.err.splitlines() if "ERROR" in ln]
-    assert captured.out == "" and len(errors) == 1
-    assert "policy/content" in errors[0] and "not ported" in errors[0]
+    argv = [*target_argv(corpus, cmd), "--scanners", scanners, "--db-path",
+            corpus["db"], "--format", "json", "--quiet",
+            "--check-namespaces", "user"]
+    for pkg in ("jcache", "pcache"):
+        chip_smoke.place_bundle(str(tmp_path / pkg))
+    want, got = both(argv, tmp_path, capsys)
+    assert got == want and want[0] == 0
+    ids = failed_ids(json.loads(got[1]))
+    assert "USR-BUNDLE-001" in ids
+    assert chip_smoke.IAC_BUNDLE_REFUSED not in ids
     if cmd != "config":
         argv[argv.index(scanners)] = "vuln"
-        assert main(argv + ["--quiet"]) == 0
-        assert json.loads(capsys.readouterr().out)["Results"]
+        want, got = both(argv, tmp_path, capsys)
+        assert got == want and json.loads(got[1])["Results"]
+        assert not failed_ids(json.loads(got[1]))
 
 
 def test_device_error_in_the_screen_ends_the_run(corpus, tmp_path, capsys,

@@ -356,7 +356,21 @@ def test_revision_flags_only_on_repository_parsers():
                                         ("report", "all")])
 def test_unported_option_from_env_is_refused(seeded_repo, tmp_path, capsys,
                                              monkeypatch, cmd, dest, value):
+    """An unported option from the environment is refused with one line;
+    `config_check` is ported, and gives the reference's report
+    (`checks/` chip_smoke.py phase 21's checks)."""
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
+    if dest == "config_check":
+        import chip_smoke
+
+        monkeypatch.chdir(tmp_path)
+        chip_smoke.write_custom_checks(str(tmp_path))
+        want, got = both([cmd, seeded_repo["repo"], "--db-path",
+                          seeded_repo["db"], "--format", "json", "--quiet",
+                          "--scanners", "vuln,secret,misconfig",
+                          "--check-namespaces", "user"], tmp_path, capsys)
+        assert got == want and want[0] == 0
+        return
     rc = main([cmd, seeded_repo["repo"], "--db-path", seeded_repo["db"],
                "--device", "cpu", "--cache-dir", str(tmp_path / "c")])
     captured = capsys.readouterr()

@@ -12,7 +12,7 @@ the rpc.wire fault ladder, sheds, cross-compatibility (each package's
 client against the other's server), the CLI clients (`sbom --server`
 and `fs --server` equal to the standalone scan and to the reference's
 `--server` report), the MissingBlobs layer gate, and the refusals
-(`--redis-tls`, `--journal`, `--resume`, `--mesh`, unported fault
+(`--report`, `--journal`, `--resume`, `--mesh`, unported fault
 sites and routes, `server` without a card), and a replica set or a
 server that cannot be reached failing with one line.
 
@@ -1008,9 +1008,9 @@ def test_replica_set_url_is_refused(golden_dbs, tmp_path, capsys,
 
 @pytest.mark.parametrize("argv", [
     ["sbom", "bom.json", "--server", "http://h:1", "--license-full"],
-    ["sbom", "bom.json", "--redis-tls"],
+    ["sbom", "bom.json", "--server", "http://h:1", "--report", "all"],
     ["sbom", "bom.json", "--module-dir", "modules"]],
-    ids=["license-full", "redis-tls", "module-dir"])
+    ids=["license-full", "report", "module-dir"])
 def test_unported_flags_are_refused_on_argv(argv):
     with pytest.raises(SystemExit) as exc, \
             contextlib.redirect_stderr(io.StringIO()):

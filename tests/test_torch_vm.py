@@ -53,6 +53,7 @@ from trivy_tpu.fanal.vm.ext4 import Ext4 as JaxExt4
 from trivy_tpu.utils import uuid as jax_uuid
 from trivy_tpu_torch.artifact.vm import VMArtifact, VMError
 from trivy_tpu_torch.cache.cache import MemoryCache
+from trivy_tpu_torch.cli import config as run_config
 from trivy_tpu_torch.cli import run
 from trivy_tpu_torch.fanal import analyzer as port_analyzer
 from trivy_tpu_torch.cli.main import main
@@ -639,9 +640,16 @@ def test_vm_errors_equal_reference(tmp_path, capsys, monkeypatch, case):
 @pytest.mark.parametrize("dest,value", [("config_check", "checks/"),
                                         ("compliance", "docker-cis-1.6.0"),
                                         ("redis_tls", "true")])
-def test_unported_option_from_env_is_refused(tmp_path, capsys, monkeypatch,
-                                             dest, value):
+def test_unported_option_from_env_is_refused(request, tmp_path, capsys,
+                                             monkeypatch, dest, value):
+    """An unported option from the environment is refused with one line;
+    `config_check` and `redis_tls` are ported, and give the reference's
+    report (`checks/` chip_smoke.py phase 21's checks)."""
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
+    if dest not in run_config.UNPORTED:
+        assert ported_vm_scan_equals_reference(request, tmp_path, capsys,
+                                               monkeypatch) == 0
+        return
     rc = main(["vm", str(tmp_path / "disk.img"), "--device", "cpu",
                "--cache-dir", str(tmp_path / "c")])
     captured = capsys.readouterr()
@@ -651,15 +659,39 @@ def test_unported_option_from_env_is_refused(tmp_path, capsys, monkeypatch,
     assert dest.replace("_", "-") in lines[0]
 
 
-def test_unported_option_from_config_file_is_refused(tmp_path, capsys):
+def test_unported_option_from_config_file_is_refused(request, tmp_path,
+                                                     capsys, monkeypatch):
+    """`config-check` from a config file gives the reference's report;
+    `compliance` is refused with one line."""
     cfg = tmp_path / "trivy-tpu.yaml"
     cfg.write_text("scan:\n  config-check: [checks/]\n")
+    assert ported_vm_scan_equals_reference(
+        request, tmp_path, capsys, monkeypatch, "--config", str(cfg)) == 0
+    cfg.write_text("compliance: docker-cis-1.6.0\n")
     rc = main(["vm", str(tmp_path / "disk.img"), "--config", str(cfg),
                "--device", "cpu", "--cache-dir", str(tmp_path / "c")])
     captured = capsys.readouterr()
     lines = captured.err.strip().splitlines()
     assert rc == 1 and captured.out == "" and len(lines) == 1
-    assert "not ported yet" in lines[0] and "config-check" in lines[0]
+    assert "not ported yet" in lines[0] and "compliance" in lines[0]
+
+
+def ported_vm_scan_equals_reference(request, tmp_path, capsys, monkeypatch,
+                                    *extra) -> int:
+    """A misconfig vm scan of an ext4 image, from `tmp_path` where
+    `checks/` holds chip_smoke.py phase 21's checks: the port's report
+    equals the reference's. -> its rc."""
+    monkeypatch.chdir(tmp_path)
+    chip_smoke.write_custom_checks(str(tmp_path))
+    img = request.getfixturevalue("raw_image")
+    argv = ["vm", img, "--format", "json", "--quiet", "--scanners",
+            "vuln,secret,misconfig", "--check-namespaces", "user", *extra]
+    want = scan(jax_main.main, argv + ["--cache-dir", str(tmp_path / "j")],
+                capsys, jax_uuid)
+    got = scan(main, argv + ["--device", "cpu", "--cache-dir",
+                             str(tmp_path / "p")], capsys, port_uuid)
+    assert got == want
+    return got[0]
 
 
 @needs_mkfs

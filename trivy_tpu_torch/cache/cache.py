@@ -6,8 +6,8 @@ Interfaces mirror the reference (pkg/cache/cache.go:16-43):
 Backends: in-memory and filesystem JSON (the reference's BoltDB fs cache,
 pkg/cache/fs.go, re-expressed as one JSON file per key).
 
-Copy of trivy_tpu/cache/cache.py without the redis backend;
-corrupt-entry evictions are counted in trivy_tpu_cache_corrupt_total.
+Copy of trivy_tpu/cache/cache.py (the redis backend is
+cache/redis.py); corrupt-entry evictions are counted in trivy_tpu_cache_corrupt_total.
 """
 
 from __future__ import annotations

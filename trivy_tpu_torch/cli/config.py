@@ -30,15 +30,11 @@ ENV_PREFIX = "TRIVY_TPU_"
 # default first, then the spellings its code reads as unset (the empty
 # string where it tests the option's truth)
 UNPORTED = {
-    "check_namespaces": ([],), "checks_bundle_repository": ("",),
-    "compliance": (None, ""), "config_check": ([],), "config_data": ([],),
-    "generate_default_config": (False,), "ignore_policy": (None, ""),
-    "include_deprecated_checks": (False,),
+    "compliance": (None, ""),
+    "generate_default_config": (False,),
     "license_full": (False,),
     "module_dir": (None,),
-    "redis_ca": ("",), "redis_cert": ("",), "redis_insecure": (False,),
-    "redis_key": ("",), "redis_tls": (False,), "report": ("summary",),
-    "skip_check_update": (False,),
+    "report": ("summary",),
 }
 
 # the same for the reference's `kubernetes` parser, whose only option

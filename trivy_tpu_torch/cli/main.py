@@ -28,6 +28,9 @@ kernel and the secret screens on a CUDA card.
     python -m trivy_tpu_torch chaos run --seed 0 --json chaos.json
     python -m trivy_tpu_torch k8s ./manifests --report all
     python -m trivy_tpu_torch k8s cluster --scanners vuln,misconfig,rbac,infra --image-tar-dir tars
+    python -m trivy_tpu_torch fs ./infra --scanners misconfig --config-check checks/ --check-namespaces user
+    python -m trivy_tpu_torch fs ./project --ignore-policy ignore.rego
+    python -m trivy_tpu_torch image --input image.tar --cache-backend redis://cache:6379
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -95,6 +98,10 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    help="include development dependencies (supported "
                         "lockfiles only)")
     p.add_argument("--ignorefile", default=".trivyignore")
+    p.add_argument("--ignore-policy", default=None,
+                   help="finding ignore policy: .yaml condition DSL or "
+                        ".py with ignore(finding) (reference's Rego "
+                        "--ignore-policy)")
     p.add_argument("--ignore-unfixed", action="store_true",
                    help="hide vulnerabilities with no fixed version")
     p.add_argument("--dependency-tree", action="store_true",
@@ -181,7 +188,15 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                         "monitor index at PATH, enabling `watch` "
                         "advisory-delta re-scoring")
     p.add_argument("--cache-backend", default="fs",
-                   help="cache backend: fs or memory")
+                   help="cache backend: fs, memory, or redis://host:port")
+    p.add_argument("--redis-ca", default="", help="redis CA cert path")
+    p.add_argument("--redis-cert", default="", help="redis client cert path")
+    p.add_argument("--redis-key", default="", help="redis client key path")
+    p.add_argument("--redis-tls", action="store_true",
+                   help="enable TLS for the redis cache backend")
+    p.add_argument("--redis-insecure", action="store_true",
+                   help="skip certificate verification for the redis "
+                        "cache backend (NOT recommended)")
     p.add_argument("--skip-files", action="append", default=[])
     p.add_argument("--skip-dirs", action="append", default=[])
     p.add_argument("--sbom-sources", default="",
@@ -196,6 +211,25 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                         "repeatable")
     p.add_argument("--show-suppressed", action="store_true",
                    help="include VEX-suppressed findings in the report")
+    _add_check_flags(p)
+
+
+def _add_check_flags(p) -> None:
+    """Misconfig check-engine flags (reference pkg/flag/rego_flags.go)."""
+    p.add_argument("--config-check", action="append", default=[],
+                   dest="config_check",
+                   help="path to a custom check file (.py/.yaml) or a "
+                        "directory of them; repeatable")
+    p.add_argument("--check-namespaces", action="append", default=[],
+                   dest="check_namespaces",
+                   help="enable custom-check namespaces (e.g. 'user'); "
+                        "repeatable")
+    p.add_argument("--config-data", action="append", default=[],
+                   dest="config_data",
+                   help="path to YAML/JSON data made available to custom "
+                        "checks; repeatable")
+    p.add_argument("--include-deprecated-checks", action="store_true",
+                   help="also run checks marked deprecated")
     p.add_argument("--helm-set", action="append", default=[],
                    dest="helm_set",
                    help="helm value override path.to.key=value; "
@@ -204,6 +238,11 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                    dest="helm_values",
                    help="helm values file overriding chart defaults; "
                         "repeatable")
+    p.add_argument("--checks-bundle-repository", default="",
+                   help="OCI repository for the check bundle "
+                        "(overrides the builtin bundle source)")
+    p.add_argument("--skip-check-update", action="store_true",
+                   help="do not refresh the downloaded check bundle")
 
 
 # the scan subcommands the port serves: every one of the reference's

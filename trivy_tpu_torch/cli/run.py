@@ -276,15 +276,22 @@ def run_scan(args) -> int:
     if tracing_on:
         trace.enable(True)
         trace.reset()
+    from trivy_tpu_torch.iac import engine as check_engine
+
     try:
         # one root span covers the whole command (scan + report), so a
         # traced run exports a single tree under a single trace id
         with trace.span("scan", command=args.command):
+            # custom misconfig checks: builtin bundle + --config-check
+            # paths, gated by --check-namespaces (reference pkg/iac/rego
+            # + pkg/policy); skipped entirely when misconfig isn't
+            # scanned
             if "misconfig" in (args.scanners or "").split(",") \
                     or args.command == "config":
-                _refuse_check_bundle(args)
+                _configure_check_engine(args)
             rc = _run_scan_core(args)
     finally:
+        check_engine.reset()
         if tracing_on:
             try:
                 if getattr(args, "trace", False):
@@ -359,16 +366,30 @@ def _helm_overrides(args) -> dict:
     return out
 
 
-def _refuse_check_bundle(args) -> None:
-    """The reference's check engine also loads a bundle cached under
-    `<cache>/policy/content` with no option set
-    (trivy_tpu/policy/bundle.py `bundle_check_paths`). The port runs the
-    built-in checks alone, so it refuses such a cache rather than write
-    a report without the bundle's checks."""
-    content = os.path.join(args.cache_dir, "policy", "content")
-    if os.path.isdir(content):
-        raise FatalError(f"a check bundle is cached at {content}; "
-                         "check bundles are not ported yet")
+def _configure_check_engine(args) -> None:
+    from trivy_tpu_torch.iac import engine as check_engine
+    from trivy_tpu_torch.iac.engine import CheckLoadError
+    from trivy_tpu_torch.policy.bundle import bundle_check_paths
+
+    # user-supplied paths may contain Python checks (explicit opt-in to
+    # code execution); a downloaded bundle is data-only — its .py files
+    # are refused at load time (reference Rego bundles are sandboxed by
+    # the OPA interpreter; we get the same property by construction)
+    user_paths = list(getattr(args, "config_check", []) or [])
+    bundle_paths = bundle_check_paths(
+        args.cache_dir,
+        repository=getattr(args, "checks_bundle_repository", ""),
+        skip_update=getattr(args, "skip_check_update", False))
+    try:
+        check_engine.configure(
+            check_paths=user_paths,
+            bundle_paths=bundle_paths,
+            namespaces=getattr(args, "check_namespaces", []),
+            data_paths=getattr(args, "config_data", []),
+            include_deprecated=getattr(
+                args, "include_deprecated_checks", False))
+    except (CheckLoadError, OSError) as e:
+        raise FatalError(f"loading checks: {e}")
 
 
 K8S_SCANNERS = {"vuln", "misconfig", "rbac", "infra"}
@@ -520,17 +541,28 @@ def open_monitor_index(args):
 
 
 def _build_cache(args):
-    """Blob cache backend selection."""
+    """Cache backend selection shared by single-target and fleet scans."""
     from trivy_tpu_torch.cache.cache import FSCache, MemoryCache
 
     backend = getattr(args, "cache_backend", "fs") or "fs"
+    if backend.startswith(("redis://", "rediss://")):
+        from trivy_tpu_torch.cache.redis import RedisCache, RedisError
+
+        try:
+            return RedisCache(
+                backend, ca_cert=getattr(args, "redis_ca", ""),
+                cert=getattr(args, "redis_cert", ""),
+                key=getattr(args, "redis_key", ""),
+                tls=getattr(args, "redis_tls", False),
+                insecure=getattr(args, "redis_insecure", False))
+        except (OSError, RedisError) as e:
+            raise FatalError(f"redis cache backend: {e}")
     if backend == "memory":
         return MemoryCache()
     if backend == "fs":
         return FSCache(args.cache_dir)
     raise FatalError(
-        f"unknown cache backend {backend!r} (fs, memory; redis is not "
-        "ported yet)")
+        f"unknown cache backend {backend!r} (fs, memory, redis://...)")
 
 
 def _scan_target(args, cache):
@@ -650,9 +682,20 @@ def _postprocess_report(args, report):
     ignore_cfg = load_ignore_file(args.ignorefile)
     statuses = (args.ignore_status or "").split(",") \
         if args.ignore_status else None
+    ignore_policy = None
+    if getattr(args, "ignore_policy", None):
+        from trivy_tpu_torch.result.policy import load_ignore_policy
+
+        try:
+            ignore_policy = load_ignore_policy(args.ignore_policy)
+        except Exception as e:
+            # .py policies can raise anything at import time
+            # (SyntaxError, ImportError, ...); all of it is user input
+            raise FatalError(f"ignore policy: {e}")
     filter_report(report, severities=severities, ignore_statuses=statuses,
                   ignore_config=ignore_cfg,
-                  ignore_unfixed=getattr(args, "ignore_unfixed", False))
+                  ignore_unfixed=getattr(args, "ignore_unfixed", False),
+                  ignore_policy=ignore_policy)
 
     # packages travel with results internally (VEX reachability, the
     # dependency tree); they render under --list-all-pkgs, the

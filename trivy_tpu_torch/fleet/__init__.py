@@ -31,9 +31,7 @@ first endpoint through the exact single-server code path, and servers
 keep the in-process layer gate even on a redis cache.
 ``TRIVY_TPU_FLEET_EVENTS=0`` kills the ops event bus alone.
 
-Copy of trivy_tpu/fleet/__init__.py. The port has no
-``fleet.dedupe`` (the redis layer gate: the port has no redis cache
-backend), so servers always keep the in-process layer gate.
+Copy of trivy_tpu/fleet/__init__.py.
 """
 
 from __future__ import annotations

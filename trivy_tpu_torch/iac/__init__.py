@@ -7,6 +7,6 @@ line ranges and code snippets. Runs entirely host-side (the reference
 keeps misconfig scanning client-side even in client/server mode,
 docs/docs/references/modes/client-server.md:11-21).
 
-Copy of trivy_tpu/iac/, less the user-check half: `engine.py` holds the
-default check set alone (the builtins), and `rego.py` is not copied.
+Copy of trivy_tpu/iac/, whole: the builtins, and the user checks
+(Python, YAML and Rego: `engine.py`, `rego.py`).
 """

@@ -1,8 +1,7 @@
 """Copy of trivy_tpu/obs/metrics.py: the names, HELP texts and label
 sets are the reference's byte for byte (the `fleet_*` and controller
-metrics included, emitted by the port's fleet/ modules but the redis
-layer gate's `fleet_dedupe_*`), so dashboards read both packages
-alike.
+metrics included, emitted by the port's fleet/ modules), so dashboards
+read both packages alike.
 
 Labeled metrics registry with Prometheus text exposition.
 

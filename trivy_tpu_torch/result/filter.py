@@ -2,8 +2,7 @@
 severity selection, ignore-status, .trivyignore entries, then stable
 sorting.
 
-Copy of trivy_tpu/result/filter.py without the ignore policy (the
-port's CLI has no --ignore-policy yet)."""
+Copy of trivy_tpu/result/filter.py, less an unused import."""
 
 from __future__ import annotations
 
@@ -19,11 +18,12 @@ def filter_report(
     ignore_config: IgnoreConfig | None = None,
     include_non_failures: bool = False,
     ignore_unfixed: bool = False,
+    ignore_policy=None,
 ) -> Report:
     for res in report.results:
         filter_result(
             res, severities, ignore_statuses, ignore_config,
-            include_non_failures, ignore_unfixed,
+            include_non_failures, ignore_unfixed, ignore_policy,
         )
     return report
 
@@ -35,6 +35,7 @@ def filter_result(
     ignore_config: IgnoreConfig | None = None,
     include_non_failures: bool = False,
     ignore_unfixed: bool = False,
+    ignore_policy=None,
 ) -> None:
     sev_names = {str(s) for s in severities} if severities else None
     statuses = set(ignore_statuses or [])
@@ -42,6 +43,13 @@ def filter_result(
 
     def sev_ok(s: str) -> bool:
         return sev_names is None or s in sev_names
+
+    def policy_ok(finding) -> bool:
+        # --ignore-policy (reference filter.go applyPolicy): the policy
+        # sees the finding's report-JSON document
+        if ignore_policy is None:
+            return True
+        return not ignore_policy.ignored(finding.to_dict())
 
     res.vulnerabilities = [
         v
@@ -55,6 +63,7 @@ def filter_result(
             "vulnerabilities", v.vulnerability_id,
             path=v.pkg_path or res.target, purl=v.pkg_identifier.purl,
         )
+        and policy_ok(v)
     ]
     res.vulnerabilities.sort(key=lambda v: v.sort_key())
 
@@ -64,6 +73,7 @@ def filter_result(
         if (m.status == "FAIL" or include_non_failures)
         and sev_ok(m.severity)
         and not ign.ignored("misconfigurations", m.id, path=res.target)
+        and policy_ok(m)
     ]
     if res.misconf_summary is not None:
         res.misconf_summary.failures = sum(
@@ -75,10 +85,12 @@ def filter_result(
         for s in res.secrets
         if sev_ok(s.severity)
         and not ign.ignored("secrets", s.rule_id, path=res.target)
+        and policy_ok(s)
     ]
     res.licenses = [
         l
         for l in res.licenses
         if sev_ok(l.severity)
         and not ign.ignored("licenses", l.name, path=res.target)
+        and policy_ok(l)
     ]

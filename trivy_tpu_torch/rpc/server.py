@@ -41,9 +41,11 @@ departure from the reference on purpose: a device error during
 cannot launch, a failed upload, a DCN worker's device error) answers 500
 naming it, where the reference answers 200 `{"reresolved": false,
 "error": ...}`, which a fleet controller reads as "try again later";
-any other failure keeps the reference's reply. The redis layer gate is
-not ported. The listen backlog is 128 connections (the reference's is
-socketserver's 5).
+any other failure keeps the reference's reply. A `ScanService` built on a
+`RedisCache` takes the redis layer gate (fleet/dedupe.py), so servers
+sharing one redis tier analyze each unique layer once; `TRIVY_TPU_FLEET=0`
+keeps the in-process gate. The listen backlog is 128 connections (the
+reference's is socketserver's 5).
 """
 
 from __future__ import annotations
@@ -269,6 +271,20 @@ class ScanService:
 
         self.layer_gate = _analysis.LayerSingleflight(
             ttl_s=_analysis.SERVER_CLAIM_TTL_S)
+        # fleet tier: when the server cache is the shared redis
+        # backend, layer claims live in redis too, so clients of
+        # DIFFERENT replicas dedupe against each other — each unique
+        # layer is analyzed once fleet-wide.
+        # TRIVY_TPU_FLEET=0 keeps the in-process gate.
+        from trivy_tpu_torch import fleet as _fleet
+
+        if _fleet.enabled():
+            from trivy_tpu_torch.fleet.dedupe import maybe_distributed_gate
+
+            gate = maybe_distributed_gate(
+                cache, ttl_s=_analysis.SERVER_CLAIM_TTL_S)
+            if gate is not None:
+                self.layer_gate = gate
         # cross-request continuous batching: concurrent scans' detect
         # phases coalesce into shared device micro-batches
         # (trivy_tpu_torch/sched). TRIVY_TPU_SCHED=0 restores the exact
