@@ -2594,7 +2594,9 @@ def fs_run(argv: list[str], report: str, profiled: bool = False) -> dict:
     after = device_tier_launches()
     with open(report, "rb") as f:
         body = f.read()
-    results = json.loads(body).get("Results", [])
+    # a table (a compliance summary) has no findings to count here
+    results = json.loads(body).get("Results", []) \
+        if body.startswith(b"{") else []
     out = {
         "wall_s": wall, **run.STATS,
         "secret_findings": sum(len(r.get("Secrets", []))
@@ -7548,7 +7550,12 @@ def k8s_runner(spec_path: str, out: str, device: str) -> None:
     fit the time limit); (b) a live-cluster scan, `kubernetes cluster
     --scanners misconfig,rbac,infra`, against `KubeAPIFake` serving (a)'s
     resources with KUBECONFIG pointing at it, then `--scanners infra
-    --disable-node-collector`. Its numbers go to out/result.json."""
+    --disable-node-collector`; then phase 22 (c): (a)'s card run with
+    `--compliance S --report all` for each of P22_K8S_SPECS, each
+    against the compliance report built from (a)'s ClusterReport the
+    way `run_k8s` builds it (k8s-nsa-1.0 brings `vuln`, so its run scans
+    the images on the card again; k8s-cis-1.23 scans no image). Its
+    numbers go to out/result.json."""
     from trivy_tpu_torch.cli import run
     from trivy_tpu_torch.cli.main import build_parser, main
     from trivy_tpu_torch.k8s import report as k8s_report
@@ -7638,7 +7645,11 @@ def k8s_runner(spec_path: str, out: str, device: str) -> None:
         res["a"]["infra"] = len(a_report.infra)
         res["a"]["misconfigurations"] = sum(
             len(rr.misconfigurations) for rr in a_report.resources)
-        del reports[:], a_report, ta, tb
+        a_results = run._cluster_results(a_report)
+        p22_texts = {name: compliance_texts(a_results, name,
+                                            (("json", "all"),))
+                     for name in P22_K8S_SPECS}
+        del reports[:], a_report, ta, tb, a_results
         with open(os.path.join(out, "a.json"), "rb") as f:
             a_doc = json.loads(f.read())
         a_rows = k8s_rows({**a_doc, "Resources": [
@@ -7688,6 +7699,26 @@ def k8s_runner(spec_path: str, out: str, device: str) -> None:
             for f in nc_doc["InfraAssessment"]) == sorted(
             json.dumps(f, sort_keys=True) for f in b_doc["InfraAssessment"]
             if not f["Resource"].startswith("Node/"))
+        del b_doc, nc_doc
+
+        # phase 22 (c)
+        from trivy_tpu_torch.compliance.spec import get_compliance_spec
+
+        t0 = time.perf_counter()
+        res["p22"] = {}
+        for name in P22_K8S_SPECS:
+            x = cli(f"p22_{name}.json", [
+                *argv, "--device", device, "--compliance", name,
+                "--report", "all"])
+            x["vuln"] = "vuln" in get_compliance_spec(name).scanners()
+            with open(os.path.join(out, f"p22_{name}.json"),
+                      encoding="utf-8") as f:
+                got = f.read()
+            x["report_bytes"] = len(got.encode())
+            x["equal_to_phase19"] = got == p22_texts[name][("json", "all")]
+            x["controls"] = p22_texts[name]["controls"]
+            res["p22"][name] = x
+        res["p22"]["seconds"] = time.perf_counter() - t0
         res["engine_device"] = str(engine.device)
         res["runner_wall_s"] = time.perf_counter() - t_runner
     except BaseException as e:  # the parent reads it and fails the phase
@@ -7710,7 +7741,8 @@ def k8s_finish(k8: dict) -> dict:
     kernel by the device run and neither by --no-tpu; (b) the live
     scan's resources, RBAC and infra findings equal to (a)'s (less the
     NodeInfo rows), the node findings present and equal to (a)'s, every
-    collector Job deleted; --disable-node-collector drops them."""
+    collector Job deleted; --disable-node-collector drops them. Then
+    phase 22 (c)'s (k8s_compliance_finish)."""
     try:
         k8["proc"].wait(timeout=max(
             1.0, K8S_TIMEOUT_S - (time.perf_counter() - k8["t0"])))
@@ -7780,10 +7812,13 @@ def k8s_finish(k8: dict) -> dict:
         fails.append(f"the engine is on {r['engine_device']}")
     if fails:
         raise AssertionError("phase 19: " + "; ".join(fails))
-    return {"runner_s": r["runner_wall_s"], "launches": {
-        "match": {"a": a["match_per_tier"],
-                  "a_no_tpu": an["match_per_tier"]},
-        "anchor": {"a": a["anchor"], "a_no_tpu": an["anchor"]}}}
+    print(f"phase22 c seconds={r['p22']['seconds']:.3f}")
+    p22 = k8s_compliance_finish(r["p22"])
+    return {"runner_s": r["runner_wall_s"], "p22_s": r["p22"]["seconds"],
+            "p22": p22, "launches": {
+                "match": {"a": a["match_per_tier"],
+                          "a_no_tpu": an["match_per_tier"]},
+                "anchor": {"a": a["anchor"], "a_no_tpu": an["anchor"]}}}
 
 
 # -------------------------------------------------------------- phase 20
@@ -9068,12 +9103,14 @@ def iac_runner(spec_path: str, out: str, device: str) -> None:
     secret screen always on the card (TRIVY_TPU_SECRET_PROBE=0): phase
     7's DB's engine built first (its compiled entry a hit); (a) `fs
     --scanners vuln,secret,misconfig --helm-set --helm-values` on the
-    monorepo on the card, then with --no-tpu on a host engine over the
-    same DB objects; (b) `config` on the tree, its json written by the
-    CLI and, through the same `write_report` call, its table and SARIF;
-    (c) `image --scanners vuln,secret,misconfig` on the archive with the
-    deploy layer, on the card and with --no-tpu, each on a cache of its
-    own; then phase 21 (custom_runs). Its numbers go to
+    monorepo on the card (phase 21 (a)'s --no-tpu twin covers the tree);
+    (b) `config` on the tree, its json written by the CLI and, through
+    the same `write_report` call, its table and SARIF; (c) `image
+    --scanners vuln,secret,misconfig` on the archive with the deploy
+    layer on the card (its layers but the deploy layer's config files
+    are phase 9's, held to --no-tpu there and by phase 21 (b)), its
+    report object kept for phase 22 (b); then phase 21 (custom_runs) and
+    phase 22 (a) and (b) (license_runs). Its numbers go to
     out/result.json."""
     from trivy_tpu_torch.cli import run
     from trivy_tpu_torch.cli.main import build_parser
@@ -9129,13 +9166,7 @@ def iac_runner(spec_path: str, out: str, device: str) -> None:
         # (a)
         go("a", ["fs", spec["tree"], *base, *scanners, *helm,
                  "--device", device], "cache-a")
-        with shared_db(engine):
-            go("a_no_tpu", ["fs", spec["tree"], *base, *scanners, *helm,
-                            "--no-tpu"], "cache-a-host")
-        a_bytes = body("a")
-        res["a"]["json_equal"] = a_bytes == body("a_no_tpu")
-        a_doc = json.loads(a_bytes)
-        del a_bytes
+        a_doc = json.loads(body("a"))
         a_conf = config_results(a_doc)
         failed = {m["ID"] for _t, ms in a_conf.values() for m in ms or []
                   if m["Status"] == "FAIL"}
@@ -9190,21 +9221,32 @@ def iac_runner(spec_path: str, out: str, device: str) -> None:
         res["b"]["table_config_results"] = table.count("Tests: ")
         del a_doc, a_conf, b_conf, sarif, table
 
-        # (c)
-        go("c", ["image", "--input", spec["tar"], *base, *scanners,
-                 "--device", device], "cache-c")
-        with shared_db(engine):
-            go("c_no_tpu", ["image", "--input", spec["tar"], *base,
-                            *scanners, "--no-tpu"], "cache-c-host")
-        c_bytes = body("c")
-        res["c"]["json_equal"] = c_bytes == body("c_no_tpu")
+        # (c), the report object the CLI renders kept
+        kept: list = []
+
+        def keep(report, *a, **kw):
+            kept.append(report)
+            return write(report, *a, **kw)
+
+        writer.write_report = keep
+        try:
+            go("c", ["image", "--input", spec["tar"], *base, *scanners,
+                     "--device", device], "cache-c")
+        finally:
+            writer.write_report = write
+        c_texts = compliance_texts(kept.pop().results, P22_IMAGE_SPEC,
+                                   (("json", "all"), ("table", "summary")))
         res["c"]["config_types"] = sorted({
-            t for t, _ms in config_results(json.loads(c_bytes)).values()})
-        del c_bytes
+            t for t, _ms in config_results(json.loads(body("c"))).values()})
         res["phase20_s"] = time.perf_counter() - t_runner
 
         # phase 21 on the same tree and engine
+        t0 = time.perf_counter()
         res["p21"] = custom_runs(spec, out, device, engine, go, body)
+        res["phase21_s"] = time.perf_counter() - t0
+        # phase 22 (a) on a copy of the tree, (b) on (c)'s archive
+        res["p22"] = license_runs(spec, out, device, engine, go, body,
+                                  c_texts)
         res["engine_device"] = str(engine.device)
         res["runner_wall_s"] = time.perf_counter() - t_runner
     except BaseException as e:  # the parent reads it and fails the phase
@@ -9566,15 +9608,14 @@ IAC_SPLIT = ("wall_s", "walk_s", "config_s", "secret_s", "detect_s",
 
 def iac_finish(ia: dict) -> dict:
     """Phase 20's checks, once the runner has ended: every run rc 0;
-    (a) its JSON equal to --no-tpu's byte for byte, every built-in check
-    failing at least once, the helm overrides in the rendered chart,
-    the planted secrets found, the match kernel launched on every tier
-    given rows and the anchor kernel launched; (b) its misconfigurations
-    equal to (a)'s target by target, no kernel launched, the SARIF
-    holding one result per failure and the table one section per
-    config target with a failure; (c) its JSON equal to --no-tpu's, the deploy layer's
-    Dockerfile, Terraform and Helm results in it, the match and anchor
-    kernels launched; no --no-tpu run launching a kernel."""
+    (a) every built-in check failing at least once, the helm overrides
+    in the rendered chart, the planted secrets found, the match kernel
+    launched on every tier given rows and the anchor kernel launched;
+    (b) its misconfigurations equal to (a)'s target by target, no
+    kernel launched, the SARIF holding one result per failure and the
+    table one section per config target with a failure; (c) the deploy
+    layer's Dockerfile, Terraform and Helm results in it, the match and
+    anchor kernels launched. Then phase 21's and phase 22 (a)-(b)'s."""
     try:
         ia["proc"].wait(timeout=max(
             1.0, IAC_TIMEOUT_S - (time.perf_counter() - ia["t0"])))
@@ -9595,7 +9636,7 @@ def iac_finish(ia: dict) -> dict:
         raise AssertionError(f"phase 20's runner failed: {r['error']}")
     with open(os.path.join(ia["out"], "spec.json")) as f:
         planted = json.load(f)["planted"]
-    runs = ("a", "a_no_tpu", "b", "c", "c_no_tpu")
+    runs = ("a", "b", "c")
     print(f"phase20 runner_s={r['runner_wall_s']:.3f} "
           f"checked_after_s={waited:.3f} "
           f"engine_build_s={r['engine_build_s']:.3f} "
@@ -9609,8 +9650,8 @@ def iac_finish(ia: dict) -> dict:
               f"match_per_tier={json.dumps(x['launches']['match_per_tier'])}"
               f" rows_per_tier={json.dumps(x['rows_per_tier'])} "
               f"anchor={x['launches']['anchor']}")
-    a, an, b, c, cn = (r[k] for k in runs)
-    print(f"phase20 a json_equal={a['json_equal']} checks={a['checks']} "
+    a, b, c = (r[k] for k in runs)
+    print(f"phase20 a checks={a['checks']} "
           f"never_failed={json.dumps(a['checks_never_failed'])} "
           f"config_targets={a['config_targets']} "
           f"types={json.dumps(a['types'], sort_keys=True)} "
@@ -9621,12 +9662,8 @@ def iac_finish(ia: dict) -> dict:
           f"sarif_results={b['sarif_results']} "
           f"table_config_results={b['table_config_results']} "
           f"table_bytes={b['table_bytes']}")
-    print(f"phase20 c json_equal={c['json_equal']} "
-          f"config_types={json.dumps(c['config_types'])}")
+    print(f"phase20 c config_types={json.dumps(c['config_types'])}")
     fails = []
-    if not a["json_equal"] or not c["json_equal"]:
-        fails.append(f"a device report differs from --no-tpu: (a) "
-                     f"{a['json_equal']}, (c) {c['json_equal']}")
     if a["checks_never_failed"]:
         fails.append(f"checks that never failed: "
                      f"{a['checks_never_failed']}")
@@ -9649,10 +9686,9 @@ def iac_finish(ia: dict) -> dict:
                      "its SARIF or table does not hold them")
     if not {"dockerfile", "terraform", "helm"} <= set(c["config_types"]):
         fails.append(f"(c) config results {c['config_types']}")
-    for name, x in (("a_no_tpu", an), ("b", b), ("c_no_tpu", cn)):
-        if any(x["launches"][k] for k in ("match", "anchor", "conv",
-                                          "prefilter")):
-            fails.append(f"{name} launched a kernel")
+    if any(b["launches"][k] for k in ("match", "anchor", "conv",
+                                      "prefilter")):
+        fails.append("(b) launched a kernel")
     if r["engine_device"] != "cuda:0":
         fails.append(f"the engine is on {r['engine_device']}")
     if fails:
@@ -9662,8 +9698,8 @@ def iac_finish(ia: dict) -> dict:
                 "match": {k: r[k]["launches"]["match_per_tier"]
                           for k in runs},
                 "anchor": {k: r[k]["launches"]["anchor"] for k in runs}},
-            "p21": custom_finish(r["p21"], r["runner_wall_s"]
-                                 - r["phase20_s"])}
+            "p21": custom_finish(r["p21"], r["phase21_s"]),
+            "p22": license_finish(r["p22"]), "p22_s": r["p22"]["seconds"]}
 
 
 def custom_finish(r: dict, seconds: float) -> dict:
@@ -9767,6 +9803,309 @@ def custom_finish(r: dict, seconds: float) -> dict:
                    "b_warm": bw["launches"]["anchor"],
                    **{f"c_client{k}": x["anchor"]
                       for k, x in enumerate(c["clients"])}}}}
+
+
+
+# -------------------------------------------------------------- phase 22
+
+
+# phase 22: a platform team's merge gate on licenses and on the CIS / NSA
+# controls, on trees the script already builds. Its license material
+# (seeded) goes into a copy of phase 20's monorepo, so phases 20 and 21
+# keep their numbers.
+LICENSE_SEED = 20261024
+# the license files: (file name, corpus license, how its text is changed)
+LICENSE_FILES = [
+    ("LICENSE", "MIT", "exact"), ("LICENSE", "Apache-2.0", "reflowed"),
+    ("LICENSE.txt", "BSD-3-Clause", "edited"),
+    ("LICENSE.md", "BSD-2-Clause", "exact"), ("LICENSE", "ISC", "edited"),
+    ("LICENSE", "MPL-2.0", "reflowed"), ("COPYING", "LGPL-2.1", "exact"),
+    ("COPYING", "GPL-2.0", "reflowed"), ("COPYING", "GPL-3.0", "edited"),
+    ("COPYING", "LGPL-3.0", "exact"), ("UNLICENSE", "Unlicense", "exact"),
+    ("LICENSE-CC0.txt", "CC0-1.0", "reflowed"),
+    ("LICENSE", "Zlib", "edited"), ("LICENSE-BOOST.txt", "BSL-1.0", "exact")]
+# source files with an SPDX header: (path under the service, comment
+# lead, license id)
+LICENSE_HEADERS = [
+    ("cmd/ledger/main.go", "//", "AGPL-3.0-only"),
+    ("web/src/theme.js", "//", "CC-BY-SA-4.0"),
+    ("plugins/src/Plugin.java", "//", "EPL-2.0"),
+    ("tools/migrate.py", "#", "Apache-2.0"),
+    ("native/src/lib.rs", "//", "MIT"),
+    ("native/csrc/codec.c", "/*", "LGPL-2.1-or-later")]
+# a PHP service's declared package licenses (composer.lock)
+LICENSE_PACKAGES = [
+    ("acme/ledger-client", "2.4.1", "AGPL-3.0-only"),
+    ("monolog/monolog", "2.9.1", "MIT"),
+    ("acme/billing-sdk", "1.0.3", "proprietary"),
+    ("phpmailer/phpmailer", "6.8.0", "LGPL-2.1-only"),
+    ("doctrine/dbal", "3.7.2", "MIT"),
+    ("twig/twig", "3.8.0", "BSD-3-Clause")]
+# each planted license's category (the reference's default tables,
+# pkg/licensing/category.go)
+LICENSE_CATEGORIES = {
+    "MIT": "notice", "Apache-2.0": "notice", "BSD-3-Clause": "notice",
+    "BSD-2-Clause": "notice", "ISC": "notice", "Zlib": "notice",
+    "BSL-1.0": "notice", "OpenSSL": "notice", "MPL-2.0": "reciprocal",
+    "EPL-2.0": "reciprocal", "LGPL-2.1": "restricted",
+    "GPL-2.0": "restricted", "GPL-3.0": "restricted",
+    "LGPL-3.0": "restricted", "CC-BY-SA-4.0": "restricted",
+    "LGPL-2.1-or-later": "restricted", "LGPL-2.1-only": "restricted",
+    "AGPL-3.0-only": "forbidden", "Unlicense": "unencumbered",
+    "CC0-1.0": "unencumbered", "proprietary": "unknown"}
+LICENSE_NOTICE = ("This product includes software developed by the OpenSSL "
+                  "Project for use in the OpenSSL Toolkit "
+                  "(http://www.openssl.org/).\n")
+P22_IMAGE_SPEC = "docker-cis-1.6.0"
+P22_K8S_SPECS = ("k8s-nsa-1.0", "k8s-cis-1.23")
+
+
+def license_material(root: str, n_services: int = IAC_SERVICES,
+                     seed: int = LICENSE_SEED) -> list[dict]:
+    """Phase 22's license material over the monorepo at `root`, seeded:
+    a license file of each LICENSE_FILES entry in a service of its own
+    (as the corpus has it, reflowed under a copyright line, or with
+    three words changed), an OpenSSL NOTICE beside the Apache one, the
+    LICENSE_HEADERS source files in one service and a source file with
+    no header beside them, and a composer.lock declaring
+    LICENSE_PACKAGES. -> the plants: kind, path, license name, and the
+    package for a declared one."""
+    from trivy_tpu_torch.licensing.corpus import TEXTS
+
+    rng = random.Random(seed)
+    services = rng.sample(range(n_services), len(LICENSE_FILES) + 2)
+    files: list = []
+    plants: list[dict] = []
+    for i, (fname, name, how) in zip(services, LICENSE_FILES):
+        text = TEXTS[name]
+        if how == "reflowed":
+            text = (f"Copyright (c) {2015 + i % 10} Acme Platform "
+                    f"svc-{i:03d} authors\n\n" + " ".join(text.split())
+                    + "\n")
+        elif how == "edited":
+            words = text.split(" ")
+            for k in rng.sample(range(len(words)), 3):
+                words[k] = rng.choice(("platform", "service", "acme"))
+            text = " ".join(words)
+        path = f"services/svc-{i:03d}/{fname}"
+        files.append((path, text))
+        plants.append({"kind": "file", "path": path, "name": name})
+        if name == "Apache-2.0":
+            path = f"services/svc-{i:03d}/NOTICE"
+            files.append((path, LICENSE_NOTICE))
+            plants.append({"kind": "file", "path": path, "name": "OpenSSL"})
+    svc = f"services/svc-{services[-2]:03d}"
+    for sub, lead, name in LICENSE_HEADERS:
+        tail = " */" if lead == "/*" else ""
+        body = (f"{lead} SPDX-License-Identifier: {name}{tail}\n"
+                f"{lead} Copyright Acme Platform{tail}\n\n"
+                "int main(void) { return 0; }\n")
+        files.append((f"{svc}/{sub}", body))
+        plants.append({"kind": "header", "path": f"{svc}/{sub}",
+                       "name": name})
+    files.append((f"{svc}/tools/lint.py",
+                  "import sys\n\nprint(sys.argv[1:])\n"))
+    lock = f"services/svc-{services[-1]:03d}/composer.lock"
+    files.append((lock, json.dumps({"packages": [
+        {"name": n, "version": v, "license": [lic]}
+        for n, v, lic in LICENSE_PACKAGES]}, indent=4)))
+    plants.extend({"kind": "package", "path": lock, "name": lic, "pkg": n}
+                  for n, _v, lic in LICENSE_PACKAGES)
+    write_files(root, files)
+    return plants
+
+
+def license_entries(doc: dict) -> list[dict]:
+    """A report's license findings, each with its result's target."""
+    return [{**lic, "Target": r["Target"]}
+            for r in doc.get("Results") or []
+            if r.get("Class") in ("license", "license-file")
+            for lic in r.get("Licenses") or []]
+
+
+def compliance_texts(results, name: str, forms) -> dict:
+    """The compliance report of `results` against built-in spec `name`,
+    rendered by the port's compliance/report.py in each (format, detail)
+    of `forms` -> {(format, detail): text}, with the failing and all
+    controls' counts under "controls"."""
+    import io
+
+    from trivy_tpu_torch.compliance.report import (
+        build_compliance_report,
+        write_compliance_report,
+    )
+    from trivy_tpu_torch.compliance.spec import get_compliance_spec
+
+    comp = build_compliance_report(results, get_compliance_spec(name))
+    out: dict = {"controls": [sum(c.total_fail > 0 for c in comp.results),
+                              len(comp.results)]}
+    for fmt, detail in forms:
+        buf = io.StringIO()
+        write_compliance_report(comp, fmt=fmt, report=detail, output=buf)
+        out[(fmt, detail)] = buf.getvalue()
+    return out
+
+
+def license_runs(spec: dict, out: str, device: str, engine, go, body,
+                 c_texts: dict) -> dict:
+    """Phase 22 (a) and (b) in phase 20's runner, after phase 21: (a)
+    `fs --scanners vuln,secret,license --license-full` on a copy of the
+    monorepo with LICENSE_SEED's material, on the card and with
+    --no-tpu; (b) `image --compliance docker-cis-1.6.0` on phase 20
+    (c)'s archive, `--report all --format json` on an empty cache, then
+    `--report summary` as a table on that cache, each against `c_texts`
+    (the compliance report of (c)'s card report). -> the numbers
+    iac_finish checks."""
+    def run(name, argv, cache):
+        return {k: v for k, v in go(name, argv, cache).items()
+                if k != "secret_device_stats"}
+
+    t0 = time.perf_counter()
+    res: dict = {}
+    tree = os.path.join(out, "monorepo-licensed")
+    shutil.copytree(spec["tree"], tree, symlinks=True)
+    plants = license_material(tree)
+    res["setup_s"] = time.perf_counter() - t0
+
+    # (a)
+    fs = ["fs", tree, "--db-path", spec["db_root"], "--format", "json",
+          "--quiet", "--scanners", "vuln,secret,license", "--license-full"]
+    res["a"] = run("p22_a", [*fs, "--device", device], "cache-p22-a")
+    with shared_db(engine):
+        res["a_no_tpu"] = run("p22_a_no_tpu", [*fs, "--no-tpu"],
+                              "cache-p22-a-host")
+    a_bytes = body("p22_a")
+    res["a"]["json_equal"] = a_bytes == body("p22_a_no_tpu")
+    found = license_entries(json.loads(a_bytes))
+    del a_bytes
+    by_cat: dict = {}
+    for lic in found:
+        by_cat[lic["Category"]] = by_cat.get(lic["Category"], 0) + 1
+    res["a"]["licenses"] = len(found)
+    res["a"]["by_category"] = by_cat
+    res["a"]["by_kind"] = {}
+    missed = []
+    for p in plants:
+        hit = any(lic["Name"] == p["name"]
+                  and lic.get("FilePath") == p["path"]
+                  and lic.get("PkgName", "") == p.get("pkg", "")
+                  and lic["Category"] == LICENSE_CATEGORIES[p["name"]]
+                  for lic in found)
+        res["a"]["by_kind"][p["kind"]] = \
+            res["a"]["by_kind"].get(p["kind"], 0) + 1
+        if not hit:
+            missed.append(p)
+    res["a"]["plants"] = len(plants)
+    res["a"]["missed"] = missed
+    res["a"]["planted_categories"] = sorted(
+        {LICENSE_CATEGORIES[p["name"]] for p in plants})
+
+    # (b)
+    img = ["image", "--input", spec["tar"], "--db-path", spec["db_root"],
+           "--quiet", "--compliance", P22_IMAGE_SPEC, "--device", device]
+    for name, fmt, detail in (("b_all", "json", "all"),
+                              ("b_summary", "table", "summary")):
+        res[name] = run(f"p22_{name}", [*img, "--format", fmt, "--report",
+                                        detail], "cache-p22-b")
+        got = body(f"p22_{name}").decode()
+        res[name]["equal_to_phase20_c"] = got == c_texts[(fmt, detail)]
+    res["b_controls"] = c_texts["controls"]
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def license_finish(r: dict) -> dict:
+    """Phase 22 (a) and (b)'s checks: (a) its JSON equal to --no-tpu's
+    byte for byte, every plant found under its name and category, every
+    planted category reported, the match kernel launched on every tier
+    given rows and the anchor screen launched, no --no-tpu launch; (b)
+    both compliance reports equal to those built from phase 20 (c)'s
+    card report, the match kernel launched on every tier given rows in
+    each run, the anchor screen on the empty cache and not on the warm
+    one."""
+    a, an, ba, bs = (r[k] for k in ("a", "a_no_tpu", "b_all",
+                                   "b_summary"))
+    print(f"phase22 seconds={r['seconds']:.3f} setup_s={r['setup_s']:.3f}")
+    for name, x in (("a", a), ("a_no_tpu", an), ("b_all", ba),
+                    ("b_summary", bs)):
+        split = " ".join(f"{k}={x[k]:.3f}" for k in IAC_SPLIT if k in x)
+        print(f"phase22 {name} {split} report_bytes={x['report_bytes']} "
+              f"secret_findings={x['secret_findings']} "
+              f"vulnerabilities={x['vulnerabilities']} "
+              f"match_per_tier={json.dumps(x['launches']['match_per_tier'])}"
+              f" rows_per_tier={json.dumps(x['rows_per_tier'])} "
+              f"anchor={x['launches']['anchor']}")
+    print(f"phase22 a json_equal={a['json_equal']} licenses={a['licenses']}"
+          f" by_category={json.dumps(a['by_category'], sort_keys=True)} "
+          f"plants={a['plants']} "
+          f"by_kind={json.dumps(a['by_kind'], sort_keys=True)} "
+          f"missed={json.dumps(a['missed'])}")
+    print(f"phase22 b equal_to_phase20_c all_json={ba['equal_to_phase20_c']}"
+          f" summary_table={bs['equal_to_phase20_c']} "
+          f"failing_controls={r['b_controls'][0]} of {r['b_controls'][1]} "
+          f"anchor cold={ba['launches']['anchor']} "
+          f"warm={bs['launches']['anchor']}")
+    fails = []
+    if not a["json_equal"]:
+        fails.append("(a) differs from --no-tpu")
+    if a["missed"] or not set(a["planted_categories"]) <= set(
+            a["by_category"]):
+        fails.append(f"(a) missed {a['missed']}, categories "
+                     f"{a['by_category']}")
+    for name, x in (("a", a), ("b_all", ba), ("b_summary", bs)):
+        per = x["launches"]["match_per_tier"]
+        if not x["rows_per_tier"]["main"] or any(
+                bool(per[k]) != bool(x["rows_per_tier"][k]) for k in per):
+            fails.append(f"({name}) match launches {per} against rows "
+                         f"{x['rows_per_tier']}")
+    if not a["launches"]["anchor"] or not ba["launches"]["anchor"] or \
+            bs["launches"]["anchor"]:
+        fails.append(f"anchor launches (a) {a['launches']['anchor']}, (b) "
+                     f"cold {ba['launches']['anchor']} warm "
+                     f"{bs['launches']['anchor']}")
+    if any(an["launches"][k] for k in ("match", "anchor", "conv",
+                                       "prefilter")):
+        fails.append("(a) --no-tpu launched a kernel")
+    if not (ba["equal_to_phase20_c"] and bs["equal_to_phase20_c"]):
+        fails.append("(b) a compliance report differs from phase 20 (c)'s")
+    if fails:
+        raise AssertionError("phase 22: " + "; ".join(fails))
+    return {"match": {k: x["launches"]["match_per_tier"] for k, x in
+                      (("a", a), ("a_no_tpu", an), ("b_all", ba),
+                       ("b_summary", bs))},
+            "anchor": {k: x["launches"]["anchor"] for k, x in
+                       (("a", a), ("a_no_tpu", an), ("b_all", ba),
+                        ("b_summary", bs))}}
+
+
+def k8s_compliance_finish(r: dict) -> dict:
+    """Phase 22 (c)'s checks, in phase 19's: each `kubernetes
+    --compliance` report equal to the one built from phase 19 (a)'s
+    ClusterReport, rc 0; a spec with `vuln` (k8s-nsa-1.0) launching the
+    match kernel on every tier and the anchor screen (its image scans),
+    one without (k8s-cis-1.23) no kernel. -> the launches."""
+    fails = []
+    for name in P22_K8S_SPECS:
+        x = r[name]
+        print(f"phase22 c {name} rc={x['rc']} wall_s={x['wall_s']:.3f} "
+              f"split={json.dumps(x['split'])} "
+              f"report_bytes={x['report_bytes']} "
+              f"failing_controls={x['controls'][0]} of {x['controls'][1]} "
+              f"equal_to_phase19={x['equal_to_phase19']} "
+              f"vuln_scanner={x['vuln']} "
+              f"match_per_tier={json.dumps(x['match_per_tier'])} "
+              f"anchor={x['anchor']}")
+        launched = [bool(v) for v in x["match_per_tier"].values()]
+        if x["rc"] or not x["equal_to_phase19"] or (
+                (not all(launched) or not x["anchor"]) if x["vuln"]
+                else (any(launched) or x["anchor"])):
+            fails.append(f"{name}: rc {x['rc']}, equal "
+                         f"{x['equal_to_phase19']}, vuln {x['vuln']}, "
+                         f"launches {x['match_per_tier']} / {x['anchor']}")
+    if fails:
+        raise AssertionError("phase 22 (c): " + "; ".join(fails))
+    return {"match": {n: r[n]["match_per_tier"] for n in P22_K8S_SPECS},
+            "anchor": {n: r[n]["anchor"] for n in P22_K8S_SPECS}}
 
 
 def main() -> int:
@@ -9956,6 +10295,8 @@ def main() -> int:
         print(f"phase20 seconds={p20['phase20_s']:.3f} "
               f"runner_s={p20['runner_s']:.3f} "
               f"waited_s={time.perf_counter() - t0:.3f}")
+        print(f"phase22 seconds={p20['p22_s'] + p19['p22_s']:.3f} "
+              f"(a)-(b)={p20['p22_s']:.3f} (c)={p19['p22_s']:.3f}")
     finally:
         for p in [*(golden or {}).get("procs", {}).values(),
                   *([cold["proc"]] if cold else []),
@@ -10035,6 +10376,8 @@ def main() -> int:
         "launches_k8s": p19["launches"]["match"],
         "launches_iac": p20["launches"]["match"],
         "launches_custom_redis": p20["p21"]["launches"]["match"],
+        "launches_license_compliance": {**p20["p22"]["match"],
+                                        **p19["p22"]["match"]},
         "launches_chaos": {k: v["match"] for k, v in
                            sorted(p18["launches"].items())},
         "launches_dcn": {
@@ -10071,6 +10414,8 @@ def main() -> int:
                 "launches_k8s": p19["launches"]["anchor"],
                 "launches_iac": p20["launches"]["anchor"],
                 "launches_custom_redis": p20["p21"]["launches"]["anchor"],
+                "launches_license_compliance": {
+                    **p20["p22"]["anchor"], **p19["p22"]["anchor"]},
                 "launches_chaos": {k: v["anchor"] for k, v in
                                    sorted(p18["launches"].items())}}
                if name == "anchor" else {}),

@@ -23,7 +23,7 @@ import torch
 
 from trivy_tpu.cli import main as jax_main
 from trivy_tpu.cli import run as jax_run
-from trivy_tpu_torch.cli import run
+from trivy_tpu_torch.cli import config, run
 from trivy_tpu_torch.cli.main import main
 from trivy_tpu_torch.db import Advisory, AdvisoryDB, VulnerabilityMeta
 from trivy_tpu_torch.db.model import DataSourceInfo
@@ -207,16 +207,30 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
     assert capsys.readouterr().out == GOLDEN.read_text()
 
 
-# options still unported (cli/config.py UNPORTED)
+# options still unported (cli/config.py UNPORTED) are refused by
+# argparse; --license-full, --report and --compliance are ported and
+# give the reference's bytes
 @pytest.mark.parametrize("flag", [["--license-full"],
                                   ["--module-dir", "modules"],
                                   ["--generate-default-config"],
                                   ["--report", "all"],
                                   ["--compliance", "docker-cis-1.6.0"]])
-def test_unported_flags_are_refused(golden_env, flag):
-    with pytest.raises(SystemExit) as exc:
-        main(port_argv(golden_env, *flag))
-    assert exc.value.code == 2
+def test_unported_flags_are_refused(golden_env, capsys, flag):
+    if flag[0].lstrip("-").replace("-", "_") in config.UNPORTED:
+        with pytest.raises(SystemExit) as exc:
+            main(port_argv(golden_env, *flag))
+        assert exc.value.code == 2
+        return
+    argv = port_argv(golden_env, "--format", "json", *flag)
+    assert main(argv) == 0
+    got = capsys.readouterr().out
+    i = argv.index("--device")
+    assert jax_main.main(argv[:i] + argv[i + 2:] + ["--no-tpu"]) == 0
+    assert got == capsys.readouterr().out
+    if flag[0] == "--compliance":
+        assert json.loads(got)["ID"] == "docker-cis-1.6.0"
+    else:  # read only by a license scan or a compliance report
+        assert got == GOLDEN.read_text()
 
 
 @pytest.mark.parametrize("flag", [
@@ -242,8 +256,9 @@ def test_ported_flags_equal_reference(golden_env, tmp_path, capsys, flag):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--scanners", "vuln,misconfig,license"], "'license' is not ported yet"),
-    (["--scanners", "vuln,license"], "not ported yet"),
+    (["--scanners", "vuln,misconfig,license"], None),
+    (["--scanners", "vuln,license"], None),
+    (["--scanners", "vuln,bogus"], "'bogus' is not a valid Scanner"),
     (["--cache-backend", "memcached://localhost:11211"],
      "unknown cache backend"),
     (["--timeout", "5parsecs"], "invalid --timeout"),
@@ -251,7 +266,17 @@ def test_ported_flags_equal_reference(golden_env, tmp_path, capsys, flag):
     (["--cache-backend", "redis://127.0.0.1:1"], "redis cache backend"),
 ])
 def test_errors_are_one_line_and_rc_1(golden_env, capsys, extra, message):
+    """A bad option value: one error line and rc 1. The license scanner
+    (message None) is ported: the reference's report and rc 0."""
     argv = port_argv(golden_env, *extra)
+    if message is None:
+        assert main(argv + ["--format", "json"]) == 0
+        got = capsys.readouterr().out
+        i = argv.index("--device")
+        assert jax_main.main(argv[:i] + argv[i + 2:]
+                             + ["--format", "json", "--no-tpu"]) == 0
+        assert got == capsys.readouterr().out
+        return
     argv.remove("--quiet")
     assert main(argv) == 1
     captured = capsys.readouterr()

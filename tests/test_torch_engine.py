@@ -388,7 +388,8 @@ def test_static_scan_covers_every_slice():
     observability, of the fleet control plane, of the fleet scan mode,
     of the chaos campaign, of the kubernetes command, of
     misconfiguration scanning and of its custom checks, check bundles,
-    ignore policy and redis cache tier included."""
+    ignore policy and redis cache tier, and of license scanning and
+    compliance reports included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -437,7 +438,13 @@ def test_static_scan_covers_every_slice():
                    "fanal/analyzers/config_analyzer.py", "iac/rego.py",
                    "policy/__init__.py", "policy/bundle.py",
                    "result/policy.py", "result/filter.py",
-                   "cache/redis.py", "fleet/dedupe.py"):
+                   "cache/redis.py", "fleet/dedupe.py",
+                   "licensing/__init__.py", "licensing/classifier.py",
+                   "licensing/corpus.py", "licensing/expression.py",
+                   "licensing/normalize.py", "licensing/scanner.py",
+                   "fanal/analyzers/license_file.py",
+                   "compliance/__init__.py", "compliance/builtin.py",
+                   "compliance/report.py", "compliance/spec.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

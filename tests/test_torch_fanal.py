@@ -886,11 +886,13 @@ def test_analyzer_group_equals_reference(tmp_path, monkeypatch, kind):
 def test_analyzer_versions_equal_reference():
     """The analyzer versions that feed blob-cache keys, the secret
     analyzer's among them (1000 + KERNEL_VERSION), equal the
-    reference's for every type the port registers."""
+    reference's: the port registers every type the reference does, the
+    license-file analyzer included."""
     port = analyzer.AnalyzerGroup.build().versions()
     ref = jax_analyzer.AnalyzerGroup.build().versions()
     assert port["secret"] == ref["secret"] == 1003
-    assert set(ref) - set(port) == {"license-file"}
+    assert set(ref) - set(port) == set()
+    assert port["license-file"] == ref["license-file"] == 1
     assert port == {t: v for t, v in ref.items() if t in port}
     assert analyzer.TYPE_LOCKFILES == jax_analyzer.TYPE_LOCKFILES
     assert analyzer.TYPE_OSES == jax_analyzer.TYPE_OSES

@@ -396,10 +396,12 @@ def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
                                              capsys, monkeypatch, cmd,
                                              dest, value):
     """An option still unported is refused from the environment with one
-    line. `ignore_policy` and `redis_tls` are ported now: from the
-    environment they give the reference's report (`p.yaml` an ignore
-    policy in the working directory; `redis_tls` read only with a
-    redis:// backend)."""
+    line. `compliance`, `ignore_policy`, `license_full`, `redis_tls` and
+    `report` are ported now: from the environment they give the
+    reference's report (`p.yaml` an ignore policy in the working
+    directory; `redis_tls` read only with a redis:// backend;
+    `license_full` and `report` read only by a license scan and a
+    compliance report)."""
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
     target = mk_rootfs if cmd != "sbom" else str(tmp_path / "bom.json")
     if dest not in config.UNPORTED:
@@ -417,6 +419,8 @@ def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
         assert got == want and got[0] == 0
         if dest == "ignore_policy":
             assert "lodash" not in got[1] or cmd == "rootfs"
+        if dest == "compliance":
+            assert json.loads(got[1])["ID"] == value
         return
     rc = main([cmd, target, "--db-path", dbs["fixture"], "--device", "cpu",
                "--cache-dir", str(tmp_path / "c")])
@@ -431,13 +435,31 @@ def test_unported_option_from_env_is_refused(dbs, mk_rootfs, tmp_path,
 @pytest.mark.parametrize("cmd", ["sbom", "fs", "rootfs"])
 @pytest.mark.parametrize("doc", ["compliance: docker-cis-1.6.0\n",
                                  "scan:\n  license-full: true\n",
-                                 "report: all\n"])
+                                 "report: all\n",
+                                 "module-dir: modules\n"])
 def test_unported_option_from_config_file_is_refused(dbs, mk_rootfs,
                                                      tmp_path, capsys, cmd,
                                                      doc):
+    """An option still unported (`module-dir`) is refused from the config
+    file with one line; `compliance`, `license-full` and `report` are
+    ported and give the reference's report."""
     cfg = tmp_path / "trivy-tpu.yaml"
     cfg.write_text(doc)
     target = mk_rootfs if cmd != "sbom" else str(tmp_path / "bom.json")
+    key = doc.split(":")[0].split()[-1].replace("-", "_")
+    if key not in config.UNPORTED:
+        if cmd == "sbom":
+            import test_sbom_e2e
+
+            (tmp_path / "bom.json").write_text(
+                json.dumps(test_sbom_e2e.CDX_DOC))
+        argv = [cmd, target, "--config", str(cfg), "--db-path",
+                dbs["fixture"], "--format", "json", "--quiet"]
+        want, got = both(argv, tmp_path, capsys)
+        assert got == want and got[0] == 0
+        if key == "compliance":
+            assert json.loads(got[1])["ID"] == "docker-cis-1.6.0"
+        return
     rc = main([cmd, target, "--config", str(cfg), "--db-path",
                dbs["fixture"], "--device", "cpu", "--cache-dir",
                str(tmp_path / "c")])
@@ -540,20 +562,37 @@ def test_ported_options_from_env_and_config_equal_reference(
                                   ["--report", "all"],
                                   ["--license-full"],
                                   ["--module-dir", "modules"]])
-def test_unported_flags_are_refused_on_argv(mk_rootfs, flag):
-    with pytest.raises(SystemExit) as exc, \
-            contextlib.redirect_stderr(io.StringIO()):
-        main(["fs", mk_rootfs, "--device", "cpu", *flag])
-    assert exc.value.code == 2
+def test_unported_flags_are_refused_on_argv(dbs, mk_rootfs, tmp_path,
+                                            capsys, flag):
+    """`--module-dir` is refused by argparse; `--compliance`, `--report`
+    and `--license-full` are ported and give the reference's report."""
+    if flag[0] == "--module-dir":
+        with pytest.raises(SystemExit) as exc, \
+                contextlib.redirect_stderr(io.StringIO()):
+            main(["fs", mk_rootfs, "--device", "cpu", *flag])
+        assert exc.value.code == 2
+        return
+    argv = ["fs", mk_rootfs, "--db-path", dbs["fixture"], "--format",
+            "json", "--quiet", "--scanners", "vuln,license", *flag]
+    want, got = both(argv, tmp_path, capsys)
+    assert got == want and got[0] == 0
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--scanners", "vuln,misconfig,license"], "'license' is not ported yet"),
+    (["--scanners", "vuln,misconfig,license"], None),
     (["--file-patterns", "pip"], "invalid file pattern"),
-    (["--scanners", "vuln,license"], "not ported yet"),
+    (["--scanners", "vuln,license"], None),
 ])
 def test_errors_are_one_line_and_rc_1(dbs, mk_rootfs, tmp_path, capsys,
                                       extra, message):
+    """A bad option value: one error line and rc 1. The license scanner
+    (message None) is ported: the reference's report and rc 0."""
+    if message is None:
+        want, got = both(["rootfs", mk_rootfs, "--db-path", dbs["fixture"],
+                          "--format", "json", "--quiet", *extra],
+                         tmp_path, capsys)
+        assert got == want and got[0] == 0
+        return
     assert main(["rootfs", mk_rootfs, "--db-path", dbs["fixture"],
                  "--device", "cpu", "--cache-dir", str(tmp_path / "c"),
                  *extra]) == 1

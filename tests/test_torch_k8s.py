@@ -1037,10 +1037,11 @@ def test_vuln_without_a_card_fails_at_once(cluster, tmp_path, capsys,
     assert main(["kubernetes", cluster["manifests"], "--quiet"]) == 0
 
 
-def test_report_from_the_environment(cluster, capsys, monkeypatch):
+def test_report_from_the_environment(cluster, tmp_path, capsys,
+                                     monkeypatch):
     """TRIVY_TPU_REPORT=all is `kubernetes`'s --report, honoured as the
-    reference does; a scan command still refuses it (its --report is
-    the unported compliance report)."""
+    reference does; a scan command reads it too (its --report is the
+    compliance report's detail, unread without --compliance)."""
     monkeypatch.setenv("TRIVY_TPU_REPORT", "all")
     argv = ["kubernetes", cluster["manifests"], "--quiet"]
     assert jax_main.main(argv) == 0
@@ -1049,19 +1050,23 @@ def test_report_from_the_environment(cluster, capsys, monkeypatch):
     got = capsys.readouterr().out
     assert got == want
     assert got == reference_out(cluster, "all", False, capsys)
-    assert main(["fs", cluster["manifests"], "--device", "cpu",
-                 "--quiet"]) == 1
-    err = capsys.readouterr().err
-    assert "TRIVY_TPU_REPORT" in err and "not ported" in err
+    fs = ["fs", cluster["manifests"], "--quiet", "--scanners", "misconfig",
+          "--format", "json"]
+    assert jax_main.main(fs + ["--cache-dir", str(tmp_path / "j")]) == 0
+    want = capsys.readouterr().out
+    assert main(fs + ["--cache-dir", str(tmp_path / "p"), "--device",
+                      "cpu"]) == 0
+    assert capsys.readouterr().out == want
 
 
 @pytest.mark.parametrize("where", ["env", "config", "flag"])
 def test_compliance_is_refused(cluster, tmp_path, capsys, monkeypatch,
                                where):
-    """--compliance (queue 1 item 8) is not on the port: from the
-    environment or the config file one error line and rc 1; on the
-    command line argparse's rc 2."""
-    argv = ["kubernetes", cluster["manifests"], "--quiet"]
+    """--compliance (ported; once refused) from the environment, the
+    config file or the command line: the reference's compliance report,
+    byte for byte."""
+    argv = ["kubernetes", cluster["manifests"], "--quiet", "--format",
+            "json"]
     if where == "env":
         monkeypatch.setenv("TRIVY_TPU_COMPLIANCE", "k8s-nsa-1.0")
     elif where == "config":
@@ -1069,15 +1074,15 @@ def test_compliance_is_refused(cluster, tmp_path, capsys, monkeypatch,
         cfg.write_text("compliance: k8s-nsa-1.0\n")
         argv += ["--config", str(cfg)]
     else:
-        with pytest.raises(SystemExit) as e:
-            main([*argv, "--compliance", "k8s-nsa-1.0"])
-        assert e.value.code == 2
-        return
-    assert main(argv) == 1
-    captured = capsys.readouterr()
-    assert captured.out == ""
-    assert len(captured.err.splitlines()) == 1
-    assert "compliance" in captured.err and "not ported" in captured.err
+        argv += ["--compliance", "k8s-nsa-1.0"]
+    # k8s-nsa-1.0 brings `vuln`: its image scans need a DB
+    argv += ["--db-path", cluster["db"]]
+    assert jax_main.main(argv) == 0
+    want = capsys.readouterr().out
+    assert main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    assert json.loads(got)["ID"] == "k8s-nsa-1.0"
 
 
 def _parser_of(parser, name):
@@ -1095,14 +1100,16 @@ def _options(p) -> dict:
 
 
 def test_parser_is_the_reference_less_compliance_plus_device():
+    """The port's `kubernetes` parser is the reference's (--compliance
+    included now) less the global --generate-default-config, plus
+    --device; K8S_UNPORTED is empty."""
     ref = _options(_parser_of(jax_main.build_parser(), "kubernetes"))
     port = _options(_parser_of(build_parser(), "kubernetes"))
-    assert set(ref) - set(port) == {"compliance", "generate_default_config"}
+    assert set(ref) - set(port) == {"generate_default_config"}
     assert set(port) - set(ref) == {"device"}
     assert {d: port[d] for d in ref if d in port} == \
         {d: ref[d] for d in ref if d in port}
-    assert set(config.K8S_UNPORTED) == {"compliance"}
-    assert config.K8S_UNPORTED["compliance"][0] == ref["compliance"][1]
+    assert config.K8S_UNPORTED == {}
     parser = build_parser()
     assert _parser_of(parser, "k8s") is _parser_of(parser, "kubernetes")
 

@@ -34,7 +34,7 @@ from trivy_tpu.utils import uuid as jax_uuid
 from trivy_tpu_torch.artifact import local_fs
 from trivy_tpu_torch.artifact.repo import RepoArtifact
 from trivy_tpu_torch.cache.cache import MemoryCache
-from trivy_tpu_torch.cli import run
+from trivy_tpu_torch.cli import config, run
 from trivy_tpu_torch.cli.main import build_parser, main
 from trivy_tpu_torch.fanal import analyzer as port_analyzer
 from trivy_tpu_torch.fanal.analyzers import secret_analyzer
@@ -357,9 +357,16 @@ def test_revision_flags_only_on_repository_parsers():
 def test_unported_option_from_env_is_refused(seeded_repo, tmp_path, capsys,
                                              monkeypatch, cmd, dest, value):
     """An unported option from the environment is refused with one line;
-    `config_check` is ported, and gives the reference's report
-    (`checks/` chip_smoke.py phase 21's checks)."""
+    `config_check`, `license_full` and `report` are ported, and give the
+    reference's report (`checks/` chip_smoke.py phase 21's checks; a
+    license scan for `license_full`)."""
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
+    if dest != "config_check" and dest not in config.UNPORTED:
+        want, got = both([cmd, seeded_repo["repo"], "--db-path",
+                          seeded_repo["db"], "--format", "json", "--quiet",
+                          "--scanners", "vuln,license"], tmp_path, capsys)
+        assert got == want and want[0] == 0
+        return
     if dest == "config_check":
         import chip_smoke
 
@@ -382,14 +389,15 @@ def test_unported_option_from_env_is_refused(seeded_repo, tmp_path, capsys,
 
 def test_unported_option_from_config_file_is_refused(seeded_repo, tmp_path,
                                                      capsys):
+    """`compliance` from a config file (ported; once refused): the
+    reference's compliance report."""
     cfg = tmp_path / "trivy-tpu.yaml"
     cfg.write_text("compliance: docker-cis-1.6.0\n")
-    rc = main(["repo", seeded_repo["repo"], "--config", str(cfg),
-               "--device", "cpu", "--cache-dir", str(tmp_path / "c")])
-    captured = capsys.readouterr()
-    lines = captured.err.strip().splitlines()
-    assert rc == 1 and captured.out == "" and len(lines) == 1
-    assert "not ported yet" in lines[0] and "compliance" in lines[0]
+    want, got = both(["repo", seeded_repo["repo"], "--config", str(cfg),
+                      "--db-path", seeded_repo["db"], "--format", "json",
+                      "--quiet"], tmp_path, capsys)
+    assert got == want and want[0] == 0
+    assert json.loads(got[1])["ID"] == "docker-cis-1.6.0"
 
 
 def test_repo_scan_imports_no_jax_in_a_fresh_process(seeded_repo,

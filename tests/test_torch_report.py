@@ -437,8 +437,8 @@ def test_convert_severity_and_output_file(saved_report, tmp_path, capsys):
 def test_convert_ignores_scan_options_as_in_reference(saved_report,
                                                       tmp_path, capsys,
                                                       monkeypatch, env):
-    """`convert` has none of the scan options: one the port refuses on a
-    scan (not ported yet) is ignored there, as in the reference."""
+    """`convert` has none of the scan options: one given from the
+    environment is ignored there, as in the reference."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     want, got = both(["convert", saved_report, "--quiet"], tmp_path, capsys,

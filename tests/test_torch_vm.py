@@ -67,7 +67,7 @@ from trivy_tpu_torch.utils import uuid as port_uuid
 
 FAKE_TIME = "2024-01-01T00:00:00+00:00"
 # the CLI's analyzer gating for --scanners vuln,secret: both packages
-# disable the config analyzer, the reference its license-file one too
+# disable the config and license-file analyzers
 GATED = {"config", "license-file"}
 
 # the reference tests' skip condition (tests/test_vm.py)
@@ -643,8 +643,9 @@ def test_vm_errors_equal_reference(tmp_path, capsys, monkeypatch, case):
 def test_unported_option_from_env_is_refused(request, tmp_path, capsys,
                                              monkeypatch, dest, value):
     """An unported option from the environment is refused with one line;
-    `config_check` and `redis_tls` are ported, and give the reference's
-    report (`checks/` chip_smoke.py phase 21's checks)."""
+    `config_check`, `compliance` and `redis_tls` are ported, and give
+    the reference's report (`checks/` chip_smoke.py phase 21's
+    checks)."""
     monkeypatch.setenv("TRIVY_TPU_" + dest.upper(), value)
     if dest not in run_config.UNPORTED:
         assert ported_vm_scan_equals_reference(request, tmp_path, capsys,
@@ -661,19 +662,15 @@ def test_unported_option_from_env_is_refused(request, tmp_path, capsys,
 
 def test_unported_option_from_config_file_is_refused(request, tmp_path,
                                                      capsys, monkeypatch):
-    """`config-check` from a config file gives the reference's report;
-    `compliance` is refused with one line."""
+    """`config-check` and `compliance` from a config file each give the
+    reference's report."""
     cfg = tmp_path / "trivy-tpu.yaml"
     cfg.write_text("scan:\n  config-check: [checks/]\n")
     assert ported_vm_scan_equals_reference(
         request, tmp_path, capsys, monkeypatch, "--config", str(cfg)) == 0
     cfg.write_text("compliance: docker-cis-1.6.0\n")
-    rc = main(["vm", str(tmp_path / "disk.img"), "--config", str(cfg),
-               "--device", "cpu", "--cache-dir", str(tmp_path / "c")])
-    captured = capsys.readouterr()
-    lines = captured.err.strip().splitlines()
-    assert rc == 1 and captured.out == "" and len(lines) == 1
-    assert "not ported yet" in lines[0] and "compliance" in lines[0]
+    assert ported_vm_scan_equals_reference(
+        request, tmp_path, capsys, monkeypatch, "--config", str(cfg)) == 0
 
 
 def ported_vm_scan_equals_reference(request, tmp_path, capsys, monkeypatch,

@@ -30,16 +30,13 @@ ENV_PREFIX = "TRIVY_TPU_"
 # default first, then the spellings its code reads as unset (the empty
 # string where it tests the option's truth)
 UNPORTED = {
-    "compliance": (None, ""),
     "generate_default_config": (False,),
-    "license_full": (False,),
     "module_dir": (None,),
-    "report": ("summary",),
 }
 
-# the same for the reference's `kubernetes` parser, whose only option
-# the port's lacks is --compliance (its --report is the port's too)
-K8S_UNPORTED = {"compliance": (None, "")}
+# the same for the reference's `kubernetes` parser: the port's has every
+# option of it
+K8S_UNPORTED: dict = {}
 
 
 def _load_config_file(path: str | None) -> dict:

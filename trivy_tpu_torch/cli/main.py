@@ -31,6 +31,9 @@ kernel and the secret screens on a CUDA card.
     python -m trivy_tpu_torch fs ./infra --scanners misconfig --config-check checks/ --check-namespaces user
     python -m trivy_tpu_torch fs ./project --ignore-policy ignore.rego
     python -m trivy_tpu_torch image --input image.tar --cache-backend redis://cache:6379
+    python -m trivy_tpu_torch fs ./project --scanners vuln,license --license-full
+    python -m trivy_tpu_torch image --input image.tar --compliance docker-cis-1.6.0 --report all
+    python -m trivy_tpu_torch k8s ./manifests --compliance k8s-nsa-1.0 -f json
 
 Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
 read. A flag whose feature is not ported yet is absent, so argparse
@@ -81,7 +84,7 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--severity", "-s", default=None,
                    help="comma-separated severities (UNKNOWN,LOW,MEDIUM,HIGH,CRITICAL)")
     p.add_argument("--scanners", default="vuln,secret",
-                   help="comma-separated scanners (vuln,misconfig,secret)")
+                   help="comma-separated scanners (vuln,misconfig,secret,license)")
     p.add_argument("--secret-config", default="trivy-secret.yaml",
                    help="custom secret rule config path (reference "
                         "--secret-config)")
@@ -211,6 +214,15 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                         "repeatable")
     p.add_argument("--show-suppressed", action="store_true",
                    help="include VEX-suppressed findings in the report")
+    p.add_argument("--license-full", action="store_true",
+                   help="also classify license headers in source files "
+                        "(license scanner)")
+    p.add_argument("--compliance", default=None,
+                   help="compliance report to generate (builtin name like "
+                        "docker-cis-1.6.0 or @path/to/spec.yaml)")
+    p.add_argument("--report", default="summary",
+                   choices=("all", "summary"),
+                   help="compliance report detail (all, summary)")
     _add_check_flags(p)
 
 
@@ -451,9 +463,8 @@ def _add_chaos_parser(sub) -> None:
 
 
 def _add_k8s_parser(sub) -> None:
-    """`kubernetes` (alias `k8s`): the reference's flags but
-    `--compliance`, and the port's `--device` for the vuln scanner's
-    image scans."""
+    """`kubernetes` (alias `k8s`): the reference's flags, and the
+    port's `--device` for the vuln scanner's image scans."""
     p = sub.add_parser("kubernetes", help="scan a kubernetes cluster or "
                        "manifests directory", allow_abbrev=False,
                        aliases=["k8s"])
@@ -472,6 +483,10 @@ def _add_k8s_parser(sub) -> None:
                    help="restrict to one namespace")
     p.add_argument("--image-tar-dir", default=None,
                    help="directory of image tars for offline vuln scans")
+    p.add_argument("--compliance", default=None,
+                   help="compliance report (k8s-nsa-1.0, "
+                        "k8s-pss-baseline-0.1, k8s-pss-restricted-0.1, "
+                        "or @path)")
     p.add_argument("--db-path", default=None)
     p.add_argument("--no-tpu", action="store_true",
                    help="run the image scans' matching and secret "
@@ -499,7 +514,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="trivy-tpu-torch",
         description="security scanner on a CUDA card (image, "
         "filesystem, rootfs, repository, VM image or SBOM -> "
-        "vulnerabilities, misconfigurations, secrets; config files -> "
+        "vulnerabilities, misconfigurations, secrets, licenses; config "
+        "files -> "
         "misconfigurations; a kubernetes cluster -> "
         "misconfigurations, RBAC and infra findings, its images' "
         "vulnerabilities and secrets)",

@@ -7,9 +7,10 @@ Copy of trivy_tpu/cli/run.py trimmed to the `image`, `sbom`,
 here, detection on a scan server or a comma-separated replica set;
 `--fallback` degrades to a local scan on this process's device), and
 the fleet scan mode (`--targets`, `--journal`, `--resume`,
-`--fleet-parallel`: `cli/fleet.py`), and the `kubernetes`, `convert`,
-`db`, `server`, `watch`, `fleet`, `profile`, `usage` and `chaos`
-subcommands: no compliance, modules or ignore policies yet. `--trace` /
+`--fleet-parallel`: `cli/fleet.py`), each also as a compliance report
+(`--compliance`, `--report`), and the `kubernetes` (with its
+`--compliance`), `convert`, `db`, `server`, `watch`, `fleet`, `profile`,
+`usage` and `chaos` subcommands: no modules yet. `--trace` /
 `--trace-export` collect the run's spans under one `scan` root and
 render or export them;
 `profile` and `usage` federate a comma-separated replica set. The match
@@ -39,10 +40,6 @@ from trivy_tpu_torch.types.enums import Scanner as ScannerEnum, Severity
 from trivy_tpu_torch.types.scan import ScanOptions
 
 _log = logger()
-
-# scanners whose results the port computes (license scans are not
-# ported yet)
-SCANNERS = ("vuln", "misconfig", "secret")
 
 STATS: dict = {}
 
@@ -206,14 +203,8 @@ def normalize_args(args) -> None:
 
 
 def make_scan_options(args) -> ScanOptions:
-    scanners = []
-    for s in (args.scanners or "").split(","):
-        if not s:
-            continue
-        if s not in SCANNERS:
-            raise FatalError(f"scanner {s!r} is not ported yet "
-                             f"(supported: {', '.join(SCANNERS)})")
-        scanners.append(ScannerEnum(s))
+    scanners = [ScannerEnum(s) for s in (args.scanners or "").split(",")
+                if s]
     return ScanOptions(
         pkg_types=args.pkg_types.split(","),
         scanners=scanners,
@@ -249,6 +240,13 @@ def run_scan(args) -> int:
     from trivy_tpu_torch.secret import scanner as _secret_scanner
 
     _secret_scanner.set_cache_dir(getattr(args, "cache_dir", None))
+
+    # --compliance: the spec decides which scanners run and the report
+    # becomes a control-check report (reference artifact/run.go:
+    # ComplianceSpec.Scanners override + compliance/report.Write)
+    compliance_spec = _compliance_spec(args)
+    if compliance_spec is not None:
+        args.scanners = ",".join(compliance_spec.scanners())
 
     # secret-engine sizing flags reach the scanner (deep inside the
     # fanal post-analyzer) through their env knobs; explicit flags win
@@ -289,7 +287,7 @@ def run_scan(args) -> int:
             if "misconfig" in (args.scanners or "").split(",") \
                     or args.command == "config":
                 _configure_check_engine(args)
-            rc = _run_scan_core(args)
+            rc = _run_scan_core(args, compliance_spec)
     finally:
         check_engine.reset()
         if tracing_on:
@@ -313,6 +311,38 @@ def run_scan(args) -> int:
                 os.environ[k] = v
     STATS["wall_s"] = time.perf_counter() - t0
     return rc
+
+
+def _compliance_spec(args):
+    """The spec `--compliance` names (a built-in id or `@path`), or
+    None without the option."""
+    if not getattr(args, "compliance", None):
+        return None
+    from trivy_tpu_torch.compliance.spec import SpecError, get_compliance_spec
+
+    try:
+        return get_compliance_spec(args.compliance)
+    except (SpecError, OSError) as e:
+        raise FatalError(f"compliance spec: {e}")
+
+
+def _write_compliance(args, results, spec) -> None:
+    """Render the compliance report of `results` against `spec` in
+    place of the scan report (reference compliance/report.Write)."""
+    from trivy_tpu_torch.compliance.report import (
+        build_compliance_report,
+        write_compliance_report,
+    )
+
+    comp = build_compliance_report(results, spec)
+    out = open(args.output, "w") if args.output else None
+    try:
+        write_compliance_report(
+            comp, fmt="json" if args.format == "json" else "table",
+            report=getattr(args, "report", "summary"), output=out)
+    finally:
+        if out:
+            out.close()
 
 
 def _coerce_helm_value(v: str):
@@ -396,13 +426,15 @@ K8S_SCANNERS = {"vuln", "misconfig", "rbac", "infra"}
 
 
 def run_k8s(args) -> int:
-    """`kubernetes` subcommand (reference pkg/k8s/commands/run.go:26),
-    without --compliance. With `vuln` among the scanners, the device is
-    resolved first and the image scans run the match kernel and the
-    secret screens on it (the host paths of both under --no-tpu);
-    misconfig, rbac and infra are host work and need no card. A device
-    error ends the run with one line and rc 1. The scanner's step
-    seconds are in `k8s/scanner.py` `STATS`."""
+    """`kubernetes` subcommand (reference pkg/k8s/commands/run.go:26).
+    With --compliance the spec's scanners run (those `kubernetes` has;
+    `infra` for its KCV controls, `rbac` for its RBAC-range KSV ids) and
+    a compliance report takes the cluster report's place. With `vuln`
+    among the scanners, the device is resolved first and the image
+    scans run the match kernel and the secret screens on it (the host
+    paths of both under --no-tpu); misconfig, rbac and infra are host
+    work and need no card. A device error ends the run with one line and
+    rc 1. The scanner's step seconds are in `k8s/scanner.py` `STATS`."""
     from trivy_tpu_torch.fanal.analyzers import secret_analyzer
     from trivy_tpu_torch.k8s import scanner as k8s_scanner
     from trivy_tpu_torch.k8s.report import write_cluster_report
@@ -413,6 +445,21 @@ def run_k8s(args) -> int:
         raise FatalError(
             f"unknown k8s scanners: {', '.join(sorted(unknown))} "
             f"(valid: {', '.join(sorted(K8S_SCANNERS))})")
+
+    compliance_spec = _compliance_spec(args)
+    if compliance_spec is not None:
+        scanners = set(compliance_spec.scanners()) & K8S_SCANNERS \
+            or {"misconfig"}
+        # KCV controls are produced by the infra/node assessment and the
+        # RBAC-range KSV ids (KSV041-053, the rbac.py rule set) by the
+        # RBAC assessment, not by the per-resource misconfig scan
+        spec_ids = {c.id for ctrl in compliance_spec.spec.controls
+                    for c in ctrl.checks}
+        if any(i.startswith("AVD-KCV-") for i in spec_ids):
+            scanners.add("infra")
+        rbac_ids = {f"AVD-KSV-{n:04d}" for n in range(41, 54)}
+        if spec_ids & rbac_ids:
+            scanners.add("rbac")
 
     engine = None
     if "vuln" in scanners:
@@ -435,9 +482,45 @@ def run_k8s(args) -> int:
     except RuntimeError as e:  # a device error among them
         print(" ".join(str(e).splitlines()), file=sys.stderr)
         return 1
+    if compliance_spec is not None:
+        _write_compliance(args, _cluster_results(report), compliance_spec)
+        return 0
     fmt = "json" if args.format == "json" else args.report
     write_cluster_report(report, fmt=fmt, output=args.output)
     return 0
+
+
+def _cluster_results(report) -> list:
+    """A cluster report as the scan results a compliance report reads:
+    each resource's misconfigurations, its images' results, and the
+    infra (KCV) and RBAC (KSV) findings as `AVD-*` misconfigurations
+    (reference k8s compliance includes node-collector output)."""
+    from trivy_tpu_torch.types.report import (
+        DetectedMisconfiguration,
+        Result,
+    )
+
+    results: list[Result] = []
+    for rr in report.resources:
+        if rr.misconfigurations:
+            results.append(Result(
+                target=rr.resource.fullname, result_class="config",
+                type="kubernetes",
+                misconfigurations=rr.misconfigurations))
+        for _img, rep in rr.image_reports:
+            results.extend(rep.results)
+    for f in list(report.infra) + list(report.rbac):
+        num = "".join(ch for ch in f.id if ch.isdigit())
+        prefix = "KCV" if f.id.startswith("KCV") else "KSV"
+        results.append(Result(
+            target=f.resource, result_class="config",
+            type="kubernetes",
+            misconfigurations=[DetectedMisconfiguration(
+                type="kubernetes", id=f.id,
+                avd_id=f"AVD-{prefix}-{int(num or 0):04d}",
+                title=f.title, message=f.message,
+                severity=f.severity, status="FAIL")]))
+    return results
 
 
 def _parse_duration(spec: str | None) -> float:
@@ -588,13 +671,16 @@ def _scan_target(args, cache):
     return report
 
 
-def _run_scan_core(args) -> int:
+def _run_scan_core(args, compliance_spec) -> int:
     from trivy_tpu_torch.report.writer import write_report
 
     if getattr(args, "resume", None) or getattr(args, "targets", None):
         # fleet mode: many artifacts, one journal, one merged report
         from trivy_tpu_torch.cli.fleet import run_fleet
 
+        if compliance_spec is not None:
+            raise FatalError("--compliance is not supported with fleet "
+                             "scans (--targets/--resume)")
         return run_fleet(args)
 
     cache = _build_cache(args)
@@ -618,11 +704,14 @@ def _run_scan_core(args) -> int:
     from trivy_tpu_torch import obs
 
     t0 = time.perf_counter()
-    with obs.phase("report"):
-        write_report(report, fmt=args.format, output=args.output,
-                     template=args.template, severities=severities,
-                     dependency_tree=getattr(args, "dependency_tree",
-                                             False))
+    if compliance_spec is not None:
+        _write_compliance(args, report.results, compliance_spec)
+    else:
+        with obs.phase("report"):
+            write_report(report, fmt=args.format, output=args.output,
+                         template=args.template, severities=severities,
+                         dependency_tree=getattr(args, "dependency_tree",
+                                                 False))
     STATS["render_s"] = time.perf_counter() - t0
     return _exit_code(args, report)
 
@@ -752,20 +841,26 @@ def _select_scanner(args, cache):
         from trivy_tpu_torch.scanner.local import LocalDriver
 
         driver = LocalDriver(build_engine(args), cache)
-    if cmd == "sbom":
-        from trivy_tpu_torch.artifact.sbom import SBOMArtifact
-
-        return SBOMArtifact(args.target, cache), driver
-
     # analyzers whose scanner class was not requested are disabled
-    # (reference pkg/commands/artifact/run.go disabledAnalyzers); the
-    # port registers no license-file analyzer
+    # (reference pkg/commands/artifact/run.go disabledAnalyzers)
     scanners = set((args.scanners or "").split(","))
     disabled: set[str] = set()
     if "misconfig" not in scanners and cmd != "config":
         disabled.add("config")
     if "secret" not in scanners:
         disabled.add("secret")
+    if "license" not in scanners:
+        disabled.add("license-file")
+    else:
+        from trivy_tpu_torch.fanal.analyzers.license_file import (
+            LicenseFileAnalyzer,
+        )
+
+        LicenseFileAnalyzer.full = bool(getattr(args, "license_full", False))
+    if cmd == "sbom":
+        from trivy_tpu_torch.artifact.sbom import SBOMArtifact
+
+        return SBOMArtifact(args.target, cache), driver
     helm_overrides = _helm_overrides(args)
 
     if cmd == "image":

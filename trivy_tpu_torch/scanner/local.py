@@ -2,11 +2,11 @@
 applier squash -> per-class scans -> metadata fill -> post-scan hooks.
 The vulnerability matching inside runs on the card via MatchEngine.
 
-Copy of trivy_tpu/scanner/local.py without licenses (not ported
-yet). In server mode the detect phase goes through the cross-request
-match scheduler; under a monitor capture scope the engine handle
-records the scan's queries and finding keys for the monitor index; the
-ambient deadline budget is checked between phases. `stats` keeps the seconds of the last scan's phases (the rekor
+Copy of trivy_tpu/scanner/local.py. In server mode the detect phase
+goes through the cross-request match scheduler; under a monitor capture
+scope the engine handle records the scan's queries and finding keys for
+the monitor index; the ambient deadline budget is checked between
+phases. `stats` keeps the seconds of the last scan's phases (the rekor
 SBOM discovery of `--sbom-sources rekor` counts with the apply phase).
 """
 
@@ -142,6 +142,8 @@ class LocalDriver:
 
             with obs.phase("secret_results", phase="secret"):
                 results.extend(self._secret_results(detail))
+        if ScannerEnum.LICENSE in options.scanners:
+            results.extend(self._license_results(detail, options))
         results.extend(self._misconfig_results(detail))
         return results
 
@@ -212,6 +214,13 @@ class LocalDriver:
                 ],
             ))
         return results
+
+    def _license_results(
+        self, detail: ArtifactDetail, options: ScanOptions
+    ) -> list[Result]:
+        from trivy_tpu_torch.licensing.scanner import scan_licenses
+
+        return scan_licenses(detail, options)
 
     def _misconfig_results(self, detail: ArtifactDetail) -> list[Result]:
         from trivy_tpu_torch.misconf.result import to_result

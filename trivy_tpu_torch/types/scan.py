@@ -3,8 +3,9 @@
 Copy of trivy_tpu/types/scan.py without ScanTarget. Every field of the
 reference's ScanOptions is kept, so a scan request encodes to the same
 wire bytes in both packages; `pkg_relationships`, `severities`,
-`detection_priority`, `license_full`, `license_categories` and `distro`
-travel over the wire but no scan path of either package reads them.
+`detection_priority`, `license_full` and `distro` travel over the wire
+but no scan path of either package reads them (`license_categories` is
+read by `licensing/scanner.py`).
 """
 
 from __future__ import annotations
