@@ -347,12 +347,30 @@ kernel's time before its latest redesign; then
      on phase 9's docker-save layers with one more holding a
      Dockerfile, a Terraform module and a Helm chart: its JSON equal to
      --no-tpu's, the match and anchor kernels launched.
+ 23. drive modules, plugins and the host commands in phase 20's runner
+     after phase 22 (`module_runs`, `module_finish`), the trust store,
+     DOCKER_CONFIG and the cache under the runner's directory: (a) `fs
+     --scanners vuln,secret` on a copy of phase 22 (a)'s tree before
+     any module; a seeded module (`P23_MODULE`: its analyze reads every
+     Dockerfile, its post_scan stamps every vulnerability and adds a
+     result) installed with `module install`, an untrusted one planted
+     beside it; the scan on the card holding the trusted module's marks
+     and not the planted one's, equal to --no-tpu's byte for byte, the
+     match (every tier given rows) and anchor kernels launched; under
+     `--module-dir` both modules' marks; after `module uninstall` the
+     report equal to the one before the install byte for byte; (b)
+     `plugin install` from a directory and a zip, plugin mode (its rc
+     and stdout), `plugin list`, `info`, `uninstall`; `registry login`
+     and `logout` (a 0600 config.json the registry client reads);
+     `clean --scan-cache` (`fanal` gone, `db` kept);
+     `--generate-default-config` (written, then refused).
 The phases run in the order 1, 2, 4, 5, 6 (phase 7 (a)'s two CLI
 processes and (b)'s cold run beside them), 7, 3, the kernel timings,
 14's set-up, 8-11 (18's campaign beside 8-10, 17's, 19's and 20's
 runners from 10 on; 12's server and 16's replicas start before 11),
 12, 16 (a)-(c), 13, 15, 14 (16 (d)'s rollout beside them), 16's checks
-and (e), 17's checks, 19's checks, 20's checks. Phase 3 runs with the native collector
+and (e), 17's checks, 19's checks, 20's checks (21's, 22's and 23's
+inside them). Phase 3 runs with the native collector
 (native/collect.cpp) too.
 Phase 9 runs the hybrid probe alone twice, dispatched directly and
 through the secret lane (as it ran before it bypassed the lane), and
@@ -373,7 +391,8 @@ campaign's per scenario (`launches_chaos`), the kubernetes scan's
 per run (`launches_k8s`: the match kernel per tier and the anchor
 kernel, on the card and with --no-tpu), and the misconfiguration
 phase's per run (`launches_iac`: the same two, for (a), (b), (c) and
-their --no-tpu twins). Prints a `kernels`
+their --no-tpu twins), and phase 23's per run (`launches_modules`:
+the same two). Prints a `kernels`
 JSON line, the card line, and
 last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
@@ -9109,9 +9128,9 @@ def iac_runner(spec_path: str, out: str, device: str) -> None:
     --scanners vuln,secret,misconfig` on the archive with the deploy
     layer on the card (its layers but the deploy layer's config files
     are phase 9's, held to --no-tpu there and by phase 21 (b)), its
-    report object kept for phase 22 (b); then phase 21 (custom_runs) and
-    phase 22 (a) and (b) (license_runs). Its numbers go to
-    out/result.json."""
+    report object kept for phase 22 (b); then phase 21 (custom_runs),
+    phase 22 (a) and (b) (license_runs) and phase 23 (module_runs). Its
+    numbers go to out/result.json."""
     from trivy_tpu_torch.cli import run
     from trivy_tpu_torch.cli.main import build_parser
     from trivy_tpu_torch.iac import check
@@ -9247,6 +9266,8 @@ def iac_runner(spec_path: str, out: str, device: str) -> None:
         # phase 22 (a) on a copy of the tree, (b) on (c)'s archive
         res["p22"] = license_runs(spec, out, device, engine, go, body,
                                   c_texts)
+        # phase 23 on a copy of phase 22 (a)'s tree
+        res["p23"] = module_runs(spec, out, device, engine, go, body)
         res["engine_device"] = str(engine.device)
         res["runner_wall_s"] = time.perf_counter() - t_runner
     except BaseException as e:  # the parent reads it and fails the phase
@@ -9615,7 +9636,8 @@ def iac_finish(ia: dict) -> dict:
     kernel launched, the SARIF holding one result per failure and the
     table one section per config target with a failure; (c) the deploy
     layer's Dockerfile, Terraform and Helm results in it, the match and
-    anchor kernels launched. Then phase 21's and phase 22 (a)-(b)'s."""
+    anchor kernels launched. Then phase 21's, phase 22 (a)-(b)'s and
+    phase 23's."""
     try:
         ia["proc"].wait(timeout=max(
             1.0, IAC_TIMEOUT_S - (time.perf_counter() - ia["t0"])))
@@ -9699,7 +9721,8 @@ def iac_finish(ia: dict) -> dict:
                           for k in runs},
                 "anchor": {k: r[k]["launches"]["anchor"] for k in runs}},
             "p21": custom_finish(r["p21"], r["phase21_s"]),
-            "p22": license_finish(r["p22"]), "p22_s": r["p22"]["seconds"]}
+            "p22": license_finish(r["p22"]), "p22_s": r["p22"]["seconds"],
+            "p23": module_finish(r["p23"]), "p23_s": r["p23"]["seconds"]}
 
 
 def custom_finish(r: dict, seconds: float) -> dict:
@@ -10078,6 +10101,362 @@ def license_finish(r: dict) -> dict:
                         ("b_summary", bs))}}
 
 
+P23_SEED = 20261101
+# phase 23's trusted module: its analyze reads every Dockerfile, its
+# post_scan stamps every vulnerability and adds one result holding what
+# analyze saw; it builds the results of whichever package calls it
+P23_MODULE = """\
+import sys
+
+name = "smoke-dockerfile"
+version = 1
+TAG = "smoke-{seed}"
+_SEEN = []
+
+def required(path):
+    return path.rsplit("/", 1)[-1] == "Dockerfile"
+
+def analyze(path, content):
+    text = content.decode("utf-8", "replace")
+    first = next((ln for ln in text.splitlines()
+                  if ln.startswith("FROM ")), "")
+    _SEEN.append((path, first))
+    return {{"from": first, "tag": TAG}}
+
+def post_scan(results, options):
+    if not results:
+        return results
+    rep = sys.modules[type(results[0]).__module__]
+    for r in results:
+        for v in r.vulnerabilities:
+            v.severity_source = TAG
+    results.append(rep.Result(
+        target="module:smoke-dockerfile", result_class="custom",
+        custom_resources=[rep.CustomResource(
+            type="module:smoke-dockerfile", file_path=p,
+            data={{"from": f, "tag": TAG}}) for p, f in sorted(_SEEN)]))
+    return results
+"""
+# planted beside it and never installed: loads only under --module-dir
+P23_PLANTED = """\
+import sys
+
+name = "smoke-planted"
+version = 1
+
+def post_scan(results, options):
+    if results:
+        rep = sys.modules[type(results[0]).__module__]
+        results.append(rep.Result(target="module:smoke-planted",
+                                  result_class="custom"))
+    return results
+"""
+P23_PLUGIN = """\
+name: {name}
+version: "0.{seed}"
+summary: phase 23 plugin
+platforms:
+  - selector:
+      os: linux
+    uri: ./run.sh
+    bin: ./run.sh
+"""
+
+
+@contextlib.contextmanager
+def fd_stdout(path: str):
+    """Send file descriptor 1 (a plugin's subprocess writes there) to
+    `path` for the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "wb") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def module_report_checks(doc: dict) -> dict:
+    """What phase 23 reads off a report: the trusted module's result
+    (its custom resources), whether every vulnerability carries its
+    stamp, and the planted module's result."""
+    tag = f"smoke-{P23_SEED}"
+    results = doc.get("Results") or []
+    mod = [r for r in results if r["Target"] == "module:smoke-dockerfile"]
+    vulns = [v for r in results for v in r.get("Vulnerabilities") or []]
+    crs = mod[0].get("CustomResources") or [] if mod else []
+    return {"module_results": len(mod),
+            "custom_resources": len(crs),
+            "resources_tagged": all(c["Data"]["tag"] == tag and
+                                    c["FilePath"].endswith("Dockerfile")
+                                    for c in crs),
+            "vulnerabilities": len(vulns),
+            "stamped": sum(v.get("SeveritySource") == tag for v in vulns),
+            "planted_results": sum(r["Target"] == "module:smoke-planted"
+                                   for r in results)}
+
+
+def module_runs(spec: dict, out: str, device: str, engine, go,
+                body) -> dict:
+    """Phase 23 in phase 20's runner, after phase 22, every command
+    through `trivy_tpu_torch.cli.main.main`. (a) `fs --scanners
+    vuln,secret` on a copy of phase 22 (a)'s tree on the card before
+    any module; `module install` of the seeded module into the run's
+    cache (the trust store under `out`), a second module planted beside
+    it untrusted; the same scan on the card and with --no-tpu; with
+    `--module-dir` on the modules directory; `module uninstall`, then
+    the scan again. (b) `plugin install` from a directory and from a
+    zip, plugin mode, `plugin list`, `info` and `uninstall`; `registry
+    login` and `logout` into a DOCKER_CONFIG under `out`; `clean
+    --scan-cache`; `--generate-default-config` twice. -> the numbers
+    module_finish checks."""
+    import base64
+    import io
+    import stat
+    import zipfile
+
+    from trivy_tpu_torch.artifact.image_source import _docker_config_auth
+    from trivy_tpu_torch.cli import config as cli_config
+    from trivy_tpu_torch.cli.main import main as cli
+
+    t0 = time.perf_counter()
+    res: dict = {}
+    root = os.path.join(out, "p23")
+    os.makedirs(root)
+    env_keys = ("TRIVY_TPU_TRUST_STORE", "DOCKER_CONFIG",
+                "TRIVY_TPU_CACHE_DIR")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    cache = os.path.join(root, "cache")
+    os.environ.update(
+        TRIVY_TPU_TRUST_STORE=os.path.join(root, "trust", "modules.trust"),
+        DOCKER_CONFIG=os.path.join(root, "docker"),
+        TRIVY_TPU_CACHE_DIR=cache)
+
+    def quiet(argv) -> tuple[int, str]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        return rc, buf.getvalue()
+
+    try:
+        tree = os.path.join(root, "tree")
+        shutil.copytree(os.path.join(out, "monorepo-licensed"), tree,
+                        symlinks=True)
+        res["copy_s"] = time.perf_counter() - t0
+        res["dockerfiles"] = sum(
+            "Dockerfile" in files for _d, _s, files in os.walk(tree))
+        fs = ["fs", tree, "--db-path", spec["db_root"], "--format", "json",
+              "--quiet", "--scanners", "vuln,secret"]
+
+        def scan(name, argv, cache_dir):
+            r = go(f"p23_{name}", argv, cache_dir)
+            res[name] = {k: v for k, v in r.items()
+                         if k != "secret_device_stats"}
+            res[name].update(module_report_checks(
+                json.loads(body(f"p23_{name}"))))
+
+        # (a)
+        scan("before", [*fs, "--device", device],
+             os.path.join("p23", "cache-before"))
+        src = os.path.join(root, "smoke_module.py")
+        with open(src, "w") as f:
+            f.write(P23_MODULE.format(seed=P23_SEED))
+        res["install_rc"] = quiet(["module", "install", src,
+                                   "--cache-dir", cache])[0]
+        mdir = os.path.join(cache, "modules")
+        with open(os.path.join(mdir, "smoke_planted.py"), "w") as f:
+            f.write(P23_PLANTED)
+        scan("modules", [*fs, "--device", device], cache)
+        # the host twin on the same cache: the same installed modules
+        with shared_db(engine):
+            scan("modules_no_tpu", [*fs, "--no-tpu"], cache)
+        res["modules"]["json_equal"] = \
+            body("p23_modules") == body("p23_modules_no_tpu")
+        scan("module_dir", [*fs, "--device", device, "--module-dir", mdir],
+             os.path.join("p23", "cache-dir"))
+        rc, listed = quiet(["module", "list", "--cache-dir", cache])
+        res["list"] = [rc, listed.split()]
+        res["uninstall_rc"] = quiet(["module", "uninstall", "smoke_module",
+                                     "--cache-dir", cache])[0]
+        scan("after", [*fs, "--device", device], cache)
+        res["after"]["equal_to_before"] = \
+            body("p23_after") == body("p23_before")
+        res["a_s"] = time.perf_counter() - t0
+
+        # (b)
+        t1 = time.perf_counter()
+        b: dict = {}
+        script = "#!/bin/sh\necho \"{name} ran $@\"\n"
+        pdir = os.path.join(root, "plugin-src")
+        os.makedirs(pdir)
+        with open(os.path.join(pdir, "plugin.yaml"), "w") as f:
+            f.write(P23_PLUGIN.format(name="smoke-dir", seed=P23_SEED))
+        with open(os.path.join(pdir, "run.sh"), "w") as f:
+            f.write(script.format(name="smoke-dir"))
+        os.chmod(os.path.join(pdir, "run.sh"), 0o755)
+        zpath = os.path.join(root, "smoke-zip.zip")
+        with zipfile.ZipFile(zpath, "w") as zf:
+            zf.writestr("smoke-zip/plugin.yaml",
+                        P23_PLUGIN.format(name="smoke-zip", seed=P23_SEED))
+            zf.writestr("smoke-zip/run.sh", script.format(name="smoke-zip"))
+        b["install"] = [quiet(["plugin", "install", src_,
+                               "--cache-dir", cache])
+                        for src_ in (pdir, zpath)]
+        b["mode"] = {}
+        for name in ("smoke-dir", "smoke-zip"):
+            path = os.path.join(root, f"{name}.out")
+            with fd_stdout(path):
+                rc = cli([name, "--seed", str(P23_SEED)])
+            with open(path) as f:
+                b["mode"][name] = [rc, f.read()]
+        b["list"] = quiet(["plugin", "list", "--cache-dir", cache])
+        b["info"] = quiet(["plugin", "info", "smoke-zip", "--cache-dir",
+                           cache])
+        b["uninstall"] = [quiet(["plugin", "uninstall", n, "--cache-dir",
+                                 cache])[0]
+                          for n in ("smoke-dir", "smoke-zip")]
+        b["list_after"] = quiet(["plugin", "list", "--cache-dir", cache])
+        server = "registry.smoke.local:5000"
+        password = f"pw-{P23_SEED}"
+        b["login_rc"] = quiet(["registry", "login", "--username", "smoke",
+                               "--password", password, server])[0]
+        cfg = os.path.join(root, "docker", "config.json")
+        b["config_mode"] = oct(stat.S_IMODE(os.stat(cfg).st_mode))
+        want = "Basic " + base64.b64encode(
+            f"smoke:{password}".encode()).decode()
+        b["auth_after_login"] = _docker_config_auth(server) == want
+        b["logout_rc"] = quiet(["registry", "logout", server])[0]
+        b["auth_after_logout"] = _docker_config_auth(server)
+        os.makedirs(os.path.join(cache, "db"))
+        with open(os.path.join(cache, "db", "metadata.json"), "w") as f:
+            f.write("{}")
+        b["fanal_before_clean"] = os.path.isdir(os.path.join(cache,
+                                                             "fanal"))
+        b["clean_rc"] = quiet(["clean", "--scan-cache", "--cache-dir",
+                               cache])[0]
+        b["clean_left"] = sorted(os.listdir(cache))
+        conf = os.path.join(root, "trivy-tpu.yaml")
+        b["gen"] = [quiet(["--generate-default-config", "--config",
+                           conf]) for _ in range(2)]
+        with open(conf) as f:
+            b["gen_file_equal"] = f.read() == cli_config.DEFAULT_CONFIG
+        res["b"] = b
+        res["b_s"] = time.perf_counter() - t1
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def module_finish(r: dict) -> dict:
+    """Phase 23's checks: (a) before any module the report carries no
+    module's mark; with the module installed the card's report holds
+    the module's result (one custom resource per Dockerfile the walk
+    read) and its stamp on every vulnerability, not the planted
+    module's, equals --no-tpu's byte for byte, and the match kernel
+    (on every tier given rows) and the anchor screen launched; under
+    --module-dir both modules' marks; after `module uninstall` the
+    report equals the one before the install byte for byte. (b) every
+    host command rc 0 (a second --generate-default-config 1), each
+    plugin run by its name, both listed, then none; the credentials in
+    a 0600 config.json that the registry client reads, gone after
+    logout; `clean --scan-cache` leaving `db` and removing `fanal`; the
+    config file written as the reference writes it. -> the launches."""
+    runs = ("before", "modules", "modules_no_tpu", "module_dir", "after")
+    print(f"phase23 seconds={r['seconds']:.3f} copy_s={r['copy_s']:.3f} "
+          f"a_s={r['a_s']:.3f} b_s={r['b_s']:.3f} "
+          f"dockerfiles={r['dockerfiles']}")
+    for name in runs:
+        x = r[name]
+        split = " ".join(f"{k}={x[k]:.3f}" for k in IAC_SPLIT if k in x)
+        print(f"phase23 {name} {split} report_bytes={x['report_bytes']} "
+              f"vulnerabilities={x['vulnerabilities']} "
+              f"stamped={x['stamped']} module_results={x['module_results']}"
+              f" custom_resources={x['custom_resources']} "
+              f"planted_results={x['planted_results']} "
+              f"match_per_tier={json.dumps(x['launches']['match_per_tier'])}"
+              f" rows_per_tier={json.dumps(x['rows_per_tier'])} "
+              f"anchor={x['launches']['anchor']}")
+    b = r["b"]
+    print(f"phase23 a json_equal={r['modules']['json_equal']} "
+          f"equal_after_uninstall={r['after']['equal_to_before']} "
+          f"install_rc={r['install_rc']} list={json.dumps(r['list'])} "
+          f"uninstall_rc={r['uninstall_rc']}")
+    print(f"phase23 b plugin_install={json.dumps(b['install'])} "
+          f"plugin_mode={json.dumps(b['mode'])} "
+          f"list={json.dumps(b['list'])} list_after="
+          f"{json.dumps(b['list_after'])} uninstall={b['uninstall']}")
+    print(f"phase23 b registry login_rc={b['login_rc']} "
+          f"mode={b['config_mode']} auth={b['auth_after_login']} "
+          f"logout_rc={b['logout_rc']} after_logout={b['auth_after_logout']}"
+          f" clean_rc={b['clean_rc']} left={json.dumps(b['clean_left'])} "
+          f"generate={json.dumps(b['gen'])} "
+          f"file_equal={b['gen_file_equal']}")
+    before, mod, host, mdir, after = (r[k] for k in runs)
+    fails = []
+    if before["module_results"] or before["stamped"] or \
+            before["planted_results"]:
+        fails.append("(a) a module's mark before the install")
+    for name, x, planted in (("modules", mod, 0), ("modules_no_tpu", host, 0),
+                             ("module_dir", mdir, 1)):
+        if x["module_results"] != 1 or not x["custom_resources"] or \
+                not x["resources_tagged"] or not x["vulnerabilities"] or \
+                x["stamped"] != x["vulnerabilities"] or \
+                x["planted_results"] != planted:
+            fails.append(f"({name}) module marks {x['module_results']} / "
+                         f"{x['custom_resources']} / {x['stamped']} of "
+                         f"{x['vulnerabilities']} / planted "
+                         f"{x['planted_results']}")
+    if not mod["json_equal"]:
+        fails.append("(a) the card's report differs from --no-tpu's")
+    if not after["equal_to_before"]:
+        fails.append("(a) the report after uninstall differs from before")
+    for name, x in (("modules", mod), ("module_dir", mdir),
+                    ("before", before), ("after", after)):
+        per = x["launches"]["match_per_tier"]
+        if not x["rows_per_tier"]["main"] or any(
+                bool(per[k]) != bool(x["rows_per_tier"][k]) for k in per):
+            fails.append(f"({name}) match launches {per} against rows "
+                         f"{x['rows_per_tier']}")
+        if not x["launches"]["anchor"]:
+            fails.append(f"({name}) launched no anchor kernel")
+    if any(host["launches"][k] for k in ("match", "anchor", "conv",
+                                         "prefilter")):
+        fails.append("(a) --no-tpu launched a kernel")
+    if r["install_rc"] or r["uninstall_rc"] or \
+            r["list"] != [0, ["smoke_module.py", "smoke_planted.py"]]:
+        fails.append(f"module commands {r['install_rc']} {r['list']} "
+                     f"{r['uninstall_rc']}")
+    seed = str(P23_SEED)
+    if [x[0] for x in b["install"]] != [0, 0] or b["mode"] != {
+            "smoke-dir": [0, f"smoke-dir ran --seed {seed}\n"],
+            "smoke-zip": [0, f"smoke-zip ran --seed {seed}\n"]} or \
+            b["list"][1].count("phase 23 plugin") != 2 or \
+            b["info"][0] or "name: smoke-zip" not in b["info"][1] or \
+            b["uninstall"] != [0, 0] or b["list_after"] != [0, ""]:
+        fails.append("(b) plugin commands")
+    if b["login_rc"] or b["config_mode"] != "0o600" or \
+            not b["auth_after_login"] or b["logout_rc"] or \
+            b["auth_after_logout"] is not None:
+        fails.append("(b) registry login/logout")
+    if b["clean_rc"] or not b["fanal_before_clean"] or \
+            "fanal" in b["clean_left"] or "db" not in b["clean_left"]:
+        fails.append(f"(b) clean left {b['clean_left']}")
+    if [x[0] for x in b["gen"]] != [0, 1] or not b["gen_file_equal"]:
+        fails.append(f"(b) --generate-default-config {b['gen']}")
+    if fails:
+        raise AssertionError("phase 23: " + "; ".join(fails))
+    return {"match": {k: r[k]["launches"]["match_per_tier"] for k in runs},
+            "anchor": {k: r[k]["launches"]["anchor"] for k in runs}}
+
+
 def k8s_compliance_finish(r: dict) -> dict:
     """Phase 22 (c)'s checks, in phase 19's: each `kubernetes
     --compliance` report equal to the one built from phase 19 (a)'s
@@ -10297,6 +10676,9 @@ def main() -> int:
               f"waited_s={time.perf_counter() - t0:.3f}")
         print(f"phase22 seconds={p20['p22_s'] + p19['p22_s']:.3f} "
               f"(a)-(b)={p20['p22_s']:.3f} (c)={p19['p22_s']:.3f}")
+        print(f"phase23 seconds={p20['p23_s']:.3f} "
+              f"phase19_runner_s={p19['runner_s']:.3f} "
+              f"phase20_runner_s={p20['runner_s']:.3f}")
     finally:
         for p in [*(golden or {}).get("procs", {}).values(),
                   *([cold["proc"]] if cold else []),
@@ -10378,6 +10760,7 @@ def main() -> int:
         "launches_custom_redis": p20["p21"]["launches"]["match"],
         "launches_license_compliance": {**p20["p22"]["match"],
                                         **p19["p22"]["match"]},
+        "launches_modules": p20["p23"]["match"],
         "launches_chaos": {k: v["match"] for k, v in
                            sorted(p18["launches"].items())},
         "launches_dcn": {
@@ -10416,6 +10799,7 @@ def main() -> int:
                 "launches_custom_redis": p20["p21"]["launches"]["anchor"],
                 "launches_license_compliance": {
                     **p20["p22"]["anchor"], **p19["p22"]["anchor"]},
+                "launches_modules": p20["p23"]["anchor"],
                 "launches_chaos": {k: v["anchor"] for k, v in
                                    sorted(p18["launches"].items())}}
                if name == "anchor" else {}),

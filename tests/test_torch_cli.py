@@ -207,29 +207,40 @@ def test_no_card_fails_and_names_cuda(golden_env, monkeypatch, capsys):
     assert capsys.readouterr().out == GOLDEN.read_text()
 
 
-# options still unported (cli/config.py UNPORTED) are refused by
-# argparse; --license-full, --report and --compliance are ported and
-# give the reference's bytes
+# every option of the reference's scan parsers is ported now
+# (cli/config.py UNPORTED is empty): each gives the reference's bytes;
+# --generate-default-config writes the reference's file and exits
 @pytest.mark.parametrize("flag", [["--license-full"],
                                   ["--module-dir", "modules"],
                                   ["--generate-default-config"],
                                   ["--report", "all"],
                                   ["--compliance", "docker-cis-1.6.0"]])
-def test_unported_flags_are_refused(golden_env, capsys, flag):
-    if flag[0].lstrip("-").replace("-", "_") in config.UNPORTED:
-        with pytest.raises(SystemExit) as exc:
-            main(port_argv(golden_env, *flag))
-        assert exc.value.code == 2
-        return
+def test_unported_flags_are_refused(golden_env, capsys, tmp_path,
+                                    monkeypatch, flag):
+    assert flag[0].lstrip("-").replace("-", "_") not in config.UNPORTED
     argv = port_argv(golden_env, "--format", "json", *flag)
+    i = argv.index("--device")
+    ref_argv = argv[:i] + argv[i + 2:] + ["--no-tpu"]
+    if flag[0] == "--generate-default-config":
+        written = []
+        for entry, args in ((main, argv), (jax_main.main, ref_argv)):
+            d = tmp_path / f"cwd-{len(written)}"
+            d.mkdir()
+            monkeypatch.chdir(d)
+            rc = entry(args)
+            written.append((rc, capsys.readouterr().out,
+                            (d / "trivy-tpu.yaml").read_bytes()))
+        assert written[0] == written[1]
+        assert written[0][:2] == (0, "written: trivy-tpu.yaml\n")
+        return
     assert main(argv) == 0
     got = capsys.readouterr().out
-    i = argv.index("--device")
-    assert jax_main.main(argv[:i] + argv[i + 2:] + ["--no-tpu"]) == 0
+    assert jax_main.main(ref_argv) == 0
     assert got == capsys.readouterr().out
     if flag[0] == "--compliance":
         assert json.loads(got)["ID"] == "docker-cis-1.6.0"
-    else:  # read only by a license scan or a compliance report
+    else:  # read only by a license scan, a compliance report or a
+        # module directory that does not exist
         assert got == GOLDEN.read_text()
 
 

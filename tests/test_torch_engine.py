@@ -388,8 +388,9 @@ def test_static_scan_covers_every_slice():
     observability, of the fleet control plane, of the fleet scan mode,
     of the chaos campaign, of the kubernetes command, of
     misconfiguration scanning and of its custom checks, check bundles,
-    ignore policy and redis cache tier, and of license scanning and
-    compliance reports included."""
+    ignore policy and redis cache tier, of license scanning and
+    compliance reports, and of modules, plugins and the linter
+    included."""
     for module in ("ops/splitter.py", "artifact/image.py",
                    "artifact/image_source.py", "artifact/containerd.py",
                    "fanal/pipeline.py", "fanal/walker.py", "db/bolt.py",
@@ -444,7 +445,13 @@ def test_static_scan_covers_every_slice():
                    "licensing/normalize.py", "licensing/scanner.py",
                    "fanal/analyzers/license_file.py",
                    "compliance/__init__.py", "compliance/builtin.py",
-                   "compliance/report.py", "compliance/spec.py"):
+                   "compliance/report.py", "compliance/spec.py",
+                   "module/__init__.py", "module/manager.py",
+                   "plugin/__init__.py", "plugin/manager.py",
+                   "analysis/__init__.py", "analysis/lint.py",
+                   "analysis/rules.py", "analysis/knobs.py",
+                   "analysis/lockstatic.py", "cli/config.py",
+                   "cli/main.py"):
         assert f"trivy_tpu_torch/{module}" in PORT_SOURCES, module
 
 

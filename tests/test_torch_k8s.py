@@ -1101,11 +1101,11 @@ def _options(p) -> dict:
 
 def test_parser_is_the_reference_less_compliance_plus_device():
     """The port's `kubernetes` parser is the reference's (--compliance
-    included now) less the global --generate-default-config, plus
+    and the global --generate-default-config included now) plus
     --device; K8S_UNPORTED is empty."""
     ref = _options(_parser_of(jax_main.build_parser(), "kubernetes"))
     port = _options(_parser_of(build_parser(), "kubernetes"))
-    assert set(ref) - set(port) == {"generate_default_config"}
+    assert set(ref) - set(port) == set()
     assert set(port) - set(ref) == {"device"}
     assert {d: port[d] for d in ref if d in port} == \
         {d: ref[d] for d in ref if d in port}

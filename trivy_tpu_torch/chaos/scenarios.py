@@ -521,6 +521,7 @@ class SchedScenario(Scenario):
                     got[f"{tid}:{target}"] = \
                         hashlib.sha256(b).hexdigest()
             # stored and re-raised on the episode thread
+            # lint: allow[bare-except] stored and re-raised on the episode thread
             except BaseException as exc:
                 errs.append(exc)
 
@@ -602,11 +603,13 @@ class DcnScenario(Scenario):
                 except OSError:
                     return
                 # DCN transport thread: worker spans stitch via the wire
+                # lint: allow[tracing-capture] DCN transport thread; worker spans stitch via the wire protocol
                 threading.Thread(target=dcn_ops._serve_conn,
                                  args=(conn, state, False),
                                  daemon=True).start()
 
         # accept loop: no ambient scan to stitch to
+        # lint: allow[tracing-capture] accept loop, no ambient scan to stitch to
         threading.Thread(target=accept_loop, daemon=True).start()
         self._srv = srv
         host, port = srv.getsockname()
@@ -972,6 +975,7 @@ class FleetScanScenario(Scenario):
             imgs = _mk_images(ctx.tmp, 2)
             body = "".join(f"{i}\n" for i in imgs).encode()
             # an episode fixture in the episode's tmpdir, not durable state
+            # lint: allow[atomic-write] episode fixture inside the episode tmpdir, not durable state
             with open(p["targets"], "wb") as fh:
                 fh.write(body)
         return p

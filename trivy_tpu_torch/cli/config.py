@@ -2,13 +2,14 @@
 TRIVY_TPU_* > config file trivy-tpu.yaml > default, realized there by
 viper binding; here as argparse post-processing).
 
-Copy of trivy_tpu/cli/config.py without --generate-default-config. The
-environment layer reads the same TRIVY_TPU_* names as the reference's.
-An option that the reference's scan subcommands have and the port's
-lack (`UNPORTED`; `K8S_UNPORTED` for `kubernetes`; the port's `server`,
-`watch` and `chaos` lack none), given a value through the environment or
-the config file that the reference would act on, is refused with one
-error line: the port must not write a different report without a word.
+Copy of trivy_tpu/cli/config.py. The environment layer reads the same
+TRIVY_TPU_* names as the reference's. `UNPORTED` (options that the
+reference's scan subcommands have and the port's lack) and
+`K8S_UNPORTED` (the same for `kubernetes`) are empty: the port's parsers
+have every option of the reference's. Their check stays, so an option
+given a value through the environment or the config file that the
+reference would act on and the port lacks is refused with one error
+line: the port must not write a different report without a word.
 """
 
 from __future__ import annotations
@@ -23,16 +24,12 @@ CONFIG_NAMES = ("trivy-tpu.yaml", "trivy.yaml")
 ENV_PREFIX = "TRIVY_TPU_"
 
 # dests of the reference's scan-subcommand parsers (image, sbom,
-# filesystem, fs, rootfs, repository, repo, vm, config: the same flags, and
-# image's and repository's own, which the port has) that the port's
-# parsers lack, each with
-# the values that leave the reference's scan as it is: its parser's
-# default first, then the spellings its code reads as unset (the empty
-# string where it tests the option's truth)
-UNPORTED = {
-    "generate_default_config": (False,),
-    "module_dir": (None,),
-}
+# filesystem, fs, rootfs, repository, repo, vm, config) that the port's
+# parsers lack, each with the values that leave the reference's scan as
+# it is: its parser's default first, then the spellings its code reads
+# as unset (the empty string where it tests the option's truth). None
+# is left.
+UNPORTED: dict = {}
 
 # the same for the reference's `kubernetes` parser: the port's has every
 # option of it
@@ -203,3 +200,26 @@ def _explicit_dests(parser, argv: list[str]) -> set[str]:
             if short in by_opt:
                 out.add(by_opt[short])
     return out
+
+
+DEFAULT_CONFIG = """\
+# trivy-tpu.yaml — default configuration
+# CLI flags override environment (TRIVY_TPU_*), which overrides this file.
+format: table
+severity: ""
+scanners: vuln,secret
+pkg-types: os,library
+exit-code: 0
+parallel: 5
+cache-dir: ~/.cache/trivy-tpu
+"""
+
+
+def generate_default_config(path: str | None = None) -> str:
+    path = path or "trivy-tpu.yaml"
+    if os.path.exists(path):  # reference: refuses to clobber
+        raise ValueError(f"config file already exists: {path}")
+    # lint: allow[atomic-write] user-requested --generate-default-config output, not program state
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(DEFAULT_CONFIG)
+    return path

@@ -1,8 +1,9 @@
-"""trivy-tpu-torch CLI: the `image`, `sbom`, `filesystem` (alias `fs`),
-`rootfs`, `repository` (alias `repo`), `vm`, `kubernetes` (alias `k8s`),
-`convert`, `db`, `server`, `watch`, `fleet`, `profile`, `usage`, `chaos`
-and `version` subcommands of trivy_tpu/cli/main.py, with the match
-kernel and the secret screens on a CUDA card.
+"""trivy-tpu-torch CLI: every subcommand of trivy_tpu/cli/main.py
+(`image`, `sbom`, `filesystem` (alias `fs`), `rootfs`, `repository`
+(alias `repo`), `vm`, `config`, `kubernetes` (alias `k8s`), `convert`,
+`db`, `server`, `watch`, `fleet`, `profile`, `usage`, `chaos`, `plugin`,
+`module`, `registry`, `clean`, `lint` and `version`) and plugin mode,
+with the match kernel and the secret screens on a CUDA card.
 
     python -m trivy_tpu_torch image --input image.tar --format sarif
     python -m trivy_tpu_torch sbom bom.json --format json --vex vex.json
@@ -34,11 +35,17 @@ kernel and the secret screens on a CUDA card.
     python -m trivy_tpu_torch fs ./project --scanners vuln,license --license-full
     python -m trivy_tpu_torch image --input image.tar --compliance docker-cis-1.6.0 --report all
     python -m trivy_tpu_torch k8s ./manifests --compliance k8s-nsa-1.0 -f json
+    python -m trivy_tpu_torch module install mymodule.py
+    python -m trivy_tpu_torch fs ./project --module-dir ./modules
+    python -m trivy_tpu_torch plugin install ./my-plugin
+    python -m trivy_tpu_torch my-plugin --its-flags
+    python -m trivy_tpu_torch registry login --username u --password-stdin ghcr.io
+    python -m trivy_tpu_torch clean --scan-cache
+    python -m trivy_tpu_torch --generate-default-config
+    python -m trivy_tpu_torch lint --json
 
-Copy of trivy_tpu/cli/main.py trimmed to the flags these scan paths
-read. A flag whose feature is not ported yet is absent, so argparse
-refuses it (and cli/config.py refuses it from the environment or a
-config file). `--device` is the port's own: the scan runs on ``cuda:0``
+Copy of trivy_tpu/cli/main.py with the reference's flags. `--device` is
+the port's own: the scan runs on ``cuda:0``
 unless it names another device (``cpu`` runs the kernels' plain
 versions); `--no-tpu` keeps the reference's name for the host-oracle
 match path, which needs no card.
@@ -64,6 +71,8 @@ def _add_global_flags(p: argparse.ArgumentParser) -> None:
                         "fields (log pipelines)")
     p.add_argument("--config", "-c", default=None,
                    help="config file (default trivy-tpu.yaml if present)")
+    p.add_argument("--generate-default-config", action="store_true",
+                   help="write trivy-tpu.yaml with defaults and exit")
     p.add_argument(
         "--cache-dir",
         default=os.environ.get(
@@ -144,6 +153,9 @@ def _add_scan_flags(p: argparse.ArgumentParser) -> None:
                         "trace-event JSON (open in Perfetto / "
                         "chrome://tracing); implies span collection "
                         "even without --trace")
+    p.add_argument("--module-dir", default=None,
+                   help="directory of scan-module extensions "
+                        "(default <cache>/modules)")
     p.add_argument("--timeout", default="5m",
                    help="per-scan deadline (e.g. 300s, 5m, 1h; "
                         "reference --timeout default 5m)")
@@ -508,6 +520,77 @@ def _add_k8s_parser(sub) -> None:
                    help="'cluster' (live) or a manifests dir/file")
 
 
+def _add_host_parsers(sub) -> None:
+    """`plugin`, `module`, `registry` and `clean`: the reference's
+    parsers, in its order."""
+    p = sub.add_parser("plugin", help="manage plugins", allow_abbrev=False)
+    _add_global_flags(p)
+    plsub = p.add_subparsers(dest="plugin_command")
+    pp = plsub.add_parser("install", help="install a plugin from a local "
+                          "dir, zip, or URL", allow_abbrev=False)
+    _add_global_flags(pp)
+    pp.add_argument("source")
+    pp = plsub.add_parser("uninstall", help="remove an installed plugin",
+                          allow_abbrev=False)
+    _add_global_flags(pp)
+    pp.add_argument("name")
+    pp = plsub.add_parser("list", help="list installed plugins",
+                          allow_abbrev=False)
+    _add_global_flags(pp)
+    pp = plsub.add_parser("info", help="show plugin details",
+                          allow_abbrev=False)
+    _add_global_flags(pp)
+    pp.add_argument("name")
+    pp = plsub.add_parser("run", help="run a plugin", allow_abbrev=False)
+    _add_global_flags(pp)
+    pp.add_argument("name")
+    pp.add_argument("plugin_args", nargs=argparse.REMAINDER)
+
+    p = sub.add_parser("module", help="manage scan modules",
+                       allow_abbrev=False)
+    _add_global_flags(p)
+    mosub = p.add_subparsers(dest="module_command")
+    mm = mosub.add_parser("install", help="install a module (.py file)",
+                          allow_abbrev=False)
+    _add_global_flags(mm)
+    mm.add_argument("source")
+    mm = mosub.add_parser("uninstall", help="remove a module",
+                          allow_abbrev=False)
+    _add_global_flags(mm)
+    mm.add_argument("name")
+    mm = mosub.add_parser("list", help="list installed modules",
+                          allow_abbrev=False)
+    _add_global_flags(mm)
+
+    p = sub.add_parser("registry", help="registry authentication",
+                       allow_abbrev=False)
+    _add_global_flags(p)
+    regsub = p.add_subparsers(dest="registry_command")
+    pl = regsub.add_parser("login", help="log in to a registry",
+                           allow_abbrev=False)
+    _add_global_flags(pl)
+    pl.add_argument("--username", "-u", required=True)
+    pl.add_argument("--password", default=None,
+                    help="password (omit to read from stdin)")
+    pl.add_argument("--password-stdin", action="store_true")
+    pl.add_argument("server")
+    po = regsub.add_parser("logout", help="log out of a registry",
+                           allow_abbrev=False)
+    _add_global_flags(po)
+    po.add_argument("server")
+
+    p = sub.add_parser("clean", help="clean caches", allow_abbrev=False)
+    _add_global_flags(p)
+    p.add_argument("--all", "-a", action="store_true",
+                   help="remove everything under the cache dir")
+    p.add_argument("--scan-cache", action="store_true",
+                   help="remove cached scan blobs")
+    p.add_argument("--vuln-db", action="store_true",
+                   help="remove the advisory DB")
+    p.add_argument("--java-db", action="store_true",
+                   help="remove the java GAV DB")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         allow_abbrev=False,
@@ -756,15 +839,66 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render the last durable snapshot from a usage "
                         "journal (TRIVY_TPU_USAGE_JOURNAL) instead of "
                         "querying a live server")
+    _add_host_parsers(sub)
     _add_chaos_parser(sub)
     sub.add_parser("version", help="print version", allow_abbrev=False)
+
+    # `lint` shares the analysis package's flag definitions: one
+    # definition, so global flags may precede the subcommand and the
+    # CLI accepts exactly what `python -m trivy_tpu_torch.analysis.lint`
+    # does
+    from trivy_tpu_torch.analysis.lint import add_arguments as _lint_args
+
+    p = sub.add_parser(
+        "lint", help="run the project invariant linter over the port "
+        "(docs/static-analysis.md)", allow_abbrev=False)
+    _lint_args(p)
     return parser
+
+
+# every subcommand of the port's parser: a first argument outside it
+# names a plugin (plugin mode)
+KNOWN_COMMANDS = frozenset({
+    "image", "filesystem", "fs", "rootfs", "repository", "repo", "sbom",
+    "vm", "kubernetes", "k8s", "convert", "server", "db", "clean",
+    "config", "version", "registry", "plugin", "module", "lint", "watch",
+    "profile", "usage", "fleet", "chaos"})
 
 
 def main(argv: list[str] | None = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     parser = build_parser()
+
+    # `trivy-tpu <plugin-name> args…` runs an installed plugin
+    # (reference pkg/plugin/plugin.go:101 + cmd/trivy plugin-mode)
+    if argv and not argv[0].startswith("-") and \
+            argv[0] not in KNOWN_COMMANDS:
+        from trivy_tpu_torch.plugin import PluginManager
+
+        cache_dir = os.environ.get(
+            "TRIVY_TPU_CACHE_DIR",
+            os.path.join(os.path.expanduser("~"), ".cache", "trivy-tpu"))
+        mgr = PluginManager(cache_dir)
+        if mgr.get(argv[0]) is not None:
+            return mgr.run(argv[0], argv[1:])
+
     args = parser.parse_args(argv)
+
+    if getattr(args, "command", None) == "lint":
+        from trivy_tpu_torch.analysis.lint import run_from_args
+
+        return run_from_args(args)
+
+    if getattr(args, "generate_default_config", False):
+        from trivy_tpu_torch.cli.config import generate_default_config
+
+        try:
+            path = generate_default_config(getattr(args, "config", None))
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        print(f"written: {path}")
+        return 0
 
     # layered resolution: CLI > TRIVY_TPU_* env > config file > default
     from trivy_tpu_torch.cli.config import apply_layers
@@ -804,6 +938,14 @@ def main(argv: list[str] | None = None) -> int:
             return run.run_fleet_admin(args)
         if args.command == "chaos":
             return run.run_chaos(args)
+        if args.command == "clean":
+            return run.run_clean(args)
+        if args.command == "registry":
+            return run.run_registry(args)
+        if args.command == "plugin":
+            return run.run_plugin(args)
+        if args.command == "module":
+            return run.run_module(args)
         if args.command in ("kubernetes", "k8s"):
             return run.run_k8s(args)
         return run.run_scan(args)

@@ -10,7 +10,9 @@ the fleet scan mode (`--targets`, `--journal`, `--resume`,
 `--fleet-parallel`: `cli/fleet.py`), each also as a compliance report
 (`--compliance`, `--report`), and the `kubernetes` (with its
 `--compliance`), `convert`, `db`, `server`, `watch`, `fleet`, `profile`,
-`usage` and `chaos` subcommands: no modules yet. `--trace` /
+`usage`, `chaos`, `plugin`, `module`, `registry` and `clean`
+subcommands. Every scan loads the module extensions (`module/`) and
+unloads them when it ends. `--trace` /
 `--trace-export` collect the run's spans under one `scan` root and
 render or export them;
 `profile` and `usage` federate a comma-separated replica set. The match
@@ -267,6 +269,9 @@ def run_scan(args) -> int:
     jdb_path = javadb.default_path(args.cache_dir)
     javadb.configure(jdb_path if os.path.exists(jdb_path) else None)
 
+    # module extensions: custom analyzers + post-scan hooks
+    # (reference pkg/module manager wired into the runner)
+    from trivy_tpu_torch.module import ModuleManager
     from trivy_tpu_torch.obs import tracing as trace
 
     trace_export = getattr(args, "trace_export", None)
@@ -274,9 +279,19 @@ def run_scan(args) -> int:
     if tracing_on:
         trace.enable(True)
         trace.reset()
+    explicit_dir = getattr(args, "module_dir", None)
+    mod_mgr = ModuleManager(
+        explicit_dir or os.path.join(args.cache_dir, "modules"),
+        # the shared cache dir is not consent to execute: only
+        # manifest-trusted modules load from it
+        require_manifest=explicit_dir is None)
+
     from trivy_tpu_torch.iac import engine as check_engine
 
     try:
+        # inside the try: a load that fails half way still unloads what
+        # it registered
+        mod_mgr.load()
         # one root span covers the whole command (scan + report), so a
         # traced run exports a single tree under a single trace id
         with trace.span("scan", command=args.command):
@@ -290,6 +305,7 @@ def run_scan(args) -> int:
             rc = _run_scan_core(args, compliance_spec)
     finally:
         check_engine.reset()
+        mod_mgr.unload()
         if tracing_on:
             try:
                 if getattr(args, "trace", False):
@@ -335,6 +351,7 @@ def _write_compliance(args, results, spec) -> None:
     )
 
     comp = build_compliance_report(results, spec)
+    # lint: allow[atomic-write] user-requested report stream (--output), partial file is visible to the user
     out = open(args.output, "w") if args.output else None
     try:
         write_compliance_report(
@@ -588,7 +605,7 @@ def _scan_with_timeout(scanner, options, timeout_s: float,
                         box["report"] = scanner.scan_artifact(options)
                 else:
                     box["report"] = scanner.scan_artifact(options)
-        except BaseException as exc:  # re-raised on the main thread
+        except BaseException as exc:  # lint: allow[bare-except] re-raised on the main thread after join
             box["error"] = exc
 
     t = threading.Thread(target=work, daemon=True)
@@ -994,6 +1011,7 @@ def run_fleet_admin(args) -> int:
         fed = telemetry.federate_endpoints(endpoints, token=token)
         body = fed.render().decode()
         if getattr(args, "output", None):
+            # lint: allow[atomic-write] user-requested exposition dump (--output), not program state
             with open(args.output, "w", encoding="utf-8") as f:
                 f.write(body)
         else:
@@ -1032,6 +1050,7 @@ def run_fleet_admin(args) -> int:
     doc = report.doc()
     out = _json.dumps(doc, indent=2, sort_keys=True)
     if getattr(args, "output", None):
+        # lint: allow[atomic-write] user-requested report stream (--output), partial file is visible to the user
         with open(args.output, "w", encoding="utf-8") as f:
             f.write(out + "\n")
     print(out)
@@ -1061,6 +1080,7 @@ def _run_fleet_events(args) -> int:
             raise FatalError(f"fleet events: {e}")
         out = sys.stdout
         if getattr(args, "output", None):
+            # lint: allow[atomic-write] user-requested event stream (--output): append-only JSONL the user tails
             out = open(args.output, "a", encoding="utf-8")
         try:
             for ev in events:
@@ -1073,6 +1093,7 @@ def _run_fleet_events(args) -> int:
                 out.close()
     out = sys.stdout
     if getattr(args, "output", None):
+        # lint: allow[atomic-write] user-requested event stream (--output): append-only JSONL the user tails
         out = open(args.output, "a", encoding="utf-8")
     tail = JournalTail(args.journal, since=since)
     try:
@@ -1189,6 +1210,7 @@ def _render_fleet_profile(endpoints: list, token: str | None,
     doc = telemetry.federate_profiles(profiles)
     if flight:
         fdoc = telemetry.stitch_endpoints(endpoints, token=token)
+        # lint: allow[atomic-write] user-requested trace-export artifact, not program state
         with open(flight, "w", encoding="utf-8") as f:
             _json.dump(fdoc, f, indent=1)
             f.write("\n")
@@ -1259,6 +1281,7 @@ def run_profile(args) -> int:
         doc = get("/debug/profile")
         if getattr(args, "flight", None):
             fdoc = get("/debug/flight")
+            # lint: allow[atomic-write] user-requested trace-export artifact, not program state
             with open(args.flight, "w", encoding="utf-8") as f:
                 _json.dump(fdoc, f, indent=1)
                 f.write("\n")
@@ -1420,6 +1443,7 @@ def run_watch(args) -> int:
     out = sys.stdout
     if getattr(args, "output", None):
         # the user's event stream: append-only JSONL they tail
+        # lint: allow[atomic-write] user-requested event stream (--output): append-only JSONL the user tails
         out = open(args.output, "a", encoding="utf-8")
     try:
         if getattr(args, "server", None):
@@ -1677,6 +1701,148 @@ def _import_json(path: str):
     for vid, m in blob.get("vulnerability", {}).items():
         db.put_meta(VulnerabilityMeta.from_json(vid, m))
     return db
+
+
+def run_clean(args) -> int:
+    """`clean` (reference pkg/commands/clean): selective cache removal."""
+    import shutil
+
+    if args.all:
+        shutil.rmtree(args.cache_dir, ignore_errors=True)
+        _log.info("removed cache", path=args.cache_dir)
+        return 0
+    selected = False
+    if getattr(args, "vuln_db", False):
+        shutil.rmtree(os.path.join(args.cache_dir, "db"), ignore_errors=True)
+        _log.info("removed advisory DB")
+        selected = True
+    if getattr(args, "java_db", False):
+        shutil.rmtree(os.path.join(args.cache_dir, "javadb"),
+                      ignore_errors=True)
+        _log.info("removed java DB")
+        selected = True
+    if getattr(args, "scan_cache", False) or not selected:
+        shutil.rmtree(os.path.join(args.cache_dir, "fanal"),
+                      ignore_errors=True)
+        _log.info("removed scan cache")
+    return 0
+
+
+def run_registry(args) -> int:
+    """`registry login|logout` (reference pkg/commands/auth): credentials
+    are stored docker-config style so the registry client
+    (artifact.image_source._docker_config_auth) picks them up."""
+    import base64
+    import json as _json
+
+    sub = getattr(args, "registry_command", None)
+    cfg_dir = os.environ.get("DOCKER_CONFIG",
+                             os.path.expanduser("~/.docker"))
+    cfg_path = os.path.join(cfg_dir, "config.json")
+    try:
+        with open(cfg_path, "rb") as f:
+            cfg = _json.load(f)
+    except (OSError, ValueError):
+        cfg = {}
+    auths = cfg.setdefault("auths", {})
+
+    if sub == "login":
+        password = args.password
+        if password is None or getattr(args, "password_stdin", False):
+            password = sys.stdin.readline().rstrip("\n")
+        if not password:
+            raise FatalError("no password provided (use --password or pipe "
+                             "it to stdin with --password-stdin)")
+        raw = f"{args.username}:{password}".encode()
+        auths[args.server] = {"auth": base64.b64encode(raw).decode()}
+        os.makedirs(cfg_dir, exist_ok=True)
+        fd = os.open(cfg_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+        with os.fdopen(fd, "w") as f:
+            _json.dump(cfg, f, indent=2)
+        _log.info("logged in", registry=args.server)
+        return 0
+    if sub == "logout":
+        if auths.pop(args.server, None) is None:
+            _log.warn("not logged in", registry=args.server)
+            return 0
+        # same 0600 idiom as login: credentials must never be group-readable
+        fd = os.open(cfg_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+        with os.fdopen(fd, "w") as f:
+            _json.dump(cfg, f, indent=2)
+        _log.info("logged out", registry=args.server)
+        return 0
+    raise FatalError("usage: registry {login|logout} <server>")
+
+
+def run_plugin(args) -> int:
+    """`plugin install|uninstall|list|info|run` (reference pkg/plugin)."""
+    from trivy_tpu_torch.plugin import PluginError, PluginManager
+
+    mgr = PluginManager(args.cache_dir)
+    sub = getattr(args, "plugin_command", None)
+    try:
+        if sub == "install":
+            p = mgr.install(args.source)
+            print(f"installed {p.name} {p.version}".rstrip())
+            return 0
+        if sub == "uninstall":
+            if not mgr.uninstall(args.name):
+                raise FatalError(f"plugin {args.name!r} is not installed")
+            return 0
+        if sub == "list":
+            for p in mgr.list():
+                print(f"{p.name}\t{p.version}\t{p.summary}")
+            return 0
+        if sub == "info":
+            p = mgr.get(args.name)
+            if p is None:
+                raise FatalError(f"plugin {args.name!r} is not installed")
+            print(f"name: {p.name}\nversion: {p.version}\n"
+                  f"summary: {p.summary}\ndescription: {p.description}")
+            return 0
+        if sub == "run":
+            return mgr.run(args.name, list(args.plugin_args))
+    except PluginError as e:
+        raise FatalError(str(e))
+    raise FatalError("usage: plugin {install|uninstall|list|info|run}")
+
+
+def run_module(args) -> int:
+    """`module install|uninstall|list` (reference pkg/module manager):
+    modules are .py files under <cache>/modules loaded at scan time."""
+    import shutil
+
+    mod_dir = os.path.join(args.cache_dir, "modules")
+    sub = getattr(args, "module_command", None)
+    if sub == "install":
+        if not args.source.endswith(".py") or not os.path.exists(args.source):
+            raise FatalError(f"module source must be an existing .py file: "
+                             f"{args.source}")
+        os.makedirs(mod_dir, exist_ok=True)
+        dest = os.path.join(mod_dir, os.path.basename(args.source))
+        shutil.copyfile(args.source, dest)
+        from trivy_tpu_torch.module.manager import ModuleManager
+
+        ModuleManager.record_trust(mod_dir, os.path.basename(dest))
+        _log.info("installed module", path=dest)
+        return 0
+    if sub == "uninstall":
+        name = args.name if args.name.endswith(".py") else args.name + ".py"
+        path = os.path.join(mod_dir, name)
+        if not os.path.exists(path):
+            raise FatalError(f"module {args.name!r} is not installed")
+        os.unlink(path)
+        from trivy_tpu_torch.module.manager import ModuleManager
+
+        ModuleManager.revoke_trust(mod_dir, name)
+        return 0
+    if sub == "list":
+        if os.path.isdir(mod_dir):
+            for f in sorted(os.listdir(mod_dir)):
+                if f.endswith(".py"):
+                    print(f)
+        return 0
+    raise FatalError("usage: module {install|uninstall|list}")
 
 
 def run_chaos(args) -> int:

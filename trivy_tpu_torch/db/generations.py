@@ -90,6 +90,7 @@ def promote(db_root: str, gen_dir: str) -> None:
                     os.lstat(p).st_mtime < time.time() - atomic.STALE_TMP_AGE_S:
                 os.unlink(p)
     os.symlink(rel, tmp)
+    # lint: allow[atomic-write] this IS the atomic promote: tmp symlink + rename
     os.replace(tmp, last_good_path(db_root))
     atomic.fsync_dir(db_root)
 

@@ -12,8 +12,7 @@ Host-side design difference from the reference: instead of a goroutine per
 dispatched by path — the heavy parallelism belongs to the device batches,
 not the host.
 
-Copy of trivy_tpu/fanal/analyzer.py without the module system's
-`unregister`. Where the reference logs a failed analyzer and goes on,
+Copy of trivy_tpu/fanal/analyzer.py. Where the reference logs a failed analyzer and goes on,
 the port does so only for a failure that is not the device's: a device
 error (`device.is_device_error`, e.g. a secret screen that cannot build
 or launch) passes up and ends the scan, so no blob is kept, cached or
@@ -150,6 +149,13 @@ def register(a) -> Analyzer:
 def register_post(a) -> PostAnalyzer:
     _POST_ANALYZERS.append(a() if isinstance(a, type) else a)
     return a
+
+
+def unregister(a) -> None:
+    """Remove a dynamically registered analyzer (module system)."""
+    for reg in (_ANALYZERS, _POST_ANALYZERS):
+        if a in reg:
+            reg.remove(a)
 
 
 

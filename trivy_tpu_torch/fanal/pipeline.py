@@ -439,7 +439,7 @@ def run_layer_pipeline(items: list, fetch, process,
                     try:
                         with tracing.span(FETCH_SITE):
                             payload = fetch_with_retry(lambda: fetch(item))
-                    except BaseException as exc:  # delivered to the analyzing thread in layer order
+                    except BaseException as exc:  # lint: allow[bare-except] delivered to the analyzing thread in layer order
                         stats["fetch_busy_s"] += time.perf_counter() - t0
                         _put_interruptible(out, (item, exc, True), stop)
                         return
@@ -570,7 +570,7 @@ def run_layer_lanes(items: list, fetch, walk, apply,
                 try:
                     with tracing.span(FETCH_SITE):
                         payload = fetch_with_retry(lambda: fetch(item))
-                except BaseException as exc:  # delivered to the coordinator at this layer's position
+                except BaseException as exc:  # lint: allow[bare-except] delivered to the coordinator at this layer's position
                     stats["fetch_busy_s"] += time.perf_counter() - t0
                     deliver(seq, exc, True)
                     return
@@ -597,7 +597,7 @@ def run_layer_lanes(items: list, fetch, walk, apply,
                 try:
                     with tracing.span(LANE_SITE, lane=lane_id):
                         doc = walk(item, payload)
-                except BaseException as exc:  # surfaces at this layer's position in apply order
+                except BaseException as exc:  # lint: allow[bare-except] surfaces at this layer's position in apply order
                     deliver(seq, exc, True)
                 else:
                     usage.add("layers_analyzed")

@@ -674,6 +674,7 @@ class FleetController:
             outcome = "applied"
         if self.journal is not None and aid is not None:
             self.journal.applied(aid, outcome, **result)
+        # lint: allow[event-kind] dispatch funnel; every kind reaching here is a literal from a _Decision site, validated against ACTION_KINDS
         emit_action(kind, outcome=outcome, **d.fields)
         obs_metrics.CONTROLLER_ACTIONS.inc(kind=kind, outcome=outcome)
         self._last_action_ts[kind] = self._clock()
@@ -709,6 +710,7 @@ class FleetController:
                 continue
             if d.holds_fn(obs):
                 self.journal.applied(rec["id"], "reconciled")
+                # lint: allow[event-kind] replayed intents carry kinds a _Decision site journaled; validated against ACTION_KINDS
                 emit_action(rec["action"], outcome="reconciled",
                             **d.fields)
                 obs_metrics.CONTROLLER_ACTIONS.inc(

@@ -845,10 +845,12 @@ class FederationServer:
         return f"http://{host}:{port}"
 
     def start(self) -> None:
+        # lint: allow[tracing-capture] control-plane accept loop: no ambient scan context exists here
         t = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         t.start()
         self._threads.append(t)
         if self.monitor is not None and self.monitor_interval_s > 0:
+            # lint: allow[tracing-capture] background monitor loop owns its own context; nothing to propagate
             w = threading.Thread(target=self._monitor_loop, daemon=True)
             w.start()
             self._threads.append(w)

@@ -130,6 +130,7 @@ def write_cluster_report(report: ClusterReport, fmt: str = "summary",
         text = render_summary(report)
     if output:
         # a user-requested report stream: a partial file is the user's
+        # lint: allow[atomic-write] user-requested report stream, partial file is visible to the user
         with open(output, "w") as f:
             f.write(text + "\n")
     else:

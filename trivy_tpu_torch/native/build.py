@@ -58,6 +58,7 @@ def build_library(src_path: str, lib_prefix: str,
                   src=os.path.basename(src_path), err=str(e),
                   stderr=stderr.decode()[:500])
         return None
+    # lint: allow[atomic-write] atomic-publish idiom: tmp build + rename, racing builders converge
     os.replace(tmp, out)  # atomic: concurrent builders race safely
     return out
 

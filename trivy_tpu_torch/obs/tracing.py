@@ -578,6 +578,7 @@ def export_chrome(path: str) -> int:
            "spansDropped": dropped_spans()}
     # a user-requested --trace-export artifact, not program state: no
     # atomic write
+    # lint: allow[atomic-write] user-requested --trace-export artifact, not program state
     with open(path, "w", encoding="utf-8") as f:
         json.dump(doc, f, indent=1)
         f.write("\n")

@@ -322,6 +322,7 @@ class _RemoteHost:
         self._rid = 0
         # the I/O pump emits no spans: the engine.host span and its
         # parentage live on the collecting scan thread
+        # lint: allow[tracing-capture] io pump emits no spans; parentage lives on the collecting scan thread
         self._thread = threading.Thread(
             target=self._run, name=f"ttpu-dcn-io-{idx}", daemon=True)
         self._thread.start()
@@ -485,6 +486,7 @@ def _spawn_worker(device: str, timeout: float):
         env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE)
     tail: deque = deque(maxlen=40)
+    # lint: allow[tracing-capture] stderr drainer of a spawned worker emits no spans; nothing to stitch
     drainer = threading.Thread(target=_drain, args=(proc.stderr, tail),
                                name="ttpu-dcn-stderr", daemon=True)
     drainer.start()
@@ -1387,9 +1389,11 @@ def worker_main(argv: list[str]) -> int:
     srv = socket.create_server((bind, port))
     print(f"{READY_LINE}{srv.getsockname()[1]}", flush=True)
     if parent_watch:
+        # lint: allow[tracing-capture] parent-death watchdog in the worker process; no tracing spine on this side
         threading.Thread(target=_watch_stdin, daemon=True).start()
     while True:
         conn, _addr = srv.accept()
+        # lint: allow[tracing-capture] worker process serves raw slices; no tracing spine on this side
         threading.Thread(target=_serve_conn,
                          args=(conn, state, parent_watch),
                          daemon=True).start()

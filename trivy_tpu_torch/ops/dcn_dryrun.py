@@ -143,6 +143,7 @@ def run(out_path: str | None = None, timeout: int = 600,
         if not doc["ok"]:
             doc["errors"].append(f"production-path check failed: {result}")
     if out_path:
+        # lint: allow[atomic-write] dryrun report artifact (--out), not program state
         with open(out_path, "w") as f:
             json.dump(doc, f, indent=2)
     return doc

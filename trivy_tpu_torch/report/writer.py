@@ -60,6 +60,7 @@ def write_report(
         raise ValueError(f"unknown format {fmt!r} (supported: {FORMATS})")
 
     if output:
+        # lint: allow[atomic-write] user-requested report stream (--output), partial file is visible to the user
         with open(output, "w") as f:
             f.write(text)
     else:

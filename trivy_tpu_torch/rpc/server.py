@@ -1348,12 +1348,14 @@ class Server:
 
     def start(self):
         # a short poll interval: shutdown() returns within 0.1 s
+        # lint: allow[tracing-capture] accept loop: no ambient scan exists; per-request spans adopt X-Trivy-Trace
         t = threading.Thread(target=self.httpd.serve_forever,
                              kwargs={"poll_interval": 0.1},
                              name="ttpu-server", daemon=True)
         t.start()
         self._threads.append(t)
         if self.service.db_path:
+            # lint: allow[tracing-capture] background DB-reload poller, owns its own root spans
             w = threading.Thread(target=self._db_worker,
                                  name="ttpu-db-reload", daemon=True)
             w.start()

@@ -708,7 +708,7 @@ class MatchScheduler:
                     res_lists[i] = self._engine_fn().detect(list(qs))
                 except Exception as solo_exc:
                     part_errors[i] = solo_exc
-        except BaseException as exc:  # interpreter exit: delivered to every coalesced waiter
+        except BaseException as exc:  # lint: allow[bare-except] injected kill / interpreter exit: delivered to every coalesced waiter
             err = RuntimeError(f"scheduler batch aborted: {exc!r}")
             part_errors = [err] * len(parts)
             fatal = exc

@@ -149,6 +149,7 @@ def _quarantine(path: str) -> str | None:
         n += 1
         dest = f"{path}{QUARANTINE_SUFFIX}.{n}"
     try:
+        # lint: allow[atomic-write] quarantine move of an already-corrupt entry; rename is atomic
         os.replace(path, dest)
     except OSError:
         return None

@@ -102,7 +102,7 @@ def run_pipeline(items: Iterable[T], fn: Callable[[T], R],
                     # strand queued items and hang q.join() forever —
                     # in a pool, every failure must land in a slot, not
                     # take the pool down
-                    except BaseException as e:  # noqa: B036  # stored per slot
+                    except BaseException as e:  # noqa: B036  # lint: allow[bare-except] stored per-slot, aggregated into PipelineError on the submitting thread
                         errors[i] = e
                     finally:
                         q.task_done()
