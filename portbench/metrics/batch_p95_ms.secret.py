@@ -1,0 +1,4 @@
+"""batch_p95_ms.secret: the 95th percentile (nearest rank) of the
+benchmark's own span around each `scan_files` call of the window."""
+
+from portbench.lib.record import call_p95_ms as read  # noqa: F401
